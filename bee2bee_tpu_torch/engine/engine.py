@@ -1,0 +1,495 @@
+"""InferenceEngine: the serving core of the PyTorch port.
+
+The port of ``bee2bee_tpu/engine/engine.py`` for the main path: one
+model's parameters on the card, a tokenizer, the paged KV pool's
+geometry, the prefill forward, and ``generate`` / ``generate_stream`` on
+top of the continuous-batching scheduler (engine/scheduler.py).
+
+- **Bucketed prefill**: prompts pad up to a bucket (or run in fixed
+  ``prefill_chunk`` chunks); the pool write ceil drops the padded tail,
+  so a prompt claims only the blocks covering its length.
+- **Continuous batching** over ONE paged KV pool with per-row block
+  tables (engine/paged.py); attention is the ragged paged op
+  (ops/ragged.py), the hand-written CUDA kernel on the card.
+- **Device**: ``device=None`` means the CUDA card and raises without one;
+  the tests pass ``device="cpu"``, where the same code runs the plain
+  PyTorch versions of the kernels.
+
+What waits for later slices: checkpoint loading, int8 weights and KV,
+speculative decoding and drafters, multi-LoRA, the prefix cache, live
+migration, the overlapped decode ring and the economics plane. Setting an
+``EngineConfig`` field that selects one of them raises.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Iterator
+
+import torch
+
+from ..device import resolve_device
+from ..metrics import get_registry
+from ..models import core
+from ..models.config import ModelConfig, resolve_model_config
+from ..models.params import init_params
+from .paged import ceil_div
+from .tokenizer import load_tokenizer
+
+# per-request serving distributions, observed at retirement (scheduler
+# thread) — the same metric names as the JAX engine
+_H_TTFT = get_registry().histogram(
+    "engine.ttft_ms", "time to first token per request (ms)"
+)
+_H_INTER_TOKEN = get_registry().histogram(
+    "engine.inter_token_ms", "mean inter-token latency per request (ms)"
+)
+_H_E2E = get_registry().histogram(
+    "engine.e2e_latency_ms", "submit-to-done latency per request (ms)"
+)
+_C_TOKENS_OUT = get_registry().counter(
+    "engine.tokens_generated", "tokens generated across all requests"
+)
+
+DEFAULT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+@dataclass
+class EngineConfig:
+    max_seq_len: int = 2048
+    dtype: str = "bfloat16"
+    cache_dtype: str = "bfloat16"
+    prefill_buckets: tuple = DEFAULT_BUCKETS
+    rng_seed: int = 0
+    # tokens decoded per chunk; the host reads the sampled tokens once per
+    # window of up to max_inflight_chunks chunks (streaming requests pin
+    # the window to one chunk)
+    decode_chunk: int = 32
+    max_batch: int = 8
+    max_inflight_chunks: int = 8
+    # "auto" / "flash": the ragged paged op (the CUDA kernel on the card,
+    # its plain version on the CPU) — the port's only attention
+    attention: str = "auto"
+    # chunked prefill: fixed chunks of this many tokens; None = whole-
+    # prompt buckets
+    prefill_chunk: int | None = None
+    kv_block_size: int = 16
+    # total pool blocks incl. the null block 0; None sizes the pool so it
+    # cannot run dry (max_batch full rows plus the decode-chunk overshoot)
+    kv_pool_blocks: int | None = None
+    # fields of the JAX engine this port does not implement yet: each
+    # must stay at its default (checked below)
+    quantize: str = "none"
+    prefix_cache_entries: int = 0
+    spec_tokens: int = 0
+    drafter: str | None = None
+    max_adapters: int = 0
+
+    def __post_init__(self):
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            self.prefill_chunk = None
+        if self.kv_block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype={self.dtype!r}: one of {sorted(DTYPES)}")
+        unported = {
+            "attention": self.attention not in ("auto", "flash"),
+            "cache_dtype": self.cache_dtype not in DTYPES,
+            "quantize": self.quantize not in ("none", "", None),
+            "prefix_cache_entries": self.prefix_cache_entries > 0,
+            "spec_tokens": self.spec_tokens > 0,
+            "drafter": bool(self.drafter),
+            "max_adapters": self.max_adapters > 0,
+        }
+        for name, set_ in unported.items():
+            if set_:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
+                    "implemented in the PyTorch port yet"
+                )
+
+
+@dataclass
+class GenerationResult:
+    text: str
+    token_ids: list[int]
+    prompt_tokens: int
+    new_tokens: int
+    ttft_s: float  # time to first token
+    latency_s: float
+    tokens_per_sec: float
+    finish_reason: str  # "stop" | "length" | "eos"
+    timings: dict = field(default_factory=dict)
+
+
+class MetricsAggregator:
+    """Rolling real-throughput accounting for a serving node: every
+    completed generation reports (new_tokens, latency_s); ``snapshot``
+    gives tokens/sec over a sliding window. Thread-safe."""
+
+    def __init__(self, window_s: float = 60.0):
+        self.window_s = window_s
+        self._events: list[tuple[float, int, float]] = []
+        self._lock = threading.Lock()
+        self._total_tokens = 0
+        self._total_requests = 0
+
+    def record(self, new_tokens: int, latency_s: float) -> None:
+        with self._lock:
+            self._events.append((time.time(), int(new_tokens), float(latency_s)))
+            self._total_tokens += int(new_tokens)
+            self._total_requests += 1
+            self._prune()
+
+    def _prune(self) -> None:
+        cutoff = time.time() - self.window_s
+        while self._events and self._events[0][0] < cutoff:
+            self._events.pop(0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            self._prune()
+            toks = sum(e[1] for e in self._events)
+            lats = sorted(e[2] for e in self._events if e[2] > 0)
+            if self._events:
+                span = max(time.time() - self._events[0][0], self._events[0][2], 1e-3)
+                span = min(span, self.window_s)
+            else:
+                span = 1.0
+            p50 = lats[min(len(lats) // 2, len(lats) - 1)] if lats else None
+            return {
+                "tokens_per_sec": round(toks / span, 3),
+                "window_tokens": toks,
+                "p50_latency_s": round(p50, 4) if p50 is not None else None,
+                "total_tokens": self._total_tokens,
+                "total_requests": self._total_requests,
+            }
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        model: str | ModelConfig,
+        params=None,
+        engine_config: EngineConfig | None = None,
+        tokenizer=None,
+        device=None,
+    ):
+        """``params``: the port's parameter dict already on ``device``
+        (models/params.py; ``params_from_numpy`` carries a JAX tree
+        across), or None for a random init from ``rng_seed``."""
+        self.device = resolve_device(device)
+        self.model_cfg = resolve_model_config(model)
+        core.check_supported(self.model_cfg)
+        self.engine_cfg = engine_config or EngineConfig()
+        self.max_seq_len = min(self.engine_cfg.max_seq_len, self.model_cfg.max_seq_len)
+        self.dtype = DTYPES[self.engine_cfg.dtype]
+        self.cache_dtype = DTYPES[self.engine_cfg.cache_dtype]
+        self.metrics = MetricsAggregator()
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.engine_cfg.rng_seed)
+            params = init_params(self.model_cfg, gen, self.device, self.dtype)
+        self.params = params
+        self.tokenizer = tokenizer or load_tokenizer(None, self.model_cfg.vocab_size)
+        # the sampling stream: one generator on the device, used only by
+        # the scheduler thread
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.engine_cfg.rng_seed)
+        # forward passes run (prefill chunks + decode steps): with the
+        # kernel's launch count it shows every attention call went through
+        # the kernel (n_layers launches per forward)
+        self.forward_calls = 0
+        self._mutex = threading.Lock()
+        self._scheduler = None  # created on first generate
+
+    # ------------------------------------------------------------ forward
+
+    def forward(self, tokens, pool, offset, block_tables, **kw):
+        """core.forward with this engine's params and config, counted."""
+        self.forward_calls += 1
+        return core.forward(
+            self.params, self.model_cfg, tokens, pool, offset, block_tables, **kw
+        )
+
+    def _prefill(self, tokens, pool, true_len, offset, block_tables,
+                 write_floor=None, write_ceil=None):
+        """tokens [B, Tb] padded; returns last_logits [B, V] at each row's
+        ``true_len - 1``. The chunk scatters into the rows' mapped blocks;
+        ``write_ceil`` drops the padded tail so a short prompt claims only
+        the blocks covering its real length."""
+        logits, _ = self.forward(
+            tokens, pool, offset, block_tables,
+            paged_write_floor=write_floor, paged_write_ceil=write_ceil,
+            logits_index=true_len - 1,
+        )
+        return logits[:, 0]
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.engine_cfg.prefill_buckets:
+            if b >= n and b <= self.max_seq_len:
+                return b
+        return self.max_seq_len
+
+    # ---- paged-pool geometry (engine/paged.py holds the allocator) ----
+
+    @property
+    def blocks_per_row(self) -> int:
+        """Max pool blocks one row can map: capacity plus the decode-chunk
+        overshoot (a window may write up to decode_chunk - 2 positions
+        past capacity before the host sees the stop)."""
+        return ceil_div(
+            self.max_seq_len + self.engine_cfg.decode_chunk,
+            self.engine_cfg.kv_block_size,
+        )
+
+    @property
+    def pool_blocks(self) -> int:
+        """Total pool blocks: explicit kv_pool_blocks, or the null block
+        plus max_batch full rows."""
+        if self.engine_cfg.kv_pool_blocks is not None:
+            return self.engine_cfg.kv_pool_blocks
+        return 1 + self.engine_cfg.max_batch * self.blocks_per_row
+
+    @property
+    def kv_info(self) -> dict:
+        return {
+            "cache_dtype": self.engine_cfg.cache_dtype,
+            "block_size": int(self.engine_cfg.kv_block_size),
+            "pool_blocks": int(self.pool_blocks),
+            # usable tokens (block 0 is the reserved null block)
+            "capacity_tokens": int(
+                (self.pool_blocks - 1) * self.engine_cfg.kv_block_size
+            ),
+        }
+
+    def new_pool(self):
+        return core.init_paged_pool(
+            self.model_cfg, self.pool_blocks, self.engine_cfg.kv_block_size,
+            self.cache_dtype, self.device,
+        )
+
+    # ------------------------------------------------------------ public API
+
+    @property
+    def scheduler(self):
+        """The continuous-batching scheduler (lazy: allocates the pool on
+        first use)."""
+        if self._scheduler is None:
+            from .scheduler import BatchScheduler
+
+            with self._mutex:
+                if self._scheduler is None:
+                    self._scheduler = BatchScheduler(
+                        self, max_batch=self.engine_cfg.max_batch
+                    )
+        return self._scheduler
+
+    def close(self):
+        """Stop the scheduler thread (idempotent)."""
+        with self._mutex:
+            sch, self._scheduler = self._scheduler, None
+        if sch is not None:
+            sch.shutdown()
+
+    def _stop_set(self, stop_tokens):
+        stop = set(int(t) for t in (stop_tokens or []))
+        eos = self.tokenizer.eos_token_id
+        if eos is not None and eos >= 0:
+            stop.add(int(eos))
+        return stop, eos
+
+    def _make_request(
+        self, prompt, max_new_tokens, temperature, top_k, top_p, stop_tokens,
+        stream: bool = False, repetition_penalty: float = 1.0,
+        presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+        min_p: float = 0.0, tenant: str = "default",
+        adapter: str | None = None,
+    ):
+        from .scheduler import Request
+
+        if adapter:
+            raise NotImplementedError(
+                f"adapter {adapter!r}: multi-LoRA serving is not ported yet"
+            )
+        ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        # clamp generation to what the pool can hold while keeping at
+        # least a small prompt window (the JAX engine's serving rule)
+        min_prompt = max(1, min(len(ids), 16))
+        max_gen = self.max_seq_len - 1 - min_prompt
+        if max_gen < 1:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} leaves no room in "
+                f"max_seq_len={self.max_seq_len}"
+            )
+        max_new_tokens = max(0, min(max_new_tokens, max_gen))
+        # left-truncate so prompt + generation fits
+        budget = self.max_seq_len - 1 - max(max_new_tokens, 1)
+        if len(ids) > budget:
+            ids = ids[-budget:]
+        if repetition_penalty is not None and repetition_penalty <= 0:
+            raise ValueError(
+                f"repetition_penalty must be > 0, got {repetition_penalty}"
+            )
+        if min_p is not None and not (0.0 <= min_p <= 1.0):
+            raise ValueError(f"min_p must be in [0, 1], got {min_p}")
+        stop, eos = self._stop_set(stop_tokens)
+        return Request(
+            ids, max_new_tokens, temperature, top_k, top_p, stop, eos,
+            self.tokenizer, stream=stream,
+            repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty,
+            min_p=min_p,
+            tenant=tenant,
+        )
+
+    def _build_result(self, req) -> GenerationResult:
+        t = req.timing
+        t_first = t.t_first or t.t_done
+        latency = t.t_done - t.t_submit
+        decode_time = t.t_done - t_first
+        n_out = len(req.out_ids)
+        tps = n_out / decode_time if decode_time > 0 and n_out else 0.0
+        self.metrics.record(n_out, latency)
+        ttft_ms = (t_first - t.t_submit) * 1000.0
+        if n_out or req.finish != "cancelled":
+            _H_TTFT.observe(ttft_ms)
+            _H_E2E.observe(latency * 1000.0)
+            if n_out > 1:
+                _H_INTER_TOKEN.observe(decode_time * 1000.0 / (n_out - 1))
+            _C_TOKENS_OUT.inc(n_out)
+        timings = {
+            "prefill_bucket": req.bucket,
+            "decode_s": round(decode_time, 4),
+            "chunks": req.chunks_decoded,
+            "queue_wait_ms": (
+                round((t.t_admit - t.t_submit) * 1000.0, 3) if t.t_admit else None
+            ),
+            "prefill_ms": (
+                round((t_first - t.t_admit) * 1000.0, 3) if t.t_admit else None
+            ),
+            "ttft_ms": round(ttft_ms, 3),
+            "decode_tokens": n_out,
+            "tokens_per_s": round(tps, 2),
+            "spec_acceptance": None,
+        }
+        return GenerationResult(
+            text=self.tokenizer.decode(req.out_ids),
+            token_ids=list(req.out_ids),
+            prompt_tokens=req.prompt_tokens,
+            new_tokens=n_out,
+            ttft_s=round(t_first - t.t_submit, 4),
+            latency_s=round(latency, 4),
+            tokens_per_sec=round(tps, 2),
+            finish_reason=req.finish or "length",
+            timings=timings,
+        )
+
+    def generate_stream(
+        self,
+        prompt: str | list[int],
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stop_tokens: list[int] | None = None,
+        repetition_penalty: float = 1.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        min_p: float = 0.0,
+        tenant: str = "default",
+        adapter: str | None = None,
+    ) -> Iterator[dict]:
+        """Yield {"token": last_id, "tokens": ids, "text": piece} per
+        decode chunk, then {"done": True, "result": GenerationResult}.
+        Concurrent callers share the scheduler's batch."""
+        req = self._make_request(
+            prompt, max_new_tokens, temperature, top_k, top_p, stop_tokens,
+            stream=True, repetition_penalty=repetition_penalty,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty,
+            min_p=min_p, tenant=tenant, adapter=adapter,
+        )
+        if req.max_new_tokens <= 0:
+            req.timing.t_first = req.timing.t_done = time.perf_counter()
+            yield {"done": True, "result": self._build_result(req)}
+            return
+        self.scheduler.submit(req)
+        try:
+            while True:
+                ev = req.events.get()
+                if ev.get("done") and ev.get("result") is None:
+                    raise RuntimeError(ev.get("error", "generation failed"))
+                yield ev
+                if ev.get("done"):
+                    return
+        finally:
+            # consumer closed the generator early: release the batch row
+            if req.finish is None:
+                req.cancelled = True
+
+    def generate(self, prompt, **kw) -> GenerationResult:
+        """Non-streaming generation via the same scheduler path; blocks
+        until the request retires (EOS / stop / budget)."""
+        stop_tokens = kw.pop("stop_tokens", None)
+        req = self._make_request(
+            prompt,
+            kw.get("max_new_tokens", 128),
+            kw.get("temperature", 0.0),
+            kw.get("top_k", 0),
+            kw.get("top_p", 1.0),
+            stop_tokens,
+            repetition_penalty=kw.get("repetition_penalty", 1.0),
+            presence_penalty=kw.get("presence_penalty", 0.0),
+            frequency_penalty=kw.get("frequency_penalty", 0.0),
+            min_p=kw.get("min_p", 0.0),
+            tenant=kw.get("tenant", "default"),
+            adapter=kw.get("adapter"),
+        )
+        if req.max_new_tokens <= 0:
+            req.timing.t_first = req.timing.t_done = time.perf_counter()
+            return self._build_result(req)
+        self.scheduler.submit(req)
+        while True:
+            ev = req.events.get()
+            if ev.get("done"):
+                if ev.get("result") is None:
+                    raise RuntimeError(ev.get("error", "generation failed"))
+                return ev["result"]
+
+    @property
+    def info(self) -> dict:
+        return {
+            "model": self.model_cfg.name,
+            "n_params": int(sum(
+                t.numel() for t in _leaves(self.params)
+            )),
+            "dtype": self.engine_cfg.dtype,
+            "max_seq_len": self.max_seq_len,
+            "platform": self.device.type,
+            "device": (
+                torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu"
+            ),
+            "kv": self.kv_info,
+        }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,0 +1,126 @@
+"""Paged KV cache bookkeeping: block-table helpers and the free-list
+allocator over the pool's blocks.
+
+The PyTorch port's own copy of ``bee2bee_tpu/engine/paged.py`` (minus
+the prefix cache, which is not ported yet). One pool ``[L, Hkv,
+num_blocks, block_size, hd]`` holds every row's K/V; block 0 is the
+reserved null block. Per-row block tables map logical position ``p`` to
+pool slot ``(table[p // block_size], p % block_size)``. Blocks are
+allocated lazily as decode crosses block boundaries and freed at
+retirement; refcounts keep the allocator ready for block sharing. All
+allocator state is host-side python/numpy owned by the scheduler thread.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterable
+
+import numpy as np
+
+from ..metrics import get_registry
+
+# block-pool occupancy for /metrics (one engine per serving node, so
+# unlabeled gauges suffice; the last-constructed allocator owns them)
+_G_BLOCKS_USED = get_registry().gauge(
+    "engine.paged_blocks_in_use", "paged KV pool blocks currently referenced"
+)
+_G_BLOCKS_FREE = get_registry().gauge(
+    "engine.paged_blocks_free", "paged KV pool blocks on the free list"
+)
+_G_BLOCKS_TOTAL = get_registry().gauge(
+    "engine.paged_blocks_total", "paged KV pool size (incl. the null block)"
+)
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pow2_at_least(n: int) -> int:
+    """Smallest power of two >= max(n, 1) — buckets the block-table width
+    so the decode program compiles O(log) shapes, not one per length."""
+    return 1 << max(0, (max(n, 1) - 1).bit_length())
+
+
+def prefill_chunk_positions(n: int, start: int, bucket: int, S: int) -> list[int]:
+    """THE chunk walk of admission prefill: start positions of each
+    [pos, pos+bucket) window covering prompt tokens [start, n), with the
+    capacity re-anchor (a window that would write past S is re-anchored
+    to end exactly at S — re-feeding earlier tokens rather than letting a
+    clamped/dropped write corrupt K/V rows). One implementation, two
+    consumers — the rectangular walk and the paged walk (whose write
+    ceil drops every scatter at/past n, so the paged block-sufficiency
+    precheck is simply ceil(n / block_size) no matter how the windows
+    land). Terminates: each window consumes min(bucket, n - pos) >= 1 tokens
+    (after a re-anchor, n <= S <= pos + bucket, so the window reaches n).
+    """
+    out, pos = [], start
+    while True:
+        if pos + bucket > S:
+            pos = max(0, S - bucket)
+        out.append(pos)
+        pos += min(bucket, n - pos)
+        if pos >= n:
+            return out
+
+
+class BlockAllocator:
+    """Free-list + refcount allocator over pool blocks 1..num_blocks-1
+    (block 0 is the reserved null block and is never handed out)."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError(f"paged pool needs >= 2 blocks, got {num_blocks}")
+        self.num_blocks = num_blocks
+        # pop() hands out low ids first — keeps early pool pages hot
+        self._free: list[int] = list(range(num_blocks - 1, 0, -1))
+        self._refs = np.zeros((num_blocks,), np.int32)
+        self.hwm = 0  # high-water mark of blocks in use (observability)
+        _G_BLOCKS_TOTAL.set(num_blocks)
+        self._set_gauges()
+
+    def _set_gauges(self):
+        _G_BLOCKS_USED.set(self.used_count)
+        _G_BLOCKS_FREE.set(self.free_count)
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return self.num_blocks - 1 - len(self._free)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """n fresh blocks (refcount 1), or None when the pool can't cover
+        the whole request — partial allocations would leak on the caller's
+        retry path."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._refs[b] = 1
+        self.hwm = max(self.hwm, self.used_count)
+        self._set_gauges()
+        return out
+
+    def ref(self, blocks: Iterable[int]) -> None:
+        for b in blocks:
+            assert self._refs[b] > 0, f"ref of free block {b}"
+            self._refs[b] += 1
+
+    def deref(self, blocks: Iterable[int]) -> int:
+        """Drop one reference per block; blocks reaching zero return to
+        the free list. Returns how many were freed."""
+        freed = 0
+        for b in blocks:
+            assert self._refs[b] > 0, f"deref of free block {b}"
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                self._free.append(b)
+                freed += 1
+        self._set_gauges()
+        return freed
+
+    def refcount(self, block: int) -> int:
+        return int(self._refs[block])

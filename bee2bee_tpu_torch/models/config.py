@@ -1,0 +1,546 @@
+"""Model configurations for the PyTorch port: one dataclass drives the
+shared transformer core.
+
+A copy of the JAX package's ``ModelConfig`` and its preset registry
+(``bee2bee_tpu/models/config.py``), kept field for field and entry for
+entry so that a registry name resolves to the same architecture in both
+packages. The port keeps its own copy because it imports nothing of the
+JAX package; ``tests/test_torch_models.py`` holds the two registries
+equal. Parsing an HF ``config.json`` and resolving a checkpoint
+directory are not ported yet: a name resolves through the registry only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    max_seq_len: int = 2048
+    # architecture switches
+    pos_embedding: str = "rope"  # "rope" | "learned" | "alibi" (bloom:
+    # linear attention-score bias per head, no embedding-side positions)
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    norm_bias: bool = True  # layernorm only: mpt ships weight-only norms
+    activation: str = "silu"  # "silu" (gated) | "gelu" (tanh approx, gpt2/
+    # phi) | "gelu_exact" (erf — gpt-neox) | "geglu"
+    use_bias: bool = False  # attn/mlp biases (gpt2 style)
+    qkv_bias: bool = False  # bias on q/k/v ONLY (qwen2 style; no bo/mlp bias)
+    qk_norm: bool = False  # per-head RMSNorm on q and k before rope
+    # (qwen3 style; learned [head_dim] scales)
+    qk_norm_full: bool = False  # with qk_norm: normalize the WHOLE q/k
+    # projection width instead of per head (olmo2: [H*hd]/[Hkv*hd] scales)
+    tie_embeddings: bool = True
+    rope_theta: float = 10000.0
+    # frequency-domain RoPE scaling, encoded as a hashable tuple:
+    #   ("linear", factor)  — position-interpolation fine-tunes
+    #   ("llama3", factor, low_freq_factor, high_freq_factor,
+    #    original_max_position_embeddings)  — llama-3.1+ checkpoints
+    #   ("yarn", factor, attention_factor, beta_fast, beta_slow,
+    #    original_max_position_embeddings, truncate)  — NTK-by-parts
+    #    long-context fine-tunes (attention_factor resolved at parse time,
+    #    incl. the deepseek mscale variants)
+    rope_scaling: tuple | None = None
+    norm_eps: float = 1e-5
+    logits_softcap: float | None = None
+    embedding_scale: bool = False  # gemma multiplies embeds by sqrt(d_model)
+    norm_plus_one: bool = False  # gemma checkpoints store rmsnorm as (1 + w)
+    # phi/gpt-neox-style switches
+    rotary_pct: float = 1.0  # fraction of head_dim that rotates (phi-2: 0.4)
+    rope_style: str = "half"  # "half": rotate (first, second) halves of the
+    # rotary dims as a block (llama/neox/phi); "interleaved": rotate
+    # adjacent pairs (x[2i], x[2i+1]) — gpt-j's rotate_every_two
+    mlp_bias: bool = False  # biases on the MLP matmuls ONLY (gpt-j: fc_in/
+    # fc_out carry biases while the attention projections have none)
+    lm_head_bias: bool = False  # untied lm_head carries a bias (phi)
+    # sliding-window attention (mistral): each query attends to at most
+    # the last `sliding_window` positions. None = full causal. Supported
+    # by the dense attention path (engine validates flash/sp against it).
+    sliding_window: int | None = None
+    # with sliding_window set: layers whose layer_idx % sliding_window_every
+    # falls in sliding_window_residues window, the rest attend fully.
+    # 1 = every layer (mistral); every=2/residues=(0,) = gemma-2's
+    # alternation; every=6/residues=(0,1,2,3,4) = gemma-3's 5-local-1-global
+    sliding_window_every: int = 1
+    sliding_window_residues: tuple = (0,)
+    # gemma-3: SLIDING layers rotate with this theta and NO rope_scaling;
+    # global layers use rope_theta + rope_scaling. None = one rope for all
+    local_rope_theta: float | None = None
+    # gemma-2 attention extras
+    attn_logit_softcap: float | None = None  # tanh cap on attention scores
+    attn_scale: float | None = None  # score denominator becomes
+    # sqrt(attn_scale) instead of sqrt(head_dim) (query_pre_attn_scalar)
+    post_norms: bool = False  # gemma-2: extra norms on the attn and mlp
+    # OUTPUTS before they join the residual (4 norms per block)
+    no_pre_norms: bool = False  # olmo2: NO ln1/ln2 pre-norms — the
+    # post-output norms (post_norms must be set) are the only block norms
+    parallel_block: bool = False  # x + attn(ln(x)) + mlp(ln'(x)) parallel
+    # residual (phi/gpt-neox); sequential pre-norm blocks otherwise
+    parallel_norms: int = 1  # parallel blocks only: 1 = attn and mlp share
+    # ln1 (phi); 2 = mlp gets its own ln2 (gpt-neox use_parallel_residual)
+    # MoE
+    n_experts: int = 0  # 0 = dense
+    n_experts_per_tok: int = 2
+    # "dense": all experts on all tokens, weight-masked — the exact
+    # reference formulation (correctness baseline, 4x routed FLOPs at
+    # top-2-of-8). "routed": GShard-style capacity-grouped dispatch; only
+    # routed tokens hit each expert, tokens past capacity drop.
+    moe_impl: str = "dense"  # "dense" | "routed"
+    moe_capacity_factor: float = 1.25  # routed: C = ceil(g*k/E * factor)
+    # routed dispatch runs per GROUP of this many tokens (GShard grouping):
+    # capacity — and so the [*, g, E, C] dispatch tensor — stays O(group
+    # size), not O(batch*seq). Groups route independently.
+    moe_group_size: int = 512
+
+    # bloom: LayerNorm over the embeddings before block 0
+    embedding_norm: bool = False
+
+    def __post_init__(self):
+        if self.sliding_window_residues != (0,):
+            object.__setattr__(self, "sliding_window_residues",
+                               tuple(self.sliding_window_residues))
+        if self.rope_scaling is not None:
+            # normalize a json list back to the hashable tuple form (the
+            # native-checkpoint model_config.json round-trip)
+            object.__setattr__(self, "rope_scaling", tuple(self.rope_scaling))
+            kind = self.rope_scaling[0]
+            want = {"linear": 2, "llama3": 5, "yarn": 7}.get(kind)
+            if want is None or len(self.rope_scaling) != want:
+                raise ValueError(
+                    f"rope_scaling={self.rope_scaling!r}: expected "
+                    f"('linear', factor), ('llama3', factor, low_freq, "
+                    f"high_freq, original_max_pos), or ('yarn', factor, "
+                    f"attention_factor, beta_fast, beta_slow, "
+                    f"original_max_pos, truncate)"
+                )
+        if self.no_pre_norms and not self.post_norms:
+            raise ValueError(
+                "no_pre_norms requires post_norms — the block would have "
+                "ZERO normalization otherwise (olmo2 sets both)"
+            )
+        if self.pos_embedding not in ("rope", "learned", "alibi"):
+            raise ValueError(
+                f"pos_embedding={self.pos_embedding!r} must be 'rope', "
+                f"'learned', or 'alibi'"
+            )
+        if self.rope_style not in ("half", "interleaved"):
+            # a typo here would silently rotate the wrong way (core._rope
+            # has no else-error) — fail like moe_impl does
+            raise ValueError(
+                f"rope_style={self.rope_style!r} must be 'half' or 'interleaved'"
+            )
+        if self.moe_impl not in ("dense", "routed"):
+            raise ValueError(
+                f"moe_impl={self.moe_impl!r} must be 'dense' or 'routed'"
+            )
+        if self.moe_group_size < 1:
+            raise ValueError(f"moe_group_size={self.moe_group_size} must be >= 1")
+
+    # families where attention width != d_model (gemma-7b: 16 heads of 256
+    # over d_model 3072) set this; None derives d_model // n_heads
+    head_dim_override: int | None = None
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.d_model // self.n_heads
+
+    @property
+    def rotary_dim(self) -> int:
+        """Head dims that actually rotate: floor-to-even rotary_pct *
+        head_dim (HF's int() truncation) — THE one formula core._rope and
+        the exporters share."""
+        if self.rotary_pct >= 1.0:
+            return self.head_dim
+        return max(2, int(self.head_dim * self.rotary_pct) // 2 * 2)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+
+def _gpt2(name, d_model, n_layers, n_heads, d_ff=None, vocab=50257, max_pos=1024):
+    return ModelConfig(
+        name=name,
+        vocab_size=vocab,
+        d_model=d_model,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=n_heads,
+        d_ff=d_ff or 4 * d_model,
+        max_seq_len=max_pos,
+        pos_embedding="learned",
+        norm="layernorm",
+        activation="gelu",
+        use_bias=True,
+        tie_embeddings=True,
+    )
+
+
+CONFIGS: dict[str, ModelConfig] = {
+    # -- test-sized --
+    "tiny-gpt2": _gpt2("tiny-gpt2", d_model=64, n_layers=2, n_heads=4, vocab=512, max_pos=256),
+    "tiny-llama": ModelConfig(
+        name="tiny-llama", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=128, max_seq_len=256,
+    ),
+    "tiny-llama-4l": ModelConfig(  # 4 layers: pipeline splits deeper than
+        # 2 stages (layer_ranges caps n_stages at n_layers) — the
+        # pipeline_interleave bench/test topology at 4 stages
+        name="tiny-llama-4l", vocab_size=512, d_model=64, n_layers=4,
+        n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=256,
+    ),
+    "tiny-mixtral": ModelConfig(
+        name="tiny-mixtral", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=128, max_seq_len=256, n_experts=4, n_experts_per_tok=2,
+    ),
+    "tiny-gemma": ModelConfig(  # MQA (one kv head): the KV-replication path
+        name="tiny-gemma", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=1, d_ff=128, max_seq_len=256, activation="geglu",
+        embedding_scale=True, norm_plus_one=True, norm_eps=1e-6,
+    ),
+    "tiny-qwen3": ModelConfig(  # llama arch + per-head q/k RMSNorm
+        name="tiny-qwen3", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=128, max_seq_len=256, qk_norm=True,
+        rope_theta=1000000.0, norm_eps=1e-6, tie_embeddings=False,
+    ),
+    "tiny-mistral": ModelConfig(  # llama arch + sliding-window attention,
+        # window deliberately smaller than the test prompts so the windowed
+        # mask is actually exercised against HF's implementation
+        name="tiny-mistral", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=128, max_seq_len=256, sliding_window=4,
+    ),
+    "tiny-gemma2": ModelConfig(  # gemma-2: post-norms, attn softcap,
+        # query scale override, ALTERNATING local/global attention
+        # (window 4 < the 8-token test prompts, every 2nd layer)
+        name="tiny-gemma2", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=256,
+        activation="geglu", embedding_scale=True, norm_plus_one=True,
+        norm_eps=1e-6, post_norms=True, attn_logit_softcap=50.0,
+        logits_softcap=30.0, attn_scale=32.0, sliding_window=4,
+        sliding_window_every=2,
+    ),
+    "tiny-gemma3": ModelConfig(  # gemma-3: gemma-2 post-norms + (1+w)
+        # per-head qk-norm + DUAL rope (local 10k on sliding layers,
+        # global theta + linear scaling on the rest) + 2-local-1-global
+        # pattern (period 3 keeps a 3-layer tiny model exercising both)
+        name="tiny-gemma3", vocab_size=512, d_model=64, n_layers=3,
+        n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=256,
+        activation="geglu", embedding_scale=True, norm_plus_one=True,
+        norm_eps=1e-6, post_norms=True, qk_norm=True, attn_scale=32.0,
+        rope_theta=1000000.0, local_rope_theta=10000.0,
+        rope_scaling=("linear", 8.0), sliding_window=4,
+        sliding_window_every=3, sliding_window_residues=(0, 1),
+    ),
+    "tiny-qwen": ModelConfig(  # qwen2 style: llama arch + q/k/v-only bias
+        name="tiny-qwen", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=128, max_seq_len=256, qkv_bias=True,
+        rope_theta=1000000.0,
+    ),
+    # gpt-bigcode / starcoder style: gpt2 block + MQA, tanh gelu
+    "tiny-bigcode": ModelConfig(
+        name="tiny-bigcode", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, n_kv_heads=1, d_ff=128, max_seq_len=256,
+        pos_embedding="learned", norm="layernorm", activation="gelu",
+        use_bias=True, tie_embeddings=True,
+    ),
+    "starcoder-15b": ModelConfig(
+        # bigcode/starcoderbase: 48 128-dim heads with ONE kv head over a
+        # gpt2-style learned-position block, 8k context
+        name="starcoder-15b", vocab_size=49152, d_model=6144, n_layers=40,
+        n_heads=48, n_kv_heads=1, d_ff=24576, max_seq_len=8192,
+        pos_embedding="learned", norm="layernorm", activation="gelu",
+        use_bias=True, tie_embeddings=True,
+    ),
+    # -- BASELINE ladder --
+    "distilgpt2": _gpt2("distilgpt2", d_model=768, n_layers=6, n_heads=12),
+    "gpt2": _gpt2("gpt2", d_model=768, n_layers=12, n_heads=12),
+    "gemma-2b": ModelConfig(
+        # head_dim = 2048/8 = 256, matching gemma's 256-dim heads
+        name="gemma-2b", vocab_size=256000, d_model=2048, n_layers=18, n_heads=8,
+        n_kv_heads=1, d_ff=16384, max_seq_len=8192, activation="geglu",
+        embedding_scale=True, norm_eps=1e-6, norm_plus_one=True,
+    ),
+    "llama-3-8b": ModelConfig(
+        name="llama-3-8b", vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq_len=8192, rope_theta=500000.0,
+        tie_embeddings=False,
+    ),
+    "zephyr-7b": ModelConfig(  # mistral-7b architecture (HuggingFaceH4/zephyr-7b-beta)
+        name="zephyr-7b", vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+        sliding_window=4096,
+        n_kv_heads=8, d_ff=14336, max_seq_len=4096, tie_embeddings=False,
+    ),
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b", vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq_len=8192, tie_embeddings=False,
+        n_experts=8, n_experts_per_tok=2,
+    ),
+    # -- qwen2 family (llama arch + q/k/v bias, 1e6 rope theta) --
+    "qwen2-0.5b": ModelConfig(
+        name="qwen2-0.5b", vocab_size=151936, d_model=896, n_layers=24,
+        n_heads=14, n_kv_heads=2, d_ff=4864, max_seq_len=32768,
+        qkv_bias=True, rope_theta=1000000.0, norm_eps=1e-6,
+    ),
+    "qwen2-7b": ModelConfig(
+        name="qwen2-7b", vocab_size=152064, d_model=3584, n_layers=28,
+        n_heads=28, n_kv_heads=4, d_ff=18944, max_seq_len=32768,
+        qkv_bias=True, rope_theta=1000000.0, norm_eps=1e-6,
+        tie_embeddings=False,
+    ),
+    # -- qwen3 family (llama arch + per-head q/k RMSNorm, no qkv bias) --
+    "qwen3-8b": ModelConfig(
+        name="qwen3-8b", vocab_size=151936, d_model=4096, n_layers=36,
+        n_heads=32, n_kv_heads=8, d_ff=12288, max_seq_len=40960,
+        qk_norm=True, rope_theta=1000000.0, norm_eps=1e-6,
+        tie_embeddings=False,
+    ),
+    "tiny-qwen3moe": ModelConfig(  # qwen3 qk-norm + qwen3_moe expert names
+        name="tiny-qwen3moe", vocab_size=512, d_model=64, n_layers=2,
+        n_heads=4, n_kv_heads=2, d_ff=32, max_seq_len=256, qk_norm=True,
+        rope_theta=1000000.0, norm_eps=1e-6, tie_embeddings=False,
+        n_experts=4, n_experts_per_tok=2,
+    ),
+    "qwen3-30b-a3b": ModelConfig(
+        # Qwen/Qwen3-30B-A3B: 128 experts, 8 active, 768-wide experts,
+        # per-head qk-norm, head_dim 128 over d_model 2048
+        name="qwen3-30b-a3b", vocab_size=151936, d_model=2048, n_layers=48,
+        n_heads=32, n_kv_heads=4, d_ff=768, max_seq_len=40960,
+        qk_norm=True, rope_theta=1000000.0, norm_eps=1e-6,
+        tie_embeddings=False, head_dim_override=128,
+        n_experts=128, n_experts_per_tok=8,
+    ),
+    # -- larger members of the already-supported families --
+    "gemma-2-9b": ModelConfig(
+        # google/gemma-2-9b: 16 256-dim heads over d_model 3584 (override),
+        # alternating 4096-window/global layers, softcapped scores+logits
+        name="gemma-2-9b", vocab_size=256000, d_model=3584, n_layers=42,
+        n_heads=16, n_kv_heads=8, d_ff=14336, max_seq_len=8192,
+        activation="geglu", embedding_scale=True, norm_plus_one=True,
+        norm_eps=1e-6, head_dim_override=256, post_norms=True,
+        attn_logit_softcap=50.0, logits_softcap=30.0, attn_scale=256.0,
+        sliding_window=4096, sliding_window_every=2,
+    ),
+    "gemma-3-4b": ModelConfig(
+        # google/gemma-3-4b (text config): 8 256-dim heads over d_model
+        # 2304, 5-local-1-global 1024-token windows, dual rope (local 10k;
+        # global 1M with linear-8 scaling), 128k context
+        name="gemma-3-4b", vocab_size=262208, d_model=2304, n_layers=34,
+        n_heads=8, n_kv_heads=4, d_ff=9216, max_seq_len=131072,
+        activation="geglu", embedding_scale=True, norm_plus_one=True,
+        norm_eps=1e-6, head_dim_override=256, post_norms=True,
+        qk_norm=True, attn_scale=256.0, rope_theta=1000000.0,
+        local_rope_theta=10000.0, rope_scaling=("linear", 8.0),
+        sliding_window=1024, sliding_window_every=6,
+        sliding_window_residues=(0, 1, 2, 3, 4),
+    ),
+    "gemma-7b": ModelConfig(
+        # attention width 4096 != d_model 3072: heads are 256-dim like
+        # gemma-2b's, hence the explicit head_dim_override
+        name="gemma-7b", vocab_size=256000, d_model=3072, n_layers=28, n_heads=16,
+        n_kv_heads=16, d_ff=24576, max_seq_len=8192, activation="geglu",
+        embedding_scale=True, norm_eps=1e-6, norm_plus_one=True,
+        head_dim_override=256,
+    ),
+    "llama-3-70b": ModelConfig(
+        name="llama-3-70b", vocab_size=128256, d_model=8192, n_layers=80,
+        n_heads=64, n_kv_heads=8, d_ff=28672, max_seq_len=8192,
+        rope_theta=500000.0, tie_embeddings=False,
+    ),
+}
+
+# zephyr IS mistral-7b architecture — one definition, two names (drift-proof)
+CONFIGS["mistral-7b"] = replace(CONFIGS["zephyr-7b"], name="mistral-7b")
+# llama-3.1: same weights-shape as llama-3 + the llama3 rope-scaling
+# schedule over a 128k window (config.json: rope_scaling.rope_type=llama3)
+CONFIGS["llama-3.1-8b"] = replace(
+    CONFIGS["llama-3-8b"], name="llama-3.1-8b", max_seq_len=131072,
+    rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192),
+)
+
+CONFIGS["tiny-phi"] = ModelConfig(  # parallel blocks + partial rotary
+    name="tiny-phi", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=128, max_seq_len=256, activation="gelu",
+    norm="layernorm", use_bias=True, tie_embeddings=False,
+    rotary_pct=0.4, parallel_block=True, lm_head_bias=True,
+)
+CONFIGS["tiny-gptj"] = ModelConfig(  # interleaved rotary + mlp-only bias
+    name="tiny-gptj", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=128, max_seq_len=256, activation="gelu",
+    norm="layernorm", tie_embeddings=False, mlp_bias=True,
+    rotary_pct=0.5, rope_style="interleaved", parallel_block=True,
+    lm_head_bias=True,
+)
+CONFIGS["gpt-j-6b"] = ModelConfig(
+    # EleutherAI/gpt-j-6b: parallel block sharing one layernorm,
+    # interleaved rotary over 64 of 256 head dims, bias-free attention
+    # with biased MLP and lm_head
+    name="gpt-j-6b", vocab_size=50400, d_model=4096, n_layers=28,
+    n_heads=16, n_kv_heads=16, d_ff=16384, max_seq_len=2048,
+    activation="gelu", norm="layernorm", tie_embeddings=False,
+    mlp_bias=True, rotary_pct=0.25, rope_style="interleaved",
+    parallel_block=True, lm_head_bias=True,
+)
+CONFIGS["tiny-bloom"] = ModelConfig(  # ALiBi attention (no rotary/learned
+    # positions), embedding LayerNorm before block 0, biased everything
+    name="tiny-bloom", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=256, max_seq_len=256, pos_embedding="alibi",
+    norm="layernorm", activation="gelu", use_bias=True,
+    tie_embeddings=True, embedding_norm=True,
+)
+CONFIGS["bloom-7b1"] = ModelConfig(
+    # bigscience/bloom-7b1: 30 layers x 32 heads, ALiBi, 250k vocab
+    name="bloom-7b1", vocab_size=250880, d_model=4096, n_layers=30,
+    n_heads=32, n_kv_heads=32, d_ff=16384, max_seq_len=2048,
+    pos_embedding="alibi", norm="layernorm", activation="gelu",
+    use_bias=True, tie_embeddings=True, embedding_norm=True,
+)
+CONFIGS["tiny-mpt"] = ModelConfig(  # mpt style: ALiBi + weight-only
+    # layernorms + zero linear biases + exact gelu, sequential blocks
+    name="tiny-mpt", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=256, max_seq_len=256, pos_embedding="alibi",
+    norm="layernorm", norm_bias=False, activation="gelu_exact",
+    tie_embeddings=True,
+)
+CONFIGS["mpt-7b"] = ModelConfig(
+    # mosaicml/mpt-7b: 32 heads (power of two — the bloom slope formula
+    # applies exactly), expansion ratio 4, no biases anywhere
+    name="mpt-7b", vocab_size=50432, d_model=4096, n_layers=32,
+    n_heads=32, n_kv_heads=32, d_ff=16384, max_seq_len=2048,
+    pos_embedding="alibi", norm="layernorm", norm_bias=False,
+    activation="gelu_exact", tie_embeddings=True,
+)
+CONFIGS["tiny-falcon"] = ModelConfig(  # falcon-7b shape: MQA + bias-free
+    # parallel block sharing ONE layernorm, exact-erf gelu, tied head
+    name="tiny-falcon", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=1, d_ff=128, max_seq_len=256, activation="gelu_exact",
+    norm="layernorm", tie_embeddings=True, parallel_block=True,
+)
+CONFIGS["falcon-7b"] = ModelConfig(
+    # tiiuae/falcon-7b: 71 64-dim heads with ONE kv head (multi_query),
+    # parallel attn+mlp sharing input_layernorm, no linear biases, tied
+    # embeddings, full rotary
+    name="falcon-7b", vocab_size=65024, d_model=4544, n_layers=32,
+    n_heads=71, n_kv_heads=1, d_ff=18176, max_seq_len=2048,
+    activation="gelu_exact", norm="layernorm", tie_embeddings=True,
+    parallel_block=True,
+)
+CONFIGS["tiny-neox"] = ModelConfig(  # dual-norm parallel residual
+    name="tiny-neox", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=128, max_seq_len=256, activation="gelu_exact",
+    norm="layernorm", use_bias=True, tie_embeddings=False,
+    rotary_pct=0.25, parallel_block=True, parallel_norms=2,
+)
+CONFIGS["pythia-1.4b"] = ModelConfig(
+    # EleutherAI/pythia-1.4b (GPT-NeoX arch): parallel residual with
+    # separate attn/mlp norms, rotary over the first quarter of head dims
+    name="pythia-1.4b", vocab_size=50304, d_model=2048, n_layers=24,
+    n_heads=16, n_kv_heads=16, d_ff=8192, max_seq_len=2048,
+    activation="gelu_exact", norm="layernorm", use_bias=True,
+    tie_embeddings=False, rotary_pct=0.25, parallel_block=True,
+    parallel_norms=2,
+)
+CONFIGS["gpt-neox-20b"] = ModelConfig(
+    name="gpt-neox-20b", vocab_size=50432, d_model=6144, n_layers=44,
+    n_heads=64, n_kv_heads=64, d_ff=24576, max_seq_len=2048,
+    activation="gelu_exact", norm="layernorm", use_bias=True,
+    tie_embeddings=False, rotary_pct=0.25, parallel_block=True,
+    parallel_norms=2,
+)
+CONFIGS["tiny-olmo2"] = ModelConfig(
+    # olmo2 style: POST-norm-only blocks + full-width q/k RMSNorm
+    name="tiny-olmo2", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=2, d_ff=128, max_seq_len=256, tie_embeddings=False,
+    post_norms=True, no_pre_norms=True, qk_norm=True, qk_norm_full=True,
+)
+CONFIGS["olmo2-7b"] = ModelConfig(
+    # allenai/OLMo-2-1124-7B: fully-open 7B, rope theta 5e5, 100k vocab
+    name="olmo2-7b", vocab_size=100352, d_model=4096, n_layers=32,
+    n_heads=32, n_kv_heads=32, d_ff=11008, max_seq_len=4096,
+    rope_theta=500000.0, norm_eps=1e-6, tie_embeddings=False,
+    post_norms=True, no_pre_norms=True, qk_norm=True, qk_norm_full=True,
+)
+CONFIGS["tiny-stablelm"] = ModelConfig(
+    # stablelm-2 style: llama tensor layout with BIASED layernorms,
+    # partial rotary 0.25, gated silu, untied head
+    name="tiny-stablelm", vocab_size=512, d_model=64, n_layers=2,
+    n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=256, norm="layernorm",
+    rotary_pct=0.25, tie_embeddings=False,
+)
+CONFIGS["stablelm-2-1.6b"] = ModelConfig(
+    # stabilityai/stablelm-2-1_6b ships use_qkv_bias=true (the qwen-style
+    # per-projection q/k/v biases are a defining stablelm-2 feature)
+    name="stablelm-2-1.6b", vocab_size=100352, d_model=2048, n_layers=24,
+    n_heads=32, n_kv_heads=32, d_ff=5632, max_seq_len=4096,
+    norm="layernorm", rotary_pct=0.25, qkv_bias=True, tie_embeddings=False,
+)
+CONFIGS["phi-3-mini"] = ModelConfig(
+    # microsoft/Phi-3-mini-4k-instruct: llama-branch arch behind fused
+    # qkv_proj/gate_up_proj tensors (loader._convert_phi3 un-fuses),
+    # 2047-token sliding window on every layer. The 128k variants use
+    # longrope scaling, which config_from_hf refuses (unimplemented).
+    name="phi-3-mini", vocab_size=32064, d_model=3072, n_layers=32,
+    n_heads=32, n_kv_heads=32, d_ff=8192, max_seq_len=4096,
+    tie_embeddings=False, sliding_window=2047,
+)
+CONFIGS["phi-2"] = ModelConfig(
+    # microsoft/phi-2: 2.7B, parallel attn+mlp blocks sharing one
+    # layernorm, partial rotary over the first 32 of 80 head dims,
+    # untied lm_head with bias
+    name="phi-2", vocab_size=51200, d_model=2560, n_layers=32, n_heads=32,
+    n_kv_heads=32, d_ff=10240, max_seq_len=2048, activation="gelu",
+    norm="layernorm", use_bias=True, tie_embeddings=False,
+    rotary_pct=0.4, parallel_block=True, lm_head_bias=True,
+)
+
+
+def resolve_model_config(model) -> ModelConfig:
+    """A ModelConfig passes through; a registry name resolves via
+    get_config (the JAX package's rule, minus its checkpoint fallback)."""
+    if isinstance(model, ModelConfig):
+        return model
+    return get_config(model or "auto")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    """Resolve a model name to a config, with the reference's both-ways fuzzy
+    match (`services.py:136-151`): exact key, else substring either way."""
+    key = name.lower().strip()
+    if key in CONFIGS:
+        cfg = CONFIGS[key]
+    else:
+        short = key.split("/")[-1]
+        flat = lambda s: s.replace("-", "").replace("_", "").replace(".", "")
+        # tiny-* test presets never match a real checkpoint name unless the
+        # query itself says "tiny"
+        pool = {
+            k: c for k, c in CONFIGS.items()
+            if "tiny" in short or not k.startswith("tiny-")
+        }
+        # tiers: exact short name > key contained in query > query contained
+        # in key. Tie-breaks differ by direction: when the KEY is inside the
+        # query (tier 2), the longest key is the most specific match; when
+        # the QUERY is inside several keys (tier 3, e.g. "llama-3" matching
+        # both -8b and -70b), the SHORTEST key is the family default — the
+        # longest would silently resolve a bare family name to its biggest
+        # member
+        tiers = (
+            ([k for k in pool if k == short or flat(k) == flat(short)], max),
+            ([k for k in pool if flat(k) in flat(short)], max),
+            ([k for k in pool if flat(short) in flat(k)], min),
+        )
+        hit = next(((t, pick) for t, pick in tiers if t), None)
+        if hit is None:
+            raise KeyError(f"no model config matches {name!r}; known: {sorted(CONFIGS)}")
+        t, pick = hit
+        cfg = pool[pick(t, key=len)]
+    return replace(cfg, **overrides) if overrides else cfg

@@ -1,0 +1,123 @@
+"""Parameters of the PyTorch port: random init and the carry-over of the
+JAX package's parameter tree.
+
+The schema is the JAX package's (``bee2bee_tpu/models/core.py``
+``init_params``) for the llama path, as a plain dict of tensors, with the
+layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
+
+  tok_embed [V, D]; final_norm {scale [D]}; lm_head [D, V] (untied only)
+  layers[i]:
+    ln1 {scale [D]}, ln2 {scale [D]}
+    attn {wq [D, H*hd], wk [D, Hkv*hd], wv [D, Hkv*hd], wo [H*hd, D]}
+    mlp {w_up [D, F], w_gate [D, F], w_down [F, D]}
+
+Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
+transpose into ``nn.Linear``'s ``[out, in]`` happens anywhere, so a tensor
+carried across from JAX is the same matrix, element for element.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .core import check_supported
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=torch.bfloat16) -> dict:
+    """Random-init parameters with the JAX schema and scales (normal
+    draws times 1/sqrt(fan_in); embeddings 0.02; norms ones), drawn from
+    ``generator`` straight on ``device`` in ``dtype``, one tensor at a
+    time — the largest single draw is one layer's [D, F] matrix, never a
+    stacked [L, D, F] one. The draws differ from jax.random's by
+    construction; parity tests carry the JAX tree across instead
+    (params_from_numpy)."""
+    check_supported(cfg)
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def normal(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        return t.mul_(scale)
+
+    def ones(n):
+        return torch.ones((n,), device=device, dtype=dtype)
+
+    params = {"tok_embed": normal((V, D), 0.02)}
+    params["layers"] = [
+        {
+            "ln1": {"scale": ones(D)},
+            "attn": {
+                "wq": normal((D, H * hd)),
+                "wk": normal((D, Hkv * hd)),
+                "wv": normal((D, Hkv * hd)),
+                "wo": normal((H * hd, D)),
+            },
+            "ln2": {"scale": ones(D)},
+            "mlp": {
+                "w_up": normal((D, F_)),
+                "w_down": normal((F_, D)),
+                "w_gate": normal((D, F_)),
+            },
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    params["final_norm"] = {"scale": ones(D)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, V))
+    return params
+
+
+def _to_tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: torch has no numpy bf16
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        a = np.ascontiguousarray(a)
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        if "q" in tree and "s" in tree:
+            raise NotImplementedError(
+                "int8 weight-only quantized parameters are not ported yet"
+            )
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
+                      dtype=torch.float32) -> dict:
+    """Carry the JAX package's parameter tree across: ``tree`` holds numpy
+    arrays (``jax.device_get(engine.params)``), with the layers either
+    stacked ``[L, ...]`` (core.init_params) or as a per-layer list
+    (core.unstack_layers). Returns the port's parameters on ``device`` in
+    ``dtype``, same layout ([in, out] weights), layers as a list."""
+    check_supported(cfg)
+    layers = tree["layers"]
+    if isinstance(layers, (list, tuple)):
+        per_layer = list(layers)
+    else:
+        per_layer = [
+            _map(lambda a, i=i: np.asarray(a)[i], layers)
+            for i in range(cfg.n_layers)
+        ]
+    if len(per_layer) != cfg.n_layers:
+        raise ValueError(
+            f"{len(per_layer)} layers in the tree, {cfg.name} has {cfg.n_layers}"
+        )
+
+    def conv(a):
+        return _to_tensor(a, device, dtype)
+
+    out = {k: _map(conv, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(conv, lp) for lp in per_layer]
+    return out

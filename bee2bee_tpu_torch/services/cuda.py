@@ -1,0 +1,187 @@
+"""CUDAService: the serving backend of the PyTorch port — wraps
+InferenceEngine behind the BaseService contract.
+
+Mirrors ``bee2bee_tpu/services/tpu.py``'s ``TPUService`` line for line:
+the same parameters, the same result dicts and stream lines, with
+``"backend": "cuda"`` in the metadata. ``device=None`` means the CUDA
+card and raises at construction when there is none.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Iterator
+
+from ..device import resolve_device
+from .base import (
+    BaseService,
+    ServiceError,
+    normalize_stops,
+    parse_transcript,
+    role_cut,
+    scrub_stop_words,
+    scrub_stream_delta,
+    stop_cut,
+)
+
+
+class CUDAService(BaseService):
+    def __init__(
+        self,
+        model_name: str,
+        price_per_token: float = 0.0,
+        max_new_tokens: int = 2048,
+        engine=None,
+        engine_config=None,
+        device=None,
+    ):
+        super().__init__("cuda")
+        self.model_name = model_name
+        self.price_per_token = price_per_token
+        self.max_new_tokens = max_new_tokens
+        self.engine = engine
+        self._engine_config = engine_config
+        self.device = resolve_device(device)
+
+    # loading is split from construction so a node can announce before
+    # the (slow) weight init finishes
+    def load_sync(self):
+        if self.engine is None:
+            from ..engine.engine import InferenceEngine
+
+            self.engine = InferenceEngine(
+                self.model_name,
+                engine_config=self._engine_config,
+                device=self.device,
+            )
+        return self
+
+    def get_metadata(self) -> dict[str, Any]:
+        meta = {
+            "models": [self.model_name],
+            "price_per_token": self.price_per_token,
+            "max_new_tokens": self.max_new_tokens,
+            "backend": "cuda",
+        }
+        if self.engine is not None:
+            meta["engine"] = self.engine.info
+            meta["measured"] = self.engine.metrics.snapshot()
+        return meta
+
+    def _gen_args(self, params: dict) -> dict:
+        prompt = self._require_prompt(params)
+        messages, was_transcript = parse_transcript(prompt)
+        if was_transcript:
+            # flatten back to a plain prompt ending with the assistant cue
+            prompt = "\n".join(f"{m['role']}: {m['content']}" for m in messages)
+            prompt += "\nassistant:"
+        return {
+            "prompt": prompt,
+            "max_new_tokens": min(
+                int(params.get("max_new_tokens", self.max_new_tokens)), self.max_new_tokens
+            ),
+            "temperature": float(params.get("temperature", 0.7)),
+            "top_k": int(params.get("top_k", 0)),
+            "top_p": float(params.get("top_p", 1.0)),
+            "min_p": float(params.get("min_p", 0.0)),
+            "repetition_penalty": float(params.get("repetition_penalty", 1.0)),
+            "presence_penalty": float(params.get("presence_penalty", 0.0)),
+            "frequency_penalty": float(params.get("frequency_penalty", 0.0)),
+            "tenant": str(params.get("tenant") or "default"),
+            # multi-adapter serving is not ported: the engine raises for
+            # any adapter
+            "adapter": params.get("adapter") or None,
+        }
+
+    def execute(self, params: dict[str, Any]) -> dict[str, Any]:
+        if self.engine is None:
+            raise ServiceError("Model not loaded")
+        t0 = time.time()
+        stops = normalize_stops(params.get("stop"))
+        if stops:
+            # through the streaming path: the engine stops at the stop hit
+            # (closing generate_stream releases the row)
+            return self._execute_with_stops(params, stops, t0)
+        args = self._gen_args(params)
+        result = self.engine.generate(**args)
+        text = scrub_stop_words(result.text)
+        out = self.result_dict(text, result.new_tokens, t0, self.price_per_token)
+        out["tokens_per_sec"] = result.tokens_per_sec
+        out["ttft_ms"] = int(result.ttft_s * 1000)
+        out["finish_reason"] = result.finish_reason
+        out["prompt_tokens"] = result.prompt_tokens
+        out["timing"] = dict(result.timings)
+        return out
+
+    def _execute_with_stops(self, params: dict, stops: tuple, t0: float) -> dict:
+        args = self._gen_args(params)
+        acc, n_seen, hit, result = "", 0, False, None
+        gen = self.engine.generate_stream(**args)
+        try:
+            for ev in gen:
+                if ev.get("done"):
+                    result = ev.get("result")
+                    break
+                acc += ev.get("text", "")
+                n_seen += len(ev.get("tokens") or ([1] if ev.get("token") is not None else []))
+                if stop_cut(acc, stops) is not None:
+                    hit = True  # closing the generator cancels the row
+                    break
+        finally:
+            gen.close()
+        rc, sc = role_cut(acc), stop_cut(acc, stops)
+        text = acc[:rc if sc is None else min(rc, sc)]
+        n_tokens = result.new_tokens if result is not None else n_seen
+        out = self.result_dict(text, n_tokens, t0, self.price_per_token)
+        out["finish_reason"] = (
+            "stop" if hit or (sc is not None and sc <= rc)
+            else (result.finish_reason if result else "stop")
+        )
+        if result is not None:
+            out["tokens_per_sec"] = result.tokens_per_sec
+            out["ttft_ms"] = int(result.ttft_s * 1000)
+            out["prompt_tokens"] = result.prompt_tokens
+            out["timing"] = dict(result.timings)
+        return out
+
+    def execute_stream(self, params: dict[str, Any]) -> Iterator[str]:
+        if self.engine is None:
+            raise ServiceError("Model not loaded")
+        stops = normalize_stops(params.get("stop"))
+        args = self._gen_args(params)
+        try:
+            # scrub_stream_delta holds back chars so a stop marker split
+            # across chunk boundaries never leaks its prefix
+            acc = ""  # full raw accumulation
+            emitted = 0  # chars of scrub(acc) already yielded
+            n_new = None  # real token count, when the engine reports it
+            timing = None  # engine timing breakdown off the done event
+            n_seen = 0  # tokens streamed so far (billable on a stop hit)
+            for ev in self.engine.generate_stream(**args):
+                if ev.get("done"):  # flush the held-back tail
+                    res = ev.get("result")
+                    if res is not None:
+                        n_new = res.new_tokens
+                        timing = dict(res.timings)
+                    tail = scrub_stop_words(acc, stops)
+                    if tail[emitted:]:
+                        yield self.stream_line({"text": tail[emitted:]})
+                    break
+                acc += ev.get("text", "")
+                n_seen += len(ev.get("tokens") or ([1] if ev.get("token") is not None else []))
+                delta, emitted, hit = scrub_stream_delta(acc, emitted, stops)
+                if delta:
+                    yield self.stream_line({"text": delta})
+                if hit:
+                    n_new = n_seen
+                    break
+            # the done line carries the node's REAL accounting
+            done: dict[str, Any] = {"done": True}
+            if n_new is not None:
+                done["tokens"] = int(n_new)
+                done["cost"] = self.price_per_token * int(n_new)
+            if timing is not None:
+                done["timing"] = timing
+            yield self.stream_line(done)
+        except Exception as e:  # match the reference stream-error contract
+            yield self.stream_line({"status": "error", "message": f"Stream error: {e}"})
