@@ -11,11 +11,15 @@ top of the continuous-batching scheduler (engine/scheduler.py).
 - **Continuous batching** over ONE paged KV pool with per-row block
   tables (engine/paged.py); attention is the ragged paged op
   (ops/ragged.py), the hand-written CUDA kernel on the card.
+- **int8 KV pool** (``cache_dtype="int8"``): pages store int8 K/V with
+  one f32 scale per (kv head, page), quantized on write by the forward;
+  the pool holds about twice the sessions in the same memory, and the
+  ragged op runs its int8 form.
 - **Device**: ``device=None`` means the CUDA card and raises without one;
   the tests pass ``device="cpu"``, where the same code runs the plain
   PyTorch versions of the kernels.
 
-What waits for later slices: checkpoint loading, int8 weights and KV,
+What waits for later slices: checkpoint loading, int8 weights,
 speculative decoding and drafters, multi-LoRA, the prefix cache, live
 migration, the overlapped decode ring and the economics plane. Setting an
 ``EngineConfig`` field that selects one of them raises.
@@ -60,6 +64,8 @@ DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
 }
+# the pool may also store int8 pages with per-page scales
+CACHE_DTYPES = {**DTYPES, "int8": torch.int8}
 
 
 @dataclass
@@ -102,7 +108,7 @@ class EngineConfig:
             raise ValueError(f"dtype={self.dtype!r}: one of {sorted(DTYPES)}")
         unported = {
             "attention": self.attention not in ("auto", "flash"),
-            "cache_dtype": self.cache_dtype not in DTYPES,
+            "cache_dtype": self.cache_dtype not in CACHE_DTYPES,
             "quantize": self.quantize not in ("none", "", None),
             "prefix_cache_entries": self.prefix_cache_entries > 0,
             "spec_tokens": self.spec_tokens > 0,
@@ -192,7 +198,7 @@ class InferenceEngine:
         self.engine_cfg = engine_config or EngineConfig()
         self.max_seq_len = min(self.engine_cfg.max_seq_len, self.model_cfg.max_seq_len)
         self.dtype = DTYPES[self.engine_cfg.dtype]
-        self.cache_dtype = DTYPES[self.engine_cfg.cache_dtype]
+        self.cache_dtype = CACHE_DTYPES[self.engine_cfg.cache_dtype]
         self.metrics = MetricsAggregator()
         if params is None:
             gen = torch.Generator(device=self.device)
@@ -270,6 +276,12 @@ class InferenceEngine:
                 (self.pool_blocks - 1) * self.engine_cfg.kv_block_size
             ),
         }
+
+    @property
+    def kv_quantized(self) -> bool:
+        """True when the pool stores int8 pages + per-page-per-head
+        scales (EngineConfig.cache_dtype='int8')."""
+        return self.cache_dtype == torch.int8
 
     def new_pool(self):
         return core.init_paged_pool(

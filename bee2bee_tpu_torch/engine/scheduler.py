@@ -279,8 +279,9 @@ class BatchScheduler:
         self._rows = [None] * self._bsz
 
     def _reset_device_state(self):
-        """Recover to an empty bucket-1 batch after a failure: the pool and
-        the allocator are rebuilt."""
+        """Recover to an empty bucket-1 batch after a failure: the pool
+        (with an int8 pool's zeroed scales) and the allocator are
+        rebuilt."""
         e = self.engine
         self._bsz = 1
         self._alloc = BlockAllocator(e.pool_blocks)
@@ -306,12 +307,23 @@ class BatchScheduler:
         self.stats.paged_blocks_in_use = self._alloc.used_count
 
     def _alloc_blocks(self, n: int) -> list[int]:
+        """THE allocation funnel. On an int8 pool it zeroes the fresh
+        blocks' scales: the quantize-on-write running max would otherwise
+        inherit the previous tenant's amax and serve the new row at an
+        inflated quantization step."""
         fresh = self._alloc.alloc(n)
         if fresh is None:
             raise _PoolExhausted(
                 f"paged KV pool exhausted: need {n} blocks, "
                 f"{self._alloc.free_count} free of {self._alloc.num_blocks}"
             )
+        if self.engine.kv_quantized and fresh:
+            idx = torch.tensor(fresh, dtype=torch.long)
+            if self._device.type == "cuda":
+                # pinned + non_blocking: the copy queues, the host runs on
+                idx = idx.pin_memory().to(self._device, non_blocking=True)
+            self._cache["k_scale"].index_fill_(2, idx, 0.0)
+            self._cache["v_scale"].index_fill_(2, idx, 0.0)
         self.stats.paged_blocks_in_use = self._alloc.used_count
         self.stats.paged_blocks_hwm = self._alloc.hwm
         return fresh

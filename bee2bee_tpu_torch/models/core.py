@@ -16,7 +16,9 @@ What differs from the JAX package:
   into the pool tensors it was given (the JAX engine donates the pool
   and gets a new one back; here the returned pool is the same object).
 - Attention is always the ragged paged op (ops/ragged.py) reading the
-  pool directly: no gathered view, no dense path.
+  pool directly: no gathered view, no dense path. An int8 pool
+  (``init_paged_pool(dtype=torch.int8)``) quantizes each chunk's K/V on
+  write (``_quantized_page_write``) and hands the op its scales.
 - Only the llama architecture runs: rmsnorm, "half" rope without
   scaling, gated silu MLP, GQA, tied or untied head, plus the score
   switches the kernel carries (sliding window with its per-layer
@@ -160,6 +162,59 @@ def final_logits(params: Params, cfg: ModelConfig, x):
     return logits.float()
 
 
+def _quantized_page_write(pool, scale, blk, slot, wslot, xT):
+    """Quantize-on-write scatter for ONE layer of an int8 paged pool, in
+    place: the port of ``core._quantized_page_write`` (symmetric amax at
+    (kv head, page) granularity, a running max over the page's tenancy).
+
+    ``pool`` [Hkv, NB, BS, hd] int8 and ``scale`` [Hkv, NB] f32 are
+    updated in place; ``blk``/``slot`` [B, T] the position -> (page, slot)
+    map with the null redirects applied; ``wslot`` [B, T] each position's
+    index into the chunk's page window (``positions // BS - offset //
+    BS``); ``xT`` [Hkv, B, T, hd] the chunk's K or V, head-major.
+
+    The same f32 operations in the same order as the JAX function, with
+    one difference: the JAX code requantizes the touched pages only when
+    some page's scale grew (a ``lax.cond``); a branch here would be a host
+    sync per layer, so the touched pages are ALWAYS requantized.
+    ``rint(int8 * 1.0)`` is exact, so a page whose scale did not grow keeps
+    its bytes. Only slots not yet written can differ: a page whose scale
+    is still 0 (fresh, touched by an all-zero write) is zeroed here where
+    JAX keeps its stale bytes. No reader sees such a slot before it is
+    written. The null block's scale only grows (redirected writes reduce
+    into it): garbage by design, masked by every reader. Rows own disjoint
+    blocks, so the page window repeats only the null block."""
+    Hkv, NB, BS, hd = pool.shape
+    B, T = blk.shape
+    # a T-position chunk at any slot offset straddles at most P pages
+    P = (T + BS - 2) // BS + 1
+    xf = xT.float()
+    amax = xf.abs().amax(dim=-1) * (1.0 / 127.0)  # [Hkv, B, T]
+    # scatter-MAX per (kv head, page): duplicate pages reduce
+    cand = torch.zeros((Hkv, NB), dtype=torch.float32, device=pool.device)
+    cand.scatter_reduce_(
+        1, blk.reshape(1, -1).expand(Hkv, -1), amax.reshape(Hkv, -1), "amax"
+    )
+    new_scale = torch.maximum(scale, cand)
+    safe = torch.where(new_scale > 0.0, new_scale, 1.0)
+    # dedup the touched pages into the [B, P] window (slots touched only
+    # by redirected positions keep the null block 0)
+    pg_blk = torch.zeros((B, P), dtype=torch.long, device=pool.device)
+    pg_blk.scatter_reduce_(1, wslot, blk, "amax")
+    # requantize their content under the grown scale: ratio 1 where the
+    # scale held, < 1 where it grew, 0 for a page whose scale was 0
+    ratio = scale / safe
+    pages = pool[:, pg_blk].float()  # [Hkv, B, P, BS, hd]
+    pool[:, pg_blk] = torch.clamp(
+        torch.round(pages * ratio[:, pg_blk][..., None, None]), -127, 127
+    ).to(torch.int8)
+    # quantize the chunk under the new scales into its slots
+    pool[:, blk, slot] = torch.clamp(
+        torch.round(xf / safe[:, blk][..., None]), -127, 127
+    ).to(torch.int8)
+    scale.copy_(new_scale)
+
+
 # ---------------------------------------------------------------- forward
 
 
@@ -180,7 +235,8 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     input_ids,  # [B, T] integer
-    pool,  # {"k", "v"}: [L, Hkv, NB, BS, hd] — updated in place
+    pool,  # {"k", "v"}: [L, Hkv, NB, BS, hd] (+ int8 "k_scale", "v_scale"
+    #        [L, Hkv, NB]) — updated in place
     offset,  # int, [] or [B] int32: position of input_ids[:, 0]
     block_tables,  # [B, MB] int32: pool block ids per row (0 = null block)
     paged_write_floor=None,  # int: drop pool WRITES below this position
@@ -199,10 +255,19 @@ def forward(
     null block 0 instead: the floor keeps shared prefix blocks read-only,
     the ceil drops a prefill bucket's padded tail. The null block is
     garbage by design and every reader masks it by causality.
+    An int8 pool carries ``k_scale``/``v_scale``: each layer quantizes
+    the chunk's K/V on write (``_quantized_page_write``) and passes the
+    layer's scales to ``attn_fn``.
     ``attn_fn`` defaults to the dispatching op (kernel on the card, plain
     version on the CPU); passing ``ragged_paged_attention_ref`` runs the
     plain version on any device."""
     check_supported(cfg)
+    quantized = "k_scale" in pool
+    if pool["k"].dtype == torch.int8 and not quantized:
+        raise ValueError(
+            "int8 KV pool requires its k_scale/v_scale arrays "
+            "(init_paged_pool(dtype=torch.int8))"
+        )
     B, T = input_ids.shape
     device = input_ids.device
     off = row_offsets(offset, B, device)
@@ -219,6 +284,7 @@ def forward(
         redirect |= positions >= paged_write_ceil
     blk = blk.masked_fill(redirect, 0)
     slot = positions % BS
+    wslot = page - (off.long() // BS)[:, None]  # the chunk's page window
 
     rope = rope_angles(positions, cfg.rope_theta, cfg.rotary_dim)
     window = make_layer_window(cfg)
@@ -232,8 +298,15 @@ def forward(
         def attend(q, k, v, kp=kp, vp=vp, i=i):
             # pool layer [Hkv, NB, BS, hd]: the (blk, slot) index pair
             # after the head slice takes a [Hkv, B, T, hd] update
-            kp[:, blk, slot] = k.permute(2, 0, 1, 3).to(kp.dtype)
-            vp[:, blk, slot] = v.permute(2, 0, 1, 3).to(vp.dtype)
+            kT, vT = k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3)
+            if quantized:
+                ks, vs = pool["k_scale"][i], pool["v_scale"][i]
+                _quantized_page_write(kp, ks, blk, slot, wslot, kT)
+                _quantized_page_write(vp, vs, blk, slot, wslot, vT)
+                return attn_fn(q, kp, vp, bt, off, window(i), sm_scale, softcap,
+                               k_scale=ks, v_scale=vs)
+            kp[:, blk, slot] = kT.to(kp.dtype)
+            vp[:, blk, slot] = vT.to(vp.dtype)
             return attn_fn(q, kp, vp, bt, off, window(i), sm_scale, softcap)
 
         x = transformer_block(lp, cfg, x, rope, attend)
@@ -249,11 +322,21 @@ def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
     block_size, hd], zeroed. Block 0 is the engine's reserved null block.
     Head-major like the JAX pool, so a (kv head, block) page is one
     contiguous [block_size, hd] tile the kernel loads with 16-byte loads.
-    The int8 pool is not ported yet."""
-    if dtype not in (torch.bfloat16, torch.float32, torch.float16):
-        raise NotImplementedError(f"paged pool dtype {dtype} (int8 pool not ported)")
+
+    With ``dtype=torch.int8`` the pages hold quantized K/V and the dict
+    grows ``k_scale``/``v_scale`` [L, Hkv, num_blocks] f32, one symmetric
+    scale per (kv head, page), zeroed (= the page holds nothing; the
+    scheduler zeroes a block's entries again whenever it hands the block
+    out)."""
+    if dtype not in (torch.bfloat16, torch.float32, torch.float16, torch.int8):
+        raise NotImplementedError(f"paged pool dtype {dtype}")
     shape = (cfg.n_layers, cfg.n_kv_heads, num_blocks, block_size, cfg.head_dim)
-    return {
+    pool = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+    if dtype == torch.int8:
+        sshape = (cfg.n_layers, cfg.n_kv_heads, num_blocks)
+        pool["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        pool["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return pool

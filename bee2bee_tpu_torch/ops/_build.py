@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is a shared library with a plain C interface:
 ``nvcc`` compiles it for ``sm_90a`` on first use, from the sources in the
 package, into ``build/bee2bee_tpu_torch/`` at the root of the checkout,
-and ``ctypes`` loads it. The library's name carries a hash of its source
-and flags, so an edited source never loads a stale build. Nothing here
+and ``ctypes`` loads it. The library's name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header never loads a stale build. Nothing here
 runs at import: the CPU tests import every module, and a machine without
 ``nvcc`` only fails when a kernel is actually asked for.
 """
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bee2bee_tpu_torch"
 # every kernel source of the package; build() compiles them all at once
-SOURCES = ("ragged_attention.cu",)
+SOURCES = ("ragged_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -50,9 +51,11 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -21,8 +21,12 @@ key gets 0, not NaN: a dead batch row whose stale offset points nowhere
 must stay finite. Table entries past a row's live extent point at the
 null block 0, whose content is garbage by design; causality masks it.
 
-The bf16 pool only: the int8 pool variant of the JAX kernel
-(``k_scale``/``v_scale``) and its mesh wrapper are not ported yet.
+Both pool forms of the JAX kernel: the pool in q's type, and the int8
+pool with ``k_scale``/``v_scale`` [Hkv, NB] f32 (one scale per kv head
+and block). An int8 page is dequantized in f32 and rounded to q's type
+before the dots, as the JAX kernel does. The wrapper counts the two
+forms' launches apart (``launches``, ``int8_launches``). The mesh
+wrapper (``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,6 +65,25 @@ def row_offsets(offset, B: int, device) -> torch.Tensor:
     return off.expand(B).contiguous() if off.numel() == 1 else off.contiguous()
 
 
+def _check_scales(k_scale, v_scale) -> bool:
+    """True for the int8 form; one scale without the other raises."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("quantized pool needs BOTH k_scale and v_scale")
+    return k_scale is not None
+
+
+def _gathered(pool, scale, tables, dtype):
+    """[B, Hkv, MB*BS, hd] f32 view of the rows' pages; an int8 page is
+    dequantized with its (kv head, block) scale in f32, then rounded to
+    ``dtype`` (the JAX kernel's ``(k * scale).astype(q.dtype)``)."""
+    Hkv, _, BS, hd = pool.shape
+    B, MB = tables.shape
+    g = pool[:, tables]  # [Hkv, B, MB, BS, hd]
+    if scale is not None:
+        g = (g.float() * scale[:, tables][..., None, None]).to(dtype)
+    return g.reshape(Hkv, B, MB * BS, hd).transpose(0, 1).float()
+
+
 def ragged_paged_attention_ref(
     q,  # [B, T, H, hd]
     k_pool,  # [Hkv, NB, BS, hd]
@@ -70,9 +93,13 @@ def ragged_paged_attention_ref(
     window=None,  # int or [1] tensor: sliding window, None/0 = full causal
     sm_scale: float | None = None,
     logit_softcap: float = 0.0,
+    k_scale=None,  # [Hkv, NB] f32: scales of an int8 pool
+    v_scale=None,  # [Hkv, NB] f32
 ):
-    """The plain PyTorch version: gathered view, explicit mask, f32
-    softmax. Returns [B, T, H*hd] in q's dtype."""
+    """The plain PyTorch version: gathered (and, for an int8 pool,
+    dequantized) view, explicit mask, f32 softmax. Returns [B, T, H*hd]
+    in q's dtype."""
+    _check_scales(k_scale, v_scale)
     B, T, H, hd = q.shape
     Hkv, _, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -81,9 +108,8 @@ def ragged_paged_attention_ref(
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     win = _window_int(window)
     tables = block_tables.to(device=q.device, dtype=torch.long)
-    # [Hkv, B, MB, BS, hd] -> [B, Hkv, S, hd]
-    kg = k_pool[:, tables].reshape(Hkv, B, S, hd).transpose(0, 1).float()
-    vg = v_pool[:, tables].reshape(Hkv, B, S, hd).transpose(0, 1).float()
+    kg = _gathered(k_pool, k_scale, tables, q.dtype)
+    vg = _gathered(v_pool, v_scale, tables, q.dtype)
     # [B, T, Hkv, G, hd] -> [B, Hkv, G*T, hd]: head h = kvh*G + g
     qf = q.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hd)
     s = torch.einsum("bkrd,bksd->bkrs", qf.float(), kg) * sm_scale
@@ -106,16 +132,27 @@ def ragged_paged_attention_ref(
     return o.reshape(B, T, H * hd).to(q.dtype)
 
 
-def _check_kernel_args(q, k_pool, v_pool, block_tables, off):
+def _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale):
     B, T, H, hd = q.shape
-    Hkv, _, BS, _ = k_pool.shape
+    Hkv, NB, BS, _ = k_pool.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"ragged kernel: dtype {q.dtype} (float32 or bfloat16)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
         raise TypeError(
-            f"ragged kernel: pool dtype {k_pool.dtype}/{v_pool.dtype} != "
-            f"query dtype {q.dtype}"
+            f"ragged kernel: pool dtype {k_pool.dtype}/{v_pool.dtype}, "
+            f"expected {pool_dtype} for {q.dtype} queries"
+            + (" with scales" if k_scale is not None else "")
         )
+    scales = ()
+    if k_scale is not None:
+        scales = (("k_scale", k_scale), ("v_scale", v_scale))
+        for name, t in scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != (Hkv, NB):
+                raise ValueError(
+                    f"ragged kernel: {name} must be float32 [{Hkv}, {NB}], "
+                    f"got {t.dtype} {tuple(t.shape)}"
+                )
     if k_pool.shape != v_pool.shape or k_pool.shape[3] != hd:
         raise ValueError(
             f"ragged kernel: pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
@@ -130,7 +167,7 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, off):
     if block_tables.dtype != torch.int32 or block_tables.shape[0] != B:
         raise ValueError("ragged kernel: block_tables must be int32 [B, MB]")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("offset", off)):
+                    ("block_tables", block_tables), ("offset", off), *scales):
         if t.device != q.device:
             raise ValueError(f"ragged kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -147,28 +184,35 @@ def _kernel_fn():
     fn = load(_SOURCE).b2b_ragged_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
     return fn
 
 
-def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap):
+def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
+                   k_scale, v_scale):
     B, T, H, hd = q.shape
     Hkv, NB, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
     out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    quantized = k_scale is not None
     err = _kernel_fn()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), off.data_ptr(), out.data_ptr(),
         B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale), float(softcap),
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"ragged kernel launch failed: cuda error {err}")
-    ragged_paged_attention.launches += 1
+    if quantized:
+        ragged_paged_attention.int8_launches += 1
+    else:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -181,27 +225,33 @@ def ragged_paged_attention(
     window=None,  # int or [1] tensor: sliding window; None/0 = full causal
     sm_scale: float | None = None,
     logit_softcap: float = 0.0,
+    k_scale=None,  # [Hkv, NB] f32: scales of an int8 pool; both or neither
+    v_scale=None,  # [Hkv, NB] f32
 ):
     """Causal attention for a [B, T] chunk over the paged pool; returns
     [B, T, H*hd]. T=1 is decode, T=K+1 a verify chunk, T=bucket a prefill
-    chunk. CUDA tensors launch the kernel (and count the launch in
-    ``ragged_paged_attention.launches``); CPU tensors take the plain
-    version. Anything else raises — there is no fallback from the card."""
+    chunk. With ``k_scale``/``v_scale`` the pools are int8. CUDA tensors
+    launch the kernel (and count the launch in
+    ``ragged_paged_attention.launches``, or ``.int8_launches`` for an
+    int8 pool); CPU tensors take the plain version. Anything else raises
+    — there is no fallback from the card."""
+    _check_scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, k_pool, v_pool, block_tables, offset, window, sm_scale,
-            logit_softcap,
+            logit_softcap, k_scale, v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for {q.device}")
     hd = q.shape[-1]
     off = row_offsets(offset, q.shape[0], q.device)
-    _check_kernel_args(q, k_pool, v_pool, block_tables, off)
+    _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale)
     return _launch_kernel(
         q, k_pool, v_pool, block_tables, off, _window_int(window),
         sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd),
-        float(logit_softcap or 0.0),
+        float(logit_softcap or 0.0), k_scale, v_scale,
     )
 
 
-ragged_paged_attention.launches = 0
+ragged_paged_attention.launches = 0  # pool in q's dtype
+ragged_paged_attention.int8_launches = 0  # int8 pool with scales

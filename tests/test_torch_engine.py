@@ -6,6 +6,10 @@
   same greedy token ids as the JAX engine on its dense attention —
   ``max_new_tokens`` crossing block boundaries, whole-prompt buckets and
   chunked prefill alike.
+- The same over an int8 KV pool (``cache_dtype="int8"``) against the JAX
+  engine's int8 pool: greedy tokens equal on every job, and a recycled
+  block starts from a zeroed scale (a prompt repeated after pool churn
+  decodes the same tokens).
 - CUDAService(device="cpu") answers execute / execute_stream with the
   same keys as TPUService.
 - Entry points default to the card and raise without one.
@@ -69,6 +73,20 @@ def jax_reference():
     eng.close()
 
 
+@pytest.fixture(scope="module")
+def jax_int8_reference():
+    """The JAX engine over an int8 KV pool and its greedy token ids."""
+    eng = JaxEngine("tiny-llama", engine_config=JaxEngineConfig(
+        kv_block_size=16, **dict(KW, cache_dtype="int8")))
+    want = [
+        eng.generate(p, max_new_tokens=m, temperature=0.0,
+                     repetition_penalty=pen).token_ids
+        for p, m, pen in JOBS
+    ]
+    yield eng, want
+    eng.close()
+
+
 def _port_engine(jax_engine, **extra):
     cfg = get_config("tiny-llama")
     params = params_from_numpy(
@@ -76,7 +94,7 @@ def _port_engine(jax_engine, **extra):
     )
     return InferenceEngine(
         "tiny-llama", params=params, device="cpu",
-        engine_config=EngineConfig(kv_block_size=16, **KW, **extra),
+        engine_config=EngineConfig(kv_block_size=16, **dict(KW, **extra)),
     )
 
 
@@ -104,6 +122,59 @@ def test_concurrent_greedy_parity_with_jax_engine(jax_reference, prefill_chunk):
         assert st.peak_active >= 2, "requests never shared a batch"
         assert st.retired == len(JOBS) and st.paged_blocks_in_use == 0
         assert eng.forward_calls > 0
+    finally:
+        eng.close()
+
+
+def test_int8_pool_greedy_parity_with_jax_engine(jax_int8_reference):
+    jax_engine, want = jax_int8_reference
+    eng = _port_engine(jax_engine, cache_dtype="int8")
+    try:
+        assert eng.kv_quantized and eng.kv_info["cache_dtype"] == "int8"
+        assert eng.kv_info == jax_engine.kv_info
+        got: list = [None] * len(JOBS)
+
+        def run(i):
+            p, m, pen = JOBS[i]
+            got[i] = eng.generate(p, max_new_tokens=m, temperature=0.0,
+                                  repetition_penalty=pen)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(JOBS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        for i, r in enumerate(got):
+            assert r.token_ids == want[i], f"request {i} diverged"
+        pool = eng.scheduler._cache
+        assert pool["k"].dtype == torch.int8 and pool["k_scale"].dtype == torch.float32
+    finally:
+        eng.close()
+
+
+def test_int8_pool_block_recycling_starts_from_a_zeroed_scale(jax_int8_reference):
+    """Prompt A, then louder churn that reuses A's freed blocks, then A
+    again: the same tokens, because every allocation zeroes the fresh
+    blocks' scales (the quantize-on-write running max would otherwise
+    inherit the churn's amax)."""
+    eng = _port_engine(jax_int8_reference[0], cache_dtype="int8")
+    try:
+        prompt, churn = JOBS[2][0], JOBS[3][0]
+        a = eng.generate(prompt, max_new_tokens=10, temperature=0.0).token_ids
+        sch = eng.scheduler
+        used = np.flatnonzero(sch._cache["k_scale"][0, 0].numpy())
+        assert len(used) > 1  # A's blocks (and the null block) hold scales
+        eng.generate(churn, max_new_tokens=20, temperature=0.0)
+        b = eng.generate(prompt, max_new_tokens=10, temperature=0.0).token_ids
+        assert a == b
+        # the funnel itself: blocks handed out again carry no old scale
+        held = sch._cache["k_scale"][0, 0].clone()
+        fresh = sch._alloc_blocks(3)
+        assert held[fresh].all()  # each block held an earlier tenant's scale
+        for key in ("k_scale", "v_scale"):
+            assert not sch._cache[key][:, :, fresh].any()
+        sch._alloc.deref(fresh)
     finally:
         eng.close()
 
@@ -160,7 +231,7 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("field,value", [
     ("spec_tokens", 4), ("drafter", "tiny-llama"), ("max_adapters", 2),
-    ("quantize", "int8"), ("cache_dtype", "int8"), ("prefix_cache_entries", 4),
+    ("quantize", "int8"), ("prefix_cache_entries", 4),
     ("attention", "sp"), ("attention", "dense"),
 ])
 def test_unported_engine_fields_raise(field, value):

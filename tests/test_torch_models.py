@@ -10,6 +10,13 @@ package's (bee2bee_tpu/models).
   mode: logits within 1e-4 (f32, same weights; the sums run in another
   order) and the pool blocks written, including the write-ceil/floor
   redirects into the null block, within 1e-5.
+- ``_quantized_page_write`` (the int8 pool's quantize-on-write) matches
+  ``bee2bee_tpu.models.core._quantized_page_write`` on the same inputs:
+  scales equal and int8 bytes equal on every written slot (tolerance 0:
+  the same f32 operations in the same order). Slots not yet written may
+  differ by design (the port requantizes without a branch).
+- The paged ``forward`` over an int8 pool (prefill, then decode) matches
+  the JAX ``forward`` with the ragged kernel in interpret mode.
 - A config switch the port does not implement raises by name.
 """
 
@@ -33,6 +40,7 @@ from bee2bee_tpu_torch.models.params import init_params, params_from_numpy
 
 LOGIT_ATOL = 1e-4
 POOL_ATOL = 1e-5
+INT8_LOGIT_ATOL = 1e-3
 
 
 @pytest.mark.parametrize("name", sorted(jconfig.CONFIGS))
@@ -225,3 +233,121 @@ def test_logits_index_selects_rows_before_the_head():
                            0, tables, logits_index=torch.tensor([7, 2]))
     assert last.shape == (2, 1, cfg.vocab_size)
     torch.testing.assert_close(last[:, 0], full[torch.arange(2), torch.tensor([7, 2])])
+
+
+# ------------------------------------------------------------ int8 pool
+
+Q_HKV, Q_NB, Q_BS, Q_HD = 2, 9, 8, 16
+Q_TABLES = np.asarray([[1, 4, 7, 2], [3, 5, 8, 6]], np.int32)  # rows own blocks
+
+# each scenario is a list of writes; a write is (offsets, T, amplitude)
+# plus optional floor / ceil redirects and blocks whose scales the
+# scheduler zeroes (recycles) before the write
+WRITE_SCENARIOS = {
+    # a prefill, then decode steps under the page's scale and one above it
+    "decode": [([0, 0], 12, 1.0), ([12, 12], 1, 0.5), ([13, 13], 1, 0.25),
+               ([14, 14], 1, 4.0)],
+    # a chunk at a slot offset that crosses two page boundaries
+    "prefill_crossing_pages": [([5, 3], 13, 1.0)],
+    # a louder write into a page that already holds content
+    "scale_grows": [([0, 0], 4, 1.0), ([4, 4], 4, 3.0), ([8, 8], 3, 0.1)],
+    # a page recycled to a new tenant: scale zeroed, stale bytes left
+    "fresh_zeroed_page": [([0, 0], 16, 2.0), ([0, 0], 5, 0.5, None, None, [1, 3])],
+    # positions below the floor / at or past the ceil go to the null block
+    "floor_ceil_redirects": [([0, 0], 16, 1.0, 3, 11), ([11, 11], 4, 2.0, 12, 14)],
+}
+
+
+def _write_maps(offs, T, floor=None, ceil=None):
+    """blk/slot/wslot [B, T] exactly as both forwards build them."""
+    pos = np.asarray(offs, np.int64)[:, None] + np.arange(T)[None, :]
+    blk = np.take_along_axis(Q_TABLES, pos // Q_BS, axis=1).astype(np.int64)
+    if floor is not None:
+        blk = np.where(pos >= floor, blk, 0)
+    if ceil is not None:
+        blk = np.where(pos < ceil, blk, 0)
+    wslot = pos // Q_BS - (np.asarray(offs, np.int64) // Q_BS)[:, None]
+    return blk, pos % Q_BS, wslot
+
+
+@pytest.mark.parametrize("scenario", sorted(WRITE_SCENARIOS))
+def test_quantized_page_write_matches_jax(scenario):
+    rng = np.random.default_rng(21)
+    jpool = jnp.zeros((Q_HKV, Q_NB, Q_BS, Q_HD), jnp.int8)
+    jscale = jnp.zeros((Q_HKV, Q_NB), jnp.float32)
+    pool = torch.zeros((Q_HKV, Q_NB, Q_BS, Q_HD), dtype=torch.int8)
+    scale = torch.zeros((Q_HKV, Q_NB), dtype=torch.float32)
+    written = np.zeros((Q_NB, Q_BS), bool)
+    for offs, T, amp, *rest in WRITE_SCENARIOS[scenario]:
+        floor, ceil, recycle = (rest + [None, None, None])[:3]
+        if recycle:
+            jscale = jscale.at[:, np.asarray(recycle)].set(0.0)
+            scale[:, recycle] = 0.0
+            written[recycle] = False
+        blk, slot, wslot = _write_maps(offs, T, floor, ceil)
+        x = (amp * rng.standard_normal((Q_HKV, len(offs), T, Q_HD))).astype(np.float32)
+        jpool, jscale = jcore._quantized_page_write(
+            jpool, jscale, jnp.asarray(blk, jnp.int32), jnp.asarray(slot, jnp.int32),
+            jnp.asarray(wslot, jnp.int32), jnp.asarray(x),
+        )
+        core._quantized_page_write(
+            pool, scale, torch.from_numpy(blk), torch.from_numpy(slot),
+            torch.from_numpy(wslot), torch.from_numpy(x),
+        )
+        written[blk, slot] = True
+        written[0] = False  # the null block is garbage by design
+        np.testing.assert_array_equal(scale.numpy()[:, 1:], np.asarray(jscale)[:, 1:])
+        np.testing.assert_array_equal(
+            pool.numpy()[:, written], np.asarray(jpool)[:, written]
+        )
+    assert written.any()
+
+
+def test_int8_pool_forward_prefill_then_decode_matches_jax():
+    """tiny-llama, f32 compute, int8 pool: a [B, 16] prefill chunk under a
+    write ceil, then two decode steps. Logits within 1e-3: both sides
+    quantize the same K/V, but the projections differ by f32 rounding
+    (~1e-6), which can move a value across a rounding midpoint and change
+    one int8 step of a page (a few 1e-3 of that value)."""
+    name = "tiny-llama"
+    jcfg, tree = _jax_params(name)
+    cfg = config.get_config(name)
+    params = params_from_numpy(tree, cfg, "cpu")
+    attn = make_ragged_attn_fn(interpret=True)
+    BS, NB, B, Tb = 8, 12, 2, 16
+    rng = np.random.default_rng(3)
+    ids = rng.integers(3, 500, size=(B, Tb)).astype(np.int32)
+    tables = np.zeros((B, 4), np.int32)
+    tables[0, :2] = [3, 7]
+    tables[1, :3] = [1, 2, 5]
+    jpool = jcore.init_paged_pool(jcfg, NB, BS, jnp.int8)
+    pool = core.init_paged_pool(cfg, NB, BS, torch.int8)
+    assert set(pool) == set(jpool) == {"k", "v", "k_scale", "v_scale"}
+    jl, jpool = _run_jax(jcfg, tree, ids, tables, [0, 0], jpool, attn,
+                         paged_write_ceil=jnp.int32(11))
+    tl, pool = core.forward(params, cfg, torch.from_numpy(ids).long(), pool, 0,
+                            torch.from_numpy(tables), paged_write_ceil=11)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=INT8_LOGIT_ATOL)
+    offs = np.asarray([11, 11], np.int32)
+    cur = np.asarray(jl)[:, 10].argmax(-1).astype(np.int32)
+    for _ in range(2):
+        jl, jpool = _run_jax(jcfg, tree, cur[:, None], tables, offs, jpool, attn)
+        tl, pool = core.forward(params, cfg, torch.from_numpy(cur[:, None]).long(),
+                                pool, torch.from_numpy(offs),
+                                torch.from_numpy(tables))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=INT8_LOGIT_ATOL)
+        cur = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
+        offs = offs + 1
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(pool[key][:, :, 1:].numpy(),
+                                   np.asarray(jpool[key])[:, :, 1:], rtol=1e-5)
+
+
+def test_int8_pool_without_scales_raises():
+    cfg = config.get_config("tiny-llama")
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32)
+    pool = core.init_paged_pool(cfg, 3, 8, torch.int8)
+    del pool["k_scale"], pool["v_scale"]
+    with pytest.raises(ValueError, match="k_scale/v_scale"):
+        core.forward(params, cfg, torch.ones((1, 2), dtype=torch.long), pool, 0,
+                     torch.tensor([[1]], dtype=torch.int32))

@@ -8,8 +8,11 @@ lengths across block boundaries, null-block table tails, a dead row,
 GQA ratios down to MQA, window + softcap + score scale, the verify shape
 and prefill row tiling — plus a query that sees nothing (0, not NaN).
 Tolerance 2e-5 absolute: the same f32 math, summed in another order.
+The int8-pool form sees the same cases over an int8 pool with [Hkv, NB]
+scales (the per-page amax recipe of tests/test_ops_ragged.py), at the
+same tolerance: both dequantize in f32 before the same softmax.
 On the CPU the dispatching wrapper must take the plain version and leave
-the kernel's launch count at 0.
+the kernel's launch counts at 0.
 """
 
 from __future__ import annotations
@@ -157,3 +160,96 @@ def test_bf16_inputs_keep_dtype_and_f32_accumulation():
         *(t.float() for t in bf), torch.from_numpy(tables), torch.from_numpy(offs)
     )
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2e-2)
+
+
+# ------------------------------------------------------------ int8 pool
+
+
+def _quantize_pool(p):
+    """f32 pool -> (int8 pool, [Hkv, NB] f32 scales): the per-page-per-head
+    symmetric amax recipe of core._quantized_page_write."""
+    s = np.max(np.abs(p), axis=(2, 3)) / np.float32(127.0)
+    safe = np.where(s > 0, s, 1.0).astype(np.float32)
+    q = np.clip(np.rint(p / safe[:, :, None, None]), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
+def _both_int8(case, window=None, sm_scale=None, softcap=0.0, block_q=256):
+    q, kp, vp, tables, offs = case
+    kq, ks = _quantize_pool(kp)
+    vq, vs = _quantize_pool(vp)
+    want = jax_ragged(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(tables),
+        jnp.asarray(offs), window=window, sm_scale=sm_scale,
+        logit_softcap=softcap, block_q=block_q, interpret=True,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+    )
+    got = port.ragged_paged_attention(
+        torch.from_numpy(q), torch.from_numpy(kq), torch.from_numpy(vq),
+        torch.from_numpy(tables), torch.from_numpy(offs), window=window,
+        sm_scale=sm_scale, logit_softcap=softcap,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs),
+    )
+    return got.numpy(), np.asarray(want)
+
+
+INT8_CASES = {
+    "decode_offsets": (dict(offs=[0, 7, 8, 21], T=1, H=4, Hkv=2, hd=16, seed=11), {}),
+    "null_tail": (dict(offs=[3, 12], T=1, H=4, Hkv=2, hd=16, extra_tables=3,
+                       seed=12), {}),
+    "dead_row": (dict(offs=[9, 4], T=1, H=4, Hkv=2, hd=16, dead=(1,), seed=13), {}),
+    "verify_shape": (dict(offs=[2, 15, 24], T=6, H=4, Hkv=2, hd=16, seed=14), {}),
+    # the JAX kernel tiles the rows (block_q=8); the plain version does not
+    "prefill_row_tiling": (dict(offs=[0, 11], T=16, H=4, Hkv=2, hd=16, seed=15),
+                           dict(block_q=8)),
+    "window_softcap_scale": (dict(offs=[6, 19, 33], T=2, H=4, Hkv=2, hd=16, seed=16),
+                             dict(window=9, sm_scale=1.0 / math.sqrt(13),
+                                  softcap=30.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+def test_int8_pool_ref_matches_jax_kernel(name):
+    geo, kw = INT8_CASES[name]
+    before = port.ragged_paged_attention.int8_launches
+    got, want = _both_int8(_pool_case(**geo), **kw)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert port.ragged_paged_attention.int8_launches == before == 0
+
+
+def test_int8_pool_needs_both_scales():
+    q, kp, vp, tables, offs = (
+        torch.from_numpy(a) for a in _pool_case(offs=[4], T=1, H=4, Hkv=2, hd=16)
+    )
+    ks = torch.ones((2, kp.shape[1]))
+    for kw in (dict(k_scale=ks), dict(v_scale=ks)):
+        with pytest.raises(ValueError, match="BOTH k_scale and v_scale"):
+            port.ragged_paged_attention(q, kp.to(torch.int8), vp.to(torch.int8),
+                                        tables, offs, **kw)
+        with pytest.raises(ValueError, match="BOTH k_scale and v_scale"):
+            port.ragged_paged_attention_ref(q, kp.to(torch.int8), vp.to(torch.int8),
+                                            tables, offs, **kw)
+
+
+def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
+    """bf16 queries: each dequantized page is rounded to bf16 before the
+    dots, so the result equals the bf16 pool holding those rounded values."""
+    q, kp, vp, tables, offs = _pool_case(offs=[10, 3], T=2, H=4, Hkv=2, hd=16, seed=17)
+    kq, ks = _quantize_pool(kp)
+    vq, vs = _quantize_pool(vp)
+    qb = torch.from_numpy(q).to(torch.bfloat16)
+    got = port.ragged_paged_attention(
+        qb, torch.from_numpy(kq), torch.from_numpy(vq), torch.from_numpy(tables),
+        torch.from_numpy(offs), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs),
+    )
+    kb = (torch.from_numpy(kq).float() * torch.from_numpy(ks)[..., None, None]
+          ).to(torch.bfloat16)
+    vb = (torch.from_numpy(vq).float() * torch.from_numpy(vs)[..., None, None]
+          ).to(torch.bfloat16)
+    want = port.ragged_paged_attention(
+        qb, kb, vb, torch.from_numpy(tables), torch.from_numpy(offs)
+    )
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
