@@ -6,14 +6,34 @@
 // head h reads kv head h / (H / Hkv), key tiles above the diagonal are
 // skipped (here through the loop bound), a row that sees nothing (offset
 // -1 at T = 1) writes 0. The JAX wrapper transposes K/V to head-major and
-// zero-pads S to the block; this kernel reads [B, S, Hkv, HD] in place (a
+// zero-pads S to the block; these kernels read [B, S, Hkv, HD] in place (a
 // key row of one head is HD contiguous elements, so 16-byte loads still
-// work) and treats keys past S as absent. Inside the contract
+// work) and treat keys past S as absent. Inside the contract
 // offset + T <= S the two agree; past it the JAX kernel attends the
 // padding's zeros.
 //
-// The design is the ragged kernel's (ragged_attention.cu) with another
-// way to address keys:
+// Two kernels, chosen by ops/flash.py:
+//
+// flash_tile_kernel, for bf16 at HD 64 and 128: the tensor-core tile
+// design of tile_attention.cuh (the ragged prefill kernel's, over
+// contiguous K/V). What bounds it on an H100: causal T = S = 2048 over
+// llama-3-8b's heads does 4 * HD flops per visible (query, key) pair per
+// head, 3.4e10 flops, 0.0348 ms at 989 TFLOP/s bf16, against 0.010 ms to
+// read q, k, v and write the output once: bound by operations. So both
+// products run on mma.sync with f32 accumulation (P rounded to bf16
+// before P V, as the JAX kernel's p.astype(v.dtype)):
+//   grid  (B * Hkv, ceil(G * T / 64)); a block of 4 warps owns 64 query
+//         rows of one (batch row, kv head), rows folded (t major, g
+//         minor) so each staged key tile serves the whole GQA group; the
+//         blocks with the latest (longest) rows start first;
+//   stage key tiles of 64 rows of K and V, read in place (Hkv * HD
+//         elements apart) with 16-byte cp.async copies, double-buffered;
+//         when causal, no tile past the frontier of the block's last row;
+//         rows past S are zero-filled and masked.
+//
+// flash_attention_kernel, for f32 (the parity checks) and HD 256: the
+// ragged row kernel's row-per-warp design (ragged_attention.cu) with
+// another way to address keys:
 //   grid  (B * Hkv, ceil(G * T / kWarps)); a block owns kWarps query rows
 //         of one (batch row, kv head), one warp per row;
 //   loop  over the block's key tiles of kTile keys: keys j*kTile ..
@@ -24,11 +44,11 @@
 //         over HD and a shuffle reduction;
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
-// What bounds it: scalar dot products, no tensor cores (wgmma tiles are
-// the redesign), and at long T each block walks up to S / kTile tiles for
-// only kWarps rows.
+// It does scalar dot products on the CUDA cores, at long T each block
+// walks up to S / kTile tiles for only kWarps rows.
 
 #include "attention.cuh"
+#include "tile_attention.cuh"
 
 namespace {
 
@@ -197,6 +217,117 @@ int launch_hd(int hd, const FlashArgs& a, cudaStream_t stream) {
   return -1;
 }
 
+// ------------------------------------------------------------ tile kernel
+
+using tile::bf16;
+
+// Stage key tile j (keys j * kKeys ..) of row b, kv head kvh into ks/vs
+// (swizzled); keys past kmax are not read and their slots zero-filled.
+template <int HD>
+__device__ __forceinline__ void stage_keys(const bf16* k, const bf16* v, int b,
+                                           int kvh, int S, int Hkv, int kmax,
+                                           int j, uint4* ks, uint4* vs) {
+  constexpr int RC = HD / 8;
+  for (int id = threadIdx.x; id < tile::kKeys * RC; id += tile::kThreads) {
+    const int r = id / RC;
+    const int c = id % RC;
+    const int key = j * tile::kKeys + r;
+    size_t src = 0;
+    if (key <= kmax) src = (((size_t)b * S + key) * Hkv + kvh) * HD + c * 8;
+    const int n = key <= kmax ? 16 : 0;
+    tile::cp_async16(ks + tile::swz<HD>(r, c), k + src, n);
+    tile::cp_async16(vs + tile::swz<HD>(r, c), v + src, n);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(tile::kThreads)
+flash_tile_kernel(const FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int TILE = tile::kKeys * HD / 8;  // uint4 chunks of a K/V tile
+  uint4* kv = reinterpret_cast<uint4*>(smem);  // [stage][K, V]
+  // Q passes through the second stage's K tile: every warp has read it
+  // into registers before the first copy into that stage
+  static_assert(tile::kRows == tile::kKeys, "Q is staged in a K tile");
+  uint4* qs = kv + 2 * TILE;
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  const int b = blockIdx.x / a.Hkv;
+  const int kvh = blockIdx.x % a.Hkv;
+  const int G = a.H / a.Hkv;
+  const int nrows = G * a.T;
+  // the longest rows first: tile y of the grid is row tile gridDim.y-1-y
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * tile::kRows;
+  const int off = a.offset[b];
+  const int thi = (min(r0 + tile::kRows, nrows) - 1) / G;
+  // keys the block's rows see: all of [0, S) without causality, else up
+  // to the frontier of its last row
+  const int kmax = a.causal ? min(off + thi, a.S - 1) : a.S - 1;
+  const int jhi = kmax >= 0 ? kmax / tile::kKeys : -1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  tile::stage_q<HD>(qs, static_cast<const bf16*>(a.q), b, kvh, a.T, a.H, G, r0,
+                    nrows);
+  if (jhi >= 0) stage_keys<HD>(k, v, b, kvh, a.S, a.Hkv, kmax, 0, kv, kv + TILE);
+  tile::cp_async_commit();
+  tile::cp_async_wait_all();
+  __syncthreads();
+
+  tile::WarpRows<HD> w;
+  tile::init_rows<HD>(w, qs, warp, lane);
+  int rmin[2], rmax[2];
+  bf16* dst[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int R = r0 + warp * 16 + (lane >> 2) + 8 * i;
+    rmin[i] = 0;
+    rmax[i] = -1;
+    dst[i] = nullptr;
+    if (R < nrows) {
+      const int t = R / G;
+      rmax[i] = a.causal ? min(off + t, a.S - 1) : a.S - 1;
+      dst[i] = static_cast<bf16*>(a.out) +
+               ((size_t)(b * a.T + t) * a.H + kvh * G + R % G) * HD;
+    }
+  }
+  const tile::RowSpan sp = tile::warp_span(rmin, rmax);
+
+  for (int j = 0; j <= jhi; ++j) {
+    const int st = j & 1;
+    // tile j has landed; every warp is done with tile j - 1
+    tile::cp_async_wait_all();
+    __syncthreads();
+    if (j < jhi)
+      stage_keys<HD>(k, v, b, kvh, a.S, a.Hkv, kmax, j + 1,
+                     kv + (st ^ 1) * 2 * TILE, kv + (st ^ 1) * 2 * TILE + TILE);
+    tile::cp_async_commit();
+    int lo[2], hi[2];
+    const unsigned live = tile::tile_ranges(sp, j * tile::kKeys, lo, hi);
+    tile::attend_tile<HD>(w, kv + st * 2 * TILE, kv + st * 2 * TILE + TILE, live,
+                          lo, hi, a.sm_scale, 0.f, lane);
+  }
+  tile::store_rows<HD>(w, dst, lane);
+}
+
+template <int HD>
+int launch_tile(const FlashArgs& a, cudaStream_t stream) {
+  const int tiles = (a.H / a.Hkv * a.T + tile::kRows - 1) / tile::kRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(a.B * a.Hkv, tiles);
+  // two stages of K and V tiles, bf16
+  constexpr size_t smem = (size_t)4 * tile::kKeys * HD * 2;
+  auto kernel = flash_tile_kernel<HD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, tile::kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
@@ -212,5 +343,21 @@ extern "C" int b2b_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_hd<float>(hd, a, s);
   if (dtype == 1) return launch_hd<__nv_bfloat16>(hd, a, s);
+  return -1;
+}
+
+// C entry point of the tile kernel, bound with ctypes: q, k, v and out are
+// bf16. Returns the cudaError_t of the launch (0 = launched), or -1 for a
+// head_dim this kernel was not built for.
+extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
+                                        const void* v, const void* offset,
+                                        void* out, int B, int T_, int S, int H,
+                                        int Hkv, int hd, int causal,
+                                        float sm_scale, void* stream) {
+  const FlashArgs a{q, k, v, static_cast<const int*>(offset), out,
+                    B, T_, S, H, Hkv, causal, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return launch_tile<64>(a, s);
+  if (hd == 128) return launch_tile<128>(a, s);
   return -1;
 }

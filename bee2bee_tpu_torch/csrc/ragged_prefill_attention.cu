@@ -1,0 +1,350 @@
+// Ragged paged attention of prefill chunks for Hopper (sm_90a), on the
+// tensor cores: causal GQA attention of a [B, T] bf16 query chunk read
+// straight from the paged KV pool through per-row block tables.
+//
+// Replaces the TPU kernel bee2bee_tpu/ops/ragged.py:_ragged_kernel for
+// chunks of T >= T_MIN queries (ops/ragged.py dispatches; decode and f32
+// queries keep the row-per-warp kernel of ragged_attention.cu), in both
+// pool forms: the pool in q's type (bf16), and the int8 pool whose pages
+// carry one f32 scale per (kv head, block).
+// Same function: per-row `offset`, one sliding `window` per call (0 = full
+// causal), `sm_scale`, tanh `softcap` applied before the mask; pages past
+// the causal frontier or wholly below the window are skipped; a row that
+// sees nothing writes 0. Both products run as the JAX kernel runs them on
+// its matrix unit: bf16 operands, f32 accumulation, P rounded to bf16
+// before P V. An int8 page is dequantized in f32 with its scale
+// (k_scale[kvh * NB + blk], read beside tables[b, j]) and rounded to bf16.
+//
+// What bounds it on an H100: a prefill chunk does 4 * HD flops per
+// visible (query, key) pair per head and reads each visible page once per
+// kv head, far above the ~295 flops/byte where the tensor cores rather
+// than the memory are the limit (T=512 at offset 1000 over llama-3-8b's
+// heads: 1.05e10 flops, 0.0107 ms at 989 TFLOP/s bf16). So it is bound by
+// operations, and the design keeps the tensor cores fed:
+//   grid  (B * Hkv, ceil(G * T / 64)); a block of 4 warps owns 64 query
+//         rows of one (batch row, kv head), rows folded (t major, g
+//         minor) so one staged page serves the whole GQA group; the
+//         blocks with the latest (longest) rows start first;
+//   stage each key tile of 64 keys (64 / BS pages, each contiguous in the
+//         pool) with 16-byte cp.async copies, double-buffered so the next
+//         tile's pages load while this one computes; the block reads
+//         tables[b, j] itself. A page the block's rows cannot see (past
+//         the frontier of its last row, wholly below the window of its
+//         first) is not read: its slots are zero-filled;
+//   int8  pages land as bytes and are dequantized once per block into a
+//         bf16 tile in shared memory (the row kernel dequantizes them
+//         once per query row);
+//   math  mma.sync m16n8k16 tiles and the online softmax of
+//         tile_attention.cuh.
+// Instantiated for HD 64 and 128 and BS 8, 16 and 32. HD 256 would hold
+// 192 accumulator and fragment registers a lane; the wrapper sends it to
+// the row kernel.
+
+#include "tile_attention.cuh"
+
+namespace {
+
+using tile::bf16;
+using tile::kKeys;
+using tile::kRows;
+using tile::kThreads;
+using tile::cp_async16;
+
+struct PrefillArgs {
+  const bf16* q;         // [B, T, H, HD]
+  const void* k_pool;    // [Hkv, NB, BS, HD] bf16, or int8 with scales
+  const void* v_pool;
+  const float* k_scale;  // [Hkv, NB] scales of an int8 pool, else nullptr
+  const float* v_scale;
+  const int* tables;     // [B, MB]
+  const int* offset;     // [B]: position of q[b, 0]
+  bf16* out;             // [B, T, H * HD]
+  int B, T, H, Hkv, NB, MB, window;
+  float sm_scale, softcap;
+};
+
+// The block's geometry: its rows, its batch row and kv head, the key range
+// its rows see ([kmin, kmax], absolute positions) and the key tiles that
+// cover it.
+struct Block {
+  int b, kvh, G, nrows, r0, off, kmin, kmax, jlo, jhi;
+};
+
+template <int BS>
+__device__ __forceinline__ Block block_geometry(const PrefillArgs& a) {
+  Block k;
+  k.b = blockIdx.x / a.Hkv;
+  k.kvh = blockIdx.x % a.Hkv;
+  k.G = a.H / a.Hkv;
+  k.nrows = k.G * a.T;
+  // the longest rows first: tile y of the grid is row tile gridDim.y-1-y
+  k.r0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  k.off = a.offset[k.b];
+  const int tlo = k.r0 / k.G;
+  const int thi = (min(k.r0 + kRows, k.nrows) - 1) / k.G;
+  // ops/ragged.py's two skip predicates for the block's rows, and no key
+  // past the table: keys there are absent
+  k.kmax = min(k.off + thi, a.MB * BS - 1);
+  k.kmin = a.window > 0 ? max(k.off + tlo - a.window + 1, 0) : 0;
+  k.jlo = k.kmin / kKeys;
+  k.jhi = k.kmax >= k.kmin ? k.kmax / kKeys : k.jlo - 1;
+  return k;
+}
+
+// The lane's two rows: their key ranges and output rows.
+template <int HD, int BS>
+__device__ __forceinline__ tile::RowSpan lane_rows(const PrefillArgs& a,
+                                                   const Block& k, int warp,
+                                                   int lane,
+                                                   bf16* (&dst)[2]) {
+  int kmin[2], kmax[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int R = k.r0 + warp * 16 + (lane >> 2) + 8 * i;
+    kmin[i] = 0;
+    kmax[i] = -1;
+    dst[i] = nullptr;
+    if (R < k.nrows) {
+      const int t = R / k.G;
+      const int pos = k.off + t;
+      kmax[i] = min(pos, a.MB * BS - 1);
+      kmin[i] = a.window > 0 ? max(pos - a.window + 1, 0) : 0;
+      dst[i] = a.out + ((size_t)(k.b * a.T + t) * a.H + k.kvh * k.G + R % k.G) * HD;
+    }
+  }
+  return tile::warp_span(kmin, kmax);
+}
+
+// Table entry of tile row r of key tile j, or -1 for a page the block
+// does not read
+template <int BS>
+__device__ __forceinline__ int page_block(const PrefillArgs& a, const Block& k,
+                                          int j, int r) {
+  const int page = j * (kKeys / BS) + r / BS;
+  const int pos0 = page * BS;
+  if (pos0 > k.kmax || pos0 + BS - 1 < k.kmin) return -1;
+  return a.tables[k.b * a.MB + page];
+}
+
+// Stage key tile j of a bf16 pool into ks/vs (swizzled).
+template <int HD, int BS>
+__device__ __forceinline__ void stage_bf16(const PrefillArgs& a, const Block& k,
+                                           int j, uint4* ks, uint4* vs) {
+  constexpr int RC = HD / 8;
+  const bf16* kp = static_cast<const bf16*>(a.k_pool);
+  const bf16* vp = static_cast<const bf16*>(a.v_pool);
+  for (int id = threadIdx.x; id < kKeys * RC; id += kThreads) {
+    const int r = id / RC;
+    const int c = id % RC;
+    const int blk = page_block<BS>(a, k, j, r);
+    size_t src = 0;
+    if (blk >= 0) src = (((size_t)k.kvh * a.NB + blk) * BS + r % BS) * HD + c * 8;
+    const int n = blk >= 0 ? 16 : 0;
+    cp_async16(ks + tile::swz<HD>(r, c), kp + src, n);
+    cp_async16(vs + tile::swz<HD>(r, c), vp + src, n);
+  }
+}
+
+// Stage key tile j of an int8 pool as bytes into kq/vq ([kKeys][HD],
+// plain) and its pages' scales into sc[0] (K) / sc[1] (V); a page the
+// block does not read gets zeros and scale 0.
+template <int HD, int BS>
+__device__ __forceinline__ void stage_int8(const PrefillArgs& a, const Block& k,
+                                           int j, uint4* kq, uint4* vq,
+                                           float (*sc)[kKeys / BS]) {
+  constexpr int RC = HD / 16;
+  const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
+  const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
+  for (int id = threadIdx.x; id < kKeys * RC; id += kThreads) {
+    const int r = id / RC;
+    const int c = id % RC;
+    const int blk = page_block<BS>(a, k, j, r);
+    size_t src = 0;
+    if (blk >= 0) src = (((size_t)k.kvh * a.NB + blk) * BS + r % BS) * HD + c * 16;
+    const int n = blk >= 0 ? 16 : 0;
+    cp_async16(kq + id, kp + src, n);
+    cp_async16(vq + id, vp + src, n);
+  }
+  if (threadIdx.x < kKeys / BS) {
+    const int blk = page_block<BS>(a, k, j, threadIdx.x * BS);
+    sc[0][threadIdx.x] = blk >= 0 ? a.k_scale[k.kvh * a.NB + blk] : 0.f;
+    sc[1][threadIdx.x] = blk >= 0 ? a.v_scale[k.kvh * a.NB + blk] : 0.f;
+  }
+}
+
+// 16 int8 values times their page's scale in f32, each rounded to bf16
+// (the JAX kernel's (k * scale).astype(q.dtype)), as two 16-byte chunks
+__device__ __forceinline__ void dequant16(uint4 x, float scale, uint4& lo,
+                                          uint4& hi) {
+  const int8_t* v = reinterpret_cast<const int8_t*>(&x);
+  uint32_t* o0 = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* o1 = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    o0[e] = tile::pack_bf16(v[2 * e] * scale, v[2 * e + 1] * scale);
+    o1[e] = tile::pack_bf16(v[8 + 2 * e] * scale, v[8 + 2 * e + 1] * scale);
+  }
+}
+
+// Dequantize a staged int8 tile into the bf16 tiles ks/vs (swizzled).
+template <int HD, int BS>
+__device__ __forceinline__ void dequant_tile(const uint4* kq, const uint4* vq,
+                                             const float (*sc)[kKeys / BS],
+                                             uint4* ks, uint4* vs) {
+  constexpr int RC = HD / 16;
+  for (int id = threadIdx.x; id < kKeys * RC; id += kThreads) {
+    const int r = id / RC;
+    const int c = id % RC;
+    uint4 lo, hi;
+    dequant16(kq[id], sc[0][r / BS], lo, hi);
+    ks[tile::swz<HD>(r, 2 * c)] = lo;
+    ks[tile::swz<HD>(r, 2 * c + 1)] = hi;
+    dequant16(vq[id], sc[1][r / BS], lo, hi);
+    vs[tile::swz<HD>(r, 2 * c)] = lo;
+    vs[tile::swz<HD>(r, 2 * c + 1)] = hi;
+  }
+}
+
+// shared memory, per pool form:
+//   bf16: 2 stages of K, V [kKeys][HD] bf16;
+//   int8: one bf16 K, V tile, 2 stages of K, V [kKeys][HD] int8, scales.
+// Q [kRows][HD] bf16 passes through a K tile that is not in use yet (the
+// second stage's, or the int8 form's bf16 one): every warp has read it
+// into registers before the first copy into that tile.
+static_assert(kRows == kKeys, "Q is staged in a K tile");
+
+template <int HD, int BS, bool INT8>
+constexpr size_t smem_bytes() {
+  const size_t tilebf = (size_t)kKeys * HD * 2;
+  if (!INT8) return 2 * 2 * tilebf;
+  return 2 * tilebf + 2 * 2 * (size_t)kKeys * HD + 2 * 2 * (kKeys / BS) * 4;
+}
+
+template <int HD, int BS, bool INT8>
+__global__ void __launch_bounds__(kThreads)
+ragged_prefill_kernel(const PrefillArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int TILE = kKeys * HD / 8;  // uint4 chunks of a bf16 K or V tile
+  uint4* kv = reinterpret_cast<uint4*>(smem);  // bf16 tiles: [stage][K, V]
+  // int8 form: one bf16 tile pair, then the int8 stages [stage][K, V]
+  uint4* q8 = kv + 2 * TILE;
+  float(*sc)[2][kKeys / BS] = reinterpret_cast<float(*)[2][kKeys / BS]>(
+      q8 + 2 * 2 * (kKeys * HD / 16));
+  uint4* qs = INT8 ? kv : kv + 2 * TILE;
+
+  const Block k = block_geometry<BS>(a);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  tile::stage_q<HD>(qs, a.q, k.b, k.kvh, a.T, a.H, k.G, k.r0, k.nrows);
+  if (k.jlo <= k.jhi) {
+    if constexpr (INT8)
+      stage_int8<HD, BS>(a, k, k.jlo, q8, q8 + kKeys * HD / 16, sc[0]);
+    else
+      stage_bf16<HD, BS>(a, k, k.jlo, kv, kv + TILE);
+  }
+  tile::cp_async_commit();
+  tile::cp_async_wait_all();
+  __syncthreads();
+
+  tile::WarpRows<HD> w;
+  tile::init_rows<HD>(w, qs, warp, lane);
+  bf16* dst[2];
+  const tile::RowSpan sp = lane_rows<HD, BS>(a, k, warp, lane, dst);
+
+  for (int j = k.jlo; j <= k.jhi; ++j) {
+    const int st = (j - k.jlo) & 1;
+    // tile j has landed; every warp is done with tile j - 1
+    tile::cp_async_wait_all();
+    __syncthreads();
+    const uint4* ks;
+    const uint4* vs;
+    if constexpr (INT8) {
+      const uint4* kq = q8 + st * 2 * (kKeys * HD / 16);
+      dequant_tile<HD, BS>(kq, kq + kKeys * HD / 16, sc[st], kv, kv + TILE);
+      if (j < k.jhi) {
+        uint4* nq = q8 + (st ^ 1) * 2 * (kKeys * HD / 16);
+        stage_int8<HD, BS>(a, k, j + 1, nq, nq + kKeys * HD / 16, sc[st ^ 1]);
+      }
+      tile::cp_async_commit();
+      __syncthreads();
+      ks = kv;
+      vs = kv + TILE;
+    } else {
+      if (j < k.jhi)
+        stage_bf16<HD, BS>(a, k, j + 1, kv + (st ^ 1) * 2 * TILE,
+                           kv + (st ^ 1) * 2 * TILE + TILE);
+      tile::cp_async_commit();
+      ks = kv + st * 2 * TILE;
+      vs = ks + TILE;
+    }
+    int lo[2], hi[2];
+    const unsigned live = tile::tile_ranges(sp, j * kKeys, lo, hi);
+    tile::attend_tile<HD>(w, ks, vs, live, lo, hi, a.sm_scale, a.softcap, lane);
+  }
+  tile::store_rows<HD>(w, dst, lane);
+}
+
+template <int HD, int BS, bool INT8>
+int launch(const PrefillArgs& a, cudaStream_t stream) {
+  const int tiles = (a.H / a.Hkv * a.T + kRows - 1) / kRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(a.B * a.Hkv, tiles);
+  constexpr size_t smem = smem_bytes<HD, BS, INT8>();
+  auto kernel = ragged_prefill_kernel<HD, BS, INT8>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, bool INT8>
+int launch_bs(int BS, const PrefillArgs& a, cudaStream_t stream) {
+  switch (BS) {
+    case 8:
+      return launch<HD, 8, INT8>(a, stream);
+    case 16:
+      return launch<HD, 16, INT8>(a, stream);
+    case 32:
+      return launch<HD, 32, INT8>(a, stream);
+  }
+  return -1;
+}
+
+template <bool INT8>
+int launch_hd(int hd, int BS, const PrefillArgs& a, cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch_bs<64, INT8>(BS, a, stream);
+    case 128:
+      return launch_bs<128, INT8>(BS, a, stream);
+  }
+  return -1;
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes. q and out are bf16. k_scale/v_scale
+// null: the pools are bf16; both set: the pools are int8 with [Hkv, NB]
+// f32 scales. Returns the cudaError_t of the launch (0 = launched), or -1
+// for a head_dim / block size this file was not built for.
+extern "C" int b2b_ragged_prefill_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* offset, void* out, int B, int T_, int H, int Hkv, int NB,
+    int MB, int BS, int hd, int window, float sm_scale, float softcap,
+    void* stream) {
+  const PrefillArgs a{static_cast<const bf16*>(q), k_pool, v_pool,
+                      static_cast<const float*>(k_scale),
+                      static_cast<const float*>(v_scale),
+                      static_cast<const int*>(tables),
+                      static_cast<const int*>(offset), static_cast<bf16*>(out),
+                      B, T_, H, Hkv, NB, MB, window, sm_scale, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool int8_pool = k_scale != nullptr;
+  if (int8_pool != (v_scale != nullptr)) return -1;
+  return int8_pool ? launch_hd<true>(hd, BS, a, s) : launch_hd<false>(hd, BS, a, s);
+}

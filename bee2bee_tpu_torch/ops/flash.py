@@ -4,9 +4,11 @@ attention of a [B, T] query chunk against [B, S] keys and values.
 The port of ``bee2bee_tpu/ops/flash.py``'s ``flash_attention`` with the
 same signature and layout. Two implementations of one function:
 
-- the CUDA kernel ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``; the
-  ragged kernel's row-per-warp design over contiguous K/V), launched for
-  CUDA tensors; it replaces the TPU kernel ``_flash_kernel``;
+- two CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``)
+  for CUDA tensors, which together replace the TPU kernel
+  ``_flash_kernel``: the tensor-core tile kernel (the ragged prefill
+  kernel's design over contiguous K/V) for bf16 at head_dim 64 and 128,
+  and the row-per-warp kernel for f32 and head_dim 256;
 - ``flash_attention_ref``, the plain PyTorch version: explicit mask and an
   f32 softmax. The wrapper takes it for CPU tensors only; the tests hold
   it against the JAX kernel, and the card's smoke run holds the kernel
@@ -33,9 +35,16 @@ import math
 
 import torch
 
-from .ragged import _DTYPE_CODE, _HEAD_DIMS, NEG_INF, row_offsets
+from .ragged import _DTYPE_CODE, _HEAD_DIMS, _TILE_HEAD_DIMS, NEG_INF, row_offsets
 
 _SOURCE = "flash_attention.cu"
+
+
+def use_tile_kernel(dtype, hd: int) -> bool:
+    """The dispatch rule: bf16 at a head_dim the tile kernel is built for
+    goes to the tensor-core tile kernel, everything else to the row
+    kernel."""
+    return dtype == torch.bfloat16 and hd in _TILE_HEAD_DIMS
 
 
 def _check_block_k(S: int, causal: bool, block_k: int) -> None:
@@ -97,21 +106,24 @@ def _check_kernel_args(q, k, v, off):
             raise ValueError(f"flash kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash kernel: {name} is not contiguous")
-    for name, t in (("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash kernel: {name} is not 16-byte aligned")
 
 
-def _kernel_fn():
-    """The kernel's C entry point, built and bound on first use."""
+def _kernel_fn(tile: bool):
+    """The C entry point of the tile kernel (``tile``) or of the row
+    kernel, built and bound on first use."""
     from ._build import load
 
-    fn = load(_SOURCE).b2b_flash_attention
+    lib = load(_SOURCE)
+    fn = lib.b2b_flash_attention_tile if tile else lib.b2b_flash_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        # pointers, shapes, sm_scale, [the row kernel's dtype code], stream
+        dtype_code = [] if tile else [ctypes.c_int]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + dtype_code + [ctypes.c_void_p])
     return fn
 
 
@@ -126,9 +138,11 @@ def flash_attention(
     sm_scale: float | None = None,
 ):
     """Tiled attention over contiguous K/V; returns [B, T, H*hd]. CUDA
-    tensors launch the kernel (and count the launch in
-    ``flash_attention.launches``); CPU tensors take the plain version.
-    Anything else raises — there is no fallback from the card."""
+    tensors launch the kernel ``use_tile_kernel`` names (and count the
+    launch in ``flash_attention.tile_launches`` for the tile kernel,
+    ``flash_attention.launches`` for the row kernel); CPU tensors take the
+    plain version. Anything else raises — there is no fallback from the
+    card."""
     B, T, H, hd = q.shape
     S = k.shape[1]
     _check_block_k(S, causal, block_k)
@@ -141,16 +155,24 @@ def flash_attention(
     out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    err = _kernel_fn()(
+    tile = use_tile_kernel(q.dtype, hd)
+    args = [
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), out.data_ptr(),
         B, T, S, H, k.shape[2], hd, int(bool(causal)),
         float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ]
+    if not tile:
+        args.append(_DTYPE_CODE[q.dtype])
+    err = _kernel_fn(tile)(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash kernel launch failed: cuda error {err}")
-    flash_attention.launches += 1
+        name = "flash tile" if tile else "flash"
+        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
+    if tile:
+        flash_attention.tile_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # row kernel
+flash_attention.tile_launches = 0  # tile kernel

@@ -4,8 +4,12 @@ read straight from the paged KV pool through per-row block tables.
 The port of ``bee2bee_tpu/ops/ragged.py``'s ``ragged_paged_attention``
 with the same ABI. Two implementations of one function:
 
-- the CUDA kernel ``csrc/ragged_attention.cu`` (Hopper, ``sm_90a``),
-  launched for CUDA tensors; it replaces the TPU kernel ``_ragged_kernel``;
+- two CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
+  replace the TPU kernel ``_ragged_kernel``: the tensor-core tile kernel
+  ``csrc/ragged_prefill_attention.cu`` for bf16 chunks of at least
+  ``T_MIN`` queries at a head_dim it is built for (64, 128), and the
+  row-per-warp kernel ``csrc/ragged_attention.cu`` for everything else
+  (decode, f32, head_dim 256); ``use_tile_kernel`` is the rule;
 - ``ragged_paged_attention_ref``, the plain PyTorch version: it gathers
   the mapped pages into a ``[B, MB*BS]`` view, builds the mask from the
   offsets and the window and takes an f32 softmax. The wrapper takes it
@@ -24,9 +28,11 @@ null block 0, whose content is garbage by design; causality masks it.
 Both pool forms of the JAX kernel: the pool in q's type, and the int8
 pool with ``k_scale``/``v_scale`` [Hkv, NB] f32 (one scale per kv head
 and block). An int8 page is dequantized in f32 and rounded to q's type
-before the dots, as the JAX kernel does. The wrapper counts the two
-forms' launches apart (``launches``, ``int8_launches``). The mesh
-wrapper (``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
+before the dots, as the JAX kernel does. The wrapper counts each
+kernel's launches per pool form apart: ``launches`` and
+``int8_launches`` for the row kernel, ``prefill_launches`` and
+``int8_prefill_launches`` for the tile kernel. The mesh wrapper
+(``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 _BLOCK_SIZES = (8, 16, 32)
 _SOURCE = "ragged_attention.cu"
+_PREFILL_SOURCE = "ragged_prefill_attention.cu"
+# the tile kernel's instantiations: head_dim 256 would hold 192
+# accumulator and fragment registers a lane
+_TILE_HEAD_DIMS = (64, 128)
+# the shortest chunk the tile kernel takes. On the H100 it beat the row
+# kernel at every chunk length timed, T = 1 included (chip_smoke.py's
+# crossover lines, PERF.md); decode (T = 1) stays on the row kernel, whose
+# redesign is flash-decoding's
+T_MIN = 2
+
+
+def use_tile_kernel(dtype, T: int, hd: int) -> bool:
+    """The dispatch rule: bf16 chunks of at least T_MIN queries (verify
+    and prefill chunks) at a head_dim the tile kernel is built for go to
+    the tensor-core tile kernel; decode, f32 and other head_dims go to the
+    row kernel."""
+    return dtype == torch.bfloat16 and T >= T_MIN and hd in _TILE_HEAD_DIMS
 
 
 def _window_int(window) -> int:
@@ -172,13 +195,17 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale):
             raise ValueError(f"ragged kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"ragged kernel: {name} is not contiguous")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+    # the tile kernel copies q in 16-byte pieces too
+    aligned = [("k_pool", k_pool), ("v_pool", v_pool)]
+    if use_tile_kernel(q.dtype, T, hd):
+        aligned.append(("q", q))
+    for name, t in aligned:
         if t.data_ptr() % 16:
             raise ValueError(f"ragged kernel: {name} is not 16-byte aligned")
 
 
 def _kernel_fn():
-    """The kernel's C entry point, built and bound on first use."""
+    """The row kernel's C entry point, built and bound on first use."""
     from ._build import load
 
     fn = load(_SOURCE).b2b_ragged_paged_attention
@@ -190,8 +217,23 @@ def _kernel_fn():
     return fn
 
 
+def _prefill_fn():
+    """The tile kernel's C entry point, built and bound on first use."""
+    from ._build import load
+
+    fn = load(_PREFILL_SOURCE).b2b_ragged_prefill_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+    return fn
+
+
 def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
-                   k_scale, v_scale):
+                   k_scale, v_scale, tile: bool):
+    """Launch the tile kernel (``tile``) or the row kernel on checked
+    arguments and count the launch."""
     B, T, H, hd = q.shape
     Hkv, NB, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -199,20 +241,25 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
     if out.numel() == 0:
         return out
     quantized = k_scale is not None
-    err = _kernel_fn()(
+    args = (
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), off.data_ptr(), out.data_ptr(),
         B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale), float(softcap),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"ragged kernel launch failed: cuda error {err}")
-    if quantized:
-        ragged_paged_attention.int8_launches += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if tile:
+        err = _prefill_fn()(*args, stream)
     else:
-        ragged_paged_attention.launches += 1
+        err = _kernel_fn()(*args, _DTYPE_CODE[q.dtype], stream)
+    if err:
+        name = "ragged prefill tile" if tile else "ragged"
+        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
+    counter = ("int8_" if quantized else "") + (
+        "prefill_launches" if tile else "launches")
+    setattr(ragged_paged_attention, counter,
+            getattr(ragged_paged_attention, counter) + 1)
     return out
 
 
@@ -231,10 +278,12 @@ def ragged_paged_attention(
     """Causal attention for a [B, T] chunk over the paged pool; returns
     [B, T, H*hd]. T=1 is decode, T=K+1 a verify chunk, T=bucket a prefill
     chunk. With ``k_scale``/``v_scale`` the pools are int8. CUDA tensors
-    launch the kernel (and count the launch in
-    ``ragged_paged_attention.launches``, or ``.int8_launches`` for an
-    int8 pool); CPU tensors take the plain version. Anything else raises
-    — there is no fallback from the card."""
+    launch the kernel ``use_tile_kernel`` names (and count the launch in
+    ``ragged_paged_attention.launches`` / ``.int8_launches`` for the row
+    kernel, ``.prefill_launches`` / ``.int8_prefill_launches`` for the
+    tile kernel); CPU tensors take the plain version. Anything else raises
+    — there is no fallback from the card, nor from one kernel to the
+    other."""
     _check_scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
@@ -250,8 +299,13 @@ def ragged_paged_attention(
         q, k_pool, v_pool, block_tables, off, _window_int(window),
         sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd),
         float(logit_softcap or 0.0), k_scale, v_scale,
+        tile=use_tile_kernel(q.dtype, q.shape[1], hd),
     )
 
 
-ragged_paged_attention.launches = 0  # pool in q's dtype
-ragged_paged_attention.int8_launches = 0  # int8 pool with scales
+# row kernel: pool in q's dtype / int8 pool with scales
+ragged_paged_attention.launches = 0
+ragged_paged_attention.int8_launches = 0
+# tile kernel: bf16 pool / int8 pool with scales
+ragged_paged_attention.prefill_launches = 0
+ragged_paged_attention.int8_prefill_launches = 0

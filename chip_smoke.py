@@ -9,44 +9,59 @@ and the script exits non-zero):
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from csrc/ with nvcc (one process per source, all at
    once).
-2. Ragged kernel vs plain version at llama-3-8b's attention shapes (H=32,
-   Hkv=8, hd=128, block size 16) in bf16: ragged decode offsets across
-   block boundaries, a dead row, null table tails, prefill chunks, a
-   verify chunk, and window + softcap + score scale. Tolerance: max abs
-   error <= 2e-2 against the plain version run in f32 on the same bf16
-   inputs (bf16 output rounding is ~4e-3 at these magnitudes). Then the
-   kernel's time at a decode step over a 1024-token context and at a
-   512-token prefill chunk, beside the plain version, SDPA over the
-   gathered view (the library yardstick, never used by the port) and the
-   bound; then the decode sweep, 32 launches back to back over a
-   32-layer copy of the pool, in ms per launch.
+2. Ragged paged attention vs plain version at llama-3-8b's attention
+   shapes (H=32, Hkv=8, hd=128, block size 16) in bf16, through the
+   dispatching wrapper: ragged decode offsets across block boundaries, a
+   dead row, null table tails (the row kernel), then verify chunks (one
+   with a dead row) and prefill chunks, T in {5, 16, 17, 300, 512 @0,
+   512 @1000, 2048 @0}, window 64 + softcap 50 + score scale
+   1/sqrt(256) at T=5 and T=64, block sizes 8 and 32 (the tile kernel).
+   Each case checks that exactly the kernel the dispatch rule names
+   launched. Tolerance: max abs error <= 2e-2 against the plain version
+   run in f32 on the same bf16 inputs (bf16 output rounding is ~4e-3 at
+   these magnitudes; the tile kernel also rounds P to bf16, as the JAX
+   kernel does). Then the row kernel's time at a
+   decode step over a 1024-token context and the tile kernel's at a
+   512-token prefill chunk at offset 1000, each beside the plain version,
+   SDPA over the gathered view (the library yardstick, never used by the
+   port) and the bound; the row kernel at that prefill chunk for
+   comparison; the crossover of the two kernels over T; then the decode
+   sweep, 32 launches back to back over a 32-layer copy of the pool, in
+   ms per launch.
 3. The same cases for the int8-pool form: random int8 pages, random
    per-(kv head, block) scales, and a null block of +-127 under a scale
    of 1e3 that no reader may touch. Tolerance 2e-2 in bf16 and 1e-4 in
    f32 against the plain version on the same inputs. Times as in phase
    2, SDPA over the host-dequantized gathered view, the bound in int8
    bytes plus the scales.
-4. Flash kernel vs plain version (contiguous K/V, llama-3-8b heads):
+4. Flash attention vs plain version (contiguous K/V, llama-3-8b heads):
    causal T=S=2048, decode B=8 T=1 S=2048 with ragged offsets and one
    empty row (offset -1), T=512 at offset 1000 over S=2048, non-causal
-   T=S=256, and an f32 case. Tolerance 2e-2 / 1e-4. Time of the causal
-   T=2048 case beside the plain version, SDPA(is_causal=True) and the
-   bound. No serving path calls this op.
-5. A whole forward at llama-3-8b width, 2 layers, f32: a 300-token
-   prefill and 8 greedy decode steps through the kernel and through the
-   plain version (asked for explicitly, here only), over an f32 pool and
-   over an int8 pool. Logits agree within 2e-3 and the greedy tokens are
-   equal; the int8-vs-f32 pool logit gap is printed for information.
+   T=S=256 in bf16 (the tile kernel), and an f32 case (the row kernel).
+   Tolerance 2e-2 / 1e-4. Time of the causal T=2048 case through each
+   kernel (bf16 for the tile kernel, f32 for the row kernel) beside the
+   plain version, SDPA(is_causal=True) and the bound. No serving path
+   calls this op.
+5. A whole forward at llama-3-8b width, 2 layers: a 300-token prefill and
+   8 greedy decode steps through the kernels and through the plain
+   version (asked for explicitly, here only), in f32 over an f32 pool and
+   over an int8 pool (the row kernel; logits within 2e-3, greedy tokens
+   equal; the int8-vs-f32 pool logit gap printed for information), then
+   in bf16 over a bf16 pool and an int8 pool, whose 300-token prefill
+   goes through the tile kernel: logits within the gap between the plain
+   bf16 and the plain f32 forward (the kernels may not add more error
+   than bf16 itself carries).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
-   execute_stream; the kernel's launch count over that run must equal
-   n_layers x the engine's forward calls. Then a breakdown of a decode
-   step and a prefill chunk: host wall, device busy, idle share and the
-   attention kernel's ms per launch inside the step.
+   execute_stream; the row kernel's launches plus the tile kernel's must
+   equal n_layers x the engine's forward calls, the tile kernel's
+   n_layers x the prefill-chunk forwards (> 0). Then a breakdown of a
+   decode step and a prefill chunk: host wall, device busy, idle share
+   and the attention kernels' ms per launch inside the step.
 7. The int8 slice: the same parameters served by an engine with
-   cache_dtype="int8" inside CUDAService, the same requests; the int8
-   form's launch count must equal n_layers x forward calls (and the
-   other form's stay 0); pool bytes beside the bf16 pool's.
+   cache_dtype="int8" inside CUDAService, the same requests and the same
+   launch checks on the int8 counters (the bf16 pool's stay 0); pool
+   bytes beside the bf16 pool's.
 8. The kernel table as one JSON line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
@@ -69,6 +84,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 KERNEL_TOL = 2e-2
 FORWARD_TOL = 2e-3
 SEED = 0
@@ -196,16 +212,25 @@ def attention_work(offs, T, H, Hkv, hd, BS, window, elem_bytes, MB,
     return qo + kv + tables, 4 * hd * pairs * H
 
 
+WINDOW_KW = dict(window=64, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
 RAGGED_CASES = [
+    # the row kernel: decode
     ("decode ragged + dead row", dict(
         offs=[0, 15, 16, 17, 500, 1023, 2047, 300], T=1, dead=(7,)), {}),
     ("decode pow2 null tails", dict(
         offs=[3, 40, 100, 255], T=1, extra_tables=9), {}),
+    # the tile kernel: verify and prefill chunks
+    ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,)), {}),
+    ("window+softcap+scale T=5", dict(offs=[5, 70, 129, 1000], T=5), WINDOW_KW),
+    ("prefill T=16", dict(offs=[0, 40], T=16), {}),
+    ("prefill T=17", dict(offs=[5, 33], T=17), {}),
+    ("window+softcap+scale T=64", dict(offs=[5, 70, 129, 1000], T=64), WINDOW_KW),
+    ("prefill T=300", dict(offs=[0], T=300), {}),
     ("prefill T=512 @0", dict(offs=[0], T=512), {}),
     ("prefill T=512 @1000", dict(offs=[1000], T=512), {}),
-    ("verify T=5", dict(offs=[10, 31, 64, 700], T=5), {}),
-    ("window+softcap+scale", dict(offs=[5, 70, 129, 1000], T=5), dict(
-        window=64, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))),
+    ("prefill T=2048 @0", dict(offs=[0], T=2048), {}),
+    ("BS=8 T=100 + null tails", dict(offs=[3, 77], T=100, BS=8, extra_tables=4), {}),
+    ("BS=32 T=100", dict(offs=[3, 77], T=100, BS=32), {}),
 ]
 
 
@@ -307,84 +332,140 @@ def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
     return ms
 
 
-def phase_kernel_vs_plain(flush):
+def ragged_counter(q, int8: bool) -> str:
+    """The launch counter the dispatch rule names for these queries."""
+    from bee2bee_tpu_torch.ops.ragged import use_tile_kernel
+
+    tile = use_tile_kernel(q.dtype, q.shape[1], q.shape[3])
+    return ("ragged_prefill" if tile else "ragged") + ("_int8" if int8 else "")
+
+
+def check_one_launch(label: str, counter: str) -> None:
+    counts = read_counts()
+    check(counts[counter] == 1 and sum(counts.values()) == 1,
+          f"{label}: expected one {counter} launch, counted {counts}")
+
+
+def time_crossover(label, gen, flush, int8):
+    """Both ragged kernels forced at the same inputs, over T: where the
+    tile kernel starts to win (the dispatch's T_MIN), and the row kernel
+    at the timed prefill chunk."""
+    from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
+
+    for B, off0, Ts in ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)),
+                        (1, 1000, (512,))):
+        for T in Ts:
+            q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T)
+            scales = (None, None)
+            if int8:
+                kp, vp, *scales = int8_pools(gen, kp.shape[1])
+            rows = row_offsets(off, B, q.device)
+
+            def run(tile):
+                return _launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(128),
+                                      0.0, *scales, tile=tile)
+
+            row_ms = cuda_time_ms(lambda: run(False), flush=flush)
+            tile_ms = cuda_time_ms(lambda: run(True), flush=flush)
+            log(f"crossover {label} B={B} T={T} ctx={off0 + T}: row kernel "
+                f"{row_ms:.4f} ms, tile kernel {tile_ms:.4f} ms")
+
+
+def phase_ragged_vs_plain(flush, int8=False):
+    """Phase 2 (bf16 pool and the f32 form) or phase 3 (int8 pool): each
+    case through the dispatching wrapper against the plain version, the
+    kernel the rule names launched once; then the timings. Returns (max
+    abs error per kernel, timings)."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_paged_attention, ragged_paged_attention_ref,
     )
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    max_err = 0.0
-    for label, geo, kw in RAGGED_CASES:
+    gen.manual_seed(SEED + int8)
+    tag = "int8 kernel vs plain" if int8 else "kernel vs plain"
+    errs = {"row": 0.0, "tile": 0.0}
+    # the f32 instantiation the phase-5 forward runs (the row kernel)
+    f32_case = ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3,
+                                      dtype=torch.float32), {})
+    for label, geo, kw in RAGGED_CASES + [f32_case]:
         q, kp, vp, tb, off = make_case(gen, **geo)
+        if int8:
+            kp, vp, ks, vs = int8_pools(gen, kp.shape[1], BS=kp.shape[2])
+            kw = dict(kw, k_scale=ks, v_scale=vs)
+        counter = ragged_counter(q, int8)
+        reset_counts()
         got = ragged_paged_attention(q, kp, vp, tb, off, **kw)
         torch.cuda.synchronize()
-        want = ragged_paged_attention_ref(
-            q.float(), kp.float(), vp.float(), tb, off, **kw
-        )
-        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        check_one_launch(f"{tag}: {label}", counter)
+        if int8:  # the plain version dequantizes and rounds to q's type
+            want = ragged_paged_attention_ref(q, kp, vp, tb, off, **kw).float()
+        else:
+            want = ragged_paged_attention_ref(
+                q.float(), kp.float(), vp.float(), tb, off, **kw)
+        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-4
+        check(bool(torch.isfinite(got).all()), f"{tag}: {label}: non-finite output")
         err = (got.float() - want).abs().max().item()
-        log(f"kernel vs plain: {label}: max abs err {err:.3e} (tol {KERNEL_TOL})")
-        check(err <= KERNEL_TOL, f"{label}: max abs err {err} > {KERNEL_TOL}")
-        max_err = max(max_err, err)
-    # the f32 instantiation the phase-3 forward runs
-    q, kp, vp, tb, off = make_case(gen, offs=[7, 300, 1023], T=3, dtype=torch.float32)
-    err32 = (ragged_paged_attention(q, kp, vp, tb, off)
-             - ragged_paged_attention_ref(q, kp, vp, tb, off)).abs().max().item()
-    log(f"kernel vs plain: f32 verify T=3: max abs err {err32:.3e} (tol 1e-4)")
-    check(err32 <= 1e-4, f"f32 kernel: max abs err {err32}")
+        log(f"{tag}: {label} ({q.dtype}, {counter} kernel): max abs err "
+            f"{err:.3e} (tol {tol})")
+        check(err <= tol, f"{tag}: {label}: max abs err {err} > {tol}")
+        kernel = "tile" if "prefill" in counter else "row"
+        errs[kernel] = max(errs[kernel], err)
 
     timings = {}
+    label0 = "int8 " if int8 else ""
     for label, offs, T in (("decode", [1023] * 8, 1), ("prefill", [1000], 512)):
         q, kp, vp, tb, off = make_case(gen, offs=offs, T=T)
-        timings[label] = time_ragged(label, q, kp, vp, tb, off, offs, T, flush)
+        scales = None
+        if int8:
+            kp, vp, *scales = int8_pools(gen, kp.shape[1])
+        timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, int8)} "
+                                     f"kernel)", q, kp, vp, tb, off, offs, T, flush,
+                                     scales=scales)
         if label == "decode":
-            time_decode_sweep(label, q, kp, vp, tb, off)
-    return max(max_err, err32), timings
-
-
-# ------------------------------------------------------------ phase 3
-
-
-def phase_int8_kernel_vs_plain(flush):
-    from bee2bee_tpu_torch.ops.ragged import (
-        ragged_paged_attention, ragged_paged_attention_ref,
-    )
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    max_err = 0.0
-    for label, geo, kw in RAGGED_CASES + [("f32 verify T=3", dict(
-            offs=[7, 300, 1023], T=3, dtype=torch.float32), {})]:
-        q, kp, _, tb, off = make_case(gen, **geo)
-        kq, vq, ks, vs = int8_pools(gen, kp.shape[1])
-        got = ragged_paged_attention(q, kq, vq, tb, off, k_scale=ks, v_scale=vs, **kw)
-        torch.cuda.synchronize()
-        want = ragged_paged_attention_ref(q, kq, vq, tb, off, k_scale=ks,
-                                          v_scale=vs, **kw)
-        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-4
-        check(bool(torch.isfinite(got).all()), f"int8 {label}: non-finite output")
-        err = (got.float() - want.float()).abs().max().item()
-        log(f"int8 kernel vs plain: {label} ({q.dtype}): max abs err {err:.3e} "
-            f"(tol {tol})")
-        check(err <= tol, f"int8 {label}: max abs err {err} > {tol}")
-        max_err = max(max_err, err)
-    timings = {}
-    for label, offs, T in (("decode", [1023] * 8, 1), ("prefill", [1000], 512)):
-        q, kp, _, tb, off = make_case(gen, offs=offs, T=T)
-        kq, vq, ks, vs = int8_pools(gen, kp.shape[1])
-        timings[label] = time_ragged(f"int8 {label}", q, kq, vq, tb, off, offs, T,
-                                     flush, scales=(ks, vs))
-        if label == "decode":
-            time_decode_sweep(f"int8 {label}", q, kq, vq, tb, off, scales=(ks, vs))
-    return max_err, timings
+            time_decode_sweep(f"{label0}{label}", q, kp, vp, tb, off, scales=scales)
+    time_crossover(f"{label0}pool".strip(), gen, flush, int8)
+    return errs, timings
 
 
 # ------------------------------------------------------------ phase 4
 
 
-def phase_flash_vs_plain(flush):
+def time_flash(label, q, k, v, flush):
+    """Causal flash attention's time beside the plain version's,
+    SDPA(is_causal)'s and the bound, at q's type."""
     from bee2bee_tpu_torch.ops.flash import flash_attention, flash_attention_ref
+
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v), flush=flush)
+    plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), flush=flush)
+    qs = q.transpose(1, 2).contiguous()  # [B, H, T, hd]
+    ks = k.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), flush=flush)
+    # q, k, v read once, the output written once; 4*hd flops per visible
+    # (query, key) pair of each head, at the peak rate of q's type
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * hd * H * B * (T * (T + 1) // 2)
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"timing flash {label} causal B={B} T=S={T} ({q.dtype}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa(is_causal) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B -> {t_bytes:.4f} ms, "
+        f"{flops} flop at {peak / 1e12:.0f} TFLOP/s -> {t_ops:.4f} ms), share of "
+        f"bound {bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_flash_vs_plain(flush):
+    from bee2bee_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_ref, use_tile_kernel,
+    )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
@@ -406,43 +487,30 @@ def phase_flash_vs_plain(flush):
         ("f32 T=64 S=256 @[10,150]", qkv(2, 64, 256, torch.float32), dict(
             offset=offsets([10, 150]))),
     ]
-    max_err = 0.0
+    errs = {"row": 0.0, "tile": 0.0}
     for label, (q, k, v), kw in cases:
+        counter = "flash_tile" if use_tile_kernel(q.dtype, hd) else "flash"
+        reset_counts()
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        check_one_launch(f"flash {label}", counter)
         want = flash_attention_ref(q, k, v, **kw)
         tol = KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-4
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
         err = (got.float() - want.float()).abs().max().item()
-        log(f"flash vs plain: {label} ({q.dtype}): max abs err {err:.3e} (tol {tol})")
+        log(f"flash vs plain: {label} ({q.dtype}, {counter} kernel): max abs err "
+            f"{err:.3e} (tol {tol})")
         check(err <= tol, f"flash {label}: max abs err {err} > {tol}")
         if "empty row" in label:
             check(not bool(got[7].any()), "flash: the empty row is not 0")
-        max_err = max(max_err, err)
+        kernel = "tile" if counter == "flash_tile" else "row"
+        errs[kernel] = max(errs[kernel], err)
 
-    B, T = 1, 2048
     q, k, v = cases[0][1]
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v), flush=flush)
-    plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), flush=flush)
-    qs = q.transpose(1, 2).contiguous()  # [B, H, T, hd]
-    ks = k.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
-    vs = v.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), flush=flush)
-    # q, k, v read once, the output written once; 4*hd flops per visible
-    # (query, key) pair of each head
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * hd * H * B * (T * (T + 1) // 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"timing flash causal B={B} T=S={T}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa(is_causal) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B -> {t_bytes:.4f} ms, "
-        f"{flops} flop -> {t_ops:.4f} ms), share of bound {bound_ms / ms:.3f}")
-    return max_err, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+    timings = {"tile": time_flash("tile kernel", q, k, v, flush)}
+    q, k, v = (t.float() for t in (q, k, v))
+    timings["row"] = time_flash("row kernel", q, k, v, flush)
+    return errs, timings
 
 
 # ------------------------------------------------------------ phase 5
@@ -467,15 +535,15 @@ def phase_forward_parity():
     tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
     ids = torch.randint(3, 259, (1, n_prompt), generator=gen, device="cuda")
 
-    def run(attn_fn, pool_dtype=torch.float32):
+    def run(attn_fn, pool_dtype=torch.float32, weights=params):
         pool = core.init_paged_pool(cfg, nblocks + 1, BS, pool_dtype, "cuda")
-        logits, _ = core.forward(params, cfg, ids, pool, 0, tables, attn_fn=attn_fn)
+        logits, _ = core.forward(weights, cfg, ids, pool, 0, tables, attn_fn=attn_fn)
         steps = [logits[:, -1]]
         toks = []
         for i in range(n_steps):
             tok = torch.argmax(steps[-1], dim=-1)
             toks.append(int(tok))
-            lg, _ = core.forward(params, cfg, tok[:, None], pool, n_prompt + i,
+            lg, _ = core.forward(weights, cfg, tok[:, None], pool, n_prompt + i,
                                  tables, attn_fn=attn_fn)
             steps.append(lg[:, -1])
         return logits, torch.stack(steps), toks
@@ -511,11 +579,56 @@ def phase_forward_parity():
         f"tokens {'equal' if q_toks == k_toks else 'differ'} to the f32 pool's")
     check(q_err <= FORWARD_TOL, f"int8 forward logits differ by {q_err}")
     check(q_toks == qp_toks, f"int8 greedy tokens differ: {q_toks} vs {qp_toks}")
-    del params
+
+    # bf16, where the 300-token prefill goes through the tile kernel (P
+    # rounded to bf16, other summation order). Tolerance: the kernels may
+    # move the prefill logits no further from the plain bf16 forward than
+    # bf16 itself moves the plain forward from the f32 one on the same
+    # weights. Greedy tokens may part at bf16 near-ties and are printed.
+    bparams = cast_tree(params, torch.bfloat16)
+    for pool_dtype, f32_logits in ((torch.bfloat16, p_logits), (torch.int8, qp_logits)):
+        tag = f"forward 2x llama-3-8b width bf16, {str(pool_dtype)[6:]} pool"
+        tile = "ragged_prefill" + ("_int8" if pool_dtype == torch.int8 else "")
+        row = "ragged" + ("_int8" if pool_dtype == torch.int8 else "")
+        reset_counts()
+        b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts[tile] == cfg.n_layers and counts[row] == cfg.n_layers * n_steps
+              and sum(counts.values()) == cfg.n_layers * (n_steps + 1),
+              f"{tag}: launches {counts}: expected the prefill through {tile}, "
+              f"the {n_steps} decode steps through {row}")
+        bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+        err = (b_logits - bp_logits).abs().max().item()
+        tol = (bp_logits - f32_logits).abs().max().item()
+        log(f"{tag}: prefill {n_prompt} logits max abs err {err:.3e} (tol {tol:.3e}, "
+            f"the plain bf16 forward's gap to the plain f32 forward); launches "
+            f"{counts}; greedy kernel {b_toks} plain {bp_toks}")
+        check(err <= tol, f"{tag}: logits differ by {err} > {tol}")
+    del params, bparams
     torch.cuda.empty_cache()
 
 
+def cast_tree(tree, dtype):
+    """A copy of a parameter tree (dicts, lists, tensors) with its floating
+    tensors cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
 # ------------------------------------------------------------ phases 6-7
+
+
+# the port's attention kernels by (part of) name: both ragged kernels and
+# both flash kernels
+ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "flash_tile_kernel")
 
 
 def device_profile(fn, calls: int):
@@ -533,7 +646,7 @@ def device_profile(fn, calls: int):
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t in kernels)
     check(busy_us > 0, "the profiler saw no device time")
-    attn_us = sum(t for k, t in kernels if "attention" in k)
+    attn_us = sum(t for k, t in kernels if any(n in k for n in ATTENTION_KERNELS))
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
     return (busy_us / 1e3 / calls, attn_us / 1e3 / calls,
             [(k[:48], round(t / busy_us, 3)) for k, t in top])
@@ -580,7 +693,8 @@ def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
         busy_ms, attn_ms, top = device_profile(fn, calls)
         log(f"breakdown {label}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}; "
-            f"attention kernel {attn_ms / cfg.n_layers:.4f} ms per launch; "
+            f"attention kernels {attn_ms / cfg.n_layers:.4f} ms per launch "
+            f"({attn_ms / busy_ms:.3f} of busy); "
             f"top kernels by device time {top}")
     weight_bytes = engine.info["n_params"] * engine.dtype.itemsize
     log(f"breakdown: weights {weight_bytes} B -> "
@@ -592,9 +706,11 @@ def reset_counts():
     from bee2bee_tpu_torch.ops.flash import flash_attention
     from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention
 
-    ragged_paged_attention.launches = 0
-    ragged_paged_attention.int8_launches = 0
+    for name in ("launches", "int8_launches", "prefill_launches",
+                 "int8_prefill_launches"):
+        setattr(ragged_paged_attention, name, 0)
     flash_attention.launches = 0
+    flash_attention.tile_launches = 0
 
 
 def read_counts() -> dict:
@@ -604,7 +720,10 @@ def read_counts() -> dict:
     return {
         "ragged": ragged_paged_attention.launches,
         "ragged_int8": ragged_paged_attention.int8_launches,
+        "ragged_prefill": ragged_paged_attention.prefill_launches,
+        "ragged_prefill_int8": ragged_paged_attention.int8_prefill_launches,
         "flash": flash_attention.launches,
+        "flash_tile": flash_attention.tile_launches,
     }
 
 
@@ -637,7 +756,10 @@ def phase_slice(cache_dtype="bfloat16", params=None):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. Returns (the launch counts, pool
     bytes, the engine's params)."""
-    counter = "ragged_int8" if cache_dtype == "int8" else "ragged"
+    from bee2bee_tpu_torch.ops.ragged import use_tile_kernel
+
+    suffix = "_int8" if cache_dtype == "int8" else ""
+    row, tile = "ragged" + suffix, "ragged_prefill" + suffix
     torch.cuda.reset_peak_memory_stats()
     svc, load_s = load_slice(cache_dtype, params)
     engine = svc.engine
@@ -675,6 +797,16 @@ def phase_slice(cache_dtype="bfloat16", params=None):
             except Exception as e:  # noqa: BLE001 — re-raised below
                 errors.append((i, repr(e)))
 
+        # the chunk length of every forward the engine runs, to name the
+        # kernel each one's attention must launch
+        chunks: list = []
+        forward = engine.forward
+
+        def counted_forward(tokens, *args, **kw):
+            chunks.append(tokens.shape[1])
+            return forward(tokens, *args, **kw)
+
+        engine.forward = counted_forward
         reset_counts()
         engine.forward_calls = 0
         t1 = time.perf_counter()
@@ -692,6 +824,7 @@ def phase_slice(cache_dtype="bfloat16", params=None):
         torch.cuda.synchronize()
         counts = read_counts()
         forwards = engine.forward_calls
+        engine.forward = forward
         for i, r in enumerate(results):
             check(r is not None and isinstance(r.get("text"), str),
                   f"request {i}: no result")
@@ -716,13 +849,22 @@ def phase_slice(cache_dtype="bfloat16", params=None):
             f"the last first token -> {(new_tokens - len(results)) / decode_s:.2f} "
             f"decode tok/s; peak memory {torch.cuda.max_memory_allocated()} B; "
             f"pool {nbytes} B ({engine.pool_blocks} blocks)")
-        log(f"{tag}: kernel launches {counts}, forward calls {forwards}, "
+        tiled = sum(use_tile_kernel(engine.dtype, T, cfg.head_dim) for T in chunks)
+        prefills = sum(T > 1 for T in chunks)
+        log(f"{tag}: kernel launches {counts}, forward calls {forwards} "
+            f"({prefills} prefill chunks, {tiled} of them through the tile kernel), "
             f"n_layers {cfg.n_layers}")
-        launches = counts[counter]
-        check(launches > 0, f"{tag}: the main path never launched the {counter} kernel")
-        check(launches == cfg.n_layers * forwards,
-              f"{tag}: launches {launches} != {cfg.n_layers} x {forwards} forwards")
-        others = {k: v for k, v in counts.items() if k != counter and v}
+        check(len(chunks) == forwards,
+              f"{tag}: {len(chunks)} forwards seen of {forwards}")
+        check(counts[row] + counts[tile] == cfg.n_layers * forwards,
+              f"{tag}: launches {counts[row]} + {counts[tile]} != {cfg.n_layers} x "
+              f"{forwards} forwards")
+        check(counts[tile] > 0 and tiled == prefills
+              and counts[tile] == cfg.n_layers * prefills,
+              f"{tag}: tile launches {counts[tile]} != {cfg.n_layers} x {prefills} "
+              f"prefill chunks")
+        check(counts[row] > 0, f"{tag}: the main path never launched the {row} kernel")
+        others = {k: v for k, v in counts.items() if k not in (row, tile) and v}
         check(not others, f"{tag}: other kernel forms launched: {others}")
         step_breakdown(engine)
         return counts, nbytes, engine.params
@@ -742,9 +884,9 @@ def main() -> int:
     sys.path.insert(0, str(here))
     card, _ = phase_device_and_build()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    max_err, timings = phase_kernel_vs_plain(flush)
-    int8_err, int8_timings = phase_int8_kernel_vs_plain(flush)
-    flash_err, flash_timing = phase_flash_vs_plain(flush)
+    errs, timings = phase_ragged_vs_plain(flush)
+    int8_errs, int8_timings = phase_ragged_vs_plain(flush, int8=True)
+    flash_errs, flash_timings = phase_flash_vs_plain(flush)
     del flush
     phase_forward_parity()
     counts, bf16_pool, params = phase_slice()
@@ -772,19 +914,29 @@ def main() -> int:
         }
 
     ragged_src = "bee2bee_tpu_torch/csrc/ragged_attention.cu"
+    prefill_src = "bee2bee_tpu_torch/csrc/ragged_prefill_attention.cu"
+    flash_src = "bee2bee_tpu_torch/csrc/flash_attention.cu"
     kernels = [
         row("ragged_paged_attention", ragged_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged"], max_err, timings["decode"]),
+            counts["ragged"], errs["row"], timings["decode"]),
         row("ragged_paged_attention_int8", ragged_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_int8"], int8_err,
-            int8_timings["decode"]),
-        row("flash_attention", "bee2bee_tpu_torch/csrc/flash_attention.cu",
-            "bee2bee_tpu/ops/flash.py:46", counts["flash"] + int8_counts["flash"],
-            flash_err, flash_timing),
+            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_int8"],
+            int8_errs["row"], int8_timings["decode"]),
+        row("flash_attention", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash"] + int8_counts["flash"], flash_errs["row"],
+            flash_timings["row"]),
+        row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            counts["ragged_prefill"], errs["tile"], timings["prefill"]),
+        row("ragged_prefill_attention_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_int8"],
+            int8_errs["tile"], int8_timings["prefill"]),
+        row("flash_attention_tile", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash_tile"] + int8_counts["flash_tile"], flash_errs["tile"],
+            flash_timings["tile"]),
     ]
-    log("kernels: flash_attention has 0 launches on the main path: no serving "
-        "path calls it (the engines attend through the ragged op); it is "
-        "held against its plain version and timed above")
+    log("kernels: the flash kernels have 0 launches on the main path: no "
+        "serving path calls flash_attention (the engines attend through the "
+        "ragged op); both are held against the plain version and timed above")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -117,3 +117,32 @@ def test_dispatch_raises_off_cpu_and_cuda():
     kv = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         port.flash_attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("dtype,hd,tile", [
+    (torch.bfloat16, 128, True),
+    (torch.bfloat16, 64, True),
+    (torch.bfloat16, 256, False),  # no tile instantiation: the row kernel
+    (torch.float32, 128, False),  # f32: the row kernel (parity checks)
+], ids=["bf16_hd128", "bf16_hd64", "bf16_hd256", "f32"])
+def test_dispatch_rule(dtype, hd, tile):
+    assert port.use_tile_kernel(dtype, hd) is tile
+
+
+def test_kernel_args_need_16_byte_aligned_q():
+    """Both kernels copy q in 16-byte pieces or rows."""
+    n = 2 * 4 * 4 * 128
+    q = torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(2, 4, 4, 128)
+    kv = torch.zeros((2, 16, 2, 128), dtype=torch.bfloat16)
+    off = torch.zeros(2, dtype=torch.int32)
+    port._check_kernel_args(q.clone(), kv, kv, off)
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(q, kv, kv, off)
+
+
+def test_cpu_dispatch_counts_no_tile_launch():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 16, 4, 2, 16, S=32, seed=14))
+    got = port.flash_attention(q, k, v, offset=8)
+    assert torch.equal(got, port.flash_attention_ref(q, k, v, offset=8))
+    assert port.flash_attention.tile_launches == 0

@@ -253,3 +253,124 @@ def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
     )
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------ tile kernel: dispatch
+
+
+@pytest.mark.parametrize("dtype,T,hd,tile", [
+    (torch.bfloat16, 1, 128, False),  # decode: the row kernel
+    (torch.bfloat16, port.T_MIN - 1, 128, False),
+    (torch.bfloat16, port.T_MIN, 128, True),  # the shortest tiled chunk
+    (torch.bfloat16, 5, 128, True),  # a verify chunk
+    (torch.bfloat16, 2048, 128, True),  # a prefill bucket
+    (torch.bfloat16, 300, 64, True),
+    (torch.bfloat16, 300, 256, False),  # no tile instantiation
+    (torch.float32, 300, 128, False),  # f32 queries: the row kernel
+    (torch.float16, 300, 128, False),
+], ids=["decode", "below_t_min", "t_min", "verify", "prefill", "hd64", "hd256",
+        "f32", "f16"])
+def test_dispatch_rule(dtype, T, hd, tile):
+    assert port.use_tile_kernel(dtype, T, hd) is tile
+
+
+def _tile_args(T=32, hd=128, int8=False, **over):
+    """Arguments of the tile kernel's launch checks, on the CPU."""
+    q = torch.zeros((2, T, 8, hd), dtype=torch.bfloat16)
+    pool_dtype = torch.int8 if int8 else torch.bfloat16
+    kp = torch.zeros((2, 9, 16, hd), dtype=pool_dtype)
+    vp = torch.zeros_like(kp)
+    ks = vs = torch.ones((2, 9)) if int8 else None
+    args = dict(q=q, k_pool=kp, v_pool=vp,
+                block_tables=torch.zeros((2, 4), dtype=torch.int32),
+                off=torch.zeros(2, dtype=torch.int32), k_scale=ks, v_scale=vs)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
+def test_tile_kernel_args_accepted(int8):
+    port._check_kernel_args(**_tile_args(int8=int8))
+
+
+def _misaligned_q(T, hd):
+    """A contiguous bf16 q whose data starts 2 bytes past a 16-byte line."""
+    n = 2 * T * 8 * hd
+    return torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(2, T, 8, hd)
+
+
+def test_tile_kernel_needs_16_byte_aligned_q():
+    """The tile kernel copies q rows in 16-byte pieces; the row kernel
+    (decode) reads q by elements and takes the same storage."""
+    q = _misaligned_q(32, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_tile_args(q=q))
+    port._check_kernel_args(**_tile_args(q=_misaligned_q(1, 128)))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("pool_dtype", TypeError, "pool dtype"),
+    ("scale_shape", ValueError, "k_scale must be float32"),
+    ("block_size", ValueError, "block size 12"),
+    ("tables_dtype", ValueError, "block_tables must be int32"),
+    ("pool_width", ValueError, "do not match head_dim"),
+    ("noncontiguous", ValueError, "q is not contiguous"),
+])
+def test_tile_kernel_args_rejected(bad, err, match):
+    args = _tile_args(int8=bad == "scale_shape")
+    if bad == "pool_dtype":
+        args["k_pool"] = args["v_pool"] = args["k_pool"].float()
+    elif bad == "scale_shape":
+        args["k_scale"] = torch.ones((2, 8))
+    elif bad == "block_size":
+        args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 12, 128),
+                                                      dtype=torch.bfloat16)
+    elif bad == "tables_dtype":
+        args["block_tables"] = args["block_tables"].long()
+    elif bad == "pool_width":
+        args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 16, 64),
+                                                      dtype=torch.bfloat16)
+    elif bad == "noncontiguous":
+        args["q"] = torch.zeros((2, 8, 32, 128), dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(err, match=match):
+        port._check_kernel_args(**args)
+
+
+def test_cpu_dispatch_counts_no_tile_launch():
+    """A chunk the rule tiles still takes the plain version on the CPU."""
+    case = [torch.from_numpy(a) for a in
+            _pool_case(offs=[4, 9], T=port.T_MIN + 3, H=4, Hkv=2, hd=16, seed=18)]
+    q = case[0].to(torch.bfloat16)
+    kp, vp = (t.to(torch.bfloat16) for t in case[1:3])
+    got = port.ragged_paged_attention(q, kp, vp, *case[3:])
+    assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, *case[3:]))
+    assert port.ragged_paged_attention.prefill_launches == 0
+    assert port.ragged_paged_attention.int8_prefill_launches == 0
+
+
+# ------------------------------------- the tile kernel's shapes, scaled down
+
+# The cases chip_smoke.py holds the tile kernel to, at small widths with
+# the GQA group of llama-3-8b (4 heads a kv head): a chunk of 17 (one row
+# tile plus a ragged edge), a 64-long chunk with window + softcap + score
+# scale, and page sizes 8 and 32 — for both pool forms.
+TILE_CASES = {
+    "t17": (dict(offs=[5, 33], T=17, H=8, Hkv=2, hd=16, seed=21), {}),
+    "t64_window_softcap": (dict(offs=[5, 70], T=64, H=8, Hkv=2, hd=16, seed=22),
+                           dict(window=24, sm_scale=1.0 / math.sqrt(256),
+                                softcap=50.0)),
+    "bs8": (dict(offs=[3, 29], T=20, H=8, Hkv=2, hd=16, BS=8, extra_tables=2,
+                 seed=23), {}),
+    "bs32": (dict(offs=[3, 29], T=20, H=8, Hkv=2, hd=16, BS=32, seed=24), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8_pool"])
+def test_tile_shapes_ref_matches_jax_kernel(name, int8):
+    geo, kw = TILE_CASES[name]
+    case = _pool_case(**geo)
+    got, want = (_both_int8 if int8 else _both)(case, **kw)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
