@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bee2bee_tpu_torch"
 # every kernel source of the package; build() compiles them all at once
 SOURCES = (
-    "ragged_attention.cu", "ragged_prefill_attention.cu", "flash_attention.cu",
+    "ragged_attention.cu", "ragged_prefill_attention.cu",
+    "ragged_decode_attention.cu", "flash_attention.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

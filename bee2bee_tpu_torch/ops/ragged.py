@@ -4,12 +4,15 @@ read straight from the paged KV pool through per-row block tables.
 The port of ``bee2bee_tpu/ops/ragged.py``'s ``ragged_paged_attention``
 with the same ABI. Two implementations of one function:
 
-- two CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
-  replace the TPU kernel ``_ragged_kernel``: the tensor-core tile kernel
+- three CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
+  replace the TPU kernel ``_ragged_kernel``: the split-K decode kernel
+  ``csrc/ragged_decode_attention.cu`` for bf16 decode (T = 1) at a
+  head_dim it is built for (64, 128); the tensor-core tile kernel
   ``csrc/ragged_prefill_attention.cu`` for bf16 chunks of at least
-  ``T_MIN`` queries at a head_dim it is built for (64, 128), and the
-  row-per-warp kernel ``csrc/ragged_attention.cu`` for everything else
-  (decode, f32, head_dim 256); ``use_tile_kernel`` is the rule;
+  ``T_MIN`` queries at those head_dims; and the row-per-warp kernel
+  ``csrc/ragged_attention.cu`` for everything else (f32, head_dim 256).
+  ``use_decode_kernel`` and ``use_tile_kernel`` are the rule, and
+  ``ragged_kernel`` names the kernel they pick;
 - ``ragged_paged_attention_ref``, the plain PyTorch version: it gathers
   the mapped pages into a ``[B, MB*BS]`` view, builds the mask from the
   offsets and the window and takes an f32 softmax. The wrapper takes it
@@ -31,13 +34,16 @@ and block). An int8 page is dequantized in f32 and rounded to q's type
 before the dots, as the JAX kernel does. The wrapper counts each
 kernel's launches per pool form apart: ``launches`` and
 ``int8_launches`` for the row kernel, ``prefill_launches`` and
-``int8_prefill_launches`` for the tile kernel. The mesh wrapper
+``int8_prefill_launches`` for the tile kernel, ``decode_launches`` and
+``int8_decode_launches`` for the decode kernel (one call launches its two
+CUDA kernels, the split walk and the merge, and counts 1). The mesh wrapper
 (``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,22 +55,64 @@ _HEAD_DIMS = (64, 128, 256)
 _BLOCK_SIZES = (8, 16, 32)
 _SOURCE = "ragged_attention.cu"
 _PREFILL_SOURCE = "ragged_prefill_attention.cu"
+_DECODE_SOURCE = "ragged_decode_attention.cu"
 # the tile kernel's instantiations: head_dim 256 would hold 192
 # accumulator and fragment registers a lane
 _TILE_HEAD_DIMS = (64, 128)
+# the decode kernel's, for the same reason
+_DECODE_HEAD_DIMS = (64, 128)
 # the shortest chunk the tile kernel takes. On the H100 it beat the row
 # kernel at every chunk length timed, T = 1 included (chip_smoke.py's
-# crossover lines, PERF.md); decode (T = 1) stays on the row kernel, whose
-# redesign is flash-decoding's
+# crossover lines, PERF.md); decode (T = 1) has its own split-K kernel
 T_MIN = 2
+# keys of one staged tile of the decode kernel (kKeys in its source): a
+# split holds whole tiles
+DECODE_TILE_KEYS = 64
+# the most tiles a split walks: longer walks leave SMs idle at B=8, shorter
+# ones add blocks and partials where the grid already fills the card
+DECODE_MAX_SPLIT_TILES = 4
 
 
 def use_tile_kernel(dtype, T: int, hd: int) -> bool:
-    """The dispatch rule: bf16 chunks of at least T_MIN queries (verify
-    and prefill chunks) at a head_dim the tile kernel is built for go to
-    the tensor-core tile kernel; decode, f32 and other head_dims go to the
-    row kernel."""
+    """The dispatch rule of prefill and verify chunks: bf16 chunks of at
+    least T_MIN queries at a head_dim the tile kernel is built for go to
+    the tensor-core tile kernel."""
     return dtype == torch.bfloat16 and T >= T_MIN and hd in _TILE_HEAD_DIMS
+
+
+def use_decode_kernel(dtype, T: int, hd: int) -> bool:
+    """The dispatch rule of decode: bf16 queries, one a row (T = 1), at a
+    head_dim the split-K decode kernel is built for. It takes no case that
+    ``use_tile_kernel`` takes."""
+    return dtype == torch.bfloat16 and T == 1 and hd in _DECODE_HEAD_DIMS
+
+
+def ragged_kernel(dtype, T: int, hd: int) -> str:
+    """The kernel the dispatch rule names: "decode", "tile" or "row" (f32
+    queries, head_dim 256)."""
+    if use_decode_kernel(dtype, T, hd):
+        return "decode"
+    return "tile" if use_tile_kernel(dtype, T, hd) else "row"
+
+
+@functools.lru_cache(maxsize=1024)  # one entry a (batch, table width) bucket
+def decode_splits(B: int, Hkv: int, MB: int, BS: int, n_sm: int) -> tuple[int, int]:
+    """The decode kernel's split plan, from host-known shapes only (never
+    the offsets, which live on the card): (splits, pages per split). Each
+    (batch row, kv head) walks its MB-page table in ``splits`` blocks of
+    whole key tiles, at most DECODE_MAX_SPLIT_TILES each and as many as
+    keep the grid at one block per SM or more; the splits cover the table
+    exactly (none starts past it). A split past a row's frontier costs one
+    small empty partial on the card."""
+    tile_pages = max(1, DECODE_TILE_KEYS // BS)
+    tiles = -(-MB // tile_pages)
+    per = max(1, min(DECODE_MAX_SPLIT_TILES, B * Hkv * tiles // n_sm))
+    return -(-tiles // per), per * tile_pages
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _window_int(window) -> int:
@@ -195,9 +243,9 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale):
             raise ValueError(f"ragged kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"ragged kernel: {name} is not contiguous")
-    # the tile kernel copies q in 16-byte pieces too
+    # the tile and decode kernels copy q in 16-byte pieces too
     aligned = [("k_pool", k_pool), ("v_pool", v_pool)]
-    if use_tile_kernel(q.dtype, T, hd):
+    if ragged_kernel(q.dtype, T, hd) != "row":
         aligned.append(("q", q))
     for name, t in aligned:
         if t.data_ptr() % 16:
@@ -230,10 +278,29 @@ def _prefill_fn():
     return fn
 
 
+def _decode_fn():
+    """The decode kernel's C entry point, built and bound on first use."""
+    from ._build import load
+
+    fn = load(_DECODE_SOURCE).b2b_ragged_decode_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+    return fn
+
+
+# each kernel's launch counter (on ragged_paged_attention), bf16 pool form;
+# the int8 pool form's carries an "int8_" prefix
+_COUNTERS = {"row": "launches", "tile": "prefill_launches",
+             "decode": "decode_launches"}
+
+
 def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
-                   k_scale, v_scale, tile: bool):
-    """Launch the tile kernel (``tile``) or the row kernel on checked
-    arguments and count the launch."""
+                   k_scale, v_scale, kernel: str):
+    """Launch ``kernel`` ("decode", "tile" or "row") on checked arguments
+    and count the launch."""
     B, T, H, hd = q.shape
     Hkv, NB, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
@@ -241,23 +308,32 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
     if out.numel() == 0:
         return out
     quantized = k_scale is not None
-    args = (
+    ptrs = (
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), off.data_ptr(), out.data_ptr(),
-        B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale), float(softcap),
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if tile:
-        err = _prefill_fn()(*args, stream)
+    if kernel == "decode":
+        splits, pages = decode_splits(B, Hkv, MB, BS, _sm_count(q.device.index))
+        # f32 partials: the unnormalised output and (m, l) of every split.
+        # Freed on return: the caching allocator hands it out again only to
+        # work queued after both kernels on this stream
+        part = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+        err = _decode_fn()(*ptrs, part.data_ptr(), B, H, Hkv, NB, MB, BS, hd, win,
+                           splits, pages, float(sm_scale), float(softcap), stream)
     else:
-        err = _kernel_fn()(*args, _DTYPE_CODE[q.dtype], stream)
+        args = (*ptrs, B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale),
+                float(softcap))
+        if kernel == "tile":
+            err = _prefill_fn()(*args, stream)
+        else:
+            err = _kernel_fn()(*args, _DTYPE_CODE[q.dtype], stream)
     if err:
-        name = "ragged prefill tile" if tile else "ragged"
-        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
-    counter = ("int8_" if quantized else "") + (
-        "prefill_launches" if tile else "launches")
+        raise RuntimeError(f"ragged {kernel} kernel launch failed: cuda error {err}")
+    counter = ("int8_" if quantized else "") + _COUNTERS[kernel]
     setattr(ragged_paged_attention, counter,
             getattr(ragged_paged_attention, counter) + 1)
     return out
@@ -278,12 +354,13 @@ def ragged_paged_attention(
     """Causal attention for a [B, T] chunk over the paged pool; returns
     [B, T, H*hd]. T=1 is decode, T=K+1 a verify chunk, T=bucket a prefill
     chunk. With ``k_scale``/``v_scale`` the pools are int8. CUDA tensors
-    launch the kernel ``use_tile_kernel`` names (and count the launch in
-    ``ragged_paged_attention.launches`` / ``.int8_launches`` for the row
-    kernel, ``.prefill_launches`` / ``.int8_prefill_launches`` for the
-    tile kernel); CPU tensors take the plain version. Anything else raises
-    — there is no fallback from the card, nor from one kernel to the
-    other."""
+    launch the kernel ``ragged_kernel`` names (and count the launch in
+    ``ragged_paged_attention.decode_launches`` / ``.int8_decode_launches``
+    for the decode kernel, ``.prefill_launches`` /
+    ``.int8_prefill_launches`` for the tile kernel, ``.launches`` /
+    ``.int8_launches`` for the row kernel); CPU tensors take the plain
+    version. Anything else raises — there is no fallback from the card,
+    nor from one kernel to another."""
     _check_scales(k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
@@ -299,7 +376,7 @@ def ragged_paged_attention(
         q, k_pool, v_pool, block_tables, off, _window_int(window),
         sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd),
         float(logit_softcap or 0.0), k_scale, v_scale,
-        tile=use_tile_kernel(q.dtype, q.shape[1], hd),
+        kernel=ragged_kernel(q.dtype, q.shape[1], hd),
     )
 
 
@@ -309,3 +386,6 @@ ragged_paged_attention.int8_launches = 0
 # tile kernel: bf16 pool / int8 pool with scales
 ragged_paged_attention.prefill_launches = 0
 ragged_paged_attention.int8_prefill_launches = 0
+# decode kernel: bf16 pool / int8 pool with scales
+ragged_paged_attention.decode_launches = 0
+ragged_paged_attention.int8_decode_launches = 0

@@ -11,23 +11,30 @@ and the script exits non-zero):
    once).
 2. Ragged paged attention vs plain version at llama-3-8b's attention
    shapes (H=32, Hkv=8, hd=128, block size 16) in bf16, through the
-   dispatching wrapper: ragged decode offsets across block boundaries, a
-   dead row, null table tails (the row kernel), then verify chunks (one
-   with a dead row) and prefill chunks, T in {5, 16, 17, 300, 512 @0,
-   512 @1000, 2048 @0}, window 64 + softcap 50 + score scale
-   1/sqrt(256) at T=5 and T=64, block sizes 8 and 32 (the tile kernel).
-   Each case checks that exactly the kernel the dispatch rule names
-   launched. Tolerance: max abs error <= 2e-2 against the plain version
-   run in f32 on the same bf16 inputs (bf16 output rounding is ~4e-3 at
-   these magnitudes; the tile kernel also rounds P to bf16, as the JAX
-   kernel does). Then the row kernel's time at a
-   decode step over a 1024-token context and the tile kernel's at a
-   512-token prefill chunk at offset 1000, each beside the plain version,
-   SDPA over the gathered view (the library yardstick, never used by the
-   port) and the bound; the row kernel at that prefill chunk for
-   comparison; the crossover of the two kernels over T; then the decode
-   sweep, 32 launches back to back over a 32-layer copy of the pool, in
-   ms per launch.
+   dispatching wrapper: decode (the split-K decode kernel) at ragged
+   offsets across block boundaries with a dead row, null table tails,
+   B=1 at a 2048-token context (MB 128), B=8 at the slice's mixed lengths
+   41-1565 (MB 128), window 64 + softcap 50 + score scale 1/sqrt(256)
+   with offsets where the window cuts pages, block sizes 8 and 32,
+   head_dim 64, and a row at offset -1 beside a dead row; then verify
+   chunks (one with a dead row) and prefill chunks, T in {5, 16, 17, 300,
+   512 @0, 512 @1000, 2048 @0}, window + softcap + scale at T=5 and T=64,
+   block sizes 8 and 32 (the tile kernel); then f32 decode and an f32
+   verify chunk (the row kernel). Each case checks that exactly the
+   kernel the dispatch rule names launched, once, and each decode case
+   that a second call gives the same bytes. Tolerance: max abs
+   error <= 2e-2 against the plain version run in f32 on the same bf16
+   inputs (bf16 output rounding is ~4e-3 at these magnitudes; the decode
+   and tile kernels also round P to bf16, as the JAX kernel does), 1e-4
+   in f32. Then times, each beside the plain version, SDPA over the
+   gathered view (the library yardstick, never used by the port) and the
+   bound: the decode kernel at B=8 over a 1024-token context and at B=1
+   over 2048 (with its split plan), the row and the tile kernel forced at
+   the same decode inputs, the row kernel in f32 at the B=8 decode shape,
+   and the tile kernel at a 512-token prefill chunk at offset 1000; the
+   crossover of the row and tile kernels over T; then the decode sweep,
+   32 launches back to back over a 32-layer copy of the pool, in ms per
+   launch.
 3. The same cases for the int8-pool form: random int8 pages, random
    per-(kv head, block) scales, and a null block of +-127 under a scale
    of 1e3 that no reader may touch. Tolerance 2e-2 in bf16 and 1e-4 in
@@ -48,16 +55,19 @@ and the script exits non-zero):
    over an int8 pool (the row kernel; logits within 2e-3, greedy tokens
    equal; the int8-vs-f32 pool logit gap printed for information), then
    in bf16 over a bf16 pool and an int8 pool, whose 300-token prefill
-   goes through the tile kernel: logits within the gap between the plain
-   bf16 and the plain f32 forward (the kernels may not add more error
-   than bf16 itself carries).
+   goes through the tile kernel and whose 8 decode steps go through the
+   decode kernel: logits within the gap between the plain bf16 and the
+   plain f32 forward (the kernels may not add more error than bf16 itself
+   carries).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
-   execute_stream; the row kernel's launches plus the tile kernel's must
-   equal n_layers x the engine's forward calls, the tile kernel's
-   n_layers x the prefill-chunk forwards (> 0). Then a breakdown of a
-   decode step and a prefill chunk: host wall, device busy, idle share
-   and the attention kernels' ms per launch inside the step.
+   execute_stream; the decode kernel's launches plus the tile kernel's
+   must equal n_layers x the engine's forward calls, the decode kernel's
+   n_layers x the decode forwards (chunk length 1), the tile kernel's
+   n_layers x the prefill-chunk forwards (both > 0), and the row
+   kernel's 0. Then a breakdown of a decode step and a prefill chunk:
+   host wall, device busy, idle share and the attention kernels' ms per
+   launch inside the step (the decode kernel's two CUDA kernels summed).
 7. The int8 slice: the same parameters served by an engine with
    cache_dtype="int8" inside CUDAService, the same requests and the same
    launch checks on the int8 counters (the bf16 pool's stay 0); pool
@@ -72,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -100,21 +111,22 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None) -> float:
+def cuda_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None,
+                 spin: int = SPIN_CYCLES) -> float:
     """Median of ``reps`` single-launch CUDA-event timings, after a warm-up;
     ``flush`` (a buffer larger than L2) is rewritten before each launch so
     every launch reads its inputs from device memory, as a layer of a real
-    forward does. The card spins ~0.1 ms before each start event, so the
-    host has queued the launch by then: the time excludes the host's
-    launch latency, which would otherwise count whenever the card drains
-    its queue first."""
+    forward does. The card spins ``spin`` cycles (~0.1 ms by default)
+    before each start event, so the host has queued the launches by then:
+    the time excludes the host's launch latency, which would otherwise
+    count whenever the card drains its queue first."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,7 +166,28 @@ def phase_device_and_build():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build: {source}: {len(regs)} kernels; ptxas spill lines "
             f"{sorted(set(spills)) or 'none'}")
+        if source == "ragged_decode_attention.cu":
+            for name, line in ptxas_entries(report):
+                log(f"build: {source}: {name}: {line}")
     return card, build_s
+
+
+def ptxas_entries(report: str):
+    """(kernel, "registers; spills") for each entry function of a ptxas -v
+    report, the kernel named by its mangled name's tail."""
+    entries, name, spill = [], None, ""
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            base = re.search(r"\d+(ragged_decode_\w+?)I", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            entries.append((name, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
+            name = None
+    return entries
 
 
 # ------------------------------------------------------------ phase 2
@@ -213,12 +246,26 @@ def attention_work(offs, T, H, Hkv, hd, BS, window, elem_bytes, MB,
 
 
 WINDOW_KW = dict(window=64, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
+# the prompts' token counts in the slice, less one: the positions of their
+# first decode step
+SLICE_OFFSETS = [40, 120, 260, 400, 640, 900, 1200, 1564]
 RAGGED_CASES = [
-    # the row kernel: decode
+    # the decode kernel
     ("decode ragged + dead row", dict(
         offs=[0, 15, 16, 17, 500, 1023, 2047, 300], T=1, dead=(7,)), {}),
     ("decode pow2 null tails", dict(
         offs=[3, 40, 100, 255], T=1, extra_tables=9), {}),
+    ("decode B=1 ctx 2048", dict(offs=[2047], T=1), {}),
+    ("decode B=8 slice lengths MB 128", dict(
+        offs=SLICE_OFFSETS, T=1, extra_tables=30), {}),
+    ("decode window+softcap+scale", dict(
+        offs=[5, 70, 129, 1000, 71, 1500], T=1), WINDOW_KW),
+    ("decode BS=8 + null tails", dict(offs=[3, 40, 100, 255], T=1, BS=8,
+                                      extra_tables=9), {}),
+    ("decode BS=32", dict(offs=[3, 40, 100, 1000], T=1, BS=32, extra_tables=3), {}),
+    ("decode hd=64", dict(offs=[3, 40, 100, 1000], T=1, hd=64), {}),
+    ("decode offset -1 + dead row", dict(offs=[-1, 300, 57, 1000], T=1, dead=(1,)),
+     {}),
     # the tile kernel: verify and prefill chunks
     ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,)), {}),
     ("window+softcap+scale T=5", dict(offs=[5, 70, 129, 1000], T=5), WINDOW_KW),
@@ -253,11 +300,21 @@ def int8_pools(gen, NB, Hkv=8, BS=16, hd=128):
     return kq, vq, ks, vs
 
 
+def split_plan(q, kp, tb) -> str:
+    """The decode kernel's split plan for these inputs, as printed."""
+    from bee2bee_tpu_torch.ops.ragged import _sm_count, decode_splits
+
+    splits, pages = decode_splits(q.shape[0], kp.shape[0], tb.shape[1], kp.shape[2],
+                                  _sm_count(q.device.index))
+    return f"{splits} splits x {pages} pages"
+
+
 def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     """The kernel's time beside the plain version's, SDPA's over the
-    gathered (for an int8 pool: dequantized) view and the bound."""
+    gathered (for an int8 pool: dequantized) view and the bound (at the
+    peak rate of q's type)."""
     from bee2bee_tpu_torch.ops.ragged import (
-        ragged_paged_attention, ragged_paged_attention_ref,
+        ragged_paged_attention, ragged_paged_attention_ref, ragged_kernel,
     )
 
     H, hd = q.shape[2], q.shape[3]
@@ -296,15 +353,18 @@ def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     nbytes, flops = attention_work(offs, T, H, Hkv, hd, BS, 0, q.element_size(), MB,
                                    kv_bytes=kv_bytes,
                                    scale_bytes=0 if scales is None else 4)
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"timing {label} B={B} T={T} ctx={offs[0] + T}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+    plan = (f", plan {split_plan(q, kp, tb)}"
+            if ragged_kernel(q.dtype, T, hd) == "decode" else "")
+    log(f"timing {label} B={B} T={T} ctx={offs[0] + T} ({q.dtype}{plan}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B -> {t_bytes:.4f} ms, "
-        f"{flops} flop -> {t_ops:.4f} ms), share of bound "
-        f"{bound_ms / ms:.3f}")
+        f"{flops} flop at {peak / 1e12:.0f} TFLOP/s -> {t_ops:.4f} ms), share of "
+        f"bound {bound_ms / ms:.3f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
 
@@ -326,18 +386,24 @@ def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
             kw = {} if ks is None else dict(k_scale=ks[i], v_scale=vs[i])
             ragged_paged_attention(q, k[i], v[i], tb, off, **kw)
 
-    ms = cuda_time_ms(sweep) / layers
+    # a spin long enough for the host to queue all the launches (about
+    # 0.06 ms of host time each) before the card starts on them
+    ms = cuda_time_ms(sweep, spin=SPIN_CYCLES * layers) / layers
     log(f"timing {label} sweep: {layers} launches back to back over a "
         f"{layers}-layer pool, {ms:.4f} ms per launch")
     return ms
 
 
+# read_counts()'s name of each ragged kernel's bf16-pool counter
+RAGGED_COUNTERS = {"row": "ragged", "tile": "ragged_prefill", "decode": "ragged_decode"}
+
+
 def ragged_counter(q, int8: bool) -> str:
     """The launch counter the dispatch rule names for these queries."""
-    from bee2bee_tpu_torch.ops.ragged import use_tile_kernel
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
-    tile = use_tile_kernel(q.dtype, q.shape[1], q.shape[3])
-    return ("ragged_prefill" if tile else "ragged") + ("_int8" if int8 else "")
+    kernel = ragged_kernel(q.dtype, q.shape[1], q.shape[3])
+    return RAGGED_COUNTERS[kernel] + ("_int8" if int8 else "")
 
 
 def check_one_launch(label: str, counter: str) -> None:
@@ -361,14 +427,30 @@ def time_crossover(label, gen, flush, int8):
                 kp, vp, *scales = int8_pools(gen, kp.shape[1])
             rows = row_offsets(off, B, q.device)
 
-            def run(tile):
+            def run(kernel):
                 return _launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(128),
-                                      0.0, *scales, tile=tile)
+                                      0.0, *scales, kernel=kernel)
 
-            row_ms = cuda_time_ms(lambda: run(False), flush=flush)
-            tile_ms = cuda_time_ms(lambda: run(True), flush=flush)
+            row_ms = cuda_time_ms(lambda: run("row"), flush=flush)
+            tile_ms = cuda_time_ms(lambda: run("tile"), flush=flush)
             log(f"crossover {label} B={B} T={T} ctx={off0 + T}: row kernel "
                 f"{row_ms:.4f} ms, tile kernel {tile_ms:.4f} ms")
+
+
+def time_forced(label, q, kp, vp, tb, off, flush, scales=None):
+    """The three ragged kernels forced at the same decode inputs: the
+    decode kernel beside the row kernel and the tile kernel at T=1."""
+    from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
+
+    rows = row_offsets(off, q.shape[0], q.device)
+    sc = (None, None) if scales is None else scales
+    ms = {k: cuda_time_ms(lambda: _launch_kernel(
+        q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(q.shape[3]), 0.0, *sc, kernel=k),
+        flush=flush) for k in ("decode", "tile", "row")}
+    log(f"forced {label} B={q.shape[0]} T=1 (plan {split_plan(q, kp, tb)}): decode "
+        f"kernel {ms['decode']:.4f} ms, tile kernel {ms['tile']:.4f} ms, row kernel "
+        f"{ms['row']:.4f} ms")
+    return ms
 
 
 def phase_ragged_vs_plain(flush, int8=False):
@@ -383,14 +465,18 @@ def phase_ragged_vs_plain(flush, int8=False):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + int8)
     tag = "int8 kernel vs plain" if int8 else "kernel vs plain"
-    errs = {"row": 0.0, "tile": 0.0}
-    # the f32 instantiation the phase-5 forward runs (the row kernel)
-    f32_case = ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3,
-                                      dtype=torch.float32), {})
-    for label, geo, kw in RAGGED_CASES + [f32_case]:
+    errs = {"row": 0.0, "tile": 0.0, "decode": 0.0}
+    # the f32 instantiations the phase-5 forward runs (the row kernel)
+    f32_cases = [
+        ("f32 decode", dict(offs=[0, 17, 300, 1023], T=1, dead=(2,),
+                            dtype=torch.float32), {}),
+        ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3, dtype=torch.float32), {}),
+    ]
+    for label, geo, kw in RAGGED_CASES + f32_cases:
         q, kp, vp, tb, off = make_case(gen, **geo)
         if int8:
-            kp, vp, ks, vs = int8_pools(gen, kp.shape[1], BS=kp.shape[2])
+            kp, vp, ks, vs = int8_pools(gen, kp.shape[1], BS=kp.shape[2],
+                                        hd=kp.shape[3])
             kw = dict(kw, k_scale=ks, v_scale=vs)
         counter = ragged_counter(q, int8)
         reset_counts()
@@ -408,19 +494,32 @@ def phase_ragged_vs_plain(flush, int8=False):
         log(f"{tag}: {label} ({q.dtype}, {counter} kernel): max abs err "
             f"{err:.3e} (tol {tol})")
         check(err <= tol, f"{tag}: {label}: max abs err {err} > {tol}")
-        kernel = "tile" if "prefill" in counter else "row"
+        if counter.startswith("ragged_decode"):
+            # the split-K merge runs in a fixed order: a second call repeats
+            # the first bit for bit
+            again = ragged_paged_attention(q, kp, vp, tb, off, **kw)
+            check(torch.equal(got, again), f"{tag}: {label}: a second call differs")
+        kernel = next(k for k, c in RAGGED_COUNTERS.items()
+                      if counter in (c, c + "_int8"))
         errs[kernel] = max(errs[kernel], err)
 
     timings = {}
     label0 = "int8 " if int8 else ""
-    for label, offs, T in (("decode", [1023] * 8, 1), ("prefill", [1000], 512)):
-        q, kp, vp, tb, off = make_case(gen, offs=offs, T=T)
+    for label, offs, T, dtype in (
+            ("decode", [1023] * 8, 1, torch.bfloat16),
+            ("decode_b1", [2047], 1, torch.bfloat16),
+            ("row_f32", [1023] * 8, 1, torch.float32),
+            ("prefill", [1000], 512, torch.bfloat16)):
+        q, kp, vp, tb, off = make_case(gen, offs=offs, T=T, dtype=dtype)
         scales = None
         if int8:
             kp, vp, *scales = int8_pools(gen, kp.shape[1])
         timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
                                      scales=scales)
+        if label.startswith("decode"):
+            timings[label]["forced"] = time_forced(f"{label0}{label}", q, kp, vp, tb,
+                                                   off, flush, scales=scales)
         if label == "decode":
             time_decode_sweep(f"{label0}{label}", q, kp, vp, tb, off, scales=scales)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
@@ -589,15 +688,15 @@ def phase_forward_parity():
     for pool_dtype, f32_logits in ((torch.bfloat16, p_logits), (torch.int8, qp_logits)):
         tag = f"forward 2x llama-3-8b width bf16, {str(pool_dtype)[6:]} pool"
         tile = "ragged_prefill" + ("_int8" if pool_dtype == torch.int8 else "")
-        row = "ragged" + ("_int8" if pool_dtype == torch.int8 else "")
+        dec = "ragged_decode" + ("_int8" if pool_dtype == torch.int8 else "")
         reset_counts()
         b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
         torch.cuda.synchronize()
         counts = read_counts()
-        check(counts[tile] == cfg.n_layers and counts[row] == cfg.n_layers * n_steps
+        check(counts[tile] == cfg.n_layers and counts[dec] == cfg.n_layers * n_steps
               and sum(counts.values()) == cfg.n_layers * (n_steps + 1),
               f"{tag}: launches {counts}: expected the prefill through {tile}, "
-              f"the {n_steps} decode steps through {row}")
+              f"the {n_steps} decode steps through {dec}")
         bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
@@ -626,24 +725,36 @@ def cast_tree(tree, dtype):
 # ------------------------------------------------------------ phases 6-7
 
 
-# the port's attention kernels by (part of) name: both ragged kernels and
-# both flash kernels
-ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "flash_tile_kernel")
+# the port's attention kernels by (part of) name: the three ragged kernels
+# (the decode kernel's split walk and merge) and both flash kernels
+ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "ragged_decode_",
+                     "flash_tile_kernel")
 
 
-def device_profile(fn, calls: int):
+def device_profile(fn, calls: int, launches: int, tries: int = 3):
     """(device busy ms per call, attention kernels' ms per call, [(kernel,
     share of device time)] top 4): the kernels' own device time under
-    torch.profiler, summed."""
+    torch.profiler, summed. A capture that saw fewer than ``launches``
+    launches of an attention kernel (it has lost some of the calls'
+    kernels) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        seen = [e.count for e in events if any(n in e.key for n in ATTENTION_KERNELS)]
+        if seen and min(seen) >= launches:
+            break
+        log(f"profile: attention kernel launches seen {seen}, expected {launches} "
+            f"each; capture {attempt + 1} of {tries} lost kernels")
+    check(bool(seen) and min(seen) >= launches,
+          f"the profiler saw {seen} attention launches of {launches}")
+    kernels = [(e.key, e.self_device_time_total) for e in events]
     busy_us = sum(t for _, t in kernels)
     check(busy_us > 0, "the profiler saw no device time")
     attn_us = sum(t for k, t in kernels if any(n in k for n in ATTENTION_KERNELS))
@@ -690,7 +801,7 @@ def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        busy_ms, attn_ms, top = device_profile(fn, calls)
+        busy_ms, attn_ms, top = device_profile(fn, calls, cfg.n_layers * calls)
         log(f"breakdown {label}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}; "
             f"attention kernels {attn_ms / cfg.n_layers:.4f} ms per launch "
@@ -707,7 +818,7 @@ def reset_counts():
     from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention
 
     for name in ("launches", "int8_launches", "prefill_launches",
-                 "int8_prefill_launches"):
+                 "int8_prefill_launches", "decode_launches", "int8_decode_launches"):
         setattr(ragged_paged_attention, name, 0)
     flash_attention.launches = 0
     flash_attention.tile_launches = 0
@@ -722,6 +833,8 @@ def read_counts() -> dict:
         "ragged_int8": ragged_paged_attention.int8_launches,
         "ragged_prefill": ragged_paged_attention.prefill_launches,
         "ragged_prefill_int8": ragged_paged_attention.int8_prefill_launches,
+        "ragged_decode": ragged_paged_attention.decode_launches,
+        "ragged_decode_int8": ragged_paged_attention.int8_decode_launches,
         "flash": flash_attention.launches,
         "flash_tile": flash_attention.tile_launches,
     }
@@ -756,10 +869,10 @@ def phase_slice(cache_dtype="bfloat16", params=None):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. Returns (the launch counts, pool
     bytes, the engine's params)."""
-    from bee2bee_tpu_torch.ops.ragged import use_tile_kernel
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
     suffix = "_int8" if cache_dtype == "int8" else ""
-    row, tile = "ragged" + suffix, "ragged_prefill" + suffix
+    dec, tile = "ragged_decode" + suffix, "ragged_prefill" + suffix
     torch.cuda.reset_peak_memory_stats()
     svc, load_s = load_slice(cache_dtype, params)
     engine = svc.engine
@@ -849,22 +962,27 @@ def phase_slice(cache_dtype="bfloat16", params=None):
             f"the last first token -> {(new_tokens - len(results)) / decode_s:.2f} "
             f"decode tok/s; peak memory {torch.cuda.max_memory_allocated()} B; "
             f"pool {nbytes} B ({engine.pool_blocks} blocks)")
-        tiled = sum(use_tile_kernel(engine.dtype, T, cfg.head_dim) for T in chunks)
+        named = [ragged_kernel(engine.dtype, T, cfg.head_dim) for T in chunks]
         prefills = sum(T > 1 for T in chunks)
+        decodes = sum(T == 1 for T in chunks)
         log(f"{tag}: kernel launches {counts}, forward calls {forwards} "
-            f"({prefills} prefill chunks, {tiled} of them through the tile kernel), "
-            f"n_layers {cfg.n_layers}")
+            f"({prefills} prefill chunks, {named.count('tile')} of them through the "
+            f"tile kernel; {decodes} decode steps, {named.count('decode')} of them "
+            f"through the decode kernel), n_layers {cfg.n_layers}")
         check(len(chunks) == forwards,
               f"{tag}: {len(chunks)} forwards seen of {forwards}")
-        check(counts[row] + counts[tile] == cfg.n_layers * forwards,
-              f"{tag}: launches {counts[row]} + {counts[tile]} != {cfg.n_layers} x "
+        check(counts[dec] + counts[tile] == cfg.n_layers * forwards,
+              f"{tag}: launches {counts[dec]} + {counts[tile]} != {cfg.n_layers} x "
               f"{forwards} forwards")
-        check(counts[tile] > 0 and tiled == prefills
+        check(counts[tile] > 0 and named.count("tile") == prefills
               and counts[tile] == cfg.n_layers * prefills,
               f"{tag}: tile launches {counts[tile]} != {cfg.n_layers} x {prefills} "
               f"prefill chunks")
-        check(counts[row] > 0, f"{tag}: the main path never launched the {row} kernel")
-        others = {k: v for k, v in counts.items() if k not in (row, tile) and v}
+        check(counts[dec] > 0 and named.count("decode") == decodes
+              and counts[dec] == cfg.n_layers * decodes,
+              f"{tag}: decode launches {counts[dec]} != {cfg.n_layers} x {decodes} "
+              f"decode steps")
+        others = {k: v for k, v in counts.items() if k not in (dec, tile) and v}
         check(not others, f"{tag}: other kernel forms launched: {others}")
         step_breakdown(engine)
         return counts, nbytes, engine.params
@@ -915,13 +1033,21 @@ def main() -> int:
 
     ragged_src = "bee2bee_tpu_torch/csrc/ragged_attention.cu"
     prefill_src = "bee2bee_tpu_torch/csrc/ragged_prefill_attention.cu"
+    decode_src = "bee2bee_tpu_torch/csrc/ragged_decode_attention.cu"
     flash_src = "bee2bee_tpu_torch/csrc/flash_attention.cu"
     kernels = [
+        row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            counts["ragged_decode"], errs["decode"], timings["decode"]),
+        row("ragged_decode_attention_int8", decode_src,
+            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
+            int8_errs["decode"], int8_timings["decode"]),
+        # the row kernel: f32 queries and head_dim 256, timed in f32 at the
+        # decode shape
         row("ragged_paged_attention", ragged_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged"], errs["row"], timings["decode"]),
+            counts["ragged"], errs["row"], timings["row_f32"]),
         row("ragged_paged_attention_int8", ragged_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_int8"],
-            int8_errs["row"], int8_timings["decode"]),
+            int8_errs["row"], int8_timings["row_f32"]),
         row("flash_attention", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash"] + int8_counts["flash"], flash_errs["row"],
             flash_timings["row"]),
@@ -936,7 +1062,10 @@ def main() -> int:
     ]
     log("kernels: the flash kernels have 0 launches on the main path: no "
         "serving path calls flash_attention (the engines attend through the "
-        "ragged op); both are held against the plain version and timed above")
+        "ragged op); the ragged row kernel has 0 there too: the slice serves "
+        "bf16 at head_dim 128, and the row kernel takes f32 and head_dim 256 "
+        "(phase 5 runs it in f32). All are held against the plain version and "
+        "timed above")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

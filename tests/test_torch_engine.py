@@ -291,7 +291,8 @@ def test_metric_names_match_the_jax_registry(jax_reference):
 
 
 def _port_sources():
-    return sorted((ROOT / "bee2bee_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "bee2bee_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "decode_probe.py"]
 
 
 def test_no_source_imports_jax_or_the_jax_package():

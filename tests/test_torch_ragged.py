@@ -301,12 +301,13 @@ def _misaligned_q(T, hd):
 
 def test_tile_kernel_needs_16_byte_aligned_q():
     """The tile kernel copies q rows in 16-byte pieces; the row kernel
-    (decode) reads q by elements and takes the same storage."""
+    (here bf16 decode at head_dim 256) reads q by elements and takes the
+    same storage."""
     q = _misaligned_q(32, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         port._check_kernel_args(**_tile_args(q=q))
-    port._check_kernel_args(**_tile_args(q=_misaligned_q(1, 128)))
+    port._check_kernel_args(**_tile_args(T=1, hd=256, q=_misaligned_q(1, 256)))
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -374,3 +375,250 @@ def test_tile_shapes_ref_matches_jax_kernel(name, int8):
     got, want = (_both_int8 if int8 else _both)(case, **kw)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+# --------------------------------------------- decode kernel: dispatch
+
+
+@pytest.mark.parametrize("dtype,T,hd,decode", [
+    (torch.bfloat16, 1, 128, True),  # decode at llama-3-8b's head_dim
+    (torch.bfloat16, 1, 64, True),
+    (torch.bfloat16, 1, 256, False),  # no decode instantiation: the row kernel
+    (torch.bfloat16, port.T_MIN, 128, False),  # the tile kernel's
+    (torch.bfloat16, 5, 128, False),
+    (torch.float32, 1, 128, False),  # f32 queries: the row kernel
+    (torch.float16, 1, 128, False),
+], ids=["hd128", "hd64", "hd256", "t_min", "verify", "f32", "f16"])
+def test_decode_dispatch_rule(dtype, T, hd, decode):
+    assert port.use_decode_kernel(dtype, T, hd) is decode
+    # the decode kernel takes no case the tile kernel takes
+    assert not (decode and port.use_tile_kernel(dtype, T, hd))
+    want = "decode" if decode else "tile" if port.use_tile_kernel(dtype, T, hd) else "row"
+    assert port.ragged_kernel(dtype, T, hd) == want
+
+
+@pytest.mark.parametrize("T", [1, 2, 5, 64, 2048])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_and_tile_rules_are_disjoint(T, hd):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert not (port.use_decode_kernel(dtype, T, hd)
+                    and port.use_tile_kernel(dtype, T, hd))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("MB,BS", [(128, 16), (256, 8), (64, 32)])
+def test_decode_splits_fill_the_card_and_cover_the_table(B, MB, BS):
+    """llama-3-8b's 8 kv heads on an H100's 132 SMs over a 2048-key table
+    (the slice's MB 128 at BS 16): at least one block per SM at B=1 and
+    B=8, whole key tiles per split, and the splits cover the MB pages
+    exactly: the last one starts inside the table."""
+    n_sm = 132
+    splits, pages = port.decode_splits(B, 8, MB, BS, n_sm)
+    assert isinstance(splits, int) and isinstance(pages, int)
+    assert B * 8 * splits >= n_sm
+    assert (pages * BS) % port.DECODE_TILE_KEYS == 0
+    assert (splits - 1) * pages < MB <= splits * pages
+
+
+@pytest.mark.parametrize("B,Hkv,MB,BS,n_sm", [
+    (1, 8, 1, 16, 132),  # one page: one split
+    (8, 8, 2, 16, 132),
+    (64, 8, 128, 16, 132),  # a wide batch fills the card without splits
+    (3, 2, 33, 8, 16),
+    (1, 1, 1000, 32, 132),
+])
+def test_decode_splits_cover_any_table(B, Hkv, MB, BS, n_sm):
+    splits, pages = port.decode_splits(B, Hkv, MB, BS, n_sm)
+    assert splits >= 1 and pages >= 1
+    assert (splits - 1) * pages < MB <= splits * pages
+    # at most DECODE_MAX_SPLIT_TILES tiles a split, and more than one only
+    # where the grid still holds a block per SM
+    per = pages * BS // port.DECODE_TILE_KEYS if BS < port.DECODE_TILE_KEYS else pages
+    assert per <= port.DECODE_MAX_SPLIT_TILES
+    assert per == 1 or B * Hkv * splits >= n_sm
+
+
+def test_decode_splits_read_shapes_only():
+    """The plan is a function of python ints (cached), never of a tensor:
+    reading the offsets would sync the card in every layer."""
+    import inspect
+
+    params = inspect.signature(port.decode_splits.__wrapped__).parameters
+    assert list(params) == ["B", "Hkv", "MB", "BS", "n_sm"]
+    assert all(p.annotation in (int, "int") for p in params.values())
+    assert port.decode_splits(8, 8, 128, 16, 132) is port.decode_splits(8, 8, 128, 16, 132)
+
+
+def _decode_args(hd=128, int8=False, **over):
+    return _tile_args(T=1, hd=hd, int8=int8, **over)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_kernel_args_accepted(int8, hd):
+    port._check_kernel_args(**_decode_args(hd=hd, int8=int8))
+
+
+def test_decode_kernel_needs_16_byte_aligned_q():
+    """The decode kernel copies q rows in 16-byte pieces; the row kernel
+    (f32) reads q by elements and takes such storage."""
+    q = _misaligned_q(1, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_decode_args(q=q))
+    qf = torch.zeros(2 * 8 * 128 + 1)[1:].view(2, 1, 8, 128)
+    kp = torch.zeros((2, 9, 16, 128))
+    port._check_kernel_args(**_decode_args(q=qf, k_pool=kp, v_pool=kp))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("pool_dtype", TypeError, "pool dtype"),
+    ("scale_shape", ValueError, "v_scale must be float32"),
+    ("block_size", ValueError, "block size 64"),
+    ("tables_dtype", ValueError, "block_tables must be int32"),
+    ("offset_device", ValueError, "offset on meta"),
+    ("noncontiguous", ValueError, "q is not contiguous"),
+])
+def test_decode_kernel_args_rejected(bad, err, match):
+    args = _decode_args(int8=bad == "scale_shape")
+    if bad == "pool_dtype":
+        args["k_pool"] = args["v_pool"] = args["k_pool"].to(torch.float16)
+    elif bad == "scale_shape":
+        args["v_scale"] = torch.ones((2, 9), dtype=torch.float64)
+    elif bad == "block_size":
+        args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 64, 128),
+                                                      dtype=torch.bfloat16)
+    elif bad == "tables_dtype":
+        args["block_tables"] = args["block_tables"].to(torch.int16)
+    elif bad == "offset_device":
+        args["off"] = torch.zeros(2, dtype=torch.int32, device="meta")
+    elif bad == "noncontiguous":
+        args["q"] = torch.zeros((2, 1, 8, 256), dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(err, match=match):
+        port._check_kernel_args(**args)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
+def test_cpu_dispatch_counts_no_decode_launch(int8):
+    """A decode step the rule sends to the decode kernel still takes the
+    plain version on the CPU, and counts no launch of any kernel."""
+    q, kp, vp, tables, offs = (torch.from_numpy(a) for a in _pool_case(
+        offs=[4, 9, 30], T=1, H=8, Hkv=2, hd=64, seed=19))
+    q = q.to(torch.bfloat16)
+    kw = {}
+    if int8:
+        (kp, ks), (vp, vs) = (tuple(torch.from_numpy(a) for a in _quantize_pool(p.numpy()))
+                              for p in (kp, vp))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    assert port.ragged_kernel(q.dtype, 1, 64) == "decode"
+    got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
+    assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
+    for name in ("launches", "int8_launches", "prefill_launches",
+                 "int8_prefill_launches", "decode_launches", "int8_decode_launches"):
+        assert getattr(port.ragged_paged_attention, name) == 0, name
+
+
+# ----------------------------- decode kernel: the split-and-merge, modelled
+
+NEG = float("-inf")
+
+
+def _split_merge(q, kp, vp, tables, offs, splits, pages, window=None, sm_scale=None,
+                 softcap=0.0, k_scale=None, v_scale=None):
+    """A plain PyTorch model of the decode kernel's split-K walk (T = 1):
+    each split s of ``pages`` table pages gives a partial (m, l, acc) over
+    the keys it holds that the row sees — (-inf, 0, 0) when it holds none
+    — and the merge weighs them in split order, an empty split by exactly
+    0; a row with no visible key gets 0. f32 throughout (P's bf16 rounding
+    before P V is the identity here)."""
+    B, T, H, hd = q.shape
+    assert T == 1
+    Hkv, _, BS, _ = kp.shape
+    MB = tables.shape[1]
+    G = H // Hkv
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    win = port._window_int(window)
+    tb = tables.long()
+    kg = port._gathered(kp, k_scale, tb, q.dtype)  # [B, Hkv, MB*BS, hd]
+    vg = port._gathered(vp, v_scale, tb, q.dtype)
+    s = torch.einsum("bkgd,bksd->bkgs", q.reshape(B, Hkv, G, hd).float(), kg) * sm_scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    off = offs.long()
+    pos = torch.arange(MB * BS)
+    parts = []
+    for sp in range(splits):
+        lo = sp * pages * BS
+        hi = min((sp + 1) * pages, MB) * BS - 1
+        kmax = torch.clamp(off, max=hi)
+        kmin = torch.clamp(off - win + 1 if win > 0 else torch.zeros_like(off), min=lo)
+        vis = ((pos[None] >= kmin[:, None]) & (pos[None] <= kmax[:, None]))[:, None, None]
+        sv = torch.where(vis, s, NEG)
+        m = sv.amax(-1)  # -inf where the split holds no visible key
+        p = torch.where(vis, torch.exp(sv - torch.where(m == NEG, 0.0, m)[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bkgs,bksd->bkgd", p, vg)))
+    m_all = torch.stack([m for m, l, _ in parts])
+    l_all = torch.stack([l for _, l, _ in parts])
+    mx = torch.where(l_all > 0, m_all, NEG).amax(0)
+    L = torch.zeros_like(mx)
+    O = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - torch.where(mx == NEG, 0.0, mx)), 0.0)
+        L = L + l * w
+        O = O + acc * w[..., None]
+    O = O / torch.where(L > 0, L, 1.0)[..., None]
+    return O.reshape(B, 1, H * hd)
+
+
+# rows ragged over a 256-key table (BS 8: four key tiles), so the planned
+# splits include empty ones for the short rows; a dead row (all-null
+# table, stale offset), a row at offset -1, window + softcap + score scale
+DECODE_CASES = {
+    "ragged_lengths": (dict(offs=[0, 7, 8, 21, 100, 200], T=1, H=8, Hkv=2, hd=16,
+                            extra_tables=6, seed=31), {}),
+    "dead_row_and_minus_one": (dict(offs=[-1, 50, 130, 90], T=1, H=8, Hkv=2, hd=16,
+                                    dead=(1,), extra_tables=10, seed=32), {}),
+    "window_softcap_scale": (dict(offs=[5, 70, 129, 200], T=1, H=8, Hkv=2, hd=16,
+                                  extra_tables=5, seed=33),
+                             dict(window=24, sm_scale=1.0 / math.sqrt(256),
+                                  softcap=30.0)),
+}
+
+
+def _decode_plans(B, Hkv, MB, BS):
+    """The kernel's plan on a card of 24 SMs (two to four splits of whole
+    key tiles at these shapes), and one page a split (the most empty
+    splits)."""
+    return {"planned": port.decode_splits(B, Hkv, MB, BS, 24), "page_a_split": (MB, 1)}
+
+
+@pytest.mark.parametrize("plan", ["planned", "page_a_split"])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8_pool"])
+def test_decode_split_merge_model_matches_jax_kernel(name, int8, plan):
+    geo, kw = DECODE_CASES[name]
+    q, kp, vp, tables, offs = _pool_case(**geo)
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = _quantize_pool(kp), _quantize_pool(vp)
+        scales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(offs), window=kw.get("window"), sm_scale=kw.get("sm_scale"),
+        logit_softcap=kw.get("softcap", 0.0), interpret=True, **scales,
+    ))
+    B, Hkv, MB, BS = len(offs), kp.shape[0], tables.shape[1], kp.shape[2]
+    splits, pages = _decode_plans(B, Hkv, MB, BS)[plan]
+    assert splits > 1
+    t = {k: torch.from_numpy(np.array(v)) for k, v in scales.items()}
+    got = _split_merge(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(offs), splits, pages,
+        **kw, **t,
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if name == "dead_row_and_minus_one":
+        assert not got[0].any()  # offset -1: every split empty, the row is 0
