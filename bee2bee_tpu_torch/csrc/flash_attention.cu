@@ -12,7 +12,7 @@
 // offset + T <= S the two agree; past it the JAX kernel attends the
 // padding's zeros.
 //
-// Two kernels, chosen by ops/flash.py:
+// Three kernels, chosen by ops/flash.py:flash_kernel:
 //
 // flash_tile_kernel, for bf16 at HD 64 and 128: the tensor-core tile
 // design of tile_attention.cuh (the ragged prefill kernel's, over
@@ -31,9 +31,17 @@
 //         when causal, no tile past the frontier of the block's last row;
 //         rows past S are zero-filled and masked.
 //
-// flash_attention_kernel, for f32 (the parity checks) and HD 256: the
-// ragged row kernel's row-per-warp design (ragged_attention.cu) with
-// another way to address keys:
+// flash_tile_f32_kernel, for f32 at HD 64 and 128: the same grid, row
+// fold and causal frontier over 32-key f32 tiles, with both products in
+// 3xTF32 on mma.sync m16n8k8 (tile_attention_f32.cuh). Its bound on an
+// H100 is the three TF32 products: 3 * 4 * HD flops per visible pair at
+// 494.7 TFLOP/s, 0.2085 ms at causal T = S = 2048 (one f32 product on the
+// CUDA cores, at 67 TFLOP/s, would take 0.5131 ms), against 0.025 ms of
+// bytes: bound by operations.
+//
+// flash_attention_kernel, for HD 256 (bf16 and f32): the ragged row
+// kernel's row-per-warp design (ragged_attention.cu) with another way to
+// address keys:
 //   grid  (B * Hkv, ceil(G * T / kWarps)); a block owns kWarps query rows
 //         of one (batch row, kv head), one warp per row;
 //   loop  over the block's key tiles of kTile keys: keys j*kTile ..
@@ -45,10 +53,12 @@
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
 // It does scalar dot products on the CUDA cores, at long T each block
-// walks up to S / kTile tiles for only kWarps rows.
+// walks up to S / kTile tiles for only kWarps rows. Its HD 64 and 128
+// instantiations stay for timing it against the tile kernels.
 
 #include "attention.cuh"
 #include "tile_attention.cuh"
+#include "tile_attention_f32.cuh"
 
 namespace {
 
@@ -311,26 +321,141 @@ flash_tile_kernel(const FlashArgs a) {
   tile::store_rows<HD>(w, dst, lane);
 }
 
+// ------------------------------------------------------- f32 tile kernel
+
+// Stage f32 key tile j (keys j * kKeys ..) of row b, kv head kvh into the
+// padded K and V tiles; keys past kmax are not read and their slots
+// zero-filled.
 template <int HD>
+__device__ __forceinline__ void stage_keys_f32(const float* k, const float* v,
+                                               int b, int kvh, int S, int Hkv,
+                                               int kmax, int j, float* ks,
+                                               float* vs) {
+  constexpr int RC = HD / 4;  // 16-byte chunks per row
+  for (int id = threadIdx.x; id < tile32::kKeys * RC; id += tile32::kThreads) {
+    const int r = id / RC;
+    const int c = id % RC;
+    const int key = j * tile32::kKeys + r;
+    size_t src = 0;
+    if (key <= kmax) src = (((size_t)b * S + key) * Hkv + kvh) * HD + c * 4;
+    const int n = key <= kmax ? 16 : 0;
+    tile::cp_async16(ks + r * tile32::qk_stride<HD>() + c * 4, k + src, n);
+    tile::cp_async16(vs + r * tile32::v_stride<HD>() + c * 4, v + src, n);
+  }
+}
+
+// The f32 tile kernel: flash_tile_kernel's geometry and causal frontier in
+// f32, with tile_attention_f32.cuh's 3xTF32 products and 32-key tiles.
+template <int HD>
+__global__ void __launch_bounds__(tile32::kThreads)
+flash_tile_f32_kernel(const FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PAIR = tile32::k_tile<HD>() + tile32::v_tile<HD>();
+  float* qs = reinterpret_cast<float*>(smem);  // [kRows][HD + 8]
+  float* kv = qs + tile32::q_tile<HD>();       // [stage][K, V]
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+
+  const int b = blockIdx.x / a.Hkv;
+  const int kvh = blockIdx.x % a.Hkv;
+  const int G = a.H / a.Hkv;
+  const int nrows = G * a.T;
+  // the longest rows first: tile y of the grid is row tile gridDim.y-1-y
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * tile32::kRows;
+  const int off = a.offset[b];
+  const int thi = (min(r0 + tile32::kRows, nrows) - 1) / G;
+  const int kmax = a.causal ? min(off + thi, a.S - 1) : a.S - 1;
+  const int jhi = kmax >= 0 ? kmax / tile32::kKeys : -1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // key tile j into its stage (j & 1)
+  auto stage = [&](int j) {
+    float* ks = kv + (j & 1) * PAIR;
+    stage_keys_f32<HD>(k, v, b, kvh, a.S, a.Hkv, kmax, j, ks,
+                       ks + tile32::k_tile<HD>());
+  };
+
+  tile32::stage_q<HD>(qs, static_cast<const float*>(a.q), b, kvh, a.T, a.H, G,
+                      r0, nrows);
+  if (jhi >= 0) stage(0);
+  tile::cp_async_commit();
+
+  tile32::WarpRows<HD> w;
+  tile32::init_rows<HD>(w);
+  // rows that fit one warp: every warp takes them, each with its own
+  // quarter of the keys
+  const bool ksplit = nrows - r0 <= 16;
+  const int row0 = ksplit ? 0 : warp * 16;
+  int rmin[2], rmax[2];
+  float* dst[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int R = r0 + row0 + (lane >> 2) + 8 * i;
+    rmin[i] = 0;
+    rmax[i] = -1;
+    dst[i] = nullptr;
+    if (R < nrows) {
+      const int t = R / G;
+      rmax[i] = a.causal ? min(off + t, a.S - 1) : a.S - 1;
+      if (!ksplit || warp == 0)
+        dst[i] = static_cast<float*>(a.out) +
+                 ((size_t)(b * a.T + t) * a.H + kvh * G + R % G) * HD;
+    }
+  }
+  const tile::RowSpan sp = tile::warp_span(rmin, rmax);
+
+  for (int j = 0; j <= jhi; ++j) {
+    // tile j (and Q) has landed; every warp is done with tile j - 1, whose
+    // stage takes tile j + 1
+    tile::cp_async_wait_all();
+    __syncthreads();
+    if (j < jhi) stage(j + 1);
+    tile::cp_async_commit();
+    int lo[2], hi[2];
+    unsigned live = tile32::tile_ranges(sp, j * tile32::kKeys, lo, hi);
+    if (ksplit) live &= 1u << warp;
+    const float* ks = kv + (j & 1) * PAIR;
+    tile32::attend_tile<HD>(w, qs, ks, ks + tile32::k_tile<HD>(), live, lo, hi,
+                            a.sm_scale, 0.f, row0, lane);
+  }
+  tile::cp_async_wait_all();  // no copy in flight (jhi < 0: Q's)
+  if (ksplit) {
+    static_assert(tile32::merge_floats<HD>() <= tile32::q_tile<HD>(),
+                  "the merge fits in the Q tile");
+    __syncthreads();  // every warp is done with Q and the last tile
+    tile32::merge_warps<HD>(w, qs, warp, lane);
+  }
+  tile32::store_rows<HD>(w, dst, lane);
+}
+
+// The launch of either tile kernel (F32: the f32 one); both take 64 query
+// rows a block.
+template <int HD, bool F32>
 int launch_tile(const FlashArgs& a, cudaStream_t stream) {
+  static_assert(tile::kRows == tile32::kRows, "one grid for both forms");
   const int tiles = (a.H / a.Hkv * a.T + tile::kRows - 1) / tile::kRows;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(a.B * a.Hkv, tiles);
-  // two stages of K and V tiles, bf16
-  constexpr size_t smem = (size_t)4 * tile::kKeys * HD * 2;
-  auto kernel = flash_tile_kernel<HD>;
+  // bf16: two stages of K and V tiles; f32: Q, then two stages of K and V
+  constexpr size_t smem =
+      F32 ? (size_t)4 * (tile32::q_tile<HD>() +
+                         2 * (tile32::k_tile<HD>() + tile32::v_tile<HD>()))
+          : (size_t)4 * tile::kKeys * HD * 2;
+  auto kernel = F32 ? flash_tile_f32_kernel<HD> : flash_tile_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<grid, tile::kThreads, smem, stream>>>(a);
+  kernel<<<grid, tile32::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// C entry point of the row kernel, bound with ctypes. dtype: 0 = float32,
+// 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 = launched), or -1 for a dtype
 // or head_dim this file was not built for.
 extern "C" int b2b_flash_attention(const void* q, const void* k,
@@ -357,7 +482,23 @@ extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
   const FlashArgs a{q, k, v, static_cast<const int*>(offset), out,
                     B, T_, S, H, Hkv, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_tile<64>(a, s);
-  if (hd == 128) return launch_tile<128>(a, s);
+  if (hd == 64) return launch_tile<64, false>(a, s);
+  if (hd == 128) return launch_tile<128, false>(a, s);
+  return -1;
+}
+
+// C entry point of the f32 tile kernel, bound with ctypes: q, k, v and out
+// are f32, 16-byte aligned. Returns the cudaError_t of the launch (0 =
+// launched), or -1 for a head_dim this kernel was not built for.
+extern "C" int b2b_flash_attention_tile_f32(const void* q, const void* k,
+                                            const void* v, const void* offset,
+                                            void* out, int B, int T_, int S,
+                                            int H, int Hkv, int hd, int causal,
+                                            float sm_scale, void* stream) {
+  const FlashArgs a{q, k, v, static_cast<const int*>(offset), out,
+                    B, T_, S, H, Hkv, causal, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return launch_tile<64, true>(a, s);
+  if (hd == 128) return launch_tile<128, true>(a, s);
   return -1;
 }

@@ -35,11 +35,14 @@
 //         over HD (HD / 32 elements a lane) and a shuffle reduction;
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
-// Left for later: splitting a row's pages across blocks and merging the
-// partial softmaxes (flash-decoding) when B * Hkv is small next to the 132
-// SMs, and wgmma tiles for long prefill chunks, where the scalar dot
-// products below leave the tensor cores idle (and where every row of an
-// int8 page dequantizes it again).
+// Which forms it serves (ops/ragged.py:ragged_kernel): head_dim 256, bf16
+// and f32 queries, over either pool: the gemma family's head_dim, which
+// the tile and decode kernels are not built for; and f32 chunks shorter
+// than T_MIN_F32_INT8 over an int8 pool, where it beat the f32 tile form
+// on the H100. bf16 decode at head_dim 64/128 has the split-K kernel
+// (ragged_decode_attention.cu), and every other chunk at those head_dims
+// a tensor-core tile kernel (ragged_prefill_attention.cu: bf16, and f32 in
+// 3xTF32).
 
 #include "attention.cuh"
 

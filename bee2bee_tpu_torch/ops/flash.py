@@ -4,11 +4,13 @@ attention of a [B, T] query chunk against [B, S] keys and values.
 The port of ``bee2bee_tpu/ops/flash.py``'s ``flash_attention`` with the
 same signature and layout. Two implementations of one function:
 
-- two CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``)
+- three CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``)
   for CUDA tensors, which together replace the TPU kernel
   ``_flash_kernel``: the tensor-core tile kernel (the ragged prefill
   kernel's design over contiguous K/V) for bf16 at head_dim 64 and 128,
-  and the row-per-warp kernel for f32 and head_dim 256;
+  its f32 form (both products in 3xTF32) for f32 at those head_dims, and
+  the row-per-warp kernel for head_dim 256 (bf16 and f32).
+  ``flash_kernel`` names the kernel the rule picks;
 - ``flash_attention_ref``, the plain PyTorch version: explicit mask and an
   f32 softmax. The wrapper takes it for CPU tensors only; the tests hold
   it against the JAX kernel, and the card's smoke run holds the kernel
@@ -40,11 +42,26 @@ from .ragged import _DTYPE_CODE, _HEAD_DIMS, _TILE_HEAD_DIMS, NEG_INF, row_offse
 _SOURCE = "flash_attention.cu"
 
 
+# each kernel's launch counter (on flash_attention), and the query type of
+# each kernel built for one (the row kernel takes both)
+_COUNTERS = {"row": "launches", "tile": "tile_launches",
+             "tile_f32": "f32_tile_launches"}
+_KERNEL_DTYPES = {"tile": torch.bfloat16, "tile_f32": torch.float32}
+
+
 def use_tile_kernel(dtype, hd: int) -> bool:
-    """The dispatch rule: bf16 at a head_dim the tile kernel is built for
-    goes to the tensor-core tile kernel, everything else to the row
-    kernel."""
-    return dtype == torch.bfloat16 and hd in _TILE_HEAD_DIMS
+    """The dispatch rule: bf16 or f32 at a head_dim the tile kernels are
+    built for (64, 128) goes to the tensor-core tile kernel of its type,
+    everything else (head_dim 256) to the row kernel."""
+    return dtype in _KERNEL_DTYPES.values() and hd in _TILE_HEAD_DIMS
+
+
+def flash_kernel(dtype, hd: int) -> str:
+    """The kernel the dispatch rule names: "tile" (bf16), "tile_f32" (f32)
+    or "row"."""
+    if not use_tile_kernel(dtype, hd):
+        return "row"
+    return "tile_f32" if dtype == torch.float32 else "tile"
 
 
 def _check_block_k(S: int, causal: bool, block_k: int) -> None:
@@ -111,20 +128,46 @@ def _check_kernel_args(q, k, v, off):
             raise ValueError(f"flash kernel: {name} is not 16-byte aligned")
 
 
-def _kernel_fn(tile: bool):
-    """The C entry point of the tile kernel (``tile``) or of the row
-    kernel, built and bound on first use."""
+_ENTRIES = {"row": "b2b_flash_attention", "tile": "b2b_flash_attention_tile",
+            "tile_f32": "b2b_flash_attention_tile_f32"}
+
+
+def _kernel_fn(kernel: str):
+    """The C entry point of ``kernel`` ("tile", "tile_f32" or "row"), built
+    and bound on first use."""
     from ._build import load
 
-    lib = load(_SOURCE)
-    fn = lib.b2b_flash_attention_tile if tile else lib.b2b_flash_attention
+    fn = getattr(load(_SOURCE), _ENTRIES[kernel])
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         # pointers, shapes, sm_scale, [the row kernel's dtype code], stream
-        dtype_code = [] if tile else [ctypes.c_int]
+        dtype_code = [ctypes.c_int] if kernel == "row" else []
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
                        + dtype_code + [ctypes.c_void_p])
     return fn
+
+
+def _launch_kernel(q, k, v, off, causal: bool, sm_scale: float, kernel: str):
+    """Launch ``kernel`` ("tile", "tile_f32" or "row") on checked arguments
+    and count the launch."""
+    B, T, H, hd = q.shape
+    if _KERNEL_DTYPES.get(kernel, q.dtype) != q.dtype:
+        raise TypeError(f"flash {kernel} kernel: {q.dtype} queries")
+    out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    args = [
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), out.data_ptr(),
+        B, T, k.shape[1], H, k.shape[2], hd, int(bool(causal)), float(sm_scale),
+    ]
+    if kernel == "row":
+        args.append(_DTYPE_CODE[q.dtype])
+    err = _kernel_fn(kernel)(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash {kernel} kernel launch failed: cuda error {err}")
+    counter = _COUNTERS[kernel]
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
+    return out
 
 
 def flash_attention(
@@ -138,11 +181,11 @@ def flash_attention(
     sm_scale: float | None = None,
 ):
     """Tiled attention over contiguous K/V; returns [B, T, H*hd]. CUDA
-    tensors launch the kernel ``use_tile_kernel`` names (and count the
-    launch in ``flash_attention.tile_launches`` for the tile kernel,
-    ``flash_attention.launches`` for the row kernel); CPU tensors take the
-    plain version. Anything else raises — there is no fallback from the
-    card."""
+    tensors launch the kernel ``flash_kernel`` names (and count the launch
+    in ``flash_attention.tile_launches`` for the bf16 tile kernel,
+    ``.f32_tile_launches`` for its f32 form, ``.launches`` for the row
+    kernel); CPU tensors take the plain version. Anything else raises —
+    there is no fallback from the card, nor from one kernel to another."""
     B, T, H, hd = q.shape
     S = k.shape[1]
     _check_block_k(S, causal, block_k)
@@ -152,27 +195,13 @@ def flash_attention(
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     off = row_offsets(offset, B, q.device)
     _check_kernel_args(q, k, v, off)
-    out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    tile = use_tile_kernel(q.dtype, hd)
-    args = [
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), out.data_ptr(),
-        B, T, S, H, k.shape[2], hd, int(bool(causal)),
-        float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)),
-    ]
-    if not tile:
-        args.append(_DTYPE_CODE[q.dtype])
-    err = _kernel_fn(tile)(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        name = "flash tile" if tile else "flash"
-        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
-    if tile:
-        flash_attention.tile_launches += 1
-    else:
-        flash_attention.launches += 1
-    return out
+    return _launch_kernel(
+        q, k, v, off, causal,
+        sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd),
+        kernel=flash_kernel(q.dtype, hd),
+    )
 
 
 flash_attention.launches = 0  # row kernel
-flash_attention.tile_launches = 0  # tile kernel
+flash_attention.tile_launches = 0  # tile kernel, bf16
+flash_attention.f32_tile_launches = 0  # tile kernel, f32 form

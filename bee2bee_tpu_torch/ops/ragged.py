@@ -4,13 +4,16 @@ read straight from the paged KV pool through per-row block tables.
 The port of ``bee2bee_tpu/ops/ragged.py``'s ``ragged_paged_attention``
 with the same ABI. Two implementations of one function:
 
-- three CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
+- four CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
   replace the TPU kernel ``_ragged_kernel``: the split-K decode kernel
   ``csrc/ragged_decode_attention.cu`` for bf16 decode (T = 1) at a
   head_dim it is built for (64, 128); the tensor-core tile kernel
   ``csrc/ragged_prefill_attention.cu`` for bf16 chunks of at least
-  ``T_MIN`` queries at those head_dims; and the row-per-warp kernel
-  ``csrc/ragged_attention.cu`` for everything else (f32, head_dim 256).
+  ``T_MIN`` queries at those head_dims; its f32 form (3xTF32 products, in
+  the same file) for f32 queries of at least ``T_MIN_F32`` (decode
+  included; over an int8 pool ``T_MIN_F32_INT8``) at those head_dims; and
+  the row-per-warp kernel ``csrc/ragged_attention.cu`` for head_dim 256
+  (bf16 and f32) and the shorter f32 chunks over an int8 pool.
   ``use_decode_kernel`` and ``use_tile_kernel`` are the rule, and
   ``ragged_kernel`` names the kernel they pick;
 - ``ragged_paged_attention_ref``, the plain PyTorch version: it gathers
@@ -34,9 +37,10 @@ and block). An int8 page is dequantized in f32 and rounded to q's type
 before the dots, as the JAX kernel does. The wrapper counts each
 kernel's launches per pool form apart: ``launches`` and
 ``int8_launches`` for the row kernel, ``prefill_launches`` and
-``int8_prefill_launches`` for the tile kernel, ``decode_launches`` and
-``int8_decode_launches`` for the decode kernel (one call launches its two
-CUDA kernels, the split walk and the merge, and counts 1). The mesh wrapper
+``int8_prefill_launches`` for the tile kernel, ``f32_prefill_launches``
+and ``int8_f32_prefill_launches`` for its f32 form, ``decode_launches``
+and ``int8_decode_launches`` for the decode kernel (one call launches its
+two CUDA kernels, the split walk and the merge, and counts 1). The mesh wrapper
 (``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
 """
 
@@ -65,6 +69,14 @@ _DECODE_HEAD_DIMS = (64, 128)
 # kernel at every chunk length timed, T = 1 included (chip_smoke.py's
 # crossover lines, PERF.md); decode (T = 1) has its own split-K kernel
 T_MIN = 2
+# the shortest f32 chunk the tile kernel's f32 form takes (there is no f32
+# decode kernel), per pool form, from chip_smoke.py's f32 crossover lines
+# on the H100 (PERF.md): over an f32 pool it beat the row kernel at every
+# T, T = 1 included; over an int8 pool, whose pages it dequantizes into
+# f32 once a tile, the row kernel was faster at T = 1 and 2 and the two
+# tied at T = 4
+T_MIN_F32 = 1
+T_MIN_F32_INT8 = 4
 # keys of one staged tile of the decode kernel (kKeys in its source): a
 # split holds whole tiles
 DECODE_TILE_KEYS = 64
@@ -73,11 +85,17 @@ DECODE_TILE_KEYS = 64
 DECODE_MAX_SPLIT_TILES = 4
 
 
-def use_tile_kernel(dtype, T: int, hd: int) -> bool:
-    """The dispatch rule of prefill and verify chunks: bf16 chunks of at
-    least T_MIN queries at a head_dim the tile kernel is built for go to
-    the tensor-core tile kernel."""
-    return dtype == torch.bfloat16 and T >= T_MIN and hd in _TILE_HEAD_DIMS
+def use_tile_kernel(dtype, T: int, hd: int, quantized: bool = False) -> bool:
+    """The dispatch rule of the tensor-core tile kernels, at a head_dim
+    they are built for: bf16 chunks of at least T_MIN queries (prefill and
+    verify) go to the bf16 tile kernel, f32 chunks of at least T_MIN_F32
+    (over an int8 pool, ``quantized``: T_MIN_F32_INT8) to its f32 (3xTF32)
+    form."""
+    if hd not in _TILE_HEAD_DIMS:
+        return False
+    if dtype == torch.bfloat16:
+        return T >= T_MIN
+    return dtype == torch.float32 and T >= (T_MIN_F32_INT8 if quantized else T_MIN_F32)
 
 
 def use_decode_kernel(dtype, T: int, hd: int) -> bool:
@@ -87,12 +105,16 @@ def use_decode_kernel(dtype, T: int, hd: int) -> bool:
     return dtype == torch.bfloat16 and T == 1 and hd in _DECODE_HEAD_DIMS
 
 
-def ragged_kernel(dtype, T: int, hd: int) -> str:
-    """The kernel the dispatch rule names: "decode", "tile" or "row" (f32
-    queries, head_dim 256)."""
+def ragged_kernel(dtype, T: int, hd: int, quantized: bool = False) -> str:
+    """The kernel the dispatch rule names for queries of ``dtype`` over the
+    pool in q's type or, ``quantized``, an int8 pool: "decode", "tile"
+    (bf16), "tile_f32" (the tile kernel's f32 form) or "row" (head_dim 256,
+    and short f32 chunks over an int8 pool)."""
     if use_decode_kernel(dtype, T, hd):
         return "decode"
-    return "tile" if use_tile_kernel(dtype, T, hd) else "row"
+    if use_tile_kernel(dtype, T, hd, quantized):
+        return "tile_f32" if dtype == torch.float32 else "tile"
+    return "row"
 
 
 @functools.lru_cache(maxsize=1024)  # one entry a (batch, table width) bucket
@@ -243,9 +265,10 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale):
             raise ValueError(f"ragged kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"ragged kernel: {name} is not contiguous")
-    # the tile and decode kernels copy q in 16-byte pieces too
+    # the tile kernels (both forms) and the decode kernel copy q in 16-byte
+    # pieces too
     aligned = [("k_pool", k_pool), ("v_pool", v_pool)]
-    if ragged_kernel(q.dtype, T, hd) != "row":
+    if ragged_kernel(q.dtype, T, hd, k_scale is not None) != "row":
         aligned.append(("q", q))
     for name, t in aligned:
         if t.data_ptr() % 16:
@@ -278,6 +301,19 @@ def _prefill_fn():
     return fn
 
 
+def _prefill_f32_fn():
+    """The f32 tile form's C entry point, built and bound on first use."""
+    from ._build import load
+
+    fn = load(_PREFILL_SOURCE).b2b_ragged_prefill_attention_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+    return fn
+
+
 def _decode_fn():
     """The decode kernel's C entry point, built and bound on first use."""
     from ._build import load
@@ -294,16 +330,21 @@ def _decode_fn():
 # each kernel's launch counter (on ragged_paged_attention), bf16 pool form;
 # the int8 pool form's carries an "int8_" prefix
 _COUNTERS = {"row": "launches", "tile": "prefill_launches",
-             "decode": "decode_launches"}
+             "tile_f32": "f32_prefill_launches", "decode": "decode_launches"}
+# the query type of each kernel built for one (the row kernel takes both)
+_KERNEL_DTYPES = {"tile": torch.bfloat16, "decode": torch.bfloat16,
+                  "tile_f32": torch.float32}
 
 
 def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
                    k_scale, v_scale, kernel: str):
-    """Launch ``kernel`` ("decode", "tile" or "row") on checked arguments
-    and count the launch."""
+    """Launch ``kernel`` ("decode", "tile", "tile_f32" or "row") on checked
+    arguments and count the launch."""
     B, T, H, hd = q.shape
     Hkv, NB, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
+    if _KERNEL_DTYPES.get(kernel, q.dtype) != q.dtype:
+        raise TypeError(f"ragged {kernel} kernel: {q.dtype} queries")
     out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -329,6 +370,8 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
                 float(softcap))
         if kernel == "tile":
             err = _prefill_fn()(*args, stream)
+        elif kernel == "tile_f32":
+            err = _prefill_f32_fn()(*args, stream)
         else:
             err = _kernel_fn()(*args, _DTYPE_CODE[q.dtype], stream)
     if err:
@@ -357,8 +400,10 @@ def ragged_paged_attention(
     launch the kernel ``ragged_kernel`` names (and count the launch in
     ``ragged_paged_attention.decode_launches`` / ``.int8_decode_launches``
     for the decode kernel, ``.prefill_launches`` /
-    ``.int8_prefill_launches`` for the tile kernel, ``.launches`` /
-    ``.int8_launches`` for the row kernel); CPU tensors take the plain
+    ``.int8_prefill_launches`` for the tile kernel,
+    ``.f32_prefill_launches`` / ``.int8_f32_prefill_launches`` for its f32
+    form, ``.launches`` / ``.int8_launches`` for the row kernel); CPU
+    tensors take the plain
     version. Anything else raises — there is no fallback from the card,
     nor from one kernel to another."""
     _check_scales(k_scale, v_scale)
@@ -376,7 +421,7 @@ def ragged_paged_attention(
         q, k_pool, v_pool, block_tables, off, _window_int(window),
         sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd),
         float(logit_softcap or 0.0), k_scale, v_scale,
-        kernel=ragged_kernel(q.dtype, q.shape[1], hd),
+        kernel=ragged_kernel(q.dtype, q.shape[1], hd, k_scale is not None),
     )
 
 
@@ -386,6 +431,9 @@ ragged_paged_attention.int8_launches = 0
 # tile kernel: bf16 pool / int8 pool with scales
 ragged_paged_attention.prefill_launches = 0
 ragged_paged_attention.int8_prefill_launches = 0
+# the tile kernel's f32 form: f32 pool / int8 pool with scales
+ragged_paged_attention.f32_prefill_launches = 0
+ragged_paged_attention.int8_f32_prefill_launches = 0
 # decode kernel: bf16 pool / int8 pool with scales
 ragged_paged_attention.decode_launches = 0
 ragged_paged_attention.int8_decode_launches = 0

@@ -19,22 +19,31 @@ and the script exits non-zero):
    head_dim 64, and a row at offset -1 beside a dead row; then verify
    chunks (one with a dead row) and prefill chunks, T in {5, 16, 17, 300,
    512 @0, 512 @1000, 2048 @0}, window + softcap + scale at T=5 and T=64,
-   block sizes 8 and 32 (the tile kernel); then f32 decode and an f32
-   verify chunk (the row kernel). Each case checks that exactly the
-   kernel the dispatch rule names launched, once, and each decode case
-   that a second call gives the same bytes. Tolerance: max abs
-   error <= 2e-2 against the plain version run in f32 on the same bf16
-   inputs (bf16 output rounding is ~4e-3 at these magnitudes; the decode
-   and tile kernels also round P to bf16, as the JAX kernel does), 1e-4
-   in f32. Then times, each beside the plain version, SDPA over the
-   gathered view (the library yardstick, never used by the port) and the
-   bound: the decode kernel at B=8 over a 1024-token context and at B=1
-   over 2048 (with its split plan), the row and the tile kernel forced at
-   the same decode inputs, the row kernel in f32 at the B=8 decode shape,
-   and the tile kernel at a 512-token prefill chunk at offset 1000; the
-   crossover of the row and tile kernels over T; then the decode sweep,
-   32 launches back to back over a 32-layer copy of the pool, in ms per
-   launch.
+   block sizes 8 and 32 (the tile kernel); then f32 (the tile kernel's
+   3xTF32 form; over an int8 pool the row kernel below T_MIN_F32_INT8):
+   decode with a dead row, at offset -1 and at head_dim 64, verify T=3
+   and T=4, prefill T in {5, 17, 300, 512 @1000, 2048 @0}, window +
+   softcap + scale at T=5 and T=64, block sizes 8 and 32, head_dim 64;
+   then head_dim 256 at gemma-2-9b's heads (16/8, window 4096, softcap 50,
+   scale 1/16), decode and T=17 in bf16 and f32 (the row kernel). Each
+   case checks that exactly the kernel the dispatch rule names launched,
+   once, and each decode case that a second call gives the same bytes.
+   Tolerance: max abs error <= 2e-2 against the plain version run in f32
+   on the same bf16 inputs (bf16 output rounding is ~4e-3 at these
+   magnitudes; the decode and tile kernels also round P to bf16, as the
+   JAX kernel does), 1e-4 in f32. Then times, each beside the plain
+   version, SDPA over the gathered view in q's type (the library
+   yardstick, never used by the port; the backend it ran is printed once)
+   and the bound (f32: three TF32 products at the TF32 peak, with the
+   CUDA-core FFMA bound beside it): the decode kernel at B=8 over a
+   1024-token context and at B=1 over 2048 (with its split plan), the row
+   and the tile kernel forced at the same decode inputs, the f32 tile
+   form at the B=8 decode shape (and the row kernel forced there), the
+   tile kernel and its f32 form at a 512-token prefill chunk at offset
+   1000, the row kernel at head_dim 256 (gemma heads, decode shape) in
+   bf16 and f32; the crossover of the row and tile kernels over T, bf16
+   and f32; then the decode sweep, 32 launches back to back over a
+   32-layer copy of the pool, in ms per launch.
 3. The same cases for the int8-pool form: random int8 pages, random
    per-(kv head, block) scales, and a null block of +-127 under a scale
    of 1e3 that no reader may touch. Tolerance 2e-2 in bf16 and 1e-4 in
@@ -44,21 +53,26 @@ and the script exits non-zero):
 4. Flash attention vs plain version (contiguous K/V, llama-3-8b heads):
    causal T=S=2048, decode B=8 T=1 S=2048 with ragged offsets and one
    empty row (offset -1), T=512 at offset 1000 over S=2048, non-causal
-   T=S=256 in bf16 (the tile kernel), and an f32 case (the row kernel).
-   Tolerance 2e-2 / 1e-4. Time of the causal T=2048 case through each
-   kernel (bf16 for the tile kernel, f32 for the row kernel) beside the
-   plain version, SDPA(is_causal=True) and the bound. No serving path
-   calls this op.
+   T=S=256 in bf16 (the tile kernel); T=64 S=256 at per-row offsets,
+   causal T=S=2048, the decode case, non-causal T=S=256 and head_dim 64
+   in f32 (the f32 tile kernel); head_dim 256 at gemma heads in bf16 and
+   f32 (the row kernel). Tolerance 2e-2 / 1e-4. Times of causal T=S=2048
+   through the tile kernel (bf16), the f32 tile kernel and the row kernel
+   forced (f32), and the row kernel at head_dim 256 (gemma heads, bf16
+   and f32), each beside the plain version, SDPA(is_causal=True) and the
+   bound. No serving path calls this op.
 5. A whole forward at llama-3-8b width, 2 layers: a 300-token prefill and
    8 greedy decode steps through the kernels and through the plain
    version (asked for explicitly, here only), in f32 over an f32 pool and
-   over an int8 pool (the row kernel; logits within 2e-3, greedy tokens
-   equal; the int8-vs-f32 pool logit gap printed for information), then
-   in bf16 over a bf16 pool and an int8 pool, whose 300-token prefill
-   goes through the tile kernel and whose 8 decode steps go through the
-   decode kernel: logits within the gap between the plain bf16 and the
-   plain f32 forward (the kernels may not add more error than bf16 itself
-   carries).
+   over an int8 pool (each forward through the kernel the rule names:
+   the f32 tile form, and over the int8 pool the row kernel for the
+   decode steps; logits within 2e-3, greedy tokens equal;
+   the int8-vs-f32 pool logit gap printed for information; each forward's
+   device busy time under torch.profiler), then in bf16 over a bf16 pool
+   and an int8 pool, whose 300-token prefill goes through the tile kernel
+   and whose 8 decode steps go through the decode kernel: logits within
+   the gap between the plain bf16 and the plain f32 forward (the kernels
+   may not add more error than bf16 itself carries).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream; the decode kernel's launches plus the tile kernel's
@@ -96,7 +110,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core peak
+# f32-accurate products on the tensor cores take three TF32 products
+# (3xTF32): the f32 bound counts the flops three times at the TF32 peak
+TF32_PRODUCTS = 3
 KERNEL_TOL = 2e-2
+F32_TOL = 1e-4
 FORWARD_TOL = 2e-3
 SEED = 0
 SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's 1.98 GHz boost clock
@@ -166,8 +185,9 @@ def phase_device_and_build():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build: {source}: {len(regs)} kernels; ptxas spill lines "
             f"{sorted(set(spills)) or 'none'}")
-        if source == "ragged_decode_attention.cu":
-            for name, line in ptxas_entries(report):
+        # every instantiation of the decode kernel and of the f32 tile forms
+        for name, line in ptxas_entries(report):
+            if source == "ragged_decode_attention.cu" or "_f32_" in name:
                 log(f"build: {source}: {name}: {line}")
     return card, build_s
 
@@ -179,7 +199,7 @@ def ptxas_entries(report: str):
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"\d+(ragged_decode_\w+?)I", mangled)
+            base = re.search(r"\d+((?:ragged|flash)_\w+?)I", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
         elif "spill stores" in ln:
@@ -279,6 +299,41 @@ RAGGED_CASES = [
     ("BS=8 T=100 + null tails", dict(offs=[3, 77], T=100, BS=8, extra_tables=4), {}),
     ("BS=32 T=100", dict(offs=[3, 77], T=100, BS=32), {}),
 ]
+F32 = dict(dtype=torch.float32)
+# the f32 tile form (3xTF32), decode included
+F32_RAGGED_CASES = [
+    ("f32 decode + dead row", dict(offs=[0, 17, 300, 1023], T=1, dead=(2,), **F32), {}),
+    ("f32 decode offset -1 + dead row", dict(offs=[-1, 300, 57, 1000], T=1, dead=(1,),
+                                             **F32), {}),
+    ("f32 decode hd=64", dict(offs=[3, 40, 100, 1000], T=1, hd=64, **F32), {}),
+    ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3, **F32), {}),
+    ("f32 verify T=4", dict(offs=[7, 300, 1023], T=4, **F32), {}),
+    ("f32 window+softcap+scale T=5", dict(offs=[5, 70, 129, 1000], T=5, **F32),
+     WINDOW_KW),
+    ("f32 prefill T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,),
+                                        **F32), {}),
+    ("f32 prefill T=17", dict(offs=[5, 33], T=17, **F32), {}),
+    ("f32 window+softcap+scale T=64", dict(offs=[5, 70, 129, 1000], T=64, **F32),
+     WINDOW_KW),
+    ("f32 prefill T=300", dict(offs=[0], T=300, **F32), {}),
+    ("f32 prefill T=512 @1000", dict(offs=[1000], T=512, **F32), {}),
+    ("f32 prefill T=2048 @0", dict(offs=[0], T=2048, **F32), {}),
+    ("f32 BS=8 T=100 + null tails", dict(offs=[3, 77], T=100, BS=8, extra_tables=4,
+                                         **F32), {}),
+    ("f32 BS=32 T=100", dict(offs=[3, 77], T=100, BS=32, **F32), {}),
+    ("f32 prefill hd=64 T=40", dict(offs=[3, 100], T=40, hd=64, **F32), {}),
+]
+# gemma-2-9b's attention (models/config.py): 16 heads over 8 kv heads at
+# head_dim 256, a 4096-key window, softcap 50, score scale 1/sqrt(256): the
+# row kernel's head_dim, in bf16 and f32
+GEMMA = dict(H=16, Hkv=8, hd=256)
+GEMMA_KW = dict(window=4096, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
+HD256_RAGGED_CASES = [
+    (f"hd256 {name} {str(dt)[6:]}", dict(geo, dtype=dt, **GEMMA), GEMMA_KW)
+    for dt in (torch.bfloat16, torch.float32)
+    for name, geo in (("decode window-cut", dict(offs=[0, 700, 4500, 5000], T=1)),
+                      ("chunk T=17 window-cut", dict(offs=[5, 4200], T=17)))
+]
 
 
 def int8_pools(gen, NB, Hkv=8, BS=16, hd=128):
@@ -309,10 +364,60 @@ def split_plan(q, kp, tb) -> str:
     return f"{splits} splits x {pages} pages"
 
 
+def bounds(nbytes: int, flops: int, dtype) -> dict:
+    """The least time the card could take: max(bytes at the HBM rate, flops
+    at the peak of the type's products). f32: three TF32 products at the
+    TF32 tensor-core peak (f32-accurate work on the tensor cores); the
+    CUDA-core f32 time (one FFMA product) is kept beside it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        t_ops, peak = flops / BF16_FLOPS_PER_S * 1e3, "bf16 989 TFLOP/s"
+    else:
+        t_ops = TF32_PRODUCTS * flops / TF32_FLOPS_PER_S * 1e3
+        peak = f"{TF32_PRODUCTS}xTF32 at {TF32_FLOPS_PER_S / 1e12} TFLOP/s"
+    bound_ms = max(t_bytes, t_ops)
+    out = dict(bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    text = (f"bound {bound_ms:.4f} ms ({out['bound_by']}: {nbytes} B -> "
+            f"{t_bytes:.4f} ms, {flops} flop, {peak} -> {t_ops:.4f} ms)")
+    if dtype == torch.float32:
+        out["ffma_bound_ms"] = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
+        text += f", FFMA bound {out['ffma_bound_ms']:.4f} ms (f32 at 67 TFLOP/s)"
+    out["text"] = text
+    return out
+
+
+_SDPA_SEEN: set = set()
+
+
+def log_sdpa_backend(label: str, fn, tries: int = 3) -> None:
+    """Once per label: the CUDA kernels one SDPA call runs, under
+    torch.profiler, which name the backend PyTorch chose (a capture that
+    saw no kernel is taken again, up to ``tries`` times)."""
+    if label in _SDPA_SEEN:
+        return
+    _SDPA_SEEN.add(label)
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names: list = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key[:72] for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    log(f"sdpa backend ({label}): kernels {names}")
+
+
 def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     """The kernel's time beside the plain version's, SDPA's over the
-    gathered (for an int8 pool: dequantized) view and the bound (at the
-    peak rate of q's type)."""
+    gathered (for an int8 pool: dequantized) view in q's type and the
+    bound (at the peak rate of q's type; f32: the 3xTF32 and the FFMA
+    bounds)."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_paged_attention, ragged_paged_attention_ref, ragged_kernel,
     )
@@ -349,24 +454,19 @@ def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     library_ms = cuda_time_ms(
         lambda: sdpa(qs, kg, vg, attn_mask=mask), flush=flush
     )
+    log_sdpa_backend(f"ragged, {q.dtype}, mask", lambda: sdpa(qs, kg, vg, attn_mask=mask))
     kv_bytes = kp.element_size()
     nbytes, flops = attention_work(offs, T, H, Hkv, hd, BS, 0, q.element_size(), MB,
                                    kv_bytes=kv_bytes,
                                    scale_bytes=0 if scales is None else 4)
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    b = bounds(nbytes, flops, q.dtype)
     plan = (f", plan {split_plan(q, kp, tb)}"
             if ragged_kernel(q.dtype, T, hd) == "decode" else "")
-    log(f"timing {label} B={B} T={T} ctx={offs[0] + T} ({q.dtype}{plan}): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B -> {t_bytes:.4f} ms, "
-        f"{flops} flop at {peak / 1e12:.0f} TFLOP/s -> {t_ops:.4f} ms), share of "
-        f"bound {bound_ms / ms:.3f}")
+    log(f"timing {label} B={B} T={T} ctx={offs[0] + T} H={H}/{Hkv} hd={hd} "
+        f"({q.dtype}{plan}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, {b['text']}, share of bound {b['bound_ms'] / ms:.3f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+                **{k: v for k, v in b.items() if k != "text"})
 
 
 def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
@@ -394,15 +494,17 @@ def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
     return ms
 
 
-# read_counts()'s name of each ragged kernel's bf16-pool counter
-RAGGED_COUNTERS = {"row": "ragged", "tile": "ragged_prefill", "decode": "ragged_decode"}
+# read_counts()'s name of each ragged kernel's counter over the pool in q's
+# type; the int8 pool form's carries an "_int8" suffix
+RAGGED_COUNTERS = {"row": "ragged", "tile": "ragged_prefill",
+                   "tile_f32": "ragged_prefill_f32", "decode": "ragged_decode"}
 
 
 def ragged_counter(q, int8: bool) -> str:
     """The launch counter the dispatch rule names for these queries."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
-    kernel = ragged_kernel(q.dtype, q.shape[1], q.shape[3])
+    kernel = ragged_kernel(q.dtype, q.shape[1], q.shape[3], int8)
     return RAGGED_COUNTERS[kernel] + ("_int8" if int8 else "")
 
 
@@ -412,16 +514,19 @@ def check_one_launch(label: str, counter: str) -> None:
           f"{label}: expected one {counter} launch, counted {counts}")
 
 
-def time_crossover(label, gen, flush, int8):
-    """Both ragged kernels forced at the same inputs, over T: where the
-    tile kernel starts to win (the dispatch's T_MIN), and the row kernel
-    at the timed prefill chunk."""
+def time_crossover(label, gen, flush, int8, dtype=torch.bfloat16):
+    """The row kernel and the tile kernel of q's type forced at the same
+    inputs, over T: where the tile kernel starts to win (the dispatch's
+    T_MIN, T_MIN_F32), and the row kernel at the timed prefill chunk."""
     from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
 
-    for B, off0, Ts in ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)),
-                        (1, 1000, (512,))):
+    tile = "tile" if dtype == torch.bfloat16 else "tile_f32"
+    shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)), (1, 1000, (512,)))
+    if dtype == torch.float32:
+        shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 1000, (512,)))
+    for B, off0, Ts in shapes:
         for T in Ts:
-            q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T)
+            q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T, dtype=dtype)
             scales = (None, None)
             if int8:
                 kp, vp, *scales = int8_pools(gen, kp.shape[1])
@@ -432,32 +537,35 @@ def time_crossover(label, gen, flush, int8):
                                       0.0, *scales, kernel=kernel)
 
             row_ms = cuda_time_ms(lambda: run("row"), flush=flush)
-            tile_ms = cuda_time_ms(lambda: run("tile"), flush=flush)
-            log(f"crossover {label} B={B} T={T} ctx={off0 + T}: row kernel "
-                f"{row_ms:.4f} ms, tile kernel {tile_ms:.4f} ms")
+            tile_ms = cuda_time_ms(lambda: run(tile), flush=flush)
+            log(f"crossover {label} B={B} T={T} ctx={off0 + T} ({dtype}): row kernel "
+                f"{row_ms:.4f} ms, {tile} kernel {tile_ms:.4f} ms")
 
 
 def time_forced(label, q, kp, vp, tb, off, flush, scales=None):
-    """The three ragged kernels forced at the same decode inputs: the
-    decode kernel beside the row kernel and the tile kernel at T=1."""
+    """The ragged kernels of q's type forced at the same decode inputs:
+    bf16, the decode kernel beside the row kernel and the tile kernel at
+    T=1; f32, the f32 tile form beside the row kernel."""
     from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
 
     rows = row_offsets(off, q.shape[0], q.device)
     sc = (None, None) if scales is None else scales
+    kernels = (("decode", "tile", "row") if q.dtype == torch.bfloat16
+               else ("tile_f32", "row"))
     ms = {k: cuda_time_ms(lambda: _launch_kernel(
         q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(q.shape[3]), 0.0, *sc, kernel=k),
-        flush=flush) for k in ("decode", "tile", "row")}
-    log(f"forced {label} B={q.shape[0]} T=1 (plan {split_plan(q, kp, tb)}): decode "
-        f"kernel {ms['decode']:.4f} ms, tile kernel {ms['tile']:.4f} ms, row kernel "
-        f"{ms['row']:.4f} ms")
+        flush=flush) for k in kernels}
+    plan = f" (plan {split_plan(q, kp, tb)})" if "decode" in ms else ""
+    log(f"forced {label} B={q.shape[0]} T=1 ({q.dtype}){plan}: "
+        + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items()))
     return ms
 
 
 def phase_ragged_vs_plain(flush, int8=False):
-    """Phase 2 (bf16 pool and the f32 form) or phase 3 (int8 pool): each
-    case through the dispatching wrapper against the plain version, the
-    kernel the rule names launched once; then the timings. Returns (max
-    abs error per kernel, timings)."""
+    """Phase 2 (the pool in q's type) or phase 3 (int8 pool): each case, in
+    bf16 and f32 and at head_dim 256, through the dispatching wrapper
+    against the plain version, the kernel the rule names launched once;
+    then the timings. Returns (max abs error per kernel, timings)."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_paged_attention, ragged_paged_attention_ref,
     )
@@ -465,18 +573,12 @@ def phase_ragged_vs_plain(flush, int8=False):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + int8)
     tag = "int8 kernel vs plain" if int8 else "kernel vs plain"
-    errs = {"row": 0.0, "tile": 0.0, "decode": 0.0}
-    # the f32 instantiations the phase-5 forward runs (the row kernel)
-    f32_cases = [
-        ("f32 decode", dict(offs=[0, 17, 300, 1023], T=1, dead=(2,),
-                            dtype=torch.float32), {}),
-        ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3, dtype=torch.float32), {}),
-    ]
-    for label, geo, kw in RAGGED_CASES + f32_cases:
+    errs = {k: 0.0 for k in RAGGED_COUNTERS}
+    for label, geo, kw in RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES:
         q, kp, vp, tb, off = make_case(gen, **geo)
         if int8:
-            kp, vp, ks, vs = int8_pools(gen, kp.shape[1], BS=kp.shape[2],
-                                        hd=kp.shape[3])
+            kp, vp, ks, vs = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
+                                        BS=kp.shape[2], hd=kp.shape[3])
             kw = dict(kw, k_scale=ks, v_scale=vs)
         counter = ragged_counter(q, int8)
         reset_counts()
@@ -488,12 +590,14 @@ def phase_ragged_vs_plain(flush, int8=False):
         else:
             want = ragged_paged_attention_ref(
                 q.float(), kp.float(), vp.float(), tb, off, **kw)
-        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-4
+        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else F32_TOL
         check(bool(torch.isfinite(got).all()), f"{tag}: {label}: non-finite output")
         err = (got.float() - want).abs().max().item()
         log(f"{tag}: {label} ({q.dtype}, {counter} kernel): max abs err "
             f"{err:.3e} (tol {tol})")
         check(err <= tol, f"{tag}: {label}: max abs err {err} > {tol}")
+        if "offset -1" in label:
+            check(not bool(got[0].any()), f"{tag}: {label}: the row at -1 is not 0")
         if counter.startswith("ragged_decode"):
             # the split-K merge runs in a fixed order: a second call repeats
             # the first bit for bit
@@ -505,96 +609,119 @@ def phase_ragged_vs_plain(flush, int8=False):
 
     timings = {}
     label0 = "int8 " if int8 else ""
-    for label, offs, T, dtype in (
-            ("decode", [1023] * 8, 1, torch.bfloat16),
-            ("decode_b1", [2047], 1, torch.bfloat16),
-            ("row_f32", [1023] * 8, 1, torch.float32),
-            ("prefill", [1000], 512, torch.bfloat16)):
-        q, kp, vp, tb, off = make_case(gen, offs=offs, T=T, dtype=dtype)
+    for label, offs, T, dtype, heads in (
+            ("decode", [1023] * 8, 1, torch.bfloat16, {}),
+            ("decode_b1", [2047], 1, torch.bfloat16, {}),
+            ("decode_f32", [1023] * 8, 1, torch.float32, {}),
+            ("prefill", [1000], 512, torch.bfloat16, {}),
+            ("prefill_f32", [1000], 512, torch.float32, {}),
+            ("row_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA),
+            ("row_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA)):
+        q, kp, vp, tb, off = make_case(gen, offs=offs, T=T, dtype=dtype, **heads)
         scales = None
         if int8:
-            kp, vp, *scales = int8_pools(gen, kp.shape[1])
+            kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
+                                         hd=kp.shape[3])
         timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
                                      scales=scales)
-        if label.startswith("decode"):
+        if label in ("decode", "decode_b1", "decode_f32"):
             timings[label]["forced"] = time_forced(f"{label0}{label}", q, kp, vp, tb,
                                                    off, flush, scales=scales)
         if label == "decode":
             time_decode_sweep(f"{label0}{label}", q, kp, vp, tb, off, scales=scales)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
+    time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32)
     return errs, timings
 
 
 # ------------------------------------------------------------ phase 4
 
 
-def time_flash(label, q, k, v, flush):
-    """Causal flash attention's time beside the plain version's,
-    SDPA(is_causal)'s and the bound, at q's type."""
-    from bee2bee_tpu_torch.ops.flash import flash_attention, flash_attention_ref
+def time_flash(label, q, k, v, flush, kernel=None):
+    """Causal flash attention's time (the kernel the rule names, or
+    ``kernel`` forced) beside the plain version's, SDPA(is_causal)'s in q's
+    type and the bound (f32: the 3xTF32 and the FFMA bounds)."""
+    from bee2bee_tpu_torch.ops.flash import (
+        _launch_kernel, flash_attention_ref, flash_kernel,
+    )
 
     B, T, H, hd = q.shape
     Hkv = k.shape[2]
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v), flush=flush)
+    kernel = kernel or flash_kernel(q.dtype, hd)
+    off = torch.zeros(B, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(hd)
+    ms = cuda_time_ms(lambda: _launch_kernel(q, k, v, off, True, scale, kernel=kernel),
+                      flush=flush)
     plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v), flush=flush)
     qs = q.transpose(1, 2).contiguous()  # [B, H, T, hd]
     ks = k.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
     vs = v.transpose(1, 2).repeat_interleave(H // Hkv, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), flush=flush)
+    log_sdpa_backend(f"flash, {q.dtype}, hd {hd}, is_causal",
+                     lambda: sdpa(qs, ks, vs, is_causal=True))
     # q, k, v read once, the output written once; 4*hd flops per visible
-    # (query, key) pair of each head, at the peak rate of q's type
+    # (query, key) pair of each head
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * hd * H * B * (T * (T + 1) // 2)
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"timing flash {label} causal B={B} T=S={T} ({q.dtype}): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa(is_causal) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B -> {t_bytes:.4f} ms, "
-        f"{flops} flop at {peak / 1e12:.0f} TFLOP/s -> {t_ops:.4f} ms), share of "
-        f"bound {bound_ms / ms:.3f}")
+    b = bounds(nbytes, flops, q.dtype)
+    log(f"timing flash {label} causal B={B} T=S={T} H={H}/{Hkv} hd={hd} ({q.dtype}, "
+        f"{kernel} kernel): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa(is_causal) {library_ms:.4f} ms, {b['text']}, share of bound "
+        f"{b['bound_ms'] / ms:.3f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                **{k: v for k, v in b.items() if k != "text"})
+
+
+# read_counts()'s name of each flash kernel's counter
+FLASH_COUNTERS = {"row": "flash", "tile": "flash_tile", "tile_f32": "flash_tile_f32"}
 
 
 def phase_flash_vs_plain(flush):
     from bee2bee_tpu_torch.ops.flash import (
-        flash_attention, flash_attention_ref, use_tile_kernel,
+        flash_attention, flash_attention_ref, flash_kernel,
     )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
-    H, Hkv, hd = 32, 8, 128
 
-    def qkv(B, T, S, dtype=torch.bfloat16):
+    def qkv(B, T, S, dtype=torch.bfloat16, H=32, Hkv=8, hd=128):
         return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
                      for shape in ((B, T, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
 
     def offsets(offs):
         return torch.tensor(offs, dtype=torch.int32, device="cuda")
 
+    f32 = torch.float32
     cases = [
         ("causal T=S=2048", qkv(1, 2048, 2048), dict(offset=None)),
         ("decode B=8 T=1 S=2048 ragged + empty row", qkv(8, 1, 2048), dict(
             offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
         ("T=512 @1000 S=2048", qkv(1, 512, 2048), dict(offset=1000)),
         ("non-causal T=S=256", qkv(2, 256, 256), dict(causal=False)),
-        ("f32 T=64 S=256 @[10,150]", qkv(2, 64, 256, torch.float32), dict(
+        ("f32 T=64 S=256 @[10,150]", qkv(2, 64, 256, f32), dict(
+            offset=offsets([10, 150]))),
+        ("f32 causal T=S=2048", qkv(1, 2048, 2048, f32), dict(offset=None)),
+        ("f32 decode B=8 T=1 S=2048 ragged + empty row", qkv(8, 1, 2048, f32), dict(
+            offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
+        ("f32 non-causal T=S=256", qkv(2, 256, 256, f32), dict(causal=False)),
+        ("f32 hd=64 T=100 S=300 @200", qkv(2, 100, 300, f32, hd=64), dict(offset=200)),
+        ("hd256 gemma bf16 T=64 S=256 @[10,150]", qkv(2, 64, 256, **GEMMA), dict(
+            offset=offsets([10, 150]))),
+        ("hd256 gemma f32 T=64 S=256 @[10,150]", qkv(2, 64, 256, f32, **GEMMA), dict(
             offset=offsets([10, 150]))),
     ]
-    errs = {"row": 0.0, "tile": 0.0}
+    errs = {k: 0.0 for k in FLASH_COUNTERS}
     for label, (q, k, v), kw in cases:
-        counter = "flash_tile" if use_tile_kernel(q.dtype, hd) else "flash"
+        kernel = flash_kernel(q.dtype, q.shape[3])
+        counter = FLASH_COUNTERS[kernel]
         reset_counts()
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         check_one_launch(f"flash {label}", counter)
         want = flash_attention_ref(q, k, v, **kw)
-        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else 1e-4
+        tol = KERNEL_TOL if q.dtype == torch.bfloat16 else F32_TOL
         check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
         err = (got.float() - want.float()).abs().max().item()
         log(f"flash vs plain: {label} ({q.dtype}, {counter} kernel): max abs err "
@@ -602,26 +729,33 @@ def phase_flash_vs_plain(flush):
         check(err <= tol, f"flash {label}: max abs err {err} > {tol}")
         if "empty row" in label:
             check(not bool(got[7].any()), "flash: the empty row is not 0")
-        kernel = "tile" if counter == "flash_tile" else "row"
         errs[kernel] = max(errs[kernel], err)
 
     q, k, v = cases[0][1]
     timings = {"tile": time_flash("tile kernel", q, k, v, flush)}
-    q, k, v = (t.float() for t in (q, k, v))
-    timings["row"] = time_flash("row kernel", q, k, v, flush)
+    q, k, v = cases[5][1]
+    timings["tile_f32"] = time_flash("f32 tile kernel", q, k, v, flush)
+    timings["row_f32_hd128"] = time_flash("row kernel forced", q, k, v, flush,
+                                          kernel="row")
+    for dtype in (torch.bfloat16, f32):
+        q, k, v = qkv(1, 2048, 2048, dtype, **GEMMA)
+        name = "row_hd256" + ("_f32" if dtype == f32 else "")
+        timings[name] = time_flash("row kernel hd256 gemma", q, k, v, flush)
     return errs, timings
 
 
 # ------------------------------------------------------------ phase 5
 
 
-def phase_forward_parity():
+def forward_setup():
+    """Phase 5's model and inputs: llama-3-8b at full width with 2 layers,
+    f32 weights from SEED, a 300-token prompt and the block table for it
+    and 8 greedy decode steps. Returns (cfg, params, run): run(attn_fn,
+    pool_dtype, weights) -> (prefill logits, stacked step logits, greedy
+    tokens)."""
     from bee2bee_tpu_torch.models import core
     from bee2bee_tpu_torch.models.config import get_config
     from bee2bee_tpu_torch.models.params import init_params
-    from bee2bee_tpu_torch.ops.ragged import (
-        ragged_paged_attention, ragged_paged_attention_ref,
-    )
 
     cfg = replace(get_config("llama-3-8b"), n_layers=2)
     gen = torch.Generator(device="cuda")
@@ -647,7 +781,56 @@ def phase_forward_parity():
             steps.append(lg[:, -1])
         return logits, torch.stack(steps), toks
 
+    return cfg, params, run
+
+
+def forward_device_ms(run, pool_dtype) -> tuple[float, float]:
+    """(device busy ms, attention kernels' ms) of one of phase 5's forward
+    runs through the kernels the package's dispatch names, under
+    torch.profiler (after a warm-up run). It reads no launch counter, so it
+    times another tree's package as well: put that tree first on sys.path
+    and load this file by its path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention
+
+    run(ragged_paged_attention, pool_dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(ragged_paged_attention, pool_dtype)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(t for _, t in kernels) / 1e3
+    attn = sum(t for k, t in kernels if any(n in k for n in ATTENTION_KERNELS)) / 1e3
+    return busy, attn
+
+
+def phase_forward_parity():
+    from bee2bee_tpu_torch.ops.ragged import (
+        ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    cfg, params, run = forward_setup()
+    n_prompt, n_steps = 300, 8
+
+    def check_f32_launches(tag, int8):
+        # the prefill and each decode step through the kernel the rule
+        # names for its chunk length and pool form, and no other
+        want: dict = {}
+        for T, n in ((n_prompt, 1), (1, n_steps)):
+            kernel = ragged_kernel(torch.float32, T, cfg.head_dim, int8)
+            counter = RAGGED_COUNTERS[kernel] + ("_int8" if int8 else "")
+            want[counter] = want.get(counter, 0) + cfg.n_layers * n
+        got = {k: v for k, v in read_counts().items() if v}
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        log(f"{tag}: launches {got}")
+
+    reset_counts()
     k_logits, k_steps, k_toks = run(ragged_paged_attention)
+    torch.cuda.synchronize()
+    check_f32_launches("forward f32 pool", False)
     p_logits, p_steps, p_toks = run(ragged_paged_attention_ref)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
@@ -663,7 +846,10 @@ def phase_forward_parity():
 
     # the same over an int8 pool: both quantize on write with the same
     # torch ops; the kernel reads the int8 pages with their scales
+    reset_counts()
     q_logits, q_steps, q_toks = run(ragged_paged_attention, torch.int8)
+    torch.cuda.synchronize()
+    check_f32_launches("forward f32, int8 pool", True)
     qp_logits, qp_steps, qp_toks = run(ragged_paged_attention_ref, torch.int8)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(q_logits).all() and torch.isfinite(q_steps).all()),
@@ -678,6 +864,11 @@ def phase_forward_parity():
         f"tokens {'equal' if q_toks == k_toks else 'differ'} to the f32 pool's")
     check(q_err <= FORWARD_TOL, f"int8 forward logits differ by {q_err}")
     check(q_toks == qp_toks, f"int8 greedy tokens differ: {q_toks} vs {qp_toks}")
+    for pool_dtype in (torch.float32, torch.int8):
+        busy, attn = forward_device_ms(run, pool_dtype)
+        log(f"forward 2x llama-3-8b width f32, {str(pool_dtype)[6:]} pool: device busy "
+            f"{busy:.3f} ms for the {n_prompt}-token prefill + {n_steps} decode steps, "
+            f"attention kernels {attn:.3f} ms")
 
     # bf16, where the 300-token prefill goes through the tile kernel (P
     # rounded to bf16, other summation order). Tolerance: the kernels may
@@ -725,10 +916,11 @@ def cast_tree(tree, dtype):
 # ------------------------------------------------------------ phases 6-7
 
 
-# the port's attention kernels by (part of) name: the three ragged kernels
-# (the decode kernel's split walk and merge) and both flash kernels
+# the port's attention kernels by (part of) name: the ragged kernels (the
+# decode kernel's split walk and merge) and the flash kernels, f32 forms too
 ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "ragged_decode_",
-                     "flash_tile_kernel")
+                     "flash_tile_kernel", "ragged_prefill_f32_kernel",
+                     "flash_tile_f32_kernel")
 
 
 def device_profile(fn, calls: int, launches: int, tries: int = 3):
@@ -818,10 +1010,12 @@ def reset_counts():
     from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention
 
     for name in ("launches", "int8_launches", "prefill_launches",
-                 "int8_prefill_launches", "decode_launches", "int8_decode_launches"):
+                 "int8_prefill_launches", "f32_prefill_launches",
+                 "int8_f32_prefill_launches", "decode_launches", "int8_decode_launches"):
         setattr(ragged_paged_attention, name, 0)
     flash_attention.launches = 0
     flash_attention.tile_launches = 0
+    flash_attention.f32_tile_launches = 0
 
 
 def read_counts() -> dict:
@@ -833,10 +1027,13 @@ def read_counts() -> dict:
         "ragged_int8": ragged_paged_attention.int8_launches,
         "ragged_prefill": ragged_paged_attention.prefill_launches,
         "ragged_prefill_int8": ragged_paged_attention.int8_prefill_launches,
+        "ragged_prefill_f32": ragged_paged_attention.f32_prefill_launches,
+        "ragged_prefill_f32_int8": ragged_paged_attention.int8_f32_prefill_launches,
         "ragged_decode": ragged_paged_attention.decode_launches,
         "ragged_decode_int8": ragged_paged_attention.int8_decode_launches,
         "flash": flash_attention.launches,
         "flash_tile": flash_attention.tile_launches,
+        "flash_tile_f32": flash_attention.f32_tile_launches,
     }
 
 
@@ -1041,16 +1238,16 @@ def main() -> int:
         row("ragged_decode_attention_int8", decode_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
             int8_errs["decode"], int8_timings["decode"]),
-        # the row kernel: f32 queries and head_dim 256, timed in f32 at the
-        # decode shape
+        # the row kernel: head_dim 256, timed in bf16 at gemma-2-9b's heads
+        # at the decode shape
         row("ragged_paged_attention", ragged_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged"], errs["row"], timings["row_f32"]),
+            counts["ragged"], errs["row"], timings["row_hd256"]),
         row("ragged_paged_attention_int8", ragged_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_int8"],
-            int8_errs["row"], int8_timings["row_f32"]),
+            int8_errs["row"], int8_timings["row_hd256"]),
         row("flash_attention", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash"] + int8_counts["flash"], flash_errs["row"],
-            flash_timings["row"]),
+            flash_timings["row_hd256"]),
         row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_prefill"], errs["tile"], timings["prefill"]),
         row("ragged_prefill_attention_int8", prefill_src,
@@ -1059,20 +1256,29 @@ def main() -> int:
         row("flash_attention_tile", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash_tile"] + int8_counts["flash_tile"], flash_errs["tile"],
             flash_timings["tile"]),
+        # the f32 tile forms (3xTF32), timed at the prefill chunk and causal
+        # T=S=2048; bound: three TF32 products at the TF32 peak
+        row("ragged_prefill_attention_f32", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            counts["ragged_prefill_f32"], errs["tile_f32"], timings["prefill_f32"]),
+        row("ragged_prefill_attention_f32_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_f32_int8"],
+            int8_errs["tile_f32"], int8_timings["prefill_f32"]),
+        row("flash_attention_tile_f32", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash_tile_f32"] + int8_counts["flash_tile_f32"],
+            flash_errs["tile_f32"], flash_timings["tile_f32"]),
     ]
     log("kernels: the flash kernels have 0 launches on the main path: no "
         "serving path calls flash_attention (the engines attend through the "
-        "ragged op); the ragged row kernel has 0 there too: the slice serves "
-        "bf16 at head_dim 128, and the row kernel takes f32 and head_dim 256 "
-        "(phase 5 runs it in f32). All are held against the plain version and "
-        "timed above")
+        "ragged op); the ragged row kernel and the f32 tile forms have 0 there "
+        "too: the slice serves bf16 at head_dim 128, the f32 tile forms take f32 "
+        "queries at head_dim 64/128 (phase 5 runs them) and the row kernel "
+        "head_dim 256. All are held against the plain version and timed above")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
-        # the run used one card
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": 1},
+                   "count": torch.cuda.device_count()},
     }))
     return 0
 

@@ -11,6 +11,11 @@ rule. Tolerance 2e-5 absolute at f32 (the same math, summed in another
 order); 2e-2 at bf16, where both round the output (and the JAX kernel its
 probabilities) to bf16. On the CPU the wrapper takes the plain version
 and counts no launch.
+
+The f32 tile kernel's arithmetic (3xTF32 products, P kept in f32, the
+permuted key order of its C -> A step) is modelled on the CPU by
+tests/tf32_attention_model.py and held against the JAX kernel within
+1e-5; a model with one TF32 product must land further away.
 """
 
 from __future__ import annotations
@@ -23,9 +28,13 @@ import jax.numpy as jnp
 
 from bee2bee_tpu.ops import flash_attention as jax_flash
 from bee2bee_tpu_torch.ops import flash as port
+from tf32_attention_model import attention_tf32
 
 ATOL = 2e-5
 BF16_ATOL = 2e-2
+# the 3xTF32 model against the JAX kernel: what the TF32 operands drop
+# (~2^-22 of a product) plus f32 summation order
+TF32_ATOL = 1e-5
 
 
 def _qkv(B, T, H, Hkv, hd, S=None, seed=0):
@@ -119,14 +128,19 @@ def test_dispatch_raises_off_cpu_and_cuda():
         port.flash_attention(q, kv, kv)
 
 
-@pytest.mark.parametrize("dtype,hd,tile", [
-    (torch.bfloat16, 128, True),
-    (torch.bfloat16, 64, True),
-    (torch.bfloat16, 256, False),  # no tile instantiation: the row kernel
-    (torch.float32, 128, False),  # f32: the row kernel (parity checks)
-], ids=["bf16_hd128", "bf16_hd64", "bf16_hd256", "f32"])
-def test_dispatch_rule(dtype, hd, tile):
-    assert port.use_tile_kernel(dtype, hd) is tile
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 128, "tile"),
+    (torch.bfloat16, 64, "tile"),
+    (torch.bfloat16, 256, "row"),  # no tile instantiation: the row kernel
+    (torch.float32, 128, "tile_f32"),  # f32: the 3xTF32 tile kernel
+    (torch.float32, 64, "tile_f32"),
+    (torch.float32, 256, "row"),
+    (torch.float16, 128, "row"),  # no kernel takes f16: the checks raise
+], ids=["bf16_hd128", "bf16_hd64", "bf16_hd256", "f32", "f32_hd64", "f32_hd256",
+        "f16"])
+def test_dispatch_rule(dtype, hd, kernel):
+    assert port.use_tile_kernel(dtype, hd) is (kernel != "row")
+    assert port.flash_kernel(dtype, hd) == kernel
 
 
 def test_kernel_args_need_16_byte_aligned_q():
@@ -146,3 +160,106 @@ def test_cpu_dispatch_counts_no_tile_launch():
     got = port.flash_attention(q, k, v, offset=8)
     assert torch.equal(got, port.flash_attention_ref(q, k, v, offset=8))
     assert port.flash_attention.tile_launches == 0
+
+
+def test_cpu_dispatch_counts_no_f32_tile_launch():
+    """f32 at a head_dim the rule tiles still takes the plain version on
+    the CPU."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 4, 2, 64, S=32, seed=15))
+    assert port.flash_kernel(q.dtype, 64) == "tile_f32"
+    got = port.flash_attention(q, k, v, offset=8)
+    assert torch.equal(got, port.flash_attention_ref(q, k, v, offset=8))
+    assert port.flash_attention.f32_tile_launches == 0
+
+
+# ------------------------------------------- the f32 tile kernel's checks
+
+
+def _f32_args(hd=128, **over):
+    args = dict(q=torch.zeros((2, 4, 4, hd)), k=torch.zeros((2, 16, 2, hd)),
+                v=torch.zeros((2, 16, 2, hd)), off=torch.zeros(2, dtype=torch.int32))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_f32_tile_kernel_args_accepted(hd):
+    port._check_kernel_args(**_f32_args(hd))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("misaligned_q", ValueError, "q is not 16-byte aligned"),
+    ("bf16_kv", TypeError, "k/v dtype"),
+    ("head_dim", ValueError, "head_dim 96"),
+    ("kv_width", ValueError, "do not match"),
+])
+def test_f32_tile_kernel_args_rejected(bad, err, match):
+    """The f32 tile kernel copies q, k and v rows in 16-byte pieces and
+    takes f32 k/v beside f32 queries at a head_dim it is built for."""
+    args = _f32_args()
+    if bad == "misaligned_q":
+        n = 2 * 4 * 4 * 128
+        args["q"] = torch.zeros(n + 1)[1:].view(2, 4, 4, 128)
+    elif bad == "bf16_kv":
+        args["k"] = args["v"] = args["k"].to(torch.bfloat16)
+    elif bad == "head_dim":
+        args = _f32_args(96)
+    elif bad == "kv_width":
+        args["k"] = args["v"] = torch.zeros((2, 16, 2, 64))
+    with pytest.raises(err, match=match):
+        port._check_kernel_args(**args)
+
+
+@pytest.mark.parametrize("kernel,dtype", [("tile_f32", torch.bfloat16),
+                                          ("tile", torch.float32)])
+def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
+    """A tile kernel forced by name refuses queries of the other type
+    before anything reaches the card."""
+    a = _f32_args()
+    q, k, v = (a[n].to(dtype) for n in ("q", "k", "v"))
+    with pytest.raises(TypeError, match=f"flash {kernel} kernel"):
+        port._launch_kernel(q, k, v, a["off"], True, 0.125, kernel=kernel)
+
+
+# ---------------------- the f32 tile kernel's arithmetic, modelled on the CPU
+
+
+def _flash_model(q, k, v, offset=None, causal=True, products=3):
+    """The f32 tile kernel's arithmetic (tests/tf32_attention_model.py)
+    over flash's layout: rows of (kv head, group, position), keys [0, S)."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qr = q.reshape(B, T, Hkv, G, hd).transpose(0, 2, 3, 1, 4)  # [B, Hkv, G, T, hd]
+    kr = k.transpose(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, S, hd]
+    vr = v.transpose(0, 2, 1, 3)[:, :, None]
+    vis = np.ones((1, 1, 1, T, S), bool)
+    if causal:
+        off = np.broadcast_to(np.asarray(offset or 0, np.int64).reshape(-1), (B,))
+        qpos = off[:, None] + np.arange(T)[None]
+        vis = (np.arange(S)[None, None] <= qpos[:, :, None])[:, None, None]
+    o = attention_tf32(qr, kr, vr, vis, 1.0 / np.sqrt(hd), products=products)
+    return o.transpose(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+
+
+@pytest.mark.parametrize("name", ["gqa", "per_row_offsets", "empty_row", "non_causal"])
+def test_tf32_model_matches_jax_kernel(name):
+    """3xTF32 within 1e-5 of the JAX kernel (interpret mode) on the cases
+    above; one TF32 product lands further away on the same inputs."""
+    geo, kw = CASES[name]
+    q, k, v = _qkv(**geo)
+    joff = kw.get("offset")
+    want = np.asarray(jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        offset=None if joff is None else jnp.asarray(joff, jnp.int32),
+        causal=kw.get("causal", True), block_q=kw.get("block_q", 128),
+        block_k=kw.get("block_k", 128), interpret=True,
+    ))
+    got = _flash_model(q, k, v, joff, kw.get("causal", True))
+    one = _flash_model(q, k, v, joff, kw.get("causal", True), products=1)
+    err3 = np.abs(got - want).max()
+    err1 = np.abs(one - want).max()
+    assert err3 <= TF32_ATOL
+    assert err1 > max(err3, TF32_ATOL)
+    if name == "empty_row":
+        assert not got[0].any()

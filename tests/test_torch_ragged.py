@@ -13,6 +13,12 @@ scales (the per-page amax recipe of tests/test_ops_ragged.py), at the
 same tolerance: both dequantize in f32 before the same softmax.
 On the CPU the dispatching wrapper must take the plain version and leave
 the kernel's launch counts at 0.
+
+The f32 tile form's arithmetic (3xTF32 products, P kept in f32, the
+permuted key order of its C -> A step) is modelled on the CPU by
+tests/tf32_attention_model.py and held against the JAX kernel within
+1e-5 over both pool forms; a model with one TF32 product must land
+further away.
 """
 
 from __future__ import annotations
@@ -27,8 +33,12 @@ import jax.numpy as jnp
 
 from bee2bee_tpu.ops import ragged_paged_attention as jax_ragged
 from bee2bee_tpu_torch.ops import ragged as port
+from tf32_attention_model import attention_tf32, kernel_v_row, pv_key_orders
 
 ATOL = 2e-5
+# the 3xTF32 model against the JAX kernel: what the TF32 operands drop
+# (~2^-22 of a product) plus f32 summation order
+TF32_ATOL = 1e-5
 
 
 def _pool_case(offs, T, H, Hkv, hd, BS=8, extra_tables=0, dead=(), seed=0):
@@ -258,20 +268,34 @@ def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
 # ------------------------------------------------ tile kernel: dispatch
 
 
-@pytest.mark.parametrize("dtype,T,hd,tile", [
-    (torch.bfloat16, 1, 128, False),  # decode: the row kernel
-    (torch.bfloat16, port.T_MIN - 1, 128, False),
-    (torch.bfloat16, port.T_MIN, 128, True),  # the shortest tiled chunk
-    (torch.bfloat16, 5, 128, True),  # a verify chunk
-    (torch.bfloat16, 2048, 128, True),  # a prefill bucket
-    (torch.bfloat16, 300, 64, True),
-    (torch.bfloat16, 300, 256, False),  # no tile instantiation
-    (torch.float32, 300, 128, False),  # f32 queries: the row kernel
-    (torch.float16, 300, 128, False),
+@pytest.mark.parametrize("dtype,T,hd,tile,quantized", [
+    (torch.bfloat16, 1, 128, False, False),  # decode: the decode kernel
+    (torch.bfloat16, port.T_MIN - 1, 128, False, False),
+    (torch.bfloat16, port.T_MIN, 128, True, False),  # the shortest tiled chunk
+    (torch.bfloat16, 5, 128, True, False),  # a verify chunk
+    (torch.bfloat16, 2048, 128, True, False),  # a prefill bucket
+    (torch.bfloat16, 300, 64, True, False),
+    (torch.bfloat16, 300, 256, False, False),  # no tile instantiation
+    (torch.float32, 300, 128, True, False),  # f32 queries: the f32 tile form
+    (torch.float16, 300, 128, False, False),
+    (torch.float32, port.T_MIN_F32, 128, True, False),  # f32 decode
+    (torch.float32, 3, 64, True, False),
+    (torch.float32, 300, 256, False, False),  # head_dim 256: the row kernel
+    (torch.bfloat16, port.T_MIN, 128, True, True),  # bf16: the same over int8
+    # f32 over an int8 pool: the row kernel below T_MIN_F32_INT8
+    (torch.float32, port.T_MIN_F32_INT8 - 1, 128, False, True),
+    (torch.float32, port.T_MIN_F32_INT8, 128, True, True),
+    (torch.float32, 300, 64, True, True),
 ], ids=["decode", "below_t_min", "t_min", "verify", "prefill", "hd64", "hd256",
-        "f32", "f16"])
-def test_dispatch_rule(dtype, T, hd, tile):
-    assert port.use_tile_kernel(dtype, T, hd) is tile
+        "f32", "f16", "f32_t_min", "f32_hd64", "f32_hd256", "int8_pool_t_min",
+        "f32_int8_pool_below_t_min", "f32_int8_pool_t_min", "f32_int8_pool_prefill"])
+def test_dispatch_rule(dtype, T, hd, tile, quantized):
+    assert port.use_tile_kernel(dtype, T, hd, quantized) is tile
+    if tile:
+        want = "tile_f32" if dtype == torch.float32 else "tile"
+        assert port.ragged_kernel(dtype, T, hd, quantized) == want
+    elif dtype == torch.float32:
+        assert port.ragged_kernel(dtype, T, hd, quantized) == "row"
 
 
 def _tile_args(T=32, hd=128, int8=False, **over):
@@ -386,14 +410,15 @@ def test_tile_shapes_ref_matches_jax_kernel(name, int8):
     (torch.bfloat16, 1, 256, False),  # no decode instantiation: the row kernel
     (torch.bfloat16, port.T_MIN, 128, False),  # the tile kernel's
     (torch.bfloat16, 5, 128, False),
-    (torch.float32, 1, 128, False),  # f32 queries: the row kernel
+    (torch.float32, 1, 128, False),  # f32 queries: the f32 tile form
     (torch.float16, 1, 128, False),
 ], ids=["hd128", "hd64", "hd256", "t_min", "verify", "f32", "f16"])
 def test_decode_dispatch_rule(dtype, T, hd, decode):
     assert port.use_decode_kernel(dtype, T, hd) is decode
     # the decode kernel takes no case the tile kernel takes
     assert not (decode and port.use_tile_kernel(dtype, T, hd))
-    want = "decode" if decode else "tile" if port.use_tile_kernel(dtype, T, hd) else "row"
+    tile = "tile_f32" if dtype == torch.float32 else "tile"
+    want = "decode" if decode else tile if port.use_tile_kernel(dtype, T, hd) else "row"
     assert port.ragged_kernel(dtype, T, hd) == want
 
 
@@ -460,15 +485,20 @@ def test_decode_kernel_args_accepted(int8, hd):
 
 
 def test_decode_kernel_needs_16_byte_aligned_q():
-    """The decode kernel copies q rows in 16-byte pieces; the row kernel
-    (f32) reads q by elements and takes such storage."""
+    """The decode kernel and the f32 tile form (f32 decode) copy q rows in
+    16-byte pieces; the row kernel (head_dim 256) reads q by elements and
+    takes such storage."""
     q = _misaligned_q(1, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         port._check_kernel_args(**_decode_args(q=q))
     qf = torch.zeros(2 * 8 * 128 + 1)[1:].view(2, 1, 8, 128)
     kp = torch.zeros((2, 9, 16, 128))
-    port._check_kernel_args(**_decode_args(q=qf, k_pool=kp, v_pool=kp))
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_decode_args(q=qf, k_pool=kp, v_pool=kp))
+    qf = torch.zeros(2 * 8 * 256 + 1)[1:].view(2, 1, 8, 256)
+    kp = torch.zeros((2, 9, 16, 256))
+    port._check_kernel_args(**_decode_args(hd=256, q=qf, k_pool=kp, v_pool=kp))
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -516,7 +546,9 @@ def test_cpu_dispatch_counts_no_decode_launch(int8):
     got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
     assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
     for name in ("launches", "int8_launches", "prefill_launches",
-                 "int8_prefill_launches", "decode_launches", "int8_decode_launches"):
+                 "int8_prefill_launches", "f32_prefill_launches",
+                 "int8_f32_prefill_launches", "decode_launches",
+                 "int8_decode_launches"):
         assert getattr(port.ragged_paged_attention, name) == 0, name
 
 
@@ -622,3 +654,177 @@ def test_decode_split_merge_model_matches_jax_kernel(name, int8, plan):
     np.testing.assert_allclose(got, want, atol=ATOL)
     if name == "dead_row_and_minus_one":
         assert not got[0].any()  # offset -1: every split empty, the row is 0
+
+
+# ------------------------------------------ the f32 tile form's checks
+
+
+def _f32_args(T=32, hd=128, int8=False, **over):
+    """Arguments of the f32 tile form's launch checks, on the CPU."""
+    args = _tile_args(T=T, hd=hd, int8=int8)
+    args["q"] = args["q"].float()
+    if not int8:
+        args["k_pool"] = args["k_pool"].float()
+        args["v_pool"] = args["v_pool"].float()
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("T", ["t_min", 32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
+def test_f32_tile_kernel_args_accepted(int8, hd, T):
+    if T == "t_min":
+        T = port.T_MIN_F32_INT8 if int8 else port.T_MIN_F32
+    assert port.ragged_kernel(torch.float32, T, hd, int8) == "tile_f32"
+    port._check_kernel_args(**_f32_args(T=T, hd=hd, int8=int8))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("misaligned_q", ValueError, "q is not 16-byte aligned"),
+    ("bf16_pool", TypeError, "pool dtype"),
+    ("f32_scales_missing_pool", TypeError, "pool dtype"),
+    ("head_dim", ValueError, "head_dim 96"),
+    ("pool_width", ValueError, "do not match head_dim"),
+])
+def test_f32_tile_kernel_args_rejected(bad, err, match):
+    """The f32 tile form copies q rows in 16-byte pieces and takes an f32
+    pool, or an int8 pool with scales, at a head_dim it is built for."""
+    args = _f32_args()
+    if bad == "misaligned_q":
+        n = 2 * 32 * 8 * 128
+        args["q"] = torch.zeros(n + 1)[1:].view(2, 32, 8, 128)
+    elif bad == "bf16_pool":
+        args["k_pool"] = args["v_pool"] = args["k_pool"].to(torch.bfloat16)
+    elif bad == "f32_scales_missing_pool":  # scales beside an f32 pool
+        args["k_scale"] = args["v_scale"] = torch.ones((2, 9))
+    elif bad == "head_dim":
+        args = _f32_args(hd=96)
+    elif bad == "pool_width":
+        args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 16, 64))
+    with pytest.raises(err, match=match):
+        port._check_kernel_args(**args)
+
+
+@pytest.mark.parametrize("kernel,dtype", [("tile_f32", torch.bfloat16),
+                                          ("tile", torch.float32),
+                                          ("decode", torch.float32)])
+def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
+    """A kernel forced by name refuses queries of a type it is not built
+    for, before anything reaches the card."""
+    a = _f32_args(T=1)
+    q = a["q"].to(dtype)
+    kp, vp = (a[n].to(dtype) for n in ("k_pool", "v_pool"))
+    with pytest.raises(TypeError, match=f"ragged {kernel} kernel"):
+        port._launch_kernel(q, kp, vp, a["block_tables"], a["off"], 0, 0.125, 0.0,
+                            None, None, kernel=kernel)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
+def test_cpu_dispatch_counts_no_f32_tile_launch(int8):
+    """f32 queries the rule sends to the f32 tile form still take the plain
+    version on the CPU and count no launch."""
+    q, kp, vp, tables, offs = (torch.from_numpy(a) for a in _pool_case(
+        offs=[4, 9, 30], T=4, H=8, Hkv=2, hd=64, seed=20))
+    kw = {}
+    if int8:
+        (kp, ks), (vp, vs) = (tuple(torch.from_numpy(a) for a in _quantize_pool(p.numpy()))
+                              for p in (kp, vp))
+        kw = dict(k_scale=ks, v_scale=vs)
+    assert port.ragged_kernel(q.dtype, 4, 64, int8) == "tile_f32"
+    got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
+    assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
+    assert port.ragged_paged_attention.f32_prefill_launches == 0
+    assert port.ragged_paged_attention.int8_f32_prefill_launches == 0
+
+
+# ------------------- the f32 tile form's arithmetic, modelled on the CPU
+
+
+def _ragged_model(q, kp, vp, tables, offs, window=None, sm_scale=None, softcap=0.0,
+                  k_scale=None, v_scale=None, products=3, key_orders=None):
+    """The f32 tile form's arithmetic (tests/tf32_attention_model.py) over
+    the rows' gathered pages, an int8 page dequantized in f32."""
+    B, T, H, hd = q.shape
+    Hkv, _, BS, _ = kp.shape
+    MB = tables.shape[1]
+    G = H // Hkv
+    tb = torch.from_numpy(tables).long()
+    kg, vg = (port._gathered(torch.from_numpy(p), None if s is None else torch.from_numpy(s),
+                             tb, torch.float32).numpy()
+              for p, s in ((kp, k_scale), (vp, v_scale)))  # [B, Hkv, MB*BS, hd]
+    qr = q.reshape(B, T, Hkv, G, hd).transpose(0, 2, 3, 1, 4)  # [B, Hkv, G, T, hd]
+    pos = offs.astype(np.int64)[:, None] + np.arange(T)[None]  # [B, T]
+    kpos = np.arange(MB * BS)[None, None]
+    vis = kpos <= pos[:, :, None]
+    if window:
+        vis &= kpos > pos[:, :, None] - window
+    o = attention_tf32(qr, kg[:, :, None], vg[:, :, None], vis[:, None, None],
+                       sm_scale or 1.0 / math.sqrt(hd), softcap, products, key_orders)
+    return o.transpose(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+
+
+# f32 pool: decode with a dead row, a chunk with window + softcap + score
+# scale, a row at offset -1; int8 pool: a ragged chunk, window + softcap
+TF32_CASES = {
+    "f32_decode_dead_row": (dict(offs=[9, 4, 30], T=1, H=8, Hkv=2, hd=16, dead=(1,),
+                                 extra_tables=2, seed=41), {}, False),
+    "f32_window_softcap": (dict(offs=[5, 40], T=20, H=8, Hkv=2, hd=16, seed=42),
+                           dict(window=9, sm_scale=1.0 / math.sqrt(13), softcap=30.0),
+                           False),
+    "f32_offset_minus_one": (dict(offs=[-1, 12], T=1, H=8, Hkv=2, hd=16, seed=43), {},
+                             False),
+    "int8_chunk": (dict(offs=[3, 29], T=17, H=8, Hkv=2, hd=16, seed=44), {}, True),
+    "int8_window_softcap": (dict(offs=[6, 19, 33], T=2, H=8, Hkv=2, hd=16, seed=45),
+                            dict(window=9, sm_scale=1.0 / math.sqrt(13), softcap=30.0),
+                            True),
+}
+
+
+def _tf32_case(name):
+    """(model arguments, the JAX interpret kernel's result) of a case."""
+    geo, kw, int8 = TF32_CASES[name]
+    q, kp, vp, tables, offs = _pool_case(**geo)
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = _quantize_pool(kp), _quantize_pool(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(offs), window=kw.get("window"), sm_scale=kw.get("sm_scale"),
+        logit_softcap=kw.get("softcap", 0.0), interpret=True,
+        **{k: jnp.asarray(v) for k, v in scales.items()},
+    ))
+    return (q, kp, vp, tables, offs), dict(kw, **scales), want
+
+
+@pytest.mark.parametrize("name", sorted(TF32_CASES))
+def test_tf32_model_matches_jax_kernel(name):
+    """3xTF32 within 1e-5 of the JAX kernel (interpret mode); one TF32
+    product lands further away on the same inputs."""
+    args, kw, want = _tf32_case(name)
+    got = _ragged_model(*args, **kw)
+    one = _ragged_model(*args, **kw, products=1)
+    err3 = np.abs(got - want).max()
+    err1 = np.abs(one - want).max()
+    assert np.isfinite(got).all()
+    assert err3 <= TF32_ATOL
+    assert err1 > max(err3, TF32_ATOL)
+    if name == "f32_offset_minus_one":
+        assert not got[0].any()  # the row sees nothing: 0, not NaN
+
+
+def test_tf32_model_needs_the_kernels_key_order():
+    """The C -> A step must keep each value in its row, and the V rows the
+    B fragment reads must follow the keys the A fragment holds: with V
+    read in the fragment's own order (rows t, t + 4) the model misses the
+    JAX kernel by far more than the tolerance."""
+    with pytest.raises(AssertionError, match="another row"):
+        pv_key_orders(c_of_a=(0, 1, 2, 3))
+    a_keys, b_keys = pv_key_orders()
+    assert a_keys == b_keys == [0, 2, 4, 6, 1, 3, 5, 7]
+    assert [kernel_v_row(lane, e) for lane in range(4) for e in range(2)] == list(range(8))
+    args, kw, want = _tf32_case("int8_chunk")
+    naive = pv_key_orders(v_row=lambda lane, e: lane % 4 + 4 * e)
+    err = np.abs(_ragged_model(*args, **kw, key_orders=naive) - want).max()
+    assert err > 100 * TF32_ATOL
