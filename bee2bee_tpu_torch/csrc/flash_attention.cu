@@ -14,9 +14,9 @@
 //
 // Three kernels, chosen by ops/flash.py:flash_kernel:
 //
-// flash_tile_kernel, for bf16 at HD 64 and 128: the tensor-core tile
+// flash_tile_kernel, for bf16 at HD 64, 128 and 256: the tensor-core tile
 // design of tile_attention.cuh (the ragged prefill kernel's, over
-// contiguous K/V). What bounds it on an H100: causal T = S = 2048 over
+// contiguous K/V; at HD 256 its resident-Q form with 32-key tiles). What bounds it on an H100: causal T = S = 2048 over
 // llama-3-8b's heads does 4 * HD flops per visible (query, key) pair per
 // head, 3.4e10 flops, 0.0348 ms at 989 TFLOP/s bf16, against 0.010 ms to
 // read q, k, v and write the output once: bound by operations. So both
@@ -29,9 +29,15 @@
 //   stage key tiles of 64 rows of K and V, read in place (Hkv * HD
 //         elements apart) with 16-byte cp.async copies, double-buffered;
 //         when causal, no tile past the frontier of the block's last row;
-//         rows past S are zero-filled and masked.
+//         rows past S are zero-filled and masked;
+//   HD 256 gemma-2-9b's 16 heads of 256 do the flops of llama-3-8b's 32
+//         of 128, but Q's fragments, the accumulator and S would need
+//         about 224 registers a lane: Q
+//         [64][256] stays resident in shared memory (32 KB) and is read a
+//         k-step at a time, and key tiles hold 32 keys, so two blocks of
+//         96 KB share an SM and a lane spills nothing.
 //
-// flash_tile_f32_kernel, for f32 at HD 64 and 128: the same grid, row
+// flash_tile_f32_kernel, for f32 at HD 64, 128 and 256: the same grid, row
 // fold and causal frontier over 32-key f32 tiles, with both products in
 // 3xTF32 on mma.sync m16n8k8 (tile_attention_f32.cuh). Its bound on an
 // H100 is the three TF32 products: 3 * 4 * HD flops per visible pair at
@@ -39,8 +45,9 @@
 // CUDA cores, at 67 TFLOP/s, would take 0.5131 ms), against 0.025 ms of
 // bytes: bound by operations.
 //
-// flash_attention_kernel, for HD 256 (bf16 and f32): the ragged row
-// kernel's row-per-warp design (ragged_attention.cu) with another way to
+// flash_attention_kernel, which the dispatch no longer names (it stays,
+// built at HD 64, 128 and 256, to time the tile kernels against): the
+// ragged row kernel's row-per-warp design (ragged_attention.cu) with another way to
 // address keys:
 //   grid  (B * Hkv, ceil(G * T / kWarps)); a block owns kWarps query rows
 //         of one (batch row, kv head), one warp per row;
@@ -53,8 +60,9 @@
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
 // It does scalar dot products on the CUDA cores, at long T each block
-// walks up to S / kTile tiles for only kWarps rows. Its HD 64 and 128
-// instantiations stay for timing it against the tile kernels.
+// walks up to S / kTile tiles for only kWarps rows.
+
+#include <type_traits>
 
 #include "attention.cuh"
 #include "tile_attention.cuh"
@@ -231,17 +239,17 @@ int launch_hd(int hd, const FlashArgs& a, cudaStream_t stream) {
 
 using tile::bf16;
 
-// Stage key tile j (keys j * kKeys ..) of row b, kv head kvh into ks/vs
+// Stage key tile j (keys j * KEYS ..) of row b, kv head kvh into ks/vs
 // (swizzled); keys past kmax are not read and their slots zero-filled.
-template <int HD>
+template <int HD, int KEYS>
 __device__ __forceinline__ void stage_keys(const bf16* k, const bf16* v, int b,
                                            int kvh, int S, int Hkv, int kmax,
                                            int j, uint4* ks, uint4* vs) {
   constexpr int RC = HD / 8;
-  for (int id = threadIdx.x; id < tile::kKeys * RC; id += tile::kThreads) {
+  for (int id = threadIdx.x; id < KEYS * RC; id += tile::kThreads) {
     const int r = id / RC;
     const int c = id % RC;
-    const int key = j * tile::kKeys + r;
+    const int key = j * KEYS + r;
     size_t src = 0;
     if (key <= kmax) src = (((size_t)b * S + key) * Hkv + kvh) * HD + c * 8;
     const int n = key <= kmax ? 16 : 0;
@@ -253,13 +261,16 @@ __device__ __forceinline__ void stage_keys(const bf16* k, const bf16* v, int b,
 template <int HD>
 __global__ void __launch_bounds__(tile::kThreads)
 flash_tile_kernel(const FlashArgs a) {
+  constexpr bool QS = tile::q_resident<HD>();  // Q stays in shared memory
+  constexpr int KEYS = tile::tile_keys<HD>();
+  constexpr int TILE = KEYS * HD / 8;  // uint4 chunks of a K/V tile
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int TILE = tile::kKeys * HD / 8;  // uint4 chunks of a K/V tile
-  uint4* kv = reinterpret_cast<uint4*>(smem);  // [stage][K, V]
-  // Q passes through the second stage's K tile: every warp has read it
-  // into registers before the first copy into that stage
+  // [stage][K, V], after the resident Q tile at HD 256
+  uint4* kv = reinterpret_cast<uint4*>(smem) + (QS ? tile::kRows * HD / 8 : 0);
+  // otherwise Q passes through the second stage's K tile: every warp has
+  // read it into registers before the first copy into that stage
   static_assert(tile::kRows == tile::kKeys, "Q is staged in a K tile");
-  uint4* qs = kv + 2 * TILE;
+  uint4* qs = QS ? reinterpret_cast<uint4*>(smem) : kv + 2 * TILE;
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
 
@@ -274,19 +285,25 @@ flash_tile_kernel(const FlashArgs a) {
   // keys the block's rows see: all of [0, S) without causality, else up
   // to the frontier of its last row
   const int kmax = a.causal ? min(off + thi, a.S - 1) : a.S - 1;
-  const int jhi = kmax >= 0 ? kmax / tile::kKeys : -1;
+  const int jhi = kmax >= 0 ? kmax / KEYS : -1;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   tile::stage_q<HD>(qs, static_cast<const bf16*>(a.q), b, kvh, a.T, a.H, G, r0,
                     nrows);
-  if (jhi >= 0) stage_keys<HD>(k, v, b, kvh, a.S, a.Hkv, kmax, 0, kv, kv + TILE);
+  if (jhi >= 0)
+    stage_keys<HD, KEYS>(k, v, b, kvh, a.S, a.Hkv, kmax, 0, kv, kv + TILE);
   tile::cp_async_commit();
   tile::cp_async_wait_all();
   __syncthreads();
 
-  tile::WarpRows<HD> w;
-  tile::init_rows<HD>(w, qs, warp, lane);
+  // Q's fragments in registers, or the accumulator alone (Q resident)
+  std::conditional_t<QS, tile::WarpAcc<HD>, tile::WarpRows<HD>> w;
+  if constexpr (QS)
+    tile::init_acc<HD>(w);
+  else
+    tile::init_rows<HD>(w, qs, warp, lane);
+  const uint4* qw = qs + warp * 16 * (HD / 8);  // the warp's rows of Q
   int rmin[2], rmax[2];
   bf16* dst[2];
 #pragma unroll
@@ -310,13 +327,18 @@ flash_tile_kernel(const FlashArgs a) {
     tile::cp_async_wait_all();
     __syncthreads();
     if (j < jhi)
-      stage_keys<HD>(k, v, b, kvh, a.S, a.Hkv, kmax, j + 1,
-                     kv + (st ^ 1) * 2 * TILE, kv + (st ^ 1) * 2 * TILE + TILE);
+      stage_keys<HD, KEYS>(k, v, b, kvh, a.S, a.Hkv, kmax, j + 1,
+                           kv + (st ^ 1) * 2 * TILE,
+                           kv + (st ^ 1) * 2 * TILE + TILE);
     tile::cp_async_commit();
     int lo[2], hi[2];
-    const unsigned live = tile::tile_ranges(sp, j * tile::kKeys, lo, hi);
-    tile::attend_tile<HD>(w, kv + st * 2 * TILE, kv + st * 2 * TILE + TILE, live,
-                          lo, hi, a.sm_scale, 0.f, lane);
+    const unsigned live = tile::tile_ranges<KEYS>(sp, j * KEYS, lo, hi);
+    const uint4* ks = kv + st * 2 * TILE;
+    if constexpr (QS)
+      tile::attend_tile<HD>(w, qw, ks, ks + TILE, live, lo, hi, a.sm_scale, 0.f,
+                            lane);
+    else
+      tile::attend_tile<HD>(w, ks, ks + TILE, live, lo, hi, a.sm_scale, 0.f, lane);
   }
   tile::store_rows<HD>(w, dst, lane);
 }
@@ -437,11 +459,13 @@ int launch_tile(const FlashArgs& a, cudaStream_t stream) {
   const int tiles = (a.H / a.Hkv * a.T + tile::kRows - 1) / tile::kRows;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(a.B * a.Hkv, tiles);
-  // bf16: two stages of K and V tiles; f32: Q, then two stages of K and V
+  // bf16: two stages of K and V tiles (after a resident Q at HD 256); f32:
+  // Q, then two stages of K and V
   constexpr size_t smem =
       F32 ? (size_t)4 * (tile32::q_tile<HD>() +
                          2 * (tile32::k_tile<HD>() + tile32::v_tile<HD>()))
-          : (size_t)4 * tile::kKeys * HD * 2;
+          : (tile::q_resident<HD>() ? (size_t)tile::kRows * HD * 2 : 0) +
+                (size_t)4 * tile::tile_keys<HD>() * HD * 2;
   auto kernel = F32 ? flash_tile_f32_kernel<HD> : flash_tile_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -472,8 +496,9 @@ extern "C" int b2b_flash_attention(const void* q, const void* k,
 }
 
 // C entry point of the tile kernel, bound with ctypes: q, k, v and out are
-// bf16. Returns the cudaError_t of the launch (0 = launched), or -1 for a
-// head_dim this kernel was not built for.
+// bf16, 16-byte aligned. Returns the cudaError_t of the launch (0 =
+// launched), or -1 for a head_dim (64, 128, 256) this kernel was not built
+// for.
 extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
                                         const void* v, const void* offset,
                                         void* out, int B, int T_, int S, int H,
@@ -484,6 +509,7 @@ extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_tile<64, false>(a, s);
   if (hd == 128) return launch_tile<128, false>(a, s);
+  if (hd == 256) return launch_tile<256, false>(a, s);
   return -1;
 }
 
@@ -500,5 +526,6 @@ extern "C" int b2b_flash_attention_tile_f32(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_tile<64, true>(a, s);
   if (hd == 128) return launch_tile<128, true>(a, s);
+  if (hd == 256) return launch_tile<256, true>(a, s);
   return -1;
 }

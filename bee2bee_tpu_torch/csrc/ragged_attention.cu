@@ -35,14 +35,14 @@
 //         over HD (HD / 32 elements a lane) and a shuffle reduction;
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
-// Which forms it serves (ops/ragged.py:ragged_kernel): head_dim 256, bf16
-// and f32 queries, over either pool: the gemma family's head_dim, which
-// the tile and decode kernels are not built for; and f32 chunks shorter
-// than T_MIN_F32_INT8 over an int8 pool, where it beat the f32 tile form
-// on the H100. bf16 decode at head_dim 64/128 has the split-K kernel
-// (ragged_decode_attention.cu), and every other chunk at those head_dims
-// a tensor-core tile kernel (ragged_prefill_attention.cu: bf16, and f32 in
-// 3xTF32).
+// Which forms it serves (ops/ragged.py:ragged_kernel): f32 chunks shorter
+// than the f32 tile form's crossover, where it was as fast or faster on
+// the H100: over an int8 pool T < T_MIN_F32_INT8 at head_dim 64/128, and
+// at head_dim 256 T < T_MIN_F32_HD256 (T_MIN_F32_INT8_HD256 over an int8
+// pool). bf16 decode has the split-K kernel (ragged_decode_attention.cu),
+// and every other chunk a tensor-core tile kernel
+// (ragged_prefill_attention.cu: bf16, and f32 in 3xTF32), at head_dim 256
+// in their resident-Q forms.
 
 #include "attention.cuh"
 
@@ -190,10 +190,13 @@ ragged_paged_attention_kernel(
   }
 
   if (live) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // nothing visible -> 0
+    // acc / l, correctly rounded as the plain version's division (a
+    // reciprocal times acc is an ulp off at times: 8e-3 at the magnitude
+    // of an int8 null block's values); nothing visible -> 0
+    const float d = l > 0.f ? l : 1.f;
     T* o = out + ((size_t)(b * T_ + t) * H + h) * HD + lane * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) o[e] = from_float<T>(acc[e] * inv);
+    for (int e = 0; e < E; ++e) o[e] = from_float<T>(acc[e] / d);
   }
 }
 

@@ -3,7 +3,7 @@
 // the row's pages of the paged KV pool through its block table.
 //
 // Replaces the TPU kernel bee2bee_tpu/ops/ragged.py:_ragged_kernel for
-// decode (T = 1, bf16 queries at head_dim 64 and 128; ops/ragged.py
+// decode (T = 1, bf16 queries at head_dim 64, 128 and 256; ops/ragged.py
 // dispatches), in both pool forms: the bf16 pool, and the int8 pool whose
 // pages carry one f32 scale per (kv head, block), read beside tables[b, j].
 // Same function: GQA rows folded g-major, per-row `offset`, one sliding
@@ -41,9 +41,20 @@
 //         the block's f32 partial to scratch that the wrapper allocates,
 //         and let a second kernel merge the splits of each (row, head) in
 //         split order, with no atomics: results repeat bit for bit.
-// One C entry point launches both kernels. Instantiated for HD 64 and 128
-// and BS 8, 16 and 32; HD 256 would hold 192 accumulator and fragment
-// registers a lane, so it stays on the row kernel, as f32 queries do.
+// At HD 256 (the gemma family's heads) a warp's 16-row accumulator alone
+// is 128 registers a lane, and Q's fragments would be 64 more: there Q
+// stays in its swizzled shared-memory tile and each k-step's A fragment is
+// loaded with ldmatrix where it is used (no spill). The ring keeps its 64-
+// key tiles (16 keys a warp, the depth of one m16n8k16 P V step) and its
+// stages: 3 x 64 KB (int8: 4 x 32 KB plus the 64 KB bf16 pair) beside the
+// 8 KB Q tile, with room left for the split's table and scales, at one
+// block per SM; 128 KB or more of pages in flight per SM is well above
+// what the memory's latency needs.
+// One C entry point launches both kernels. Instantiated for HD 64, 128 and
+// 256 and BS 8, 16 and 32; f32 queries stay on the tile kernel's f32 form
+// or the row kernel.
+
+#include <type_traits>
 
 #include "tile_attention.cuh"
 
@@ -311,9 +322,14 @@ ragged_decode_kernel(const DecodeArgs a) {
   cp_async_wait<S - 2>();
   __syncthreads();
 
-  tile::WarpRows<HD> w;
-  tile::init_rows<HD>(w, qs, 0, lane);  // every warp holds all 16 rows
-  const int kw = warp * 16;             // the warp's keys in each tile
+  // every warp holds all 16 rows: Q's fragments in registers, or at HD 256
+  // the accumulator alone, Q read from qs a k-step at a time
+  std::conditional_t<tile::q_resident<HD>(), tile::WarpAcc<HD>, tile::WarpRows<HD>> w;
+  if constexpr (tile::q_resident<HD>())
+    tile::init_acc<HD>(w);
+  else
+    tile::init_rows<HD>(w, qs, 0, lane);
+  const int kw = warp * 16;  // the warp's keys in each tile
   const int tq = lane & 3;
 
   for (int t = t0, i = 0; t <= t1; ++t, ++i) {
@@ -344,10 +360,11 @@ ragged_decode_kernel(const DecodeArgs a) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int key = kw + (lane & 7) + ((lane >> 4) << 3);
-      uint32_t b[4];
+      uint32_t a[4], b[4];
+      tile::q_frag<HD>(w, qs, kk, lane, a);
       tile::ldmatrix_x4(b, ks + tile::swz<HD>(key, 2 * kk + ((lane >> 3) & 1)));
-      tile::mma_bf16(s[0], w.q[kk], b[0], b[1]);
-      tile::mma_bf16(s[1], w.q[kk], b[2], b[3]);
+      tile::mma_bf16(s[0], a, b[0], b[1]);
+      tile::mma_bf16(s[1], a, b[2], b[3]);
     }
     // scale, cap, mask (one position per row: every row sees the same
     // keys); the online softmax over the quad holding a row
@@ -461,7 +478,9 @@ ragged_decode_kernel(const DecodeArgs a) {
 // threads: the threads read the splits' (m, l) together into shared
 // memory; then HD / 4 lanes cover a row in 16-byte loads, and the 128
 // threads' groups take every `groups`-th split, so a row's partials are
-// read in one or two rounds; the groups' sums add up in group order.
+// read in a few rounds (HD 256: two groups of 64 lanes); the groups' sums
+// add up in group order, and the threads store the row's HD elements
+// (HD 256: two each).
 // Launched as a programmatic dependent of the split walk: it waits for
 // the walk's partials before it reads any.
 template <int HD>
@@ -512,13 +531,12 @@ __global__ void __launch_bounds__(kThreads) ragged_decode_merge(const DecodeArgs
   }
   *reinterpret_cast<float4*>(&osum[grp][d4]) = o;
   __syncthreads();
-  if (threadIdx.x < HD) {
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
     float l = 0.f, out = 0.f;
     for (int s = 0; s < a.splits; ++s) l += ls[s] * wsplit[s];
 #pragma unroll
-    for (int g = 0; g < GROUPS; ++g) out += osum[g][threadIdx.x];
-    a.out[(size_t)blockIdx.x * HD + threadIdx.x] =
-        __float2bfloat16(l > 0.f ? out / l : 0.f);
+    for (int g = 0; g < GROUPS; ++g) out += osum[g][d];
+    a.out[(size_t)blockIdx.x * HD + d] = __float2bfloat16(l > 0.f ? out / l : 0.f);
   }
 }
 
@@ -576,6 +594,8 @@ int launch_hd(int hd, int BS, const DecodeArgs& a, cudaStream_t stream) {
       return launch_bs<64, INT8>(BS, a, stream);
     case 128:
       return launch_bs<128, INT8>(BS, a, stream);
+    case 256:
+      return launch_bs<256, INT8>(BS, a, stream);
   }
   return -1;
 }

@@ -11,9 +11,10 @@
 //                              ragged_decode_attention.cu);
 //   ragged_prefill_f32_kernel  f32 queries of T >= T_MIN_F32 (1: decode
 //                              included), over an int8 pool of T >=
-//                              T_MIN_F32_INT8 (below).
-// Head_dim 256, and shorter f32 chunks over an int8 pool, keep the
-// row-per-warp kernel of ragged_attention.cu.
+//                              T_MIN_F32_INT8 (below); at head_dim 256
+//                              of T >= T_MIN_F32_HD256 and
+//                              T_MIN_F32_INT8_HD256.
+// Shorter f32 chunks keep the row-per-warp kernel of ragged_attention.cu.
 // Same function: per-row `offset`, one sliding `window` per call (0 = full
 // causal), `sm_scale`, tanh `softcap` applied before the mask; pages past
 // the causal frontier or wholly below the window are skipped; a row that
@@ -44,6 +45,14 @@
 //         once per query row);
 //   math  mma.sync m16n8k16 tiles and the online softmax of
 //         tile_attention.cuh.
+// At HD 256 (the gemma family's heads) the bf16 kernel is laid out anew,
+// since Q's fragments, the accumulator and S would need about 224
+// registers a lane: Q [64][256] bf16 (32 KB) stays resident in shared
+// memory and each warp loads a k-step's fragment where it uses it, and the
+// key tiles hold 32 keys (16 KB each of K and V), so a lane holds the
+// 128-register accumulator, 16 of S and little else, with no spill. Two
+// stages of K and V beside Q take 96 KB (the int8 pool: the bf16 pair and
+// two int8 stages, the same), so two blocks share an SM.
 //
 // The f32 form keeps that grid, page walk and masking over 32-key f32
 // tiles (the pages of an int8 pool dequantized once per block into f32:
@@ -53,9 +62,13 @@
 // flops per visible pair / 494.7 TFLOP/s TF32): a prefill chunk is bound
 // by the three products (T=512 at offset 1000: 0.064 ms), a decode step
 // by the f32 (or int8) pages it reads.
-// Instantiated for HD 64 and 128 and BS 8, 16 and 32. HD 256 would hold
-// 192 accumulator and fragment registers a lane (bf16); the wrapper sends
-// it to the row kernel.
+// Both forms are instantiated for HD 64, 128 and 256 and BS 8, 16 and 32.
+// The f32 form keeps Q in shared memory at every HD; at 256 its 64 x 264
+// f32 Q tile and two stages of K and V take 197 KB (one block per SM) and
+// ptxas fits its 128 accumulator registers a lane beside the splits
+// without spilling.
+
+#include <type_traits>
 
 #include "tile_attention.cuh"
 #include "tile_attention_f32.cuh"
@@ -65,6 +78,8 @@ namespace {
 using tile::bf16;
 using tile::kKeys;
 using tile::kRows;
+using tile::q_resident;
+using tile::tile_keys;
 using tile::kThreads;
 using tile::cp_async16;
 
@@ -146,17 +161,17 @@ __device__ __forceinline__ int page_block(const PrefillArgs& a, const Block& k,
   return a.tables[k.b * a.MB + page];
 }
 
-// Stage key tile j of a bf16 pool into ks/vs (swizzled).
-template <int HD, int BS>
+// Stage key tile j (KEYS keys) of a bf16 pool into ks/vs (swizzled).
+template <int HD, int BS, int KEYS = kKeys>
 __device__ __forceinline__ void stage_bf16(const PrefillArgs& a, const Block& k,
                                            int j, uint4* ks, uint4* vs) {
   constexpr int RC = HD / 8;
   const bf16* kp = static_cast<const bf16*>(a.k_pool);
   const bf16* vp = static_cast<const bf16*>(a.v_pool);
-  for (int id = threadIdx.x; id < kKeys * RC; id += kThreads) {
+  for (int id = threadIdx.x; id < KEYS * RC; id += kThreads) {
     const int r = id / RC;
     const int c = id % RC;
-    const int blk = page_block<BS>(a, k, j, r);
+    const int blk = page_block<BS, KEYS>(a, k, j, r);
     size_t src = 0;
     if (blk >= 0) src = (((size_t)k.kvh * a.NB + blk) * BS + r % BS) * HD + c * 8;
     const int n = blk >= 0 ? 16 : 0;
@@ -206,13 +221,14 @@ __device__ __forceinline__ void dequant16(uint4 x, float scale, uint4& lo,
   }
 }
 
-// Dequantize a staged int8 tile into the bf16 tiles ks/vs (swizzled).
-template <int HD, int BS>
+// Dequantize a staged int8 tile (KEYS keys) into the bf16 tiles ks/vs
+// (swizzled).
+template <int HD, int BS, int KEYS = kKeys>
 __device__ __forceinline__ void dequant_tile(const uint4* kq, const uint4* vq,
-                                             const float (*sc)[kKeys / BS],
+                                             const float (*sc)[KEYS / BS],
                                              uint4* ks, uint4* vs) {
   constexpr int RC = HD / 16;
-  for (int id = threadIdx.x; id < kKeys * RC; id += kThreads) {
+  for (int id = threadIdx.x; id < KEYS * RC; id += kThreads) {
     const int r = id / RC;
     const int c = id % RC;
     uint4 lo, hi;
@@ -225,34 +241,42 @@ __device__ __forceinline__ void dequant_tile(const uint4* kq, const uint4* vq,
   }
 }
 
-// shared memory, per pool form:
-//   bf16: 2 stages of K, V [kKeys][HD] bf16;
-//   int8: one bf16 K, V tile, 2 stages of K, V [kKeys][HD] int8, scales.
-// Q [kRows][HD] bf16 passes through a K tile that is not in use yet (the
-// second stage's, or the int8 form's bf16 one): every warp has read it
-// into registers before the first copy into that tile.
+// shared memory, per pool form, with KEYS = tile_keys<HD>() keys a tile:
+//   bf16: 2 stages of K, V [KEYS][HD] bf16;
+//   int8: one bf16 K, V tile, 2 stages of K, V [KEYS][HD] int8, scales.
+// Q [kRows][HD] bf16 either passes through a K tile that is not in use yet
+// (the second stage's, or the int8 form's bf16 one: every warp has read it
+// into registers before the first copy into that tile), or, at HD 256,
+// stays resident in a tile of its own ahead of them.
 static_assert(kRows == kKeys, "Q is staged in a K tile");
 
 template <int HD, int BS, bool INT8>
 constexpr size_t smem_bytes() {
-  const size_t tilebf = (size_t)kKeys * HD * 2;
-  if (!INT8) return 2 * 2 * tilebf;
-  return 2 * tilebf + 2 * 2 * (size_t)kKeys * HD + 2 * 2 * (kKeys / BS) * 4;
+  constexpr int KEYS = tile_keys<HD>();
+  const size_t tilebf = (size_t)KEYS * HD * 2;
+  const size_t qbytes = q_resident<HD>() ? (size_t)kRows * HD * 2 : 0;
+  if (!INT8) return qbytes + 2 * 2 * tilebf;
+  return qbytes + 2 * tilebf + 2 * 2 * (size_t)KEYS * HD +
+         2 * 2 * (KEYS / BS) * 4;
 }
 
 template <int HD, int BS, bool INT8>
 __global__ void __launch_bounds__(kThreads)
 ragged_prefill_kernel(const PrefillArgs a) {
+  constexpr bool QS = q_resident<HD>();  // Q stays in shared memory
+  constexpr int KEYS = tile_keys<HD>();
+  constexpr int TILE = KEYS * HD / 8;    // uint4 chunks of a bf16 K or V tile
+  constexpr int TILE8 = KEYS * HD / 16;  // the same of an int8 tile
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int TILE = kKeys * HD / 8;  // uint4 chunks of a bf16 K or V tile
-  uint4* kv = reinterpret_cast<uint4*>(smem);  // bf16 tiles: [stage][K, V]
+  // bf16 tiles [stage][K, V], after the resident Q tile at HD 256
+  uint4* kv = reinterpret_cast<uint4*>(smem) + (QS ? kRows * HD / 8 : 0);
   // int8 form: one bf16 tile pair, then the int8 stages [stage][K, V]
   uint4* q8 = kv + 2 * TILE;
-  float(*sc)[2][kKeys / BS] = reinterpret_cast<float(*)[2][kKeys / BS]>(
-      q8 + 2 * 2 * (kKeys * HD / 16));
-  uint4* qs = INT8 ? kv : kv + 2 * TILE;
+  float(*sc)[2][KEYS / BS] =
+      reinterpret_cast<float(*)[2][KEYS / BS]>(q8 + 2 * 2 * TILE8);
+  uint4* qs = QS ? reinterpret_cast<uint4*>(smem) : INT8 ? kv : kv + 2 * TILE;
 
-  const Block k = block_geometry<BS>(a);
+  const Block k = block_geometry<BS, KEYS>(a);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -260,16 +284,21 @@ ragged_prefill_kernel(const PrefillArgs a) {
                     k.r0, k.nrows);
   if (k.jlo <= k.jhi) {
     if constexpr (INT8)
-      stage_int8<HD, BS>(a, k, k.jlo, q8, q8 + kKeys * HD / 16, sc[0]);
+      stage_int8<HD, BS, KEYS>(a, k, k.jlo, q8, q8 + TILE8, sc[0]);
     else
-      stage_bf16<HD, BS>(a, k, k.jlo, kv, kv + TILE);
+      stage_bf16<HD, BS, KEYS>(a, k, k.jlo, kv, kv + TILE);
   }
   tile::cp_async_commit();
   tile::cp_async_wait_all();
   __syncthreads();
 
-  tile::WarpRows<HD> w;
-  tile::init_rows<HD>(w, qs, warp, lane);
+  // Q's fragments in registers, or the accumulator alone (Q resident)
+  std::conditional_t<QS, tile::WarpAcc<HD>, tile::WarpRows<HD>> w;
+  if constexpr (QS)
+    tile::init_acc<HD>(w);
+  else
+    tile::init_rows<HD>(w, qs, warp, lane);
+  const uint4* qw = qs + warp * 16 * (HD / 8);  // the warp's rows of Q
   bf16* dst[2];
   const tile::RowSpan sp = lane_rows<HD, BS, bf16>(a, k, warp * 16, lane, dst);
 
@@ -281,11 +310,11 @@ ragged_prefill_kernel(const PrefillArgs a) {
     const uint4* ks;
     const uint4* vs;
     if constexpr (INT8) {
-      const uint4* kq = q8 + st * 2 * (kKeys * HD / 16);
-      dequant_tile<HD, BS>(kq, kq + kKeys * HD / 16, sc[st], kv, kv + TILE);
+      const uint4* kq = q8 + st * 2 * TILE8;
+      dequant_tile<HD, BS, KEYS>(kq, kq + TILE8, sc[st], kv, kv + TILE);
       if (j < k.jhi) {
-        uint4* nq = q8 + (st ^ 1) * 2 * (kKeys * HD / 16);
-        stage_int8<HD, BS>(a, k, j + 1, nq, nq + kKeys * HD / 16, sc[st ^ 1]);
+        uint4* nq = q8 + (st ^ 1) * 2 * TILE8;
+        stage_int8<HD, BS, KEYS>(a, k, j + 1, nq, nq + TILE8, sc[st ^ 1]);
       }
       tile::cp_async_commit();
       __syncthreads();
@@ -293,15 +322,19 @@ ragged_prefill_kernel(const PrefillArgs a) {
       vs = kv + TILE;
     } else {
       if (j < k.jhi)
-        stage_bf16<HD, BS>(a, k, j + 1, kv + (st ^ 1) * 2 * TILE,
-                           kv + (st ^ 1) * 2 * TILE + TILE);
+        stage_bf16<HD, BS, KEYS>(a, k, j + 1, kv + (st ^ 1) * 2 * TILE,
+                                 kv + (st ^ 1) * 2 * TILE + TILE);
       tile::cp_async_commit();
       ks = kv + st * 2 * TILE;
       vs = ks + TILE;
     }
     int lo[2], hi[2];
-    const unsigned live = tile::tile_ranges(sp, j * kKeys, lo, hi);
-    tile::attend_tile<HD>(w, ks, vs, live, lo, hi, a.sm_scale, a.softcap, lane);
+    const unsigned live = tile::tile_ranges<KEYS>(sp, j * KEYS, lo, hi);
+    if constexpr (QS)
+      tile::attend_tile<HD>(w, qw, ks, vs, live, lo, hi, a.sm_scale, a.softcap,
+                            lane);
+    else
+      tile::attend_tile<HD>(w, ks, vs, live, lo, hi, a.sm_scale, a.softcap, lane);
   }
   tile::store_rows<HD>(w, dst, lane);
 }
@@ -451,8 +484,8 @@ ragged_prefill_f32_kernel(const PrefillArgs a) {
   tile32::store_rows<HD>(w, dst, lane);
 }
 
-// The launch of either form (F32: the f32 one), instantiated for HD 64 and
-// 128 and BS 8, 16 and 32.
+// The launch of either form (F32: the f32 one), instantiated for BS 8, 16
+// and 32 at the head_dims launch_hd takes.
 template <int HD, int BS, bool INT8, bool F32>
 int launch(const PrefillArgs& a, cudaStream_t stream) {
   const int tiles = (a.H / a.Hkv * a.T + kRows - 1) / kRows;
@@ -491,6 +524,8 @@ int launch_hd(int hd, int BS, const PrefillArgs& a, cudaStream_t stream) {
       return launch_bs<64, INT8, F32>(BS, a, stream);
     case 128:
       return launch_bs<128, INT8, F32>(BS, a, stream);
+    case 256:
+      return launch_bs<256, INT8, F32>(BS, a, stream);
   }
   return -1;
 }
@@ -505,10 +540,11 @@ int launch_pools(const PrefillArgs& a, int BS, int hd, cudaStream_t s) {
 
 }  // namespace
 
-// C entry point, bound with ctypes. q and out are bf16. k_scale/v_scale
+// C entry point, bound with ctypes. q and out are bf16, 16-byte aligned
+// (q rows are copied in 16-byte pieces). k_scale/v_scale
 // null: the pools are bf16; both set: the pools are int8 with [Hkv, NB]
 // f32 scales. Returns the cudaError_t of the launch (0 = launched), or -1
-// for a head_dim / block size this file was not built for.
+// for a head_dim (64, 128, 256) / block size this file was not built for.
 extern "C" int b2b_ragged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,

@@ -22,6 +22,14 @@
 //     O += P V with V read through ldmatrix.trans;
 //   - a 16-key group no row of the warp sees is neither multiplied nor
 //     summed: its probabilities are exactly 0.
+//
+// At HD 256 that design would hold Q's fragments (64 registers a lane),
+// the output accumulator (128) and S (32 at 64 keys) at once, about 224
+// registers before addresses. The HD 256 form (WarpAcc) keeps Q in the
+// swizzled shared-memory tile for the whole walk and loads each k-step's
+// A fragment with ldmatrix where it is used, and its key tiles hold 32
+// keys (S: 16 registers), FlashAttention-2's choice at this head_dim: the
+// lane holds the 128-register accumulator and little else.
 
 #pragma once
 
@@ -107,6 +115,25 @@ struct WarpRows {
   float l[2];  // this lane's part of the row sum; the quad adds them last
 };
 
+// the same rows with Q left in shared memory (the HD 256 form): the output
+// accumulator and softmax state alone
+template <int HD>
+struct WarpAcc {
+  float o[HD / 8][4];
+  float m[2];
+  float l[2];
+};
+
+// the HD 256 form keeps Q resident in shared memory, in 32-key tiles
+template <int HD>
+__host__ __device__ constexpr bool q_resident() {
+  return HD > 128;
+}
+template <int HD>
+__host__ __device__ constexpr int tile_keys() {
+  return q_resident<HD>() ? 32 : kKeys;
+}
+
 // Rows r of the block's query tile, row r0 + r of the folded (t, g) order,
 // staged from q [B, T, H, HD]: row R = t * G + g reads head kvh * G + g at
 // chunk position t. Rows past nrows are zero-filled.
@@ -128,13 +155,8 @@ __device__ __forceinline__ void stage_q(uint4* qs, const bf16* q, int b,
   }
 }
 
-template <int HD>
-__device__ __forceinline__ void init_rows(WarpRows<HD>& w, const uint4* qs,
-                                          int warp, int lane) {
-  const int r = warp * 16 + (lane & 15);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldmatrix_x4(w.q[kk], qs + swz<HD>(r, 2 * kk + (lane >> 4)));
+template <int HD, class W>
+__device__ __forceinline__ void init_acc(W& w) {
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
@@ -146,46 +168,76 @@ __device__ __forceinline__ void init_rows(WarpRows<HD>& w, const uint4* qs,
   }
 }
 
+template <int HD>
+__device__ __forceinline__ void init_rows(WarpRows<HD>& w, const uint4* qs,
+                                          int warp, int lane) {
+  const int r = warp * 16 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_x4(w.q[kk], qs + swz<HD>(r, 2 * kk + (lane >> 4)));
+  init_acc<HD>(w);
+}
+
+// Q's A fragment of k-step kk (dims 16 kk .. 16 kk + 15 of the warp's 16
+// rows): from registers, or (WarpAcc) by ldmatrix from the warp's 16 rows
+// of the swizzled Q tile at qw (qw: row 0 of the 16, a multiple of 8 rows
+// into the tile, so the swizzle of row r is that of r & 15)
+template <int HD>
+__device__ __forceinline__ void q_frag(const WarpRows<HD>& w, const uint4*,
+                                       int kk, int, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) a[e] = w.q[kk][e];
+}
+template <int HD>
+__device__ __forceinline__ void q_frag(const WarpAcc<HD>&, const uint4* qw,
+                                       int kk, int lane, uint32_t (&a)[4]) {
+  ldmatrix_x4(a, qw + swz<HD>(lane & 15, 2 * kk + (lane >> 4)));
+}
+
 // 16-key groups of the tile at key position `base` that a key range
 // [lo, hi] (the union over the warp's rows) touches, as a bit mask
+template <int KEYS = kKeys>
 __device__ __forceinline__ unsigned live_groups(int base, int lo, int hi) {
   unsigned live = 0;
 #pragma unroll
-  for (int gi = 0; gi < kKeys / 16; ++gi) {
+  for (int gi = 0; gi < KEYS / 16; ++gi) {
     const int k0 = base + gi * 16;
     live |= (k0 <= hi && k0 + 15 >= lo) ? (1u << gi) : 0u;
   }
   return live;
 }
 
-// S = Q K^T for one key tile: ldmatrix of K rows gives the col-major B
-// operand directly. ALL: every 16-key group is live and no branch
-// separates the products.
-template <int HD, bool ALL>
-__device__ __forceinline__ void qk(float (&s)[kKeys / 8][4],
-                                   const WarpRows<HD>& w, const uint4* ks,
+// S = Q K^T for one key tile of KEYS keys: ldmatrix of K rows gives the
+// col-major B operand directly. ALL: every 16-key group is live and no
+// branch separates the products. qw: the warp's Q rows (WarpAcc only).
+template <int HD, int KEYS, bool ALL, class W>
+__device__ __forceinline__ void qk(float (&s)[KEYS / 8][4], const W& w,
+                                   const uint4* qw, const uint4* ks,
                                    unsigned live, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    q_frag<HD>(w, qw, kk, lane, a);
 #pragma unroll
-    for (int np = 0; np < kKeys / 16; ++np) {
+    for (int np = 0; np < KEYS / 16; ++np) {
       if (!ALL && !(live >> np & 1u)) continue;
       const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
       uint32_t b[4];
       ldmatrix_x4(b, ks + swz<HD>(key, 2 * kk + ((lane >> 3) & 1)));
-      mma_bf16(s[2 * np], w.q[kk], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], w.q[kk], b[2], b[3]);
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
     }
+  }
 }
 
 // O += P V for one key tile: the S accumulator of two 8-key tiles, as
 // bf16, is the A fragment of a 16-key step; ldmatrix.trans of V rows gives
 // the col-major B operand.
-template <int HD, bool ALL>
-__device__ __forceinline__ void pv(WarpRows<HD>& w, const float (&p)[kKeys / 8][4],
+template <int HD, int KEYS, bool ALL, class W>
+__device__ __forceinline__ void pv(W& w, const float (&p)[KEYS / 8][4],
                                    const uint4* vs, unsigned live, int lane) {
 #pragma unroll
-  for (int kc = 0; kc < kKeys / 16; ++kc) {
+  for (int kc = 0; kc < KEYS / 16; ++kc) {
     if (!ALL && !(live >> kc & 1u)) continue;
     const uint32_t a[4] = {
         pack_bf16(p[2 * kc][0], p[2 * kc][1]),
@@ -204,17 +256,18 @@ __device__ __forceinline__ void pv(WarpRows<HD>& w, const float (&p)[kKeys / 8][
   }
 }
 
-// One key tile for one warp's rows. ks, vs: the tile's K and V [kKeys][HD]
-// bf16, swizzled. Row i of this lane sees tile keys lo[i] .. hi[i]
-// (tile-local, inclusive; empty when lo > hi); `live` marks the 16-key
-// groups any row of the warp sees.
-template <int HD>
-__device__ __forceinline__ void attend_tile(WarpRows<HD>& w, const uint4* ks,
-                                            const uint4* vs, unsigned live,
-                                            const int (&lo)[2],
+// One key tile of KEYS keys for one warp's rows. qw: the warp's Q rows in
+// shared memory (WarpAcc; unused with Q in registers); ks, vs: the tile's
+// K and V [KEYS][HD] bf16, swizzled. Row i of this lane sees tile keys
+// lo[i] .. hi[i] (tile-local, inclusive; empty when lo > hi); `live` marks
+// the 16-key groups any row of the warp sees.
+template <int HD, int KEYS, class W>
+__device__ __forceinline__ void attend_keys(W& w, const uint4* qw,
+                                            const uint4* ks, const uint4* vs,
+                                            unsigned live, const int (&lo)[2],
                                             const int (&hi)[2], float sm_scale,
                                             float softcap, int lane) {
-  constexpr int NT = kKeys / 8;  // 8-key column tiles of S
+  constexpr int NT = KEYS / 8;  // 8-key column tiles of S
   float s[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -222,11 +275,11 @@ __device__ __forceinline__ void attend_tile(WarpRows<HD>& w, const uint4* ks,
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 
   // S = Q K^T, on the fully seen tiles without a branch between the
-  // products, so that the eight accumulators interleave
-  if (live == (1u << (kKeys / 16)) - 1)
-    qk<HD, true>(s, w, ks, live, lane);
+  // products, so that the accumulators interleave
+  if (live == (1u << (KEYS / 16)) - 1)
+    qk<HD, KEYS, true>(s, w, qw, ks, live, lane);
   else
-    qk<HD, false>(s, w, ks, live, lane);
+    qk<HD, KEYS, false>(s, w, qw, ks, live, lane);
 
   // scale, cap, mask; row max over the quad
   const int tq = lane & 3;
@@ -273,17 +326,42 @@ __device__ __forceinline__ void attend_tile(WarpRows<HD>& w, const uint4* ks,
     w.o[n][3] *= alpha[1];
   }
 
-  if (live == (1u << (kKeys / 16)) - 1)
-    pv<HD, true>(w, s, vs, live, lane);
+  if (live == (1u << (KEYS / 16)) - 1)
+    pv<HD, KEYS, true>(w, s, vs, live, lane);
   else
-    pv<HD, false>(w, s, vs, live, lane);
+    pv<HD, KEYS, false>(w, s, vs, live, lane);
+}
+
+// One 64-key tile, Q in registers (HD 64 and 128)
+template <int HD>
+__device__ __forceinline__ void attend_tile(WarpRows<HD>& w, const uint4* ks,
+                                            const uint4* vs, unsigned live,
+                                            const int (&lo)[2],
+                                            const int (&hi)[2], float sm_scale,
+                                            float softcap, int lane) {
+  attend_keys<HD, kKeys>(w, nullptr, ks, vs, live, lo, hi, sm_scale, softcap,
+                         lane);
+}
+
+// One tile of tile_keys<HD>() keys, Q resident in shared memory at qw (the
+// HD 256 form). A tile no row of the warp sees costs nothing: Q's
+// fragments are not even loaded.
+template <int HD>
+__device__ __forceinline__ void attend_tile(WarpAcc<HD>& w, const uint4* qw,
+                                            const uint4* ks, const uint4* vs,
+                                            unsigned live, const int (&lo)[2],
+                                            const int (&hi)[2], float sm_scale,
+                                            float softcap, int lane) {
+  if (!live) return;
+  attend_keys<HD, tile_keys<HD>()>(w, qw, ks, vs, live, lo, hi, sm_scale,
+                                   softcap, lane);
 }
 
 // Row i of this lane: its output row in out [B, T, H * HD] or nullptr for a
 // padding row. A row that saw nothing (l == 0) writes 0.
-template <int HD>
-__device__ __forceinline__ void store_rows(const WarpRows<HD>& w,
-                                           bf16* const (&dst)[2], int lane) {
+template <int HD, class W>
+__device__ __forceinline__ void store_rows(const W& w, bf16* const (&dst)[2],
+                                           int lane) {
   const int tq = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -330,8 +408,9 @@ __device__ __forceinline__ RowSpan warp_span(const int (&kmin)[2],
   return sp;
 }
 
-// the lane's tile-local ranges and the warp's live groups for the tile at
-// key position `base`
+// the lane's tile-local ranges and the warp's live groups for the tile of
+// KEYS keys at key position `base`
+template <int KEYS = kKeys>
 __device__ __forceinline__ unsigned tile_ranges(const RowSpan& sp, int base,
                                                 int (&lo)[2], int (&hi)[2]) {
 #pragma unroll
@@ -339,7 +418,7 @@ __device__ __forceinline__ unsigned tile_ranges(const RowSpan& sp, int base,
     lo[i] = sp.kmin[i] - base;
     hi[i] = sp.kmax[i] - base;
   }
-  return live_groups(base, sp.wlo, sp.whi);
+  return live_groups<KEYS>(base, sp.wlo, sp.whi);
 }
 
 }  // namespace tile

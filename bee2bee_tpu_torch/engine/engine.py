@@ -17,7 +17,9 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   ragged op runs its int8 form.
 - **Device**: ``device=None`` means the CUDA card and raises without one;
   the tests pass ``device="cpu"``, where the same code runs the plain
-  PyTorch versions of the kernels.
+  PyTorch versions of the kernels. On the card the engine refuses at
+  build, by name, what its attention kernels cannot run
+  (``check_card_supported``); the CPU runs any of it.
 
 What waits for later slices: checkpoint loading, int8 weights,
 speculative decoding and drafters, multi-LoRA, the prefix cache, live
@@ -39,6 +41,7 @@ from ..metrics import get_registry
 from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
+from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from .paged import ceil_div
 from .tokenizer import load_tokenizer
 
@@ -123,6 +126,38 @@ class EngineConfig:
                 )
 
 
+def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                         device) -> None:
+    """On a CUDA device, raise NotImplementedError naming every setting the
+    attention kernels (ops/ragged.py) cannot run, which would otherwise
+    build the engine and then raise at its first forward: a ``dtype``
+    other than bfloat16 or float32, a ``cache_dtype`` other than ``dtype``
+    or int8, a head_dim or a ``kv_block_size`` the kernels are not built
+    for. Any other device runs the plain versions: nothing is refused."""
+    if torch.device(device).type != "cuda":
+        return
+    dtypes = [name for name, dtype in DTYPES.items() if dtype in _DTYPE_CODE]
+    missing = []
+    if engine_cfg.dtype not in dtypes:
+        missing.append(f"dtype={engine_cfg.dtype!r} (the kernels take {dtypes})")
+    if engine_cfg.cache_dtype not in (engine_cfg.dtype, "int8"):
+        missing.append(
+            f"cache_dtype={engine_cfg.cache_dtype!r} beside dtype="
+            f"{engine_cfg.dtype!r} (the pool is in the query's type or int8)"
+        )
+    if model_cfg.head_dim not in _HEAD_DIMS:
+        missing.append(f"head_dim {model_cfg.head_dim} (the kernels are built "
+                       f"for {_HEAD_DIMS})")
+    if engine_cfg.kv_block_size not in _BLOCK_SIZES:
+        missing.append(f"kv_block_size={engine_cfg.kv_block_size} (the kernels "
+                       f"are built for {_BLOCK_SIZES})")
+    if missing:
+        raise NotImplementedError(
+            f"{model_cfg.name} on {device}: the port's CUDA kernels do not "
+            f"take {'; '.join(missing)}"
+        )
+
+
 @dataclass
 class GenerationResult:
     text: str
@@ -196,6 +231,7 @@ class InferenceEngine:
         self.model_cfg = resolve_model_config(model)
         core.check_supported(self.model_cfg)
         self.engine_cfg = engine_config or EngineConfig()
+        check_card_supported(self.model_cfg, self.engine_cfg, self.device)
         self.max_seq_len = min(self.engine_cfg.max_seq_len, self.model_cfg.max_seq_len)
         self.dtype = DTYPES[self.engine_cfg.dtype]
         self.cache_dtype = CACHE_DTYPES[self.engine_cfg.cache_dtype]

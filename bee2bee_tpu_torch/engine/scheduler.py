@@ -21,6 +21,11 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
 - **Per-row sampling and penalties**: the knobs ride as [B] tensors;
   penalty counts [B, 2, V] (prompt, generated) live on the card and are
   bumped by every sampled token.
+- **Tenant fairness**: the submit queue is a WDRR queue keyed by
+  ``Request.tenant`` (router/fairness.py), weighted from the
+  ``BEE2BEE_TENANTS`` config or ``set_tenant_weights``; a request costs
+  its token budget, charged when it is popped and refunded when it never
+  runs or is requeued. With no tenants configured the order is FIFO.
 
 Threading model: one daemon scheduler thread owns all device state;
 ``submit`` only appends to a queue under a condition variable, and
@@ -44,6 +49,8 @@ import numpy as np
 import torch
 
 from ..metrics import get_registry
+from ..router.fairness import WdrrQueue
+from ..router.tenants import load_tenant_config
 from .paged import BlockAllocator, ceil_div, pow2_at_least, prefill_chunk_positions
 from .sampling import sample_batched
 
@@ -176,6 +183,22 @@ class SchedulerStats:
     history: deque = field(default_factory=lambda: deque(maxlen=64))
 
 
+def tenant_queue(source: str | None = None) -> WdrrQueue:
+    """The scheduler's submit queue: per-tenant weighted-deficit fairness,
+    FIFO within a tenant and WDRR across tenants, weighted from the tenant
+    config (``source``, else ``BEE2BEE_TENANTS``). With no tenants
+    configured every request shares the default queue and the order stays
+    pure FIFO."""
+    return WdrrQueue(
+        weights={name: spec.weight for name, spec in load_tenant_config(source).items()}
+    )
+
+
+def _cost(req: Request) -> float:
+    """A request's WDRR cost: its token budget (fairness in tokens)."""
+    return max(1.0, float(req.max_new_tokens))
+
+
 class _PoolExhausted(RuntimeError):
     """The paged pool has no free blocks: admission backpressure, not a
     crash — callers requeue or fail the one request."""
@@ -188,7 +211,7 @@ class BatchScheduler:
         self.engine = engine
         self.max_batch = max_batch
         self.stats = SchedulerStats()
-        self._queue: deque = deque()
+        self._queue = tenant_queue()
         self._cond = threading.Condition()
         self._shutdown = False
 
@@ -219,11 +242,17 @@ class BatchScheduler:
 
     # ------------------------------------------------------------ public
 
+    def set_tenant_weights(self, weights: dict) -> None:
+        """Adopt the owning node's resolved tenant weights, so a registry
+        replaced at runtime cannot drift from the env-seeded defaults."""
+        with self._cond:
+            self._queue.set_weights(weights)
+
     def submit(self, req: Request) -> Request:
         with self._cond:
             if self._shutdown:
                 raise RuntimeError("scheduler is shut down")
-            self._queue.append(req)
+            self._queue.append(req, tenant=req.tenant, cost=_cost(req))
             self._cond.notify()
         return req
 
@@ -453,6 +482,10 @@ class BatchScheduler:
                 req.finish = "cancelled"
                 req.timing.t_first = req.timing.t_done = time.perf_counter()
                 req.events.put({"done": True, "result": e._build_result(req)})
+                # the pop charged this tenant's deficit for tokens that
+                # will never decode: refund them
+                with self._cond:
+                    self._queue.refund(req.tenant, _cost(req))
                 continue
             req.timing.t_admit = time.perf_counter()
             if self.active == self._bsz:
@@ -498,9 +531,10 @@ class BatchScheduler:
             except _PoolExhausted as err:
                 if self.active > 0 or placed:
                     # backpressure: blocks free as rows retire — requeue
-                    # at the front and admit again after the next window
+                    # at the front (refunding the cost charged at the
+                    # pop) and admit again after the next window
                     with self._cond:
-                        self._queue.appendleft(req)
+                        self._queue.appendleft(req, tenant=req.tenant, cost=_cost(req))
                     self.stats.paged_alloc_waits += 1
                     break
                 req.finish = "error"

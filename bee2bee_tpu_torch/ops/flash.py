@@ -8,9 +8,11 @@ same signature and layout. Two implementations of one function:
   for CUDA tensors, which together replace the TPU kernel
   ``_flash_kernel``: the tensor-core tile kernel (the ragged prefill
   kernel's design over contiguous K/V) for bf16 at head_dim 64 and 128,
-  its f32 form (both products in 3xTF32) for f32 at those head_dims, and
-  the row-per-warp kernel for head_dim 256 (bf16 and f32).
-  ``flash_kernel`` names the kernel the rule picks;
+  and in its head_dim-256 form (``tile_hd256``: Q resident in shared
+  memory, 32-key tiles); its f32 form (both products in 3xTF32) for f32
+  at every head_dim; and the row-per-warp kernel, which the rule no longer
+  names (it stays for timing the others against). ``flash_kernel`` names
+  the kernel the rule picks;
 - ``flash_attention_ref``, the plain PyTorch version: explicit mask and an
   f32 softmax. The wrapper takes it for CPU tensors only; the tests hold
   it against the JAX kernel, and the card's smoke run holds the kernel
@@ -37,31 +39,37 @@ import math
 
 import torch
 
-from .ragged import _DTYPE_CODE, _HEAD_DIMS, _TILE_HEAD_DIMS, NEG_INF, row_offsets
+from .ragged import _DTYPE_CODE, _HEAD_DIMS, NEG_INF, row_offsets
 
 _SOURCE = "flash_attention.cu"
 
 
-# each kernel's launch counter (on flash_attention), and the query type of
-# each kernel built for one (the row kernel takes both)
+# each kernel's launch counter (on flash_attention), the query type of
+# each kernel built for one (the row kernel takes both) and the head_dims
+# each is built for
 _COUNTERS = {"row": "launches", "tile": "tile_launches",
-             "tile_f32": "f32_tile_launches"}
-_KERNEL_DTYPES = {"tile": torch.bfloat16, "tile_f32": torch.float32}
+             "tile_hd256": "hd256_tile_launches", "tile_f32": "f32_tile_launches"}
+_KERNEL_DTYPES = {"tile": torch.bfloat16, "tile_hd256": torch.bfloat16,
+                  "tile_f32": torch.float32}
+_KERNEL_HEAD_DIMS = {"tile": (64, 128), "tile_hd256": (256,),
+                     "tile_f32": _HEAD_DIMS, "row": _HEAD_DIMS}
 
 
 def use_tile_kernel(dtype, hd: int) -> bool:
-    """The dispatch rule: bf16 or f32 at a head_dim the tile kernels are
-    built for (64, 128) goes to the tensor-core tile kernel of its type,
-    everything else (head_dim 256) to the row kernel."""
-    return dtype in _KERNEL_DTYPES.values() and hd in _TILE_HEAD_DIMS
+    """The dispatch rule: bf16 and f32 at a head_dim the tile kernels are
+    built for (64, 128, 256) go to the tensor-core tile kernel of their
+    type; anything else reaches the row kernel, whose checks refuse it."""
+    return dtype in _KERNEL_DTYPES.values() and hd in _HEAD_DIMS
 
 
 def flash_kernel(dtype, hd: int) -> str:
-    """The kernel the dispatch rule names: "tile" (bf16), "tile_f32" (f32)
-    or "row"."""
+    """The kernel the dispatch rule names: "tile" (bf16 at head_dim 64 and
+    128), "tile_hd256" (bf16 at 256), "tile_f32" (f32) or "row"."""
     if not use_tile_kernel(dtype, hd):
         return "row"
-    return "tile_f32" if dtype == torch.float32 else "tile"
+    if dtype == torch.float32:
+        return "tile_f32"
+    return "tile_hd256" if hd == 256 else "tile"
 
 
 def _check_block_k(S: int, causal: bool, block_k: int) -> None:
@@ -129,12 +137,13 @@ def _check_kernel_args(q, k, v, off):
 
 
 _ENTRIES = {"row": "b2b_flash_attention", "tile": "b2b_flash_attention_tile",
+            "tile_hd256": "b2b_flash_attention_tile",
             "tile_f32": "b2b_flash_attention_tile_f32"}
 
 
 def _kernel_fn(kernel: str):
-    """The C entry point of ``kernel`` ("tile", "tile_f32" or "row"), built
-    and bound on first use."""
+    """The C entry point of ``kernel`` (a name ``flash_kernel`` gives),
+    built and bound on first use."""
     from ._build import load
 
     fn = getattr(load(_SOURCE), _ENTRIES[kernel])
@@ -148,11 +157,14 @@ def _kernel_fn(kernel: str):
 
 
 def _launch_kernel(q, k, v, off, causal: bool, sm_scale: float, kernel: str):
-    """Launch ``kernel`` ("tile", "tile_f32" or "row") on checked arguments
-    and count the launch."""
+    """Launch ``kernel`` (a name ``flash_kernel`` gives) on checked
+    arguments and count the launch."""
     B, T, H, hd = q.shape
     if _KERNEL_DTYPES.get(kernel, q.dtype) != q.dtype:
         raise TypeError(f"flash {kernel} kernel: {q.dtype} queries")
+    if hd not in _KERNEL_HEAD_DIMS[kernel]:
+        raise ValueError(f"flash {kernel} kernel: head_dim {hd} "
+                         f"(built for {_KERNEL_HEAD_DIMS[kernel]})")
     out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -183,6 +195,7 @@ def flash_attention(
     """Tiled attention over contiguous K/V; returns [B, T, H*hd]. CUDA
     tensors launch the kernel ``flash_kernel`` names (and count the launch
     in ``flash_attention.tile_launches`` for the bf16 tile kernel,
+    ``.hd256_tile_launches`` for its head_dim-256 form,
     ``.f32_tile_launches`` for its f32 form, ``.launches`` for the row
     kernel); CPU tensors take the plain version. Anything else raises —
     there is no fallback from the card, nor from one kernel to another."""
@@ -204,4 +217,5 @@ def flash_attention(
 
 flash_attention.launches = 0  # row kernel
 flash_attention.tile_launches = 0  # tile kernel, bf16
+flash_attention.hd256_tile_launches = 0  # its head_dim-256 form
 flash_attention.f32_tile_launches = 0  # tile kernel, f32 form

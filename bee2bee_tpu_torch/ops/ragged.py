@@ -6,14 +6,17 @@ with the same ABI. Two implementations of one function:
 
 - four CUDA kernels (Hopper, ``sm_90a``) for CUDA tensors, which together
   replace the TPU kernel ``_ragged_kernel``: the split-K decode kernel
-  ``csrc/ragged_decode_attention.cu`` for bf16 decode (T = 1) at a
-  head_dim it is built for (64, 128); the tensor-core tile kernel
-  ``csrc/ragged_prefill_attention.cu`` for bf16 chunks of at least
-  ``T_MIN`` queries at those head_dims; its f32 form (3xTF32 products, in
-  the same file) for f32 queries of at least ``T_MIN_F32`` (decode
-  included; over an int8 pool ``T_MIN_F32_INT8``) at those head_dims; and
-  the row-per-warp kernel ``csrc/ragged_attention.cu`` for head_dim 256
-  (bf16 and f32) and the shorter f32 chunks over an int8 pool.
+  ``csrc/ragged_decode_attention.cu`` for bf16 decode (T = 1); the
+  tensor-core tile kernel ``csrc/ragged_prefill_attention.cu`` for bf16
+  chunks of at least ``T_MIN`` queries; both at head_dim 64 and 128 with
+  Q's fragments in registers, and in their head_dim-256 forms
+  (``decode_hd256``, ``tile_hd256``: Q resident in shared memory, the
+  tile kernel in 32-key tiles); the tile kernel's f32 form (3xTF32
+  products, in the same file, Q in shared memory at every head_dim) for
+  f32 queries of at least ``T_MIN_F32`` (decode included; over an int8
+  pool ``T_MIN_F32_INT8``; at head_dim 256 ``T_MIN_F32_HD256`` and
+  ``T_MIN_F32_INT8_HD256``); and the row-per-warp kernel
+  ``csrc/ragged_attention.cu`` for the shorter f32 chunks.
   ``use_decode_kernel`` and ``use_tile_kernel`` are the rule, and
   ``ragged_kernel`` names the kernel they pick;
 - ``ragged_paged_attention_ref``, the plain PyTorch version: it gathers
@@ -37,10 +40,13 @@ and block). An int8 page is dequantized in f32 and rounded to q's type
 before the dots, as the JAX kernel does. The wrapper counts each
 kernel's launches per pool form apart: ``launches`` and
 ``int8_launches`` for the row kernel, ``prefill_launches`` and
-``int8_prefill_launches`` for the tile kernel, ``f32_prefill_launches``
-and ``int8_f32_prefill_launches`` for its f32 form, ``decode_launches``
-and ``int8_decode_launches`` for the decode kernel (one call launches its
-two CUDA kernels, the split walk and the merge, and counts 1). The mesh wrapper
+``int8_prefill_launches`` for the tile kernel (``hd256_prefill_launches``
+and ``int8_hd256_prefill_launches`` for its head_dim-256 form),
+``f32_prefill_launches`` and ``int8_f32_prefill_launches`` for its f32
+form, ``decode_launches`` and ``int8_decode_launches`` for the decode
+kernel (``hd256_decode_launches``, ``int8_hd256_decode_launches``; one
+call launches its two CUDA kernels, the split walk and the merge, and
+counts 1). The mesh wrapper
 (``make_ragged_attn_fn``'s ``shard_map``) is not ported yet.
 """
 
@@ -60,13 +66,20 @@ _BLOCK_SIZES = (8, 16, 32)
 _SOURCE = "ragged_attention.cu"
 _PREFILL_SOURCE = "ragged_prefill_attention.cu"
 _DECODE_SOURCE = "ragged_decode_attention.cu"
-# the tile kernel's instantiations: head_dim 256 would hold 192
-# accumulator and fragment registers a lane
-_TILE_HEAD_DIMS = (64, 128)
-# the decode kernel's, for the same reason
-_DECODE_HEAD_DIMS = (64, 128)
-# the shortest chunk the tile kernel takes. On the H100 it beat the row
-# kernel at every chunk length timed, T = 1 included (chip_smoke.py's
+# the head_dims each kernel form is built for: every kernel covers
+# _HEAD_DIMS. The bf16 tile and decode kernels hold Q's fragments in
+# registers at 64 and 128; at 256 that and the accumulator would take about
+# 224 registers a lane, so their "_hd256" forms keep Q in shared memory.
+# The f32 tile form keeps Q there at every head_dim and is one design at
+# all three
+_KERNEL_HEAD_DIMS = {
+    "decode": (64, 128), "decode_hd256": (256,),
+    "tile": (64, 128), "tile_hd256": (256,),
+    "tile_f32": _HEAD_DIMS, "row": _HEAD_DIMS,
+}
+# the shortest chunk the bf16 tile kernel takes. On the H100 it beat the
+# row kernel at every chunk length timed, T = 1 included, at head_dim 128
+# (llama-3-8b's heads) and 256 (gemma-2-9b's) alike (chip_smoke.py's
 # crossover lines, PERF.md); decode (T = 1) has its own split-K kernel
 T_MIN = 2
 # the shortest f32 chunk the tile kernel's f32 form takes (there is no f32
@@ -77,8 +90,14 @@ T_MIN = 2
 # tied at T = 4
 T_MIN_F32 = 1
 T_MIN_F32_INT8 = 4
-# keys of one staged tile of the decode kernel (kKeys in its source): a
-# split holds whole tiles
+# the same at head_dim 256 (gemma-2-9b's heads), where a block holds 64
+# rows of 256 f32 accumulators and one block fits an SM: the row kernel
+# was as fast up to T = 4 over an f32 pool and faster up to T = 8 over an
+# int8 pool
+T_MIN_F32_HD256 = 8
+T_MIN_F32_INT8_HD256 = 16
+# keys of one staged tile of the decode kernel (kKeys in its source), at
+# every head_dim it is built for: a split holds whole tiles
 DECODE_TILE_KEYS = 64
 # the most tiles a split walks: longer walks leave SMs idle at B=8, shorter
 # ones add blocks and partials where the grid already fills the card
@@ -87,34 +106,42 @@ DECODE_MAX_SPLIT_TILES = 4
 
 def use_tile_kernel(dtype, T: int, hd: int, quantized: bool = False) -> bool:
     """The dispatch rule of the tensor-core tile kernels, at a head_dim
-    they are built for: bf16 chunks of at least T_MIN queries (prefill and
-    verify) go to the bf16 tile kernel, f32 chunks of at least T_MIN_F32
-    (over an int8 pool, ``quantized``: T_MIN_F32_INT8) to its f32 (3xTF32)
-    form."""
-    if hd not in _TILE_HEAD_DIMS:
-        return False
+    they are built for (64, 128, 256): bf16 chunks of at least T_MIN
+    queries (prefill and verify) go to the bf16 tile kernel, f32 chunks of
+    at least T_MIN_F32 (over an int8 pool, ``quantized``: T_MIN_F32_INT8;
+    at head_dim 256 T_MIN_F32_HD256 and T_MIN_F32_INT8_HD256) to its f32
+    (3xTF32) form."""
     if dtype == torch.bfloat16:
-        return T >= T_MIN
-    return dtype == torch.float32 and T >= (T_MIN_F32_INT8 if quantized else T_MIN_F32)
+        return hd in _HEAD_DIMS and T >= T_MIN
+    if dtype != torch.float32 or hd not in _HEAD_DIMS:
+        return False
+    if hd == 256:
+        return T >= (T_MIN_F32_INT8_HD256 if quantized else T_MIN_F32_HD256)
+    return T >= (T_MIN_F32_INT8 if quantized else T_MIN_F32)
 
 
 def use_decode_kernel(dtype, T: int, hd: int) -> bool:
     """The dispatch rule of decode: bf16 queries, one a row (T = 1), at a
-    head_dim the split-K decode kernel is built for. It takes no case that
-    ``use_tile_kernel`` takes."""
-    return dtype == torch.bfloat16 and T == 1 and hd in _DECODE_HEAD_DIMS
+    head_dim the split-K decode kernel is built for (64, 128, 256). It
+    takes no case that ``use_tile_kernel`` takes."""
+    return dtype == torch.bfloat16 and T == 1 and hd in _HEAD_DIMS
 
 
 def ragged_kernel(dtype, T: int, hd: int, quantized: bool = False) -> str:
     """The kernel the dispatch rule names for queries of ``dtype`` over the
-    pool in q's type or, ``quantized``, an int8 pool: "decode", "tile"
-    (bf16), "tile_f32" (the tile kernel's f32 form) or "row" (head_dim 256,
-    and short f32 chunks over an int8 pool)."""
+    pool in q's type or, ``quantized``, an int8 pool: "decode" or "tile"
+    (bf16 at head_dim 64/128), "decode_hd256" or "tile_hd256" (their
+    head_dim-256 forms), "tile_f32" (the tile kernel's f32 form, every
+    head_dim) or "row" (the shorter f32 chunks)."""
     if use_decode_kernel(dtype, T, hd):
-        return "decode"
-    if use_tile_kernel(dtype, T, hd, quantized):
-        return "tile_f32" if dtype == torch.float32 else "tile"
-    return "row"
+        kernel = "decode"
+    elif use_tile_kernel(dtype, T, hd, quantized):
+        if dtype == torch.float32:
+            return "tile_f32"
+        kernel = "tile"
+    else:
+        return "row"
+    return kernel + "_hd256" if hd == 256 else kernel
 
 
 @functools.lru_cache(maxsize=1024)  # one entry a (batch, table width) bucket
@@ -265,7 +292,7 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, off, k_scale, v_scale):
             raise ValueError(f"ragged kernel: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"ragged kernel: {name} is not contiguous")
-    # the tile kernels (both forms) and the decode kernel copy q in 16-byte
+    # the tile kernels (every form) and the decode kernel copy q in 16-byte
     # pieces too
     aligned = [("k_pool", k_pool), ("v_pool", v_pool)]
     if ragged_kernel(q.dtype, T, hd, k_scale is not None) != "row":
@@ -330,21 +357,27 @@ def _decode_fn():
 # each kernel's launch counter (on ragged_paged_attention), bf16 pool form;
 # the int8 pool form's carries an "int8_" prefix
 _COUNTERS = {"row": "launches", "tile": "prefill_launches",
-             "tile_f32": "f32_prefill_launches", "decode": "decode_launches"}
+             "tile_hd256": "hd256_prefill_launches",
+             "tile_f32": "f32_prefill_launches", "decode": "decode_launches",
+             "decode_hd256": "hd256_decode_launches"}
 # the query type of each kernel built for one (the row kernel takes both)
-_KERNEL_DTYPES = {"tile": torch.bfloat16, "decode": torch.bfloat16,
+_KERNEL_DTYPES = {"tile": torch.bfloat16, "tile_hd256": torch.bfloat16,
+                  "decode": torch.bfloat16, "decode_hd256": torch.bfloat16,
                   "tile_f32": torch.float32}
 
 
 def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
                    k_scale, v_scale, kernel: str):
-    """Launch ``kernel`` ("decode", "tile", "tile_f32" or "row") on checked
+    """Launch ``kernel`` (a name ``ragged_kernel`` gives) on checked
     arguments and count the launch."""
     B, T, H, hd = q.shape
     Hkv, NB, BS, _ = k_pool.shape
     MB = block_tables.shape[1]
     if _KERNEL_DTYPES.get(kernel, q.dtype) != q.dtype:
         raise TypeError(f"ragged {kernel} kernel: {q.dtype} queries")
+    if hd not in _KERNEL_HEAD_DIMS[kernel]:
+        raise ValueError(f"ragged {kernel} kernel: head_dim {hd} "
+                         f"(built for {_KERNEL_HEAD_DIMS[kernel]})")
     out = torch.empty((B, T, H * hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -356,7 +389,7 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
         block_tables.data_ptr(), off.data_ptr(), out.data_ptr(),
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if kernel == "decode":
+    if kernel.startswith("decode"):
         splits, pages = decode_splits(B, Hkv, MB, BS, _sm_count(q.device.index))
         # f32 partials: the unnormalised output and (m, l) of every split.
         # Freed on return: the caching allocator hands it out again only to
@@ -368,7 +401,7 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
     else:
         args = (*ptrs, B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale),
                 float(softcap))
-        if kernel == "tile":
+        if kernel in ("tile", "tile_hd256"):
             err = _prefill_fn()(*args, stream)
         elif kernel == "tile_f32":
             err = _prefill_f32_fn()(*args, stream)
@@ -400,11 +433,11 @@ def ragged_paged_attention(
     launch the kernel ``ragged_kernel`` names (and count the launch in
     ``ragged_paged_attention.decode_launches`` / ``.int8_decode_launches``
     for the decode kernel, ``.prefill_launches`` /
-    ``.int8_prefill_launches`` for the tile kernel,
-    ``.f32_prefill_launches`` / ``.int8_f32_prefill_launches`` for its f32
-    form, ``.launches`` / ``.int8_launches`` for the row kernel); CPU
-    tensors take the plain
-    version. Anything else raises — there is no fallback from the card,
+    ``.int8_prefill_launches`` for the tile kernel, ``.hd256_...`` /
+    ``.int8_hd256_...`` of those for their head_dim-256 forms,
+    ``.f32_prefill_launches`` / ``.int8_f32_prefill_launches`` for the
+    f32 form, ``.launches`` / ``.int8_launches`` for the row kernel); CPU
+    tensors take the plain version. Anything else raises — there is no fallback from the card,
     nor from one kernel to another."""
     _check_scales(k_scale, v_scale)
     if q.device.type == "cpu":
@@ -437,3 +470,8 @@ ragged_paged_attention.int8_f32_prefill_launches = 0
 # decode kernel: bf16 pool / int8 pool with scales
 ragged_paged_attention.decode_launches = 0
 ragged_paged_attention.int8_decode_launches = 0
+# the tile and decode kernels' head_dim-256 forms: bf16 / int8 pool
+ragged_paged_attention.hd256_prefill_launches = 0
+ragged_paged_attention.int8_hd256_prefill_launches = 0
+ragged_paged_attention.hd256_decode_launches = 0
+ragged_paged_attention.int8_hd256_decode_launches = 0

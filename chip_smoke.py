@@ -8,7 +8,10 @@ and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from csrc/ with nvcc (one process per source, all at
-   once).
+   once); ptxas's registers and spills of every decode, f32 and head_dim
+   256 instantiation, and a failure if a head_dim-256 instantiation the
+   dispatch names (tile, f32 tile, decode and merge, flash tile and f32
+   tile kernels) spills.
 2. Ragged paged attention vs plain version at llama-3-8b's attention
    shapes (H=32, Hkv=8, hd=128, block size 16) in bf16, through the
    dispatching wrapper: decode (the split-K decode kernel) at ragged
@@ -25,7 +28,14 @@ and the script exits non-zero):
    and T=4, prefill T in {5, 17, 300, 512 @1000, 2048 @0}, window +
    softcap + scale at T=5 and T=64, block sizes 8 and 32, head_dim 64;
    then head_dim 256 at gemma-2-9b's heads (16/8, window 4096, softcap 50,
-   scale 1/16), decode and T=17 in bf16 and f32 (the row kernel). Each
+   scale 1/16) in bf16 (the decode and tile kernels' head_dim-256 forms)
+   and f32 (the row kernel below T_MIN_F32_HD256, the f32 tile form from
+   it on; over an int8 pool T_MIN_F32_INT8_HD256): decode with window cuts, at offset -1 beside
+   a dead row and null tails, B=8 ctx 1024, block sizes 8 and 32; verify
+   T=5 with a dead row, chunks of 17 and 300 cut by the window, prefill
+   T=512 @1000, T=100 at block sizes 8 and 32; the row kernel is forced
+   as well on the decode and T=17 cases in both types (those it served
+   at head_dim 256 before). Each
    case checks that exactly the kernel the dispatch rule names launched,
    once, and each decode case that a second call gives the same bytes.
    Tolerance: max abs error <= 2e-2 against the plain version run in f32
@@ -40,10 +50,15 @@ and the script exits non-zero):
    and the tile kernel forced at the same decode inputs, the f32 tile
    form at the B=8 decode shape (and the row kernel forced there), the
    tile kernel and its f32 form at a 512-token prefill chunk at offset
-   1000, the row kernel at head_dim 256 (gemma heads, decode shape) in
-   bf16 and f32; the crossover of the row and tile kernels over T, bf16
-   and f32; then the decode sweep, 32 launches back to back over a
-   32-layer copy of the pool, in ms per launch.
+   1000; at gemma heads (window 4096 and scale 1/16; no softcap, which
+   SDPA cannot apply) the head_dim-256 decode form at B=8 ctx 1024 and
+   tile form at T=512 @1000, each with the other kernels that take the
+   inputs forced beside it (the row kernel among them), and the same in
+   f32 (the row kernel and the f32 tile form); the crossover of the row
+   and tile kernels over T, bf16 and f32, at llama-3-8b's and at gemma
+   heads; then the decode
+   sweep, 32 launches back to back over a 32-layer copy of the pool, in
+   ms per launch.
 3. The same cases for the int8-pool form: random int8 pages, random
    per-(kv head, block) scales, and a null block of +-127 under a scale
    of 1e3 that no reader may touch. Tolerance 2e-2 in bf16 and 1e-4 in
@@ -55,12 +70,18 @@ and the script exits non-zero):
    empty row (offset -1), T=512 at offset 1000 over S=2048, non-causal
    T=S=256 in bf16 (the tile kernel); T=64 S=256 at per-row offsets,
    causal T=S=2048, the decode case, non-causal T=S=256 and head_dim 64
-   in f32 (the f32 tile kernel); head_dim 256 at gemma heads in bf16 and
-   f32 (the row kernel). Tolerance 2e-2 / 1e-4. Times of causal T=S=2048
-   through the tile kernel (bf16), the f32 tile kernel and the row kernel
-   forced (f32), and the row kernel at head_dim 256 (gemma heads, bf16
-   and f32), each beside the plain version, SDPA(is_causal=True) and the
-   bound. No serving path calls this op.
+   in f32 (the f32 tile kernel); head_dim 256 at gemma heads in bf16 (the
+   tile kernel's head_dim-256 form: T=64 S=256 at per-row offsets, causal
+   T=S=2048, the decode case, T=100 S=300 @200, non-causal T=S=256) and
+   f32 (the f32 tile kernel: T=64 S=256, causal T=S=2048, the decode
+   case, non-causal T=S=256); the row kernel, which the rule no longer
+   names, forced on the two T=64 S=256 cases at gemma heads. Tolerance
+   2e-2 / 1e-4. Times of causal
+   T=S=2048 through the tile kernel (bf16), the f32 tile kernel and the
+   row kernel forced (f32), and at gemma heads the head_dim-256 tile form
+   (bf16) and the f32 tile kernel, each with the row kernel forced beside
+   it; each beside the plain version, SDPA(is_causal=True) and the bound.
+   No serving path calls this op.
 5. A whole forward at llama-3-8b width, 2 layers: a 300-token prefill and
    8 greedy decode steps through the kernels and through the plain
    version (asked for explicitly, here only), in f32 over an f32 pool and
@@ -72,7 +93,12 @@ and the script exits non-zero):
    and an int8 pool, whose 300-token prefill goes through the tile kernel
    and whose 8 decode steps go through the decode kernel: logits within
    the gap between the plain bf16 and the plain f32 forward (the kernels
-   may not add more error than bf16 itself carries).
+   may not add more error than bf16 itself carries). Then the same bf16
+   forward, over a bf16 and an int8 pool, at gemma-2-9b's attention
+   geometry on the llama architecture (d 3584, 16/8 heads at head_dim
+   256, window 4096 every 2 layers, softcap 50): it must launch only the
+   head_dim-256 tile form (the prefill) and decode form (the steps), meet
+   the same bf16 criterion and give the plain forward's greedy tokens.
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream; the decode kernel's launches plus the tile kernel's
@@ -86,7 +112,8 @@ and the script exits non-zero):
    cache_dtype="int8" inside CUDAService, the same requests and the same
    launch checks on the int8 counters (the bf16 pool's stay 0); pool
    bytes beside the bf16 pool's.
-8. The kernel table as one JSON line, then the result line.
+8. The kernel table as one JSON line (the head_dim-256 forms' launches
+   from phase 5's gemma-geometry forward), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script.
@@ -185,11 +212,23 @@ def phase_device_and_build():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build: {source}: {len(regs)} kernels; ptxas spill lines "
             f"{sorted(set(spills)) or 'none'}")
-        # every instantiation of the decode kernel and of the f32 tile forms
+        # every instantiation of the decode kernel, of the f32 tile forms
+        # and at head_dim 256; the tile and decode kernels' head_dim-256
+        # forms must not spill
         for name, line in ptxas_entries(report):
-            if source == "ragged_decode_attention.cu" or "_f32_" in name:
+            hd256 = name.split("<")[1].startswith("256")
+            if source == "ragged_decode_attention.cu" or "_f32_" in name or hd256:
                 log(f"build: {source}: {name}: {line}")
+            if hd256 and name.startswith(HD256_FORMS):
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"{source}: {name} spills: {line}")
     return card, build_s
+
+
+# the kernels whose head_dim-256 instantiations the dispatch names
+HD256_FORMS = ("ragged_prefill_kernel", "ragged_prefill_f32_kernel",
+               "ragged_decode_kernel", "ragged_decode_merge", "flash_tile_kernel",
+               "flash_tile_f32_kernel")
 
 
 def ptxas_entries(report: str):
@@ -324,16 +363,38 @@ F32_RAGGED_CASES = [
     ("f32 prefill hd=64 T=40", dict(offs=[3, 100], T=40, hd=64, **F32), {}),
 ]
 # gemma-2-9b's attention (models/config.py): 16 heads over 8 kv heads at
-# head_dim 256, a 4096-key window, softcap 50, score scale 1/sqrt(256): the
-# row kernel's head_dim, in bf16 and f32
+# head_dim 256, a 4096-key window, softcap 50, score scale 1/sqrt(256): in
+# bf16 the decode and tile kernels' head_dim-256 forms, in f32 the row
+# kernel
 GEMMA = dict(H=16, Hkv=8, hd=256)
 GEMMA_KW = dict(window=4096, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
 HD256_RAGGED_CASES = [
     (f"hd256 {name} {str(dt)[6:]}", dict(geo, dtype=dt, **GEMMA), GEMMA_KW)
     for dt in (torch.bfloat16, torch.float32)
-    for name, geo in (("decode window-cut", dict(offs=[0, 700, 4500, 5000], T=1)),
-                      ("chunk T=17 window-cut", dict(offs=[5, 4200], T=17)))
+    for name, geo in (
+        ("decode window-cut", dict(offs=[0, 700, 4500, 5000], T=1)),
+        ("decode offset -1 + dead row + null tails", dict(
+            offs=[-1, 300, 57, 1000], T=1, dead=(1,), extra_tables=5)),
+        ("decode B=8 ctx 1024", dict(offs=[1023] * 8, T=1)),
+        ("decode BS=8", dict(offs=[3, 40, 100, 1000], T=1, BS=8)),
+        ("decode BS=32 + null tails", dict(offs=[3, 40, 100, 1000], T=1, BS=32,
+                                           extra_tables=3)),
+        ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,))),
+        ("chunk T=17 window-cut", dict(offs=[5, 4200], T=17)),
+        ("prefill T=300 window-cut", dict(offs=[4000], T=300)),
+        ("prefill T=512 @1000", dict(offs=[1000], T=512)),
+        ("BS=8 T=100 + null tails", dict(offs=[3, 77], T=100, BS=8, extra_tables=4)),
+        ("BS=32 T=100", dict(offs=[3, 77], T=100, BS=32)),
+    )
 ]
+# the cases the row kernel served at head_dim 256 before its head_dim-256
+# forms existed: there it is forced as well, in bf16 and f32, so that its
+# error is held against the plain version in both types
+ROW_FORCED_CASES = {f"hd256 {name} {dt}" for dt in ("bfloat16", "float32")
+                    for name in ("decode window-cut", "chunk T=17 window-cut")}
+# the timed hd-256 calls keep gemma's window and score scale but not its
+# cap: SDPA, the yardstick, cannot cap scores (the cases above keep it)
+GEMMA_TIMED_KW = dict(window=4096, sm_scale=1.0 / math.sqrt(256))
 
 
 def int8_pools(gen, NB, Hkv=8, BS=16, hd=128):
@@ -413,11 +474,12 @@ def log_sdpa_backend(label: str, fn, tries: int = 3) -> None:
     log(f"sdpa backend ({label}): kernels {names}")
 
 
-def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
+def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None, window=0,
+                sm_scale=None):
     """The kernel's time beside the plain version's, SDPA's over the
-    gathered (for an int8 pool: dequantized) view in q's type and the
-    bound (at the peak rate of q's type; f32: the 3xTF32 and the FFMA
-    bounds)."""
+    gathered (for an int8 pool: dequantized) view in q's type with the
+    same mask and score scale, and the bound (at the peak rate of q's
+    type; f32: the 3xTF32 and the FFMA bounds)."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_paged_attention, ragged_paged_attention_ref, ragged_kernel,
     )
@@ -426,6 +488,7 @@ def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     Hkv, _, BS, _ = kp.shape
     MB = tb.shape[1]
     kw = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    kw.update(window=window, sm_scale=sm_scale)
     ms = cuda_time_ms(lambda: ragged_paged_attention(q, kp, vp, tb, off, **kw),
                       flush=flush)
     plain_ms = cuda_time_ms(
@@ -448,20 +511,24 @@ def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None):
     vg = gathered(vp, None if scales is None else scales[1])
     qs = q.transpose(1, 2).contiguous()  # [B, H, T, hd]
     qpos = off.long()[:, None] + torch.arange(T, device="cuda")[None, :]
-    mask = (torch.arange(S, device="cuda")[None, None, :] <= qpos[:, :, None])
+    kpos = torch.arange(S, device="cuda")[None, None, :]
+    mask = kpos <= qpos[:, :, None]
+    if window:
+        mask = mask & (kpos > qpos[:, :, None] - window)
     mask = mask[:, None]  # [B, 1, T, S]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_time_ms(
-        lambda: sdpa(qs, kg, vg, attn_mask=mask), flush=flush
+        lambda: sdpa(qs, kg, vg, attn_mask=mask, scale=sm_scale), flush=flush
     )
-    log_sdpa_backend(f"ragged, {q.dtype}, mask", lambda: sdpa(qs, kg, vg, attn_mask=mask))
+    log_sdpa_backend(f"ragged, {q.dtype}, hd {hd}, mask",
+                     lambda: sdpa(qs, kg, vg, attn_mask=mask, scale=sm_scale))
     kv_bytes = kp.element_size()
-    nbytes, flops = attention_work(offs, T, H, Hkv, hd, BS, 0, q.element_size(), MB,
-                                   kv_bytes=kv_bytes,
+    nbytes, flops = attention_work(offs, T, H, Hkv, hd, BS, window, q.element_size(),
+                                   MB, kv_bytes=kv_bytes,
                                    scale_bytes=0 if scales is None else 4)
     b = bounds(nbytes, flops, q.dtype)
     plan = (f", plan {split_plan(q, kp, tb)}"
-            if ragged_kernel(q.dtype, T, hd) == "decode" else "")
+            if ragged_kernel(q.dtype, T, hd).startswith("decode") else "")
     log(f"timing {label} B={B} T={T} ctx={offs[0] + T} H={H}/{Hkv} hd={hd} "
         f"({q.dtype}{plan}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, {b['text']}, share of bound {b['bound_ms'] / ms:.3f}")
@@ -497,7 +564,9 @@ def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
 # read_counts()'s name of each ragged kernel's counter over the pool in q's
 # type; the int8 pool form's carries an "_int8" suffix
 RAGGED_COUNTERS = {"row": "ragged", "tile": "ragged_prefill",
-                   "tile_f32": "ragged_prefill_f32", "decode": "ragged_decode"}
+                   "tile_hd256": "ragged_prefill_hd256",
+                   "tile_f32": "ragged_prefill_f32", "decode": "ragged_decode",
+                   "decode_hd256": "ragged_decode_hd256"}
 
 
 def ragged_counter(q, int8: bool) -> str:
@@ -514,50 +583,69 @@ def check_one_launch(label: str, counter: str) -> None:
           f"{label}: expected one {counter} launch, counted {counts}")
 
 
-def time_crossover(label, gen, flush, int8, dtype=torch.bfloat16):
+def time_crossover(label, gen, flush, int8, dtype=torch.bfloat16, heads=None):
     """The row kernel and the tile kernel of q's type forced at the same
-    inputs, over T: where the tile kernel starts to win (the dispatch's
-    T_MIN, T_MIN_F32), and the row kernel at the timed prefill chunk."""
+    inputs, over T, at llama-3-8b's heads or ``heads`` (GEMMA: the tile
+    kernel's head_dim-256 form): where the tile kernel starts to win (the
+    dispatch's T_MIN, T_MIN_F32), and the row kernel at the timed prefill
+    chunk."""
     from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
 
-    tile = "tile" if dtype == torch.bfloat16 else "tile_f32"
+    heads = heads or {}
+    hd = heads.get("hd", 128)
+    tile = ("tile_f32" if dtype == torch.float32
+            else "tile_hd256" if hd == 256 else "tile")
     shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)), (1, 1000, (512,)))
     if dtype == torch.float32:
         shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 1000, (512,)))
     for B, off0, Ts in shapes:
         for T in Ts:
-            q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T, dtype=dtype)
+            q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T, dtype=dtype,
+                                           **heads)
             scales = (None, None)
             if int8:
-                kp, vp, *scales = int8_pools(gen, kp.shape[1])
+                kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0], hd=hd)
             rows = row_offsets(off, B, q.device)
 
             def run(kernel):
-                return _launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(128),
+                return _launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(hd),
                                       0.0, *scales, kernel=kernel)
 
             row_ms = cuda_time_ms(lambda: run("row"), flush=flush)
             tile_ms = cuda_time_ms(lambda: run(tile), flush=flush)
-            log(f"crossover {label} B={B} T={T} ctx={off0 + T} ({dtype}): row kernel "
-                f"{row_ms:.4f} ms, {tile} kernel {tile_ms:.4f} ms")
+            log(f"crossover {label} B={B} T={T} ctx={off0 + T} H={q.shape[2]}/"
+                f"{kp.shape[0]} hd={hd} ({dtype}): row kernel {row_ms:.4f} ms, {tile} "
+                f"kernel {tile_ms:.4f} ms")
 
 
-def time_forced(label, q, kp, vp, tb, off, flush, scales=None):
-    """The ragged kernels of q's type forced at the same decode inputs:
-    bf16, the decode kernel beside the row kernel and the tile kernel at
-    T=1; f32, the f32 tile form beside the row kernel."""
+def forced_kernels(q) -> tuple:
+    """The ragged kernels that take these queries: bf16, the decode kernel
+    (T = 1), the tile kernel and the row kernel, the first two in their
+    head_dim-256 forms where hd is 256; f32, the f32 tile form and the row
+    kernel."""
+    T, hd = q.shape[1], q.shape[3]
+    sfx = "_hd256" if hd == 256 else ""
+    if q.dtype == torch.bfloat16:
+        return (("decode" + sfx,) if T == 1 else ()) + ("tile" + sfx, "row")
+    return ("tile_f32", "row")
+
+
+def time_forced(label, q, kp, vp, tb, off, flush, scales=None, window=0,
+                sm_scale=None):
+    """Each kernel that takes these queries (``forced_kernels``) forced at
+    the same inputs."""
     from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
 
     rows = row_offsets(off, q.shape[0], q.device)
     sc = (None, None) if scales is None else scales
-    kernels = (("decode", "tile", "row") if q.dtype == torch.bfloat16
-               else ("tile_f32", "row"))
+    scale = sm_scale or 1.0 / math.sqrt(q.shape[3])
     ms = {k: cuda_time_ms(lambda: _launch_kernel(
-        q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(q.shape[3]), 0.0, *sc, kernel=k),
-        flush=flush) for k in kernels}
-    plan = f" (plan {split_plan(q, kp, tb)})" if "decode" in ms else ""
-    log(f"forced {label} B={q.shape[0]} T=1 ({q.dtype}){plan}: "
-        + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items()))
+        q, kp, vp, tb, rows, window, scale, 0.0, *sc, kernel=k),
+        flush=flush) for k in forced_kernels(q)}
+    plan = (f" (plan {split_plan(q, kp, tb)})"
+            if any(k.startswith("decode") for k in ms) else "")
+    log(f"forced {label} B={q.shape[0]} T={q.shape[1]} hd={q.shape[3]} ({q.dtype})"
+        f"{plan}: " + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items()))
     return ms
 
 
@@ -567,7 +655,7 @@ def phase_ragged_vs_plain(flush, int8=False):
     against the plain version, the kernel the rule names launched once;
     then the timings. Returns (max abs error per kernel, timings)."""
     from bee2bee_tpu_torch.ops.ragged import (
-        ragged_paged_attention, ragged_paged_attention_ref,
+        _launch_kernel, ragged_paged_attention, ragged_paged_attention_ref, row_offsets,
     )
 
     gen = torch.Generator(device="cuda")
@@ -606,32 +694,50 @@ def phase_ragged_vs_plain(flush, int8=False):
         kernel = next(k for k, c in RAGGED_COUNTERS.items()
                       if counter in (c, c + "_int8"))
         errs[kernel] = max(errs[kernel], err)
+        if label in ROW_FORCED_CASES:
+            forced = _launch_kernel(
+                q, kp, vp, tb, row_offsets(off, q.shape[0], q.device), kw["window"],
+                kw["sm_scale"], kw["logit_softcap"], kw.get("k_scale"), kw.get("v_scale"),
+                kernel="row")
+            err = (forced.float() - want).abs().max().item()
+            log(f"{tag}: {label} (row kernel forced): max abs err {err:.3e} (tol {tol})")
+            check(err <= tol, f"{tag}: {label}: row kernel forced: max abs err {err} > {tol}")
+            errs["row"] = max(errs["row"], err)
 
     timings = {}
     label0 = "int8 " if int8 else ""
-    for label, offs, T, dtype, heads in (
-            ("decode", [1023] * 8, 1, torch.bfloat16, {}),
-            ("decode_b1", [2047], 1, torch.bfloat16, {}),
-            ("decode_f32", [1023] * 8, 1, torch.float32, {}),
-            ("prefill", [1000], 512, torch.bfloat16, {}),
-            ("prefill_f32", [1000], 512, torch.float32, {}),
-            ("row_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA),
-            ("row_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA)):
+    # llama-3-8b's heads, then gemma-2-9b's (window and score scale, no cap:
+    # GEMMA_TIMED_KW); the forced timings put every kernel that takes the
+    # inputs beside the one the rule names
+    for label, offs, T, dtype, heads, forced in (
+            ("decode", [1023] * 8, 1, torch.bfloat16, {}, True),
+            ("decode_b1", [2047], 1, torch.bfloat16, {}, True),
+            ("decode_f32", [1023] * 8, 1, torch.float32, {}, True),
+            ("prefill", [1000], 512, torch.bfloat16, {}, False),
+            ("prefill_f32", [1000], 512, torch.float32, {}, False),
+            ("decode_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA, True),
+            ("prefill_hd256", [1000], 512, torch.bfloat16, GEMMA, True),
+            ("decode_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA, True),
+            ("prefill_hd256_f32", [1000], 512, torch.float32, GEMMA, True)):
         q, kp, vp, tb, off = make_case(gen, offs=offs, T=T, dtype=dtype, **heads)
         scales = None
         if int8:
             kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
                                          hd=kp.shape[3])
+        kw = GEMMA_TIMED_KW if heads else {}
         timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
-                                     scales=scales)
-        if label in ("decode", "decode_b1", "decode_f32"):
+                                     scales=scales, **kw)
+        if forced:
             timings[label]["forced"] = time_forced(f"{label0}{label}", q, kp, vp, tb,
-                                                   off, flush, scales=scales)
+                                                   off, flush, scales=scales, **kw)
         if label == "decode":
             time_decode_sweep(f"{label0}{label}", q, kp, vp, tb, off, scales=scales)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32)
+    time_crossover(f"{label0}pool".strip(), gen, flush, int8, heads=GEMMA)
+    time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32,
+                   heads=GEMMA)
     return errs, timings
 
 
@@ -675,13 +781,15 @@ def time_flash(label, q, k, v, flush, kernel=None):
 
 
 # read_counts()'s name of each flash kernel's counter
-FLASH_COUNTERS = {"row": "flash", "tile": "flash_tile", "tile_f32": "flash_tile_f32"}
+FLASH_COUNTERS = {"row": "flash", "tile": "flash_tile", "tile_hd256": "flash_tile_hd256",
+                  "tile_f32": "flash_tile_f32"}
 
 
 def phase_flash_vs_plain(flush):
     from bee2bee_tpu_torch.ops.flash import (
-        flash_attention, flash_attention_ref, flash_kernel,
+        _launch_kernel, flash_attention, flash_attention_ref, flash_kernel,
     )
+    from bee2bee_tpu_torch.ops.ragged import row_offsets
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
@@ -709,8 +817,24 @@ def phase_flash_vs_plain(flush):
         ("f32 hd=64 T=100 S=300 @200", qkv(2, 100, 300, f32, hd=64), dict(offset=200)),
         ("hd256 gemma bf16 T=64 S=256 @[10,150]", qkv(2, 64, 256, **GEMMA), dict(
             offset=offsets([10, 150]))),
+        ("hd256 gemma bf16 causal T=S=2048", qkv(1, 2048, 2048, **GEMMA),
+         dict(offset=None)),
+        ("hd256 gemma bf16 decode B=8 T=1 S=2048 ragged + empty row",
+         qkv(8, 1, 2048, **GEMMA), dict(
+             offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
+        ("hd256 gemma bf16 T=100 S=300 @200", qkv(2, 100, 300, **GEMMA),
+         dict(offset=200)),
+        ("hd256 gemma bf16 non-causal T=S=256", qkv(2, 256, 256, **GEMMA),
+         dict(causal=False)),
         ("hd256 gemma f32 T=64 S=256 @[10,150]", qkv(2, 64, 256, f32, **GEMMA), dict(
             offset=offsets([10, 150]))),
+        ("hd256 gemma f32 causal T=S=2048", qkv(1, 2048, 2048, f32, **GEMMA),
+         dict(offset=None)),
+        ("hd256 gemma f32 decode B=8 T=1 S=2048 ragged + empty row",
+         qkv(8, 1, 2048, f32, **GEMMA), dict(
+             offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
+        ("hd256 gemma f32 non-causal T=S=256", qkv(2, 256, 256, f32, **GEMMA),
+         dict(causal=False)),
     ]
     errs = {k: 0.0 for k in FLASH_COUNTERS}
     for label, (q, k, v), kw in cases:
@@ -730,6 +854,16 @@ def phase_flash_vs_plain(flush):
         if "empty row" in label:
             check(not bool(got[7].any()), "flash: the empty row is not 0")
         errs[kernel] = max(errs[kernel], err)
+        if label.endswith("T=64 S=256 @[10,150]") and label.startswith("hd256"):
+            # the row kernel, which the rule no longer names, forced where it
+            # served head_dim 256 before
+            forced = _launch_kernel(q, k, v, row_offsets(kw["offset"], q.shape[0], q.device),
+                                    True, 1.0 / math.sqrt(q.shape[3]), kernel="row")
+            err = (forced.float() - want.float()).abs().max().item()
+            log(f"flash vs plain: {label} (row kernel forced): max abs err {err:.3e} "
+                f"(tol {tol})")
+            check(err <= tol, f"flash {label}: row kernel forced: max abs err {err} > {tol}")
+            errs["row"] = max(errs["row"], err)
 
     q, k, v = cases[0][1]
     timings = {"tile": time_flash("tile kernel", q, k, v, flush)}
@@ -737,27 +871,48 @@ def phase_flash_vs_plain(flush):
     timings["tile_f32"] = time_flash("f32 tile kernel", q, k, v, flush)
     timings["row_f32_hd128"] = time_flash("row kernel forced", q, k, v, flush,
                                           kernel="row")
-    for dtype in (torch.bfloat16, f32):
-        q, k, v = qkv(1, 2048, 2048, dtype, **GEMMA)
-        name = "row_hd256" + ("_f32" if dtype == f32 else "")
-        timings[name] = time_flash("row kernel hd256 gemma", q, k, v, flush)
+    # gemma heads: the tile kernel's head_dim-256 form (bf16) and the f32
+    # tile kernel, each with the row kernel forced beside it
+    by_label = {label: qkv_ for label, qkv_, _ in cases}
+    q, k, v = by_label["hd256 gemma bf16 causal T=S=2048"]
+    timings["tile_hd256"] = time_flash("tile kernel hd256 gemma", q, k, v, flush)
+    timings["row_hd256"] = time_flash("row kernel forced hd256 gemma", q, k, v, flush,
+                                      kernel="row")
+    q, k, v = by_label["hd256 gemma f32 causal T=S=2048"]
+    timings["tile_f32_hd256"] = time_flash("f32 tile kernel hd256 gemma", q, k, v, flush)
+    timings["row_hd256_f32"] = time_flash("row kernel forced hd256 gemma", q, k, v,
+                                          flush, kernel="row")
     return errs, timings
 
 
 # ------------------------------------------------------------ phase 5
 
 
-def forward_setup():
-    """Phase 5's model and inputs: llama-3-8b at full width with 2 layers,
-    f32 weights from SEED, a 300-token prompt and the block table for it
-    and 8 greedy decode steps. Returns (cfg, params, run): run(attn_fn,
-    pool_dtype, weights) -> (prefill logits, stacked step logits, greedy
-    tokens)."""
+def gemma_attention_config():
+    """gemma-2-9b's attention geometry (models/config.py) on the llama
+    architecture the port runs, 2 layers: d_model 3584, 16 heads over 8 kv
+    heads at head_dim 256 (override), a 4096-key window on every second
+    layer, scores capped at 50, score scale 1/sqrt(256); llama-3-8b's
+    vocabulary, MLP and norms."""
+    from bee2bee_tpu_torch.models.config import get_config
+
+    return replace(get_config("llama-3-8b"), name="llama-gemma-2-9b-attention",
+                   n_layers=2, d_model=3584, n_heads=16, n_kv_heads=8,
+                   head_dim_override=256, sliding_window=4096, sliding_window_every=2,
+                   attn_logit_softcap=50.0)
+
+
+def forward_setup(cfg=None):
+    """Phase 5's model and inputs: ``cfg`` (default llama-3-8b at full
+    width with 2 layers), f32 weights from SEED, a 300-token prompt and the
+    block table for it and 8 greedy decode steps. Returns (cfg, params,
+    run): run(attn_fn, pool_dtype, weights) -> (prefill logits, stacked
+    step logits, greedy tokens)."""
     from bee2bee_tpu_torch.models import core
     from bee2bee_tpu_torch.models.config import get_config
     from bee2bee_tpu_torch.models.params import init_params
 
-    cfg = replace(get_config("llama-3-8b"), n_layers=2)
+    cfg = cfg or replace(get_config("llama-3-8b"), n_layers=2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = init_params(cfg, gen, "cuda", torch.float32)
@@ -901,6 +1056,51 @@ def phase_forward_parity():
     torch.cuda.empty_cache()
 
 
+def phase_gemma_forward() -> dict:
+    """Phase 5, head_dim 256: one bf16 forward (300-token prefill, 8 greedy
+    decode steps) at gemma-2-9b's attention geometry, over a bf16 pool and
+    an int8 pool. Each must launch only the head_dim-256 forms of the tile
+    kernel (the prefill) and the decode kernel (the steps) of its pool,
+    n_layers times a forward; its prefill logits stay within the plain
+    bf16 forward's gap to the plain f32 forward, and its greedy tokens
+    equal the plain bf16 forward's. Returns the launch counts per pool,
+    zeroed just before and read just after each kernel forward."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    cfg, params, run = forward_setup(gemma_attention_config())
+    n_steps = 8
+    bparams = cast_tree(params, torch.bfloat16)
+    launches = {}
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        pool = str(pool_dtype)[6:]
+        sfx = "_int8" if pool_dtype == torch.int8 else ""
+        tag = f"forward 2x gemma-2-9b attention geometry bf16, {pool} pool"
+        f32_logits, _, _ = run(ragged_paged_attention_ref,
+                               torch.int8 if sfx else torch.float32)
+        reset_counts()
+        b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches[pool] = counts
+        got = {k: v for k, v in counts.items() if v}
+        want = {"ragged_prefill_hd256" + sfx: cfg.n_layers,
+                "ragged_decode_hd256" + sfx: cfg.n_layers * n_steps}
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+        err = (b_logits - bp_logits).abs().max().item()
+        tol = (bp_logits - f32_logits).abs().max().item()
+        log(f"{tag}: prefill 300 logits max abs err {err:.3e} (tol {tol:.3e}, the "
+            f"plain bf16 forward's gap to the plain f32 forward); launches {got}; "
+            f"greedy kernel {b_toks} plain {bp_toks}")
+        check(err <= tol, f"{tag}: logits differ by {err} > {tol}")
+        check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
+    del params, bparams
+    torch.cuda.empty_cache()
+    return launches
+
+
 def cast_tree(tree, dtype):
     """A copy of a parameter tree (dicts, lists, tensors) with its floating
     tensors cast to ``dtype``."""
@@ -1011,10 +1211,13 @@ def reset_counts():
 
     for name in ("launches", "int8_launches", "prefill_launches",
                  "int8_prefill_launches", "f32_prefill_launches",
-                 "int8_f32_prefill_launches", "decode_launches", "int8_decode_launches"):
+                 "int8_f32_prefill_launches", "decode_launches", "int8_decode_launches",
+                 "hd256_prefill_launches", "int8_hd256_prefill_launches",
+                 "hd256_decode_launches", "int8_hd256_decode_launches"):
         setattr(ragged_paged_attention, name, 0)
     flash_attention.launches = 0
     flash_attention.tile_launches = 0
+    flash_attention.hd256_tile_launches = 0
     flash_attention.f32_tile_launches = 0
 
 
@@ -1031,8 +1234,13 @@ def read_counts() -> dict:
         "ragged_prefill_f32_int8": ragged_paged_attention.int8_f32_prefill_launches,
         "ragged_decode": ragged_paged_attention.decode_launches,
         "ragged_decode_int8": ragged_paged_attention.int8_decode_launches,
+        "ragged_prefill_hd256": ragged_paged_attention.hd256_prefill_launches,
+        "ragged_prefill_hd256_int8": ragged_paged_attention.int8_hd256_prefill_launches,
+        "ragged_decode_hd256": ragged_paged_attention.hd256_decode_launches,
+        "ragged_decode_hd256_int8": ragged_paged_attention.int8_hd256_decode_launches,
         "flash": flash_attention.launches,
         "flash_tile": flash_attention.tile_launches,
+        "flash_tile_hd256": flash_attention.hd256_tile_launches,
         "flash_tile_f32": flash_attention.f32_tile_launches,
     }
 
@@ -1204,6 +1412,7 @@ def main() -> int:
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
     del flush
     phase_forward_parity()
+    gemma_counts = phase_gemma_forward()
     counts, bf16_pool, params = phase_slice()
     int8_counts, int8_pool, _ = phase_slice("int8", params=params)
     ratio = int8_pool / bf16_pool
@@ -1228,26 +1437,49 @@ def main() -> int:
             "library_ms": t["library_ms"],
         }
 
+    def forced_row(t):  # a timing with the row kernel's forced time as ms
+        return dict(t, ms=t["forced"]["row"])
+
     ragged_src = "bee2bee_tpu_torch/csrc/ragged_attention.cu"
     prefill_src = "bee2bee_tpu_torch/csrc/ragged_prefill_attention.cu"
     decode_src = "bee2bee_tpu_torch/csrc/ragged_decode_attention.cu"
     flash_src = "bee2bee_tpu_torch/csrc/flash_attention.cu"
+    bf16_g, int8_g = gemma_counts["bfloat16"], gemma_counts["int8"]
     kernels = [
         row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_decode"], errs["decode"], timings["decode"]),
         row("ragged_decode_attention_int8", decode_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
             int8_errs["decode"], int8_timings["decode"]),
-        # the row kernel: head_dim 256, timed in bf16 at gemma-2-9b's heads
-        # at the decode shape
+        # the row kernel, forced in bf16 at gemma-2-9b's heads at the decode
+        # shape (beside the same inputs' plain, SDPA and bound), and flash's
+        # forced at causal T=S=2048 there
         row("ragged_paged_attention", ragged_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged"], errs["row"], timings["row_hd256"]),
+            counts["ragged"], errs["row"], forced_row(timings["decode_hd256"])),
         row("ragged_paged_attention_int8", ragged_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_int8"],
-            int8_errs["row"], int8_timings["row_hd256"]),
+            int8_errs["row"], forced_row(int8_timings["decode_hd256"])),
         row("flash_attention", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash"] + int8_counts["flash"], flash_errs["row"],
             flash_timings["row_hd256"]),
+        # the head_dim-256 forms at gemma-2-9b's heads: launches from the
+        # gemma-geometry forward (phase 5), times at decode B=8 ctx 1024,
+        # prefill T=512 @1000 and flash causal T=S=2048
+        row("ragged_prefill_attention_hd256", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:84", bf16_g["ragged_prefill_hd256"],
+            errs["tile_hd256"], timings["prefill_hd256"]),
+        row("ragged_prefill_attention_hd256_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", int8_g["ragged_prefill_hd256_int8"],
+            int8_errs["tile_hd256"], int8_timings["prefill_hd256"]),
+        row("ragged_decode_attention_hd256", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            bf16_g["ragged_decode_hd256"], errs["decode_hd256"],
+            timings["decode_hd256"]),
+        row("ragged_decode_attention_hd256_int8", decode_src,
+            "bee2bee_tpu/ops/ragged.py:107", int8_g["ragged_decode_hd256_int8"],
+            int8_errs["decode_hd256"], int8_timings["decode_hd256"]),
+        row("flash_attention_tile_hd256", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash_tile_hd256"] + int8_counts["flash_tile_hd256"],
+            flash_errs["tile_hd256"], flash_timings["tile_hd256"]),
         row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_prefill"], errs["tile"], timings["prefill"]),
         row("ragged_prefill_attention_int8", prefill_src,
@@ -1271,8 +1503,11 @@ def main() -> int:
         "serving path calls flash_attention (the engines attend through the "
         "ragged op); the ragged row kernel and the f32 tile forms have 0 there "
         "too: the slice serves bf16 at head_dim 128, the f32 tile forms take f32 "
-        "queries at head_dim 64/128 (phase 5 runs them) and the row kernel "
-        "head_dim 256. All are held against the plain version and timed above")
+        "queries (phase 5 runs them at head_dim 128) and the row kernel the "
+        "shorter f32 chunks; the head_dim-256 forms' launches are those of "
+        "phase 5's gemma-geometry forward. All are held against the plain "
+        "version and timed above; the row kernels' times are forced at "
+        "gemma-2-9b's heads")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

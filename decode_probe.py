@@ -6,13 +6,16 @@ Run from the root of a checkout:  python3 decode_probe.py
 For llama-3-8b's attention heads (H=32, Hkv=8, hd=128, block size 16), on
 the bf16 and the int8 pool, at B=8 over a 1024-token context (table
 widths 64 and 128 pages), at B=1 over 2048 tokens and at the serving
-slice's mixed lengths, it prints:
+slice's mixed lengths, and for gemma-2-9b's (H=16, Hkv=8, hd=256: the
+kernel's head_dim-256 form) at B=8 over 1024 and 4096 tokens and at B=1
+over 2048, it prints:
 - the decode kernel's time under CUDA events with L2 flushed by writing
   a 256 MB buffer (as chip_smoke.py times it) and by reading it (which
   leaves L2 full of clean lines, as a forward's weight reads do);
 - the split walk's and the merge's own device time under torch.profiler;
 - the same time for each cap on the tiles a split walks
-  (DECODE_MAX_SPLIT_TILES 1, 2, 4 and 8), with the split plan each gives.
+  (DECODE_MAX_SPLIT_TILES 1, 2, 4, 8 and 16), with the split plan each
+  gives.
 The card's name and power limit come first. Exits non-zero without a
 CUDA card.
 """
@@ -71,25 +74,31 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
-    shapes = (("B=8 ctx 1024 MB 64", [1023] * 8, 0),
-              ("B=8 ctx 1024 MB 128", [1023] * 8, 64),
-              ("B=1 ctx 2048 MB 128", [2047], 0),
-              ("B=8 slice lengths MB 128", cs.SLICE_OFFSETS, 30))
+    shapes = (("B=8 ctx 1024 MB 64", [1023] * 8, 0, {}),
+              ("B=8 ctx 1024 MB 128", [1023] * 8, 64, {}),
+              ("B=1 ctx 2048 MB 128", [2047], 0, {}),
+              ("B=8 slice lengths MB 128", cs.SLICE_OFFSETS, 30, {}),
+              ("gemma B=8 ctx 1024 MB 64", [1023] * 8, 0, cs.GEMMA),
+              ("gemma B=8 ctx 4096 MB 256", [4095] * 8, 0, cs.GEMMA),
+              ("gemma B=1 ctx 2048 MB 128", [2047], 0, cs.GEMMA))
     for int8 in (False, True):
         pool = "int8" if int8 else "bf16"
-        for label, offs, extra in shapes:
-            q, kp, vp, tb, off = cs.make_case(gen, offs=offs, T=1, extra_tables=extra)
+        for label, offs, extra, heads in shapes:
+            q, kp, vp, tb, off = cs.make_case(gen, offs=offs, T=1, extra_tables=extra,
+                                              **heads)
+            hd = q.shape[3]
             scales = (None, None)
             if int8:
-                kp, vp, *scales = cs.int8_pools(gen, kp.shape[1])
+                kp, vp, *scales = cs.int8_pools(gen, kp.shape[1], Hkv=kp.shape[0], hd=hd)
             rows = R.row_offsets(off, q.shape[0], q.device)
+            kernel = R.ragged_kernel(q.dtype, 1, hd)
 
             def fn():
-                return R._launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(128),
-                                        0.0, *scales, kernel="decode")
+                return R._launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(hd),
+                                        0.0, *scales, kernel=kernel)
 
             default = R.DECODE_MAX_SPLIT_TILES
-            for cap in (1, 2, 4, 8):
+            for cap in (1, 2, 4, 8, 16):
                 R.DECODE_MAX_SPLIT_TILES = cap
                 R.decode_splits.cache_clear()
                 write_ms = cs.cuda_time_ms(fn, flush=flush)

@@ -17,12 +17,21 @@
   scrubbing, metric names) behave like the originals.
 - Import hygiene: the package and chip_smoke.py never import jax or
   bee2bee_tpu.
+- On a CUDA device the engine refuses by name what its kernels cannot run
+  (float16, a pool type other than the query's or int8, a head_dim or
+  block size no kernel is built for); the CPU runs it.
+- The scheduler's WDRR tenant queue pops in the JAX queue's order on the
+  same sequence (weights 4:1:1, mixed costs, a burst, a weight change, a
+  requeue and a refund), takes its weights from the same tenant config,
+  and stays FIFO with no tenants configured.
 """
 
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -38,13 +47,18 @@ from bee2bee_tpu.engine import EngineConfig as JaxEngineConfig
 from bee2bee_tpu.engine import InferenceEngine as JaxEngine
 from bee2bee_tpu.engine import paged as jpaged
 from bee2bee_tpu.engine import tokenizer as jtokenizer
+from bee2bee_tpu.router import tenants as jtenants
+from bee2bee_tpu.router.fairness import WdrrQueue as JaxWdrrQueue
 from bee2bee_tpu.services import base as jbase
 from bee2bee_tpu.services.tpu import TPUService
 from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
-from bee2bee_tpu_torch.engine import paged, tokenizer
+from bee2bee_tpu_torch.engine import paged, scheduler, tokenizer
+from bee2bee_tpu_torch.engine.engine import check_card_supported
 from bee2bee_tpu_torch.models.config import get_config
 from bee2bee_tpu_torch.models.params import params_from_numpy
 from bee2bee_tpu_torch.services import base
+from bee2bee_tpu_torch.router import tenants
+from bee2bee_tpu_torch.router.fairness import WdrrQueue
 from bee2bee_tpu_torch.services.cuda import CUDAService
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -327,3 +341,162 @@ def test_importing_the_package_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# ------------------------------------------- what the card's kernels refuse
+
+
+@pytest.mark.parametrize("model,over,names", [
+    ("phi-3-mini", {}, ["head_dim 96"]),
+    ("tiny-llama", {}, ["head_dim 16"]),
+    ("llama-3-8b", dict(dtype="float16", cache_dtype="float16"), ["dtype='float16'"]),
+    ("llama-3-8b", dict(cache_dtype="float32"),
+     ["cache_dtype='float32' beside dtype='bfloat16'"]),
+    ("llama-3-8b", dict(kv_block_size=12), ["kv_block_size=12"]),
+    ("tiny-llama", dict(dtype="float16", cache_dtype="bfloat16"),
+     ["dtype='float16'", "cache_dtype='bfloat16'", "head_dim 16"]),
+], ids=["phi3_hd96", "tiny_hd16", "float16", "cache_mismatch", "block_size", "all"])
+def test_card_refuses_what_its_kernels_cannot_run(model, over, names):
+    """On a CUDA device the check names every setting no kernel takes, at
+    engine build rather than at the first forward; on the CPU, which runs
+    the plain versions, it refuses nothing."""
+    cfg, ecfg = get_config(model), EngineConfig(**over)
+    with pytest.raises(NotImplementedError) as err:
+        check_card_supported(cfg, ecfg, "cuda")
+    for name in names:
+        assert name in str(err.value)
+    check_card_supported(cfg, ecfg, "cpu")
+    check_card_supported(cfg, ecfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("model,over", [
+    ("llama-3-8b", {}), ("llama-3-8b", dict(cache_dtype="int8")),
+    ("llama-3-8b", dict(dtype="float32", cache_dtype="float32")),
+    ("llama-3-8b", dict(dtype="float32", cache_dtype="int8", kv_block_size=32)),
+    ("mistral-7b", dict(kv_block_size=8)),
+], ids=["bf16", "int8_pool", "f32", "f32_int8_pool_bs32", "mistral_bs8"])
+def test_card_accepts_what_its_kernels_run(model, over):
+    check_card_supported(get_config(model), EngineConfig(**over), "cuda")
+
+
+def test_float16_engine_still_runs_on_the_cpu():
+    """A config the card refuses builds and serves on the CPU."""
+    eng = InferenceEngine("tiny-llama", device="cpu", engine_config=EngineConfig(
+        dtype="float16", cache_dtype="float16", max_seq_len=64, max_batch=2,
+        decode_chunk=4, prefill_buckets=(16,)))
+    try:
+        r = eng.generate([5, 9, 11], max_new_tokens=3, temperature=0.0)
+        assert len(r.token_ids) == 3
+    finally:
+        eng.close()
+
+
+# ------------------------------------------------- the WDRR tenant queue
+
+
+def _wdrr_order(queue):
+    """Pop order of one scripted sequence: three tenants at weights 4:1:1
+    with mixed costs, then a burst from one tenant, then a weight change,
+    a front requeue (the retry refunds its charge) and a refund. Items are
+    "tenant:submit number:cost"."""
+    order, pushed = [], [0]
+
+    def push(tenant, costs):
+        for c in costs:
+            queue.append(f"{tenant}:{pushed[0]}:{c}", tenant=tenant, cost=c)
+            pushed[0] += 1
+
+    def pop(n):
+        for _ in range(min(n, len(queue))):
+            order.append(queue.popleft())
+
+    push("acme", [32, 128, 64, 16, 256, 64, 500])
+    push("hobby", [64, 64, 300, 8])
+    push("edu", [100, 20, 20, 200, 1])
+    pop(6)
+    push("hobby", [32] * 8)  # one tenant's burst
+    pop(7)
+    queue.set_weights({"acme": 1, "hobby": 1, "edu": 4})
+    retry = queue.popleft()
+    tenant, _, cost = retry.split(":")
+    queue.appendleft(retry, tenant=tenant, cost=int(cost))
+    queue.refund("edu", 50)
+    pop(4)
+    push("acme", [8, 8, 8])
+    pop(len(queue))
+    return order
+
+
+def test_wdrr_queue_pops_like_the_jax_queue(monkeypatch):
+    """The same sequence through the JAX WdrrQueue and the port's queue as
+    the scheduler builds it (weights from the same BEE2BEE_TENANTS config)
+    pops every item once, in the same order, and not in FIFO order."""
+    monkeypatch.setenv("BEE2BEE_TENANTS", json.dumps({
+        "acme": {"api_key": "k-acme", "weight": 4},
+        "hobby": {"weight": 1}, "edu": {"weight": 1, "rate_tokens_per_min": 60},
+    }))
+    jweights = {n: s.weight for n, s in jtenants.load_tenant_config().items()}
+    assert jweights == {"acme": 4.0, "hobby": 1.0, "edu": 1.0}
+    want = _wdrr_order(JaxWdrrQueue(weights=jweights))
+    queue = scheduler.tenant_queue()
+    assert isinstance(queue, WdrrQueue) and queue.weight("acme") == 4.0
+    got = _wdrr_order(queue)
+    assert got == want
+    assert sorted(got, key=lambda x: int(x.split(":")[1])) != got
+    assert len(set(got)) == len(got) == 7 + 4 + 5 + 8 + 3
+    # the comparison is not blind to the queue's parameters: another
+    # quantum reorders the JAX queue's pops
+    assert _wdrr_order(JaxWdrrQueue(weights=jweights, quantum=64)) != want
+
+
+@pytest.mark.parametrize("config", [
+    {"acme": {"weight": 4, "api_key": "k1"}, "hobby": {"adapter": "lora-x"}},
+    {"bad": {"weight": 0}},
+    {"bad": {"surprise": 1}},
+    {"a": {"api_key": "k"}, "b": {"api_key": "k"}},
+    {"bad": {"adapter": "a:b"}},
+    [1, 2],
+], ids=["valid", "zero_weight", "unknown_key", "reused_key", "bad_adapter", "not_object"])
+def test_tenant_config_parses_like_the_jax_config(config):
+    try:
+        want = {k: dataclasses.asdict(v)
+                for k, v in jtenants.parse_tenant_config(config).items()}
+    except ValueError as err:
+        with pytest.raises(ValueError, match=re.escape(str(err))):
+            tenants.parse_tenant_config(config)
+        return
+    got = {k: dataclasses.asdict(v) for k, v in tenants.parse_tenant_config(config).items()}
+    assert got == want
+
+
+def _request(max_new_tokens, tenant="default"):
+    return scheduler.Request([1, 2], max_new_tokens, 0.0, 0, 1.0, set(), None, None,
+                             tenant=tenant)
+
+
+def test_scheduler_queue_is_fifo_without_tenants(monkeypatch):
+    """With no tenants configured the scheduler's submit path (cost: the
+    token budget) keeps pure FIFO order whatever the budgets."""
+    monkeypatch.delenv("BEE2BEE_TENANTS", raising=False)
+    sched = type("Stub", (), {})()
+    sched._cond, sched._shutdown = threading.Condition(), False
+    sched._queue = scheduler.tenant_queue()
+    reqs = [_request(m) for m in (500, 1, 64, 3000, 7, 64, 2)]
+    for r in reqs:
+        scheduler.BatchScheduler.submit(sched, r)
+    assert [sched._queue.popleft() for _ in reqs] == reqs
+
+
+def test_scheduler_set_tenant_weights_reorders_admission(monkeypatch):
+    """Weights pushed through set_tenant_weights decide the submit queue's
+    order: a 4:1 tenant pair drains about 4:1 in tokens."""
+    monkeypatch.delenv("BEE2BEE_TENANTS", raising=False)
+    sched = type("Stub", (), {})()
+    sched._cond, sched._shutdown = threading.Condition(), False
+    sched._queue = scheduler.tenant_queue()
+    scheduler.BatchScheduler.set_tenant_weights(sched, {"acme": 4, "hobby": 1})
+    for i in range(10):
+        scheduler.BatchScheduler.submit(sched, _request(256, "hobby"))
+        scheduler.BatchScheduler.submit(sched, _request(256, "acme"))
+    first = [sched._queue.popleft().tenant for _ in range(10)]
+    assert first.count("acme") == 8 and first.count("hobby") == 2

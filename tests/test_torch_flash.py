@@ -131,10 +131,10 @@ def test_dispatch_raises_off_cpu_and_cuda():
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 128, "tile"),
     (torch.bfloat16, 64, "tile"),
-    (torch.bfloat16, 256, "row"),  # no tile instantiation: the row kernel
+    (torch.bfloat16, 256, "tile_hd256"),  # the resident-Q form
     (torch.float32, 128, "tile_f32"),  # f32: the 3xTF32 tile kernel
     (torch.float32, 64, "tile_f32"),
-    (torch.float32, 256, "row"),
+    (torch.float32, 256, "tile_f32"),
     (torch.float16, 128, "row"),  # no kernel takes f16: the checks raise
 ], ids=["bf16_hd128", "bf16_hd64", "bf16_hd256", "f32", "f32_hd64", "f32_hd256",
         "f16"])
@@ -162,6 +162,30 @@ def test_cpu_dispatch_counts_no_tile_launch():
     assert port.flash_attention.tile_launches == 0
 
 
+@pytest.mark.parametrize("kernel,hd,dtype", [("tile", 256, torch.bfloat16),
+                                             ("tile_hd256", 128, torch.bfloat16),
+                                             ("tile_f32", 96, torch.float32)])
+def test_forced_launch_needs_the_kernels_head_dim(kernel, hd, dtype):
+    """A kernel forced by name refuses a head_dim it is not built for."""
+    q = torch.zeros((1, 4, 2, hd), dtype=dtype)
+    kv = torch.zeros((1, 16, 1, hd), dtype=dtype)
+    off = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"flash {kernel} kernel: head_dim {hd}"):
+        port._launch_kernel(q, kv, kv, off, True, 0.0625, kernel=kernel)
+
+
+def test_cpu_dispatch_counts_no_hd256_tile_launch():
+    """bf16 at head_dim 256, which the rule sends to the tile kernel's
+    head_dim-256 form, still takes the plain version on the CPU."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 8, 2, 1, 256, S=16, seed=16))
+    assert port.flash_kernel(q.dtype, 256) == "tile_hd256"
+    got = port.flash_attention(q, k, v, offset=8)
+    assert torch.equal(got, port.flash_attention_ref(q, k, v, offset=8))
+    assert port.flash_attention.hd256_tile_launches == 0
+    assert port.flash_attention.launches == 0
+
+
 def test_cpu_dispatch_counts_no_f32_tile_launch():
     """f32 at a head_dim the rule tiles still takes the plain version on
     the CPU."""
@@ -182,7 +206,7 @@ def _f32_args(hd=128, **over):
     return args
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_f32_tile_kernel_args_accepted(hd):
     port._check_kernel_args(**_f32_args(hd))
 

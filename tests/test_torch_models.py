@@ -18,6 +18,10 @@ package's (bee2bee_tpu/models).
 - The paged ``forward`` over an int8 pool (prefill, then decode) matches
   the JAX ``forward`` with the ragged kernel in interpret mode.
 - A config switch the port does not implement raises by name.
+- The same prefill-then-decode parity at head_dim 256 (the gemma family's,
+  which the kernels' head_dim-256 forms serve), with a score softcap and a
+  sliding window on every second layer, on a tiny llama-architecture
+  config.
 """
 
 from __future__ import annotations
@@ -158,6 +162,53 @@ def test_paged_forward_prefill_then_decode_matches_jax(jax_attention):
         cur = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
         offs = offs + 1
     # every block but the garbage null block 0 holds the same K/V
+    for key in ("k", "v"):
+        np.testing.assert_allclose(
+            pool[key][:, :, 1:].numpy(), np.asarray(jpool[key])[:, :, 1:],
+            atol=POOL_ATOL,
+        )
+
+
+# gemma-2's attention geometry on a tiny llama-architecture model: head_dim
+# 256 by override, 2 query heads over 1 kv head, scores capped at 50, and a
+# 6-key window on every second layer (layer 0) so the 11/16-token prompts
+# and the decode steps cross it
+HD256 = dict(name="tiny-llama-hd256", n_layers=2, n_heads=2, n_kv_heads=1,
+             head_dim_override=256, attn_logit_softcap=50.0, sliding_window=6,
+             sliding_window_every=2)
+
+
+@pytest.mark.parametrize("jax_attention", ["dense", "ragged_interpret"])
+def test_paged_forward_at_head_dim_256_matches_jax(jax_attention):
+    jcfg = dataclasses.replace(jconfig.get_config("tiny-llama"), **HD256)
+    cfg = dataclasses.replace(config.get_config("tiny-llama"), **HD256)
+    assert cfg.head_dim == jcfg.head_dim == 256
+    core.check_supported(cfg)
+    tree = jax.device_get(jcore.init_params(jcfg, jax.random.key(5), dtype=jnp.float32))
+    params = params_from_numpy(tree, cfg, "cpu")
+    attn = make_ragged_attn_fn(interpret=True) if jax_attention != "dense" else None
+    BS, NB, B, Tb = 8, 12, 2, 16
+    rng = np.random.default_rng(6)
+    ids = rng.integers(3, 500, size=(B, Tb)).astype(np.int32)
+    tables = np.zeros((B, 4), np.int32)
+    tables[0, :2] = [3, 7]
+    tables[1, :3] = [1, 2, 5]
+    jpool = jcore.init_paged_pool(jcfg, NB, BS, jnp.float32)
+    pool = core.init_paged_pool(cfg, NB, BS, torch.float32)
+    jl, jpool = _run_jax(jcfg, tree, ids, tables, [0, 0], jpool, attn,
+                         paged_write_ceil=jnp.int32(11))
+    tl, pool = core.forward(params, cfg, torch.from_numpy(ids).long(), pool, 0,
+                            torch.from_numpy(tables), paged_write_ceil=11)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
+    offs = np.asarray([11, 16], np.int32)
+    cur = np.asarray(jl)[np.arange(B), offs - 1].argmax(-1).astype(np.int32)
+    for _ in range(3):
+        jl, jpool = _run_jax(jcfg, tree, cur[:, None], tables, offs, jpool, attn)
+        tl, pool = core.forward(params, cfg, torch.from_numpy(cur[:, None]).long(),
+                                pool, torch.from_numpy(offs), torch.from_numpy(tables))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
+        cur = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)
+        offs = offs + 1
     for key in ("k", "v"):
         np.testing.assert_allclose(
             pool[key][:, :, 1:].numpy(), np.asarray(jpool[key])[:, :, 1:],

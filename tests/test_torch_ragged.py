@@ -275,24 +275,33 @@ def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
     (torch.bfloat16, 5, 128, True, False),  # a verify chunk
     (torch.bfloat16, 2048, 128, True, False),  # a prefill bucket
     (torch.bfloat16, 300, 64, True, False),
-    (torch.bfloat16, 300, 256, False, False),  # no tile instantiation
+    (torch.bfloat16, 300, 256, True, False),  # the resident-Q form
     (torch.float32, 300, 128, True, False),  # f32 queries: the f32 tile form
     (torch.float16, 300, 128, False, False),
     (torch.float32, port.T_MIN_F32, 128, True, False),  # f32 decode
     (torch.float32, 3, 64, True, False),
-    (torch.float32, 300, 256, False, False),  # head_dim 256: the row kernel
+    (torch.float32, 300, 256, True, False),  # head_dim 256: its f32 form too
     (torch.bfloat16, port.T_MIN, 128, True, True),  # bf16: the same over int8
     # f32 over an int8 pool: the row kernel below T_MIN_F32_INT8
     (torch.float32, port.T_MIN_F32_INT8 - 1, 128, False, True),
     (torch.float32, port.T_MIN_F32_INT8, 128, True, True),
     (torch.float32, 300, 64, True, True),
+    # f32 at head_dim 256: the row kernel below its own crossovers
+    (torch.float32, port.T_MIN_F32_HD256 - 1, 256, False, False),
+    (torch.float32, port.T_MIN_F32_HD256, 256, True, False),
+    (torch.float32, port.T_MIN_F32_INT8_HD256 - 1, 256, False, True),
+    (torch.float32, port.T_MIN_F32_INT8_HD256, 256, True, True),
+    (torch.bfloat16, port.T_MIN, 256, True, True),
 ], ids=["decode", "below_t_min", "t_min", "verify", "prefill", "hd64", "hd256",
         "f32", "f16", "f32_t_min", "f32_hd64", "f32_hd256", "int8_pool_t_min",
-        "f32_int8_pool_below_t_min", "f32_int8_pool_t_min", "f32_int8_pool_prefill"])
+        "f32_int8_pool_below_t_min", "f32_int8_pool_t_min", "f32_int8_pool_prefill",
+        "f32_hd256_below_t_min", "f32_hd256_t_min", "f32_hd256_int8_below_t_min",
+        "f32_hd256_int8_t_min", "hd256_int8_pool_t_min"])
 def test_dispatch_rule(dtype, T, hd, tile, quantized):
     assert port.use_tile_kernel(dtype, T, hd, quantized) is tile
     if tile:
-        want = "tile_f32" if dtype == torch.float32 else "tile"
+        want = ("tile_f32" if dtype == torch.float32
+                else "tile_hd256" if hd == 256 else "tile")
         assert port.ragged_kernel(dtype, T, hd, quantized) == want
     elif dtype == torch.float32:
         assert port.ragged_kernel(dtype, T, hd, quantized) == "row"
@@ -324,14 +333,20 @@ def _misaligned_q(T, hd):
 
 
 def test_tile_kernel_needs_16_byte_aligned_q():
-    """The tile kernel copies q rows in 16-byte pieces; the row kernel
-    (here bf16 decode at head_dim 256) reads q by elements and takes the
-    same storage."""
+    """The tile kernel copies q rows in 16-byte pieces, its head_dim-256
+    form as well; the row kernel (here a short f32 chunk at head_dim 256)
+    reads q by elements and takes such storage."""
     q = _misaligned_q(32, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         port._check_kernel_args(**_tile_args(q=q))
-    port._check_kernel_args(**_tile_args(T=1, hd=256, q=_misaligned_q(1, 256)))
+    assert port.ragged_kernel(torch.bfloat16, 32, 256) == "tile_hd256"
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_tile_args(hd=256, q=_misaligned_q(32, 256)))
+    qf = torch.zeros(2 * 4 * 8 * 256 + 1)[1:].view(2, 4, 8, 256)
+    kp = torch.zeros((2, 9, 16, 256))
+    assert port.ragged_kernel(qf.dtype, 4, 256) == "row"
+    port._check_kernel_args(**_tile_args(T=4, hd=256, q=qf, k_pool=kp, v_pool=kp))
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -407,7 +422,7 @@ def test_tile_shapes_ref_matches_jax_kernel(name, int8):
 @pytest.mark.parametrize("dtype,T,hd,decode", [
     (torch.bfloat16, 1, 128, True),  # decode at llama-3-8b's head_dim
     (torch.bfloat16, 1, 64, True),
-    (torch.bfloat16, 1, 256, False),  # no decode instantiation: the row kernel
+    (torch.bfloat16, 1, 256, True),  # the resident-Q form
     (torch.bfloat16, port.T_MIN, 128, False),  # the tile kernel's
     (torch.bfloat16, 5, 128, False),
     (torch.float32, 1, 128, False),  # f32 queries: the f32 tile form
@@ -419,6 +434,8 @@ def test_decode_dispatch_rule(dtype, T, hd, decode):
     assert not (decode and port.use_tile_kernel(dtype, T, hd))
     tile = "tile_f32" if dtype == torch.float32 else "tile"
     want = "decode" if decode else tile if port.use_tile_kernel(dtype, T, hd) else "row"
+    if hd == 256 and want != "row":
+        want += "_hd256"
     assert port.ragged_kernel(dtype, T, hd) == want
 
 
@@ -463,6 +480,25 @@ def test_decode_splits_cover_any_table(B, Hkv, MB, BS, n_sm):
     assert per == 1 or B * Hkv * splits >= n_sm
 
 
+@pytest.mark.parametrize("B,MB,BS,want", [
+    (8, 64, 16, (4, 16)),  # the timed decode: B=8 at a 1024-token context
+    (1, 128, 16, (32, 4)),  # B=1 over 2048 keys
+    (8, 256, 16, (16, 16)),  # a 4096-key window's worth of table
+    (4, 40, 8, (5, 8)),
+])
+def test_decode_splits_at_gemma_heads(B, MB, BS, want):
+    """gemma-2-9b's 8 kv heads on an H100's 132 SMs: the head_dim-256 form
+    of the decode kernel stages the same 64-key tiles (16 keys a warp, one
+    m16n8k16 P V step), so its plan is the one DECODE_TILE_KEYS gives
+    (chip_smoke.py prints it beside each decode timing): whole tiles a
+    split, at most DECODE_MAX_SPLIT_TILES, covering the table."""
+    splits, pages = port.decode_splits(B, 8, MB, BS, 132)
+    assert (splits, pages) == want
+    assert pages * BS % port.DECODE_TILE_KEYS == 0
+    assert pages * BS // port.DECODE_TILE_KEYS <= port.DECODE_MAX_SPLIT_TILES
+    assert (splits - 1) * pages < MB <= splits * pages
+
+
 def test_decode_splits_read_shapes_only():
     """The plan is a function of python ints (cached), never of a tensor:
     reading the offsets would sync the card in every layer."""
@@ -479,25 +515,29 @@ def _decode_args(hd=128, int8=False, **over):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_decode_kernel_args_accepted(int8, hd):
     port._check_kernel_args(**_decode_args(hd=hd, int8=int8))
 
 
 def test_decode_kernel_needs_16_byte_aligned_q():
-    """The decode kernel and the f32 tile form (f32 decode) copy q rows in
-    16-byte pieces; the row kernel (head_dim 256) reads q by elements and
-    takes such storage."""
+    """The decode kernel (its head_dim-256 form too) and the f32 tile form
+    (f32 decode) copy q rows in 16-byte pieces; the row kernel (f32 decode
+    at head_dim 256) reads q by elements and takes such storage."""
     q = _misaligned_q(1, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         port._check_kernel_args(**_decode_args(q=q))
+    assert port.ragged_kernel(torch.bfloat16, 1, 256) == "decode_hd256"
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_decode_args(hd=256, q=_misaligned_q(1, 256)))
     qf = torch.zeros(2 * 8 * 128 + 1)[1:].view(2, 1, 8, 128)
     kp = torch.zeros((2, 9, 16, 128))
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         port._check_kernel_args(**_decode_args(q=qf, k_pool=kp, v_pool=kp))
     qf = torch.zeros(2 * 8 * 256 + 1)[1:].view(2, 1, 8, 256)
     kp = torch.zeros((2, 9, 16, 256))
+    assert port.ragged_kernel(qf.dtype, 1, 256) == "row"
     port._check_kernel_args(**_decode_args(hd=256, q=qf, k_pool=kp, v_pool=kp))
 
 
@@ -671,10 +711,12 @@ def _f32_args(T=32, hd=128, int8=False, **over):
 
 
 @pytest.mark.parametrize("T", ["t_min", 32])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
 def test_f32_tile_kernel_args_accepted(int8, hd, T):
-    if T == "t_min":
+    if T == "t_min" and hd == 256:
+        T = port.T_MIN_F32_INT8_HD256 if int8 else port.T_MIN_F32_HD256
+    elif T == "t_min":
         T = port.T_MIN_F32_INT8 if int8 else port.T_MIN_F32
     assert port.ragged_kernel(torch.float32, T, hd, int8) == "tile_f32"
     port._check_kernel_args(**_f32_args(T=T, hd=hd, int8=int8))
@@ -718,6 +760,46 @@ def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
     with pytest.raises(TypeError, match=f"ragged {kernel} kernel"):
         port._launch_kernel(q, kp, vp, a["block_tables"], a["off"], 0, 0.125, 0.0,
                             None, None, kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel,hd", [("tile", 256), ("decode", 256),
+                                       ("tile_hd256", 128), ("decode_hd256", 64),
+                                       ("tile_f32", 96)])
+def test_forced_launch_needs_the_kernels_head_dim(kernel, hd):
+    """A kernel forced by name refuses a head_dim it is not built for: the
+    bf16 head_dim-256 forms take 256 only, the others never 256; the f32
+    tile form takes 64, 128 and 256."""
+    dtype = torch.float32 if kernel == "tile_f32" else torch.bfloat16
+    a = _tile_args(T=1, hd=hd)
+    q, kp, vp = (a[n].to(dtype) for n in ("q", "k_pool", "v_pool"))
+    with pytest.raises(ValueError, match=f"ragged {kernel} kernel: head_dim {hd}"):
+        port._launch_kernel(q, kp, vp, a["block_tables"], a["off"], 0, 0.0625, 0.0,
+                            None, None, kernel=kernel)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
+def test_cpu_dispatch_counts_no_hd256_launch(int8, T):
+    """bf16 at head_dim 256, which the rule sends to the decode and tile
+    kernels' head_dim-256 forms, still takes the plain version on the CPU
+    and counts no launch."""
+    q, kp, vp, tables, offs = (torch.from_numpy(a) for a in _pool_case(
+        offs=[4, 30], T=T, H=2, Hkv=1, hd=256, seed=26))
+    q = q.to(torch.bfloat16)
+    kw = {}
+    if int8:
+        (kp, ks), (vp, vs) = (tuple(torch.from_numpy(a) for a in _quantize_pool(p.numpy()))
+                              for p in (kp, vp))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    assert port.ragged_kernel(q.dtype, T, 256, int8).endswith("_hd256")
+    got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
+    assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
+    for name in ("hd256_prefill_launches", "int8_hd256_prefill_launches",
+                 "hd256_decode_launches", "int8_hd256_decode_launches", "launches",
+                 "int8_launches"):
+        assert getattr(port.ragged_paged_attention, name) == 0, name
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
