@@ -1,5 +1,6 @@
-"""bee2bee-tpu on PyTorch and CUDA: the serving path of ``bee2bee_tpu``
-ported to an NVIDIA H100.
+"""bee2bee-tpu on PyTorch and CUDA: the serving path and the mesh node of
+``bee2bee_tpu`` ported to an NVIDIA H100 (``python -m bee2bee_tpu_torch
+serve-cuda``).
 
 The JAX package ``bee2bee_tpu`` stays the reference; this package imports
 nothing of it and never imports jax. Plain tensor code is PyTorch; the

@@ -4,3 +4,18 @@ pool bookkeeping and tokenizers."""
 from .engine import EngineConfig, GenerationResult, InferenceEngine
 
 __all__ = ["EngineConfig", "GenerationResult", "InferenceEngine"]
+
+# engine modules of the JAX package that the node layer reaches and the
+# port does not have yet: importing one of these names raises by name
+_UNPORTED = {
+    "StageRunner": ("a pipeline stage worker (engine/stage_runner.py)", 13),
+    "DraftModel": ("the draft role's drafter model (engine/drafter.py)", 13),
+}
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        from ..unported import unported
+
+        raise unported(*_UNPORTED[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -42,6 +42,7 @@ from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
+from ..unported import unported
 from .paged import ceil_div
 from .tokenizer import load_tokenizer
 
@@ -109,21 +110,26 @@ class EngineConfig:
             raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype={self.dtype!r}: one of {sorted(DTYPES)}")
-        unported = {
-            "attention": self.attention not in ("auto", "flash"),
-            "cache_dtype": self.cache_dtype not in CACHE_DTYPES,
-            "quantize": self.quantize not in ("none", "", None),
-            "prefix_cache_entries": self.prefix_cache_entries > 0,
-            "spec_tokens": self.spec_tokens > 0,
-            "drafter": bool(self.drafter),
-            "max_adapters": self.max_adapters > 0,
+        if self.cache_dtype not in CACHE_DTYPES:
+            raise NotImplementedError(
+                f"EngineConfig.cache_dtype={self.cache_dtype!r} is not "
+                "implemented in the PyTorch port yet"
+            )
+        # each field of the JAX engine this port does not run yet, with the
+        # ROADMAP.md queue A item that ports it
+        items = {
+            # dense: the no-cache forward; sp: sequence-parallel serving
+            "attention": (self.attention not in ("auto", "flash"),
+                          12 if self.attention == "dense" else 14),
+            "quantize": (self.quantize not in ("none", "", None), 5),
+            "prefix_cache_entries": (self.prefix_cache_entries > 0, 4),
+            "spec_tokens": (self.spec_tokens > 0, 7),
+            "drafter": (bool(self.drafter), 7),
+            "max_adapters": (self.max_adapters > 0, 8),
         }
-        for name, set_ in unported.items():
+        for name, (set_, item) in items.items():
             if set_:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    "implemented in the PyTorch port yet"
-                )
+                raise unported(f"EngineConfig.{name}={getattr(self, name)!r}", item)
 
 
 def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -340,6 +346,16 @@ class InferenceEngine:
                         self, max_batch=self.engine_cfg.max_batch
                     )
         return self._scheduler
+
+    def migration_signature(self) -> dict:
+        """The pool-compat fingerprint a KV import is validated against (the
+        JAX engine's ``migration_signature``)."""
+        raise unported("KV migration (InferenceEngine.migration_signature)", 9)
+
+    def import_generation(self, snap: dict, kv: dict | None = None):
+        """Resume a migrated generation (the JAX engine's
+        ``import_generation``)."""
+        raise unported("KV migration import (InferenceEngine.import_generation)", 9)
 
     def close(self):
         """Stop the scheduler thread (idempotent)."""

@@ -51,6 +51,7 @@ import torch
 from ..metrics import get_registry
 from ..router.fairness import WdrrQueue
 from ..router.tenants import load_tenant_config
+from ..unported import unported
 from .paged import BlockAllocator, ceil_div, pow2_at_least, prefill_chunk_positions
 from .sampling import sample_batched
 
@@ -265,6 +266,17 @@ class BatchScheduler:
     @property
     def active(self) -> int:
         return sum(r is not None for r in self._rows)
+
+    def live_requests(self) -> list[Request]:
+        """Admitted + queued requests (the node's drain enumerates these)."""
+        with self._cond:
+            queued = list(self._queue)
+        return [r for r in self._rows if r is not None] + queued
+
+    def checkpoint(self, req: Request, timeout: float = 30.0) -> dict | None:
+        """Snapshot a live request with its KV blocks for migration (the JAX
+        scheduler's ``checkpoint``)."""
+        raise unported("KV migration export (BatchScheduler.checkpoint)", 9)
 
     # ------------------------------------------------------------ loop
 

@@ -422,3 +422,5 @@ _REGISTRY = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     return _REGISTRY
 
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"

@@ -1,13 +1,12 @@
 """Weighted deficit round robin over per-tenant FIFO queues.
 
-A copy of ``bee2bee_tpu/router/fairness.py`` (the port imports nothing
-of the JAX package); ``tests/test_torch_engine.py`` drives both queues
-through the same sequence and holds their pop orders equal. Here it is
+The fairness primitive shared by the two places requests queue: the
+admission controller's waiter queue (router/admission.py, asyncio) and
 the engine scheduler's submit queue (engine/scheduler.py, its own
-thread); the admission controller that shares it in the JAX package is
-not ported yet. ``WdrrQueue`` is deliberately synchronization-free — the
-scheduler already serializes access under its condition variable, and a
-lock here would just be a second one.
+thread). ``WdrrQueue`` is deliberately synchronization-free — each owner
+already serializes access (the scheduler under its condition variable,
+the admission controller on the event loop), and a lock here would just
+be a second one.
 
 DRR semantics (Shreedhar & Varghese): each tenant queue holds a deficit
 counter; a full rotation over non-empty queues tops every deficit up by
@@ -21,6 +20,9 @@ tenants keep their queues non-empty (the saturation regime the
 
 A deficit resets when its queue drains: an idle tenant must not bank
 credit and then burst past its weight when it returns.
+
+PyTorch port: a copy of ``bee2bee_tpu/router/fairness.py`` with the import root rewritten to
+``bee2bee_tpu_torch``.
 """
 
 from __future__ import annotations

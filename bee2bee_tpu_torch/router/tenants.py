@@ -1,40 +1,38 @@
-"""Tenant identity and per-tenant serving policy: the part the engine
-scheduler reads.
+"""Tenant identity and per-tenant serving policy.
 
-A copy of ``TenantSpec``, ``parse_tenant_config`` and
-``load_tenant_config`` from ``bee2bee_tpu/router/tenants.py``, with the
-``load_json_source`` of ``bee2bee_tpu/utils.py`` and the adapter-name
-clamp of ``bee2bee_tpu/adapters/__init__.py`` they call (the port imports
-nothing of the JAX package). The scheduler takes its WDRR weights from
-this config, so the same ``BEE2BEE_TENANTS`` value weighs tenants alike
-in both packages. API-key resolution (``TenantRegistry``) waits for the
-node's gateway.
+One declarative config maps API keys to tenant names and carries each
+tenant's fairness weight and token budget; the SAME config feeds every
+consumer — API-key resolution (api.py auth), the admission controller's
+WDRR weights and token buckets (router/admission.py), and the engine
+scheduler's tenant queues (engine/scheduler.py) — so a weight change
+cannot drift between layers.
 
 Config source: ``BEE2BEE_TENANTS`` (inline JSON object or a path to one),
-validated loudly at load — a mis-typed tenant config must fail the engine
-at construction, not silently rate-limit the wrong customer later.
-Shape::
+validated loudly at load like ``BEE2BEE_SLO_CONFIG`` — a mis-typed tenant
+config must fail the node at construction, not silently rate-limit the
+wrong customer later. Shape::
 
     {"acme":  {"api_key": "k-acme", "weight": 4,
                "rate_tokens_per_min": 60000},
      "hobby": {"api_key": "k-hobby", "weight": 1}}
 
 Unconfigured identity clamps to the ``default`` tenant (weight 1, no
-budget).
+budget): tenant names become METRIC LABELS and WDRR queue keys, so the
+set must stay bounded by configuration, never by what a peer or client
+claims on the wire.
+
+PyTorch port: a copy of ``bee2bee_tpu/router/tenants.py`` with the import root rewritten to
+``bee2bee_tpu_torch``.
 """
 
 from __future__ import annotations
 
-import json
-import os
+import hmac
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Any
+
+from ..utils import load_json_source
 
 DEFAULT_TENANT = "default"
-# adapter names key metric labels and DHT keys (the JAX package's
-# adapters.MAX_ADAPTER_NAME)
-MAX_ADAPTER_NAME = 64
 
 
 @dataclass(frozen=True)
@@ -48,8 +46,9 @@ class TenantSpec:
     # (0 = one minute of sustained rate)
     rate_tokens_per_min: float = 0.0
     burst_tokens: float = 0.0
-    # default LoRA adapter: a request from this tenant that names none
-    # serves under this one. None = base.
+    # default LoRA adapter (adapters/): a request from this tenant that
+    # names no adapter (plain base model id, no `adapter` field) serves
+    # under this one — the one-base-many-tenants mapping. None = base.
     adapter: str | None = None
 
     @property
@@ -64,31 +63,6 @@ class TenantSpec:
 _ALLOWED_KEYS = frozenset(
     {"api_key", "weight", "rate_tokens_per_min", "burst_tokens", "adapter"}
 )
-
-
-def load_json_source(source: str | None, env_var: str, opener: str = "{") -> Any:
-    """The inline-JSON-or-file-path config convention: `source` wins, else
-    the env var; a value starting with `opener` parses inline, anything
-    else is a path read and parsed. Returns None when no source is
-    configured at all; parse/read errors raise."""
-    raw = source if source is not None else os.environ.get(env_var)
-    if not raw:
-        return None
-    text = raw.strip()
-    if not text.startswith(opener):
-        text = Path(text).read_text()
-    return json.loads(text)
-
-
-def _clamp_adapter_name(name) -> str | None:
-    """An adapter claim → a sane name or None. ':' is the model separator
-    and '/' the DHT key separator — a name containing either could alias
-    another adapter's key."""
-    if not isinstance(name, str) or not name:
-        return None
-    if len(name) > MAX_ADAPTER_NAME or ":" in name or "/" in name:
-        return None
-    return name
 
 
 def parse_tenant_config(obj) -> dict[str, TenantSpec]:
@@ -120,10 +94,14 @@ def parse_tenant_config(obj) -> dict[str, TenantSpec]:
             seen_keys.add(key)
         adapter = spec.get("adapter")
         if adapter is not None:
-            if _clamp_adapter_name(str(adapter)) is None:
-                # a malformed default would turn every request from this
-                # tenant into a typed 404
-                raise ValueError(f"tenant {name!r}: invalid adapter name {adapter!r}")
+            from ..adapters import clamp_adapter_name
+
+            if clamp_adapter_name(str(adapter)) is None:
+                # same clamp as the wire: a malformed default would turn
+                # every request from this tenant into a typed 404
+                raise ValueError(
+                    f"tenant {name!r}: invalid adapter name {adapter!r}"
+                )
             adapter = str(adapter)
         out[str(name)] = TenantSpec(
             name=str(name), api_key=key, weight=weight,
@@ -138,3 +116,55 @@ def load_tenant_config(source: str | None = None) -> dict[str, TenantSpec]:
     JSON object, or a path to a JSON file), or empty (no tenants)."""
     data = load_json_source(source, "BEE2BEE_TENANTS")
     return parse_tenant_config(data) if data is not None else {}
+
+
+class TenantRegistry:
+    """Resolved tenant table: API-key → name, weights, budgets."""
+
+    def __init__(self, specs: dict[str, TenantSpec] | None = None):
+        self.specs = dict(specs or {})
+
+    def resolve_key(self, api_key: str | None) -> str | None:
+        """Tenant name for a presented API key (constant-time compares —
+        the key is the SDK-facing credential), or None when no tenant
+        claims it."""
+        if not api_key:
+            return None
+        enc = lambda s: s.encode("utf-8", "surrogateescape")
+        for spec in self.specs.values():
+            if spec.api_key and hmac.compare_digest(enc(api_key), enc(spec.api_key)):
+                return spec.name
+        return None
+
+    def api_keys(self) -> list[str]:
+        return [s.api_key for s in self.specs.values() if s.api_key]
+
+    def clamp(self, name) -> str:
+        """Wire-supplied tenant claim → a configured name or ``default``.
+        Tenant names key metric labels and WDRR queues; an unconfigured
+        claim must not mint a new series."""
+        if isinstance(name, str) and name in self.specs:
+            return name
+        return DEFAULT_TENANT
+
+    def weight(self, name: str) -> float:
+        spec = self.specs.get(name)
+        return spec.weight if spec else 1.0
+
+    def default_adapter(self, name: str) -> str | None:
+        """The tenant's configured default LoRA adapter (adapters/), or
+        None for the base model. Applied only when the request itself
+        names no adapter — an explicit model="<base>:<name>" wins."""
+        spec = self.specs.get(name)
+        return spec.adapter if spec else None
+
+    def weights(self) -> dict[str, float]:
+        return {name: s.weight for name, s in self.specs.items()}
+
+    def budgets(self) -> dict[str, tuple[float, float]]:
+        """{tenant: (rate tokens/s, burst tokens)} for budgeted tenants."""
+        return {
+            name: (s.rate_tokens_per_s, s.burst)
+            for name, s in self.specs.items()
+            if s.rate_tokens_per_min > 0
+        }

@@ -1,15 +1,14 @@
 """The service contract every backend implements.
 
-The PyTorch port's own copy of ``bee2bee_tpu/services/base.py``, so a
-CUDA backend returns exactly the result dicts and stream lines a TPU
-backend does. The async thread bridges the mesh gateway uses come with
-the node slice of the port.
-
 Wire-compatible with the reference (`services.py:13-25`): `get_metadata()`
 feeds hello/service_announce messages; `execute(params) -> result dict` with
 keys text/tokens/latency_ms/price_per_token/cost (reference services.py:
 101-113); `execute_stream(params)` yields JSON-lines `{"text": chunk}` then
 `{"done": true}` (reference services.py:74-80).
+
+PyTorch port: a copy of ``bee2bee_tpu/services/base.py`` with the import root
+rewritten to ``bee2bee_tpu_torch``, so a CUDA backend returns exactly the result
+dicts and stream lines a TPU backend does.
 """
 
 from __future__ import annotations
@@ -21,8 +20,8 @@ from typing import Any, Iterator
 from ..metrics import get_registry
 
 # every backend's execute() funnels through result_dict, so this one
-# histogram covers service execute latency (streaming paths report their
-# own done-line accounting)
+# histogram covers service execute latency for tpu/ollama/remote/fake
+# alike (streaming paths report their own done-line accounting)
 _H_EXECUTE = get_registry().histogram(
     "service.execute_ms", "service execute() latency per request (ms)"
 )
@@ -48,6 +47,61 @@ class BaseService:
         raise NotImplementedError
 
     # -- shared helpers -------------------------------------------------------
+
+    async def _execute_via_thread(self, params: dict[str, Any]) -> dict[str, Any]:
+        """`execute` off the event loop: services whose execute() blocks on
+        network/disk expose ``execute_async = _execute_via_thread`` and the
+        async gateway (meshnet/node._execute_local) takes the loop-native
+        path; sync callers keep calling execute() unchanged."""
+        import asyncio
+
+        return await asyncio.to_thread(self.execute, params)
+
+    async def _stream_via_thread(self, params: dict[str, Any]):
+        """Async-generator bridge over a blocking ``execute_stream``: the
+        sync iterator runs in a worker thread and lines hop to the loop
+        through a queue, so a slow backend never stalls other in-flight
+        generations. A consumer that raises or abandons the generator sets
+        ``cancelled``, and the pump stops pulling at the next line — the
+        backend isn't left generating a full response nobody reads (same
+        contract api.py's _stream_service pump keeps)."""
+        import asyncio
+        import contextvars
+        import threading
+
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        cancelled = threading.Event()
+
+        def pump():
+            try:
+                for line in self.execute_stream(params):
+                    if cancelled.is_set():
+                        break
+                    loop.call_soon_threadsafe(q.put_nowait, ("line", line))
+                loop.call_soon_threadsafe(q.put_nowait, ("end", None))
+            except BaseException as e:  # noqa: BLE001 — re-raised on the loop
+                loop.call_soon_threadsafe(q.put_nowait, ("err", e))
+
+        # copy_context so spans emitted inside the worker thread keep their
+        # caller as parent (run_in_executor alone drops contextvars — the
+        # same guard node._execute_local applies)
+        ctx = contextvars.copy_context()
+        fut = loop.run_in_executor(None, ctx.run, pump)
+        try:
+            while True:
+                kind, val = await q.get()
+                if kind == "line":
+                    yield val
+                elif kind == "err":
+                    raise val
+                else:
+                    break
+            await fut  # the end/err marker means pump already returned
+        finally:
+            # sync set (no await: this also runs under GeneratorExit) —
+            # the thread exits at its next line boundary
+            cancelled.set()
 
     @staticmethod
     def _require_prompt(params: dict) -> str:

@@ -112,8 +112,27 @@ and the script exits non-zero):
    cache_dtype="int8" inside CUDAService, the same requests and the same
    launch checks on the int8 counters (the bf16 pool's stay 0); pool
    bytes beside the bf16 pool's.
-8. The kernel table as one JSON line (the head_dim-256 forms' launches
-   from phase 5's gemma-geometry forward), then the result line.
+8. The node (serve-cuda's path): the port's run_p2p_node boots a mesh
+   node with its aiohttp gateway on free loopback ports and
+   CUDAService("llama-3-8b") from the port's NodeConfig defaults (bf16
+   pool, random init from seed 0), loaded in an executor while the
+   gateway already answers. One greedy prompt of about 300 bytes (32 new
+   tokens) goes to the service once cold, then through the gateway's
+   /chat, svc.execute, the gateway's streamed /v1/chat/completions, the
+   service's execute_stream and, from a second node that joins through
+   the first one's join link, a mesh gen_request (stdlib urllib, no HTTP
+   client package): the six texts must be equal, /providers must list
+   llama-3-8b with backend "cuda", /metrics must carry the engine.*
+   names, decode + tile launches must equal n_layers x forward calls
+   (both > 0, every other counter 0), and the node must stop in time and
+   take its engine thread down. Prints the packages the node may lack,
+   the boot and the service's load seconds, the event loop's longest
+   stall during the load, and TTFT and tok/s through the gateway against
+   the direct call (medians of 3 alternating pairs), with the card's name
+   and power limit.
+9. The kernel table as one JSON line (the head_dim-256 forms' launches
+   from phase 5's gemma-geometry forward; the decode and tile kernels'
+   from phases 6-8), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script.
@@ -121,6 +140,7 @@ when the package is not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -1395,6 +1415,333 @@ def phase_slice(cache_dtype="bfloat16", params=None):
         engine.close()
 
 
+# ------------------------------------------------------------ phase 8
+
+
+# the node's packages that the card's machine may lack: the node picks the
+# loopback transport without websockets, reports 0 cpu/ram without psutil,
+# and cannot run its aiohttp gateway without aiohttp
+NODE_PACKAGES = ("aiohttp", "websockets", "click", "psutil", "httpx", "ml_dtypes")
+NODE_NEW_TOKENS = 32
+NODE_ROUNDS = 3
+NODE_BOOT_TIMEOUT_S = 600
+NODE_STOP_TIMEOUT_S = 60
+
+
+def node_prompt() -> str:
+    """One user turn of about 300 bytes; every route turns it into the same
+    "user: ...\nassistant:" prompt (the gateway's /v1 messages too)."""
+    words = ("a mesh node on the card answers the gateway the stream and its "
+             "peers with the same greedy tokens from one engine ").split()
+    text, i = "", 0
+    while len(text) < 294:
+        text += words[(i * 5 + 3) % len(words)] + " "
+        i += 1
+    return "user: " + text[:294].strip()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_json(method: str, url: str, body=None, timeout: float = 600):
+    """(status, parsed JSON or text) of one request over stdlib urllib."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read().decode()
+        kind = r.headers.get("Content-Type", "")
+        return r.status, (json.loads(raw) if "json" in kind else raw)
+
+
+def http_sse_text(url: str, body, timeout: float = 600):
+    """Stream an OpenAI chat completion: (joined deltas, s to the first
+    delta, s to the end, events) on the client's clock."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, parts, events = None, [], 0
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.status == 200, f"node: stream answered {r.status}")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            event = json.loads(line[len("data: "):])
+            check("error" not in event, f"node: stream error {event}")
+            events += 1
+            delta = event["choices"][0].get("delta", {}).get("content")
+            if delta:
+                if first is None:
+                    first = time.perf_counter() - t0
+                parts.append(delta)
+    return "".join(parts), first, time.perf_counter() - t0, events
+
+
+def direct_stream_text(svc, params):
+    """The service's own stream: (joined text, s to the first visible text,
+    s to the end, lines) on the caller's clock."""
+    t0 = time.perf_counter()
+    first, parts, lines = None, [], 0
+    for raw in svc.execute_stream(params):
+        line = json.loads(raw)
+        check(line.get("status") != "error", f"node: execute_stream error {line}")
+        lines += 1
+        if line.get("text"):
+            if first is None:
+                first = time.perf_counter() - t0
+            parts.append(line["text"])
+    check(first is not None, "node: execute_stream carried no text")
+    return "".join(parts), first, time.perf_counter() - t0, lines
+
+
+def phase_node(card: str) -> dict:
+    """Phase 8: serve-cuda's path in this process (see the module
+    docstring). The counts are zeroed once the node is ready and read
+    after the last request. Returns the counts."""
+    import asyncio
+    import importlib.util
+
+    from bee2bee_tpu_torch.config import NodeConfig
+    from bee2bee_tpu_torch.meshnet.node import P2PNode
+    from bee2bee_tpu_torch.meshnet.runtime import run_p2p_node
+    from bee2bee_tpu_torch.metrics import get_registry
+
+    have = {name: importlib.util.find_spec(name) is not None for name in NODE_PACKAGES}
+    log(f"node: packages {have}")
+    serve_api = have["aiohttp"]
+    if not serve_api:
+        log("gateway: not run (aiohttp absent on this machine)")
+    cfg = NodeConfig(host="127.0.0.1", port=free_port(), api_port=free_port(),
+                     bootstrap_url="")
+    base = f"http://127.0.0.1:{cfg.api_port}"
+    prompt = node_prompt()
+    ask = {"max_new_tokens": NODE_NEW_TOKENS, "temperature": 0.0}
+    out: dict = {}
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        ready, stop = asyncio.Event(), asyncio.Event()
+        booted: list = []
+
+        async def post_start(node):
+            booted.append(node)
+
+        async def heartbeat(gaps):
+            # the event loop's longest stall while the service loads (from
+            # the gateway's first answer on: the load follows the gateway's
+            # start): the 16 GB init runs in an executor, so the loop ticks
+            last = time.perf_counter()
+            while not ready.is_set():
+                await asyncio.sleep(0.01)
+                now = time.perf_counter()
+                gaps.append(now - last)
+                last = now
+
+        gaps: list = []
+        beat = None
+        t0 = time.perf_counter()
+        task = asyncio.create_task(run_p2p_node(
+            backend="cuda", model="llama-3-8b", cfg=cfg, serve_api=serve_api,
+            registry_sync=False, ready_event=ready, shutdown_event=stop,
+            post_start=post_start,
+        ))
+        client = P2PNode(host="127.0.0.1", port=0)
+        try:
+            # the gateway starts before the load: time its first answer
+            answered = None
+            while serve_api and answered is None and not ready.is_set():
+                check(not task.done(), "node: boot failed before ready")
+                try:
+                    t1 = time.perf_counter()
+                    status, _ = await loop.run_in_executor(
+                        None, http_json, "GET", base + "/", None, 5)
+                    answered = (status, time.perf_counter() - t1, ready.is_set())
+                    beat = asyncio.create_task(heartbeat(gaps))
+                except OSError:
+                    await asyncio.sleep(0.05)
+            await asyncio.wait_for(ready.wait(), NODE_BOOT_TIMEOUT_S)
+            boot_s = time.perf_counter() - t0
+            if serve_api and answered is None:  # the load beat the first answer
+                t1 = time.perf_counter()
+                status, _ = await loop.run_in_executor(None, http_json, "GET", base + "/")
+                answered = (status, time.perf_counter() - t1, True)
+            if beat is not None:
+                await beat
+            node = booted[0]
+            svc = node.local_services["cuda"]
+            engine = svc.engine
+            stall = (f"{max(gaps) * 1e3:.1f} ms over {len(gaps)} 10 ms ticks" if gaps
+                     else "not measured")
+            log(f"node: booted in {boot_s:.2f} s (the service's load in an executor "
+                f"inside it); the event loop's longest stall from the gateway's first "
+                f"answer to ready: {stall}")
+            if serve_api:
+                check(answered is not None and answered[0] == 200,
+                      f"node: the gateway's GET / answered {answered}")
+                t1 = time.perf_counter()
+                status, _ = await loop.run_in_executor(None, http_json, "GET", base + "/")
+                log(f"node: the gateway's first GET / {answered[1] * 1e3:.1f} ms "
+                    f"({'after' if answered[2] else 'during'} the load), the next "
+                    f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+            reset_counts()
+            engine.forward_calls = 0
+            # the node's first request pays its engine's first-use costs:
+            # it goes straight to the service and is timed on its own
+            t1 = time.perf_counter()
+            cold = await loop.run_in_executor(None, svc.execute, {"prompt": prompt, **ask})
+            log(f"node: first request (direct, cold) {cold['tokens']} tokens in "
+                f"{(time.perf_counter() - t1) * 1e3:.1f} ms (engine ttft "
+                f"{cold['ttft_ms']} ms)")
+            texts = {"cold": cold["text"]}
+            # the decode at batch 1 is host-bound, and the host's clock
+            # varies from request to request: the gateway's /chat and the
+            # direct call take turns, NODE_ROUNDS times each
+            runs: dict = {"gateway": [], "direct": []}
+            for i in range(NODE_ROUNDS):
+                if serve_api:
+                    t1 = time.perf_counter()
+                    status, chat = await loop.run_in_executor(
+                        None, http_json, "POST", base + "/chat",
+                        {"prompt": prompt, "model": "llama-3-8b", **ask})
+                    check(status == 200 and isinstance(chat.get("text"), str),
+                          f"node: /chat answered {status} {chat}")
+                    runs["gateway"].append((time.perf_counter() - t1, chat))
+                    texts[f"gateway{i}"] = chat["text"]
+                t1 = time.perf_counter()
+                direct = await loop.run_in_executor(
+                    None, svc.execute, {"prompt": prompt, **ask})
+                runs["direct"].append((time.perf_counter() - t1, direct))
+                texts[f"direct{i}"] = direct["text"]
+            streams = {}
+            if serve_api:
+                body = {"model": "llama-3-8b", "stream": True, "temperature": 0.0,
+                        "max_tokens": NODE_NEW_TOKENS,
+                        "messages": [{"role": "user", "content": prompt[len("user: "):]}]}
+                texts["stream"], *streams["gateway"] = await loop.run_in_executor(
+                    None, http_sse_text, base + "/v1/chat/completions", body)
+            texts["direct_stream"], *streams["direct"] = await loop.run_in_executor(
+                None, direct_stream_text, svc, {"prompt": prompt, **ask})
+            for path, rows in runs.items():
+                if not rows:
+                    continue
+                walls = [w * 1e3 for w, _ in rows]
+                ttfts = [r["ttft_ms"] for _, r in rows]
+                rates = [r["tokens_per_sec"] for _, r in rows]
+                first, end, events = streams[path]
+                summary = dict(wall_ms=statistics.median(walls), ttft_ms=statistics.median(ttfts),
+                               tok_s=statistics.median(rates), first_ms=first * 1e3,
+                               end_ms=end * 1e3, tokens=rows[0][1]["tokens"])
+                out[path] = summary
+                log(f"node: {path}: {summary['tokens']} tokens, client wall {walls} ms, "
+                    f"engine ttft {ttfts} ms, engine tok/s {rates}; its stream: first "
+                    f"visible text {first * 1e3:.1f} ms, end {end * 1e3:.1f} ms, "
+                    f"{events} events (client clock)")
+            await client.start()
+            link = node.join_link()
+            check(await client.connect_bootstrap(link), f"node: join through {link} failed")
+            for _ in range(200):
+                if client.list_providers("llama-3-8b"):
+                    break
+                await asyncio.sleep(0.05)
+            provs = client.list_providers("llama-3-8b")
+            check([p["provider_id"] for p in provs] == [node.peer_id]
+                  and provs[0].get("backend") == "cuda",
+                  f"node: the joined peer sees providers {provs}")
+            t1 = time.perf_counter()
+            mesh = await client.request_generation(
+                node.peer_id, prompt, model="llama-3-8b", **ask)
+            mesh_s = time.perf_counter() - t1
+            texts["mesh"] = mesh["text"]
+            log(f"node: mesh gen_request {mesh['tokens']} tokens in {mesh_s * 1e3:.1f} ms")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            forwards = engine.forward_calls
+            if serve_api:
+                status, listed = await loop.run_in_executor(
+                    None, http_json, "GET", base + "/providers")
+                mine = [p for p in listed["providers"] if "llama-3-8b" in p.get("models", [])]
+                check(status == 200 and len(mine) == 1 and mine[0].get("backend") == "cuda",
+                      f"node: /providers lists {listed}")
+                status, prom = await loop.run_in_executor(
+                    None, http_json, "GET", base + "/metrics")
+                status_j, snap = await loop.run_in_executor(
+                    None, http_json, "GET", base + "/metrics?format=json")
+                engine_names = {n for n in get_registry().snapshot() if n.startswith("engine.")}
+                missing = engine_names - set(snap["metrics"])
+                check(status == status_j == 200 and engine_names and not missing
+                      and "bee2bee_engine_ttft_ms" in prom,
+                      f"node: /metrics lacks {sorted(missing)}")
+                log(f"node: /providers lists llama-3-8b with backend cuda; /metrics "
+                    f"carries {len(engine_names)} engine.* names")
+            log(f"node: texts {json.dumps(texts)[:600]}")
+            check(len(set(texts.values())) == 1 and texts["cold"],
+                  f"node: the routes' texts differ: {texts}")
+            out.update(counts=counts, forwards=forwards, engine=engine, boot_s=boot_s)
+        finally:
+            await client.stop()
+            stop.set()
+            t1 = time.perf_counter()
+            node_obj = await asyncio.wait_for(task, NODE_STOP_TIMEOUT_S)
+            out["stop_s"] = time.perf_counter() - t1
+            check(node_obj._stopped, "node: not stopped")
+
+    # time the service's load where run_p2p_node runs it (in an executor)
+    from bee2bee_tpu_torch.services.cuda import CUDAService
+
+    load_sync = CUDAService.load_sync
+
+    def timed_load(svc):
+        t1 = time.perf_counter()
+        svc = load_sync(svc)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t1
+        return svc
+
+    CUDAService.load_sync = timed_load
+    try:
+        asyncio.run(drive())
+    finally:
+        CUDAService.load_sync = load_sync
+    log(f"node: the service's load {out['load_s']:.2f} s of the {out['boot_s']:.2f} s boot")
+    engine = out.pop("engine")
+    cfg_m = engine.model_cfg
+    thread = engine.scheduler._thread
+    engine.close()
+    check(not thread.is_alive(), "node: the engine's scheduler thread outlived the node")
+    counts, forwards = out["counts"], out["forwards"]
+    log(f"node: stopped in {out['stop_s']:.2f} s; kernel launches {counts}, forward "
+        f"calls {forwards}, n_layers {cfg_m.n_layers}")
+    dec, tile = counts["ragged_decode"], counts["ragged_prefill"]
+    check(dec > 0 and tile > 0 and dec + tile == cfg_m.n_layers * forwards,
+          f"node: decode {dec} + tile {tile} launches != {cfg_m.n_layers} x {forwards}")
+    others = {k: v for k, v in counts.items()
+              if k not in ("ragged_decode", "ragged_prefill") and v}
+    check(not others, f"node: other kernel forms launched: {others}")
+    if "gateway" in out:
+        g, d = out["gateway"], out["direct"]
+        log(f"node: medians of {NODE_ROUNDS}, through the gateway vs direct: TTFT "
+            f"{g['ttft_ms']} vs {d['ttft_ms']} ms (engine clock), {g['tok_s']} vs "
+            f"{d['tok_s']} tok/s (engine clock), {g['tokens']} tokens in "
+            f"{g['wall_ms']:.1f} vs {d['wall_ms']:.1f} ms (client clock); first visible "
+            f"text of a stream {g['first_ms']:.1f} vs {d['first_ms']:.1f} ms; card {card}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1420,7 +1767,9 @@ def main() -> int:
         f"(scales included)")
     check(ratio <= 0.502, f"int8 pool is {ratio:.4f}x the bf16 pool's bytes")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    node_counts = phase_node(card)
 
     def row(name, source, replaces, n, err, t):
         return {
@@ -1447,7 +1796,8 @@ def main() -> int:
     bf16_g, int8_g = gemma_counts["bfloat16"], gemma_counts["int8"]
     kernels = [
         row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged_decode"], errs["decode"], timings["decode"]),
+            counts["ragged_decode"] + node_counts["ragged_decode"], errs["decode"],
+            timings["decode"]),
         row("ragged_decode_attention_int8", decode_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
             int8_errs["decode"], int8_timings["decode"]),
@@ -1481,7 +1831,8 @@ def main() -> int:
             counts["flash_tile_hd256"] + int8_counts["flash_tile_hd256"],
             flash_errs["tile_hd256"], flash_timings["tile_hd256"]),
         row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged_prefill"], errs["tile"], timings["prefill"]),
+            counts["ragged_prefill"] + node_counts["ragged_prefill"], errs["tile"],
+            timings["prefill"]),
         row("ragged_prefill_attention_int8", prefill_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_int8"],
             int8_errs["tile"], int8_timings["prefill"]),

@@ -296,9 +296,22 @@ def test_stop_scrubbing_copy(text, stops):
 
 
 def test_metric_names_match_the_jax_registry(jax_reference):
-    """The port registers the serving metrics under the JAX names."""
+    """Every metric the port registers, in any of its modules, carries a
+    name the JAX package registers: each port module is imported beside
+    its JAX counterpart, where there is one."""
+    import importlib
+    import importlib.util
+
     from bee2bee_tpu.metrics import get_registry as jax_registry
     from bee2bee_tpu_torch.metrics import get_registry
+
+    for path in sorted((ROOT / "bee2bee_tpu_torch").rglob("*.py")):
+        name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        name = name.removesuffix(".__init__")
+        importlib.import_module(name)
+        counterpart = "bee2bee_tpu" + name.removeprefix("bee2bee_tpu_torch")
+        if importlib.util.find_spec(counterpart) is not None:
+            importlib.import_module(counterpart)
 
     ours = set(get_registry().snapshot())
     assert ours and ours <= set(jax_registry().snapshot())
