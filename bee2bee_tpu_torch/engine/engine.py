@@ -23,12 +23,14 @@ top of the continuous-batching scheduler (engine/scheduler.py).
 
 What waits for later slices: checkpoint loading, int8 weights,
 speculative decoding and drafters, multi-LoRA, the prefix cache, live
-migration, the overlapped decode ring and the economics plane. Setting an
-``EngineConfig`` field that selects one of them raises.
+migration and the economics plane. Setting an ``EngineConfig`` field that
+selects one of them raises.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -45,6 +47,8 @@ from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
 from .paged import ceil_div
 from .tokenizer import load_tokenizer
+
+logger = logging.getLogger("bee2bee_tpu_torch.engine")
 
 # per-request serving distributions, observed at retirement (scheduler
 # thread) — the same metric names as the JAX engine
@@ -70,6 +74,25 @@ DTYPES = {
 }
 # the pool may also store int8 pages with per-page scales
 CACHE_DTYPES = {**DTYPES, "int8": torch.int8}
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    """Bool knob: unset -> default; "0"/"false"/"off"/"no" -> False."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    return raw.strip().lower() not in ("0", "false", "off", "no")
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        logger.warning("%s=%r is not an int; using %d", name, raw, default)
+        return default
 
 
 @dataclass
@@ -102,6 +125,24 @@ class EngineConfig:
     spec_tokens: int = 0
     drafter: str | None = None
     max_adapters: int = 0
+    # ---- the decode hot loop (engine/scheduler.py). None = resolve from
+    # the environment at construction; always a plain bool/int after
+    # __post_init__.
+    # dispatch window N+1 while window N's token readback is still in
+    # flight (BEE2BEE_OVERLAP, default on)
+    decode_overlap: bool | None = None
+    # depth of the in-flight readback ring; 2 = double-buffered
+    # (BEE2BEE_READBACK_DEPTH, default 2; clamped to >= 1)
+    readback_depth: int | None = None
+    # the JAX engine's choice between its fused root and the split
+    # penalty root, which decode the same tokens (BEE2BEE_FUSED_ROOT,
+    # default on). Resolved so that one set of engine options configures
+    # either package; the port has one decode root, which always carries
+    # the penalty counts, and reads nothing of this field
+    fused_root: bool | None = None
+    # grow-only batch bucket while work flows, released after an idle
+    # window (BEE2BEE_BATCH_STICKY, default on)
+    batch_sticky: bool | None = None
 
     def __post_init__(self):
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
@@ -130,6 +171,15 @@ class EngineConfig:
         for name, (set_, item) in items.items():
             if set_:
                 raise unported(f"EngineConfig.{name}={getattr(self, name)!r}", item)
+        if self.decode_overlap is None:
+            self.decode_overlap = _env_flag("BEE2BEE_OVERLAP", True)
+        if self.fused_root is None:
+            self.fused_root = _env_flag("BEE2BEE_FUSED_ROOT", True)
+        if self.batch_sticky is None:
+            self.batch_sticky = _env_flag("BEE2BEE_BATCH_STICKY", True)
+        if self.readback_depth is None:
+            self.readback_depth = _env_int("BEE2BEE_READBACK_DEPTH", 2)
+        self.readback_depth = max(1, int(self.readback_depth))
 
 
 def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -254,7 +304,8 @@ class InferenceEngine:
         self.generator.manual_seed(self.engine_cfg.rng_seed)
         # forward passes run (prefill chunks + decode steps): with the
         # kernel's launch count it shows every attention call went through
-        # the kernel (n_layers launches per forward)
+        # the kernel (n_layers launches per forward). A replayed decode
+        # graph adds the forwards its capture ran (engine/scheduler.py)
         self.forward_calls = 0
         self._mutex = threading.Lock()
         self._scheduler = None  # created on first generate

@@ -46,7 +46,9 @@ def masked_logits(logits, temperature, top_k, top_p, min_p=None):
     survives)."""
     V = logits.shape[-1]
     l = logits / torch.clamp(temperature, min=1e-6)[:, None]
-    neg_inf = torch.tensor(float("-inf"), device=l.device, dtype=l.dtype)
+    # a python scalar, not a tensor built from one: that would be a host
+    # copy, which a captured CUDA graph cannot hold
+    neg_inf = float("-inf")
     if min_p is not None:
         probs0 = torch.softmax(l, dim=-1)
         floor = min_p[:, None] * probs0.amax(dim=-1, keepdim=True)

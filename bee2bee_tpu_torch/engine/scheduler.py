@@ -7,17 +7,38 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
   offset) kept as host numpy mirrors. All rows decode together; per-row
   block tables (engine/paged.py) map positions onto pool blocks, which
   are allocated lazily and freed at retirement.
-- **Adaptive batch bucketing**: ``bsz`` tracks the active row count in
-  power-of-two buckets (grow on admission, shrink on retirement); active
-  rows stay compacted in [0, active) by host table moves.
+- **Batch bucketing**: ``bsz`` tracks the active row count in power-of-
+  two buckets; active rows stay compacted in [0, active) by host table
+  moves. With ``batch_sticky`` (the default) the bucket only grows while
+  work flows; an empty batch drops to 1 when the next admission comes
+  more than ``_sticky_idle_s`` after the last dispatch. Without it the
+  bucket walks the quarter-occupancy halving ladder.
 - **Rolling admission**: a queued request prefills straight into the pool
   through its row's block table (whole-prompt bucket or fixed chunks);
   its first token is sampled at once, and a burst of admissions is read
-  back in ONE host read.
-- **Decode windows**: one window is up to ``max_inflight_chunks`` chunks
-  of ``decode_chunk`` steps, run as a python loop of forwards whose
-  sampled tokens stay on the card; the host reads them once per window.
-  EOS / stop / budget retire a row at the window's end.
+  back in ONE host read. Admission only runs on a settled batch: the
+  readback ring is drained first.
+- **The decode root**: one decode step for all rows (forward, sampling,
+  penalty counts) works in place on static device buffers (``cur``,
+  offsets, block tables, the sampling knobs, the counts, the chunk's
+  token buffer), so on the card it is captured once per key as a CUDA
+  graph and a chunk of ``decode_chunk`` steps is that many replays and no
+  other launch. The key is the JAX ``_decode_key`` (batch bucket, table
+  width, min_p / adapters / counts flags) plus the all-greedy flag. There
+  is one root: penalty counts always ride it (the JAX engine's fused
+  root), so ``fused_root`` selects nothing here. On the CPU the same step
+  runs eagerly.
+- **The overlapped readback ring**: a window of up to
+  ``max_inflight_chunks`` chunks is dispatched without a host sync; its
+  tokens go from the chunk's token buffer to the ring slot's pinned host
+  buffer behind an event. Up to ``readback_depth`` windows are in flight
+  (``decode_overlap``); the fetch of the oldest (the event's wait) is the
+  loop's one host sync, and the next window is dispatched before the
+  fetched tokens are processed. Look-ahead windows chain on the device's
+  own ``cur`` and offsets; the host writes its mirrors into them only when
+  the ring is empty. Blocks of a row that retires while windows are in
+  flight are freed when the ring drains. EOS / stop / budget retire a row
+  when its window is processed.
 - **Per-row sampling and penalties**: the knobs ride as [B] tensors;
   penalty counts [B, 2, V] (prompt, generated) live on the card and are
   bumped by every sampled token.
@@ -32,23 +53,25 @@ Threading model: one daemon scheduler thread owns all device state;
 callers read per-request event queues.
 
 Not ported yet: speculative decoding, adapters, migration checkpoints,
-the prefix cache and its copy-on-write sharing, sticky batch widths, the
-overlapped readback ring and introspection.
+the prefix cache and its copy-on-write sharing, prefill graphs, the HBM
+ledger that gates sticky growth, and introspection.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..metrics import get_registry
+from ..ops import flash, ragged
 from ..router.fairness import WdrrQueue
 from ..router.tenants import load_tenant_config
 from ..unported import unported
@@ -72,6 +95,25 @@ _G_BATCH_FILL = _REG.gauge(
     "engine.batch_fill", "active rows / current batch bucket (0..1)"
 )
 _G_ACTIVE_ROWS = _REG.gauge("engine.active_rows", "rows decoding this step")
+# the decode hot loop's readback metrics, under the JAX engine's names
+# (bee2bee_tpu/engine/introspect.py) until the port has its own
+# introspection module
+_C_HOST_SYNCS = _REG.counter(
+    "engine.host_syncs",
+    "device->host token fetches in the decode hot loop (one per readback "
+    "window — the only blocking point the overlap design permits)",
+)
+_C_SYNC_STALLS = _REG.counter(
+    "engine.host_sync_stalls",
+    "host syncs that blocked with NO other decode window in flight — the "
+    "device sat idle while the host processed tokens (0 when overlap "
+    "keeps the ring full)",
+)
+_G_OVERLAP = _REG.gauge(
+    "engine.overlap_inflight",
+    "decode windows still in flight on-device at readback time (0 = "
+    "serialized loop, >=1 = async dispatch overlap is working)",
+)
 
 
 @dataclass
@@ -181,6 +223,17 @@ class SchedulerStats:
     paged_live_blocks: int = 0
     paged_alloc_waits: int = 0  # admissions deferred on an exhausted pool
     counts_windows: int = 0  # windows that carried the penalty counts
+    width_grow_denials: int = 0  # bucket grows refused by the growth gate
+    # decode graphs (the card only): captures, replays (one per decode
+    # step), seconds spent in warm-up and capture (the warm-up's share
+    # apart), the forwards those ran eagerly, and each key's (captures,
+    # seconds)
+    graph_captures: int = 0
+    graph_replays: int = 0
+    graph_capture_s: float = 0.0
+    graph_warmup_s: float = 0.0
+    graph_setup_forwards: int = 0
+    graph_keys: dict = field(default_factory=dict)
     history: deque = field(default_factory=lambda: deque(maxlen=64))
 
 
@@ -205,6 +258,82 @@ class _PoolExhausted(RuntimeError):
     crash — callers requeue or fail the one request."""
 
 
+def launch_counters(engine) -> list[tuple[object, str]]:
+    """(holder, attribute) of every host-side count a decode step moves:
+    each attention op's launch counters and the engine's forward count. A
+    captured graph's replay calls no wrapper, so it adds back what its
+    capture counted (``_DecodeGraph``)."""
+    return ([(ragged.ragged_paged_attention, n) for n in ragged.LAUNCH_COUNTERS]
+            + [(flash.flash_attention, n) for n in flash.LAUNCH_COUNTERS]
+            + [(engine, "forward_calls")])
+
+
+class _DecodeGraph:
+    """One captured decode step and the counts its capture moved, as
+    (holder, attribute, delta): each replay adds the deltas, so the
+    launch and forward identities hold for replays as for eager calls."""
+
+    def __init__(self, graph, deltas: list[tuple[object, str, int]]):
+        self.graph = graph
+        self.deltas = deltas
+
+    def replay(self):
+        self.graph.replay()
+        for holder, name, delta in self.deltas:
+            setattr(holder, name, getattr(holder, name) + delta)
+
+
+@dataclass
+class _DecodeViews:
+    """The static buffers one decode key reads and writes, viewed at its
+    batch bucket (and table width): fixed addresses, so a graph captured
+    over them stays valid as their contents change."""
+
+    cur: torch.Tensor  # [bsz] int64: each row's last token
+    off: torch.Tensor  # [bsz] int32: each row's write position
+    tables: torch.Tensor  # [bsz, tw] int32, contiguous
+    rows: torch.Tensor  # [bsz] int64: arange
+    temperature: torch.Tensor  # [bsz] f32
+    top_k: torch.Tensor  # [bsz] int32
+    top_p: torch.Tensor  # [bsz] f32
+    min_p: torch.Tensor | None  # [bsz] f32, None = the min-p-free path
+    repetition: torch.Tensor  # [bsz] f32
+    presence: torch.Tensor  # [bsz] f32
+    frequency: torch.Tensor  # [bsz] f32
+    counts: torch.Tensor | None  # [bsz, 2, V] int32, None = no penalties
+    toks: torch.Tensor  # [bsz, decode_chunk] int64: the chunk's tokens
+    step: torch.Tensor  # [1] int64: the chunk's step index
+    any_sampled: bool
+
+
+# the float knobs' rows in the static [6, max_batch] buffer, with the
+# value a free row carries
+_KNOBS_F = (("temperature", 0.0), ("top_p", 1.0), ("min_p", 0.0),
+            ("repetition", 1.0), ("presence", 0.0), ("frequency", 0.0))
+
+
+class _RingSlot:
+    """One readback-ring slot's host memory (pinned on the card): staging
+    for the host-to-device copies of the window dispatched in it, the
+    window's tokens [max_inflight_chunks, max_batch, decode_chunk], and
+    the event recorded after their device-to-host copy. A slot is reused
+    only after its window's fetch waited on that event, so no pending
+    copy still reads or writes it."""
+
+    def __init__(self, max_batch: int, blocks_per_row: int, chunks: int, K: int,
+                 pinned: bool):
+        def buf(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pinned)
+
+        self.cur = buf((max_batch,), torch.int64)
+        self.off = buf((max_batch,), torch.int32)
+        self.tables = buf((max_batch * blocks_per_row,), torch.int32)
+        self.knobs_f = buf((len(_KNOBS_F), max_batch), torch.float32)
+        self.top_k = buf((max_batch,), torch.int32)
+        self.toks = buf((chunks, max_batch, K), torch.int64)
+        self.event = torch.cuda.Event() if pinned else None
+
+
 class BatchScheduler:
     """Owns the shared pool + row table; see the module docstring."""
 
@@ -217,29 +346,88 @@ class BatchScheduler:
         self._shutdown = False
 
         e = engine
+        cfg = e.engine_cfg
         self._device = e.device
-        self._bsz = 1
-        self._block_size = e.engine_cfg.kv_block_size
-        self._alloc = BlockAllocator(e.pool_blocks)
-        self._tables = np.zeros((max_batch, e.blocks_per_row), np.int32)
-        self._row_blocks: list[list[int]] = [[] for _ in range(max_batch)]
-        self._cache = e.new_pool()
-        self._cur = np.zeros((self._bsz,), np.int64)
-        self._offsets = np.zeros((self._bsz,), np.int32)
-        self._rows: list[Request | None] = [None] * self._bsz
-        self._row_params_dirty = True
-        self._knobs: dict | None = None
-        # penalty occurrence counts [bsz, 2, V] int32 on the device,
-        # allocated on the first penalized admission. Rows of plain
-        # requests may hold stale counts; rep=1/pres=0/freq=0 never read
-        # them, and every admission overwrites its row.
-        self._counts: torch.Tensor | None = None
+        self._on_card = self._device.type == "cuda"
+        self._block_size = cfg.kv_block_size
         self._vocab = e.model_cfg.vocab_size
+        self._tables = np.zeros((max_batch, e.blocks_per_row), np.int32)
+        # the hot-loop mechanisms, resolved once from EngineConfig (its
+        # __post_init__ folded the env knobs in)
+        self._overlap = bool(cfg.decode_overlap)
+        self._depth = max(1, int(cfg.readback_depth))
+        self._sticky = bool(cfg.batch_sticky)
+        # sticky-width idle release: an all-idle batch holds its bucket
+        # this long after the last dispatch (an attribute so tests can
+        # collapse the window)
+        self._sticky_idle_s = 5.0
+        self._last_dispatch_t = 0.0
+        self._init_device_state()
 
         self._thread = threading.Thread(
             target=self._loop, name="bee2bee-torch-batch-scheduler", daemon=True
         )
         self._thread.start()
+
+    def _init_device_state(self):
+        """An empty bucket-1 batch over a fresh pool and allocator, the
+        decode root's static buffers, the readback ring's slots and no
+        captured graph. The constructor's state, and the recovery after a
+        failure (a graph holds the addresses of the buffers it was
+        captured over, so every graph goes with them)."""
+        e = self.engine
+        dev = self._device
+        mb = self.max_batch
+        K = e.engine_cfg.decode_chunk
+        self._bsz = 1
+        self._alloc = BlockAllocator(e.pool_blocks)
+        self._tables[:] = 0
+        self._row_blocks: list[list[int]] = [[] for _ in range(mb)]
+        self._cache = e.new_pool()
+        self.stats.paged_blocks_in_use = 0
+        self._cur = np.zeros((1,), np.int64)
+        self._offsets = np.zeros((1,), np.int32)
+        self._rows: list[Request | None] = [None]
+        self._row_params_dirty = True
+        self._knob_flags: dict = {}
+        # the decode root's static device buffers, allocated once at the
+        # largest bucket: a key views their leading rows. Penalty counts
+        # [max_batch, 2, V] (prompt, generated): rows of plain requests may
+        # hold stale counts, which rep=1/pres=0/freq=0 never read, and
+        # every penalized admission overwrites its row
+        self._d_cur = torch.zeros((mb,), dtype=torch.int64, device=dev)
+        self._d_off = torch.zeros((mb,), dtype=torch.int32, device=dev)
+        self._d_tables = torch.zeros((mb * e.blocks_per_row,), dtype=torch.int32,
+                                     device=dev)
+        self._d_rows = torch.arange(mb, device=dev)
+        self._d_knobs_f = torch.zeros((len(_KNOBS_F), mb), dtype=torch.float32,
+                                      device=dev)
+        self._d_top_k = torch.zeros((mb,), dtype=torch.int32, device=dev)
+        self._counts = torch.zeros((mb, 2, self._vocab), dtype=torch.int32,
+                                   device=dev)
+        self._d_toks = torch.zeros((mb, K), dtype=torch.int64, device=dev)
+        self._d_step = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._graphs: dict[tuple, _DecodeGraph] = {}
+        if self._on_card:
+            # every decode graph shares one memory pool: nothing read after
+            # a replay lives in it (the static buffers above do not)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+        # readback ring: dispatched-but-unread windows, each with its slot
+        # and its own (row, request) map (retirement nulls _rows[b]
+        # between dispatch and fetch)
+        self._slots = deque(
+            _RingSlot(mb, e.blocks_per_row, e.engine_cfg.max_inflight_chunks, K,
+                      self._on_card)
+            for _ in range(self._depth)
+        )
+        self._inflight: deque = deque()
+        # blocks of rows that retired while windows were in flight: those
+        # windows still write into them, so the deref waits for the ring
+        # to drain (an early reuse would let an in-flight write corrupt
+        # another row's fresh block)
+        self._deferred_blocks: list[int] = []
+        _G_OVERLAP.set(0)
 
     # ------------------------------------------------------------ public
 
@@ -289,8 +477,13 @@ class BatchScheduler:
                     self._fail_all("engine shut down")
                     return
             try:
+                if self._inflight and self._queue:
+                    # admission needs settled row state: drain the
+                    # readback ring before touching it
+                    if self._drain_inflight():
+                        self._compact_and_shrink()
                 self._admit()
-                if self.active:
+                if self.active or self._inflight:
                     self._step()
             except Exception as e:  # noqa: BLE001 — the thread must survive:
                 # a dead scheduler thread would hang every blocked caller
@@ -298,7 +491,7 @@ class BatchScheduler:
                 try:
                     with self._cond:
                         self._fail_all(f"scheduler error: {e!r}")
-                    self._reset_device_state()
+                    self._init_device_state()
                 except Exception:
                     logger.exception("scheduler recovery failed; shutting down")
                     with self._cond:
@@ -310,6 +503,13 @@ class BatchScheduler:
         """Error-terminate every queued AND admitted request (callers are
         blocked on their event queues and must always get a done event).
         Caller holds self._cond."""
+        # abandon the readback ring: its windows may be poisoned, and with
+        # every row released below nobody reads them
+        self._inflight.clear()
+        _G_OVERLAP.set(0)
+        if self._deferred_blocks:
+            self._alloc.deref(self._deferred_blocks)
+            self._deferred_blocks = []
         for req in list(self._queue) + [r for r in self._rows if r is not None]:
             req.finish = "error"
             req.events.put({"done": True, "result": None, "error": reason})
@@ -319,30 +519,18 @@ class BatchScheduler:
                 self._release_row(b)
         self._rows = [None] * self._bsz
 
-    def _reset_device_state(self):
-        """Recover to an empty bucket-1 batch after a failure: the pool
-        (with an int8 pool's zeroed scales) and the allocator are
-        rebuilt."""
-        e = self.engine
-        self._bsz = 1
-        self._alloc = BlockAllocator(e.pool_blocks)
-        self._tables[:] = 0
-        self._row_blocks = [[] for _ in range(self.max_batch)]
-        self._cache = e.new_pool()
-        self.stats.paged_blocks_in_use = 0
-        self._cur = np.zeros((1,), np.int64)
-        self._offsets = np.zeros((1,), np.int32)
-        self._rows = [None]
-        self._counts = None
-        self._row_params_dirty = True
-
     # ------------------------------------------------------------ paged state
 
     def _release_row(self, b: int):
         """Drop row b's block references and null its table row, so the
-        dead row's decode writes land in the null block."""
+        dead row's decode writes land in the null block. While windows are
+        in flight they still write into the row's blocks: the deref waits
+        for the ring to drain (_release_deferred)."""
         if self._row_blocks[b]:
-            self._alloc.deref(self._row_blocks[b])
+            if self._inflight:
+                self._deferred_blocks.extend(self._row_blocks[b])
+            else:
+                self._alloc.deref(self._row_blocks[b])
             self._row_blocks[b] = []
         self._tables[b, :] = 0
         self.stats.paged_blocks_in_use = self._alloc.used_count
@@ -360,7 +548,7 @@ class BatchScheduler:
             )
         if self.engine.kv_quantized and fresh:
             idx = torch.tensor(fresh, dtype=torch.long)
-            if self._device.type == "cuda":
+            if self._on_card:
                 # pinned + non_blocking: the copy queues, the host runs on
                 idx = idx.pin_memory().to(self._device, non_blocking=True)
             self._cache["k_scale"].index_fill_(2, idx, 0.0)
@@ -385,19 +573,24 @@ class BatchScheduler:
         """Pow2-bucketed table width, never past the physical table."""
         return min(pow2_at_least(nblocks), self.engine.blocks_per_row)
 
+    # ------------------------------------------------------- batch resizing
+
+    def _growth_headroom(self) -> bool:
+        """May the batch bucket grow? The JAX scheduler gates growth on its
+        HBM ledger's headroom and allows it when the limit is unknown; the
+        port has no ledger yet (ROADMAP queue A item 6), so the limit is
+        always unknown and growth always allowed."""
+        return True
+
     def _resize(self, new_bsz: int):
-        """Move to a new batch bucket: only the host mirrors and the
-        counts resize; the pool is batch-independent."""
+        """Move to a new batch bucket: only the host mirrors resize. The
+        pool is batch-independent and the device buffers are allocated at
+        max_batch, so the active rows [0, active) keep their addresses.
+        Called with an empty readback ring only."""
         old = self._bsz
         if new_bsz == old:
             return
         keep = min(old, new_bsz)
-        if self._counts is not None:
-            counts = torch.zeros(
-                (new_bsz, 2, self._vocab), dtype=torch.int32, device=self._device
-            )
-            counts[:keep] = self._counts[:keep]
-            self._counts = counts
         cur = np.zeros((new_bsz,), np.int64)
         offs = np.zeros((new_bsz,), np.int32)
         cur[:keep] = self._cur[:keep]
@@ -409,7 +602,10 @@ class BatchScheduler:
 
     def _compact_and_shrink(self):
         """Close retirement holes by moving the highest active row down,
-        then drop to a smaller bucket when occupancy allows."""
+        then (sticky) release the bucket of an empty batch after an idle
+        window, or (not sticky) drop to a smaller bucket when occupancy
+        allows. Called with an empty readback ring only: in-flight windows
+        carry row indices."""
         while True:
             hole = next((i for i, r in enumerate(self._rows) if r is None), None)
             last = next(
@@ -422,14 +618,24 @@ class BatchScheduler:
             self._tables[last] = 0
             self._row_blocks[hole] = self._row_blocks[last]
             self._row_blocks[last] = []
-            if self._counts is not None:
-                self._counts[hole] = self._counts[last]
+            self._counts[hole] = self._counts[last]
             self._cur[hole] = self._cur[last]
             self._offsets[hole] = self._offsets[last]
             self._rows[hole] = self._rows[last]
             self._rows[last] = None
             self._row_params_dirty = True
         A = self.active
+        if self._sticky:
+            # grow-only while work flows: every bucket is a decode graph
+            # key, and the ladder's shrink-then-regrow churn would capture
+            # them again and again. An all-idle batch releases its bucket
+            # only after the hysteresis window; the loop sleeps while idle,
+            # so the release happens at the next admission (_admit)
+            if (A == 0 and self._bsz > 1
+                    and time.perf_counter() - self._last_dispatch_t
+                    > self._sticky_idle_s):
+                self._resize(1)
+            return
         if A == 0 and self._bsz > 1:
             self._resize(1)
         elif self._bsz > 1 and A * 2 <= self._bsz // 2:
@@ -481,13 +687,21 @@ class BatchScheduler:
     def _admit(self):
         """Prefill queued requests into free rows, growing the batch bucket
         up to max_batch. The first tokens of the whole burst come back in
-        ONE host read."""
+        ONE host read. Admits only into a settled batch: with windows in
+        flight the request waits for the loop's drain."""
         e = self.engine
         placed: list[tuple] = []  # (req, row, firsts index)
         firsts: list[torch.Tensor] = []
+        if self.active == 0 and not self._inflight:
+            # the first admission after an idle spell: a sticky bucket held
+            # past the idle window is released before the rows are placed
+            # (the JAX loop checks only after a window, when the batch is
+            # never idle long enough, and keeps the bucket)
+            self._compact_and_shrink()
         while True:
             with self._cond:
-                if not self._queue or self.active >= self.max_batch:
+                if (not self._queue or self.active >= self.max_batch
+                        or self._inflight):
                     break
                 req = self._queue.popleft()
             if req.cancelled:
@@ -501,6 +715,14 @@ class BatchScheduler:
                 continue
             req.timing.t_admit = time.perf_counter()
             if self.active == self._bsz:
+                if not self._growth_headroom():
+                    # a sticky bucket never shrinks back while work flows:
+                    # requeue at the front (refunding the pop's cost) and
+                    # retry into a retirement hole at the current width
+                    with self._cond:
+                        self._queue.appendleft(req, tenant=req.tenant, cost=_cost(req))
+                    self.stats.width_grow_denials += 1
+                    break
                 self._resize(min(self._bsz * 2, self.max_batch))
             b = next(i for i, r in enumerate(self._rows) if r is None)
             n = len(req.ids)
@@ -514,11 +736,6 @@ class BatchScheduler:
                 if req.penalized:
                     # prompt occurrences host-side, shipped as the row's
                     # fresh counts; channel 1 (generated) starts at zero
-                    if self._counts is None:
-                        self._counts = torch.zeros(
-                            (self._bsz, 2, self._vocab), dtype=torch.int32,
-                            device=dev,
-                        )
                     prompt_counts = np.bincount(
                         np.asarray(req.ids, np.int64), minlength=self._vocab
                     )[:self._vocab]
@@ -600,40 +817,166 @@ class BatchScheduler:
 
     # ------------------------------------------------------------ decode
 
-    def _row_sampling_arrays(self) -> dict:
-        """The rows' sampling knobs as [bsz] device tensors, rebuilt when
-        rows change, plus the host-side all-greedy flag."""
-        if self._row_params_dirty or self._knobs is None:
-            rows = self._rows
-            dev = self._device
-
-            def col(fn, dtype):
-                return torch.tensor([fn(r) for r in rows], dtype=dtype, device=dev)
-
-            live = [r for r in rows if r is not None]
-            self._knobs = {
-                "temperature": col(lambda r: r.temperature if r else 0.0,
-                                   torch.float32),
-                "top_k": col(lambda r: r.top_k if r else 0, torch.int32),
-                "top_p": col(lambda r: r.top_p if r else 1.0, torch.float32),
-                # None selects the min-p-free path when no row asks for it
-                "min_p": (col(lambda r: r.min_p if r else 0.0, torch.float32)
-                          if any(r.min_p > 0 for r in live) else None),
+    def _stage_knobs(self, slot: _RingSlot) -> dict:
+        """The host flags of the rows' sampling knobs (any row sampled,
+        any min-p, any penalty). When rows changed, their knob values go
+        through the slot's staging into the static device buffers first:
+        a copy queued behind the windows in flight, so only later windows
+        read them."""
+        if self._row_params_dirty:
+            live = [r for r in self._rows if r is not None]
+            self._knob_flags = {
                 "any_sampled": any(r.temperature > 0 for r in live),
+                "min_p": any(r.min_p > 0 for r in live),
                 "penalized": any(r.penalized for r in live),
-                "repetition": col(lambda r: r.repetition_penalty if r else 1.0,
-                                  torch.float32),
-                "presence": col(lambda r: r.presence_penalty if r else 0.0,
-                                torch.float32),
-                "frequency": col(lambda r: r.frequency_penalty if r else 0.0,
-                                 torch.float32),
             }
+            knobs_f, top_k = slot.knobs_f.numpy(), slot.top_k.numpy()
+            knobs_f[:] = np.asarray([n for _, n in _KNOBS_F], np.float32)[:, None]
+            top_k[:] = 0
+            for b, r in enumerate(self._rows):
+                if r is not None:
+                    knobs_f[:, b] = (r.temperature, r.top_p, r.min_p,
+                                     r.repetition_penalty, r.presence_penalty,
+                                     r.frequency_penalty)
+                    top_k[b] = r.top_k
+            self._d_knobs_f.copy_(slot.knobs_f, non_blocking=self._on_card)
+            self._d_top_k.copy_(slot.top_k, non_blocking=self._on_card)
             self._row_params_dirty = False
-        return self._knobs
+        return self._knob_flags
 
-    def _window_size(self) -> int:
-        """Chunks to run before the next host read: 1 while a request
-        streams; else the tightest active row budget, capped at
+    def _decode_key(self, tw: int, flags: dict) -> tuple:
+        """The decode root's key: the JAX ``_decode_key`` fields (batch
+        bucket, table width, min_p flag, adapters flag, counts flag), then
+        the all-greedy short-cut's flag."""
+        return (self._bsz, tw, flags["min_p"], False, flags["penalized"],
+                flags["any_sampled"])
+
+    def _views(self, key: tuple) -> _DecodeViews:
+        """The static buffers viewed at ``key``'s bucket and width."""
+        bsz, tw, min_p, _, counts, any_sampled = key
+        f = {name: self._d_knobs_f[i, :bsz] for i, (name, _) in enumerate(_KNOBS_F)}
+        return _DecodeViews(
+            cur=self._d_cur[:bsz], off=self._d_off[:bsz],
+            # a [:bsz, :tw] slice of a 2-D buffer would not be contiguous,
+            # and the kernel takes contiguous tables only
+            tables=self._d_tables[:bsz * tw].view(bsz, tw),
+            rows=self._d_rows[:bsz],
+            temperature=f["temperature"], top_k=self._d_top_k[:bsz],
+            top_p=f["top_p"], min_p=f["min_p"] if min_p else None,
+            repetition=f["repetition"], presence=f["presence"],
+            frequency=f["frequency"],
+            counts=self._counts[:bsz] if counts else None,
+            toks=self._d_toks[:bsz], step=self._d_step,
+            any_sampled=any_sampled,
+        )
+
+    def _decode_step(self, v: _DecodeViews):
+        """One decode step for all rows, in place on ``v``'s buffers:
+        forward, sample, bump the penalty counts, write the token into
+        ``cur`` and into the chunk's token buffer at the step index,
+        advance the offsets and the index (mod decode_chunk). What a decode
+        graph captures: no host sync, no host copy."""
+        e = self.engine
+        logits, _ = e.forward(v.cur[:, None], self._cache, v.off, v.tables)
+        pen = {}
+        if v.counts is not None:
+            pen = dict(counts=v.counts, repetition=v.repetition,
+                       presence=v.presence, frequency=v.frequency)
+        nxt = sample_batched(
+            logits[:, -1], e.generator, v.temperature, v.top_k, v.top_p,
+            v.min_p, any_sampled=v.any_sampled, **pen,
+        )
+        if v.counts is not None:
+            v.counts[v.rows, 1, nxt] += 1
+        v.cur.copy_(nxt)
+        v.off.add_(1)
+        v.toks.index_copy_(1, v.step, nxt[:, None])
+        v.step.add_(1).remainder_(v.toks.shape[1])
+
+    def _capture(self, key: tuple) -> _DecodeGraph:
+        """Capture ``key``'s decode step as a CUDA graph. A warm-up step
+        runs first on the capture stream (lazy initialisations, the
+        kernels' one-time attribute calls, the stream's cuBLAS workspace)
+        over scratch state: all-zero tables (every write lands in the null
+        block, garbage by design; an int8 pool's live scales only grow, so
+        a live page must not be written), scratch cur, offsets, counts and
+        tokens. The capture reads and writes the live static buffers but
+        runs nothing. The counts both move are put back; the capture's are
+        the graph's deltas. A failure raises: there is no eager decode on
+        the card."""
+        e = self.engine
+        t0 = time.perf_counter()
+        v = self._views(key)
+        bsz, tw = v.tables.shape
+        zeros = functools.partial(torch.zeros, device=self._device)
+        scratch = replace(
+            v, cur=zeros(bsz, dtype=torch.int64), off=zeros(bsz, dtype=torch.int32),
+            tables=zeros((bsz, tw), dtype=torch.int32),
+            counts=None if v.counts is None else torch.zeros_like(v.counts),
+            toks=torch.zeros_like(v.toks), step=torch.zeros_like(v.step),
+        )
+        counters = launch_counters(e)
+        base = [getattr(h, n) for h, n in counters]
+        main = torch.cuda.current_stream(self._device)
+        stream = self._capture_stream
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            self._decode_step(scratch)
+        main.wait_stream(stream)
+        warm_s = time.perf_counter() - t0
+        warmed = [getattr(h, n) for h, n in counters]
+        graph = torch.cuda.CUDAGraph()
+        if v.any_sampled:
+            # each replay then draws at the generator's current offset and
+            # advances it: fresh noise per replay
+            graph.register_generator_state(e.generator)
+        # capture_begin/end rather than the torch.cuda.graph context, which
+        # also synchronises the device and empties the device and pinned
+        # host caches: work the next prefill would pay for again. Only this
+        # thread's unsafe calls break the capture (thread_local)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+            try:
+                self._decode_step(v)
+            finally:
+                graph.capture_end()
+        captured = [getattr(h, n) for h, n in counters]
+        deltas = [(h, n, c - w) for (h, n), c, w in zip(counters, captured, warmed)
+                  if c != w]
+        for (h, n), value in zip(counters, base):
+            setattr(h, n, value)
+        dg = self._graphs[key] = _DecodeGraph(graph, deltas)
+        seconds = time.perf_counter() - t0
+        st = self.stats
+        st.graph_captures += 1
+        st.graph_capture_s += seconds
+        st.graph_warmup_s += warm_s
+        st.graph_setup_forwards += captured[-1] - base[-1]
+        captures, total = st.graph_keys.get(key, (0, 0.0))
+        st.graph_keys[key] = (captures + 1, total + seconds)
+        logger.info("captured decode graph %s in %.3f s", key, seconds)
+        return dg
+
+    def _decode_chunk(self, key: tuple):
+        """One chunk: decode_chunk steps for all rows on the static buffers;
+        the tokens end in ``self._d_toks[:bsz]``. On the card every step is
+        a replay of the key's graph (captured on its first use); on the
+        CPU the step runs eagerly."""
+        K = self.engine.engine_cfg.decode_chunk
+        if not self._on_card:
+            v = self._views(key)
+            for _ in range(K):
+                self._decode_step(v)
+            return
+        graph = self._graphs.get(key) or self._capture(key)
+        for _ in range(K):
+            graph.replay()
+        self.stats.graph_replays += K
+
+    def _window_size(self, pending: int = 0) -> int:
+        """Chunks to dispatch before the next host sync: 1 while a request
+        streams (tokens flush at chunk cadence); else the tightest active
+        row budget, less ``pending`` tokens already in flight, capped at
         max_inflight_chunks (and at 2 while requests queue)."""
         e = self.engine
         K = e.engine_cfg.decode_chunk
@@ -641,17 +984,17 @@ class BatchScheduler:
             return 1
         min_left = min(
             r.max_new_tokens - len(r.out_ids) for r in self._rows if r is not None
-        )
+        ) - pending
         w = -(-min_left // K)
         if self._queue:
             w = min(w, 2)
         return max(1, min(w, e.engine_cfg.max_inflight_chunks))
 
-    def _prepare_window_tables(self, extra: int):
+    def _prepare_window_tables(self, extra: int) -> int | None:
         """Grow every active row's block table to cover the window's
         writes (positions < offset + extra); a row the pool cannot cover
-        fails alone. Returns the [bsz, tw] device tables, or None when no
-        active row survives."""
+        fails alone. Returns the window's pow2 table width, or None when
+        no active row survives."""
         for b, req in enumerate(self._rows):
             if req is None:
                 continue
@@ -671,71 +1014,185 @@ class BatchScheduler:
         self.stats.paged_live_blocks = sum(live)
         self.stats.paged_blocks_read_last_step = self._bsz * tw
         self.stats.paged_blocks_in_use = self._alloc.used_count
-        return torch.from_numpy(self._tables[:self._bsz, :tw].copy()).to(self._device)
-
-    def _decode_chunk(self, cur, offsets, tables, knobs, counts):
-        """One chunk: decode_chunk steps for ALL rows, the sampled tokens
-        staying on the device. Returns (cur, offsets, counts, toks [B, K])."""
-        e = self.engine
-        B = cur.shape[0]
-        rows = torch.arange(B, device=cur.device)
-        toks = []
-        for _ in range(e.engine_cfg.decode_chunk):
-            logits, _ = e.forward(cur[:, None], self._cache, offsets, tables)
-            pen = {}
-            if counts is not None:
-                pen = dict(counts=counts, repetition=knobs["repetition"],
-                           presence=knobs["presence"], frequency=knobs["frequency"])
-            cur = sample_batched(
-                logits[:, -1], e.generator, knobs["temperature"],
-                knobs["top_k"], knobs["top_p"], knobs["min_p"],
-                any_sampled=knobs["any_sampled"], **pen,
-            )
-            if counts is not None:
-                counts[rows, 1, cur] += 1
-            offsets = offsets + 1
-            toks.append(cur)
-        return cur, offsets, counts, torch.stack(toks, dim=1)
+        return tw
 
     def _step(self):
-        """One decode window: W chunks on the device, ONE host read of
-        their tokens, then per-row intake (stop, stream, retire)."""
-        e = self.engine
-        K = e.engine_cfg.decode_chunk
-        W = self._window_size()
-        tables = self._prepare_window_tables(W * K)
-        if tables is None:
+        """One hot-loop turn: keep the readback ring full, fetch the OLDEST
+        in-flight window (the only host sync), refill the ring BEFORE
+        processing its tokens, so token intake overlaps the next window's
+        device time, then process. With overlap off the ring holds one
+        window and this is the plain dispatch -> sync -> process loop."""
+        K = self.engine.engine_cfg.decode_chunk
+        depth = self._depth if self._overlap else 1
+        while len(self._inflight) < depth:
+            pending = sum(r["W"] for r in self._inflight) * K
+            if self._inflight and not self._overlap_ready(pending):
+                break
+            if not self._dispatch_window(pending):
+                break
+        if not self._inflight:
             self._compact_and_shrink()
             return
-        knobs = self._row_sampling_arrays()
-        counts = self._counts if knobs["penalized"] else None
+        rec = self._inflight.popleft()
+        toks_host = self._fetch_window(rec)
+        if self._overlap:
+            # rec's tokens are not in out_ids yet: they count as pending
+            while len(self._inflight) < self._depth:
+                pending = (sum(r["W"] for r in self._inflight) + rec["W"]) * K
+                if not self._overlap_ready(pending):
+                    break
+                if not self._dispatch_window(pending):
+                    break
+        if not self._inflight:
+            # the device goes idle while the host processes this window
+            _C_SYNC_STALLS.inc()
+        retired_any = self._process_window(rec, toks_host)
+        self._release_deferred()
+        if self.active == 0 and self._inflight:
+            # every row retired mid-ring: the rest is overshoot nobody
+            # reads; drain it so the batch can compact
+            retired_any |= self._drain_inflight()
+        if retired_any and not self._inflight:
+            # compaction moves rows, and in-flight records carry row
+            # indices: it waits for an empty ring
+            self._compact_and_shrink()
+
+    def _dispatch_window(self, pending: int = 0) -> bool:
+        """Dispatch one W-chunk window without a host sync and push its
+        record onto the ring. Host offsets advance AT DISPATCH, so every
+        later consumer sees the post-in-flight positions. With the ring
+        empty the host mirrors of cur and the offsets are copied into the
+        static buffers; otherwise the window chains on the device's own,
+        which the graph advanced. Returns False when no active row
+        survives table preparation."""
+        e = self.engine
+        K = e.engine_cfg.decode_chunk
+        W = self._window_size(pending)
+        tw = self._prepare_window_tables(W * K)
+        if tw is None:
+            return False
+        slot = self._slots.popleft()
+        bsz, nb = self._bsz, self._on_card
+        tables = slot.tables[:bsz * tw].view(bsz, tw)
+        tables.copy_(torch.from_numpy(self._tables[:bsz, :tw]))
+        self._d_tables[:bsz * tw].view(bsz, tw).copy_(tables, non_blocking=nb)
+        if not self._inflight:
+            slot.cur[:bsz] = torch.from_numpy(self._cur)
+            slot.off[:bsz] = torch.from_numpy(self._offsets)
+            self._d_cur[:bsz].copy_(slot.cur[:bsz], non_blocking=nb)
+            self._d_off[:bsz].copy_(slot.off[:bsz], non_blocking=nb)
+        flags = self._stage_knobs(slot)
+        key = self._decode_key(tw, flags)
         a = self.active
         _G_ACTIVE_ROWS.set(a)
-        _G_BATCH_FILL.set(a / self._bsz)
-        rows = [(b, r) for b, r in enumerate(self._rows) if r is not None]
+        _G_BATCH_FILL.set(a / bsz)
         t0 = time.perf_counter()
-        cur = torch.from_numpy(self._cur).to(self._device)
-        offsets = torch.from_numpy(self._offsets).to(self._device)
-        parts = []
-        for _ in range(W):
-            cur, offsets, counts, toks = self._decode_chunk(
-                cur, offsets, tables, knobs, counts
-            )
-            parts.append(toks)
-        toks_host = torch.cat(parts, dim=1).cpu().numpy()  # the window's read
-        _H_STEP.observe((time.perf_counter() - t0) * 1000.0)
-        self._cur = toks_host[:, -1].astype(np.int64).copy()
+        for c in range(W):
+            self._decode_chunk(key)
+            slot.toks[c, :bsz].copy_(self._d_toks[:bsz], non_blocking=nb)
+        if slot.event is not None:
+            slot.event.record()
+        self._inflight.append({
+            "slot": slot, "W": W, "bsz": bsz, "t0": t0,
+            "rows": [(b, r) for b, r in enumerate(self._rows) if r is not None],
+        })
         self._offsets = self._offsets + np.int32(W * K)
         self.stats.chunks += W
-        self.stats.windows += 1
-        if counts is not None:
+        if flags["penalized"]:
             self.stats.counts_windows += 1
+        self._last_dispatch_t = time.perf_counter()
+        return True
+
+    def _overlap_ready(self, pending: int) -> bool:
+        """May a look-ahead window dispatch with ``pending`` tokens already
+        in flight? Look-ahead never retires or fails a row and never takes
+        the sync cadence from work that wants the host: queued admissions
+        and streaming rows. Reads post-in-flight offsets."""
+        if not self._overlap or self.active == 0:
+            return False
+        if self._queue:
+            return False
+        if any(r is not None and r.stream for r in self._rows):
+            return False
+        e = self.engine
+        K = e.engine_cfg.decode_chunk
+        min_left = min(
+            r.max_new_tokens - len(r.out_ids) for r in self._rows if r is not None
+        )
+        # some row must still need tokens beyond those in flight, or the
+        # whole window would be budget overshoot
+        if min_left <= pending:
+            return False
+        W = self._window_size(pending)
+        need = 0
+        for b, r in enumerate(self._rows):
+            if r is None:
+                continue
+            upto = int(self._offsets[b]) + W * K
+            # hard capacity: the plain path may overshoot into the
+            # decode_chunk margin once; stacked look-ahead may not
+            if upto > e.max_seq_len:
+                return False
+            need += max(
+                0, ceil_div(upto, self._block_size) - len(self._row_blocks[b])
+            )
+        # the free list must cover the window outright
+        return need <= self._alloc.free_count
+
+    def _fetch_window(self, rec) -> np.ndarray:
+        """THE host sync of the decode hot loop: wait for one window's
+        token copy (its slot's event), then take the tokens [bsz, W*K] out
+        of the slot, which goes back to the ring."""
+        _G_OVERLAP.set(len(self._inflight))
+        _C_HOST_SYNCS.inc()
+        self.stats.windows += 1
+        slot = rec["slot"]
+        if slot.event is not None:
+            slot.event.synchronize()
+        bsz = rec["bsz"]
+        toks_host = np.concatenate(
+            [slot.toks[c, :bsz].numpy() for c in range(rec["W"])], axis=1
+        )
+        self._slots.append(slot)
+        if not self._inflight:
+            # ring drained: the host mirror of each row's latest token is
+            # the window's last column (mid-ring, a newer window already
+            # chains on the device's own)
+            self._cur = toks_host[:, -1].copy()
+        _H_STEP.observe((time.perf_counter() - rec["t0"]) * 1000.0)
+        return toks_host
+
+    def _process_window(self, rec, toks_host: np.ndarray) -> bool:
+        """Route one fetched window's tokens through the per-row intake.
+        Rows that retired since dispatch are skipped: their tokens are
+        overshoot."""
         retired_any = False
-        for b, req in rows:
-            req.chunks_decoded += W
+        for b, req in rec["rows"]:
+            if self._rows[b] is not req or req.done:
+                continue
+            req.chunks_decoded += rec["W"]
             retired_any |= self._process_row_tokens(b, req, toks_host[b])
-        if retired_any:
-            self._compact_and_shrink()
+        return retired_any
+
+    def _drain_inflight(self) -> bool:
+        """Fetch and process every in-flight window. Each fetch is a stall:
+        the device goes idle behind it."""
+        retired_any = False
+        while self._inflight:
+            rec = self._inflight.popleft()
+            _C_SYNC_STALLS.inc()
+            toks_host = self._fetch_window(rec)
+            retired_any |= self._process_window(rec, toks_host)
+        self._release_deferred()
+        return retired_any
+
+    def _release_deferred(self):
+        """Free the blocks of rows that retired while windows were in
+        flight, once the ring is empty."""
+        if self._deferred_blocks and not self._inflight:
+            self._alloc.deref(self._deferred_blocks)
+            self._deferred_blocks = []
+            self.stats.paged_blocks_in_use = self._alloc.used_count
 
     def _process_row_tokens(self, b: int, req: Request, tokens) -> bool:
         """THE per-row token intake: mark cancellation, accept tokens until

@@ -219,3 +219,5 @@ flash_attention.launches = 0  # row kernel
 flash_attention.tile_launches = 0  # tile kernel, bf16
 flash_attention.hd256_tile_launches = 0  # its head_dim-256 form
 flash_attention.f32_tile_launches = 0  # tile kernel, f32 form
+# the names of every counter above (see ops/ragged.py: LAUNCH_COUNTERS)
+LAUNCH_COUNTERS = tuple(_COUNTERS.values())

@@ -475,3 +475,6 @@ ragged_paged_attention.hd256_prefill_launches = 0
 ragged_paged_attention.int8_hd256_prefill_launches = 0
 ragged_paged_attention.hd256_decode_launches = 0
 ragged_paged_attention.int8_hd256_decode_launches = 0
+# the names of every counter above: what a captured CUDA graph's replay
+# adds back for the launches its capture counted (engine/scheduler.py)
+LAUNCH_COUNTERS = tuple(p + name for name in _COUNTERS.values() for p in ("", "int8_"))
