@@ -9,8 +9,9 @@ PyTorch port: a copy of ``bee2bee_tpu/config.py`` with the import root
 rewritten to ``bee2bee_tpu_torch``; comments that cited the JAX package's
 change history or the reference checkout's path are trimmed.
 ``NodeConfig.attention`` defaults to ``"auto"`` (the ragged kernels),
-``engine_config()`` builds the port's ``EngineConfig`` (no ``paged`` field)
-and refuses a mesh shape by name.
+``engine_config()`` builds the port's ``EngineConfig`` (no ``paged`` field),
+puts the pool in the engine's type unless ``kv_quant`` (the card's kernels
+read no bf16 pool under f32 queries) and refuses a mesh shape by name.
 """
 
 from __future__ import annotations
@@ -154,7 +155,8 @@ class NodeConfig:
             prefill_chunk=self.prefill_chunk or None,
             prefix_cache_entries=self.prefix_cache_entries,
             quantize=self.quantize,
-            cache_dtype="int8" if self.kv_quant else "bfloat16",
+            # the pool in the engine's type (the kernels read it so) or int8
+            cache_dtype="int8" if self.kv_quant else self.dtype,
             kv_block_size=self.kv_block_size,
             kv_pool_blocks=self.kv_pool_blocks or None,
             spec_tokens=self.spec_tokens,

@@ -35,14 +35,14 @@
 //         over HD (HD / 32 elements a lane) and a shuffle reduction;
 //   softmax online, in f32, with the accumulator in registers;
 //   out   written straight into [B, T, H * HD].
-// Which forms it serves (ops/ragged.py:ragged_kernel): f32 chunks shorter
-// than the f32 tile form's crossover, where it was as fast or faster on
-// the H100: over an int8 pool T < T_MIN_F32_INT8 at head_dim 64/128, and
-// at head_dim 256 T < T_MIN_F32_HD256 (T_MIN_F32_INT8_HD256 over an int8
-// pool). bf16 decode has the split-K kernel (ragged_decode_attention.cu),
-// and every other chunk a tensor-core tile kernel
-// (ragged_prefill_attention.cu: bf16, and f32 in 3xTF32), at head_dim 256
-// in their resident-Q forms.
+// Which forms it serves (ops/ragged.py:ragged_kernel): none any more. bf16
+// decode has the split-K kernel (ragged_decode_attention.cu), f32 decode
+// and the short f32 chunks the f32 split-K kernel
+// (ragged_decode_attention_f32.cu), and every other chunk a tensor-core
+// tile kernel (ragged_prefill_attention.cu: bf16, and f32 in 3xTF32), at
+// head_dim 256 in their resident-Q forms. It stays built and can be
+// forced by name (ops/ragged.py:_launch_kernel), where chip_smoke.py times
+// it beside the kernels that replaced it.
 
 #include "attention.cuh"
 

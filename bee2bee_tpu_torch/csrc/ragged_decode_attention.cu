@@ -51,8 +51,9 @@
 // block per SM; 128 KB or more of pages in flight per SM is well above
 // what the memory's latency needs.
 // One C entry point launches both kernels. Instantiated for HD 64, 128 and
-// 256 and BS 8, 16 and 32; f32 queries stay on the tile kernel's f32 form
-// or the row kernel.
+// 256 and BS 8, 16 and 32; f32 queries have their own split-K kernel
+// (ragged_decode_attention_f32.cu) and, from the crossover on, the tile
+// kernel's f32 form.
 
 #include <type_traits>
 

@@ -8,10 +8,10 @@ and the script exits non-zero):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from csrc/ with nvcc (one process per source, all at
-   once); ptxas's registers and spills of every decode, f32 and head_dim
-   256 instantiation, and a failure if a head_dim-256 instantiation the
-   dispatch names (tile, f32 tile, decode and merge, flash tile and f32
-   tile kernels) spills.
+   once); ptxas's registers and spills of every instantiation, and a
+   failure if a head_dim-256 instantiation the dispatch names (tile, f32
+   tile, both decode kernels and their merges, flash tile and f32 tile
+   kernels) spills.
 2. Ragged paged attention vs plain version at llama-3-8b's attention
    shapes (H=32, Hkv=8, hd=128, block size 16) in bf16, through the
    dispatching wrapper: decode (the split-K decode kernel) at ragged
@@ -22,16 +22,19 @@ and the script exits non-zero):
    head_dim 64, and a row at offset -1 beside a dead row; then verify
    chunks (one with a dead row) and prefill chunks, T in {5, 16, 17, 300,
    512 @0, 512 @1000, 2048 @0}, window + softcap + scale at T=5 and T=64,
-   block sizes 8 and 32 (the tile kernel); then f32 (the tile kernel's
-   3xTF32 form; over an int8 pool the row kernel below T_MIN_F32_INT8):
-   decode with a dead row, at offset -1 and at head_dim 64, verify T=3
-   and T=4, prefill T in {5, 17, 300, 512 @1000, 2048 @0}, window +
-   softcap + scale at T=5 and T=64, block sizes 8 and 32, head_dim 64;
-   then head_dim 256 at gemma-2-9b's heads (16/8, window 4096, softcap 50,
-   scale 1/16) in bf16 (the decode and tile kernels' head_dim-256 forms)
-   and f32 (the row kernel below T_MIN_F32_HD256, the f32 tile form from
-   it on; over an int8 pool T_MIN_F32_INT8_HD256): decode with window cuts, at offset -1 beside
-   a dead row and null tails, B=8 ctx 1024, block sizes 8 and 32; verify
+   block sizes 8 and 32 (the tile kernel); then f32 (the f32 split-K
+   decode kernel below T_MIN_F32, over an int8 pool T_MIN_F32_INT8, the
+   tile kernel's 3xTF32 form from it on): decode with a dead row, at
+   offset -1, at head_dim 64, B=1 at a 2048-token context, block sizes 8
+   and 32, window + softcap + scale; verify T=3, T=4 and T=5, prefill T in
+   {5, 17, 300, 512 @1000, 2048 @0}, window + softcap + scale at T=5 and
+   T=64, block sizes 8 and 32, head_dim 64; then head_dim 256 at
+   gemma-2-9b's heads (16/8, window 4096, softcap 50, scale 1/16) in bf16
+   (the decode and tile kernels' head_dim-256 forms) and f32 (the f32
+   decode kernel below T_MIN_F32_HD256, over an int8 pool
+   T_MIN_F32_INT8_HD256, the f32 tile form from it on): decode with
+   window cuts, at offset -1 beside a dead row and null tails, B=8 ctx
+   1024, block sizes 8 and 32; verify
    T=5 with a dead row, chunks of 17 and 300 cut by the window, prefill
    T=512 @1000, T=100 at block sizes 8 and 32; the row kernel is forced
    as well on the decode and T=17 cases in both types (those it served
@@ -41,24 +44,27 @@ and the script exits non-zero):
    Tolerance: max abs error <= 2e-2 against the plain version run in f32
    on the same bf16 inputs (bf16 output rounding is ~4e-3 at these
    magnitudes; the decode and tile kernels also round P to bf16, as the
-   JAX kernel does), 1e-4 in f32. Then times, each beside the plain
-   version, SDPA over the gathered view in q's type (the library
+   JAX kernel does; the f32 decode kernel computes in IEEE f32, so 1e-6
+   is what to expect there), 1e-4 in f32. Then times, each beside the
+   plain version, SDPA over the gathered view in q's type (the library
    yardstick, never used by the port; the backend it ran is printed once)
-   and the bound (f32: three TF32 products at the TF32 peak, with the
-   CUDA-core FFMA bound beside it): the decode kernel at B=8 over a
+   and the bound (f32 tile form: three TF32 products at the TF32 peak,
+   with the CUDA-core FFMA bound beside it; f32 decode kernel: the FFMA
+   products at the f32 CUDA-core peak): the decode kernel at B=8 over a
    1024-token context and at B=1 over 2048 (with its split plan), the row
-   and the tile kernel forced at the same decode inputs, the f32 tile
-   form at the B=8 decode shape (and the row kernel forced there), the
-   tile kernel and its f32 form at a 512-token prefill chunk at offset
-   1000; at gemma heads (window 4096 and scale 1/16; no softcap, which
-   SDPA cannot apply) the head_dim-256 decode form at B=8 ctx 1024 and
-   tile form at T=512 @1000, each with the other kernels that take the
-   inputs forced beside it (the row kernel among them), and the same in
-   f32 (the row kernel and the f32 tile form); the crossover of the row
-   and tile kernels over T, bf16 and f32, at llama-3-8b's and at gemma
-   heads; then the decode
-   sweep, 32 launches back to back over a 32-layer copy of the pool, in
-   ms per launch.
+   and the tile kernel forced at the same decode inputs, the f32 decode
+   kernel at the same two shapes (its plan; the f32 tile form and the row
+   kernel forced beside it), the tile kernel and its f32 form at a
+   512-token prefill chunk at offset 1000; at gemma heads (window 4096
+   and scale 1/16; no softcap, which SDPA cannot apply) the head_dim-256
+   decode form at B=8 ctx 1024 and tile form at T=512 @1000, each with the
+   other kernels that take the inputs forced beside it (the row kernel
+   among them), and the same in f32 (the f32 decode kernel, the f32 tile
+   form and the row kernel); the crossovers over T at llama-3-8b's and at
+   gemma heads: bf16, the row and the tile kernel; f32, the f32 decode
+   kernel and the f32 tile form (the dispatch's T_MIN_F32 and its kin);
+   then the decode sweep, 32 launches back to back over a 32-layer copy of
+   the pool, in ms per launch.
 3. The same cases for the int8-pool form: random int8 pages, random
    per-(kv head, block) scales, and a null block of +-127 under a scale
    of 1e3 that no reader may touch. Tolerance 2e-2 in bf16 and 1e-4 in
@@ -85,9 +91,9 @@ and the script exits non-zero):
 5. A whole forward at llama-3-8b width, 2 layers: a 300-token prefill and
    8 greedy decode steps through the kernels and through the plain
    version (asked for explicitly, here only), in f32 over an f32 pool and
-   over an int8 pool (each forward through the kernel the rule names:
-   the f32 tile form, and over the int8 pool the row kernel for the
-   decode steps; logits within 2e-3, greedy tokens equal;
+   over an int8 pool (each forward through the kernels the rule names:
+   the f32 tile form for the prefill, the f32 decode kernel for the decode
+   steps; logits within 2e-3, greedy tokens equal;
    the int8-vs-f32 pool logit gap printed for information; each forward's
    device busy time under torch.profiler), then in bf16 over a bf16 pool
    and an int8 pool, whose 300-token prefill goes through the tile kernel
@@ -127,7 +133,20 @@ and the script exits non-zero):
    launch, graph and replay checks on the int8 counters (the bf16 pool's
    stay 0; the replay check compares the scales too); pool bytes beside
    the bf16 pool's.
-8. The node (serve-cuda's path): the port's run_p2p_node boots a mesh
+8. The f32 slice: the same weights cast to f32 (the bf16 copy freed),
+   served by CUDAService("llama-3-8b") with EngineConfig(dtype="float32")
+   over an int8 pool and then an f32 pool, the same 8 execute calls and
+   one execute_stream (no ring check). On each pool every decode step is
+   a graph replay; the kernels the rule names for f32 queries (the f32
+   decode kernel for the decode steps, the f32 tile form for the prefill
+   chunks) launch n_layers x the forward calls between them, the decode
+   kernel n_layers x the replayed steps; the row kernel's counters stay
+   0. Over the int8 pool one decode chunk replayed and run eagerly from
+   one state gives bit-equal tokens, cur, offsets, pages and scales.
+   Prints, beside the card's name and power limit, TTFT, decode tok/s,
+   peak memory and pool bytes, and the replayed B=8 ctx-1024 step's host
+   wall, device busy, idle share and attention ms per launch.
+9. The node (serve-cuda's path): the port's run_p2p_node boots a mesh
    node with its aiohttp gateway on free loopback ports and
    CUDAService("llama-3-8b") from the port's NodeConfig defaults (bf16
    pool, random init from seed 0), loaded in an executor while the
@@ -146,9 +165,11 @@ and the script exits non-zero):
    stall during the load, and TTFT and tok/s through the gateway against
    the direct call (medians of 3 alternating pairs), with the card's name
    and power limit.
-9. The kernel table as one JSON line (the head_dim-256 forms' launches
-   from phase 5's gemma-geometry forward; the decode and tile kernels'
-   from phases 6-8), then the result line.
+10. The kernel table as one JSON line (the head_dim-256 forms' launches
+   from phase 5's gemma-geometry forward; the bf16 decode and tile
+   kernels' from phases 6, 7 and 9; the f32 decode kernel's and the f32
+   tile forms' from phase 8 and phase 5's f32 forwards), then the result
+   line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script.
@@ -249,13 +270,11 @@ def phase_device_and_build():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build: {source}: {len(regs)} kernels; ptxas spill lines "
             f"{sorted(set(spills)) or 'none'}")
-        # every instantiation of the decode kernel, of the f32 tile forms
-        # and at head_dim 256; the tile and decode kernels' head_dim-256
-        # forms must not spill
+        # every instantiation's registers and spills; the head_dim-256
+        # forms the dispatch names must not spill
         for name, line in ptxas_entries(report):
             hd256 = name.split("<")[1].startswith("256")
-            if source == "ragged_decode_attention.cu" or "_f32_" in name or hd256:
-                log(f"build: {source}: {name}: {line}")
+            log(f"build: {source}: {name}: {line}")
             if hd256 and name.startswith(HD256_FORMS):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{source}: {name} spills: {line}")
@@ -264,8 +283,8 @@ def phase_device_and_build():
 
 # the kernels whose head_dim-256 instantiations the dispatch names
 HD256_FORMS = ("ragged_prefill_kernel", "ragged_prefill_f32_kernel",
-               "ragged_decode_kernel", "ragged_decode_merge", "flash_tile_kernel",
-               "flash_tile_f32_kernel")
+               "ragged_decode_kernel", "ragged_decode_merge", "ragged_decode_f32_kernel",
+               "ragged_decode_f32_merge", "flash_tile_kernel", "flash_tile_f32_kernel")
 
 
 def ptxas_entries(report: str):
@@ -376,14 +395,23 @@ RAGGED_CASES = [
     ("BS=32 T=100", dict(offs=[3, 77], T=100, BS=32), {}),
 ]
 F32 = dict(dtype=torch.float32)
-# the f32 tile form (3xTF32), decode included
+# f32: the f32 decode kernel (decode and the chunks shorter than the f32
+# tile form's crossover), the f32 tile form (3xTF32) from the crossover on
 F32_RAGGED_CASES = [
     ("f32 decode + dead row", dict(offs=[0, 17, 300, 1023], T=1, dead=(2,), **F32), {}),
     ("f32 decode offset -1 + dead row", dict(offs=[-1, 300, 57, 1000], T=1, dead=(1,),
                                              **F32), {}),
     ("f32 decode hd=64", dict(offs=[3, 40, 100, 1000], T=1, hd=64, **F32), {}),
+    ("f32 decode B=1 ctx 2048", dict(offs=[2047], T=1, **F32), {}),
+    ("f32 decode BS=8 + null tails", dict(offs=[3, 40, 100, 255], T=1, BS=8,
+                                          extra_tables=9, **F32), {}),
+    ("f32 decode BS=32", dict(offs=[3, 40, 100, 1000], T=1, BS=32, extra_tables=3,
+                              **F32), {}),
+    ("f32 decode window+softcap+scale", dict(offs=[5, 70, 129, 1000, 71, 1500], T=1,
+                                             **F32), WINDOW_KW),
     ("f32 verify T=3", dict(offs=[7, 300, 1023], T=3, **F32), {}),
     ("f32 verify T=4", dict(offs=[7, 300, 1023], T=4, **F32), {}),
+    ("f32 verify T=5", dict(offs=[7, 300, 1023], T=5, **F32), {}),
     ("f32 window+softcap+scale T=5", dict(offs=[5, 70, 129, 1000], T=5, **F32),
      WINDOW_KW),
     ("f32 prefill T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,),
@@ -401,8 +429,9 @@ F32_RAGGED_CASES = [
 ]
 # gemma-2-9b's attention (models/config.py): 16 heads over 8 kv heads at
 # head_dim 256, a 4096-key window, softcap 50, score scale 1/sqrt(256): in
-# bf16 the decode and tile kernels' head_dim-256 forms, in f32 the row
-# kernel
+# bf16 the decode and tile kernels' head_dim-256 forms, in f32 the f32
+# decode kernel below T_MIN_F32_HD256 (T_MIN_F32_INT8_HD256), the f32 tile
+# form from it on
 GEMMA = dict(H=16, Hkv=8, hd=256)
 GEMMA_KW = dict(window=4096, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
 HD256_RAGGED_CASES = [
@@ -453,23 +482,30 @@ def int8_pools(gen, NB, Hkv=8, BS=16, hd=128):
     return kq, vq, ks, vs
 
 
-def split_plan(q, kp, tb) -> str:
-    """The decode kernel's split plan for these inputs, as printed."""
-    from bee2bee_tpu_torch.ops.ragged import _sm_count, decode_splits
+def split_plan(q, kp, tb, kernel: str = "decode") -> str:
+    """The split plan of a decode kernel (``kernel``: "decode",
+    "decode_hd256" or "decode_f32") for these inputs, as printed."""
+    from bee2bee_tpu_torch.ops.ragged import _sm_count, decode_f32_splits, decode_splits
 
-    splits, pages = decode_splits(q.shape[0], kp.shape[0], tb.shape[1], kp.shape[2],
-                                  _sm_count(q.device.index))
+    plan = decode_f32_splits if kernel == "decode_f32" else decode_splits
+    splits, pages = plan(q.shape[0], kp.shape[0], tb.shape[1], kp.shape[2],
+                         _sm_count(q.device.index))
     return f"{splits} splits x {pages} pages"
 
 
-def bounds(nbytes: int, flops: int, dtype) -> dict:
+def bounds(nbytes: int, flops: int, dtype, kernel: str = "") -> dict:
     """The least time the card could take: max(bytes at the HBM rate, flops
-    at the peak of the type's products). f32: three TF32 products at the
-    TF32 tensor-core peak (f32-accurate work on the tensor cores); the
-    CUDA-core f32 time (one FFMA product) is kept beside it."""
+    at the peak of the products the kernel does). f32: three TF32 products
+    at the TF32 tensor-core peak (f32-accurate work on the tensor cores),
+    the CUDA-core f32 time (one FFMA product) kept beside it; the f32
+    decode kernel (``kernel`` "decode_f32") does FFMA products, so its
+    bound is that FFMA time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if dtype == torch.bfloat16:
         t_ops, peak = flops / BF16_FLOPS_PER_S * 1e3, "bf16 989 TFLOP/s"
+    elif kernel == "decode_f32":
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        peak = f"f32 FFMA at {F32_FLOPS_PER_S / 1e12} TFLOP/s"
     else:
         t_ops = TF32_PRODUCTS * flops / TF32_FLOPS_PER_S * 1e3
         peak = f"{TF32_PRODUCTS}xTF32 at {TF32_FLOPS_PER_S / 1e12} TFLOP/s"
@@ -478,7 +514,7 @@ def bounds(nbytes: int, flops: int, dtype) -> dict:
                bytes=nbytes, flops=flops)
     text = (f"bound {bound_ms:.4f} ms ({out['bound_by']}: {nbytes} B -> "
             f"{t_bytes:.4f} ms, {flops} flop, {peak} -> {t_ops:.4f} ms)")
-    if dtype == torch.float32:
+    if dtype == torch.float32 and kernel != "decode_f32":
         out["ffma_bound_ms"] = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
         text += f", FFMA bound {out['ffma_bound_ms']:.4f} ms (f32 at 67 TFLOP/s)"
     out["text"] = text
@@ -563,9 +599,9 @@ def time_ragged(label, q, kp, vp, tb, off, offs, T, flush, scales=None, window=0
     nbytes, flops = attention_work(offs, T, H, Hkv, hd, BS, window, q.element_size(),
                                    MB, kv_bytes=kv_bytes,
                                    scale_bytes=0 if scales is None else 4)
-    b = bounds(nbytes, flops, q.dtype)
-    plan = (f", plan {split_plan(q, kp, tb)}"
-            if ragged_kernel(q.dtype, T, hd).startswith("decode") else "")
+    kernel = ragged_kernel(q.dtype, T, hd, scales is not None, G)
+    b = bounds(nbytes, flops, q.dtype, kernel)
+    plan = f", plan {split_plan(q, kp, tb, kernel)}" if kernel.startswith("decode") else ""
     log(f"timing {label} B={B} T={T} ctx={offs[0] + T} H={H}/{Hkv} hd={hd} "
         f"({q.dtype}{plan}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, {b['text']}, share of bound {b['bound_ms'] / ms:.3f}")
@@ -603,14 +639,16 @@ def time_decode_sweep(label, q, kp, vp, tb, off, scales=None, layers=32):
 RAGGED_COUNTERS = {"row": "ragged", "tile": "ragged_prefill",
                    "tile_hd256": "ragged_prefill_hd256",
                    "tile_f32": "ragged_prefill_f32", "decode": "ragged_decode",
-                   "decode_hd256": "ragged_decode_hd256"}
+                   "decode_hd256": "ragged_decode_hd256",
+                   "decode_f32": "ragged_decode_f32"}
 
 
-def ragged_counter(q, int8: bool) -> str:
-    """The launch counter the dispatch rule names for these queries."""
+def ragged_counter(q, Hkv: int, int8: bool) -> str:
+    """The launch counter the dispatch rule names for these queries over
+    ``Hkv`` kv heads."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
-    kernel = ragged_kernel(q.dtype, q.shape[1], q.shape[3], int8)
+    kernel = ragged_kernel(q.dtype, q.shape[1], q.shape[3], int8, q.shape[2] // Hkv)
     return RAGGED_COUNTERS[kernel] + ("_int8" if int8 else "")
 
 
@@ -621,20 +659,25 @@ def check_one_launch(label: str, counter: str) -> None:
 
 
 def time_crossover(label, gen, flush, int8, dtype=torch.bfloat16, heads=None):
-    """The row kernel and the tile kernel of q's type forced at the same
-    inputs, over T, at llama-3-8b's heads or ``heads`` (GEMMA: the tile
-    kernel's head_dim-256 form): where the tile kernel starts to win (the
-    dispatch's T_MIN, T_MIN_F32), and the row kernel at the timed prefill
-    chunk."""
-    from bee2bee_tpu_torch.ops.ragged import _launch_kernel, row_offsets
+    """Two kernels of q's type forced at the same inputs over T, at
+    llama-3-8b's heads or ``heads`` (GEMMA: the head_dim-256 forms). bf16:
+    the row kernel and the tile kernel (where the tile kernel starts to
+    win, the dispatch's T_MIN; and the row kernel at the timed prefill
+    chunk). f32: the f32 decode kernel, at each T whose G * T rows it
+    holds, and the f32 tile form (where the tile form starts to win, the
+    dispatch's T_MIN_F32 and its kin)."""
+    from bee2bee_tpu_torch.ops.ragged import (
+        DECODE_F32_MAX_ROWS, _launch_kernel, row_offsets,
+    )
 
     heads = heads or {}
     hd = heads.get("hd", 128)
-    tile = ("tile_f32" if dtype == torch.float32
-            else "tile_hd256" if hd == 256 else "tile")
-    shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)), (1, 1000, (512,)))
     if dtype == torch.float32:
-        shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 1000, (512,)))
+        first, tile = "decode_f32", "tile_f32"
+        shapes = ((8, 1000, (1, 2, 3, 4, 5, 6, 8, 12, 16, 32)),)
+    else:
+        first, tile = "row", "tile_hd256" if hd == 256 else "tile"
+        shapes = ((8, 1000, (1, 2, 4, 8, 16, 32)), (1, 48, (2, 8, 16)), (1, 1000, (512,)))
     for B, off0, Ts in shapes:
         for T in Ts:
             q, kp, vp, tb, off = make_case(gen, offs=[off0] * B, T=T, dtype=dtype,
@@ -648,23 +691,29 @@ def time_crossover(label, gen, flush, int8, dtype=torch.bfloat16, heads=None):
                 return _launch_kernel(q, kp, vp, tb, rows, 0, 1.0 / math.sqrt(hd),
                                       0.0, *scales, kernel=kernel)
 
-            row_ms = cuda_time_ms(lambda: run("row"), flush=flush)
-            tile_ms = cuda_time_ms(lambda: run(tile), flush=flush)
+            kernels = (first, tile)
+            if first == "decode_f32" and q.shape[2] // kp.shape[0] * T > DECODE_F32_MAX_ROWS:
+                kernels = (tile,)
+            ms = {k: cuda_time_ms(lambda: run(k), flush=flush) for k in kernels}
             log(f"crossover {label} B={B} T={T} ctx={off0 + T} H={q.shape[2]}/"
-                f"{kp.shape[0]} hd={hd} ({dtype}): row kernel {row_ms:.4f} ms, {tile} "
-                f"kernel {tile_ms:.4f} ms")
+                f"{kp.shape[0]} hd={hd} ({dtype}): "
+                + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items()))
 
 
-def forced_kernels(q) -> tuple:
-    """The ragged kernels that take these queries: bf16, the decode kernel
-    (T = 1), the tile kernel and the row kernel, the first two in their
-    head_dim-256 forms where hd is 256; f32, the f32 tile form and the row
-    kernel."""
+def forced_kernels(q, Hkv: int) -> tuple:
+    """The ragged kernels that take these queries over ``Hkv`` kv heads:
+    bf16, the decode kernel (T = 1), the tile kernel and the row kernel,
+    the first two in their head_dim-256 forms where hd is 256; f32, the f32
+    decode kernel (where it holds the G * T rows), the f32 tile form and
+    the row kernel."""
+    from bee2bee_tpu_torch.ops.ragged import DECODE_F32_MAX_ROWS
+
     T, hd = q.shape[1], q.shape[3]
     sfx = "_hd256" if hd == 256 else ""
     if q.dtype == torch.bfloat16:
         return (("decode" + sfx,) if T == 1 else ()) + ("tile" + sfx, "row")
-    return ("tile_f32", "row")
+    fits = q.shape[2] // Hkv * T <= DECODE_F32_MAX_ROWS
+    return (("decode_f32",) if fits else ()) + ("tile_f32", "row")
 
 
 def time_forced(label, q, kp, vp, tb, off, flush, scales=None, window=0,
@@ -678,9 +727,9 @@ def time_forced(label, q, kp, vp, tb, off, flush, scales=None, window=0,
     scale = sm_scale or 1.0 / math.sqrt(q.shape[3])
     ms = {k: cuda_time_ms(lambda: _launch_kernel(
         q, kp, vp, tb, rows, window, scale, 0.0, *sc, kernel=k),
-        flush=flush) for k in forced_kernels(q)}
-    plan = (f" (plan {split_plan(q, kp, tb)})"
-            if any(k.startswith("decode") for k in ms) else "")
+        flush=flush) for k in forced_kernels(q, kp.shape[0])}
+    plan = "".join(f" ({k} plan {split_plan(q, kp, tb, k)})" for k in ms
+                   if k.startswith("decode"))
     log(f"forced {label} B={q.shape[0]} T={q.shape[1]} hd={q.shape[3]} ({q.dtype})"
         f"{plan}: " + ", ".join(f"{k} kernel {t:.4f} ms" for k, t in ms.items()))
     return ms
@@ -705,7 +754,7 @@ def phase_ragged_vs_plain(flush, int8=False):
             kp, vp, ks, vs = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
                                         BS=kp.shape[2], hd=kp.shape[3])
             kw = dict(kw, k_scale=ks, v_scale=vs)
-        counter = ragged_counter(q, int8)
+        counter = ragged_counter(q, kp.shape[0], int8)
         reset_counts()
         got = ragged_paged_attention(q, kp, vp, tb, off, **kw)
         torch.cuda.synchronize()
@@ -724,7 +773,7 @@ def phase_ragged_vs_plain(flush, int8=False):
         if "offset -1" in label:
             check(not bool(got[0].any()), f"{tag}: {label}: the row at -1 is not 0")
         if counter.startswith("ragged_decode"):
-            # the split-K merge runs in a fixed order: a second call repeats
+            # the split-K merges run in a fixed order: a second call repeats
             # the first bit for bit
             again = ragged_paged_attention(q, kp, vp, tb, off, **kw)
             check(torch.equal(got, again), f"{tag}: {label}: a second call differs")
@@ -750,6 +799,7 @@ def phase_ragged_vs_plain(flush, int8=False):
             ("decode", [1023] * 8, 1, torch.bfloat16, {}, True),
             ("decode_b1", [2047], 1, torch.bfloat16, {}, True),
             ("decode_f32", [1023] * 8, 1, torch.float32, {}, True),
+            ("decode_f32_b1", [2047], 1, torch.float32, {}, True),
             ("prefill", [1000], 512, torch.bfloat16, {}, False),
             ("prefill_f32", [1000], 512, torch.float32, {}, False),
             ("decode_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA, True),
@@ -762,7 +812,7 @@ def phase_ragged_vs_plain(flush, int8=False):
             kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
                                          hd=kp.shape[3])
         kw = GEMMA_TIMED_KW if heads else {}
-        timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, int8)} "
+        timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, kp.shape[0], int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
                                      scales=scales, **kw)
         if forced:
@@ -1006,18 +1056,21 @@ def phase_forward_parity():
 
     cfg, params, run = forward_setup()
     n_prompt, n_steps = 300, 8
+    f32_launches: dict = {}
 
     def check_f32_launches(tag, int8):
         # the prefill and each decode step through the kernel the rule
         # names for its chunk length and pool form, and no other
         want: dict = {}
         for T, n in ((n_prompt, 1), (1, n_steps)):
-            kernel = ragged_kernel(torch.float32, T, cfg.head_dim, int8)
+            kernel = ragged_kernel(torch.float32, T, cfg.head_dim, int8,
+                                   cfg.n_heads // cfg.n_kv_heads)
             counter = RAGGED_COUNTERS[kernel] + ("_int8" if int8 else "")
             want[counter] = want.get(counter, 0) + cfg.n_layers * n
         got = {k: v for k, v in read_counts().items() if v}
         check(got == want, f"{tag}: launches {got}, expected {want}")
         log(f"{tag}: launches {got}")
+        f32_launches.update(got)
 
     reset_counts()
     k_logits, k_steps, k_toks = run(ragged_paged_attention)
@@ -1091,6 +1144,7 @@ def phase_forward_parity():
         check(err <= tol, f"{tag}: logits differ by {err} > {tol}")
     del params, bparams
     torch.cuda.empty_cache()
+    return f32_launches
 
 
 def phase_gemma_forward() -> dict:
@@ -1150,7 +1204,7 @@ def cast_tree(tree, dtype):
     return tree
 
 
-# ------------------------------------------------------------ phases 6-7
+# ------------------------------------------------------------ phases 6-8
 
 
 # the port's attention kernels by (part of) name: the ragged kernels (the
@@ -1192,7 +1246,7 @@ def device_profile(fn, calls: int, launches: int, tries: int = 3):
             [(k[:48], round(t / busy_us, 3)) for k, t in top])
 
 
-def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
+def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, full=True):
     """Where the serving forwards' time goes: a B-row decode step at
     context ``ctx`` and one ``prefill``-token prefill chunk. Host wall time
     (synchronised, profiler off) beside the device's busy time (kernel
@@ -1200,7 +1254,8 @@ def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
     share. The decode step three ways: the bare forward, the scheduler's
     decode step run eagerly (forward, greedy sampling, the in-place state
     updates) and the same step replayed from its captured CUDA graph, as
-    the served path runs it; and replayed at batch 1 (phase 8's batch)."""
+    the served path runs it; and replayed at batch 1 (phase 9's batch).
+    Not ``full``: the B-row step replayed from its graph alone."""
     from bee2bee_tpu_torch.models import core
 
     cfg = engine.model_cfg
@@ -1224,20 +1279,23 @@ def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
 
     sch = engine.scheduler
     kv = engine.engine_cfg.cache_dtype
+    if engine.engine_cfg.dtype != "bfloat16":
+        kv = f"{engine.engine_cfg.dtype} queries, {kv}"
     steps_of = []
-    for rows in (B, 1):  # at batch 1 too: phase 8's traffic
+    for rows in (B, 1) if full else (B,):  # at batch 1 too: phase 9's traffic
         key, views, load = decode_state(engine, rows, ctx)
         graph = sch._graphs.get(key) or sch._capture(key)
         label = f"decode step B={rows} ctx={ctx}, scheduler step"
-        if rows == B:
+        if rows == B and full:
             steps_of.append((f"{label} eager ({kv} pool)",
                              functools.partial(sch._decode_step, views), steps, load))
         steps_of.append((f"{label} graph-replayed ({kv} pool)", graph.replay, steps,
                          load))
-    for label, fn, calls, load in (
-            (f"decode step B={B} ctx={ctx} ({kv} pool)", decode, steps, None),
-            *steps_of,
-            (f"prefill chunk T={prefill} ({kv} pool)", prefill_chunk, 2, None)):
+    if full:
+        steps_of = [(f"decode step B={B} ctx={ctx} ({kv} pool)", decode, steps, None),
+                    *steps_of,
+                    (f"prefill chunk T={prefill} ({kv} pool)", prefill_chunk, 2, None)]
+    for label, fn, calls, load in steps_of:
         if load is not None:
             load()
         fn()
@@ -1252,7 +1310,7 @@ def step_breakdown(engine, B=8, ctx=1024, steps=10, prefill=2048):
             f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}; "
             f"attention kernels {attn_ms / cfg.n_layers:.4f} ms per launch "
             f"({attn_ms / busy_ms:.3f} of busy); "
-            f"top kernels by device time {top}")
+            f"top kernels by device time {top}; card {card}")
     weight_bytes = engine.info["n_params"] * engine.dtype.itemsize
     log(f"breakdown: weights {weight_bytes} B -> "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms per step at "
@@ -1460,13 +1518,9 @@ def graph_stats(engine, tag: str, since: dict | None = None) -> dict:
 
 def reset_counts():
     from bee2bee_tpu_torch.ops.flash import flash_attention
-    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention
+    from bee2bee_tpu_torch.ops.ragged import LAUNCH_COUNTERS, ragged_paged_attention
 
-    for name in ("launches", "int8_launches", "prefill_launches",
-                 "int8_prefill_launches", "f32_prefill_launches",
-                 "int8_f32_prefill_launches", "decode_launches", "int8_decode_launches",
-                 "hd256_prefill_launches", "int8_hd256_prefill_launches",
-                 "hd256_decode_launches", "int8_hd256_decode_launches"):
+    for name in LAUNCH_COUNTERS:
         setattr(ragged_paged_attention, name, 0)
     flash_attention.launches = 0
     flash_attention.tile_launches = 0
@@ -1491,6 +1545,8 @@ def read_counts() -> dict:
         "ragged_prefill_hd256_int8": ragged_paged_attention.int8_hd256_prefill_launches,
         "ragged_decode_hd256": ragged_paged_attention.hd256_decode_launches,
         "ragged_decode_hd256_int8": ragged_paged_attention.int8_hd256_decode_launches,
+        "ragged_decode_f32": ragged_paged_attention.f32_decode_launches,
+        "ragged_decode_f32_int8": ragged_paged_attention.int8_f32_decode_launches,
         "flash": flash_attention.launches,
         "flash_tile": flash_attention.tile_launches,
         "flash_tile_hd256": flash_attention.hd256_tile_launches,
@@ -1503,15 +1559,16 @@ def pool_bytes(engine) -> int:
                for t in engine.scheduler._cache.values())
 
 
-def load_slice(cache_dtype="bfloat16", params=None):
-    """CUDAService over llama-3-8b: a random init from SEED, or the given
-    parameters shared with another engine (no second 16 GB init)."""
+def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16"):
+    """CUDAService over llama-3-8b computing in ``dtype``: a random init
+    from SEED, or the given parameters (in ``dtype``) shared with another
+    engine (no second init)."""
     from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
     from bee2bee_tpu_torch.services import CUDAService
 
     ecfg = EngineConfig(
         max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
-        rng_seed=SEED, cache_dtype=cache_dtype,
+        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype,
     )
     t0 = time.perf_counter()
     engine = None
@@ -1523,19 +1580,29 @@ def load_slice(cache_dtype="bfloat16", params=None):
     return svc, time.perf_counter() - t0
 
 
-def phase_slice(cache_dtype="bfloat16", params=None):
+def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
-    just before and read just after. Returns (the launch counts, pool
-    bytes, the engine's params)."""
+    just before and read just after. The bf16 slices (phases 6-7) then run
+    the ring check, the replayed-vs-eager chunk and the whole breakdown;
+    the f32 slice (phase 8) the replayed-vs-eager chunk over the int8 pool
+    and the replayed B=8 step's breakdown. Returns (the launch counts,
+    pool bytes, the engine's params)."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
-    suffix = "_int8" if cache_dtype == "int8" else ""
-    dec, tile = "ragged_decode" + suffix, "ragged_prefill" + suffix
+    int8 = cache_dtype == "int8"
+    bf16 = dtype == "bfloat16"
     torch.cuda.reset_peak_memory_stats()
-    svc, load_s = load_slice(cache_dtype, params)
+    svc, load_s = load_slice(cache_dtype, params, dtype)
     engine = svc.engine
     cfg = engine.model_cfg
-    tag = f"slice[{cache_dtype} pool]"
+    G = cfg.n_heads // cfg.n_kv_heads
+    # the kernels the rule names for a decode step and for a prefill chunk
+    # (every prefill bucket is 64 tokens or more)
+    dec_kernel = ragged_kernel(engine.dtype, 1, cfg.head_dim, int8, G)
+    tile_kernel = ragged_kernel(engine.dtype, 64, cfg.head_dim, int8, G)
+    suffix = "_int8" if int8 else ""
+    dec, tile = RAGGED_COUNTERS[dec_kernel] + suffix, RAGGED_COUNTERS[tile_kernel] + suffix
+    tag = f"slice[{cache_dtype} pool]" if bf16 else f"slice[{dtype}, {cache_dtype} pool]"
     log(f"{tag}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
         f"loaded ({'shared params' if params is not None else 'random init'}, "
         f"seed {SEED}) in {load_s:.2f} s; {engine.info['n_params']} params")
@@ -1620,9 +1687,11 @@ def phase_slice(cache_dtype="bfloat16", params=None):
             f"-> {new_tokens / wall:.2f} tok/s aggregate incl. prefill, "
             f"{new_tokens - len(results)} decode tokens in {decode_s:.3f} s after "
             f"the last first token -> {(new_tokens - len(results)) / decode_s:.2f} "
-            f"decode tok/s; peak memory {torch.cuda.max_memory_allocated()} B; "
-            f"pool {nbytes} B ({engine.pool_blocks} blocks)")
-        named = [ragged_kernel(engine.dtype, T, cfg.head_dim) for T in chunks]
+            f"decode tok/s; TTFT {min(r['ttft_ms'] for r in results)}-"
+            f"{max(r['ttft_ms'] for r in results)} ms; peak memory "
+            f"{torch.cuda.max_memory_allocated()} B; pool {nbytes} B "
+            f"({engine.pool_blocks} blocks); card {card}")
+        named = [ragged_kernel(engine.dtype, T, cfg.head_dim, int8, G) for T in chunks]
         prefills = sum(T > 1 for T in chunks)
         # every decode step the path served is a graph replay (one forward
         # each, counted back by the replay); the eager decode forwards are
@@ -1630,11 +1699,11 @@ def phase_slice(cache_dtype="bfloat16", params=None):
         decodes = graphs["replays"]
         eager_decodes = sum(T == 1 for T in chunks)
         log(f"{tag}: kernel launches {counts}, forward calls {forwards} "
-            f"({prefills} prefill chunks, {named.count('tile')} of them through the "
-            f"tile kernel; {decodes} decode steps replayed from graphs, whose "
-            f"captures ran through the {ragged_kernel(engine.dtype, 1, cfg.head_dim)} "
-            f"kernel; {eager_decodes} decode forwards run eagerly, all in warm-up "
-            f"and capture), n_layers {cfg.n_layers}")
+            f"({prefills} prefill chunks, {named.count(tile_kernel)} of them through "
+            f"the {tile_kernel} kernel; {decodes} decode steps replayed from graphs, "
+            f"whose captures ran through the {dec_kernel} kernel; {eager_decodes} "
+            f"decode forwards run eagerly, all in warm-up and capture), n_layers "
+            f"{cfg.n_layers}")
         check(decodes > 0, f"{tag}: no decode graph was replayed")
         check(eager_decodes == graphs["setup_forwards"],
               f"{tag}: {eager_decodes} eager decode forwards, "
@@ -1645,7 +1714,7 @@ def phase_slice(cache_dtype="bfloat16", params=None):
         check(counts[dec] + counts[tile] == cfg.n_layers * forwards,
               f"{tag}: launches {counts[dec]} + {counts[tile]} != {cfg.n_layers} x "
               f"{forwards} forwards")
-        check(counts[tile] > 0 and named.count("tile") == prefills
+        check(counts[tile] > 0 and named.count(tile_kernel) == prefills
               and counts[tile] == cfg.n_layers * prefills,
               f"{tag}: tile launches {counts[tile]} != {cfg.n_layers} x {prefills} "
               f"prefill chunks")
@@ -1654,15 +1723,17 @@ def phase_slice(cache_dtype="bfloat16", params=None):
               f"decode steps")
         others = {k: v for k, v in counts.items() if k not in (dec, tile) and v}
         check(not others, f"{tag}: other kernel forms launched: {others}")
-        ring_check(engine, tag)
-        graph_vs_eager(engine, tag)
-        step_breakdown(engine)
+        if bf16:
+            ring_check(engine, tag)
+        if bf16 or int8:
+            graph_vs_eager(engine, tag)
+        step_breakdown(engine, card, full=bf16)
         return counts, nbytes, engine.params
     finally:
         engine.close()
 
 
-# ------------------------------------------------------------ phase 8
+# ------------------------------------------------------------ phase 9
 
 
 # the node's packages that the card's machine may lack: the node picks the
@@ -1754,7 +1825,7 @@ def direct_stream_text(svc, params):
 
 
 def phase_node(card: str) -> dict:
-    """Phase 8: serve-cuda's path in this process (see the module
+    """Phase 9: serve-cuda's path in this process (see the module
     docstring). The counts are zeroed once the node is ready and read
     after the last request. Returns the counts."""
     import asyncio
@@ -2011,14 +2082,22 @@ def main() -> int:
     int8_errs, int8_timings = phase_ragged_vs_plain(flush, int8=True)
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
     del flush
-    phase_forward_parity()
+    fwd_counts = phase_forward_parity()
     gemma_counts = phase_gemma_forward()
-    counts, bf16_pool, params = phase_slice()
-    int8_counts, int8_pool, _ = phase_slice("int8", params=params)
+    counts, bf16_pool, params = phase_slice(card)
+    int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
     ratio = int8_pool / bf16_pool
     log(f"pool bytes: int8 {int8_pool} B vs bf16 {bf16_pool} B -> {ratio:.4f}x "
         f"(scales included)")
     check(ratio <= 0.502, f"int8 pool is {ratio:.4f}x the bf16 pool's bytes")
+    # phase 8: the same weights cast to f32 (the bf16 copy freed first: the
+    # node phase loads its own), over an int8 pool and then an f32 pool
+    gc.collect()
+    params = cast_tree(params, torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_counts = {pool: phase_slice(card, pool, params=params, dtype="float32")[0]
+                  for pool in ("int8", "float32")}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2045,6 +2124,8 @@ def main() -> int:
     ragged_src = "bee2bee_tpu_torch/csrc/ragged_attention.cu"
     prefill_src = "bee2bee_tpu_torch/csrc/ragged_prefill_attention.cu"
     decode_src = "bee2bee_tpu_torch/csrc/ragged_decode_attention.cu"
+    decode_f32_src = "bee2bee_tpu_torch/csrc/ragged_decode_attention_f32.cu"
+    f32_int8, f32_f32 = f32_counts["int8"], f32_counts["float32"]
     flash_src = "bee2bee_tpu_torch/csrc/flash_attention.cu"
     bf16_g, int8_g = gemma_counts["bfloat16"], gemma_counts["int8"]
     kernels = [
@@ -2093,25 +2174,44 @@ def main() -> int:
             counts["flash_tile"] + int8_counts["flash_tile"], flash_errs["tile"],
             flash_timings["tile"]),
         # the f32 tile forms (3xTF32), timed at the prefill chunk and causal
-        # T=S=2048; bound: three TF32 products at the TF32 peak
+        # T=S=2048; bound: three TF32 products at the TF32 peak; the ragged
+        # forms' launches from the f32 slice's prefill chunks (phase 8)
         row("ragged_prefill_attention_f32", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged_prefill_f32"], errs["tile_f32"], timings["prefill_f32"]),
+            f32_f32["ragged_prefill_f32"], errs["tile_f32"], timings["prefill_f32"]),
         row("ragged_prefill_attention_f32_int8", prefill_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_f32_int8"],
+            "bee2bee_tpu/ops/ragged.py:107", f32_int8["ragged_prefill_f32_int8"],
             int8_errs["tile_f32"], int8_timings["prefill_f32"]),
         row("flash_attention_tile_f32", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash_tile_f32"] + int8_counts["flash_tile_f32"],
             flash_errs["tile_f32"], flash_timings["tile_f32"]),
+        # the f32 decode kernel: launches from the f32 slice (phase 8) and
+        # phase 5's f32 forwards at llama-3-8b's heads, times at decode B=8
+        # ctx 1024 (llama-3-8b's and gemma-2-9b's heads); bound: the bytes
+        # or the FFMA products at the f32 CUDA-core peak
+        row("ragged_decode_attention_f32", decode_f32_src, "bee2bee_tpu/ops/ragged.py:84",
+            f32_f32["ragged_decode_f32"] + fwd_counts.get("ragged_decode_f32", 0),
+            errs["decode_f32"], timings["decode_f32"]),
+        row("ragged_decode_attention_f32_int8", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:107",
+            f32_int8["ragged_decode_f32_int8"] + fwd_counts.get("ragged_decode_f32_int8", 0),
+            int8_errs["decode_f32"], int8_timings["decode_f32"]),
+        row("ragged_decode_attention_f32_hd256", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:84", 0, errs["decode_f32"],
+            timings["decode_hd256_f32"]),
+        row("ragged_decode_attention_f32_hd256_int8", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:107", 0, int8_errs["decode_f32"],
+            int8_timings["decode_hd256_f32"]),
     ]
     log("kernels: the flash kernels have 0 launches on the main path: no "
         "serving path calls flash_attention (the engines attend through the "
-        "ragged op); the ragged row kernel and the f32 tile forms have 0 there "
-        "too: the slice serves bf16 at head_dim 128, the f32 tile forms take f32 "
-        "queries (phase 5 runs them at head_dim 128) and the row kernel the "
-        "shorter f32 chunks; the head_dim-256 forms' launches are those of "
-        "phase 5's gemma-geometry forward. All are held against the plain "
-        "version and timed above; the row kernels' times are forced at "
-        "gemma-2-9b's heads")
+        "ragged op); the ragged row kernel has 0 there too: the rule names it "
+        "for no query type the kernels take (it is forced, and timed, at "
+        "gemma-2-9b's heads). The f32 decode kernel and the f32 tile forms "
+        "serve the f32 slice (phase 8: decode and prefill at head_dim 128, over "
+        "an int8 and an f32 pool) and phase 5's f32 forwards; the head_dim-256 "
+        "forms' launches are those of phase 5's gemma-geometry forward (bf16), "
+        "and their f32 forms have none on a served path. All are held against "
+        "the plain version and timed above")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

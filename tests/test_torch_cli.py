@@ -83,6 +83,23 @@ def test_node_config_builds_the_ports_engine_config():
     assert NodeConfig(kv_quant=True).engine_config().cache_dtype == "int8"
 
 
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["f32_pool", "int8_pool"])
+def test_f32_node_config_passes_the_card_check(kv_quant):
+    """BEE2BEE_DTYPE=float32 (``NodeConfig.dtype``) serves f32 on the card:
+    the pool follows the engine's type (or is int8 with --kv-quant), which
+    the card's kernels take; a bf16 pool beside f32 queries is refused."""
+    from bee2bee_tpu_torch.engine.engine import check_card_supported
+    from bee2bee_tpu_torch.models.config import get_config
+
+    ecfg = NodeConfig(dtype="float32", kv_quant=kv_quant).engine_config()
+    assert ecfg.dtype == "float32"
+    assert ecfg.cache_dtype == ("int8" if kv_quant else "float32")
+    check_card_supported(get_config("llama-3-8b"), ecfg, "cuda")
+    with pytest.raises(NotImplementedError, match="cache_dtype='bfloat16'"):
+        check_card_supported(get_config("llama-3-8b"),
+                             EngineConfig(dtype="float32", cache_dtype="bfloat16"), "cuda")
+
+
 def _run(**kw):
     return asyncio.run(runtime.run_p2p_node(
         registry_sync=False, serve_api=False, **kw))

@@ -23,6 +23,7 @@ further away.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -278,15 +279,15 @@ def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
     (torch.bfloat16, 300, 256, True, False),  # the resident-Q form
     (torch.float32, 300, 128, True, False),  # f32 queries: the f32 tile form
     (torch.float16, 300, 128, False, False),
-    (torch.float32, port.T_MIN_F32, 128, True, False),  # f32 decode
-    (torch.float32, 3, 64, True, False),
+    (torch.float32, port.T_MIN_F32, 128, True, False),  # the shortest f32 tile chunk
+    (torch.float32, port.T_MIN_F32, 64, True, False),
     (torch.float32, 300, 256, True, False),  # head_dim 256: its f32 form too
     (torch.bfloat16, port.T_MIN, 128, True, True),  # bf16: the same over int8
-    # f32 over an int8 pool: the row kernel below T_MIN_F32_INT8
+    # f32 over an int8 pool: the f32 decode kernel below T_MIN_F32_INT8
     (torch.float32, port.T_MIN_F32_INT8 - 1, 128, False, True),
     (torch.float32, port.T_MIN_F32_INT8, 128, True, True),
     (torch.float32, 300, 64, True, True),
-    # f32 at head_dim 256: the row kernel below its own crossovers
+    # f32 at head_dim 256: the f32 decode kernel below its own crossovers
     (torch.float32, port.T_MIN_F32_HD256 - 1, 256, False, False),
     (torch.float32, port.T_MIN_F32_HD256, 256, True, False),
     (torch.float32, port.T_MIN_F32_INT8_HD256 - 1, 256, False, True),
@@ -304,7 +305,8 @@ def test_dispatch_rule(dtype, T, hd, tile, quantized):
                 else "tile_hd256" if hd == 256 else "tile")
         assert port.ragged_kernel(dtype, T, hd, quantized) == want
     elif dtype == torch.float32:
-        assert port.ragged_kernel(dtype, T, hd, quantized) == "row"
+        # below the f32 tile form's crossover: the f32 decode kernel
+        assert port.ragged_kernel(dtype, T, hd, quantized) == "decode_f32"
 
 
 def _tile_args(T=32, hd=128, int8=False, **over):
@@ -334,8 +336,9 @@ def _misaligned_q(T, hd):
 
 def test_tile_kernel_needs_16_byte_aligned_q():
     """The tile kernel copies q rows in 16-byte pieces, its head_dim-256
-    form as well; the row kernel (here a short f32 chunk at head_dim 256)
-    reads q by elements and takes such storage."""
+    form as well, and so does the f32 decode kernel that now takes a
+    short f32 chunk at head_dim 256 (the row kernel, which read q by
+    elements, served it before)."""
     q = _misaligned_q(32, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
@@ -345,8 +348,9 @@ def test_tile_kernel_needs_16_byte_aligned_q():
         port._check_kernel_args(**_tile_args(hd=256, q=_misaligned_q(32, 256)))
     qf = torch.zeros(2 * 4 * 8 * 256 + 1)[1:].view(2, 4, 8, 256)
     kp = torch.zeros((2, 9, 16, 256))
-    assert port.ragged_kernel(qf.dtype, 4, 256) == "row"
-    port._check_kernel_args(**_tile_args(T=4, hd=256, q=qf, k_pool=kp, v_pool=kp))
+    assert port.ragged_kernel(qf.dtype, 4, 256, group=4) == "decode_f32"
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_tile_args(T=4, hd=256, q=qf, k_pool=kp, v_pool=kp))
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -425,7 +429,7 @@ def test_tile_shapes_ref_matches_jax_kernel(name, int8):
     (torch.bfloat16, 1, 256, True),  # the resident-Q form
     (torch.bfloat16, port.T_MIN, 128, False),  # the tile kernel's
     (torch.bfloat16, 5, 128, False),
-    (torch.float32, 1, 128, False),  # f32 queries: the f32 tile form
+    (torch.float32, 1, 128, False),  # f32 queries: the f32 decode kernel
     (torch.float16, 1, 128, False),
 ], ids=["hd128", "hd64", "hd256", "t_min", "verify", "f32", "f16"])
 def test_decode_dispatch_rule(dtype, T, hd, decode):
@@ -433,8 +437,9 @@ def test_decode_dispatch_rule(dtype, T, hd, decode):
     # the decode kernel takes no case the tile kernel takes
     assert not (decode and port.use_tile_kernel(dtype, T, hd))
     tile = "tile_f32" if dtype == torch.float32 else "tile"
-    want = "decode" if decode else tile if port.use_tile_kernel(dtype, T, hd) else "row"
-    if hd == 256 and want != "row":
+    want = ("decode" if decode else "decode_f32" if port.use_decode_f32_kernel(dtype, T, hd)
+            else tile if port.use_tile_kernel(dtype, T, hd) else "row")
+    if hd == 256 and want in ("decode", "tile"):
         want += "_hd256"
     assert port.ragged_kernel(dtype, T, hd) == want
 
@@ -521,9 +526,9 @@ def test_decode_kernel_args_accepted(int8, hd):
 
 
 def test_decode_kernel_needs_16_byte_aligned_q():
-    """The decode kernel (its head_dim-256 form too) and the f32 tile form
-    (f32 decode) copy q rows in 16-byte pieces; the row kernel (f32 decode
-    at head_dim 256) reads q by elements and takes such storage."""
+    """The decode kernel (its head_dim-256 form too) and the f32 decode
+    kernel (f32 decode at every head_dim, 256 included, where the row
+    kernel read q by elements before) copy q rows in 16-byte pieces."""
     q = _misaligned_q(1, 128)
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
@@ -537,8 +542,9 @@ def test_decode_kernel_needs_16_byte_aligned_q():
         port._check_kernel_args(**_decode_args(q=qf, k_pool=kp, v_pool=kp))
     qf = torch.zeros(2 * 8 * 256 + 1)[1:].view(2, 1, 8, 256)
     kp = torch.zeros((2, 9, 16, 256))
-    assert port.ragged_kernel(qf.dtype, 1, 256) == "row"
-    port._check_kernel_args(**_decode_args(hd=256, q=qf, k_pool=kp, v_pool=kp))
+    assert port.ragged_kernel(qf.dtype, 1, 256, group=4) == "decode_f32"
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        port._check_kernel_args(**_decode_args(hd=256, q=qf, k_pool=kp, v_pool=kp))
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -599,14 +605,16 @@ NEG = float("-inf")
 
 def _split_merge(q, kp, vp, tables, offs, splits, pages, window=None, sm_scale=None,
                  softcap=0.0, k_scale=None, v_scale=None):
-    """A plain PyTorch model of the decode kernel's split-K walk (T = 1):
-    each split s of ``pages`` table pages gives a partial (m, l, acc) over
-    the keys it holds that the row sees — (-inf, 0, 0) when it holds none
-    — and the merge weighs them in split order, an empty split by exactly
-    0; a row with no visible key gets 0. f32 throughout (P's bf16 rounding
-    before P V is the identity here)."""
+    """A plain PyTorch model of the split-K decode kernels' walk over the
+    G * T rows of each (batch row, kv head), folded g-major, t-minor (row
+    g * T + t sits at position offset + t): each split s of ``pages`` table
+    pages gives a partial (m, l, acc) per row over the keys it holds that
+    the row sees — (-inf, 0, 0) when it holds none — and the merge weighs
+    them in split order, an empty split by exactly 0; a row with no visible
+    key gets 0. f32 throughout: P stays in f32, as the f32 decode kernel
+    keeps it (the bf16 kernel's rounding of P to bf16 is the identity
+    here)."""
     B, T, H, hd = q.shape
-    assert T == 1
     Hkv, _, BS, _ = kp.shape
     MB = tables.shape[1]
     G = H // Hkv
@@ -615,22 +623,23 @@ def _split_merge(q, kp, vp, tables, offs, splits, pages, window=None, sm_scale=N
     tb = tables.long()
     kg = port._gathered(kp, k_scale, tb, q.dtype)  # [B, Hkv, MB*BS, hd]
     vg = port._gathered(vp, v_scale, tb, q.dtype)
-    s = torch.einsum("bkgd,bksd->bkgs", q.reshape(B, Hkv, G, hd).float(), kg) * sm_scale
+    qr = q.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, hd)
+    s = torch.einsum("bkrd,bksd->bkrs", qr.float(), kg) * sm_scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    off = offs.long()
+    qpos = offs.long()[:, None] + torch.arange(T).repeat(G)[None]  # [B, G*T]
     pos = torch.arange(MB * BS)
     parts = []
     for sp in range(splits):
         lo = sp * pages * BS
         hi = min((sp + 1) * pages, MB) * BS - 1
-        kmax = torch.clamp(off, max=hi)
-        kmin = torch.clamp(off - win + 1 if win > 0 else torch.zeros_like(off), min=lo)
-        vis = ((pos[None] >= kmin[:, None]) & (pos[None] <= kmax[:, None]))[:, None, None]
+        kmax = torch.clamp(qpos, max=hi)
+        kmin = torch.clamp(qpos - win + 1 if win > 0 else torch.zeros_like(qpos), min=lo)
+        vis = ((pos >= kmin[..., None]) & (pos <= kmax[..., None]))[:, None]
         sv = torch.where(vis, s, NEG)
         m = sv.amax(-1)  # -inf where the split holds no visible key
         p = torch.where(vis, torch.exp(sv - torch.where(m == NEG, 0.0, m)[..., None]), 0.0)
-        parts.append((m, p.sum(-1), torch.einsum("bkgs,bksd->bkgd", p, vg)))
+        parts.append((m, p.sum(-1), torch.einsum("bkrs,bksd->bkrd", p, vg)))
     m_all = torch.stack([m for m, l, _ in parts])
     l_all = torch.stack([l for _, l, _ in parts])
     mx = torch.where(l_all > 0, m_all, NEG).amax(0)
@@ -641,7 +650,7 @@ def _split_merge(q, kp, vp, tables, offs, splits, pages, window=None, sm_scale=N
         L = L + l * w
         O = O + acc * w[..., None]
     O = O / torch.where(L > 0, L, 1.0)[..., None]
-    return O.reshape(B, 1, H * hd)
+    return O.reshape(B, Hkv, G, T, hd).permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
 
 
 # rows ragged over a 256-key table (BS 8: four key tiles), so the planned
@@ -694,6 +703,219 @@ def test_decode_split_merge_model_matches_jax_kernel(name, int8, plan):
     np.testing.assert_allclose(got, want, atol=ATOL)
     if name == "dead_row_and_minus_one":
         assert not got[0].any()  # offset -1: every split empty, the row is 0
+
+
+# ------------------------------- the f32 decode kernel: rule, plan, model
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode_case(name, int8, T):
+    """(numpy inputs, kwargs, the JAX interpret kernel's result) of a
+    DECODE_CASES geometry with chunks of T queries, for both plans."""
+    geo, kw = DECODE_CASES[name]
+    q, kp, vp, tables, offs = _pool_case(**dict(geo, T=T))
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = _quantize_pool(kp), _quantize_pool(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(offs), window=kw.get("window"), sm_scale=kw.get("sm_scale"),
+        logit_softcap=kw.get("softcap", 0.0), interpret=True,
+        **{k: jnp.asarray(v) for k, v in scales.items()},
+    ))
+    return (q, kp, vp, tables, offs), dict(kw, **scales), want
+
+
+@pytest.mark.parametrize("plan", ["planned", "page_a_split"])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+@pytest.mark.parametrize("int8", [False, True], ids=["pool", "int8_pool"])
+def test_decode_f32_split_merge_model_matches_jax_kernel(name, int8, T, plan):
+    """The f32 decode kernel's walk (decode and a 3-long chunk: G * T = 12
+    rows a kv head, each at its own position) with its own plan (32-key
+    tiles, on a card of 24 SMs) and with one page a split, within 2e-5 of
+    the JAX kernel on both pool forms."""
+    (q, kp, vp, tables, offs), kw, want = _jax_decode_case(name, int8, T)
+    B, Hkv, MB, BS = len(offs), kp.shape[0], tables.shape[1], kp.shape[2]
+    splits, pages = {"planned": port.decode_f32_splits(B, Hkv, MB, BS, 24),
+                     "page_a_split": (MB, 1)}[plan]
+    assert splits > 1
+    t = {k: torch.from_numpy(v) for k, v in kw.items() if k in ("k_scale", "v_scale")}
+    rest = {k: v for k, v in kw.items() if k not in t}
+    got = _split_merge(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(offs), splits, pages, **rest, **t,
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if name == "dead_row_and_minus_one":
+        assert not got[0, 0].any()  # offset -1: the first query sees nothing
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32_pool", "int8_pool"])
+def test_decode_tile_and_decode_f32_rules_are_disjoint(quantized, hd):
+    """Each f32 chunk goes to exactly one of the f32 decode kernel and the
+    f32 tile form (never to the row kernel), each bf16 chunk to exactly one
+    of the decode and tile kernels; the f32 decode kernel takes what fits
+    its rows below the crossover."""
+    for T in (1, 2, 3, 5, 8, 9, 16, 17, 64):
+        for group in (1, 2, 4, 8, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                rules = [port.use_decode_kernel(dtype, T, hd),
+                         port.use_tile_kernel(dtype, T, hd, quantized, group),
+                         port.use_decode_f32_kernel(dtype, T, hd, quantized, group)]
+                assert sum(rules) == 1, (dtype, T, group)
+                assert port.ragged_kernel(dtype, T, hd, quantized, group) != "row"
+            fits = (group * T <= port.DECODE_F32_MAX_ROWS
+                    and T < port._t_min_f32(hd, quantized))
+            assert port.use_decode_f32_kernel(torch.float32, T, hd, quantized,
+                                              group) is fits, (T, group)
+
+
+@pytest.mark.parametrize("heads", ["llama-3-8b", "gemma-2-9b"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32_pool", "int8_pool"])
+def test_f32_rule_names_no_row_kernel_at_served_heads(quantized, heads):
+    """At llama-3-8b's heads (32/8, hd 128) and gemma-2-9b's (16/8, hd 256)
+    f32 decode and every short chunk go to the f32 decode kernel (as far as
+    its 32 rows hold them, every chunk below the crossover) or the f32 tile
+    form, never to the row kernel; decode always to the f32 decode
+    kernel."""
+    group, hd = {"llama-3-8b": (4, 128), "gemma-2-9b": (2, 256)}[heads]
+    for T in (1, 2, 3, 4, 5, 8, 16, 17, 64):
+        kernel = port.ragged_kernel(torch.float32, T, hd, quantized, group)
+        fits = group * T <= port.DECODE_F32_MAX_ROWS
+        assert kernel == ("decode_f32" if fits and T < port._t_min_f32(hd, quantized)
+                          else "tile_f32"), T
+    assert port.ragged_kernel(torch.float32, 1, hd, quantized, group) == "decode_f32"
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("MB,BS", [(128, 16), (256, 8), (64, 32), (5, 8), (33, 16)])
+def test_decode_f32_splits_cover_the_table_in_whole_tiles(B, MB, BS):
+    """The f32 plan at llama-3-8b's 8 kv heads on 132 SMs: whole 32-key
+    tiles a split (the C entry point refuses others), at most
+    DECODE_F32_MAX_SPLIT_TILES, more than one only where the grid holds a
+    block per SM, and the splits cover the MB pages exactly."""
+    n_sm = 132
+    splits, pages = port.decode_f32_splits(B, 8, MB, BS, n_sm)
+    assert isinstance(splits, int) and isinstance(pages, int)
+    assert (pages * BS) % port.DECODE_F32_TILE_KEYS == 0
+    tiles = pages * BS // port.DECODE_F32_TILE_KEYS
+    assert 1 <= tiles <= port.DECODE_F32_MAX_SPLIT_TILES
+    assert tiles == 1 or B * 8 * splits >= n_sm
+    assert (splits - 1) * pages < MB <= splits * pages
+
+
+@pytest.mark.parametrize("B,MB,BS,want", [
+    (8, 64, 16, (4, 16)),  # the timed decode: B=8 at a 1024-token context
+    (1, 128, 16, (22, 6)),  # B=1 over 2048 keys
+    (8, 128, 16, (8, 16)),  # the slice's 2048-token tables
+])
+def test_decode_f32_splits_at_the_timed_shapes(B, MB, BS, want):
+    """The plans chip_smoke.py prints beside the f32 decode timings (8 kv
+    heads, 132 SMs); the bf16 decode kernel's plan is not touched."""
+    assert port.decode_f32_splits(B, 8, MB, BS, 132) == want
+    assert port.decode_splits(8, 8, 64, 16, 132) == (4, 16)
+
+
+def test_decode_f32_splits_read_shapes_only():
+    """The plan is a function of python ints (cached), never of a tensor,
+    as the bf16 decode kernel's."""
+    import inspect
+
+    params = inspect.signature(port.decode_f32_splits.__wrapped__).parameters
+    assert list(params) == ["B", "Hkv", "MB", "BS", "n_sm"]
+    assert all(p.annotation in (int, "int") for p in params.values())
+    assert port.decode_f32_splits(8, 8, 128, 16, 132) is port.decode_f32_splits(
+        8, 8, 128, 16, 132)
+
+
+@pytest.mark.parametrize("T", [1, "below_t_min"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
+def test_f32_decode_kernel_args_accepted(int8, hd, T):
+    """Decode and the longest chunk below the crossover whose rows still
+    fit (8 query heads over 2 kv heads: G = 4)."""
+    if T == "below_t_min":
+        T = min(port._t_min_f32(hd, int8) - 1, port.DECODE_F32_MAX_ROWS // 4)
+    assert port.ragged_kernel(torch.float32, T, hd, int8, group=4) == "decode_f32"
+    port._check_kernel_args(**_f32_args(T=T, hd=hd, int8=int8))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("misaligned_q", ValueError, "q is not 16-byte aligned"),
+    ("misaligned_pool", ValueError, "k_pool is not 16-byte aligned"),
+    ("bf16_pool", TypeError, "pool dtype"),
+    ("f32_scales_missing_pool", TypeError, "pool dtype"),
+    ("head_dim", ValueError, "head_dim 96"),
+    ("pool_width", ValueError, "do not match head_dim"),
+    ("scale_shape", ValueError, "k_scale must be float32"),
+])
+def test_f32_decode_kernel_args_rejected(bad, err, match):
+    """The f32 decode kernel copies q rows and pages in 16-byte pieces and
+    takes an f32 pool, or an int8 pool with [Hkv, NB] scales, at a
+    head_dim it is built for."""
+    args = _f32_args(T=1, int8=bad == "scale_shape")
+    if bad == "misaligned_q":
+        args["q"] = torch.zeros(2 * 8 * 128 + 1)[1:].view(2, 1, 8, 128)
+    elif bad == "misaligned_pool":
+        n = 2 * 9 * 16 * 128
+        args["k_pool"] = torch.zeros(n + 1)[1:].view(2, 9, 16, 128)
+    elif bad == "bf16_pool":
+        args["k_pool"] = args["v_pool"] = args["k_pool"].to(torch.bfloat16)
+    elif bad == "f32_scales_missing_pool":
+        args["k_scale"] = args["v_scale"] = torch.ones((2, 9))
+    elif bad == "head_dim":
+        args = _f32_args(T=1, hd=96)
+    elif bad == "pool_width":
+        args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 16, 64))
+    elif bad == "scale_shape":
+        args["k_scale"] = torch.ones((2, 8))
+    assert port.ragged_kernel(torch.float32, 1, 128, group=4) == "decode_f32"
+    with pytest.raises(err, match=match):
+        port._check_kernel_args(**args)
+
+
+def test_forced_f32_decode_launch_refuses_rows_past_its_block():
+    """Forced by name, the f32 decode kernel refuses G * T rows past the 32
+    a block holds, before anything reaches the card; the rule sends such a
+    chunk to the f32 tile form."""
+    a = _f32_args(T=9, hd=128)  # 4 query heads a kv head: 36 rows
+    with pytest.raises(ValueError, match="ragged decode_f32 kernel: 4 x 9 query rows"):
+        port._launch_kernel(a["q"], a["k_pool"], a["v_pool"], a["block_tables"], a["off"],
+                            0, 0.125, 0.0, None, None, kernel="decode_f32")
+    assert port.ragged_kernel(torch.float32, 9, 128, group=4) == "tile_f32"
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
+def test_cpu_dispatch_counts_no_f32_decode_launch(int8, T):
+    """f32 decode and a short f32 chunk, which the rule sends to the f32
+    decode kernel, take the plain version on the CPU and leave every
+    counter at 0, the f32 decode kernel's two included."""
+    q, kp, vp, tables, offs = (torch.from_numpy(a) for a in _pool_case(
+        offs=[4, 9, 30], T=T, H=8, Hkv=2, hd=64, seed=27))
+    kw = {}
+    if int8:
+        (kp, ks), (vp, vs) = (tuple(torch.from_numpy(a) for a in _quantize_pool(p.numpy()))
+                              for p in (kp, vp))
+        kw = dict(k_scale=ks, v_scale=vs)
+    assert port.ragged_kernel(q.dtype, T, 64, int8, group=4) == "decode_f32"
+    got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
+    assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
+    for name in port.LAUNCH_COUNTERS:
+        assert getattr(port.ragged_paged_attention, name) == 0, name
+
+
+def test_launch_counters_name_the_f32_decode_kernel():
+    """The counters a captured decode graph's replay adds back include the
+    f32 decode kernel's, for both pool forms."""
+    assert {"f32_decode_launches", "int8_f32_decode_launches"} <= set(port.LAUNCH_COUNTERS)
+    assert port._COUNTERS["decode_f32"] == "f32_decode_launches"
+    assert port.ragged_paged_attention.f32_decode_launches == 0
+    assert port.ragged_paged_attention.int8_f32_decode_launches == 0
 
 
 # ------------------------------------------ the f32 tile form's checks
@@ -750,7 +972,8 @@ def test_f32_tile_kernel_args_rejected(bad, err, match):
 
 @pytest.mark.parametrize("kernel,dtype", [("tile_f32", torch.bfloat16),
                                           ("tile", torch.float32),
-                                          ("decode", torch.float32)])
+                                          ("decode", torch.float32),
+                                          ("decode_f32", torch.bfloat16)])
 def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
     """A kernel forced by name refuses queries of a type it is not built
     for, before anything reaches the card."""
@@ -764,12 +987,12 @@ def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
 
 @pytest.mark.parametrize("kernel,hd", [("tile", 256), ("decode", 256),
                                        ("tile_hd256", 128), ("decode_hd256", 64),
-                                       ("tile_f32", 96)])
+                                       ("tile_f32", 96), ("decode_f32", 96)])
 def test_forced_launch_needs_the_kernels_head_dim(kernel, hd):
     """A kernel forced by name refuses a head_dim it is not built for: the
     bf16 head_dim-256 forms take 256 only, the others never 256; the f32
-    tile form takes 64, 128 and 256."""
-    dtype = torch.float32 if kernel == "tile_f32" else torch.bfloat16
+    tile form and the f32 decode kernel take 64, 128 and 256."""
+    dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
     a = _tile_args(T=1, hd=hd)
     q, kp, vp = (a[n].to(dtype) for n in ("q", "k_pool", "v_pool"))
     with pytest.raises(ValueError, match=f"ragged {kernel} kernel: head_dim {hd}"):
@@ -806,14 +1029,15 @@ def test_cpu_dispatch_counts_no_hd256_launch(int8, T):
 def test_cpu_dispatch_counts_no_f32_tile_launch(int8):
     """f32 queries the rule sends to the f32 tile form still take the plain
     version on the CPU and count no launch."""
+    T = port.T_MIN_F32_INT8 if int8 else port.T_MIN_F32
     q, kp, vp, tables, offs = (torch.from_numpy(a) for a in _pool_case(
-        offs=[4, 9, 30], T=4, H=8, Hkv=2, hd=64, seed=20))
+        offs=[4, 9, 30], T=T, H=8, Hkv=2, hd=64, seed=20))
     kw = {}
     if int8:
         (kp, ks), (vp, vs) = (tuple(torch.from_numpy(a) for a in _quantize_pool(p.numpy()))
                               for p in (kp, vp))
         kw = dict(k_scale=ks, v_scale=vs)
-    assert port.ragged_kernel(q.dtype, 4, 64, int8) == "tile_f32"
+    assert port.ragged_kernel(q.dtype, T, 64, int8, group=4) == "tile_f32"
     got = port.ragged_paged_attention(q, kp, vp, tables, offs, **kw)
     assert torch.equal(got, port.ragged_paged_attention_ref(q, kp, vp, tables, offs, **kw))
     assert port.ragged_paged_attention.f32_prefill_launches == 0
