@@ -10,9 +10,9 @@ aiohttp (fastapi/uvicorn are not in this image).
 
 PyTorch port: a copy of ``bee2bee_tpu/api.py`` with the import root rewritten
 to ``bee2bee_tpu_torch``; comments that cited the JAX package's change history
-or the reference checkout's path are trimmed. ``/debug/profile`` answers a
-typed 501 naming its ROADMAP.md item, and the ``/metrics/history`` platform
-stamp reads torch, not jax.
+or the reference checkout's path are trimmed. ``/debug/profile`` captures
+with ``torch.profiler`` (engine/introspect.py), and the
+``/metrics/history`` platform stamp reads torch, not jax.
 """
 
 from __future__ import annotations
@@ -805,23 +805,69 @@ def build_app(node: P2PNode, api_key: str | None = None) -> web.Application:
 
     async def debug_profile(request):
         """On-demand device profiling (docs/OBSERVABILITY.md "Engine
-        economics"). The capture behind it (engine/introspect.py) is not
-        ported: the route answers a typed 501 in the gateway's error shape,
-        naming the ROADMAP item that ports it.
+        economics"): POST starts a duration-bounded ``torch.profiler``
+        capture (body ``{"duration_s": 2.0}``, clamped to the profiler's
+        max) and blocks until the zipped chrome trace lands under
+        ``$BEE2BEE_INCIDENT_DIR/profiles``; a concurrent capture is the
+        typed 409 ``profile_in_progress`` (the profiler is a process
+        singleton). GET lists artifacts newest-first like
+        /debug/incidents; ``?id=`` streams one zip.
 
         ADMIN surface, same rule as /admin/drain: a device profile leaks
         whole-node execution detail, so tenant keys do not open it."""
-        from .unported import unported
+        from .engine.introspect import ProfileInProgress, get_profiler
 
+        # the admin gate covers the WHOLE surface: the listing and the zip
+        # download leak what the POST produces
         if not _auth_ok(request, api_key, None):
             return web.json_response(
                 {"detail": "device profiling requires the node API key"},
                 status=403, headers=cors,
             )
-        err = unported("device profiling (/debug/profile, engine/introspect.py)", 6)
-        return web.json_response(
-            {"detail": str(err), "error_kind": "not_implemented"}, status=501,
-        )
+        profiler = get_profiler()
+        if request.method == "GET":
+            prof_id = request.query.get("id")
+            if prof_id:
+                path = await asyncio.to_thread(profiler.profile_path, prof_id)
+                if path is None:
+                    return web.json_response(
+                        {"detail": f"unknown profile {prof_id!r}"}, status=404
+                    )
+                # streamed, not buffered
+                return web.FileResponse(
+                    path,
+                    headers={
+                        "Content-Type": "application/zip",
+                        "Content-Disposition":
+                            f'attachment; filename="{prof_id}.zip"',
+                    },
+                )
+            return web.json_response({
+                "node": node.peer_id,
+                "profiles": await asyncio.to_thread(profiler.list_profiles),
+                "active": profiler.active,
+            })
+        body = await _json_body(request) if request.can_read_body else {}
+        if not isinstance(body, dict):
+            return web.json_response(
+                {"detail": "invalid JSON body"}, status=400
+            )
+        try:
+            duration = float(body.get("duration_s", 2.0))
+        except (TypeError, ValueError):
+            return web.json_response(
+                {"detail": "duration_s must be a number"}, status=400
+            )
+        try:
+            # capture blocks ~duration_s: off the event loop, bounded by
+            # the profiler's own MAX_DURATION_S clamp
+            header = await asyncio.to_thread(profiler.capture, duration)
+        except ProfileInProgress as e:
+            return web.json_response(
+                {"detail": str(e), "error_kind": "profile_in_progress"},
+                status=409,
+            )
+        return web.json_response(header)
 
     # ---- OpenAI-compatible surface (/v1): standard SDKs and tools can
     # point at a mesh node unchanged (base_url="http://node:4002/v1").

@@ -21,10 +21,17 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   build, by name, what its attention kernels cannot run
   (``check_card_supported``); the CPU runs any of it.
 
+- **Prompt prefix cache** (``prefix_cache_entries``,
+  ``BEE2BEE_PREFIX_CACHE``): admission from the longest cached prompt
+  prefix over shared pool blocks (engine/scheduler.py); the pool is sized
+  with room for the entries' pins.
+- **Economics plane** (engine/introspect.py): the capture sentinel, the
+  HBM ledger (weights and KV pool), the goodput/MFU meter and the pool
+  forecast, built before the first forward; ``info["introspect"]``.
+
 What waits for later slices: checkpoint loading, int8 weights,
-speculative decoding and drafters, multi-LoRA, the prefix cache, live
-migration and the economics plane. Setting an ``EngineConfig`` field that
-selects one of them raises.
+speculative decoding and drafters, multi-LoRA and live migration. Setting
+an ``EngineConfig`` field that selects one of them raises.
 """
 
 from __future__ import annotations
@@ -118,10 +125,13 @@ class EngineConfig:
     # total pool blocks incl. the null block 0; None sizes the pool so it
     # cannot run dry (max_batch full rows plus the decode-chunk overshoot)
     kv_pool_blocks: int | None = None
+    # prompt prefix cache: keep up to this many prompts' blocks pinned and
+    # admit a prompt that extends one from its shared blocks, prefilling
+    # only the rest (0 = off)
+    prefix_cache_entries: int = 0
     # fields of the JAX engine this port does not implement yet: each
     # must stay at its default (checked below)
     quantize: str = "none"
-    prefix_cache_entries: int = 0
     spec_tokens: int = 0
     drafter: str | None = None
     max_adapters: int = 0
@@ -163,7 +173,6 @@ class EngineConfig:
             "attention": (self.attention not in ("auto", "flash"),
                           12 if self.attention == "dense" else 14),
             "quantize": (self.quantize not in ("none", "", None), 5),
-            "prefix_cache_entries": (self.prefix_cache_entries > 0, 4),
             "spec_tokens": (self.spec_tokens > 0, 7),
             "drafter": (bool(self.drafter), 7),
             "max_adapters": (self.max_adapters > 0, 8),
@@ -309,6 +318,14 @@ class InferenceEngine:
         self.forward_calls = 0
         self._mutex = threading.Lock()
         self._scheduler = None  # created on first generate
+        # the economics plane (engine/introspect.py), before the first
+        # forward: the sentinel the roots register with (the prefill root
+        # runs eagerly: no compiles), the HBM ledger, the goodput meter
+        from .introspect import EngineIntrospection
+
+        self.introspect = EngineIntrospection(self.model_cfg, self.device)
+        self.introspect.ledger.register("weights", lambda: self.params)
+        self.introspect.sentinel.register("prefill")
 
     # ------------------------------------------------------------ forward
 
@@ -352,11 +369,14 @@ class InferenceEngine:
 
     @property
     def pool_blocks(self) -> int:
-        """Total pool blocks: explicit kv_pool_blocks, or the null block
-        plus max_batch full rows."""
+        """Total pool blocks: explicit kv_pool_blocks, or sized so the free
+        list cannot run dry: the null block, max_batch full rows and the
+        prefix entries' worst-case pins."""
         if self.engine_cfg.kv_pool_blocks is not None:
             return self.engine_cfg.kv_pool_blocks
-        return 1 + self.engine_cfg.max_batch * self.blocks_per_row
+        pin = ceil_div(self.max_seq_len, self.engine_cfg.kv_block_size)
+        return (1 + self.engine_cfg.max_batch * self.blocks_per_row
+                + self.engine_cfg.prefix_cache_entries * pin)
 
     @property
     def kv_info(self) -> dict:
@@ -409,11 +429,14 @@ class InferenceEngine:
         raise unported("KV migration import (InferenceEngine.import_generation)", 9)
 
     def close(self):
-        """Stop the scheduler thread (idempotent)."""
+        """Stop the scheduler thread (idempotent) and drop out of the
+        economics digest: a closed engine keeps neither its tensors
+        reachable through the ledger nor its gauges."""
         with self._mutex:
             sch, self._scheduler = self._scheduler, None
         if sch is not None:
             sch.shutdown()
+        self.introspect.close()
 
     def _stop_set(self, stop_tokens):
         stop = set(int(t) for t in (stop_tokens or []))
@@ -596,6 +619,10 @@ class InferenceEngine:
                 if self.device.type == "cuda" else "cpu"
             ),
             "kv": self.kv_info,
+            # compiles (graph captures) per root, MFU/goodput over the
+            # trailing window and the HBM ledger; refresh() also brings
+            # the engine.* economics gauges current
+            "introspect": self.introspect.refresh(),
         }
 
 

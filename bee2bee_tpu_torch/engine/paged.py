@@ -1,14 +1,16 @@
 """Paged KV cache bookkeeping: block-table helpers and the free-list
 allocator over the pool's blocks.
 
-The PyTorch port's own copy of ``bee2bee_tpu/engine/paged.py`` (minus
-the prefix cache, which is not ported yet). One pool ``[L, Hkv,
-num_blocks, block_size, hd]`` holds every row's K/V; block 0 is the
-reserved null block. Per-row block tables map logical position ``p`` to
-pool slot ``(table[p // block_size], p % block_size)``. Blocks are
-allocated lazily as decode crosses block boundaries and freed at
-retirement; refcounts keep the allocator ready for block sharing. All
-allocator state is host-side python/numpy owned by the scheduler thread.
+The PyTorch port's own copy of ``bee2bee_tpu/engine/paged.py``. One pool
+``[L, Hkv, num_blocks, block_size, hd]`` holds every row's K/V; block 0
+is the reserved null block. Per-row block tables map logical position
+``p`` to pool slot ``(table[p // block_size], p % block_size)``. Blocks
+are allocated lazily as decode crosses block boundaries and freed at
+retirement. Refcounts let rows share blocks: the prompt prefix cache
+(``PagedPrefixCache``) pins a prompt's blocks, and a later prompt that
+extends it maps the same full blocks (copy-on-write: the one partial
+block it would write into is copied first). All allocator state is
+host-side python/numpy owned by the scheduler thread.
 """
 
 from __future__ import annotations
@@ -40,6 +42,28 @@ def pow2_at_least(n: int) -> int:
     """Smallest power of two >= max(n, 1) — buckets the block-table width
     so the decode program compiles O(log) shapes, not one per length."""
     return 1 << max(0, (max(n, 1) - 1).bit_length())
+
+
+def best_prefix_key(keys, ids) -> tuple[tuple | None, int]:
+    """THE prefix-cache match scan: the key with the longest usable prefix
+    of ``ids`` (usable length = min(len(key), len(ids) - 1): the final
+    prompt token always prefills so admission gets its first-sample
+    logits; an entry only matches when its WHOLE usable prefix equals the
+    prompt's). Element-wise with early exits: the first mismatching token
+    abandons the entry, and entries that cannot beat the current best are
+    skipped outright. Ties keep the first (oldest-inserted) entry."""
+    cap = len(ids) - 1
+    best_key, best_m = None, 0
+    for key in keys:
+        m = min(len(key), cap)
+        if m <= best_m:
+            continue
+        for i in range(m):
+            if key[i] != ids[i]:
+                break
+        else:
+            best_key, best_m = key, m
+    return best_key, best_m
 
 
 def prefill_chunk_positions(n: int, start: int, bucket: int, S: int) -> list[int]:
@@ -124,3 +148,63 @@ class BlockAllocator:
 
     def refcount(self, block: int) -> int:
         return int(self._refs[block])
+
+
+class PagedPrefixCache:
+    """Block-level prompt prefix cache: key = token-id tuple, value = the
+    pool block ids covering positions [0, len(key)). Entries PIN their
+    blocks via allocator refcounts: a put costs no device memory; the cost
+    is pool blocks staying out of the free list until eviction.
+
+    Match contract: longest usable prefix, capped at len(prompt) - 1 so
+    the final token always prefills for its first-sample logits. The
+    scheduler thread owns all access."""
+
+    def __init__(self, capacity: int, allocator: BlockAllocator):
+        self.capacity = capacity
+        self.allocator = allocator
+        # key -> tuple of block ids (insertion-ordered = LRU order)
+        self._entries: dict[tuple, tuple[int, ...]] = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def match(self, ids: list[int]):
+        """-> (m, blocks | None): longest usable cached prefix and the
+        entry's FULL block list (the caller slices per its match length)."""
+        best_key, best_m = best_prefix_key(self._entries, ids)
+        if best_key is None:
+            return 0, None
+        blocks = self._entries.pop(best_key)  # LRU touch
+        self._entries[best_key] = blocks
+        return best_m, blocks
+
+    def has(self, ids: list[int]) -> bool:
+        return tuple(ids) in self._entries
+
+    def put(self, ids: list[int], blocks: Iterable[int]) -> None:
+        key = tuple(ids)
+        if key in self._entries:
+            return
+        blocks = tuple(blocks)
+        self.allocator.ref(blocks)  # pin
+        self._entries[key] = blocks
+        while len(self._entries) > self.capacity:
+            self._evict_one()
+
+    def _evict_one(self) -> bool:
+        if not self._entries:
+            return False
+        key = next(iter(self._entries))  # LRU = oldest insertion
+        self.allocator.deref(self._entries.pop(key))
+        return True
+
+    def evict_for_pressure(self, blocks_needed: int) -> bool:
+        """Free pinned blocks until the allocator can cover
+        ``blocks_needed``. Returns True when it can. Eviction only drops
+        the CACHE's pins: blocks also referenced by an active row (or by a
+        caller that pre-ref'd them for a CoW copy) survive."""
+        while self.allocator.free_count < blocks_needed:
+            if not self._evict_one():
+                return False
+        return True

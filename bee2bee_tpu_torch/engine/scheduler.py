@@ -42,6 +42,20 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
 - **Per-row sampling and penalties**: the knobs ride as [B] tensors;
   penalty counts [B, 2, V] (prompt, generated) live on the card and are
   bumped by every sampled token.
+- **Prompt prefix cache** (``prefix_cache_entries > 0``): a prefilled
+  prompt's blocks are pinned under its token ids (engine/paged.py
+  ``PagedPrefixCache``). A later prompt that extends a cached one maps
+  the entry's full blocks into its own table (refcounts, no copy), copies
+  the one partial block it would write into (copy-on-write: pages, and
+  on an int8 pool their scales), and prefills only the rest, with a
+  write floor at the match so no shared block is ever written. Pins are
+  evicted LRU by capacity and, under pool pressure, by the allocation
+  funnel before it gives up.
+- **Economics** (engine/introspect.py): prefill chunks and decode
+  windows book their FLOPs and scheduled positions, accepted tokens book
+  as useful, the dispatch cadence feeds the pool forecast, every decode
+  graph capture books a compile of the ``decode`` root, and the HBM
+  ledger's headroom gates sticky growth.
 - **Tenant fairness**: the submit queue is a WDRR queue keyed by
   ``Request.tenant`` (router/fairness.py), weighted from the
   ``BEE2BEE_TENANTS`` config or ``set_tenant_weights``; a request costs
@@ -52,9 +66,8 @@ Threading model: one daemon scheduler thread owns all device state;
 ``submit`` only appends to a queue under a condition variable, and
 callers read per-request event queues.
 
-Not ported yet: speculative decoding, adapters, migration checkpoints,
-the prefix cache and its copy-on-write sharing, prefill graphs, the HBM
-ledger that gates sticky growth, and introspection.
+Not ported yet: speculative decoding, adapters, migration checkpoints and
+prefill graphs.
 """
 
 from __future__ import annotations
@@ -75,7 +88,22 @@ from ..ops import flash, ragged
 from ..router.fairness import WdrrQueue
 from ..router.tenants import load_tenant_config
 from ..unported import unported
-from .paged import BlockAllocator, ceil_div, pow2_at_least, prefill_chunk_positions
+from .introspect import (
+    _C_HOST_SYNCS,
+    _C_SYNC_STALLS,
+    _G_OVERLAP,
+    declared_batch_sizes,
+    declared_table_width,
+    device_gate,
+    graph_capture_lock,
+)
+from .paged import (
+    BlockAllocator,
+    PagedPrefixCache,
+    ceil_div,
+    pow2_at_least,
+    prefill_chunk_positions,
+)
 from .sampling import sample_batched
 
 logger = logging.getLogger("bee2bee_tpu_torch.scheduler")
@@ -95,26 +123,6 @@ _G_BATCH_FILL = _REG.gauge(
     "engine.batch_fill", "active rows / current batch bucket (0..1)"
 )
 _G_ACTIVE_ROWS = _REG.gauge("engine.active_rows", "rows decoding this step")
-# the decode hot loop's readback metrics, under the JAX engine's names
-# (bee2bee_tpu/engine/introspect.py) until the port has its own
-# introspection module
-_C_HOST_SYNCS = _REG.counter(
-    "engine.host_syncs",
-    "device->host token fetches in the decode hot loop (one per readback "
-    "window — the only blocking point the overlap design permits)",
-)
-_C_SYNC_STALLS = _REG.counter(
-    "engine.host_sync_stalls",
-    "host syncs that blocked with NO other decode window in flight — the "
-    "device sat idle while the host processed tokens (0 when overlap "
-    "keeps the ring full)",
-)
-_G_OVERLAP = _REG.gauge(
-    "engine.overlap_inflight",
-    "decode windows still in flight on-device at readback time (0 = "
-    "serialized loop, >=1 = async dispatch overlap is working)",
-)
-
 
 @dataclass
 class _Timing:
@@ -217,8 +225,11 @@ class SchedulerStats:
     chunks: int = 0  # decode chunks run
     windows: int = 0  # decode windows run (= host reads of decode tokens)
     peak_active: int = 0
+    prefix_hits: int = 0
+    prefix_tokens_saved: int = 0
     paged_blocks_in_use: int = 0
     paged_blocks_hwm: int = 0
+    paged_blocks_copied: int = 0  # CoW copies (<= 1 per prefix hit)
     paged_blocks_read_last_step: int = 0
     paged_live_blocks: int = 0
     paged_alloc_waits: int = 0  # admissions deferred on an exhausted pool
@@ -234,7 +245,22 @@ class SchedulerStats:
     graph_warmup_s: float = 0.0
     graph_setup_forwards: int = 0
     graph_keys: dict = field(default_factory=dict)
+    # the JAX engine's speculative-decoding and migration counts, so the
+    # two packages' stats carry the same keys; they stay 0 until those
+    # paths are ported (ROADMAP.md queue A items 7 and 9)
+    spec_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_tiers: dict = field(default_factory=dict)
+    migrated_out: int = 0
+    migrated_in: int = 0
+    import_reprefills: int = 0
+    prefill_handoffs: int = 0
     history: deque = field(default_factory=lambda: deque(maxlen=64))
+
+    @property
+    def spec_acceptance(self) -> float:
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
 
 
 def tenant_queue(source: str | None = None) -> WdrrQueue:
@@ -254,8 +280,18 @@ def _cost(req: Request) -> float:
 
 
 class _PoolExhausted(RuntimeError):
-    """The paged pool has no free blocks: admission backpressure, not a
-    crash — callers requeue or fail the one request."""
+    """The paged pool has no free blocks (after reclaiming prefix pins):
+    admission backpressure, not a crash — callers requeue or fail the one
+    request."""
+
+
+def copy_block(pool: dict, src: int, dst: int) -> None:
+    """The CoW block copy, in place: block ``src`` to ``dst`` in dim 2 of
+    every pool tensor (pages ``k``/``v`` [L, Hkv, NB, BS, hd] and, on an
+    int8 pool, ``k_scale``/``v_scale`` [L, Hkv, NB]): one device copy per
+    tensor, on the current stream, no host sync."""
+    for t in pool.values():
+        t.select(2, dst).copy_(t.select(2, src))
 
 
 def launch_counters(engine) -> list[tuple[object, str]]:
@@ -362,6 +398,19 @@ class BatchScheduler:
         # collapse the window)
         self._sticky_idle_s = 5.0
         self._last_dispatch_t = 0.0
+        # economics (engine/introspect.py): the decode root's declared
+        # capture space is the batch ladder x the pow2 table widths (any
+        # flags); the CoW copy is an eager op, a root with no compiles
+        ic = e.introspect
+        self._meter = ic.meter
+        bs_ok = declared_batch_sizes(max_batch)
+        bpr = e.blocks_per_row
+        ic.sentinel.register(
+            "decode",
+            allowed=lambda key: key[0] in bs_ok and declared_table_width(key[1], bpr),
+        )
+        ic.sentinel.register("cow_copy")
+        ic.ledger.register("kv_pool", lambda: self._cache)
         self._init_device_state()
 
         self._thread = threading.Thread(
@@ -381,6 +430,11 @@ class BatchScheduler:
         K = e.engine_cfg.decode_chunk
         self._bsz = 1
         self._alloc = BlockAllocator(e.pool_blocks)
+        # the prefix pins live in the allocator: a rebuilt pool starts an
+        # empty cache
+        entries = e.engine_cfg.prefix_cache_entries
+        self._prefix_cache = (PagedPrefixCache(entries, self._alloc)
+                              if entries > 0 else None)
         self._tables[:] = 0
         self._row_blocks: list[list[int]] = [[] for _ in range(mb)]
         self._cache = e.new_pool()
@@ -476,28 +530,38 @@ class BatchScheduler:
                 if self._shutdown:
                     self._fail_all("engine shut down")
                     return
-            try:
-                if self._inflight and self._queue:
-                    # admission needs settled row state: drain the
-                    # readback ring before touching it
-                    if self._drain_inflight():
-                        self._compact_and_shrink()
-                self._admit()
-                if self.active or self._inflight:
-                    self._step()
-            except Exception as e:  # noqa: BLE001 — the thread must survive:
-                # a dead scheduler thread would hang every blocked caller
-                logger.exception("scheduler step failed; failing active requests")
-                try:
-                    with self._cond:
-                        self._fail_all(f"scheduler error: {e!r}")
-                    self._init_device_state()
-                except Exception:
-                    logger.exception("scheduler recovery failed; shutting down")
-                    with self._cond:
-                        self._shutdown = True
-                        self._fail_all("scheduler dead: device unrecoverable")
+            # a device profile starts and stops between passes
+            with device_gate.device_pass():
+                if not self._pass():
                     return
+
+    def _pass(self) -> bool:
+        """One pass over the device: drain before admission, admit, step.
+        A failure fails the batch and rebuilds the device state; False when
+        even that failed and the loop must end."""
+        try:
+            if self._inflight and self._queue:
+                # admission needs settled row state: drain the
+                # readback ring before touching it
+                if self._drain_inflight():
+                    self._compact_and_shrink()
+            self._admit()
+            if self.active or self._inflight:
+                self._step()
+        except Exception as e:  # noqa: BLE001 — the thread must survive:
+            # a dead scheduler thread would hang every blocked caller
+            logger.exception("scheduler step failed; failing active requests")
+            try:
+                with self._cond:
+                    self._fail_all(f"scheduler error: {e!r}")
+                self._init_device_state()
+            except Exception:
+                logger.exception("scheduler recovery failed; shutting down")
+                with self._cond:
+                    self._shutdown = True
+                    self._fail_all("scheduler dead: device unrecoverable")
+                return False
+        return True
 
     def _fail_all(self, reason: str):
         """Error-terminate every queued AND admitted request (callers are
@@ -536,11 +600,22 @@ class BatchScheduler:
         self.stats.paged_blocks_in_use = self._alloc.used_count
 
     def _alloc_blocks(self, n: int) -> list[int]:
-        """THE allocation funnel. On an int8 pool it zeroes the fresh
-        blocks' scales: the quantize-on-write running max would otherwise
-        inherit the previous tenant's amax and serve the new row at an
-        inflated quantization step."""
+        """THE allocation funnel (admission prefill, decode growth, CoW copy
+        targets): n fresh blocks, reclaiming LRU prefix pins under
+        pressure; raises _PoolExhausted when even that cannot cover them.
+        Pressure eviction runs with an empty readback ring only: admission
+        waits for one, and a look-ahead window dispatches only when the
+        free list covers it (_overlap_ready). Besides, a block whose only
+        reference is a pin is in no row's table.
+        On an int8 pool it zeroes the fresh blocks' scales: the
+        quantize-on-write running max would otherwise inherit the previous
+        tenant's amax and serve the new row at an inflated quantization
+        step (a CoW copy then overwrites its target's with the donor's,
+        queued after the reset on the same stream)."""
         fresh = self._alloc.alloc(n)
+        if fresh is None and self._prefix_cache is not None:
+            if self._prefix_cache.evict_for_pressure(n):
+                fresh = self._alloc.alloc(n)
         if fresh is None:
             raise _PoolExhausted(
                 f"paged KV pool exhausted: need {n} blocks, "
@@ -575,12 +650,20 @@ class BatchScheduler:
 
     # ------------------------------------------------------- batch resizing
 
+    # minimum HBM ledger headroom fraction required to grow the batch
+    # bucket (sticky widths make growth near-permanent)
+    _GROW_HEADROOM_MIN = 0.02
+
     def _growth_headroom(self) -> bool:
-        """May the batch bucket grow? The JAX scheduler gates growth on its
-        HBM ledger's headroom and allows it when the limit is unknown; the
-        port has no ledger yet (ROADMAP queue A item 6), so the limit is
-        always unknown and growth always allowed."""
-        return True
+        """May the batch bucket grow? Gated on the HBM ledger's headroom
+        fraction (engine/introspect.py). An unknown limit (the CPU without
+        BEE2BEE_HBM_BYTES) always allows: the gate stops growth into a
+        KNOWN ceiling, never guesses one."""
+        try:
+            frac = self.engine.introspect.ledger.snapshot().get("headroom_frac")
+        except Exception:  # noqa: BLE001 — telemetry never blocks admission
+            return True
+        return frac is None or frac > self._GROW_HEADROOM_MIN
 
     def _resize(self, new_bsz: int):
         """Move to a new batch bucket: only the host mirrors resize. The
@@ -644,43 +727,116 @@ class BatchScheduler:
 
     # ------------------------------------------------------------ admission
 
-    def _paged_prefill(self, req: Request, b: int, bucket: int):
-        """Prefill req's prompt straight into the pool through row b's
-        block table, chunk by chunk; returns last_logits [1, V]. The
-        block-sufficiency check runs BEFORE any device work: on
-        _PoolExhausted the row holds nothing and the caller can requeue."""
+    def _paged_prefill(self, req: Request, b: int, bucket: int, start: int,
+                       cached, seq: list | None = None):
+        """Admit one request onto the paged pool: wire row b's block table
+        (sharing a matched prefix's full blocks, copying at most its final
+        partial block), chunk-prefill the rest straight into the pool, and
+        pin the prompt's blocks in the prefix cache. Returns last_logits
+        [1, V]. On _PoolExhausted every reference this call took is
+        released and the table row is nulled, so the caller can requeue
+        the request cleanly; the raise happens BEFORE any device work (the
+        block sufficiency is prechecked), so a requeue never redoes CoW
+        copies or prefill chunks, nor counts prefix stats twice.
+
+        ``seq`` overrides the token sequence prefilled (default: the
+        prompt); its positions then book as scheduled work with no useful
+        tokens (a re-prefill)."""
         e = self.engine
         BS = self._block_size
-        seq = req.ids
+        recompute = seq is not None
+        if seq is None:
+            seq = req.ids
         n = len(seq)
-        self._row_blocks[b] = []
+        if cached is None:
+            start = 0
+        row: list[int] = []
+        self._row_blocks[b] = row
         self._tables[b, :] = 0
+        temp_ref: list[int] = []
         try:
-            # the write ceil drops every scatter at/past n, so prefill
-            # claims exactly ceil(n / BS) blocks whatever the bucket
-            need = ceil_div(n, BS)
-            if need > self._alloc.free_count:
+            full = start // BS
+            if cached is not None:
+                shared = list(cached[:full])
+                # take our refs FIRST: the eviction below may reclaim
+                # prefix entries, the donor's among them, and must not free
+                # blocks this row is about to depend on
+                self._alloc.ref(shared)
+                row.extend(shared)
+                self._tables[b, :full] = shared
+                if start % BS:
+                    self._alloc.ref([int(cached[full])])
+                    temp_ref.append(int(cached[full]))
+            # blocks freed behind the (empty) ring count as free
+            self._release_deferred()
+            # sufficiency precheck before ANY device work: the write ceil
+            # drops every scatter at/past n, so prefill claims exactly the
+            # blocks covering the prompt, ceil(n / BS), whatever the
+            # bucket (fresh blocks = that less the shared full ones; the
+            # CoW target is the full-th block and is counted)
+            fresh_needed = ceil_div(n, BS) - full
+            if fresh_needed > self._alloc.free_count and not (
+                self._prefix_cache is not None
+                and self._prefix_cache.evict_for_pressure(fresh_needed)
+            ):
                 raise _PoolExhausted(
-                    f"paged KV pool exhausted: admission needs {need} blocks, "
-                    f"{self._alloc.free_count} free of {self._alloc.num_blocks}"
+                    f"paged KV pool exhausted: admission needs {fresh_needed} "
+                    f"blocks, {self._alloc.free_count} free of "
+                    f"{self._alloc.num_blocks}"
                 )
+            if cached is not None:
+                if start % BS:
+                    src = temp_ref[0]
+                    fresh = self._alloc_blocks(1)
+                    # the ONE CoW copy: the borrower writes into this block
+                    # from position `start`, so it gets its own. Queued on
+                    # the stream after _alloc_blocks' scale reset of the
+                    # target, so the target ends with the donor's scales
+                    copy_block(self._cache, src, fresh[0])
+                    self.stats.paged_blocks_copied += 1
+                    row.append(fresh[0])
+                    self._tables[b, full] = fresh[0]
+                    self._alloc.deref(temp_ref)
+                    temp_ref.clear()
+                self.stats.prefix_hits += 1
+                self.stats.prefix_tokens_saved += start
             last_logits = None
-            for pos in prefill_chunk_positions(n, 0, bucket, e.max_seq_len):
+            # the chunk walk from `start`. Its capacity re-anchor can
+            # re-feed tokens below `start`: the write floor sends those
+            # writes to the null block, so the shared blocks stay read-only
+            # (attention still reads the donor's values there)
+            for pos in prefill_chunk_positions(n, start, bucket, e.max_seq_len):
                 self._ensure_blocks(b, min(pos + bucket, n))
                 chunk = seq[pos:pos + bucket]
                 tokens = np.zeros((1, bucket), np.int64)
                 tokens[0, :len(chunk)] = chunk
-                tw = self._table_width(len(self._row_blocks[b]))
+                tw = self._table_width(len(row))
                 last_logits = e._prefill(
                     torch.from_numpy(tokens).to(self._device),
                     self._cache,
                     torch.tensor([len(chunk)], device=self._device),
                     pos,
                     torch.from_numpy(self._tables[b:b + 1, :tw].copy()).to(self._device),
+                    write_floor=start,
                     write_ceil=n,
                 )
+                # economics: the bucket's padded width is what the card
+                # ran; only the real prompt tokens were useful
+                self._meter.record_dispatch(bucket, pos + bucket / 2.0, scheduled=bucket)
+                if not recompute:
+                    self._meter.note_useful(len(chunk))
+            # pinning is free (refcounts): the entry claims the blocks
+            # covering exactly the prefilled positions. (The JAX engine
+            # never pins an adapter row's blocks; the port serves no
+            # adapters yet, ROADMAP.md queue A item 8.)
+            if self._prefix_cache is not None and not self._prefix_cache.has(seq):
+                self._prefix_cache.put(seq, row[:ceil_div(n, BS)])
+                # a capacity eviction inside put() may have freed blocks
+                self.stats.paged_blocks_in_use = self._alloc.used_count
             return last_logits
         except _PoolExhausted:
+            if temp_ref:
+                self._alloc.deref(temp_ref)
             self._release_row(b)
             raise
 
@@ -725,12 +881,16 @@ class BatchScheduler:
                     break
                 self._resize(min(self._bsz * 2, self.max_batch))
             b = next(i for i, r in enumerate(self._rows) if r is None)
-            n = len(req.ids)
+            # longest cached prompt prefix: admit from there and prefill
+            # only the rest (chat transcripts grow by appending)
+            start, cached = (self._prefix_cache.match(req.ids)
+                             if self._prefix_cache is not None else (0, None))
             C = e.engine_cfg.prefill_chunk
-            bucket = C if C is not None and n > C else e._bucket_for(n)
+            remaining = len(req.ids) - (start if cached is not None else 0)
+            bucket = C if C is not None and remaining > C else e._bucket_for(remaining)
             req.bucket = bucket
             try:
-                last_logits = self._paged_prefill(req, b, bucket)
+                last_logits = self._paged_prefill(req, b, bucket, start, cached)
                 dev = self._device
                 kw = {}
                 if req.penalized:
@@ -782,7 +942,7 @@ class BatchScheduler:
                 )
                 raise
             self._rows[b] = req
-            self._offsets[b] = n
+            self._offsets[b] = len(req.ids)
             placed.append((req, b, len(firsts)))
             firsts.append(first)
 
@@ -798,6 +958,11 @@ class BatchScheduler:
             _H_PREFILL.observe((now - t.t_admit) * 1000.0)
             self.stats.admitted += 1
             accepted = req.accept(tok)
+            if accepted:
+                # the admission-sampled first token is useful, and its slot
+                # is scheduled too (its FLOPs were booked with the prefill)
+                self._meter.record_dispatch(0.0, 0.0, scheduled=1)
+                self._meter.note_useful(1)
             if accepted and req.stream:
                 req.events.put(
                     {"token": tok, "tokens": [tok], "text": req.text_delta(final=req.done)}
@@ -904,6 +1069,19 @@ class BatchScheduler:
         runs nothing. The counts both move are put back; the capture's are
         the graph's deltas. A failure raises: there is no eager decode on
         the card."""
+        # a device profile and a capture never overlap (the capture waits,
+        # outside its pass: the profile's stop waits for the pass to end)
+        if not graph_capture_lock.acquire(blocking=False):
+            with device_gate.outside_pass():
+                graph_capture_lock.acquire()
+        try:
+            dg, seconds = self._capture_locked(key)
+        finally:
+            graph_capture_lock.release()
+        self.engine.introspect.sentinel.note_compile("decode", key, seconds)
+        return dg
+
+    def _capture_locked(self, key: tuple) -> tuple[_DecodeGraph, float]:
         e = self.engine
         t0 = time.perf_counter()
         v = self._views(key)
@@ -955,7 +1133,7 @@ class BatchScheduler:
         captures, total = st.graph_keys.get(key, (0, 0.0))
         st.graph_keys[key] = (captures + 1, total + seconds)
         logger.info("captured decode graph %s in %.3f s", key, seconds)
-        return dg
+        return dg, seconds
 
     def _decode_chunk(self, key: tuple):
         """One chunk: decode_chunk steps for all rows on the static buffers;
@@ -1086,6 +1264,13 @@ class BatchScheduler:
         a = self.active
         _G_ACTIVE_ROWS.set(a)
         _G_BATCH_FILL.set(a / bsz)
+        # pool-growth forecast on the dispatch cadence, and the window's
+        # economics: bsz*W*K positions run (dead rows included), active*W*K
+        # token slots scheduled
+        self.engine.introspect.forecast.feed(self._alloc.used_count,
+                                             self._alloc.free_count)
+        self._meter.record_dispatch(bsz * W * K, self._mean_active_ctx() + W * K / 2.0,
+                                    scheduled=a * W * K)
         t0 = time.perf_counter()
         for c in range(W):
             self._decode_chunk(key)
@@ -1102,6 +1287,12 @@ class BatchScheduler:
             self.stats.counts_windows += 1
         self._last_dispatch_t = time.perf_counter()
         return True
+
+    def _mean_active_ctx(self) -> float:
+        """Mean cache depth of the active rows: the FLOPs model's attention
+        input. Read before the dispatch advances the offsets."""
+        depths = [int(self._offsets[b]) for b, r in enumerate(self._rows) if r is not None]
+        return sum(depths) / len(depths) if depths else 0.0
 
     def _overlap_ready(self, pending: int) -> bool:
         """May a look-ahead window dispatch with ``pending`` tokens already
@@ -1207,6 +1398,9 @@ class BatchScheduler:
             emitted.append(int(t))
             if req.done:
                 break
+        # goodput: only tokens accepted into an output are useful
+        # (post-stop overshoot and cancelled rows stay scheduled-only)
+        self._meter.note_useful(len(emitted))
         if emitted and req.stream:
             req.events.put({
                 "token": emitted[-1],

@@ -182,8 +182,13 @@ def _quantized_page_write(pool, scale, blk, slot, wslot, xT):
     is still 0 (fresh, touched by an all-zero write) is zeroed here where
     JAX keeps its stale bytes. No reader sees such a slot before it is
     written. The null block's scale only grows (redirected writes reduce
-    into it): garbage by design, masked by every reader. Rows own disjoint
-    blocks, so the page window repeats only the null block."""
+    into it): garbage by design, masked by every reader. Rows may READ the
+    same blocks (a prefix hit maps the cached prompt's full blocks into
+    its table), but they never WRITE one another's: a borrower's writes
+    below its match are redirected by the write floor, and its partial
+    block is a copy it owns (engine/scheduler.py). So a page this writes
+    belongs to one row, and the page window repeats only the null block
+    (tests/test_torch_prefix.py watches every write)."""
     Hkv, NB, BS, hd = pool.shape
     B, T = blk.shape
     # a T-position chunk at any slot offset straddles at most P pages

@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file is a shared library with a plain C interface:
 package, into ``build/bee2bee_tpu_torch/`` at the root of the checkout,
 and ``ctypes`` loads it. The library's name carries a hash of its source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
-header never loads a stale build. Nothing here
+header never loads a stale build. The wall time of a build that compiled
+something is booked to ``engine.compile_seconds{root="other"}``
+(engine/introspect.py). Nothing here
 runs at import: the CPU tests import every module, and a machine without
 ``nvcc`` only fails when a kernel is actually asked for.
 """
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -69,6 +72,7 @@ def build(sources=SOURCES) -> dict[str, Path]:
     register, shared-memory and spill report) beside its library as
     ``.log``. Raises RuntimeError with the compiler output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     running = []
     for source in sources:
         lib = library_path(source)
@@ -90,6 +94,10 @@ def build(sources=SOURCES) -> dict[str, Path]:
             os.replace(tmp, lib)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    if running:
+        from ..engine.introspect import book_build_seconds
+
+        book_build_seconds(time.perf_counter() - t0)
     return {source: library_path(source) for source in sources}
 
 

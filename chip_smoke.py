@@ -146,6 +146,34 @@ and the script exits non-zero):
    Prints, beside the card's name and power limit, TTFT, decode tok/s,
    peak memory and pool bytes, and the replayed B=8 ctx-1024 step's host
    wall, device busy, idle share and attention ms per launch.
+   Economics, in each slice of phases 6-8, over its traffic: the HBM
+   ledger's ``weights`` and ``kv_pool`` equal the tensors' storage bytes
+   (the pool also its geometry's), 0 < headroom < 1 (the device's used
+   memory from ``mem_get_info``), ``engine.compiles{root="decode"}``
+   equals the scheduler's graph captures with no retrace storm, MFU x
+   peak over the meter's window equals the FLOPs model over the
+   dispatches recorded in it within 10%, the goodput fraction is in
+   (0, 1].
+   The prefix cache, between phases 7 and 8 over the same bf16 weights
+   (bf16 and int8 pools, ``prefix_cache_entries`` 16 and the slices'
+   config: 3,089 blocks, 2,048 of them pin room) and in phase 8 over the
+   f32 weights (f32 pool): 8 conversations of 985-1019 byte tokens. Turn
+   1 sends them at once (8 misses); turn 2 resends each with its 64-token
+   reply and 40 new tokens (8 hits), then one exact repeat (a hit at
+   n - 1). Checks: the hits, tokens saved and CoW copies the traffic
+   implies; each hit's first chunk at offset = its match, floored there,
+   at the bucket of the remaining length, n_layers launches of the tile
+   kernel the rule names; the slices' launch identities; the shared
+   donor blocks' bytes (and scales) bit-equal before and after the
+   borrowers' prefill and decode; each CoW target's pages and scales
+   equal to its donor's at the copy. The same turn 2 on a cache-off
+   engine: bf16 and int8 pools, a hit's first-token logits no further from
+   the f32 forward's (cache off) than twice the cache-off run's of the
+   same pool, prompt by prompt; f32, the hits' greedy tokens equal the
+   cache-off engine's. Then one admission into a pool of one row and 40
+   blocks that must evict a pinned entry under pressure (each pool).
+   Prints hit, miss and cache-off TTFT (median and range of each burst)
+   with the card's name and power limit.
 9. The node (serve-cuda's path): the port's run_p2p_node boots a mesh
    node with its aiohttp gateway on free loopback ports and
    CUDAService("llama-3-8b") from the port's NodeConfig defaults (bf16
@@ -164,23 +192,42 @@ and the script exits non-zero):
    the boot and the service's load seconds, the event loop's longest
    stall during the load, and TTFT and tok/s through the gateway against
    the direct call (medians of 3 alternating pairs), with the card's name
-   and power limit.
+   and power limit. Then a second node, booted with
+   ``BEE2BEE_PREFIX_CACHE=8`` (read by ``load_config`` as ``serve-cuda``
+   reads it): the prompt once (a miss) and again (an exact-repeat hit,
+   counted, the reference text: a hit recomputes the last prompt position
+   at another chunk width, so at a bf16 near-tie its greedy text can
+   leave the miss's, which is why the route checks above run without the
+   cache); a ``POST /debug/profile`` of 1 s while streams of the prompt
+   run back to back (their texts equal the hit's), listed and fetched by
+   ``GET``, its chrome trace naming the decode kernel; ``/metrics``
+   samples of ``engine.mfu``, ``engine.goodput_tokens_per_s``,
+   ``engine.hbm_bytes``, ``engine.hbm_headroom_frac`` and
+   ``engine.compiles``; and a second turn (the first's transcript, its
+   reply and a new user line) that counts one hit over the whole
+   first-turn prompt.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
-   kernels' from phases 6, 7 and 9; the f32 decode kernel's and the f32
-   tile forms' from phase 8 and phase 5's f32 forwards), then the result
-   line.
+   kernels' from phases 6, 7, 9 and the prefix phase over the same pool;
+   the f32 decode kernel's and the f32 tile forms' from phase 8, its
+   prefix phase and phase 5's f32 forwards), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
-when the package is not beside this script.
+when the package is not beside this script. Each phase's start goes to
+stderr with the seconds since launch; a run still going after 1080 s
+dumps every thread's stack to stderr and exits 1. The nodes keep their
+state under build/bee2bee_home unless BEE2BEE_TPU_HOME names another
+directory.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -203,11 +250,24 @@ KERNEL_TOL = 2e-2
 F32_TOL = 1e-4
 FORWARD_TOL = 2e-3
 SEED = 0
+# a run still going after this many seconds dumps every thread's stack to
+# stderr and exits 1 (the smoke is given 1200 s; it takes about 330)
+WATCHDOG_S = 1080
 SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's 1.98 GHz boost clock
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def stage(name: str) -> None:
+    """Marks a phase's start on stderr with the seconds since the start,
+    so the end of stderr names the phase a stopped run was in."""
+    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s: {name}", file=sys.stderr,
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1439,7 +1499,7 @@ def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
     the bucket held at 8 so both runs replay the same graphs in the same
     order: the same tokens, and fewer stalls than host syncs with overlap
     on, a stall at every sync with it off."""
-    from bee2bee_tpu_torch.engine.scheduler import _C_HOST_SYNCS, _C_SYNC_STALLS
+    from bee2bee_tpu_torch.engine.introspect import _C_HOST_SYNCS, _C_SYNC_STALLS
 
     sch = engine.scheduler
     check(not sch.active and not sch._inflight, f"{tag} ring: scheduler not idle")
@@ -1488,7 +1548,7 @@ def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
 def graph_stats(engine, tag: str, since: dict | None = None) -> dict:
     """The scheduler's decode-graph and readback numbers now; with
     ``since`` (such a snapshot) print and return what moved since."""
-    from bee2bee_tpu_torch.engine.scheduler import _C_HOST_SYNCS, _C_SYNC_STALLS
+    from bee2bee_tpu_torch.engine.introspect import _C_HOST_SYNCS, _C_SYNC_STALLS
 
     st = engine.scheduler.stats
     now = dict(captures=st.graph_captures, replays=st.graph_replays,
@@ -1580,6 +1640,92 @@ def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16"):
     return svc, time.perf_counter() - t0
 
 
+def storage_bytes(tree) -> int:
+    """Device bytes of a tensor tree, each storage once."""
+    seen: dict = {}
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        else:
+            seen[node.untyped_storage().data_ptr()] = node.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def record_dispatches(engine) -> list:
+    """(time, positions, ctx, scheduled) of every dispatch the scheduler
+    books with the engine's goodput meter from now on."""
+    meter = engine.introspect.meter
+    book = meter.record_dispatch
+    out: list = []
+
+    def recorded(positions, ctx, scheduled):
+        out.append((time.time(), positions, ctx, scheduled))
+        book(positions, ctx, scheduled=scheduled)
+
+    meter.record_dispatch = recorded
+    return out
+
+
+def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) -> None:
+    """The economics plane over one slice's traffic: the ledger's weights
+    and KV pool equal their tensors' storage bytes (the pool also its
+    geometry's), the device's headroom is in (0, 1); the decode root's
+    compiles equal the scheduler's graph captures and nothing stormed;
+    MFU x peak over the meter's window equals the FLOPs model over the
+    dispatches recorded in that window (within 10%); goodput fraction in
+    (0, 1]."""
+    from bee2bee_tpu_torch.engine.introspect import FlopsModel
+    from bee2bee_tpu_torch.metrics import get_registry
+
+    cfg, ecfg = engine.model_cfg, engine.engine_cfg
+    ic = engine.introspect
+    snap = ic.refresh()
+    now = time.time()
+    hbm, comps = snap["hbm"], snap["hbm"]["components"]
+    weights, pool = storage_bytes(engine.params), pool_bytes(engine)
+    per = cfg.n_layers * cfg.n_kv_heads * engine.pool_blocks
+    geometry = (2 * per * ecfg.kv_block_size * cfg.head_dim * engine.cache_dtype.itemsize
+                + (2 * per * 4 if engine.kv_quantized else 0))
+    check(comps.get("weights") == weights and comps.get("kv_pool") == pool == geometry,
+          f"{tag}: ledger {comps} vs weights {weights} B, pool {pool} B "
+          f"(geometry {geometry} B)")
+    frac = hbm.get("headroom_frac")
+    check(frac is not None and 0.0 < frac < 1.0
+          and hbm["bytes_in_use"] >= hbm["accounted_bytes"],
+          f"{tag}: HBM ledger {hbm}")
+    compiles = snap["compiles"]
+    captures = engine.scheduler.stats.graph_captures
+    check(compiles["decode"]["traces"] == captures > 0
+          and compiles["prefill"]["traces"] == compiles["cow_copy"]["traces"] == 0
+          and not any(v["storms"] for v in compiles.values())
+          and not ic.sentinel.storming()
+          and not get_registry().get("engine.retrace_storms").total(),
+          f"{tag}: compiles {compiles} vs {captures} graph captures")
+    g = snap["goodput"]
+    fm = FlopsModel(cfg)
+    t0 = now - g["window_s"]
+    in_window = sum(fm.flops(p, c) for t, p, c, _ in dispatches if t > t0)
+    measured = g["mfu"] * snap["peak_flops"] * g["window_s"]
+    check(in_window > 0 and abs(measured - in_window) <= 0.10 * in_window,
+          f"{tag}: MFU x peak x window {measured:.4e} FLOPs, the FLOPs model over "
+          f"the window's dispatches {in_window:.4e}")
+    check(0.0 < g["goodput_fraction"] <= 1.0, f"{tag}: goodput {g}")
+    total = sum(fm.flops(p, c) for _, p, c, _ in dispatches)
+    log(f"{tag}: economics: ledger weights {comps['weights']} B, kv_pool "
+        f"{comps['kv_pool']} B, workspace/other {comps.get('workspace_other')} B, "
+        f"in use {hbm['bytes_in_use']} of {hbm['bytes_limit']} B, headroom "
+        f"{frac}; compiles {compiles}; MFU {g['mfu']} over a {g['window_s']} s "
+        f"window (peak {snap['peak_flops']:.4g}), the traffic's {total:.4e} model "
+        f"FLOPs over its {wall:.3f} s wall = {total / wall / snap['peak_flops']:.4f} "
+        f"of peak; goodput {g['goodput_tokens_per_s']} tok/s, fraction "
+        f"{g['goodput_fraction']} ({g['useful_tokens_total']} useful of "
+        f"{g['scheduled_tokens_total']} scheduled); card {card}")
+
+
 def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. The bf16 slices (phases 6-7) then run
@@ -1645,6 +1791,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
             return forward(tokens, *args, **kw)
 
         engine.forward = counted_forward
+        dispatches = record_dispatches(engine)
         since = graph_stats(engine, tag)
         reset_counts()
         engine.forward_calls = 0
@@ -1723,6 +1870,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
               f"decode steps")
         others = {k: v for k, v in counts.items() if k not in (dec, tile) and v}
         check(not others, f"{tag}: other kernel forms launched: {others}")
+        check_economics(engine, tag, card, dispatches, wall)
         if bf16:
             ring_check(engine, tag)
         if bf16 or int8:
@@ -1731,6 +1879,319 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         return counts, nbytes, engine.params
     finally:
         engine.close()
+
+
+# ------------------------------------------------------------ prefix phase
+
+
+# the prefix phase's traffic: conversations of about 1,000 byte tokens, a
+# 64-token reply, then 40 new tokens. Turn 1's histories have distinct
+# lengths (a hit is told by its length), most not a multiple of the block
+# size (a hit then copies one partial block)
+PREFIX_LENGTHS = (1000, 1003, 990, 1011, 997, 1019, 985, 1008)
+PREFIX_REPLY = 64
+PREFIX_NEW = 40
+# one entry per turn-1 prompt and one per turn-2 prompt: with one entry
+# per conversation, each turn-2 pin would evict (LRU) the entry of a
+# conversation not yet admitted, and the burst would hit once
+PREFIX_ENTRIES = 2 * len(PREFIX_LENGTHS)
+
+
+def prefix_histories(tokenizer) -> list:
+    """The turn-1 prompts (token ids), one distinct history each."""
+    words = ("the cache pins every prompt's blocks and a later turn that "
+             "extends it reads them again through its own table ").split()
+    out = []
+    for c, n in enumerate(PREFIX_LENGTHS):
+        text, i = f"conversation {c}: ", 0
+        while len(text) < 2 * n:
+            text += words[(i * (c + 3) + c) % len(words)] + " "
+            i += 1
+        ids = tokenizer.encode(text)[:n]
+        check(len(ids) == n, f"prefix: history {c} has {len(ids)} tokens, not {n}")
+        out.append(ids)
+    return out
+
+
+def prefix_engine(params, cache_dtype, dtype, entries, pool_blocks=None):
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(
+        max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype,
+        prefix_cache_entries=entries, kv_pool_blocks=pool_blocks,
+    )
+    return InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
+
+
+class PrefillWatch:
+    """Wraps an engine's prefill forward: for every chunk, its offset, its
+    write floor and ceil (the prompt's length), its width, and the attention
+    launches it added (host counters, read around the call: no sync); the
+    last chunk's first-token logits by prompt length. Lengths identify the
+    prompts of a burst (each distinct)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.chunks: list = []
+        self.logits: dict = {}
+        self._orig = engine._prefill
+        engine._prefill = self._wrapped
+
+    def _wrapped(self, tokens, pool, true_len, offset, block_tables, write_floor=None,
+                 write_ceil=None):
+        before = read_counts()
+        out = self._orig(tokens, pool, true_len, offset, block_tables,
+                         write_floor=write_floor, write_ceil=write_ceil)
+        after = read_counts()
+        T = tokens.shape[1]
+        self.chunks.append(dict(
+            offset=offset, floor=write_floor, n=write_ceil, T=T,
+            launched={k: after[k] - before[k] for k in after if after[k] != before[k]},
+        ))
+        if offset + T >= write_ceil:  # the prompt's last chunk
+            self.logits[write_ceil] = out.float().clone()
+        return out
+
+    def close(self):
+        self.engine._prefill = self._orig
+
+
+def burst(engine, prompts, new_tokens):
+    """Greedy requests, all at once (threads); returns (results, wall s)."""
+    results: list = [None] * len(prompts)
+    errors: list = []
+
+    def call(i):
+        try:
+            results[i] = engine.generate(prompts[i], max_new_tokens=new_tokens,
+                                         temperature=0.0)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "prefix: generate calls hung")
+    check(not errors, f"prefix: generate failed: {errors}")
+    return results, wall
+
+
+def ttft_summary(results) -> str:
+    ms = sorted(r.ttft_s * 1e3 for r in results)
+    return (f"median {statistics.median(ms):.1f} ms, range {ms[0]:.1f}-{ms[-1]:.1f} ms "
+            f"over {len(ms)}")
+
+
+def phase_prefix(card: str, params, cache_dtype: str, dtype="bfloat16",
+                 prompts2=None) -> dict:
+    """The prompt prefix cache on llama-3-8b at full width and depth, over
+    the shared weights (see the module docstring). Turn 1: 8 concurrent
+    misses; turn 2: each turn-1 prompt with its reply and 40 new tokens, 8
+    concurrent hits; an exact repeat; the same turn 2 on a cache-off
+    engine (the first-token logits and tokens a hit is held to). With
+    ``prompts2`` (the f32 run, on the bf16 run's turn-2 prompts) turn 2 is
+    those prompts. Returns the counts, the turn-2 prompts, and by prompt
+    length the first-token logits and tokens of the hits and of the
+    cache-off run."""
+    from bee2bee_tpu_torch.engine import scheduler as sched_mod
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
+
+    int8 = cache_dtype == "int8"
+    tag = f"prefix[{dtype}, {cache_dtype} pool]"
+    engine = prefix_engine(params, cache_dtype, dtype, PREFIX_ENTRIES)
+    cfg = engine.model_cfg
+    BS = engine.engine_cfg.kv_block_size
+    G = cfg.n_heads // cfg.n_kv_heads
+    suffix = "_int8" if int8 else ""
+    log(f"{tag}: {cfg.name} {cfg.n_layers} layers, prefix_cache_entries "
+        f"{PREFIX_ENTRIES}, pool {engine.pool_blocks} blocks ({pool_bytes(engine)} B)")
+    turn1 = prefix_histories(engine.tokenizer)
+    watch = PrefillWatch(engine)
+    copies: list = []
+    copy_block = sched_mod.copy_block
+
+    def watched_copy(pool, src, dst):
+        copy_block(pool, src, dst)
+        # queued right behind the copy on the same stream: the target's
+        # pages and scales against the donor's at the moment of the copy
+        same = [(t[:, :, dst] == t[:, :, src]).all() for t in pool.values()]
+        copies.append((src, dst, torch.stack(same)))
+
+    sched_mod.copy_block = watched_copy
+    out: dict = {}
+    try:
+        sch = engine.scheduler
+        reset_counts()
+        engine.forward_calls = 0
+        since = graph_stats(engine, tag)
+        r1, wall1 = burst(engine, turn1, PREFIX_REPLY)
+        entries = dict(sch._prefix_cache._entries)
+        check(len(entries) == len(turn1) and all(tuple(p) in entries for p in turn1),
+              f"{tag}: turn 1 pinned {len(entries)} entries")
+        # the blocks turn 2 will share: each entry's full blocks
+        shared = sorted({b for p in turn1 for b in entries[tuple(p)][:len(p) // BS]})
+        idx = torch.tensor(shared, device="cuda")
+        before = {k: t.index_select(2, idx).clone() for k, t in sch._cache.items()}
+        if prompts2 is None:
+            prompts2 = [p + r.token_ids + p[:PREFIX_NEW] for p, r in zip(turn1, r1)]
+        check(len({len(p) for p in prompts2}) == len(prompts2),
+              f"{tag}: turn-2 prompt lengths collide")
+        st0 = (sch.stats.prefix_hits, sch.stats.prefix_tokens_saved,
+               sch.stats.paged_blocks_copied)
+        n_chunks = len(watch.chunks)
+        r2, wall2 = burst(engine, prompts2, PREFIX_REPLY)
+        hit_logits = {len(p): watch.logits[len(p)] for p in prompts2}
+        n_chunks2 = len(watch.chunks)
+        repeat = prompts2[0]
+        t1 = time.perf_counter()
+        rr = engine.generate(repeat, max_new_tokens=PREFIX_REPLY, temperature=0.0)
+        repeat_wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        counts = read_counts()
+        forwards = engine.forward_calls
+        graphs = graph_stats(engine, tag, since)
+        after = {k: t.index_select(2, idx) for k, t in sch._cache.items()}
+        st = sch.stats
+        starts = [len(p) for p in turn1] + [len(repeat) - 1]
+        want = (len(starts), sum(starts), sum(s % BS != 0 for s in starts))
+        got = (st.prefix_hits - st0[0], st.prefix_tokens_saved - st0[1],
+               st.paged_blocks_copied - st0[2])
+        check(st0 == (0, 0, 0) and got == want,
+              f"{tag}: prefix hits, tokens saved, CoW copies {got} after {st0}, "
+              f"the traffic implies {want}")
+        # each hit's first chunk: at the match, floored there, at the bucket
+        # of the remaining length, through the tile kernel, n_layers launches
+        chunks2 = watch.chunks[n_chunks:n_chunks2]
+        for p, start, chunks in zip(prompts2 + [repeat], starts,
+                                    [chunks2] * len(prompts2) + [watch.chunks[n_chunks2:]]):
+            first = [c for c in chunks if c["n"] == len(p)][0]
+            bucket = engine._bucket_for(len(p) - start)
+            kernel = RAGGED_COUNTERS[ragged_kernel(engine.dtype, bucket, cfg.head_dim,
+                                                   int8, G)] + suffix
+            check(first["offset"] == start and first["floor"] == start
+                  and first["T"] == bucket and first["launched"] == {kernel: cfg.n_layers},
+                  f"{tag}: the hit of the {len(p)}-token prompt ran {first}, "
+                  f"expected offset {start}, bucket {bucket}, {cfg.n_layers} "
+                  f"{kernel} launches")
+        # every copy: the target's pages and scales equal the donor's
+        same = torch.stack([s for _, _, s in copies]).cpu() if copies else None
+        check(len(copies) == want[2] and bool(same.all()),
+              f"{tag}: {len(copies)} CoW copies, target == donor per tensor "
+              f"{same.tolist() if same is not None else None}")
+        # the shared donor blocks, bit for bit, after the borrowers' prefill
+        # and decode (their scales too over the int8 pool)
+        for k in before:
+            check(torch.equal(before[k], after[k]),
+                  f"{tag}: shared donor blocks' {k} changed under the borrowers")
+        log(f"{tag}: turn 1, 8 misses: TTFT {ttft_summary(r1)}; burst wall {wall1:.3f} s")
+        log(f"{tag}: turn 2, 8 hits: TTFT {ttft_summary(r2)}; burst wall {wall2:.3f} s; "
+            f"exact repeat (start n-1): TTFT {rr.ttft_s * 1e3:.1f} ms, wall "
+            f"{repeat_wall:.3f} s; card {card}")
+        log(f"{tag}: {got[0]} hits saved {got[1]} prompt tokens with {got[2]} CoW "
+            f"copies; {len(shared)} shared donor blocks bit-equal before and after; "
+            f"suffix buckets {sorted({engine._bucket_for(len(p) - s) for p, s in zip(prompts2, starts)})}; "
+            f"launches {counts}, forwards {forwards}, graph replays {graphs['replays']}")
+        # the launch identities of phases 6-8
+        dec = [k for k in counts if k.startswith("ragged_decode") and counts[k]]
+        tile = [k for k in counts if k.startswith("ragged_prefill") and counts[k]]
+        others = {k: v for k, v in counts.items() if k not in dec + tile and v}
+        n_dec, n_tile = sum(counts[k] for k in dec), sum(counts[k] for k in tile)
+        check(len(dec) == 1 and len(tile) == 1 and not others
+              and n_dec + n_tile == cfg.n_layers * forwards
+              and n_dec == cfg.n_layers * graphs["replays"] > 0,
+              f"{tag}: launches {counts} vs {cfg.n_layers} x {forwards} forwards, "
+              f"{graphs['replays']} replays")
+        out.update(counts=counts, prompts2=prompts2,
+                   hit_logits=hit_logits,
+                   tokens={len(p): r.token_ids for p, r in zip(prompts2, r2)},
+                   ttft=dict(miss=[r.ttft_s for r in r1], hit=[r.ttft_s for r in r2]))
+    finally:
+        sched_mod.copy_block = copy_block
+        watch.close()
+        engine.close()
+    del engine, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same turn 2 without the cache: its tokens and first-token logits
+    off = prefix_engine(params, cache_dtype, dtype, 0)
+    watch = PrefillWatch(off)
+    try:
+        r_off, wall_off = burst(off, prompts2, PREFIX_REPLY)
+        log(f"{tag}: turn 2 cache off, 8 misses: TTFT {ttft_summary(r_off)}; burst "
+            f"wall {wall_off:.3f} s; card {card}")
+        out["off_logits"] = {len(p): watch.logits[len(p)] for p in prompts2}
+        out["off_tokens"] = {len(p): r.token_ids for p, r in zip(prompts2, r_off)}
+        out["ttft"]["off"] = [r.ttft_s for r in r_off]
+    finally:
+        watch.close()
+        off.close()
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_prefix_pressure(card: str, params, cache_dtype: str) -> None:
+    """One admission into a pool sized (kv_pool_blocks) so that it must
+    evict a pinned entry: one row's blocks and 40 more. A 1,000-token
+    prompt pins 63 blocks; a 1,900-token prompt then needs 119 with 107
+    free, and the admission's precheck evicts the pin."""
+    tag = f"prefix pressure[{cache_dtype} pool]"
+    pool_blocks = 1 + -(-(2048 + 32) // 16) + 40  # the null block, one row, 40
+    engine = prefix_engine(params, cache_dtype, "bfloat16", PREFIX_ENTRIES,
+                           pool_blocks=pool_blocks)
+    try:
+        sch = engine.scheduler
+        first, other = prefix_histories(engine.tokenizer)[:2]
+        engine.generate(first, max_new_tokens=8, temperature=0.0)
+        free = sch._alloc.free_count
+        big = (other * 2)[:1900]  # shares no prefix with the pinned entry
+        need = -(-len(big) // engine.engine_cfg.kv_block_size)
+        check(need > free and tuple(first) in sch._prefix_cache._entries,
+              f"{tag}: {need} blocks needed, {free} free: no pressure")
+        r = engine.generate(big, max_new_tokens=8, temperature=0.0)
+        keys = [len(k) for k in sch._prefix_cache._entries]
+        check(r.new_tokens > 0 and keys == [len(big)] and sch.stats.paged_alloc_waits == 0,
+              f"{tag}: after the admission the entries are {keys}, "
+              f"{sch.stats.paged_alloc_waits} waits")
+        log(f"{tag}: pool {pool_blocks} blocks; the {len(big)}-token admission needed "
+            f"{need} blocks with {free} free and evicted the pinned {len(first)}-token "
+            f"entry; card {card}")
+    finally:
+        engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_prefix_logits(tag: str, run: dict, f32_off: dict) -> None:
+    """A hit's first-token logits are as close to the f32 forward's (cache
+    off) as the cache-off run's of the same pool are: no further than
+    twice that distance, prompt by prompt. The hit and the cache-off run
+    are two computations of one f32 result in the pool's precision (other
+    chunk widths, so other GEMM shapes; the reply's K/V from decode
+    steps), each its own rounding history; a hit that read a wrong block,
+    a stale copy or a zeroed scale lands orders of magnitude outside. The
+    direct distance |hit - cache off| is printed beside, with the bf16
+    forward's distance to the f32 one (PERF.md §2's bf16 yardstick): two
+    rounding histories can be up to twice one history's distance apart
+    (triangle inequality), so that yardstick alone is not a bound here."""
+    gaps = []
+    for n, hit in run["hit_logits"].items():
+        off, ref = run["off_logits"][n], f32_off[n]
+        d_hit = (hit - ref).abs().max().item()
+        d_off = (off - ref).abs().max().item()
+        gaps.append((n, round((hit - off).abs().max().item(), 4), round(d_hit, 4),
+                     round(d_off, 4)))
+        check(d_hit <= 2 * d_off, f"{tag}: the {n}-token hit's logits are {d_hit} from "
+              f"the f32 forward's, the cache-off run's {d_off}")
+    log(f"{tag}: first-token logits, (prompt tokens, |hit - cache off|, "
+        f"|hit - f32|, |cache off - f32|): {gaps}")
 
 
 # ------------------------------------------------------------ phase 9
@@ -1743,6 +2204,12 @@ NODE_PACKAGES = ("aiohttp", "websockets", "click", "psutil", "httpx", "ml_dtypes
 NODE_NEW_TOKENS = 32
 NODE_ROUNDS = 3
 NODE_BOOT_TIMEOUT_S = 600
+NODE_PREFIX_ENTRIES = 8
+NODE_PROFILE_S = 1.0
+# the economics gauges and counters /metrics must carry
+NODE_ECONOMICS = ("bee2bee_engine_mfu", "bee2bee_engine_goodput_tokens_per_s",
+                  "bee2bee_engine_hbm_bytes", "bee2bee_engine_hbm_headroom_frac",
+                  "bee2bee_engine_compiles_total")
 NODE_STOP_TIMEOUT_S = 60
 
 
@@ -1822,6 +2289,167 @@ def direct_stream_text(svc, params):
             parts.append(line["text"])
     check(first is not None, "node: execute_stream carried no text")
     return "".join(parts), first, time.perf_counter() - t0, lines
+
+
+def http_bytes(url: str, timeout: float = 120):
+    """(status, body bytes) of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_node_prefix(card: str) -> None:
+    """Phase 9, second node: serve-cuda's path with
+    ``BEE2BEE_PREFIX_CACHE=8`` read by ``load_config`` as ``serve-cuda``
+    reads it. One greedy request of the node prompt (a miss) and one more
+    (an exact-repeat hit, the reference text: a hit recomputes the last
+    prompt position in another chunk width, so at a bf16 near-tie its
+    greedy text can leave the miss's); then a device profile (``POST
+    /debug/profile``) while streams of the prompt run back to back (each
+    text equal to the reference), listed and fetched through ``GET``, its
+    chrome trace naming the decode kernel; ``/metrics`` samples of the
+    economics names; and a second turn extending the first, admitted as
+    one hit over the whole first-turn prompt."""
+    import asyncio
+    import io
+    import zipfile
+
+    from bee2bee_tpu_torch.config import load_config
+    from bee2bee_tpu_torch.meshnet.runtime import run_p2p_node
+
+    os.environ["BEE2BEE_PREFIX_CACHE"] = str(NODE_PREFIX_ENTRIES)
+    try:
+        cfg = replace(load_config(), host="127.0.0.1", port=free_port(),
+                      api_port=free_port(), bootstrap_url="")
+    finally:
+        del os.environ["BEE2BEE_PREFIX_CACHE"]
+    check(cfg.prefix_cache_entries == NODE_PREFIX_ENTRIES,
+          f"node+prefix: BEE2BEE_PREFIX_CACHE gave {cfg.prefix_cache_entries} entries")
+    base = f"http://127.0.0.1:{cfg.api_port}"
+    prompt = node_prompt()
+    ask = {"prompt": prompt, "model": "llama-3-8b", "max_new_tokens": NODE_NEW_TOKENS,
+           "temperature": 0.0}
+    body = {"model": "llama-3-8b", "stream": True, "temperature": 0.0,
+            "max_tokens": NODE_NEW_TOKENS,
+            "messages": [{"role": "user", "content": prompt[len("user: "):]}]}
+    holder: dict = {}
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        ready, stop = asyncio.Event(), asyncio.Event()
+        booted: list = []
+
+        async def post_start(node):
+            booted.append(node)
+
+        task = asyncio.create_task(run_p2p_node(
+            backend="cuda", model="llama-3-8b", cfg=cfg, serve_api=True,
+            registry_sync=False, ready_event=ready, shutdown_event=stop,
+            post_start=post_start,
+        ))
+        try:
+            await asyncio.wait_for(ready.wait(), NODE_BOOT_TIMEOUT_S)
+            engine = booted[0].local_services["cuda"].engine
+            holder["engine"] = engine
+            st = engine.scheduler.stats
+            check(engine.engine_cfg.prefix_cache_entries == NODE_PREFIX_ENTRIES,
+                  f"node+prefix: the engine runs {engine.engine_cfg.prefix_cache_entries} entries")
+            turn1 = []
+            for _ in range(2):  # the miss, then the reference hit
+                status, r = await loop.run_in_executor(None, http_json, "POST",
+                                                       base + "/chat", ask)
+                check(status == 200 and r.get("tokens"), f"node+prefix: /chat {status} {r}")
+                turn1.append(r)
+            miss, hit = turn1
+            check((st.prefix_hits, st.prefix_tokens_saved)
+                  == (1, hit["prompt_tokens"] - 1),
+                  f"node+prefix: the repeat counted {st.prefix_hits} hits, "
+                  f"{st.prefix_tokens_saved} tokens saved")
+            t0 = time.perf_counter()
+            profile = loop.run_in_executor(None, http_json, "POST",
+                                           base + "/debug/profile",
+                                           {"duration_s": NODE_PROFILE_S}, 300)
+            streamed = []
+            while not profile.done():
+                got, *_ = await loop.run_in_executor(
+                    None, http_sse_text, base + "/v1/chat/completions", body)
+                streamed.append(got)
+            status, header = await profile
+            profile_s = time.perf_counter() - t0
+            check(status == 200 and str(header.get("id", "")).startswith("prof-"),
+                  f"node+prefix: POST /debug/profile answered {status} {header}")
+            check(streamed and all(s == hit["text"] for s in streamed),
+                  f"node+prefix: {len(streamed)} streams during the profile, texts "
+                  f"{streamed[:3]} against {hit['text']!r}")
+            status, listing = await loop.run_in_executor(None, http_json, "GET",
+                                                         base + "/debug/profile")
+            check(status == 200 and listing["active"] is None
+                  and header["id"] in [p["id"] for p in listing["profiles"]],
+                  f"node+prefix: GET /debug/profile listed {listing}")
+            status, blob = await loop.run_in_executor(
+                None, http_bytes, f"{base}/debug/profile?id={header['id']}")
+            check(status == 200, f"node+prefix: GET /debug/profile?id= answered {status}")
+            zf = zipfile.ZipFile(io.BytesIO(blob))
+            # the chrome trace's device kernels: calls and microseconds by name
+            kernels: dict = {}
+            for ev in json.loads(zf.read("trace.json"))["traceEvents"]:
+                if ev.get("cat") == "kernel":
+                    calls, us = kernels.get(ev["name"], (0, 0.0))
+                    kernels[ev["name"]] = (calls + 1, us + float(ev.get("dur", 0.0)))
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+            decode = [(k[:40], v) for k, v in top if "ragged_decode" in k]
+            check(bool(decode),
+                  f"node+prefix: the profile's trace names no decode kernel: {top[:6]}")
+            from bee2bee_tpu_torch.engine.introspect import get_profiler
+
+            steps = {k: round(v, 3) for k, v in get_profiler().last_timings.items()}
+            log(f"node+prefix: /debug/profile {NODE_PROFILE_S} s capture {header} in "
+                f"{profile_s:.2f} s beside {len(streamed)} streams (texts equal to the "
+                f"hit's); profiler start, stop, export s {steps}; the zip {len(blob)} B holds {zf.namelist()}; its top kernels "
+                f"(calls, us) {[(k[:40], v) for k, v in top[:4]]}; decode kernels "
+                f"{decode}; card {card}")
+            status, prom = await loop.run_in_executor(None, http_bytes, base + "/metrics")
+            lines = [ln for ln in prom.decode().splitlines()
+                     if ln.startswith(NODE_ECONOMICS)]
+            missing = [n for n in NODE_ECONOMICS
+                       if not any(re.match(rf"{n}[{{ ]", ln) for ln in lines)]
+            check(status == 200 and not missing,
+                  f"node+prefix: /metrics has no sample of {missing}")
+            log(f"node+prefix: /metrics economics {lines}")
+            # turn 2: the first turn's transcript, its reply and a new line
+            before = (st.prefix_hits, st.prefix_tokens_saved)
+            turn2 = dict(ask, prompt=f"{prompt}\nassistant: {hit['text']}\nuser: and "
+                                     "what does the second turn reuse?")
+            status, r2 = await loop.run_in_executor(None, http_json, "POST",
+                                                    base + "/chat", turn2)
+            got = (st.prefix_hits - before[0], st.prefix_tokens_saved - before[1])
+            check(status == 200 and got == (1, hit["prompt_tokens"]),
+                  f"node+prefix: the second turn counted (hits, tokens saved) {got}, "
+                  f"expected (1, {hit['prompt_tokens']}): {status} {r2}")
+            log(f"node+prefix: the miss ttft {miss['ttft_ms']} ms, the repeat (a hit at "
+                f"n - 1) {hit['ttft_ms']} ms, texts {'equal' if miss['text'] == hit['text'] else 'different'}; "
+                f"the second turn of {r2.get('prompt_tokens')} prompt tokens admitted as "
+                f"one hit over the first turn's {hit['prompt_tokens']}, ttft "
+                f"{r2.get('ttft_ms')} ms; card {card}")
+        finally:
+            stop.set()
+            node_obj = await asyncio.wait_for(task, NODE_STOP_TIMEOUT_S)
+            check(node_obj._stopped, "node+prefix: not stopped")
+
+    asyncio.run(drive())
+    engine = holder.pop("engine", None)
+    if engine is not None:
+        thread = engine.scheduler._thread
+        engine.close()
+        check(not thread.is_alive(), "node+prefix: the engine's thread outlived the node")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_node(card: str) -> dict:
@@ -2076,32 +2704,73 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
+    # the nodes' state (identity, incidents, profiles) stays in the checkout
+    os.environ.setdefault("BEE2BEE_TPU_HOME", str(here / "build" / "bee2bee_home"))
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    stage("device and build")
     card, _ = phase_device_and_build()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    stage("ragged vs plain")
     errs, timings = phase_ragged_vs_plain(flush)
     int8_errs, int8_timings = phase_ragged_vs_plain(flush, int8=True)
+    stage("flash vs plain")
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
     del flush
+    stage("forward parity")
     fwd_counts = phase_forward_parity()
     gemma_counts = phase_gemma_forward()
+    stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
     ratio = int8_pool / bf16_pool
     log(f"pool bytes: int8 {int8_pool} B vs bf16 {bf16_pool} B -> {ratio:.4f}x "
         f"(scales included)")
     check(ratio <= 0.502, f"int8 pool is {ratio:.4f}x the bf16 pool's bytes")
+    # the prefix cache over the same bf16 weights, bf16 and int8 pools
+    stage("prefix")
+    prefix = {pool: phase_prefix(card, params, pool) for pool in ("bfloat16", "int8")}
+    for pool in ("bfloat16", "int8"):
+        phase_prefix_pressure(card, params, pool)
     # phase 8: the same weights cast to f32 (the bf16 copy freed first: the
     # node phase loads its own), over an int8 pool and then an f32 pool
     gc.collect()
     params = cast_tree(params, torch.float32)
     gc.collect()
     torch.cuda.empty_cache()
+    stage("f32 slice")
     f32_counts = {pool: phase_slice(card, pool, params=params, dtype="float32")[0]
                   for pool in ("int8", "float32")}
+    # the prefix cache in f32 (f32 pool) on the bf16 run's turn-2 prompts:
+    # a hit's greedy tokens equal the cache-off engine's, and the cache-off
+    # first-token logits are the f32 side of the bf16 logits rule
+    stage("f32 prefix")
+    prefix_f32 = phase_prefix(card, params, "float32", dtype="float32",
+                              prompts2=prefix["bfloat16"]["prompts2"])
+    diverged = {n: (toks, prefix_f32["off_tokens"][n])
+                for n, toks in prefix_f32["tokens"].items()
+                if toks != prefix_f32["off_tokens"][n]}
+    check(not diverged, f"prefix[float32]: turn-2 hits' greedy tokens differ from the "
+          f"cache-off engine's: {diverged}")
+    log(f"prefix[float32]: the 8 hits' greedy tokens ({PREFIX_REPLY} each) equal the "
+        f"cache-off engine's, token for token")
+    for pool in ("bfloat16", "int8"):
+        check_prefix_logits(f"prefix[{pool} pool]", prefix[pool], prefix_f32["off_logits"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    stage("node")
     node_counts = phase_node(card)
+    stage("node with the prefix cache")
+    phase_node_prefix(card)
+    stage("kernel table")
+
+    # the prefix phases' launches join the main path's
+    for name, n in prefix["bfloat16"]["counts"].items():
+        counts[name] += n
+    for name, n in prefix["int8"]["counts"].items():
+        int8_counts[name] += n
+    for name, n in prefix_f32["counts"].items():
+        f32_counts["float32"][name] += n
 
     def row(name, source, replaces, n, err, t):
         return {

@@ -8,8 +8,10 @@ package's, each over its own package's node and ``FakeService``.
 - The node layer registers the same metric names in both packages (each
   in a fresh process), and each gateway's ``/metrics`` carries all of its
   package's.
-- ``/debug/profile`` answers a typed 501 naming the ROADMAP item that
-  ports device profiling.
+- ``/debug/profile`` answers with the JAX gateway's status codes and
+  keys: a capture (200), the listing, the zip, an unknown id (404), a bad
+  duration or body (400), a capture while one runs (409), and the admin
+  gate (401 without a key, 403 for a tenant key).
 """
 
 from __future__ import annotations
@@ -146,12 +148,66 @@ async def test_node_layer_metric_names_equal():
         assert "bee2bee_gen_requests" in text
 
 
+async def _profile_answers(pkg: str, profile_dir) -> list:
+    """The /debug/profile walk on one package's gateway: (status, content
+    type, JSON shape) of each answer, ids and times dropped."""
+    import zipfile
+    from io import BytesIO
+
+    from bee2bee_tpu.engine import introspect as jintrospect
+    from bee2bee_tpu.router.tenants import TenantRegistry as JaxTenants
+    from bee2bee_tpu.router.tenants import parse_tenant_config as jparse
+    from bee2bee_tpu_torch.engine import introspect
+    from bee2bee_tpu_torch.router.tenants import TenantRegistry, parse_tenant_config
+
+    mod, node_cls, _, transport = PACKAGES[pkg]
+    intro, tenants, parse = ((jintrospect, JaxTenants, jparse) if pkg == "jax"
+                             else (introspect, TenantRegistry, parse_tenant_config))
+    saved = intro._PROFILER
+    prof = intro._PROFILER = intro.DeviceProfiler(profile_dir)
+    node = node_cls(host="127.0.0.1", port=0, transport=transport())
+    node.tenants = tenants(parse({"acme": {"api_key": "tenant-key"}}))
+    await node.start()
+    runner = await mod.start_api_server(node, "127.0.0.1", 0, api_key="sekrit")
+    host, port = runner.addresses[0][:2]
+    admin, tenant = {"X-API-KEY": "sekrit"}, {"X-API-KEY": "tenant-key"}
+    got = []
+    try:
+        async with aiohttp.ClientSession(f"http://{host}:{port}") as session:
+            async def ask(method, path, headers=None, **kw):
+                async with session.request(method, path, headers=headers, **kw) as r:
+                    body = await r.read()
+                    shape = (_shape(json.loads(body)) if r.content_type == "application/json"
+                             else bool(zipfile.ZipFile(BytesIO(body)).namelist()))
+                    got.append((method, path.split("?")[0], r.status, r.content_type, shape))
+                    return json.loads(body) if r.content_type == "application/json" else None
+
+            await ask("POST", "/debug/profile", json={"duration_s": 0.05})
+            await ask("POST", "/debug/profile", tenant, json={"duration_s": 0.05})
+            header = await ask("POST", "/debug/profile", admin, json={"duration_s": 0.05})
+            await ask("GET", "/debug/profile", tenant)
+            listing = await ask("GET", "/debug/profile", admin)
+            assert [p["id"] for p in listing["profiles"]] == [header["id"]]
+            await ask("GET", f"/debug/profile?id={header['id']}", admin)
+            await ask("GET", "/debug/profile?id=prof-unknown", admin)
+            await ask("POST", "/debug/profile", admin, json={"duration_s": "soon"})
+            await ask("POST", "/debug/profile", admin, json=[1, 2])
+            with prof._lock:  # a capture in flight
+                prof._active = {"id": "prof-busy", "started": 0.0, "duration_s": 30.0}
+            await ask("POST", "/debug/profile", admin, json={"duration_s": 0.05})
+    finally:
+        intro._PROFILER = saved
+        await runner.cleanup()
+        await node.stop()
+    return got
+
+
 @pytest.mark.async_timeout(60)
-async def test_debug_profile_names_its_roadmap_item():
-    async with gateway("port") as (_, session):
-        for method in ("GET", "POST"):
-            async with session.request(method, "/debug/profile", json={}) as r:
-                assert r.status == 501
-                body = await r.json()
-        assert body["error_kind"] == "not_implemented"
-        assert "queue A item 6" in body["detail"]
+async def test_debug_profile_names_its_roadmap_item(tmp_path):
+    """The profile route answers as the JAX gateway's does, status for
+    status and key for key (it no longer answers 501)."""
+    ours = await _profile_answers("port", tmp_path / "port")
+    theirs = await _profile_answers("jax", tmp_path / "jax")
+    assert ours == theirs
+    assert [a[2] for a in ours] == [401, 403, 200, 403, 200, 200, 404, 400, 400, 409]
+    assert ours[-1][4] == {"detail": "v", "error_kind": "v"}

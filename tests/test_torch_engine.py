@@ -245,8 +245,7 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("field,value", [
     ("spec_tokens", 4), ("drafter", "tiny-llama"), ("max_adapters", 2),
-    ("quantize", "int8"), ("prefix_cache_entries", 4),
-    ("attention", "sp"), ("attention", "dense"),
+    ("quantize", "int8"), ("attention", "sp"), ("attention", "dense"),
 ])
 def test_unported_engine_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
@@ -320,7 +319,7 @@ def test_metric_names_match_the_jax_registry(jax_reference):
 def _port_sources():
     return sorted((ROOT / "bee2bee_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "decode_probe.py", ROOT / "decode_f32_probe.py",
-        ROOT / "hotloop_probe.py"]
+        ROOT / "hotloop_probe.py", ROOT / "profile_probe.py"]
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -45,6 +45,7 @@ from bee2bee_tpu.engine import InferenceEngine as JaxEngine
 from bee2bee_tpu.engine.scheduler import BatchScheduler as JaxBatchScheduler
 from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
 from bee2bee_tpu_torch.engine import scheduler as port_scheduler
+from bee2bee_tpu_torch.engine.introspect import device_gate
 from bee2bee_tpu_torch.models.config import get_config
 from bee2bee_tpu_torch.models.params import params_from_numpy
 from bee2bee_tpu_torch.ops import flash, flash_attention, ragged, ragged_paged_attention
@@ -281,20 +282,25 @@ def test_retired_rows_blocks_wait_for_the_ring_to_drain(jax_ref, port_on):
 
     seq = jax_ref.long[0]
     stop = seq[12]
-    results: list = [None] * ROWS
-
-    def run(i):
-        results[i] = port_on.generate(PROMPTS[i], max_new_tokens=LONG, temperature=0.0,
-                                      stop_tokens=[stop] if i == 0 else None)
-
+    # submitted together under the scheduler's lock, so one admission
+    # burst places every row and look-ahead starts before row 0 stops
+    # (requests trickling in from threads keep the queue non-empty, which
+    # holds look-ahead back, for as long as the host schedules them late)
+    reqs = [port_on._make_request(PROMPTS[i], LONG, 0.0, 0, 1.0,
+                                  [stop] if i == 0 else None) for i in range(ROWS)]
+    results: list = []
     alloc.deref, alloc.alloc = watched_deref, watched_alloc
     sch._fetch_window = watched_fetch
     try:
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(ROWS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
+        with sch._cond:
+            for r in reqs:
+                sch.submit(r)
+        for r in reqs:
+            while True:
+                ev = r.events.get(timeout=60)
+                if ev.get("done"):
+                    results.append(ev["result"])
+                    break
         _wait_idle(sch)
     finally:
         alloc.deref, alloc.alloc = deref, take
@@ -513,9 +519,10 @@ def test_a_failed_decode_step_fails_the_batch_and_rebuilds_the_state(jax_ref, po
             port_on.generate(PROMPTS[0], max_new_tokens=8, temperature=0.0)
     finally:
         del sch._decode_step
-    deadline = time.monotonic() + 10.0  # the error event comes before the rebuild
-    while sch._cache["k"] is old_pool and time.monotonic() < deadline:
-        time.sleep(0.005)
+    # the error event comes before the rebuild, in the same scheduler pass:
+    # a gate transition waits that pass out
+    with device_gate.transition():
+        pass
     assert sch._cache["k"] is not old_pool and len(sch._slots) == depth
     assert not sch._inflight and not sch._graphs and sch._bsz == 1
     assert port_on.generate(PROMPTS[0], max_new_tokens=8,
