@@ -168,8 +168,6 @@ _UNPORTED_OPTS = {
     "checkpoint": ("--checkpoint", 10),
     "lora": ("--lora", 8),
     "mesh_shape": ("--mesh-shape", 14),
-    "spec_tokens": ("--spec", 7),
-    "drafter": ("--drafter", 7),
     "adapters": ("--adapters", 8),
     "max_adapters": ("--max-adapters", 8),
     "publish_weights": ("--publish-weights", 10),
@@ -217,8 +215,13 @@ def _refuse_unported(opts: dict) -> None:
               help="DEPRECATED no-op: the paged KV block pool is the only "
                    "cache layout")
 @click.option("--spec", "spec_tokens", type=int, default=None,
-              help="self-speculative decoding (not ported)")
-@click.option("--drafter", default=None, help="model-tier drafter (not ported)")
+              help="self-speculative decoding: draft up to this many tokens "
+                   "per step and verify them in one [B, K+1] forward "
+                   "(BEE2BEE_SPEC; 0 = off)")
+@click.option("--drafter", default=None,
+              help="model-tier drafter: a registry name loaded beside the "
+                   "target (random init), or 'mesh' for a draft-role peer "
+                   "(BEE2BEE_DRAFTER; needs --spec)")
 @click.option("--adapters", default=None, help="multi-LoRA adapters (not ported)")
 @click.option("--max-adapters", "max_adapters", type=int, default=None,
               help="adapter pool slots (not ported)")
@@ -233,12 +236,13 @@ def serve_cuda(model, checkpoint, lora, mesh_shape, attention, quantize,
     """Serve a model on the CUDA card through the PyTorch engine."""
     _refuse_unported(dict(
         checkpoint=checkpoint, lora=lora, mesh_shape=mesh_shape,
-        attention=attention, quantize=quantize, spec_tokens=spec_tokens,
-        drafter=drafter, adapters=adapters, max_adapters=max_adapters,
-        publish_weights=publish_weights, from_mesh=from_mesh,
+        attention=attention, quantize=quantize, adapters=adapters,
+        max_adapters=max_adapters, publish_weights=publish_weights,
+        from_mesh=from_mesh,
     ))
     _serve(
-        "cuda", model, attention=attention, kv_quant=kv_quant, paged=paged, **kw
+        "cuda", model, attention=attention, kv_quant=kv_quant, paged=paged,
+        spec_tokens=spec_tokens, drafter=drafter, **kw
     )
 
 

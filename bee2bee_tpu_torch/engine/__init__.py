@@ -1,15 +1,16 @@
 """Serving engine of the PyTorch port: engine, scheduler, sampling, paged
-pool bookkeeping and tokenizers."""
+pool bookkeeping, drafters and tokenizers."""
 
+from .drafter import DraftModel, DrafterLoadError
 from .engine import EngineConfig, GenerationResult, InferenceEngine
 
-__all__ = ["EngineConfig", "GenerationResult", "InferenceEngine"]
+__all__ = ["DraftModel", "DrafterLoadError", "EngineConfig", "GenerationResult",
+           "InferenceEngine"]
 
 # engine modules of the JAX package that the node layer reaches and the
 # port does not have yet: importing one of these names raises by name
 _UNPORTED = {
     "StageRunner": ("a pipeline stage worker (engine/stage_runner.py)", 13),
-    "DraftModel": ("the draft role's drafter model (engine/drafter.py)", 13),
 }
 
 

@@ -26,12 +26,21 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   prefix over shared pool blocks (engine/scheduler.py); the pool is sized
   with room for the entries' pins.
 - **Economics plane** (engine/introspect.py): the capture sentinel, the
-  HBM ledger (weights and KV pool), the goodput/MFU meter and the pool
-  forecast, built before the first forward; ``info["introspect"]``.
+  HBM ledger (weights, KV pool, drafter), the goodput/MFU meter and the
+  pool forecast, built before the first forward; ``info["introspect"]``.
+- **Captured roots**: on the card the prefill chunk, the first token's
+  sample, the decode step and the speculative verify step are CUDA
+  graphs the scheduler captures per key (engine/graphs.py); the sentinel
+  declares each root's key space here and in the scheduler.
+- **Speculative decoding** (``spec_tokens``, engine/spec.py): the
+  scheduler's greedy rows draft from the tiered drafter stack (n-gram;
+  the resident model drafter, ``drafter=<model>``, engine/drafter.py;
+  ``drafter="mesh"``, a draft-role peer) and one ``[B, K+1]`` verify step
+  (``_spec_verify``) accepts the longest matching prefix.
 
 What waits for later slices: checkpoint loading, int8 weights,
-speculative decoding and drafters, multi-LoRA and live migration. Setting
-an ``EngineConfig`` field that selects one of them raises.
+multi-LoRA and live migration. Setting an ``EngineConfig`` field that
+selects one of them raises.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..models.params import init_params
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
 from .paged import ceil_div
+from .sampling import sample_batched
 from .tokenizer import load_tokenizer
 
 logger = logging.getLogger("bee2bee_tpu_torch.engine")
@@ -129,11 +139,28 @@ class EngineConfig:
     # admit a prompt that extends one from its shared blocks, prefilling
     # only the rest (0 = off)
     prefix_cache_entries: int = 0
+    # self-speculative decoding (engine/spec.py): draft up to this many
+    # tokens per step and verify them in ONE [B, K+1] forward, accepting
+    # the longest exact prefix. Greedy non-penalized rows only; 0 = off
+    spec_tokens: int = 0
+    # suffix n-gram lengths the n-gram drafter tries, longest first
+    spec_min_match: int = 2
+    spec_max_match: int = 8
+    # per-row adaptive disable: after spec_probe_tokens drafted tokens a
+    # row's tier whose acceptance sits below spec_min_accept fails
+    spec_min_accept: float = 0.25
+    spec_probe_tokens: int = 64
+    # model-tier drafter: "" = n-gram only; "mesh" = a draft-role peer;
+    # else a registry name loaded resident beside the target (random
+    # init from drafter_seed). Requires spec_tokens > 0. None = resolve
+    # from BEE2BEE_DRAFTER at construction
+    drafter: str | None = None
+    # rng seed of a random-init drafter; None = rng_seed, which makes a
+    # same-name drafter weight-identical to a random-init target
+    drafter_seed: int | None = None
     # fields of the JAX engine this port does not implement yet: each
     # must stay at its default (checked below)
     quantize: str = "none"
-    spec_tokens: int = 0
-    drafter: str | None = None
     max_adapters: int = 0
     # ---- the decode hot loop (engine/scheduler.py). None = resolve from
     # the environment at construction; always a plain bool/int after
@@ -173,13 +200,20 @@ class EngineConfig:
             "attention": (self.attention not in ("auto", "flash"),
                           12 if self.attention == "dense" else 14),
             "quantize": (self.quantize not in ("none", "", None), 5),
-            "spec_tokens": (self.spec_tokens > 0, 7),
-            "drafter": (bool(self.drafter), 7),
             "max_adapters": (self.max_adapters > 0, 8),
         }
         for name, (set_, item) in items.items():
             if set_:
                 raise unported(f"EngineConfig.{name}={getattr(self, name)!r}", item)
+        if self.spec_tokens < 0:  # NodeConfig's 0-means-disabled sentinel
+            self.spec_tokens = 0
+        if self.spec_tokens and not (
+            1 <= self.spec_min_match <= self.spec_max_match
+        ):
+            raise ValueError(
+                f"need 1 <= spec_min_match <= spec_max_match, got "
+                f"{self.spec_min_match}..{self.spec_max_match}"
+            )
         if self.decode_overlap is None:
             self.decode_overlap = _env_flag("BEE2BEE_OVERLAP", True)
         if self.fused_root is None:
@@ -189,6 +223,15 @@ class EngineConfig:
         if self.readback_depth is None:
             self.readback_depth = _env_int("BEE2BEE_READBACK_DEPTH", 2)
         self.readback_depth = max(1, int(self.readback_depth))
+        if self.drafter is None:
+            self.drafter = (os.environ.get("BEE2BEE_DRAFTER") or "").strip()
+        if self.drafter_seed is None:
+            self.drafter_seed = self.rng_seed
+        if self.drafter and not self.spec_tokens:
+            raise ValueError(
+                "drafter set but spec_tokens is 0: the drafter feeds the "
+                "speculative verify path — set spec_tokens (--spec) too"
+            )
 
 
 def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -319,13 +362,64 @@ class InferenceEngine:
         self._mutex = threading.Lock()
         self._scheduler = None  # created on first generate
         # the economics plane (engine/introspect.py), before the first
-        # forward: the sentinel the roots register with (the prefill root
-        # runs eagerly: no compiles), the HBM ledger, the goodput meter
-        from .introspect import EngineIntrospection
+        # forward: the sentinel the roots register with, the HBM ledger,
+        # the goodput meter
+        from .introspect import (
+            EngineIntrospection,
+            declared_batch_sizes,
+            declared_table_width,
+        )
 
         self.introspect = EngineIntrospection(self.model_cfg, self.device)
         self.introspect.ledger.register("weights", lambda: self.params)
-        self.introspect.sentinel.register("prefill")
+        # the prefill root's declared capture space: its bucket widths
+        # (what _bucket_for can return, and the fixed chunk) x the pow2
+        # table widths; a capture outside it is a storm, as in JAX
+        widths = {b for b in self.engine_cfg.prefill_buckets
+                  if b <= self.max_seq_len} | {self.max_seq_len}
+        if self.engine_cfg.prefill_chunk:
+            widths.add(self.engine_cfg.prefill_chunk)
+        self.declared_prefill_widths = frozenset(widths)
+        bpr = self.blocks_per_row
+        self.introspect.sentinel.register(
+            "prefill",
+            allowed=lambda key: (key[0] in self.declared_prefill_widths
+                                 and declared_table_width(key[1], bpr)),
+        )
+        # the verify root: the decode key's fields plus K
+        bs_ok = declared_batch_sizes(self.engine_cfg.max_batch)
+        self.introspect.sentinel.register(
+            "spec_verify",
+            allowed=lambda key: (key[0] in bs_ok and declared_table_width(key[1], bpr)
+                                 and key[-1] == self.engine_cfg.spec_tokens),
+        )
+        # model-tier drafter (engine/drafter.py): resident beside the
+        # target, tokenizer-compat gated at boot (a typed DrafterLoadError,
+        # never a garbage-draft loop). "mesh" loads nothing here: the
+        # scheduler builds the MeshDrafter and meshnet/draft.py attaches
+        # its transport
+        self.drafter_model = None
+        if self.engine_cfg.drafter and self.engine_cfg.drafter != "mesh":
+            from .drafter import DraftModel, validate_drafter_compat
+
+            self.drafter_model = DraftModel(
+                self.engine_cfg.drafter,
+                spec_tokens=self.engine_cfg.spec_tokens,
+                batch=self.engine_cfg.max_batch,
+                target_max_seq_len=self.max_seq_len,
+                dtype=self.engine_cfg.dtype,
+                seed=self.engine_cfg.drafter_seed,
+                sentinel=self.introspect.sentinel,
+                device=self.device,
+            )
+            validate_drafter_compat(
+                self.model_cfg, self.tokenizer, self.drafter_model.cfg,
+                self.drafter_model.tokenizer or self.tokenizer,
+            )
+            self.introspect.ledger.register(
+                "drafter", lambda: self.drafter_model.hbm_source()
+                if self.drafter_model is not None else None
+            )
 
     # ------------------------------------------------------------ forward
 
@@ -339,15 +433,61 @@ class InferenceEngine:
     def _prefill(self, tokens, pool, true_len, offset, block_tables,
                  write_floor=None, write_ceil=None):
         """tokens [B, Tb] padded; returns last_logits [B, V] at each row's
-        ``true_len - 1``. The chunk scatters into the rows' mapped blocks;
-        ``write_ceil`` drops the padded tail so a short prompt claims only
-        the blocks covering its real length."""
+        ``true_len - 1`` (``_prefill_fn``). The chunk scatters into the
+        rows' mapped blocks; ``write_floor`` keeps re-fed positions below a
+        CoW share point out of the shared blocks, ``write_ceil`` drops the
+        padded tail so a short prompt claims only the blocks covering its
+        real length. Every argument may be a device tensor: the
+        scheduler's prefill root passes slices of static buffers."""
         logits, _ = self.forward(
             tokens, pool, offset, block_tables,
             paged_write_floor=write_floor, paged_write_ceil=write_ceil,
             logits_index=true_len - 1,
         )
         return logits[:, 0]
+
+    def _spec_verify(self, cur, drafts, lens, pool, offsets, tables, temperature,
+                     top_k, top_p, min_p=None, any_sampled=False, counts=None,
+                     repetition=None, presence=None, frequency=None):
+        """Speculative-decode verify (``_spec_verify_fn``): one [B, K+1]
+        forward checks a whole draft. Returns (next tokens [B], accepted
+        [B]); with ``counts`` the penalty counts are bumped in place.
+
+        ``cur`` [B] is each row's last accepted token, ``drafts`` [B, K]
+        the proposals (zero past ``lens`` [B]). The chunk [cur | drafts]
+        writes through the paged pool at each row's offset. Position j's
+        logits predict token j+1, so a draft token is correct iff it
+        equals the greedy argmax one position earlier; ``accepted`` is the
+        longest such prefix, capped at ``lens``. The next token is sampled
+        from the logits at the accept position: for greedy rows the token
+        plain decode would give, for non-drafting rows (lens 0) their one
+        normal sample. Rejected positions sit at/past the row's new offset
+        (offset + accepted + 1), where causality hides them."""
+        B, K = drafts.shape
+        tokens = torch.cat([cur[:, None], drafts], dim=1)
+        logits, _ = self.forward(tokens, pool, offsets, tables)
+        greedy = torch.argmax(logits, dim=-1)
+        pos = torch.arange(K, device=drafts.device)[None, :]
+        match = (drafts == greedy[:, :-1]) & (pos < lens[:, None])
+        # longest all-match prefix: cumprod zeroes everything after the
+        # first mismatch, the sum counts the survivors
+        accepted = torch.cumprod(match.int(), dim=1).sum(dim=1)
+        rows = torch.arange(B, device=drafts.device)
+        last = logits[rows, accepted]
+        pen = {}
+        if counts is not None:
+            # a penalized row never drafts, so its accepted is 0; the
+            # accepted drafts of the other rows are counted so the shared
+            # counts stay coherent (duplicate tokens accumulate)
+            gain = (pos < accepted[:, None]).to(counts.dtype)
+            counts.select(1, 1).scatter_add_(1, drafts, gain)
+            pen = dict(counts=counts, repetition=repetition, presence=presence,
+                       frequency=frequency)
+        nxt = sample_batched(last, self.generator, temperature, top_k, top_p,
+                             min_p, any_sampled=any_sampled, **pen)
+        if counts is not None:
+            counts[rows, 1, nxt] += 1
+        return nxt, accepted
 
     def _bucket_for(self, n: int) -> int:
         for b in self.engine_cfg.prefill_buckets:
@@ -436,6 +576,9 @@ class InferenceEngine:
             sch, self._scheduler = self._scheduler, None
         if sch is not None:
             sch.shutdown()
+        if self.drafter_model is not None:
+            self.drafter_model.close()
+            self.drafter_model = None
         self.introspect.close()
 
     def _stop_set(self, stop_tokens):
@@ -518,7 +661,10 @@ class InferenceEngine:
             "ttft_ms": round(ttft_ms, 3),
             "decode_tokens": n_out,
             "tokens_per_s": round(tps, 2),
-            "spec_acceptance": None,
+            "spec_acceptance": (
+                round(req.spec_accepted / req.spec_drafted, 4)
+                if req.spec_drafted else None
+            ),
         }
         return GenerationResult(
             text=self.tokenizer.decode(req.out_ids),
@@ -619,11 +765,31 @@ class InferenceEngine:
                 if self.device.type == "cuda" else "cpu"
             ),
             "kv": self.kv_info,
+            "spec": self._spec_info(),
             # compiles (graph captures) per root, MFU/goodput over the
             # trailing window and the HBM ledger; refresh() also brings
             # the engine.* economics gauges current
             "introspect": self.introspect.refresh(),
         }
+
+
+    def _spec_info(self) -> dict:
+        """info["spec"] as JAX gives it: read off the scheduler's stats
+        when it exists (info never allocates the pool); the per-tier
+        split when a drafter is configured."""
+        sch = self._scheduler
+        st = sch.stats if sch is not None else None
+        drafted = st.spec_drafted if st else 0
+        out = {
+            "spec_tokens": self.engine_cfg.spec_tokens,
+            "drafted": drafted,
+            "accepted": st.spec_accepted if st else 0,
+            "acceptance": round(st.spec_accepted / drafted, 4) if drafted else 0.0,
+        }
+        if self.engine_cfg.drafter:
+            out["drafter"] = self.engine_cfg.drafter
+            out["tiers"] = dict(st.spec_tiers) if st else {}
+        return out
 
 
 def _leaves(tree):

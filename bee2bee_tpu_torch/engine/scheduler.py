@@ -18,6 +18,15 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
   its first token is sampled at once, and a burst of admissions is read
   back in ONE host read. Admission only runs on a settled batch: the
   readback ring is drained first.
+- **The prefill and first-token roots**: a prefill chunk is one step over
+  static device buffers (the padded tokens, the row's table slice, the
+  chunk's offset, true length, write floor and ceil), filled by copies
+  queued before it; it writes the last logits into a static buffer. The
+  first token's sample reads them with the row's knobs from static
+  one-row buffers. On the card each is a CUDA graph captured per key
+  (prefill: bucket and table width; first token: the sampled, min-p and
+  penalized flags), an int8 pool's quantize-on-write and the CoW write
+  floor inside the graph; on the CPU the same steps run eagerly.
 - **The decode root**: one decode step for all rows (forward, sampling,
   penalty counts) works in place on static device buffers (``cur``,
   offsets, block tables, the sampling knobs, the counts, the chunk's
@@ -51,11 +60,26 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
   write floor at the match so no shared block is ever written. Pins are
   evicted LRU by capacity and, under pool pressure, by the allocation
   funnel before it gives up.
-- **Economics** (engine/introspect.py): prefill chunks and decode
-  windows book their FLOPs and scheduled positions, accepted tokens book
-  as useful, the dispatch cadence feeds the pool forecast, every decode
-  graph capture books a compile of the ``decode`` root, and the HBM
-  ledger's headroom gates sticky growth.
+- **Speculative decoding** (``spec_tokens``, engine/spec.py): greedy
+  non-penalized rows draft from the tiered ``DrafterStack`` (n-gram, the
+  resident model drafter, a mesh draft peer; per-row probes move a row
+  along the ladder), and ONE ``[bsz, K+1]`` verify step accepts each
+  row's longest matching prefix; sampled and penalized rows ride it
+  advancing one token. The verify step is a captured root too (the
+  decode key plus K, over the decode buffers and static drafts and
+  lengths; the offsets advance by accepted + 1 on the device). A spec
+  step is one serialized host sync and runs only with an empty ring.
+- **Economics** (engine/introspect.py): prefill chunks, decode windows
+  and verify steps book their FLOPs and scheduled positions, accepted
+  tokens book as useful (and per drafter tier, ``note_spec``), the
+  dispatch cadence feeds the pool forecast, every graph capture books a
+  compile of its root, and the HBM ledger's headroom gates sticky
+  growth.
+- **Device passes**: every pass of the loop, and every root run, is
+  inside ``device_gate.device_pass()``, so a device profile starts and
+  stops between them (and while a pass waits for a decode window's
+  readback, which launches nothing, or between a root's replays); every
+  capture takes ``graph_capture_lock``.
 - **Tenant fairness**: the submit queue is a WDRR queue keyed by
   ``Request.tenant`` (router/fairness.py), weighted from the
   ``BEE2BEE_TENANTS`` config or ``set_tenant_weights``; a request costs
@@ -66,8 +90,8 @@ Threading model: one daemon scheduler thread owns all device state;
 ``submit`` only appends to a queue under a condition variable, and
 callers read per-request event queues.
 
-Not ported yet: speculative decoding, adapters, migration checkpoints and
-prefill graphs.
+Not ported yet: adapters and migration checkpoints. Graph keys are
+captured on first use, not warmed at boot (as JAX compiles lazily).
 """
 
 from __future__ import annotations
@@ -84,10 +108,10 @@ import numpy as np
 import torch
 
 from ..metrics import get_registry
-from ..ops import flash, ragged
 from ..router.fairness import WdrrQueue
 from ..router.tenants import load_tenant_config
 from ..unported import unported
+from .graphs import Graph, capture, capture_lock, h2d, launch_counters
 from .introspect import (
     _C_HOST_SYNCS,
     _C_SYNC_STALLS,
@@ -95,7 +119,6 @@ from .introspect import (
     declared_batch_sizes,
     declared_table_width,
     device_gate,
-    graph_capture_lock,
 )
 from .paged import (
     BlockAllocator,
@@ -105,6 +128,7 @@ from .paged import (
     prefill_chunk_positions,
 )
 from .sampling import sample_batched
+from .spec import TIER_OFF, DrafterStack, MeshDrafter, NgramDrafter, should_disable
 
 logger = logging.getLogger("bee2bee_tpu_torch.scheduler")
 
@@ -123,6 +147,16 @@ _G_BATCH_FILL = _REG.gauge(
     "engine.batch_fill", "active rows / current batch bucket (0..1)"
 )
 _G_ACTIVE_ROWS = _REG.gauge("engine.active_rows", "rows decoding this step")
+_C_SPEC_DRAFTED = _REG.counter(
+    "engine.spec_drafted", "speculative tokens proposed (tier label)"
+)
+_C_SPEC_ACCEPTED = _REG.counter(
+    "engine.spec_accepted", "speculative tokens accepted (tier label)"
+)
+_C_SPEC_DEGRADED = _REG.counter(
+    "engine.spec_mesh_degraded",
+    "rows degraded off the mesh draft tier (reason label)",
+)
 
 @dataclass
 class _Timing:
@@ -178,6 +212,23 @@ class Request:
         self.bucket = 0
         self.chunks_decoded = 0
         self._flushed_text = ""
+        # speculative-decoding bookkeeping (engine/spec.py): lifetime
+        # drafted/accepted/miss totals feed stats/info; the spec_tier_*
+        # triple is the CURRENT tier's probe ledger, reset on every tier
+        # transition so each tier gets its own probe budget. A row starts
+        # on the stack's cheapest tier (at its first draft attempt) and
+        # moves along the ladder; a tier that fails its probe joins
+        # spec_tiers_failed and is never retried; "off" is the end.
+        # spec_misses counts eligible steps where the tier proposed
+        # nothing; each weighs like a fully-rejected K-token draft
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_misses = 0
+        self.spec_tier: str | None = None  # None = not yet assigned
+        self.spec_tiers_failed: set = set()
+        self.spec_tier_drafted = 0
+        self.spec_tier_accepted = 0
+        self.spec_tier_misses = 0
 
     def accept(self, tok: int) -> bool:
         """Feed one sampled token; returns False when the request is done
@@ -235,23 +286,20 @@ class SchedulerStats:
     paged_alloc_waits: int = 0  # admissions deferred on an exhausted pool
     counts_windows: int = 0  # windows that carried the penalty counts
     width_grow_denials: int = 0  # bucket grows refused by the growth gate
-    # decode graphs (the card only): captures, replays (one per decode
-    # step), seconds spent in warm-up and capture (the warm-up's share
-    # apart), the forwards those ran eagerly, and each key's (captures,
-    # seconds)
-    graph_captures: int = 0
-    graph_replays: int = 0
-    graph_capture_s: float = 0.0
-    graph_warmup_s: float = 0.0
-    graph_setup_forwards: int = 0
-    graph_keys: dict = field(default_factory=dict)
-    # the JAX engine's speculative-decoding and migration counts, so the
-    # two packages' stats carry the same keys; they stay 0 until those
-    # paths are ported (ROADMAP.md queue A items 7 and 9)
+    # every root's graphs (the card only), root -> {captures, replays
+    # (one per step), capture_s and warmup_s (the seconds spent in warm-up
+    # and capture, the warm-up's share apart), setup_forwards (the
+    # forwards those ran eagerly), keys: {key: (captures, s)}}
+    root_graphs: dict = field(default_factory=dict)
+    # speculative decoding: verify steps, drafted and accepted tokens,
+    # and the per-tier split {tier: {"drafted", "accepted"}}
     spec_steps: int = 0
     spec_drafted: int = 0
     spec_accepted: int = 0
     spec_tiers: dict = field(default_factory=dict)
+    # the JAX engine's migration counts, so the two packages' stats carry
+    # the same keys; they stay 0 until migration is ported (ROADMAP.md
+    # queue A item 9)
     migrated_out: int = 0
     migrated_in: int = 0
     import_reprefills: int = 0
@@ -294,36 +342,11 @@ def copy_block(pool: dict, src: int, dst: int) -> None:
         t.select(2, dst).copy_(t.select(2, src))
 
 
-def launch_counters(engine) -> list[tuple[object, str]]:
-    """(holder, attribute) of every host-side count a decode step moves:
-    each attention op's launch counters and the engine's forward count. A
-    captured graph's replay calls no wrapper, so it adds back what its
-    capture counted (``_DecodeGraph``)."""
-    return ([(ragged.ragged_paged_attention, n) for n in ragged.LAUNCH_COUNTERS]
-            + [(flash.flash_attention, n) for n in flash.LAUNCH_COUNTERS]
-            + [(engine, "forward_calls")])
-
-
-class _DecodeGraph:
-    """One captured decode step and the counts its capture moved, as
-    (holder, attribute, delta): each replay adds the deltas, so the
-    launch and forward identities hold for replays as for eager calls."""
-
-    def __init__(self, graph, deltas: list[tuple[object, str, int]]):
-        self.graph = graph
-        self.deltas = deltas
-
-    def replay(self):
-        self.graph.replay()
-        for holder, name, delta in self.deltas:
-            setattr(holder, name, getattr(holder, name) + delta)
-
-
 @dataclass
 class _DecodeViews:
-    """The static buffers one decode key reads and writes, viewed at its
-    batch bucket (and table width): fixed addresses, so a graph captured
-    over them stays valid as their contents change."""
+    """The static buffers one decode (or verify) key reads and writes,
+    viewed at its batch bucket (and table width): fixed addresses, so a
+    graph captured over them stays valid as their contents change."""
 
     cur: torch.Tensor  # [bsz] int64: each row's last token
     off: torch.Tensor  # [bsz] int32: each row's write position
@@ -340,12 +363,56 @@ class _DecodeViews:
     toks: torch.Tensor  # [bsz, decode_chunk] int64: the chunk's tokens
     step: torch.Tensor  # [1] int64: the chunk's step index
     any_sampled: bool
+    # the verify step's: the drafts [bsz, K] int64, their lengths [bsz]
+    # int32, the accepted counts [bsz] int64 (None for decode)
+    drafts: torch.Tensor | None = None
+    lens: torch.Tensor | None = None
+    acc: torch.Tensor | None = None
+
+
+@dataclass
+class _PrefillViews:
+    """The prefill root's static buffers at one key (bucket, table
+    width): one row's padded chunk and its scalars, and the last logits
+    it writes."""
+
+    tokens: torch.Tensor  # [1, bucket] int64
+    pos: torch.Tensor  # [1] int64: the chunk's offset
+    true_len: torch.Tensor  # [1] int64: real tokens in the chunk
+    floor: torch.Tensor  # [1] int64: pool writes below it go to the null block
+    ceil: torch.Tensor  # [1] int64: pool writes at/after it go there too
+    tables: torch.Tensor  # [1, tw] int32: the row's table slice
+    logits: torch.Tensor  # [1, V] f32: the last real position's logits
+
+
+@dataclass
+class _FirstViews:
+    """The first-token root's static one-row buffers at one key (the
+    sampled, min-p and penalized flags)."""
+
+    logits: torch.Tensor  # [1, V] f32: the prefill root's output
+    temperature: torch.Tensor  # [1] f32
+    top_k: torch.Tensor  # [1] int32
+    top_p: torch.Tensor
+    min_p: torch.Tensor | None
+    repetition: torch.Tensor
+    presence: torch.Tensor
+    frequency: torch.Tensor
+    counts: torch.Tensor | None  # [1, 2, V] int32: the row's counts
+    out: torch.Tensor  # [1] int64: the sampled token
+    any_sampled: bool
 
 
 # the float knobs' rows in the static [6, max_batch] buffer, with the
 # value a free row carries
 _KNOBS_F = (("temperature", 0.0), ("top_p", 1.0), ("min_p", 0.0),
             ("repetition", 1.0), ("presence", 0.0), ("frequency", 0.0))
+
+
+def _row_knobs(r: Request) -> tuple:
+    """A request's float knobs in ``_KNOBS_F`` order."""
+    return (r.temperature, r.top_p, r.min_p, r.repetition_penalty,
+            r.presence_penalty, r.frequency_penalty)
 
 
 class _RingSlot:
@@ -400,7 +467,9 @@ class BatchScheduler:
         self._last_dispatch_t = 0.0
         # economics (engine/introspect.py): the decode root's declared
         # capture space is the batch ladder x the pow2 table widths (any
-        # flags); the CoW copy is an eager op, a root with no compiles
+        # flags); the first token's is its flags; the CoW copy is an eager
+        # op, a root with no compiles. The engine registers the prefill
+        # and verify roots
         ic = e.introspect
         self._meter = ic.meter
         bs_ok = declared_batch_sizes(max_batch)
@@ -409,8 +478,36 @@ class BatchScheduler:
             "decode",
             allowed=lambda key: key[0] in bs_ok and declared_table_width(key[1], bpr),
         )
+        ic.sentinel.register("first_token")
         ic.sentinel.register("cow_copy")
         ic.ledger.register("kv_pool", lambda: self._cache)
+        # the widest prefill chunk: the prefill root's buffers hold it
+        self._prefill_width = max(e.declared_prefill_widths)
+        # self-speculative decoding (engine/spec.py): the tiered drafter
+        # stack. n-gram is always the zero-cost floor; the resident model
+        # tier joins when the engine loaded one (drafter=<model>); the
+        # mesh tier when the drafter is remote (drafter="mesh"), whose
+        # transport meshnet/draft.py attaches. Per-row tier choice and
+        # probe-driven transitions live in _spec_drafts
+        self._spec = None
+        K = cfg.spec_tokens
+        if K > 0 and K + 1 >= e.max_seq_len:
+            # no prompt could leave K+1 positions of headroom: say so
+            # instead of silently decoding plain forever
+            logger.warning(
+                "speculative decoding disabled: spec_tokens=%d leaves no "
+                "room in max_seq_len=%d", K, e.max_seq_len,
+            )
+        elif K > 0:
+            tiers = {"ngram": NgramDrafter(K, cfg.spec_min_match, cfg.spec_max_match)}
+            if e.drafter_model is not None:
+                tiers["model"] = e.drafter_model
+            if cfg.drafter == "mesh":
+                tiers["mesh"] = MeshDrafter(K, model=e.model_cfg.name or "")
+            self._spec = DrafterStack(tiers, K)
+        self.mesh_drafter = (self._spec.tiers.get("mesh")
+                             if self._spec is not None else None)
+        self._draft_tier: dict[int, str] = {}  # row -> tier that drafted
         self._init_device_state()
 
         self._thread = threading.Thread(
@@ -461,10 +558,29 @@ class BatchScheduler:
                                    device=dev)
         self._d_toks = torch.zeros((mb, K), dtype=torch.int64, device=dev)
         self._d_step = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self._graphs: dict[tuple, _DecodeGraph] = {}
+        # the verify root's: drafts [bsz, K] (flat, so a bucket's view is
+        # contiguous), their lengths and the accepted counts
+        Ks = max(1, e.engine_cfg.spec_tokens)
+        self._d_drafts = torch.zeros((mb * Ks,), dtype=torch.int64, device=dev)
+        self._d_lens = torch.zeros((mb,), dtype=torch.int32, device=dev)
+        self._d_acc = torch.zeros((mb,), dtype=torch.int64, device=dev)
+        # the prefill root's: one int64 buffer holding the padded chunk
+        # then (offset, true length, write floor, write ceil), the row's
+        # table slice and the last logits; the first-token root's one-row
+        # knobs (``_KNOBS_F`` order), top-k, counts and token
+        W = self._prefill_width
+        self._p_ints = torch.zeros((W + 4,), dtype=torch.int64, device=dev)
+        self._p_tables = torch.zeros((e.blocks_per_row,), dtype=torch.int32, device=dev)
+        self._p_logits = torch.zeros((1, self._vocab), dtype=torch.float32, device=dev)
+        self._f_knobs_f = torch.zeros((len(_KNOBS_F),), dtype=torch.float32, device=dev)
+        self._f_top_k = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self._f_counts = torch.zeros((1, 2, self._vocab), dtype=torch.int32, device=dev)
+        self._f_out = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # captured graphs by (root, key)
+        self._graphs: dict[tuple, Graph] = {}
         if self._on_card:
-            # every decode graph shares one memory pool: nothing read after
-            # a replay lives in it (the static buffers above do not)
+            # every graph shares one memory pool: nothing read after a
+            # replay lives in it (the static buffers above do not)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
         # readback ring: dispatched-but-unread windows, each with its slot
@@ -504,6 +620,9 @@ class BatchScheduler:
             self._shutdown = True
             self._cond.notify()
         self._thread.join(timeout=30)
+        if self.mesh_drafter is not None:
+            # drop the transport; the resident model tier is the engine's
+            self.mesh_drafter.close()
 
     @property
     def active(self) -> int:
@@ -576,6 +695,8 @@ class BatchScheduler:
             self._deferred_blocks = []
         for req in list(self._queue) + [r for r in self._rows if r is not None]:
             req.finish = "error"
+            if self._spec is not None:
+                self._spec.forget(req)
             req.events.put({"done": True, "result": None, "error": reason})
         self._queue.clear()
         for b, r in enumerate(self._rows):
@@ -733,7 +854,7 @@ class BatchScheduler:
         (sharing a matched prefix's full blocks, copying at most its final
         partial block), chunk-prefill the rest straight into the pool, and
         pin the prompt's blocks in the prefix cache. Returns last_logits
-        [1, V]. On _PoolExhausted every reference this call took is
+        [1, V] (the prefill root's static buffer). On _PoolExhausted every reference this call took is
         released and the table row is nulled, so the caller can requeue
         the request cleanly; the raise happens BEFORE any device work (the
         block sufficiency is prechecked), so a requeue never redoes CoW
@@ -808,18 +929,9 @@ class BatchScheduler:
             for pos in prefill_chunk_positions(n, start, bucket, e.max_seq_len):
                 self._ensure_blocks(b, min(pos + bucket, n))
                 chunk = seq[pos:pos + bucket]
-                tokens = np.zeros((1, bucket), np.int64)
-                tokens[0, :len(chunk)] = chunk
                 tw = self._table_width(len(row))
-                last_logits = e._prefill(
-                    torch.from_numpy(tokens).to(self._device),
-                    self._cache,
-                    torch.tensor([len(chunk)], device=self._device),
-                    pos,
-                    torch.from_numpy(self._tables[b:b + 1, :tw].copy()).to(self._device),
-                    write_floor=start,
-                    write_ceil=n,
-                )
+                last_logits = self._prefill_chunk(chunk, bucket, pos,
+                                                  self._tables[b, :tw], start, n)
                 # economics: the bucket's padded width is what the card
                 # ran; only the real prompt tokens were useful
                 self._meter.record_dispatch(bucket, pos + bucket / 2.0, scheduled=bucket)
@@ -839,6 +951,95 @@ class BatchScheduler:
                 self._alloc.deref(temp_ref)
             self._release_row(b)
             raise
+
+    def _prefill_views(self, key: tuple) -> _PrefillViews:
+        """The prefill root's static buffers at ``key`` (bucket, table
+        width)."""
+        bucket, tw = key
+        W = self._prefill_width
+        ints = self._p_ints
+        return _PrefillViews(
+            tokens=ints[:bucket].view(1, bucket), pos=ints[W:W + 1],
+            true_len=ints[W + 1:W + 2], floor=ints[W + 2:W + 3],
+            ceil=ints[W + 3:W + 4], tables=self._p_tables[:tw].view(1, tw),
+            logits=self._p_logits,
+        )
+
+    def _prefill_step(self, v: _PrefillViews):
+        """One prefill chunk (the engine's ``_prefill``) over ``v``'s
+        buffers: what the prefill root captures."""
+        v.logits.copy_(self.engine._prefill(
+            v.tokens, self._cache, v.true_len, v.pos, v.tables,
+            write_floor=v.floor, write_ceil=v.ceil,
+        ))
+
+    def _stage_prefill(self, chunk: list, bucket: int, pos: int, table: np.ndarray,
+                       floor: int, ceil: int) -> tuple:
+        """Copy one chunk's inputs into the prefill root's static buffers
+        (queued, no host sync): ``chunk`` (at most ``bucket`` tokens) at
+        offset ``pos`` through ``table`` (the row's table at the chunk's
+        width), pool writes kept inside [floor, ceil). Returns the key."""
+        W = self._prefill_width
+        ints = np.zeros((W + 4,), np.int64)
+        ints[:len(chunk)] = chunk
+        ints[W:] = (pos, len(chunk), floor, ceil)
+        h2d(self._p_ints, ints)
+        tw = len(table)
+        h2d(self._p_tables[:tw], table)
+        return (bucket, tw)
+
+    def _prefill_chunk(self, chunk: list, bucket: int, pos: int, table: np.ndarray,
+                       floor: int, ceil: int) -> torch.Tensor:
+        """Run one prefill chunk of a row (``_stage_prefill``'s arguments)
+        through the prefill root. Returns the static last-logits buffer
+        [1, V]."""
+        self._run_root("prefill", self._stage_prefill(chunk, bucket, pos, table,
+                                                      floor, ceil))
+        return self._p_logits
+
+    def _first_views(self, key: tuple) -> _FirstViews:
+        """The first-token root's static buffers at ``key`` (sampled,
+        min-p, penalized)."""
+        any_sampled, min_p, penalized = key
+        f = {name: self._f_knobs_f[i:i + 1] for i, (name, _) in enumerate(_KNOBS_F)}
+        return _FirstViews(
+            logits=self._p_logits, temperature=f["temperature"], top_k=self._f_top_k,
+            top_p=f["top_p"], min_p=f["min_p"] if min_p else None,
+            repetition=f["repetition"], presence=f["presence"],
+            frequency=f["frequency"], counts=self._f_counts if penalized else None,
+            out=self._f_out, any_sampled=any_sampled,
+        )
+
+    def _first_step(self, v: _FirstViews):
+        """The first token's sample over ``v``'s buffers (the JAX
+        ``_sample_first``): what the first-token root captures."""
+        pen = {}
+        if v.counts is not None:
+            pen = dict(counts=v.counts, repetition=v.repetition,
+                       presence=v.presence, frequency=v.frequency)
+        v.out.copy_(sample_batched(
+            v.logits, self.engine.generator, v.temperature, v.top_k, v.top_p,
+            v.min_p, any_sampled=v.any_sampled, **pen,
+        ))
+
+    def _first_token(self, req: Request, b: int) -> torch.Tensor:
+        """Sample row b's first token from the prefill's last logits: the
+        row's knobs (and, penalized, its fresh counts: the prompt's
+        occurrences host-side in channel 0, channel 1 at zero, also the
+        row's decode counts) go into the root's static buffers. Returns
+        the token [1] on the device (a copy: the burst reads them all at
+        once)."""
+        h2d(self._f_knobs_f, np.asarray(_row_knobs(req), np.float32))
+        h2d(self._f_top_k, np.asarray([req.top_k], np.int32))
+        if req.penalized:
+            row_counts = np.zeros((2, self._vocab), np.int32)
+            row_counts[0] = np.bincount(
+                np.asarray(req.ids, np.int64), minlength=self._vocab
+            )[:self._vocab]
+            h2d(self._counts[b], row_counts)
+            self._f_counts[0].copy_(self._counts[b])
+        self._run_root("first_token", (req.temperature > 0, req.min_p > 0, req.penalized))
+        return self._f_out.clone()
 
     def _admit(self):
         """Prefill queued requests into free rows, growing the batch bucket
@@ -890,33 +1091,8 @@ class BatchScheduler:
             bucket = C if C is not None and remaining > C else e._bucket_for(remaining)
             req.bucket = bucket
             try:
-                last_logits = self._paged_prefill(req, b, bucket, start, cached)
-                dev = self._device
-                kw = {}
-                if req.penalized:
-                    # prompt occurrences host-side, shipped as the row's
-                    # fresh counts; channel 1 (generated) starts at zero
-                    prompt_counts = np.bincount(
-                        np.asarray(req.ids, np.int64), minlength=self._vocab
-                    )[:self._vocab]
-                    row_counts = torch.zeros((2, self._vocab), dtype=torch.int32)
-                    row_counts[0] = torch.from_numpy(prompt_counts)
-                    self._counts[b] = row_counts.to(dev)
-                    kw = dict(
-                        counts=self._counts[b:b + 1],
-                        repetition=torch.tensor([req.repetition_penalty], device=dev),
-                        presence=torch.tensor([req.presence_penalty], device=dev),
-                        frequency=torch.tensor([req.frequency_penalty], device=dev),
-                    )
-                first = sample_batched(
-                    last_logits, e.generator,
-                    torch.tensor([req.temperature], device=dev),
-                    torch.tensor([req.top_k], device=dev),
-                    torch.tensor([req.top_p], device=dev),
-                    torch.tensor([req.min_p], device=dev) if req.min_p > 0 else None,
-                    any_sampled=req.temperature > 0,
-                    **kw,
-                )
+                self._paged_prefill(req, b, bucket, start, cached)
+                first = self._first_token(req, b)
             except _PoolExhausted as err:
                 if self.active > 0 or placed:
                     # backpressure: blocks free as rows retire — requeue
@@ -1000,9 +1176,7 @@ class BatchScheduler:
             top_k[:] = 0
             for b, r in enumerate(self._rows):
                 if r is not None:
-                    knobs_f[:, b] = (r.temperature, r.top_p, r.min_p,
-                                     r.repetition_penalty, r.presence_penalty,
-                                     r.frequency_penalty)
+                    knobs_f[:, b] = _row_knobs(r)
                     top_k[b] = r.top_k
             self._d_knobs_f.copy_(slot.knobs_f, non_blocking=self._on_card)
             self._d_top_k.copy_(slot.top_k, non_blocking=self._on_card)
@@ -1058,107 +1232,138 @@ class BatchScheduler:
         v.toks.index_copy_(1, v.step, nxt[:, None])
         v.step.add_(1).remainder_(v.toks.shape[1])
 
-    def _capture(self, key: tuple) -> _DecodeGraph:
-        """Capture ``key``'s decode step as a CUDA graph. A warm-up step
-        runs first on the capture stream (lazy initialisations, the
-        kernels' one-time attribute calls, the stream's cuBLAS workspace)
-        over scratch state: all-zero tables (every write lands in the null
-        block, garbage by design; an int8 pool's live scales only grow, so
-        a live page must not be written), scratch cur, offsets, counts and
-        tokens. The capture reads and writes the live static buffers but
-        runs nothing. The counts both move are put back; the capture's are
-        the graph's deltas. A failure raises: there is no eager decode on
-        the card."""
-        # a device profile and a capture never overlap (the capture waits,
-        # outside its pass: the profile's stop waits for the pass to end)
-        if not graph_capture_lock.acquire(blocking=False):
-            with device_gate.outside_pass():
-                graph_capture_lock.acquire()
-        try:
-            dg, seconds = self._capture_locked(key)
-        finally:
-            graph_capture_lock.release()
-        self.engine.introspect.sentinel.note_compile("decode", key, seconds)
-        return dg
+    def _verify_views(self, key: tuple) -> _DecodeViews:
+        """The verify root's buffers at ``key`` (the decode key plus K):
+        the decode views with the drafts, lengths and accepted counts."""
+        v = self._views(key[:-1])
+        bsz, K = v.cur.shape[0], key[-1]
+        return replace(v, drafts=self._d_drafts[:bsz * K].view(bsz, K),
+                       lens=self._d_lens[:bsz], acc=self._d_acc[:bsz])
 
-    def _capture_locked(self, key: tuple) -> tuple[_DecodeGraph, float]:
-        e = self.engine
-        t0 = time.perf_counter()
-        v = self._views(key)
-        bsz, tw = v.tables.shape
+    def _verify_step(self, v: _DecodeViews):
+        """One verify step for all rows (the engine's ``_spec_verify``), in
+        place on ``v``'s buffers: the next token into ``cur``, the accepted
+        counts into ``acc``, the offsets advanced by accepted + 1, the
+        penalty counts bumped. What the verify root captures."""
+        pen = {}
+        if v.counts is not None:
+            pen = dict(counts=v.counts, repetition=v.repetition,
+                       presence=v.presence, frequency=v.frequency)
+        nxt, acc = self.engine._spec_verify(
+            v.cur, v.drafts, v.lens, self._cache, v.off, v.tables, v.temperature,
+            v.top_k, v.top_p, v.min_p, any_sampled=v.any_sampled, **pen,
+        )
+        v.cur.copy_(nxt)
+        v.acc.copy_(acc)
+        v.off.add_((acc + 1).to(v.off.dtype))
+
+    def _root(self, root: str, key: tuple):
+        """(step, its live buffers, scratch twins for the capture's
+        warm-up, whether it draws) of ``root`` at ``key``. The scratch
+        state writes only the null block (all-zero tables, or a write ceil
+        of 0) and scratch outputs: an int8 pool's live scales only grow,
+        so no live page may be written."""
         zeros = functools.partial(torch.zeros, device=self._device)
+        if root == "prefill":
+            v = self._prefill_views(key)
+            scratch = _PrefillViews(
+                tokens=torch.zeros_like(v.tokens), pos=zeros(1, dtype=torch.int64),
+                true_len=torch.ones_like(v.true_len), floor=zeros(1, dtype=torch.int64),
+                ceil=zeros(1, dtype=torch.int64), tables=torch.zeros_like(v.tables),
+                logits=torch.zeros_like(v.logits),
+            )
+            return self._prefill_step, v, scratch, False
+        if root == "first_token":
+            v = self._first_views(key)
+            return self._first_step, v, replace(v, out=torch.zeros_like(v.out)), v.any_sampled
+        v = self._views(key) if root == "decode" else self._verify_views(key)
+        bsz, tw = v.tables.shape
         scratch = replace(
             v, cur=zeros(bsz, dtype=torch.int64), off=zeros(bsz, dtype=torch.int32),
             tables=zeros((bsz, tw), dtype=torch.int32),
             counts=None if v.counts is None else torch.zeros_like(v.counts),
             toks=torch.zeros_like(v.toks), step=torch.zeros_like(v.step),
         )
-        counters = launch_counters(e)
-        base = [getattr(h, n) for h, n in counters]
-        main = torch.cuda.current_stream(self._device)
-        stream = self._capture_stream
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            self._decode_step(scratch)
-        main.wait_stream(stream)
-        warm_s = time.perf_counter() - t0
-        warmed = [getattr(h, n) for h, n in counters]
-        graph = torch.cuda.CUDAGraph()
-        if v.any_sampled:
-            # each replay then draws at the generator's current offset and
-            # advances it: fresh noise per replay
-            graph.register_generator_state(e.generator)
-        # capture_begin/end rather than the torch.cuda.graph context, which
-        # also synchronises the device and empties the device and pinned
-        # host caches: work the next prefill would pay for again. Only this
-        # thread's unsafe calls break the capture (thread_local)
-        with torch.cuda.stream(stream):
-            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
-            try:
-                self._decode_step(v)
-            finally:
-                graph.capture_end()
-        captured = [getattr(h, n) for h, n in counters]
-        deltas = [(h, n, c - w) for (h, n), c, w in zip(counters, captured, warmed)
-                  if c != w]
-        for (h, n), value in zip(counters, base):
-            setattr(h, n, value)
-        dg = self._graphs[key] = _DecodeGraph(graph, deltas)
+        if root == "decode":
+            return self._decode_step, v, scratch, v.any_sampled
+        scratch = replace(scratch, drafts=torch.zeros_like(v.drafts),
+                          lens=torch.zeros_like(v.lens), acc=torch.zeros_like(v.acc))
+        return self._verify_step, v, scratch, v.any_sampled
+
+    def _run_root(self, root: str, key: tuple, times: int = 1):
+        """Run ``root``'s step at ``key`` ``times`` times over its static
+        buffers, inside a device pass: replays of its graph on the card
+        (captured on first use), the step itself on the CPU."""
+        with device_gate.device_pass():
+            if not self._on_card:
+                step, live, _, _ = self._root(root, key)
+                for _ in range(times):
+                    device_gate.let_transition_in()
+                    step(live)
+                return
+            graph = self._graphs.get((root, key)) or self._capture(key, root)
+            for _ in range(times):
+                device_gate.let_transition_in()
+                graph.replay()
+        self._root_stats(root)["replays"] += times
+
+    def _root_stats(self, root: str) -> dict:
+        """``root``'s entry of ``SchedulerStats.root_graphs``."""
+        return self.stats.root_graphs.setdefault(root, dict(
+            captures=0, capture_s=0.0, warmup_s=0.0, setup_forwards=0, replays=0,
+            keys={}))
+
+    def _capture(self, key: tuple, root: str = "decode") -> Graph:
+        """Capture ``root``'s step at ``key`` as a CUDA graph
+        (engine/graphs.py ``capture``), book it with the sentinel as a
+        compile of ``root``. A failure raises: no root runs eagerly on the
+        card."""
+        with capture_lock():
+            graph, seconds = self._capture_locked(key, root)
+        self.engine.introspect.sentinel.note_compile(root, key, seconds)
+        return graph
+
+    def _capture_locked(self, key: tuple, root: str = "decode") -> tuple[Graph, float]:
+        e = self.engine
+        t0 = time.perf_counter()
+        step, live, scratch, draws = self._root(root, key)
+        graph, warm_s, moved = capture(
+            step, live, scratch, stream=self._capture_stream, pool=self._graph_pool,
+            counters=launch_counters(e), generator=e.generator if draws else None,
+        )
+        self._graphs[(root, key)] = graph
         seconds = time.perf_counter() - t0
-        st = self.stats
-        st.graph_captures += 1
-        st.graph_capture_s += seconds
-        st.graph_warmup_s += warm_s
-        st.graph_setup_forwards += captured[-1] - base[-1]
-        captures, total = st.graph_keys.get(key, (0, 0.0))
-        st.graph_keys[key] = (captures + 1, total + seconds)
-        logger.info("captured decode graph %s in %.3f s", key, seconds)
-        return dg, seconds
+        # the eager forwards warm-up and capture ran (forward_calls is the
+        # last counter)
+        setup = moved[-1]
+        rg = self._root_stats(root)
+        rg["captures"] += 1
+        rg["capture_s"] += seconds
+        rg["warmup_s"] += warm_s
+        rg["setup_forwards"] += setup
+        captures, total = rg["keys"].get(key, (0, 0.0))
+        rg["keys"][key] = (captures + 1, total + seconds)
+        logger.info("captured %s graph %s in %.3f s", root, key, seconds)
+        return graph, seconds
 
     def _decode_chunk(self, key: tuple):
         """One chunk: decode_chunk steps for all rows on the static buffers;
         the tokens end in ``self._d_toks[:bsz]``. On the card every step is
         a replay of the key's graph (captured on its first use); on the
         CPU the step runs eagerly."""
-        K = self.engine.engine_cfg.decode_chunk
-        if not self._on_card:
-            v = self._views(key)
-            for _ in range(K):
-                self._decode_step(v)
-            return
-        graph = self._graphs.get(key) or self._capture(key)
-        for _ in range(K):
-            graph.replay()
-        self.stats.graph_replays += K
+        self._run_root("decode", key, self.engine.engine_cfg.decode_chunk)
 
     def _window_size(self, pending: int = 0) -> int:
         """Chunks to dispatch before the next host sync: 1 while a request
-        streams (tokens flush at chunk cadence); else the tightest active
+        streams (tokens flush at chunk cadence) or a row could speculate
+        (the drafter gets a look every chunk); else the tightest active
         row budget, less ``pending`` tokens already in flight, capped at
         max_inflight_chunks (and at 2 while requests queue)."""
         e = self.engine
         K = e.engine_cfg.decode_chunk
         if any(r is not None and r.stream for r in self._rows):
+            return 1
+        if self._spec_wanted():
             return 1
         min_left = min(
             r.max_new_tokens - len(r.out_ids) for r in self._rows if r is not None
@@ -1201,6 +1406,11 @@ class BatchScheduler:
         device time, then process. With overlap off the ring holds one
         window and this is the plain dispatch -> sync -> process loop."""
         K = self.engine.engine_cfg.decode_chunk
+        # a turn where some row drafted is ONE serialized verify step
+        # instead: the drafter needs each verdict before proposing again,
+        # so spec steps never ride the ring
+        if not self._inflight and self._spec is not None and self._spec_step():
+            return
         depth = self._depth if self._overlap else 1
         while len(self._inflight) < depth:
             pending = sum(r["W"] for r in self._inflight) * K
@@ -1251,14 +1461,7 @@ class BatchScheduler:
             return False
         slot = self._slots.popleft()
         bsz, nb = self._bsz, self._on_card
-        tables = slot.tables[:bsz * tw].view(bsz, tw)
-        tables.copy_(torch.from_numpy(self._tables[:bsz, :tw]))
-        self._d_tables[:bsz * tw].view(bsz, tw).copy_(tables, non_blocking=nb)
-        if not self._inflight:
-            slot.cur[:bsz] = torch.from_numpy(self._cur)
-            slot.off[:bsz] = torch.from_numpy(self._offsets)
-            self._d_cur[:bsz].copy_(slot.cur[:bsz], non_blocking=nb)
-            self._d_off[:bsz].copy_(slot.off[:bsz], non_blocking=nb)
+        self._stage_rows(slot, tw, with_state=not self._inflight)
         flags = self._stage_knobs(slot)
         key = self._decode_key(tw, flags)
         a = self.active
@@ -1288,6 +1491,20 @@ class BatchScheduler:
         self._last_dispatch_t = time.perf_counter()
         return True
 
+    def _stage_rows(self, slot: _RingSlot, tw: int, with_state: bool) -> None:
+        """Copy the rows' tables at width ``tw`` through the slot's staging
+        into the static buffer and, ``with_state`` (the ring is empty),
+        the host mirrors of cur and the offsets too."""
+        bsz, nb = self._bsz, self._on_card
+        tables = slot.tables[:bsz * tw].view(bsz, tw)
+        tables.copy_(torch.from_numpy(self._tables[:bsz, :tw]))
+        self._d_tables[:bsz * tw].view(bsz, tw).copy_(tables, non_blocking=nb)
+        if with_state:
+            slot.cur[:bsz] = torch.from_numpy(self._cur)
+            slot.off[:bsz] = torch.from_numpy(self._offsets)
+            self._d_cur[:bsz].copy_(slot.cur[:bsz], non_blocking=nb)
+            self._d_off[:bsz].copy_(slot.off[:bsz], non_blocking=nb)
+
     def _mean_active_ctx(self) -> float:
         """Mean cache depth of the active rows: the FLOPs model's attention
         input. Read before the dispatch advances the offsets."""
@@ -1304,6 +1521,11 @@ class BatchScheduler:
         if self._queue:
             return False
         if any(r is not None and r.stream for r in self._rows):
+            return False
+        # a spec-eligible row wants a draft look at the NEXT readback:
+        # plain windows stacked ahead of it would decode past the
+        # repetition the drafter feeds on
+        if self._spec_wanted():
             return False
         e = self.engine
         K = e.engine_cfg.decode_chunk
@@ -1330,6 +1552,218 @@ class BatchScheduler:
         # the free list must cover the window outright
         return need <= self._alloc.free_count
 
+    # ------------------------------------------------------------ spec
+
+    def _spec_wanted(self) -> bool:
+        """Could some row speculate at the next sync? (The window pin and
+        the look-ahead veto; the same gates as ``_spec_drafts``.)"""
+        return (self._spec is not None and self._spec_possible()
+                and any(r is not None and self._spec_eligible(b, r)
+                        for b, r in enumerate(self._rows)))
+
+    def _spec_eligible(self, b: int, req: Request) -> bool:
+        """Row-level speculation gate: greedy, not penalized, some tier
+        still untried ("off" is the exhausted ladder), enough budget that
+        a draft could beat the single bonus token, and cache headroom for
+        the fixed [B, K+1] write extent (or the window would stay pinned
+        with no speculation possible)."""
+        e = self.engine
+        return (
+            req.temperature <= 0.0
+            and not req.penalized
+            and req.spec_tier != TIER_OFF
+            and not req.cancelled
+            and req.max_new_tokens - len(req.out_ids) >= 2
+            and int(self._offsets[b]) + e.engine_cfg.spec_tokens + 1 <= e.max_seq_len
+        )
+
+    def _spec_possible(self) -> bool:
+        """Batch-level speculation gate: no active row within K+1 of
+        capacity (ineligible rows still ride the [B, K+1] forward, whose
+        write extent past capacity would need blocks past blocks_per_row).
+        Penalty counts ride the verify step (the port's one root is the
+        JAX fused root), so a penalized row vetoes nothing."""
+        e = self.engine
+        K = e.engine_cfg.spec_tokens
+        return all(int(self._offsets[b]) + K + 1 <= e.max_seq_len
+                   for b, req in enumerate(self._rows) if req is not None)
+
+    def _spec_transition(self, req: Request, failed_tier: str):
+        """Move a row whose CURRENT tier just failed (probe or a dead
+        remote) to the next tier on the ladder; the failed tier is never
+        retried and the probe counters reset for the new tier."""
+        req.spec_tiers_failed.add(failed_tier)
+        self._spec.tiers[failed_tier].forget(req)
+        req.spec_tier = self._spec.next_tier(failed_tier, req.spec_tiers_failed)
+        req.spec_tier_drafted = 0
+        req.spec_tier_accepted = 0
+        req.spec_tier_misses = 0
+
+    def _spec_tier_check(self, req: Request):
+        """Per-tier probe verdict: drafted tokens plus miss-equivalents (a
+        no-match step weighs like a fully-rejected K-token draft) against
+        the acceptance floor."""
+        cfg = self.engine.engine_cfg
+        if req.spec_tier in (None, TIER_OFF):
+            return
+        if should_disable(
+            req.spec_tier_drafted + cfg.spec_tokens * req.spec_tier_misses,
+            req.spec_tier_accepted, cfg.spec_probe_tokens, cfg.spec_min_accept,
+        ):
+            self._spec_transition(req, req.spec_tier)
+
+    def _spec_degrade_dead(self, req: Request, tier: str, drafter):
+        """Typed degradation off a dead remote tier: the row lands on the
+        next LOCAL tier at once — a dead draft peer never stalls decode."""
+        reason = getattr(drafter, "dead_reason", None) or "peer_lost"
+        _C_SPEC_DEGRADED.inc(1, reason=reason)
+        if not getattr(drafter, "_degrade_logged", False):
+            drafter._degrade_logged = True
+            logger.warning("mesh drafter dead (%s): degrading rows to the local tier",
+                           reason)
+        self._spec_transition(req, tier)
+
+    def _spec_drafts(self):
+        """Collect per-row drafts for one spec step, grouped by tier so
+        each drafter sees its rows in ONE batched propose call. Returns
+        (drafts [bsz, K], lens [bsz]) or None when this step takes a plain
+        window instead: no row drafted, or a row is too close to capacity.
+        A None proposal is PENDING (mesh tier: no accounting); [] is a
+        miss against the tier's probe."""
+        K = self.engine.engine_cfg.spec_tokens
+        if not self._spec_possible():
+            return None
+        by_tier: dict[str, list] = {}
+        for b, req in enumerate(self._rows):
+            if req is None or not self._spec_eligible(b, req):
+                continue
+            if req.spec_tier is None:
+                req.spec_tier = self._spec.start_tier()
+            tier = req.spec_tier
+            drafter = self._spec.tiers.get(tier)
+            if drafter is not None and getattr(drafter, "dead", False):
+                self._spec_degrade_dead(req, tier, drafter)
+                tier = req.spec_tier
+                drafter = self._spec.tiers.get(tier)
+            if tier == TIER_OFF or drafter is None:
+                continue
+            by_tier.setdefault(tier, []).append((b, req))
+        drafts = np.zeros((self._bsz, K), np.int64)
+        lens = np.zeros((self._bsz,), np.int32)
+        self._draft_tier = {}
+        any_draft = False
+        for tier, rows in by_tier.items():
+            proposals = self._spec.tiers[tier].propose_batch(rows)
+            for b, req in rows:
+                d = proposals.get(b)
+                if d is None:
+                    continue  # pending (mesh pipeline): not a miss
+                if not d:
+                    req.spec_misses += 1
+                    req.spec_tier_misses += 1
+                    self._spec_tier_check(req)
+                    continue
+                # past-budget draft positions are dead weight; a remote
+                # drafter gets clipped to K defensively too
+                d = list(d)[:K][:req.max_new_tokens - len(req.out_ids) - 1]
+                if not d:
+                    continue
+                drafts[b, :len(d)] = d
+                lens[b] = len(d)
+                self._draft_tier[b] = tier
+                any_draft = True
+        return (drafts, lens) if any_draft else None
+
+    def _spec_step(self) -> bool:
+        """One speculative step: verify every drafting row's proposal in
+        one replay of the verify root; offsets advance by accepted + 1 per
+        row (rejected positions sit at/past the new offset, where
+        causality hides them). The step's one host sync reads the next
+        tokens and the accepted counts. Returns False when no step was
+        taken and the caller runs a decode window."""
+        proposal = self._spec_drafts()
+        if proposal is None:
+            return False
+        drafts, lens = proposal
+        e = self.engine
+        K = e.engine_cfg.spec_tokens
+        # cover the whole [offset, offset+K+1) write extent: blocks claimed
+        # for later-rejected slots stay the row's and free at retirement
+        tw = self._prepare_window_tables(K + 1)
+        if tw is None:
+            self._compact_and_shrink()
+            return True  # nothing left to decode this step
+        bsz = self._bsz
+        # the ring is empty: every slot's staging is free
+        slot = self._slots[0]
+        self._stage_rows(slot, tw, with_state=True)
+        flags = self._stage_knobs(slot)
+        key = self._decode_key(tw, flags) + (K,)
+        h2d(self._d_drafts[:bsz * K], drafts.reshape(-1))
+        h2d(self._d_lens[:bsz], lens)
+        a = self.active
+        _G_ACTIVE_ROWS.set(a)
+        _G_BATCH_FILL.set(a / bsz)
+        e.introspect.forecast.feed(self._alloc.used_count, self._alloc.free_count)
+        # economics: bsz*(K+1) positions run; active*(K+1) token slots
+        # scheduled, of which only accepted drafts + the bonus prove useful
+        self._meter.record_dispatch(bsz * (K + 1), self._mean_active_ctx() + (K + 1) / 2.0,
+                                    scheduled=a * (K + 1))
+        t_step = time.perf_counter()
+        self._run_root("spec_verify", key)
+        if flags["penalized"]:
+            self.stats.counts_windows += 1
+        # a spec step is always a serialized sync: the drafter needs the
+        # verdict before it can propose again
+        _C_HOST_SYNCS.inc()
+        _C_SYNC_STALLS.inc()
+        _G_OVERLAP.set(0)
+        nxt, acc = torch.stack([self._d_cur[:bsz], self._d_acc[:bsz]]).cpu().numpy()
+        _H_STEP.observe((time.perf_counter() - t_step) * 1000.0)
+        self._last_dispatch_t = time.perf_counter()
+        self._cur = nxt.copy()
+        self._offsets = (self._offsets + acc + 1).astype(np.int32)
+        self.stats.spec_steps += 1
+
+        retired_any = False
+        for b, req in enumerate(self._rows):
+            if req is None:
+                continue
+            req.chunks_decoded += 1
+            n_acc = int(acc[b])
+            drafted = int(lens[b])
+            tier = self._draft_tier.get(b, "ngram")
+            if drafted:
+                req.spec_drafted += drafted
+                req.spec_accepted += n_acc
+                req.spec_tier_drafted += drafted
+                req.spec_tier_accepted += n_acc
+                self.stats.spec_drafted += drafted
+                self.stats.spec_accepted += n_acc
+                ts = self.stats.spec_tiers.setdefault(tier, {"drafted": 0, "accepted": 0})
+                ts["drafted"] += drafted
+                ts["accepted"] += n_acc
+                _C_SPEC_DRAFTED.inc(drafted, tier=tier)
+                _C_SPEC_ACCEPTED.inc(n_acc, tier=tier)
+                self._meter.note_spec(tier, drafted, n_acc)
+            # the accepted draft prefix, then the verify's own next token
+            retired = self._process_row_tokens(
+                b, req, list(drafts[b, :n_acc]) + [nxt[b]]
+            )
+            retired_any |= retired
+            if drafted and not retired:
+                # the verdict rolls the drafter's state forward (model: KV
+                # frontier; mesh: the next draft_request goes out now, so
+                # its round trip overlaps the next step), after the intake
+                # so the drafter sees the grown context; then the probe
+                drafter = self._spec.tiers.get(tier)
+                if drafter is not None:
+                    drafter.observe(req, n_acc)
+                self._spec_tier_check(req)
+        if retired_any:
+            self._compact_and_shrink()
+        return True
+
     def _fetch_window(self, rec) -> np.ndarray:
         """THE host sync of the decode hot loop: wait for one window's
         token copy (its slot's event), then take the tokens [bsz, W*K] out
@@ -1339,7 +1773,10 @@ class BatchScheduler:
         self.stats.windows += 1
         slot = rec["slot"]
         if slot.event is not None:
-            slot.event.synchronize()
+            # the wait launches nothing: a device profile may start or
+            # stop while this thread waits for the window
+            with device_gate.outside_pass():
+                slot.event.synchronize()
         bsz = rec["bsz"]
         toks_host = np.concatenate(
             [slot.toks[c, :bsz].numpy() for c in range(rec["W"])], axis=1
@@ -1416,6 +1853,8 @@ class BatchScheduler:
         return False
 
     def _retire(self, req: Request):
+        if self._spec is not None:
+            self._spec.forget(req)  # drafter KV slot / mesh server row
         req.timing.t_done = time.perf_counter()
         self.stats.retired += 1
         self.stats.history.append(
@@ -1425,6 +1864,8 @@ class BatchScheduler:
 
     def _retire_error(self, req: Request, reason: str):
         """Error-terminate an ADMITTED row with full retirement accounting."""
+        if self._spec is not None:
+            self._spec.forget(req)
         req.finish = "error"
         req.timing.t_done = time.perf_counter()
         self.stats.retired += 1

@@ -37,8 +37,10 @@ executor thread so the node's event loop (pings, gossip, other rows'
 frames) never stalls behind a drafter forward.
 
 PyTorch port: a copy of ``bee2bee_tpu/meshnet/draft.py`` with the import root
-rewritten to ``bee2bee_tpu_torch``. The draft role imports ``DraftModel`` from
-``..engine``, where it raises by name.
+rewritten to ``bee2bee_tpu_torch``. The drafter (engine/drafter.py) runs on
+the card unless ``device`` names another; its draft runs in the executor
+thread inside a device pass (``device_gate``), so a device profile starts
+and stops between drafts as between the schedulers' passes.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import logging
 import threading
 
 from .. import protocol
+from ..engine.introspect import device_gate
 from ..metrics import get_registry
 
 logger = logging.getLogger("bee2bee_tpu_torch.draft")
@@ -90,8 +93,8 @@ class DraftServer:
     def __init__(self, node, model: str, spec_tokens: int = 6,
                  max_rows: int = 8, dtype: str = "float32",
                  seed: int = 0, checkpoint_path: str | None = None,
-                 drafter=None):
-        from ..engine import DraftModel  # not ported: raises by name
+                 drafter=None, device=None):
+        from ..engine.drafter import DraftModel
 
         self.node = node
         self.spec_tokens = spec_tokens
@@ -101,6 +104,7 @@ class DraftServer:
             # DraftModel caps against its config's max_seq_len internally
             target_max_seq_len=1 << 20,
             dtype=dtype, seed=seed, checkpoint_path=checkpoint_path,
+            device=device,
         )
         self.max_rows = max_rows
         self._rows: dict[tuple[str, str], _SrvRow] = {}
@@ -113,7 +117,7 @@ class DraftServer:
             # compile would make every early draft stale on arrival
             warm = _SrvReq()
             warm.ids = list(range(1, 17))
-            self.drafter.propose_batch([(0, warm)])
+            self._propose(warm)
             self.drafter.forget(warm)
 
     # ---------------------------------------------------------- intake
@@ -181,11 +185,9 @@ class DraftServer:
         pos = len(ctx)
         loop = asyncio.get_running_loop()
         try:
-            # the jit forward runs off-loop; the worker awaits it, so rows
-            # are still served strictly in order
-            out = await loop.run_in_executor(
-                None, self.drafter.propose_batch, [(0, row.req)]
-            )
+            # the draft runs off-loop; the worker awaits it, so rows are
+            # still served strictly in order
+            out = await loop.run_in_executor(None, self._propose, row.req)
             draft = out.get(0) or []
             _C_DRAFT_SERVED.inc()
         except Exception as e:  # noqa: BLE001 — typed error to the client
@@ -199,6 +201,12 @@ class DraftServer:
             protocol.DRAFT_RESULT, rid=rid, pos=pos,
             draft=[int(t) for t in draft],
         ))
+
+    def _propose(self, req) -> dict:
+        """One draft (its host copies, replays and readback) inside a
+        device pass: a device profile starts and stops between drafts."""
+        with device_gate.device_pass():
+            return self.drafter.propose_batch([(0, req)])
 
     def close(self) -> None:
         self._closed = True

@@ -3,9 +3,10 @@ over the paged KV pool.
 
 The port of ``bee2bee_tpu/models/core.py``'s block-tables path, kept
 function for function where that helps a reader find the counterpart
-(``_norm``, ``_rope``, ``_activate``, ``_mlp``, ``embed_tokens``,
-``transformer_block``, ``final_logits``, ``forward``,
-``make_layer_window``, ``init_paged_pool``, ``matmul_params_per_token``).
+(``_norm``, ``_rope``, ``_activate``, ``_mlp``, ``_attention``,
+``embed_tokens``, ``transformer_block``, ``final_logits``, ``forward``,
+``attn_mask``, ``make_layer_mask``, ``make_layer_window``, ``init_cache``,
+``init_paged_pool``, ``matmul_params_per_token``).
 What differs from the JAX package:
 
 - Parameters are a plain dict of tensors whose ``"layers"`` entry is a
@@ -15,10 +16,16 @@ What differs from the JAX package:
 - The pool is updated IN PLACE: ``forward`` scatters each chunk's K/V
   into the pool tensors it was given (the JAX engine donates the pool
   and gets a new one back; here the returned pool is the same object).
-- Attention is always the ragged paged op (ops/ragged.py) reading the
-  pool directly: no gathered view, no dense path. An int8 pool
-  (``init_paged_pool(dtype=torch.int8)``) quantizes each chunk's K/V on
-  write (``_quantized_page_write``) and hands the op its scales.
+- With block tables, attention is always the ragged paged op
+  (ops/ragged.py) reading the pool directly: no gathered view. An int8
+  pool (``init_paged_pool(dtype=torch.int8)``) quantizes each chunk's
+  K/V on write (``_quantized_page_write``) and hands the op its scales.
+- Without block tables the cache is RECTANGULAR (``init_cache``, [L, B,
+  S, Hkv, hd]): each row's chunk is written at [offset, offset+T) and the
+  dense ``_attention`` (plain torch, as JAX computes it with XLA ops)
+  reads the whole row under ``make_layer_mask``. Only the model drafter
+  (engine/drafter.py) runs it; an int8 rectangular cache is refused, as
+  in JAX. The no-cache forward is not ported.
 - Only the llama architecture runs: rmsnorm, "half" rope without
   scaling, gated silu MLP, GQA, tied or untied head, plus the score
   switches the kernel carries (sliding window with its per-layer
@@ -128,6 +135,25 @@ def _mlp(x, p, cfg: ModelConfig):
     return _activate(x @ p["w_up"], x @ p["w_gate"], cfg) @ p["w_down"]
 
 
+def _attention(q, k, v, mask, cfg: ModelConfig):
+    """Dense attention (core._attention): q [B, T, H, hd]; k, v [B, S,
+    Hkv, hd]; mask [B, 1, T, S] bool. Scores in f32, softmax, the
+    probabilities cast to v's dtype."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    q = q.reshape(B, T, Hkv, group, hd)
+    logits = torch.einsum("btkgh,bskh->bkgts", q, k).float()
+    logits = logits / math.sqrt(cfg.attn_scale or hd)
+    if cfg.attn_logit_softcap:  # tanh cap BEFORE masking
+        c = cfg.attn_logit_softcap
+        logits = torch.tanh(logits / c) * c
+    logits = torch.where(mask[:, :, None, :, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v)
+    return out.reshape(B, T, H * hd)
+
+
 # ------------------------------------------------------- reusable blocks
 
 
@@ -223,6 +249,33 @@ def _quantized_page_write(pool, scale, blk, slot, wslot, xT):
 # ---------------------------------------------------------------- forward
 
 
+def attn_mask(cfg: ModelConfig, positions, S: int, window="cfg"):
+    """The cached mask (core.attn_mask with S given): [B, 1, T, S] over
+    cache positions, s visible to query t iff s <= pos(t), and with a
+    sliding window only the last W positions (s > pos(t) - W).
+    ``window`` overrides cfg.sliding_window (None = full causal)."""
+    w = cfg.sliding_window if window == "cfg" else window
+    s_idx = torch.arange(S, device=positions.device)[None, None, :]
+    q_pos = positions[:, :, None]
+    mask = s_idx <= q_pos
+    if w:
+        mask = mask & (s_idx > q_pos - w)
+    return mask[:, None, :, :]
+
+
+def make_layer_mask(cfg: ModelConfig, positions, S: int):
+    """Layer index -> its cached mask (core.make_layer_mask at start 0):
+    the gemma-2/3 local/global alternation by the same residue rule as
+    ``make_layer_window``; other configs get one mask for every layer."""
+    mask = attn_mask(cfg, positions, S)
+    if not (cfg.sliding_window and cfg.sliding_window_every > 1):
+        return lambda idx: mask
+    mask_full = attn_mask(cfg, positions, S, window=None)
+    residues = set(cfg.sliding_window_residues)
+    every = cfg.sliding_window_every
+    return lambda idx: mask if idx % every in residues else mask_full
+
+
 def make_layer_window(cfg: ModelConfig):
     """Layer index -> the sliding window the ragged op gets (0 = full
     causal): every layer for a plain window, the residue pattern for the
@@ -243,7 +296,8 @@ def forward(
     pool,  # {"k", "v"}: [L, Hkv, NB, BS, hd] (+ int8 "k_scale", "v_scale"
     #        [L, Hkv, NB]) — updated in place
     offset,  # int, [] or [B] int32: position of input_ids[:, 0]
-    block_tables,  # [B, MB] int32: pool block ids per row (0 = null block)
+    block_tables=None,  # [B, MB] int32: pool block ids per row (0 = null
+    #                     block); None = ``pool`` is a rectangular cache
     paged_write_floor=None,  # int: drop pool WRITES below this position
     paged_write_ceil=None,  # int: drop pool WRITES at/after this position
     attn_fn=ragged_paged_attention,
@@ -265,8 +319,13 @@ def forward(
     layer's scales to ``attn_fn``.
     ``attn_fn`` defaults to the dispatching op (kernel on the card, plain
     version on the CPU); passing ``ragged_paged_attention_ref`` runs the
-    plain version on any device."""
+    plain version on any device.
+
+    Without ``block_tables``, ``pool`` is a rectangular cache
+    (``init_cache``): see ``_forward_rect``."""
     check_supported(cfg)
+    if block_tables is None:
+        return _forward_rect(params, cfg, input_ids, pool, offset)
     quantized = "k_scale" in pool
     if pool["k"].dtype == torch.int8 and not quantized:
         raise ValueError(
@@ -319,6 +378,52 @@ def forward(
         idx = torch.as_tensor(logits_index, device=device).long().reshape(B)
         x = x[torch.arange(B, device=device), idx][:, None]
     return final_logits(params, cfg, x), pool
+
+
+def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):
+    """The rectangular-cache branch of core.forward: each row's chunk K/V
+    go to cache positions [offset, offset+T) in place (the start clamped
+    so the chunk fits, as ``lax.dynamic_update_slice`` clamps it), then
+    ``_attention`` reads the whole row [0, S) under the causal mask of the
+    unclamped positions. Returns (logits [B, T, V] f32, cache)."""
+    if cache["k"].dtype == torch.int8:
+        raise ValueError(
+            "int8 KV cache requires the paged pool with its "
+            "k_scale/v_scale scale arrays (init_paged_pool dtype=int8 "
+            "+ block_tables); the rectangular cache has no quantized path"
+        )
+    B, T = input_ids.shape
+    device = input_ids.device
+    S = cache["k"].shape[2]
+    off = row_offsets(offset, B, device).long()
+    steps = torch.arange(T, device=device)[None, :]
+    positions = off[:, None] + steps
+    rows = torch.arange(B, device=device)[:, None]
+    write = off.clamp(0, S - T)[:, None] + steps
+    rope = rope_angles(positions, cfg.rope_theta, cfg.rotary_dim)
+    mask = make_layer_mask(cfg, positions, S)
+    x = embed_tokens(params, cfg, input_ids)
+    for i, lp in enumerate(params["layers"]):
+        ck, cv = cache["k"][i], cache["v"][i]
+
+        def attend(q, k, v, ck=ck, cv=cv, i=i):
+            ck[rows, write] = k.to(ck.dtype)
+            cv[rows, write] = v.to(cv.dtype)
+            return _attention(q, ck, cv, mask(i), cfg)
+
+        x = transformer_block(lp, cfg, x, rope, attend)
+    return final_logits(params, cfg, x), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
+               dtype=torch.bfloat16, device=None):
+    """A fixed-capacity rectangular KV cache {"k", "v"}: [L, B, S, Hkv,
+    hd], zeroed (core.init_cache). The model drafter's cache; the serving
+    engine's is the paged pool."""
+    S = max_len or cfg.max_seq_len
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,

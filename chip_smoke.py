@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch port (bee2bee_tpu_torch) on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --ring-repro N`` runs only the build and the ring
+check's reproduction, ``ring_repro``; ``--node-profile N`` only the build
+and phase 9's second node N times, ``node_profile_rounds``.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -124,7 +127,17 @@ and the script exits non-zero):
    state: greedy tokens, cur, offsets and the pool's bytes outside the
    null block equal bit for bit; two replays of a graph with a row at
    temperature 1 from one state: greedy rows equal, the sampled row's
-   draws different. Then a breakdown of a decode step (the bare forward,
+   draws different. Every prefill chunk and first token the slice serves
+   is a replay of the prefill and first-token roots' graphs too: the
+   tile launches equal n_layers x the prefill replays, the only eager
+   prefill forwards are the captures' warm-up and capture, one
+   first-token replay per request. Then a prefill chunk run eagerly and
+   by replay from the same random pool: a miss (1,000 tokens at bucket
+   1024) and a hit (104 new tokens at bucket 128 from offset 1000, after
+   a CoW copy, floored there): last logits and the pool's bytes (and
+   scales) outside the null block equal bit for bit, n_layers tile
+   launches a replay (in every slice, phases 6-8). Then a breakdown of a
+   decode step (the bare forward,
    the scheduler's step eager and graph-replayed) and a prefill chunk:
    host wall, device busy, idle share and the attention kernels' ms per
    launch inside the step (the decode kernel's two CUDA kernels summed).
@@ -173,7 +186,25 @@ and the script exits non-zero):
    cache-off engine's. Then one admission into a pool of one row and 40
    blocks that must evict a pinned entry under pressure (each pool).
    Prints hit, miss and cache-off TTFT (median and range of each burst)
-   with the card's name and power limit.
+   with the card's name and power limit; each burst runs with every
+   prefill and first-token graph it replays captured before it (the
+   captures printed apart).
+   Speculative decoding, model tier (after the bf16 prefix phase): the
+   bf16 weights serve 8 prompts without n-gram repeats (64 greedy tokens
+   each, concurrently, K=4) with llama-3-8b itself as the drafter at the
+   engine's seed (weight-identical; a second 16 GB beside the target):
+   the n-gram tier fails its probe at its first miss and rows escalate;
+   acceptance, agreement with the spec-off engine and the spec-off logit
+   gap at each row's first divergence (bf16 near-ties) are printed; the
+   draft and prime roots are captured once each; the tile kernel
+   launches n_layers x (verify + prefill replays). Then one verify step
+   (B=8 ctx 1024, K=4, drafts whose first token is the row's greedy next
+   token) run eagerly and by replay over a bf16 and an int8 pool: tokens,
+   accepted counts, offsets and pool bytes equal bit for bit.
+   Speculative decoding, n-gram tier (after the f32 prefix phase): f32
+   weights over an f32 pool, 8 periodic prompts, 64 greedy tokens each,
+   K=4: the tokens equal the spec-off engine's, 8 x 64; every verify
+   replay launches the f32 decode kernel (T = 5) n_layers times.
 9. The node (serve-cuda's path): the port's run_p2p_node boots a mesh
    node with its aiohttp gateway on free loopback ports and
    CUDAService("llama-3-8b") from the port's NodeConfig defaults (bf16
@@ -200,7 +231,13 @@ and the script exits non-zero):
    leave the miss's, which is why the route checks above run without the
    cache); a ``POST /debug/profile`` of 1 s while streams of the prompt
    run back to back (their texts equal the hit's), listed and fetched by
-   ``GET``, its chrome trace naming the decode kernel; ``/metrics``
+   ``GET``, its chrome trace naming the decode kernel, the longest gap
+   of the streams' events under the node's queue-wait SLO (4,096 ms),
+   and, sent once the trace's export starts, a stream needing a prefill
+   key not yet captured, whose first token comes before the export ends
+   and whose longest gap is under the SLO; the profiler's windows,
+   export and the gaps on one clock, its start, stop and export seconds
+   and the trace's kernel events printed; ``/metrics``
    samples of ``engine.mfu``, ``engine.goodput_tokens_per_s``,
    ``engine.hbm_bytes``, ``engine.hbm_headroom_frac`` and
    ``engine.compiles``; and a second turn (the first's transcript, its
@@ -208,9 +245,11 @@ and the script exits non-zero):
    first-turn prompt.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
-   kernels' from phases 6, 7, 9 and the prefix phase over the same pool;
-   the f32 decode kernel's and the f32 tile forms' from phase 8, its
-   prefix phase and phase 5's f32 forwards), then the result line.
+   kernels' from phases 6, 7, 9, the prefix phase over the same pool and
+   the model-tier spec phase; the f32 decode kernel's and the f32 tile
+   forms' from phase 8, its prefix phase, the n-gram spec phase and phase
+   5's f32 forwards; phase 2 times the tile kernel and the f32 decode
+   kernel at the verify shape, B=8 T=5 ctx 1024), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script. Each phase's start goes to
@@ -237,6 +276,7 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -862,6 +902,9 @@ def phase_ragged_vs_plain(flush, int8=False):
             ("decode_f32_b1", [2047], 1, torch.float32, {}, True),
             ("prefill", [1000], 512, torch.bfloat16, {}, False),
             ("prefill_f32", [1000], 512, torch.float32, {}, False),
+            # the speculative verify shape: B=8, T=K+1=5 over a 1024 context
+            ("verify", [1023] * 8, 5, torch.bfloat16, {}, False),
+            ("verify_f32", [1023] * 8, 5, torch.float32, {}, False),
             ("decode_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA, True),
             ("prefill_hd256", [1000], 512, torch.bfloat16, GEMMA, True),
             ("decode_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA, True),
@@ -1491,15 +1534,185 @@ def graph_vs_eager(engine, tag: str, ctx: int = 1024) -> None:
     reload(load)
 
 
-def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
+def random_pool(engine, seed: int) -> dict:
+    """Fill the scheduler's pool with random content (an int8 pool's pages
+    and scales too); returns a copy to reload it from."""
+    pool = engine.scheduler._cache
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if engine.kv_quantized:
+        for name in ("k", "v"):
+            pool[name].copy_(torch.randint(-127, 128, pool[name].shape, generator=gen,
+                                           device="cuda", dtype=torch.int8))
+            pool[name + "_scale"].copy_(
+                torch.rand(pool[name + "_scale"].shape, generator=gen, device="cuda")
+                * 0.02)
+    else:
+        for name in ("k", "v"):
+            pool[name].normal_(generator=gen)
+    return {name: t.clone() for name, t in pool.items()}
+
+
+def prefill_vs_eager(engine, tag: str) -> None:
+    """A prefill chunk of the scheduler's prefill root run eagerly and by a
+    replay of its captured graph, from the same state (random pool pages,
+    an int8 pool's scales too): a miss (1,000 tokens at offset 0, floor
+    0, bucket 1024) and a hit (104 new tokens at offset 1000 over the
+    first's 62 full blocks, its partial block copied first as a CoW hit
+    does, floor 1000, bucket 128). The last logits and the pool's bytes
+    (and scales) outside the null block must be equal bit for bit, and
+    each replay must launch the tile kernel the rule names n_layers
+    times. Prints the captures (by key, with their seconds)."""
+    from bee2bee_tpu_torch.engine.scheduler import copy_block
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
+
+    sch = engine.scheduler
+    cfg = engine.model_cfg
+    check(not sch.active and not sch._inflight and not sch._queue,
+          f"{tag} prefill vs eager: the scheduler is not idle")
+    pool = sch._cache
+    saved = random_pool(engine, SEED + 3)
+    G = cfg.n_heads // cfg.n_kv_heads
+    kernel = RAGGED_COUNTERS[ragged_kernel(engine.dtype, 128, cfg.head_dim,
+                                           engine.kv_quantized, G)]
+    kernel += "_int8" if engine.kv_quantized else ""
+    gen = np.random.default_rng(SEED)
+    prompt = gen.integers(3, cfg.vocab_size, size=1104).tolist()
+    donor = np.arange(1, 64, dtype=np.int32)  # the miss's 63 blocks
+    fresh = np.arange(100, 107, dtype=np.int32)  # the hit's CoW copy + 6 more
+    hit_table = np.zeros(128, np.int32)
+    hit_table[:62], hit_table[62:69] = donor[:62], fresh
+    cases = (("miss", prompt[:1000], 1024, 0, np.pad(donor, (0, 1)), 0, 1000),
+             ("hit", prompt[1000:], 128, 1000, hit_table, 1000, 1104))
+    since = graph_stats(engine, tag)
+    out = []
+    for name, chunk, bucket, pos, table, floor, ceil in cases:
+        for t, v in zip(pool.values(), saved.values()):
+            t.copy_(v)
+        if name == "hit":
+            copy_block(pool, int(donor[62]), int(fresh[0]))
+        before = {n: t.clone() for n, t in pool.items()}
+        key = sch._stage_prefill(chunk, bucket, pos, table, floor, ceil)
+        sch._prefill_step(sch._prefill_views(key))
+        torch.cuda.synchronize()
+        eager = (sch._p_logits.clone(), {n: t[:, :, 1:].clone() for n, t in pool.items()})
+        for t, v in zip(pool.values(), before.values()):
+            t.copy_(v)
+        sch._stage_prefill(chunk, bucket, pos, table, floor, ceil)
+        if ("prefill", key) not in sch._graphs:
+            sch._capture(key, "prefill")
+        c0 = read_counts()
+        sch._run_root("prefill", key)
+        c1 = read_counts()
+        torch.cuda.synchronize()
+        launched = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        same_logits = torch.equal(eager[0], sch._p_logits)
+        same_pool = all(torch.equal(eager[1][n], t[:, :, 1:]) for n, t in pool.items())
+        out.append((name, key, same_logits, same_pool, launched))
+        check(same_logits, f"{tag} prefill vs eager ({name}): replayed logits differ")
+        check(same_pool, f"{tag} prefill vs eager ({name}): replayed pool bytes differ")
+        check(launched == {kernel: cfg.n_layers},
+              f"{tag} prefill vs eager ({name}): a replay launched {launched}")
+        del eager, before
+    graph_stats(engine, f"{tag} prefill vs eager", since)
+    log(f"{tag} prefill graph vs eager: (case, key (bucket, table width), last logits "
+        f"equal, pool bytes outside the null block equal ({sorted(pool)}), launches "
+        f"per replay) {out}")
+    for t, v in zip(pool.values(), saved.values()):
+        t.copy_(v)
+
+
+def verify_vs_eager(engine, tag: str, ctx: int = 1024) -> dict:
+    """The verify step of the scheduler's spec_verify root run eagerly and
+    by a replay of its captured graph, from the same decode state (B=8 at
+    about ``ctx``, random pool, greedy rows): drafts whose first token is
+    the row's greedy next token (from a draft-less eager verify) and the
+    rest random, lengths 0..K. Tokens, accepted counts, offsets and the
+    pool's bytes outside the null block must be equal bit for bit, a
+    replay must launch the kernel the rule names n_layers times, and
+    (pool in q's type) every drafting row accepts its first draft. Returns
+    the accepted counts."""
+    sch = engine.scheduler
+    cfg = engine.model_cfg
+    K = engine.engine_cfg.spec_tokens
+    pool = sch._cache
+    saved = random_pool(engine, SEED + 4)
+    key, v, load = decode_state(engine, ctx=ctx)
+    vkey = key + (K,)
+    vv = sch._verify_views(vkey)
+
+    def reload():
+        for t, s_ in zip(pool.values(), saved.values()):
+            t.copy_(s_)
+        load()
+
+    reload()
+    vv.drafts.zero_()
+    vv.lens.zero_()
+    sch._verify_step(vv)
+    first = vv.cur.clone()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    drafts = torch.randint(3, cfg.vocab_size, vv.drafts.shape, generator=gen, device="cuda")
+    drafts[:, 0] = first
+    lens = torch.tensor([b % (K + 1) for b in range(vv.lens.shape[0])], dtype=torch.int32,
+                        device="cuda")
+
+    def load_verify():
+        reload()
+        vv.drafts.copy_(drafts)
+        vv.lens.copy_(lens)
+
+    load_verify()
+    sch._verify_step(vv)
+    torch.cuda.synchronize()
+    eager = (vv.cur.clone(), vv.acc.clone(), vv.off.clone(),
+             {n: t[:, :, 1:].clone() for n, t in pool.items()})
+    load_verify()
+    if ("spec_verify", vkey) not in sch._graphs:
+        sch._capture(vkey, "spec_verify")
+    c0 = read_counts()
+    sch._run_root("spec_verify", vkey)
+    c1 = read_counts()
+    torch.cuda.synchronize()
+    launched = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    same = [torch.equal(a, b) for a, b in zip(eager[:3], (vv.cur, vv.acc, vv.off))]
+    same_pool = all(torch.equal(eager[3][n], t[:, :, 1:]) for n, t in pool.items())
+    acc = vv.acc.tolist()
+    log(f"{tag} verify graph vs eager: B=8 ctx {ctx} K={K} key {vkey}, lengths "
+        f"{lens.tolist()}, accepted {acc}: tokens, accepted, offsets equal {same}, pool "
+        f"bytes outside the null block equal {same_pool}; launches per replay {launched}")
+    check(all(same) and same_pool, f"{tag}: the replayed verify step differs from the eager one")
+    check(len(launched) == 1 and list(launched.values()) == [cfg.n_layers],
+          f"{tag}: a verify replay launched {launched}")
+    # position 0's logits see no later position of the chunk, so a first
+    # draft equal to the draft-less verify's token is accepted; over an int8
+    # pool the chunk's later writes can grow a page's scale and requantize
+    # the keys position 0 reads, so there it is only printed
+    if not engine.kv_quantized:
+        check(all(a >= 1 for a, n in zip(acc, lens.tolist()) if n),
+              f"{tag}: a row whose first draft is its greedy token accepted nothing: "
+              f"{acc}")
+    reload()
+    return {"accepted": acc, "launched": launched}
+
+
+def ring_check(engine, tag: str, new_tokens: int = 320, burst: bool = True) -> bool:
     """The readback ring on the card: two greedy requests long enough that
     a window is capped at max_inflight_chunks chunks, so a look-ahead
     window chains on the device's own cur and offsets while the host
     reads the one before; served with overlap on and again with it off,
     the bucket held at 8 so both runs replay the same graphs in the same
     order: the same tokens, and fewer stalls than host syncs with overlap
-    on, a stall at every sync with it off."""
-    from bee2bee_tpu_torch.engine.introspect import _C_HOST_SYNCS, _C_SYNC_STALLS
+    on, a stall at every sync with it off. Each run logs its admissions
+    (scheduler pass, row, bucket, start) and the roots it ran in order
+    (root, key, steps). ``burst``: both requests are queued before the
+    scheduler's next pass, so both runs admit them in one burst; without
+    it (``--ring-repro``) they are sent one after the other, and a
+    difference is logged, not failed. Returns whether the tokens agree."""
+    from bee2bee_tpu_torch.engine.introspect import (
+        _C_HOST_SYNCS, _C_SYNC_STALLS, device_gate,
+    )
 
     sch = engine.scheduler
     check(not sch.active and not sch._inflight, f"{tag} ring: scheduler not idle")
@@ -1508,9 +1721,31 @@ def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
     sch._sticky_idle_s = float("inf")
     sch._resize(8)
     runs = {}
+    # what the scheduler thread admits and runs, from wrappers of its own
+    trace = {"passes": 0, "admits": [], "roots": []}
+    real = {n: getattr(sch, n) for n in ("_pass", "_paged_prefill", "_run_root")}
+
+    def counted_pass():
+        trace["passes"] += 1
+        return real["_pass"]()
+
+    def paged_prefill(req, b, bucket, start, *args, **kw):
+        trace["admits"].append((trace["passes"], b, bucket, start))
+        return real["_paged_prefill"](req, b, bucket, start, *args, **kw)
+
+    def run_root(root, key, times=1):
+        roots = trace["roots"]
+        if roots and roots[-1][:2] == [root, key]:
+            roots[-1][2] += times
+        else:
+            roots.append([root, key, times])
+        return real["_run_root"](root, key, times)
+
+    sch._pass, sch._paged_prefill, sch._run_root = counted_pass, paged_prefill, run_root
     try:
         for sch._overlap in (True, False):
             s0, t0, w0 = _C_HOST_SYNCS.value(), _C_SYNC_STALLS.value(), sch.stats.windows
+            trace.update(passes=0, admits=[], roots=[])
             out: list = [None] * len(prompts)
 
             def run(i):
@@ -1519,8 +1754,18 @@ def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
 
             threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
             t1 = time.perf_counter()
-            for t in threads:
-                t.start()
+            if burst:
+                # both requests queued before the scheduler's next pass, so
+                # both runs admit them in one burst: the same rows, table
+                # widths and split plans, hence the same bf16 rounding
+                with device_gate.transition():
+                    for t in threads:
+                        t.start()
+                    while len(sch._queue) < len(prompts):
+                        time.sleep(0.001)
+            else:
+                for t in threads:
+                    t.start()
             for t in threads:
                 t.join(timeout=300)
             wall = time.perf_counter() - t1
@@ -1528,21 +1773,75 @@ def ring_check(engine, tag: str, new_tokens: int = 320) -> None:
                 time.sleep(0.01)
             runs[sch._overlap] = (out, _C_HOST_SYNCS.value() - s0,
                                   _C_SYNC_STALLS.value() - t0, sch.stats.windows - w0)
-            log(f"{tag} ring (overlap {'on' if sch._overlap else 'off'}): 2 greedy "
-                f"requests x {new_tokens} tokens in {wall:.3f} s; "
+            log(f"{tag} ring (overlap {'on' if sch._overlap else 'off'}, "
+                f"{'one admission burst' if burst else 'sent one after the other'}): "
+                f"2 greedy requests x {new_tokens} tokens in {wall:.3f} s; "
                 f"{runs[sch._overlap][3]} windows, {runs[sch._overlap][1]:.0f} host "
-                f"syncs, {runs[sch._overlap][2]:.0f} of them stalls")
+                f"syncs, {runs[sch._overlap][2]:.0f} of them stalls; admissions "
+                f"(pass, row, bucket, start) {trace['admits']}; roots in order (root, "
+                f"key, steps) {[tuple(r) for r in trace['roots']]}")
     finally:
         sch._sticky_idle_s, sch._overlap = idle_s, overlap
+        for n in real:
+            delattr(sch, n)
     (on, syncs_on, stalls_on, _), (off, syncs_off, stalls_off, _) = runs[True], runs[False]
     check(all(len(t) == new_tokens for t in on),
           f"{tag} ring: a request stopped early ({[len(t) for t in on]} tokens), so "
           "the ring was not filled")
-    check(on == off, f"{tag} ring: overlap on and off gave different tokens")
+    first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+             for a, b in zip(on, off)]
+    if not burst:
+        log(f"{tag} ring: overlap on and off gave "
+            f"{'the same tokens' if on == off else 'different tokens'}; the first "
+            f"differing token of each request {first}")
+        return on == off
+    check(on == off, f"{tag} ring: overlap on and off gave different tokens (the "
+          f"first differing token of each request {first})")
     check(stalls_on < syncs_on, f"{tag} ring: overlap on stalled {stalls_on} of "
           f"{syncs_on} syncs")
     check(stalls_off == syncs_off > 0, f"{tag} ring: overlap off stalled "
           f"{stalls_off} of {syncs_off} syncs")
+    return True
+
+
+def node_profile_rounds(card: str, rounds: int) -> int:
+    """``--node-profile N``: the profiler's first start (CUPTI's bring-up,
+    which the full run pays in its earlier phases), then phase 9's second
+    node N times; each round's profile lines, and each failed check, are
+    logged. Returns 1 when a round failed."""
+    from bee2bee_tpu_torch.engine.introspect import get_profiler
+
+    get_profiler().capture(0.05)
+    log(f"node profile: the first start {get_profiler().last_timings}")
+    failed = 0
+    for i in range(rounds):
+        t0 = time.perf_counter()
+        try:
+            phase_node_prefix(card)
+            log(f"node profile: round {i} passed in {time.perf_counter() - t0:.1f} s")
+        except AssertionError as e:
+            failed += 1
+            log(f"node profile: round {i} FAILED: {e}")
+    log(f"card: {card}")
+    return 1 if failed else 0
+
+
+def ring_repro(card: str, rounds: int) -> None:
+    """``--ring-repro N``: the bf16 slice's engine (random init from the
+    seed), then N ring checks with the two requests sent one after the
+    other (the traffic before the one-burst admission), each logging its
+    admissions, roots and whether overlap on and off agree, then one ring
+    check in one admission burst, which must agree."""
+    svc, load_s = load_slice("bfloat16", None, "bfloat16")
+    engine = svc.engine
+    try:
+        log(f"ring repro: {engine.model_cfg.name} loaded in {load_s:.2f} s; card {card}")
+        agreed = [ring_check(engine, f"ring repro {i}", burst=False) for i in range(rounds)]
+        log(f"ring repro: sent one after the other, overlap on and off agreed in "
+            f"{sum(agreed)} of {rounds} rounds")
+        ring_check(engine, "ring repro, one burst")
+    finally:
+        engine.close()
 
 
 def graph_stats(engine, tag: str, since: dict | None = None) -> dict:
@@ -1551,20 +1850,37 @@ def graph_stats(engine, tag: str, since: dict | None = None) -> dict:
     from bee2bee_tpu_torch.engine.introspect import _C_HOST_SYNCS, _C_SYNC_STALLS
 
     st = engine.scheduler.stats
-    now = dict(captures=st.graph_captures, replays=st.graph_replays,
-               capture_s=st.graph_capture_s, warmup_s=st.graph_warmup_s,
-               setup_forwards=st.graph_setup_forwards,
-               windows=st.windows, host_syncs=_C_HOST_SYNCS.value(),
-               stalls=_C_SYNC_STALLS.value(), keys=dict(st.graph_keys))
-    base = since or dict(captures=0, replays=0, capture_s=0.0, warmup_s=0.0,
-                         setup_forwards=0, windows=0, host_syncs=0.0, stalls=0.0,
-                         keys={})
-    d = {k: now[k] - base[k] for k in now if k != "keys"}
-    d["keys"] = {k: (n - base["keys"].get(k, (0, 0.0))[0],
-                     round(t - base["keys"].get(k, (0, 0.0))[1], 4))
-                 for k, (n, t) in now["keys"].items()
-                 if n != base["keys"].get(k, (0, 0.0))[0]}
+    now = dict(windows=st.windows, host_syncs=_C_HOST_SYNCS.value(),
+               stalls=_C_SYNC_STALLS.value(),
+               roots={r: dict(g, keys=dict(g["keys"])) for r, g in st.root_graphs.items()},
+               spec_steps=st.spec_steps)
+    base = since or dict(windows=0, host_syncs=0.0, stalls=0.0, roots={}, spec_steps=0)
+
+    def key_delta(now_keys, base_keys):
+        return {k: (n - base_keys.get(k, (0, 0.0))[0],
+                    round(t - base_keys.get(k, (0, 0.0))[1], 4))
+                for k, (n, t) in now_keys.items() if n != base_keys.get(k, (0, 0.0))[0]}
+
+    d = {k: now[k] - base[k] for k in now if k != "roots"}
+    d["roots"] = {}
+    for root in ("prefill", "first_token", "spec_verify", "decode"):
+        g, g0 = now["roots"].get(root, {}), base["roots"].get(root, {})
+        r = {k: g.get(k, 0) - g0.get(k, 0)
+             for k in ("captures", "capture_s", "warmup_s", "setup_forwards", "replays")}
+        r["keys"] = key_delta(g.get("keys", {}), g0.get("keys", {}))
+        d["roots"][root] = r
+    # the decode root's numbers at the top level
+    d.update(d["roots"]["decode"])
     if since is not None:
+        for root, label in (("prefill", "prefill graphs"),
+                            ("first_token", "first-token graphs"),
+                            ("spec_verify", "verify graphs")):
+            r = d["roots"][root]
+            if r["captures"] or r["replays"]:
+                log(f"{tag}: {label}: {r['captures']} captures in {r['capture_s']:.3f} s, "
+                    f"{r['warmup_s']:.3f} s of it warm-up ({r['setup_forwards']} eager "
+                    f"forwards in warm-up and capture), {r['replays']} replays; "
+                    f"captures by key: (captures, s) {r['keys']}")
         log(f"{tag}: decode graphs: {d['captures']} captures in "
             f"{d['capture_s']:.3f} s, {d['warmup_s']:.3f} s of it warm-up "
             f"({d['setup_forwards']} eager forwards in warm-up and capture), "
@@ -1673,8 +1989,8 @@ def record_dispatches(engine) -> list:
 def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) -> None:
     """The economics plane over one slice's traffic: the ledger's weights
     and KV pool equal their tensors' storage bytes (the pool also its
-    geometry's), the device's headroom is in (0, 1); the decode root's
-    compiles equal the scheduler's graph captures and nothing stormed;
+    geometry's), the device's headroom is in (0, 1); each root's compiles
+    equal the scheduler's graph captures of it and nothing stormed;
     MFU x peak over the meter's window equals the FLOPs model over the
     dispatches recorded in that window (within 10%); goodput fraction in
     (0, 1]."""
@@ -1698,9 +2014,12 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
           and hbm["bytes_in_use"] >= hbm["accounted_bytes"],
           f"{tag}: HBM ledger {hbm}")
     compiles = snap["compiles"]
-    captures = engine.scheduler.stats.graph_captures
-    check(compiles["decode"]["traces"] == captures > 0
-          and compiles["prefill"]["traces"] == compiles["cow_copy"]["traces"] == 0
+    st = engine.scheduler.stats
+    captures = {root: g["captures"] for root, g in st.root_graphs.items()}
+    check(compiles["decode"]["traces"] == captures["decode"] > 0
+          and compiles["prefill"]["traces"] == captures["prefill"] > 0
+          and all(compiles[root]["traces"] == n for root, n in captures.items())
+          and compiles["cow_copy"]["traces"] == 0
           and not any(v["storms"] for v in compiles.values())
           and not ic.sentinel.storming()
           and not get_registry().get("engine.retrace_storms").total(),
@@ -1838,31 +2157,41 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
             f"{max(r['ttft_ms'] for r in results)} ms; peak memory "
             f"{torch.cuda.max_memory_allocated()} B; pool {nbytes} B "
             f"({engine.pool_blocks} blocks); card {card}")
-        named = [ragged_kernel(engine.dtype, T, cfg.head_dim, int8, G) for T in chunks]
-        prefills = sum(T > 1 for T in chunks)
-        # every decode step the path served is a graph replay (one forward
-        # each, counted back by the replay); the eager decode forwards are
-        # the captures' warm-up and capture steps
+        # every prefill chunk and decode step the path served is a graph
+        # replay (one forward each, counted back by the replay); the eager
+        # forwards are the captures' warm-up and capture steps
+        roots = graphs["roots"]
+        prefills = roots["prefill"]["replays"]
+        eager_prefills = [T for T in chunks if T > 1]
+        named = [ragged_kernel(engine.dtype, T, cfg.head_dim, int8, G) for T in eager_prefills]
         decodes = graphs["replays"]
         eager_decodes = sum(T == 1 for T in chunks)
         log(f"{tag}: kernel launches {counts}, forward calls {forwards} "
-            f"({prefills} prefill chunks, {named.count(tile_kernel)} of them through "
-            f"the {tile_kernel} kernel; {decodes} decode steps replayed from graphs, "
-            f"whose captures ran through the {dec_kernel} kernel; {eager_decodes} "
-            f"decode forwards run eagerly, all in warm-up and capture), n_layers "
-            f"{cfg.n_layers}")
-        check(decodes > 0, f"{tag}: no decode graph was replayed")
+            f"({prefills} prefill chunks replayed from graphs, whose captures ran "
+            f"through the {tile_kernel} kernel; {decodes} decode steps replayed from "
+            f"graphs, whose captures ran through the {dec_kernel} kernel; "
+            f"{len(eager_prefills)} prefill and {eager_decodes} decode forwards run "
+            f"eagerly, all in warm-up and capture; {roots['first_token']['replays']} "
+            f"first tokens replayed), n_layers {cfg.n_layers}")
+        check(decodes > 0 and prefills > 0,
+              f"{tag}: {decodes} decode and {prefills} prefill graph replays")
         check(eager_decodes == graphs["setup_forwards"],
               f"{tag}: {eager_decodes} eager decode forwards, "
               f"{graphs['setup_forwards']} of them in warm-up and capture")
+        check(len(eager_prefills) == roots["prefill"]["setup_forwards"]
+              and named.count(tile_kernel) == len(eager_prefills),
+              f"{tag}: {len(eager_prefills)} eager prefill forwards, "
+              f"{roots['prefill']['setup_forwards']} of them in warm-up and capture")
+        check(roots["first_token"]["replays"] == len(results) + 1,
+              f"{tag}: {roots['first_token']['replays']} first-token replays for "
+              f"{len(results) + 1} requests")
         check(forwards == prefills + decodes,
               f"{tag}: {forwards} forwards != {prefills} prefill chunks + "
               f"{decodes} replayed decode steps")
         check(counts[dec] + counts[tile] == cfg.n_layers * forwards,
               f"{tag}: launches {counts[dec]} + {counts[tile]} != {cfg.n_layers} x "
               f"{forwards} forwards")
-        check(counts[tile] > 0 and named.count(tile_kernel) == prefills
-              and counts[tile] == cfg.n_layers * prefills,
+        check(counts[tile] > 0 and counts[tile] == cfg.n_layers * prefills,
               f"{tag}: tile launches {counts[tile]} != {cfg.n_layers} x {prefills} "
               f"prefill chunks")
         check(counts[dec] > 0 and counts[dec] == cfg.n_layers * decodes,
@@ -1875,6 +2204,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
             ring_check(engine, tag)
         if bf16 or int8:
             graph_vs_eager(engine, tag)
+        prefill_vs_eager(engine, tag)
         step_breakdown(engine, card, full=bf16)
         return counts, nbytes, engine.params
     finally:
@@ -1925,40 +2255,69 @@ def prefix_engine(params, cache_dtype, dtype, entries, pool_blocks=None):
 
 
 class PrefillWatch:
-    """Wraps an engine's prefill forward: for every chunk, its offset, its
-    write floor and ceil (the prompt's length), its width, and the attention
-    launches it added (host counters, read around the call: no sync); the
-    last chunk's first-token logits by prompt length. Lengths identify the
-    prompts of a burst (each distinct)."""
+    """Wraps a scheduler's prefill chunk (a replay of the prefill root):
+    for every chunk, its offset, its write floor and ceil (the prompt's
+    length), its width, and the attention launches it added (host
+    counters, read around the call: no sync; a capture's are put back);
+    the last chunk's first-token logits by prompt length. Lengths
+    identify the prompts of a burst (each distinct)."""
 
     def __init__(self, engine):
-        self.engine = engine
+        self.sch = engine.scheduler
         self.chunks: list = []
         self.logits: dict = {}
-        self._orig = engine._prefill
-        engine._prefill = self._wrapped
+        self._orig = self.sch._prefill_chunk
+        self.sch._prefill_chunk = self._wrapped
 
-    def _wrapped(self, tokens, pool, true_len, offset, block_tables, write_floor=None,
-                 write_ceil=None):
+    def _wrapped(self, chunk, bucket, pos, table, floor, ceil):
         before = read_counts()
-        out = self._orig(tokens, pool, true_len, offset, block_tables,
-                         write_floor=write_floor, write_ceil=write_ceil)
+        out = self._orig(chunk, bucket, pos, table, floor, ceil)
         after = read_counts()
-        T = tokens.shape[1]
         self.chunks.append(dict(
-            offset=offset, floor=write_floor, n=write_ceil, T=T,
+            offset=pos, floor=floor, n=ceil, T=bucket,
             launched={k: after[k] - before[k] for k in after if after[k] != before[k]},
         ))
-        if offset + T >= write_ceil:  # the prompt's last chunk
-            self.logits[write_ceil] = out.float().clone()
+        if pos + bucket >= ceil:  # the prompt's last chunk
+            self.logits[ceil] = out.float().clone()
         return out
 
     def close(self):
-        self.engine._prefill = self._orig
+        del self.sch._prefill_chunk
 
 
-def burst(engine, prompts, new_tokens):
-    """Greedy requests, all at once (threads); returns (results, wall s)."""
+def warm_prefill_keys(engine, tag: str, prompts, starts) -> None:
+    """Capture, before a timed burst, every prefill graph its admissions
+    will replay (the chunk walk's keys: the bucket of the length left
+    after the match, by the pow2 width of the blocks each chunk covers)
+    and the greedy first-token graph, so the burst's TTFT holds no
+    capture; prints the captures apart."""
+    from bee2bee_tpu_torch.engine.paged import ceil_div, prefill_chunk_positions
+
+    sch = engine.scheduler
+    BS = engine.engine_cfg.kv_block_size
+    C = engine.engine_cfg.prefill_chunk
+    keys = set()
+    for p, start in zip(prompts, starts):
+        n = len(p)
+        bucket = C if C is not None and n - start > C else engine._bucket_for(n - start)
+        for pos in prefill_chunk_positions(n, start, bucket, engine.max_seq_len):
+            keys.add(("prefill", (bucket, sch._table_width(ceil_div(min(pos + bucket, n), BS)))))
+    keys.add(("first_token", (False, False, False)))
+    todo = sorted(k for k in keys if k not in sch._graphs)
+    t0 = time.perf_counter()
+    for root, key in todo:
+        sch._capture(key, root)
+    log(f"{tag}: warmed {len(todo)} graphs before the burst in "
+        f"{time.perf_counter() - t0:.3f} s: {todo}")
+
+
+def burst(engine, prompts, new_tokens, together: bool = False):
+    """Greedy requests, all at once (threads); returns (results, wall s).
+    ``together``: every request is queued before the scheduler's next
+    pass, so one admission burst takes them all (the same rows and table
+    widths from run to run)."""
+    from bee2bee_tpu_torch.engine.introspect import device_gate
+
     results: list = [None] * len(prompts)
     errors: list = []
 
@@ -1971,8 +2330,16 @@ def burst(engine, prompts, new_tokens):
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
-    for t in threads:
-        t.start()
+    if together:
+        sch = engine.scheduler
+        with device_gate.transition():
+            for t in threads:
+                t.start()
+            while len(sch._queue) < len(prompts):
+                time.sleep(0.001)
+    else:
+        for t in threads:
+            t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
@@ -2029,6 +2396,7 @@ def phase_prefix(card: str, params, cache_dtype: str, dtype="bfloat16",
         reset_counts()
         engine.forward_calls = 0
         since = graph_stats(engine, tag)
+        warm_prefill_keys(engine, f"{tag}: turn 1", turn1, [0] * len(turn1))
         r1, wall1 = burst(engine, turn1, PREFIX_REPLY)
         entries = dict(sch._prefix_cache._entries)
         check(len(entries) == len(turn1) and all(tuple(p) in entries for p in turn1),
@@ -2044,10 +2412,12 @@ def phase_prefix(card: str, params, cache_dtype: str, dtype="bfloat16",
         st0 = (sch.stats.prefix_hits, sch.stats.prefix_tokens_saved,
                sch.stats.paged_blocks_copied)
         n_chunks = len(watch.chunks)
+        repeat = prompts2[0]
+        warm_prefill_keys(engine, f"{tag}: turn 2", prompts2 + [repeat],
+                          [len(p) for p in turn1] + [len(repeat) - 1])
         r2, wall2 = burst(engine, prompts2, PREFIX_REPLY)
         hit_logits = {len(p): watch.logits[len(p)] for p in prompts2}
         n_chunks2 = len(watch.chunks)
-        repeat = prompts2[0]
         t1 = time.perf_counter()
         rr = engine.generate(repeat, max_new_tokens=PREFIX_REPLY, temperature=0.0)
         repeat_wall = time.perf_counter() - t1
@@ -2121,6 +2491,7 @@ def phase_prefix(card: str, params, cache_dtype: str, dtype="bfloat16",
     off = prefix_engine(params, cache_dtype, dtype, 0)
     watch = PrefillWatch(off)
     try:
+        warm_prefill_keys(off, f"{tag}: cache off", prompts2, [0] * len(prompts2))
         r_off, wall_off = burst(off, prompts2, PREFIX_REPLY)
         log(f"{tag}: turn 2 cache off, 8 misses: TTFT {ttft_summary(r_off)}; burst "
             f"wall {wall_off:.3f} s; card {card}")
@@ -2169,6 +2540,196 @@ def phase_prefix_pressure(card: str, params, cache_dtype: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ spec phases
+
+
+SPEC_K = 4
+SPEC_NEW = 64
+
+
+def spec_prompts(tokenizer, periodic: bool) -> list:
+    """8 prompts of 200 token ids: a period-5..12 walk (the JAX spec test's
+    periodic prompt, one period per row), or a period-499 walk (no n-gram
+    repeats, the JAX drafter test's), one offset per row."""
+    out = []
+    for r in range(8):
+        if periodic:
+            period = [5 + (r * 31 + j * 7) % 997 for j in range(5 + r)]
+            out.append((period * (200 // len(period) + 1))[:200])
+        else:
+            out.append([1 + (r * 53 + j * 97) % 499 for j in range(200)])
+    return out
+
+
+def spec_engine(params, dtype, cache_dtype, **spec):
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+                        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype, **spec)
+    return InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
+
+
+def spec_burst(engine, prompts) -> tuple[list, float]:
+    results, wall = burst(engine, prompts, SPEC_NEW, together=True)
+    return [r.token_ids for r in results], wall
+
+
+def spec_counts(engine, tag: str, since: dict, counts: dict) -> dict:
+    """The spec run's graph and launch accounting: every forward is a
+    replay (prefill, decode, verify), verify launches are n_layers x the
+    verify replays through one kernel, the eager forwards all in warm-up
+    and capture."""
+    cfg = engine.model_cfg
+    g = graph_stats(engine, tag, since)
+    roots = g["roots"]
+    verifies = roots["spec_verify"]["replays"]
+    prefills = roots["prefill"]["replays"]
+    decodes = g["replays"]
+    st = engine.scheduler.stats
+    log(f"{tag}: {g['spec_steps']} spec steps ({verifies} verify replays), "
+        f"{prefills} prefill and {decodes} decode replays; drafted {st.spec_drafted}, "
+        f"accepted {st.spec_accepted} (acceptance {st.spec_acceptance:.4f}), tiers "
+        f"{st.spec_tiers}; launches {counts}")
+    check(verifies == g["spec_steps"] > 0 and st.spec_drafted > 0,
+          f"{tag}: {verifies} verify replays, {g['spec_steps']} spec steps, "
+          f"{st.spec_drafted} drafted")
+    return dict(verifies=verifies, prefills=prefills, decodes=decodes)
+
+
+def phase_spec_ngram(card: str, params) -> dict:
+    """Speculative decoding, n-gram tier, in f32 over an f32 pool, K=4: 8
+    periodic prompts, 64 greedy tokens each, concurrently; the tokens
+    must equal the spec-off engine's (8 x 64), every verify replay must
+    launch the f32 decode kernel n_layers times (T = K+1 = 5 < T_MIN_F32),
+    and drafts must have been proposed. Returns the counts."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
+
+    tag = "spec[ngram, float32, float32 pool]"
+    off = spec_engine(params, "float32", "float32")
+    prompts = spec_prompts(off.tokenizer, periodic=True)
+    try:
+        want, wall_off = spec_burst(off, prompts)
+    finally:
+        off.close()
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the probe never retires the n-gram tier: every row is offered to it
+    # for all 64 tokens
+    engine = spec_engine(params, "float32", "float32", spec_tokens=SPEC_K,
+                         spec_min_match=1, spec_probe_tokens=1 << 20)
+    cfg = engine.model_cfg
+    try:
+        since = graph_stats(engine, tag)
+        reset_counts()
+        got, wall = spec_burst(engine, prompts)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n = spec_counts(engine, tag, since, counts)
+        G = cfg.n_heads // cfg.n_kv_heads
+        kernel = RAGGED_COUNTERS[ragged_kernel(torch.float32, SPEC_K + 1, cfg.head_dim,
+                                               False, G)]
+        equal = sum(a == b for a, b in zip(got, want))
+        log(f"{tag}: 8 x {SPEC_NEW} greedy tokens in {wall:.3f} s (spec off "
+            f"{wall_off:.3f} s); {equal} of 8 rows equal to the spec-off engine's; the "
+            f"verify shape's kernel {kernel}; card {card}")
+        check(equal == len(prompts) and all(len(t) == SPEC_NEW for t in got),
+              f"{tag}: spec-on tokens differ from spec-off: "
+              f"{[(a[:8], b[:8]) for a, b in zip(got, want) if a != b][:2]}")
+        check(kernel == "ragged_decode_f32"
+              and counts["ragged_decode_f32"] == cfg.n_layers * (n["verifies"] + n["decodes"])
+              and counts["ragged_prefill_f32"] == cfg.n_layers * n["prefills"],
+              f"{tag}: launches {counts} vs {cfg.n_layers} x ({n['verifies']} verify + "
+              f"{n['decodes']} decode, {n['prefills']} prefill) replays")
+        others = {k: v for k, v in counts.items()
+                  if k not in ("ragged_decode_f32", "ragged_prefill_f32") and v}
+        check(not others, f"{tag}: other kernel forms launched: {others}")
+        return counts
+    finally:
+        engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_spec_model(card: str, params) -> dict:
+    """Speculative decoding, model tier, bf16 over a bf16 pool, K=4: the
+    drafter is llama-3-8b itself at the engine's seed (weight-identical
+    to the target, a second 16 GB beside it), 8 prompts without n-gram
+    repeats, 64 greedy tokens each, concurrently; the n-gram tier fails
+    its probe at its first miss (K tokens: a miss costs a 32-token decode
+    chunk) and rows escalate. Reports acceptance, agreement
+    with the spec-off engine and, where a row diverges, the spec-off
+    logit gap between the two tokens at the first divergence (a bf16
+    near-tie); the draft and prime roots are captured once each; verify
+    launches through the tile kernel n_layers x the verify replays. Then
+    the verify step replayed vs eager over a bf16 and an int8 pool.
+    Returns the counts (the bf16 run's)."""
+    tag = "spec[model, bfloat16 pool]"
+    off = spec_engine(params, "bfloat16", "bfloat16")
+    prompts = spec_prompts(off.tokenizer, periodic=False)
+    watch = PrefillWatch(off)
+    try:
+        want, wall_off = spec_burst(off, prompts)
+        t0 = time.perf_counter()
+        engine = spec_engine(params, "bfloat16", "bfloat16", spec_tokens=SPEC_K,
+                             spec_probe_tokens=SPEC_K, drafter="llama-3-8b")
+        load_s = time.perf_counter() - t0
+        cfg = engine.model_cfg
+        try:
+            dm = engine.drafter_model
+            since = graph_stats(engine, tag)
+            reset_counts()
+            got, wall = spec_burst(engine, prompts)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            n = spec_counts(engine, tag, since, counts)
+            agree = []
+            for p, a, b in zip(prompts, got, want):
+                d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                gap = None
+                if d is not None:
+                    # the spec-off engine's logits at the divergence
+                    off.generate(p + b[:d], max_new_tokens=1, temperature=0.0)
+                    lg = watch.logits[len(p) + d][0]
+                    gap = round((lg[b[d]] - lg[a[d]]).item(), 4)
+                agree.append((len(a) if d is None else d, gap))
+            st = engine.scheduler.stats
+            model = st.spec_tiers.get("model", {"drafted": 0, "accepted": 0})
+            log(f"{tag}: drafter {dm.cfg.name} loaded beside the target in {load_s:.2f} s "
+                f"(seed {engine.engine_cfg.drafter_seed}); 8 x {SPEC_NEW} greedy tokens in "
+                f"{wall:.3f} s (spec off {wall_off:.3f} s); model tier drafted "
+                f"{model['drafted']}, accepted {model['accepted']}; draft root runs "
+                f"{dm.runs}, captures (n, s) {dm.captures}; per row (tokens equal to "
+                f"spec-off before the first divergence, spec-off logit gap there) "
+                f"{agree}; card {card}")
+            check(model["drafted"] > 0, f"{tag}: the model tier never drafted")
+            check(dm.captures["draft"][0] == 1 and dm.captures["draft_prime"][0] == 1,
+                  f"{tag}: draft/prime captures {dm.captures}")
+            check(counts["ragged_prefill"] == cfg.n_layers * (n["verifies"] + n["prefills"])
+                  and counts["ragged_decode"] == cfg.n_layers * n["decodes"],
+                  f"{tag}: launches {counts} vs {cfg.n_layers} x ({n['verifies']} verify + "
+                  f"{n['prefills']} prefill, {n['decodes']} decode) replays")
+            verify_vs_eager(engine, tag)
+        finally:
+            engine.close()
+    finally:
+        watch.close()
+        off.close()
+    del engine, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = spec_engine(params, "bfloat16", "int8", spec_tokens=SPEC_K)
+    try:
+        verify_vs_eager(int8, "spec[int8 pool]")
+    finally:
+        int8.close()
+    del int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_prefix_logits(tag: str, run: dict, f32_off: dict) -> None:
     """A hit's first-token logits are as close to the f32 forward's (cache
     off) as the cache-off run's of the same pool are: no further than
@@ -2206,6 +2767,9 @@ NODE_ROUNDS = 3
 NODE_BOOT_TIMEOUT_S = 600
 NODE_PREFIX_ENTRIES = 8
 NODE_PROFILE_S = 1.0
+# the node's queue-wait SLO (health.py, engine.queue_wait_ms): a stream beside a
+# profile must not stall this long
+NODE_QUEUE_SLO_MS = 4096
 # the economics gauges and counters /metrics must carry
 NODE_ECONOMICS = ("bee2bee_engine_mfu", "bee2bee_engine_goodput_tokens_per_s",
                   "bee2bee_engine_hbm_bytes", "bee2bee_engine_hbm_headroom_frac",
@@ -2246,14 +2810,16 @@ def http_json(method: str, url: str, body=None, timeout: float = 600):
         return r.status, (json.loads(raw) if "json" in kind else raw)
 
 
-def http_sse_text(url: str, body, timeout: float = 600):
+def http_sse_text(url: str, body, timeout: float = 600, gaps: list | None = None):
     """Stream an OpenAI chat completion: (joined deltas, s to the first
-    delta, s to the end, events) on the client's clock."""
+    delta, s to the end, events) on the client's clock. With ``gaps``, each
+    event's (time, seconds from the request or the event before) is
+    appended there."""
     import urllib.request
 
     req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
                                  headers={"Content-Type": "application/json"})
-    t0 = time.perf_counter()
+    t0 = last = time.perf_counter()
     first, parts, events = None, [], 0
     with urllib.request.urlopen(req, timeout=timeout) as r:
         check(r.status == 200, f"node: stream answered {r.status}")
@@ -2266,6 +2832,10 @@ def http_sse_text(url: str, body, timeout: float = 600):
             event = json.loads(line[len("data: "):])
             check("error" not in event, f"node: stream error {event}")
             events += 1
+            if gaps is not None:
+                now = time.perf_counter()
+                gaps.append((now, now - last))
+                last = now
             delta = event["choices"][0].get("delta", {}).get("content")
             if delta:
                 if first is None:
@@ -2311,7 +2881,11 @@ def phase_node_prefix(card: str) -> None:
     prompt position in another chunk width, so at a bf16 near-tie its
     greedy text can leave the miss's); then a device profile (``POST
     /debug/profile``) while streams of the prompt run back to back (each
-    text equal to the reference), listed and fetched through ``GET``, its
+    text equal to the reference) and, once the trace's export starts, a
+    stream of a longer prompt that needs a prefill key not yet captured
+    (its capture runs beside the export: its first token comes before the
+    export ends, its longest gap under the queue-wait SLO), listed and
+    fetched through ``GET``, its
     chrome trace naming the decode kernel; ``/metrics`` samples of the
     economics names; and a second turn extending the first, admitted as
     one hit over the whole first-turn prompt."""
@@ -2370,17 +2944,85 @@ def phase_node_prefix(card: str) -> None:
                   == (1, hit["prompt_tokens"] - 1),
                   f"node+prefix: the repeat counted {st.prefix_hits} hits, "
                   f"{st.prefix_tokens_saved} tokens saved")
-            t0 = time.perf_counter()
-            profile = loop.run_in_executor(None, http_json, "POST",
-                                           base + "/debug/profile",
-                                           {"duration_s": NODE_PROFILE_S}, 300)
-            streamed = []
-            while not profile.done():
-                got, *_ = await loop.run_in_executor(
-                    None, http_sse_text, base + "/v1/chat/completions", body)
-                streamed.append(got)
-            status, header = await profile
-            profile_s = time.perf_counter() - t0
+            from bee2bee_tpu_torch.engine.introspect import get_profiler
+
+            # the profiler's windows and export on this clock, from
+            # wrappers of its own
+            profiler = get_profiler()
+            exporting, spans = threading.Event(), {"windows": [], "export": []}
+            real = {n: getattr(profiler, n) for n in ("_window", "_export")}
+
+            def window(*args):
+                t = time.perf_counter()
+                try:
+                    return real["_window"](*args)
+                finally:
+                    spans["windows"].append((t, time.perf_counter()))
+
+            def export(*args):
+                t = time.perf_counter()
+                exporting.set()
+                try:
+                    return real["_export"](*args)
+                finally:
+                    spans["export"] = [t, time.perf_counter()]
+
+            # a prompt of no shared block and a bucket no earlier request used
+            words = prompt[len("user: "):].split()
+            long_body = dict(body, messages=[{"role": "user", "content": " ".join(
+                (words[::-1] + words[1::2]) * 2)}])
+            new_key: dict = {}
+
+            def new_key_stream():
+                exporting.wait(300)
+                keys = dict(st.root_graphs.get("prefill", {}).get("keys", {}))
+                new_key["sent"] = time.perf_counter()
+                new_key["gaps"] = []
+                http_sse_text(base + "/v1/chat/completions", long_body, 600, new_key["gaps"])
+                new_key["keys"] = sorted(set(st.root_graphs["prefill"]["keys"]) - set(keys))
+
+            profiler._window, profiler._export = window, export
+            try:
+                t0 = time.perf_counter()
+                profile = loop.run_in_executor(None, http_json, "POST",
+                                               base + "/debug/profile",
+                                               {"duration_s": NODE_PROFILE_S}, 300)
+                beside = loop.run_in_executor(None, new_key_stream)
+                streamed, gaps = [], []
+                while not profile.done():
+                    got, *_ = await loop.run_in_executor(
+                        None, http_sse_text, base + "/v1/chat/completions", body, 600, gaps)
+                    streamed.append(got)
+                status, header = await profile
+                profile_s = time.perf_counter() - t0
+                await beside
+            finally:
+                for n in real:
+                    delattr(profiler, n)
+
+            def since(t):
+                return round(t - t0, 3)
+
+            end, gap = max(gaps, key=lambda g: g[1])
+            gap_ms = gap * 1e3
+            t_export, t_exported = spans["export"]
+            new_end, new_gap = max(new_key["gaps"], key=lambda g: g[1])
+            new_first = new_key["gaps"][0][0]
+            log(f"node+prefix: on the client's clock from the POST (s): the profiler's "
+                f"windows {[(since(a), since(b)) for a, b in spans['windows']]}, its "
+                f"export ({since(t_export)}, {since(t_exported)}); the streams' longest "
+                f"gap {gap_ms:.1f} ms ending at {since(end)}; a stream needing the new "
+                f"prefill keys {new_key['keys']} sent at {since(new_key['sent'])} (the "
+                f"export's start) got its first token at {since(new_first)}, its longest "
+                f"gap {new_gap * 1e3:.1f} ms ending at {since(new_end)}; the queue-wait "
+                f"SLO {NODE_QUEUE_SLO_MS} ms")
+            check(gap_ms < NODE_QUEUE_SLO_MS,
+                  f"node+prefix: the longest stream gap beside the profile is {gap_ms:.1f} "
+                  f"ms, over the queue-wait SLO of {NODE_QUEUE_SLO_MS} ms")
+            check(new_key["keys"] and new_first < t_exported
+                  and new_gap * 1e3 < NODE_QUEUE_SLO_MS,
+                  f"node+prefix: the stream needing new prefill keys did not get its "
+                  f"first token inside the export, or waited over the SLO (line above)")
             check(status == 200 and str(header.get("id", "")).startswith("prof-"),
                   f"node+prefix: POST /debug/profile answered {status} {header}")
             check(streamed and all(s == hit["text"] for s in streamed),
@@ -2401,16 +3043,17 @@ def phase_node_prefix(card: str) -> None:
                 if ev.get("cat") == "kernel":
                     calls, us = kernels.get(ev["name"], (0, 0.0))
                     kernels[ev["name"]] = (calls + 1, us + float(ev.get("dur", 0.0)))
+            events = sum(calls for calls, _ in kernels.values())
             top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
             decode = [(k[:40], v) for k, v in top if "ragged_decode" in k]
             check(bool(decode),
                   f"node+prefix: the profile's trace names no decode kernel: {top[:6]}")
-            from bee2bee_tpu_torch.engine.introspect import get_profiler
-
-            steps = {k: round(v, 3) for k, v in get_profiler().last_timings.items()}
+            steps = {k: v if isinstance(v, list) else round(v, 3)
+                     for k, v in get_profiler().last_timings.items()}
             log(f"node+prefix: /debug/profile {NODE_PROFILE_S} s capture {header} in "
                 f"{profile_s:.2f} s beside {len(streamed)} streams (texts equal to the "
-                f"hit's); profiler start, stop, export s {steps}; the zip {len(blob)} B holds {zf.namelist()}; its top kernels "
+                f"hit's; the longest stream gap {gap_ms:.1f} ms against the queue-wait "
+                f"SLO of {NODE_QUEUE_SLO_MS} ms); profiler start, stop, export s {steps}; the zip {len(blob)} B holds {zf.namelist()}, {events} kernel events; its top kernels "
                 f"(calls, us) {[(k[:40], v) for k, v in top[:4]]}; decode kernels "
                 f"{decode}; card {card}")
             status, prom = await loop.run_in_executor(None, http_bytes, base + "/metrics")
@@ -2709,6 +3352,12 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     stage("device and build")
     card, _ = phase_device_and_build()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring-repro":
+        ring_repro(card, int(sys.argv[2]))
+        log(f"card: {card}")
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--node-profile":
+        return node_profile_rounds(card, int(sys.argv[2]))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     stage("ragged vs plain")
     errs, timings = phase_ragged_vs_plain(flush)
@@ -2731,6 +3380,8 @@ def main() -> int:
     prefix = {pool: phase_prefix(card, params, pool) for pool in ("bfloat16", "int8")}
     for pool in ("bfloat16", "int8"):
         phase_prefix_pressure(card, params, pool)
+    stage("spec, model tier")
+    spec_model = phase_spec_model(card, params)
     # phase 8: the same weights cast to f32 (the bf16 copy freed first: the
     # node phase loads its own), over an int8 pool and then an f32 pool
     gc.collect()
@@ -2755,6 +3406,8 @@ def main() -> int:
         f"cache-off engine's, token for token")
     for pool in ("bfloat16", "int8"):
         check_prefix_logits(f"prefix[{pool} pool]", prefix[pool], prefix_f32["off_logits"])
+    stage("spec, n-gram tier")
+    spec_ngram = phase_spec_ngram(card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2770,6 +3423,11 @@ def main() -> int:
     for name, n in prefix["int8"]["counts"].items():
         int8_counts[name] += n
     for name, n in prefix_f32["counts"].items():
+        f32_counts["float32"][name] += n
+    # and the speculative phases' (bf16 model tier, f32 n-gram tier)
+    for name, n in spec_model.items():
+        counts[name] += n
+    for name, n in spec_ngram.items():
         f32_counts["float32"][name] += n
 
     def row(name, source, replaces, n, err, t):

@@ -8,12 +8,14 @@
 - Every branch of the boot path that reaches a module the port does not
   have yet raises ``NotImplementedError`` naming its ROADMAP.md item, one
   case each: weights publish and mesh join, a checkpoint, LoRA, adapters,
-  a mesh shape, the pipeline stage runner, the draft role, and KV
-  migration export and import.
+  a mesh shape, the pipeline stage runner, and KV migration export and
+  import. The draft role runs: a port node hosts the drafter and serves a
+  draft.
 - ``NodeConfig().engine_config()`` is the port's ``EngineConfig`` with the
   ragged kernel's ``attention="auto"``.
 - ``serve-cuda --help`` lists the options, and each option the port does
-  not run fails with a ``click.UsageError`` naming its ROADMAP item.
+  not run fails with a ``click.UsageError`` naming its ROADMAP item;
+  ``--spec`` and ``--drafter`` reach the node's config.
 - Without aiohttp, ``run_p2p_node(serve_api=True)`` raises and names it.
 - Importing the node runtime and the gateway loads neither jax nor the
   JAX package, and ``get_accelerator_info`` reports the CPU without a card.
@@ -119,10 +121,6 @@ def _part_load(tiny_engine):
     asyncio.run(go())
 
 
-def _draft_role(tiny_engine):
-    P2PNode(host="127.0.0.1", port=0).enable_draft_server("tiny-llama")
-
-
 UNPORTED = {
     "publish_weights": (10, lambda e, mp: _boot(e, mp, publish_weights=True)),
     "from_mesh": (10, lambda e, mp: _run(backend="cuda", model="tiny-llama", cfg=_cfg(),
@@ -137,7 +135,6 @@ UNPORTED = {
     "mesh_shape": (14, lambda e, mp: _run(backend="cuda", model="tiny-llama",
                                           cfg=_cfg(mesh_shape="data:1,model:8"))),
     "stage_runner": (13, lambda e, mp: _part_load(e)),
-    "draft_role": (13, lambda e, mp: _draft_role(e)),
     "kv_migration_export": (9, lambda e, mp: e.scheduler.checkpoint(None)),
     "kv_migration_signature": (9, lambda e, mp: e.migration_signature()),
     "kv_migration_import": (9, lambda e, mp: e.import_generation({"prompt_ids": [1]})),
@@ -160,13 +157,53 @@ def test_serve_cuda_help_lists_the_options():
     assert "serve-fake" in CliRunner().invoke(cli, ["--help"]).output
 
 
+def test_draft_role_hosts_the_drafter_and_drafts():
+    """The draft disagg role: the node hosts a DraftModel (warmed at
+    boot), which drafts K greedy tokens for a context."""
+    node = P2PNode(host="127.0.0.1", port=0)
+    node.enable_draft_server("tiny-llama", spec_tokens=4, max_rows=2, device="cpu")
+    srv = node.draft_server
+    try:
+        assert srv.drafter.cfg.name == "tiny-llama" and srv.drafter.runs["draft"] == 1
+
+        class _Row:
+            ids, out_ids = [5, 6, 7, 8, 9, 10], []
+
+        out = srv._propose(_Row())
+        assert len(out[0]) == 4 and all(0 <= t < srv.drafter.cfg.vocab_size
+                                        for t in out[0])
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("args,field,value", [
+    (["--spec", "4"], "spec_tokens", 4),
+    (["--spec", "4", "--drafter", "tiny-llama"], "drafter", "tiny-llama"),
+])
+def test_serve_cuda_passes_spec_options_to_the_node(args, field, value, monkeypatch):
+    from bee2bee_tpu_torch import __main__ as main
+
+    seen = {}
+    monkeypatch.setattr(main, "_serve", lambda backend, model, **kw: seen.update(
+        main._apply_common_cfg(NodeConfig(), kw).to_dict(), backend=backend))
+    out = CliRunner().invoke(cli, ["serve-cuda", "--model", "tiny-llama", *args])
+    assert out.exit_code == 0, out.output
+    assert seen["backend"] == "cuda" and seen[field] == value
+    # the config the node's engine is built from takes them
+    ecfg = NodeConfig(**{k: v for k, v in seen.items() if k != "backend"}).engine_config()
+    assert getattr(ecfg, field) == value
+
+
+# each case keeps the id it had while --spec and --drafter (args3, args4)
+# were refused too
 @pytest.mark.parametrize("args,item", [
     (["--checkpoint", "ckpt"], 10), (["--lora", "a.npz"], 8),
-    (["--quantize", "int8"], 5), (["--spec", "4"], 7), (["--drafter", "tiny-llama"], 7),
+    (["--quantize", "int8"], 5),
     (["--adapters", "a=a.npz"], 8), (["--max-adapters", "4"], 8),
     (["--mesh-shape", "model:8"], 14), (["--publish-weights"], 10), (["--from-mesh"], 10),
     (["--attention", "dense"], 12), (["--attention", "sp"], 14),
-])
+], ids=[f"args{i}-{item}" for i, item in zip((0, 1, 2, 5, 6, 7, 8, 9, 10, 11),
+                                              (10, 8, 5, 8, 8, 14, 10, 10, 12, 14))])
 def test_serve_cuda_refuses_unported_options(args, item):
     out = CliRunner().invoke(cli, ["serve-cuda", "--model", "llama-3-8b", *args])
     assert out.exit_code == 2, out.output

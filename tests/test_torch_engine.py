@@ -244,12 +244,46 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_tokens", 4), ("drafter", "tiny-llama"), ("max_adapters", 2),
-    ("quantize", "int8"), ("attention", "sp"), ("attention", "dense"),
+    ("max_adapters", 2), ("quantize", "int8"), ("attention", "sp"),
+    ("attention", "dense"),
 ])
 def test_unported_engine_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("drafter,tiers", [
+    ("", ["ngram"]), ("tiny-llama", ["ngram", "model"]),
+])
+def test_spec_engine_fields_build_the_drafter_stack(drafter, tiers):
+    """spec_tokens (and a model drafter) configure the engine: the
+    scheduler's drafter stack has the tiers, a greedy request is offered
+    to them and keeps the spec-off engine's tokens; once the n-gram tier
+    fails its probe (8 tokens: two misses), the same-seed model drafter
+    (weight-identical) has every draft accepted."""
+    kw = dict(max_seq_len=64, dtype="float32", cache_dtype="float32", decode_chunk=4,
+              prefill_buckets=(16, 32), max_batch=2)
+    prompt = [5, 6, 7, 8, 9] * 3
+    off = InferenceEngine("tiny-llama", device="cpu", engine_config=EngineConfig(**kw))
+    eng = InferenceEngine("tiny-llama", device="cpu", engine_config=EngineConfig(
+        **kw, spec_tokens=4, spec_probe_tokens=8, drafter=drafter))
+    try:
+        assert list(eng.scheduler._spec.tiers) == tiers
+        assert (eng.drafter_model is not None) == bool(drafter)
+        ngram = eng.scheduler._spec.tiers["ngram"]
+        offered = []
+        propose = ngram.propose_batch
+        ngram.propose_batch = lambda rows: offered.append(len(rows)) or propose(rows)
+        want = off.generate(prompt, max_new_tokens=24, temperature=0.0).token_ids
+        got = eng.generate(prompt, max_new_tokens=24, temperature=0.0).token_ids
+        assert got == want and offered
+        if drafter:
+            st = eng.scheduler.stats
+            assert st.spec_steps > 0
+            assert st.spec_tiers["model"]["accepted"] == st.spec_tiers["model"]["drafted"] > 0
+    finally:
+        off.close()
+        eng.close()
 
 
 @pytest.mark.parametrize("n,start,bucket,S", [

@@ -464,7 +464,7 @@ def test_replay_adds_the_counts_its_capture_moved(port_on):
         assert {(op, n) for n in listed} <= set(counters)
     before = {n: getattr(h, n) for h, n in counters}
     graph = _FakeGraph()
-    dg = port_scheduler._DecodeGraph(graph, [
+    dg = port_scheduler.Graph(graph, [
         (ragged_paged_attention, "decode_launches", 2),
         (ragged_paged_attention, "int8_decode_launches", 0),
         (port_on, "forward_calls", 1),

@@ -13,7 +13,7 @@ against the JAX package's, on the CPU.
   the typed ``engine:retrace_storm`` incident; a repeated key storms only
   past the threshold; distinct keys do not; the declared batch ladder
   covers a non-pow2 shrink like the JAX engine's; ``engine.compiles
-  {root="decode"}`` equals the scheduler's ``graph_captures`` and its
+  {root="decode"}`` equals the scheduler's decode captures and its
   seconds their seconds; a capture waits for a device profile, also from
   inside a scheduler pass, whose gate the profile's stop needs.
 - The HBM ledger: components sum, a storage counted once, unregister
@@ -23,7 +23,11 @@ against the JAX package's, on the CPU.
 - The profiler over ``torch.profiler`` on the CPU: capture and listing;
   a concurrent capture refused typed; it starts and stops only between
   the schedulers' passes (``device_gate``), and a served engine's
-  requests finish beside a capture.
+  requests finish beside a capture; the pause repair's choices (CPU and
+  device activity without external correlation, 0.05 s windows 0.25 s
+  apart stopped by the C++ disable, a readback wait outside the pass, a
+  chunk's replays letting a transition in, one forked child writing the joined trace outside
+  the capture lock) with the zip layout unchanged.
 - The engine and the fleet: a generation rides the digest and
   ``engine.info``; close clears the gauges; the fleet view aggregates a
   CUDA peer's economics; the router penalizes a squeezed or storming
@@ -37,6 +41,7 @@ against the JAX package's, on the CPU.
 from __future__ import annotations
 
 import io
+import json
 import threading
 import time
 import zipfile
@@ -211,7 +216,7 @@ def test_declared_batch_ladder_covers_non_pow2_shrink():
 def test_decode_captures_book_as_compiles_of_the_decode_root(monkeypatch):
     """The scheduler's capture wrapper over a fake capture: each capture
     is one ``engine.compiles{root="decode"}`` with its seconds, equal to
-    ``graph_captures``; a key off the batch ladder or the pow2 widths
+    the decode root's captures; a key off the batch ladder or the pow2 widths
     storms at once; the eager roots stay at zero compiles."""
     eng = _engine(max_batch=4)
     sch = eng.scheduler
@@ -221,10 +226,11 @@ def test_decode_captures_book_as_compiles_of_the_decode_root(monkeypatch):
     compiles, seconds = reg.get("engine.compiles"), reg.get("engine.compile_seconds")
     c0, s0 = compiles.value(root="decode"), seconds.value(root="decode")
 
-    def fake_capture(key):
-        sch.stats.graph_captures += 1
-        sch.stats.graph_capture_s += 0.25
-        return port_scheduler._DecodeGraph(None, []), 0.25
+    def fake_capture(key, root="decode"):
+        rg = sch._root_stats(root)
+        rg["captures"] += 1
+        rg["capture_s"] += 0.25
+        return port_scheduler.Graph(None, []), 0.25
 
     monkeypatch.setattr(sch, "_capture_locked", fake_capture)
     try:
@@ -233,9 +239,10 @@ def test_decode_captures_book_as_compiles_of_the_decode_root(monkeypatch):
                     (4, bpr, True, False, False, False)):
             sch._capture(key)
         snap = eng.introspect.sentinel.snapshot()
-        assert snap["decode"] == {"traces": sch.stats.graph_captures, "storms": 0}
-        assert compiles.value(root="decode") - c0 == sch.stats.graph_captures == 3
-        assert seconds.value(root="decode") - s0 == pytest.approx(sch.stats.graph_capture_s)
+        decode = sch.stats.root_graphs["decode"]
+        assert snap["decode"] == {"traces": decode["captures"], "storms": 0}
+        assert compiles.value(root="decode") - c0 == decode["captures"] == 3
+        assert seconds.value(root="decode") - s0 == pytest.approx(decode["capture_s"])
         assert snap["prefill"] == snap["cow_copy"] == {"traces": 0, "storms": 0}
         assert rec.incidents == []
         sch._capture((3, 4, False, False, False, False))  # bucket 3: not on the ladder
@@ -251,9 +258,9 @@ def test_a_capture_waits_for_a_device_profile(tmp_path, monkeypatch):
     sch = eng.scheduler
     ends: dict = {}
 
-    def fake_capture(key):
-        ends["capture"] = time.monotonic()
-        return port_scheduler._DecodeGraph(None, []), 0.0
+    def fake_capture(key, root="decode"):
+        ends["capture"] = time.time()
+        return port_scheduler.Graph(None, []), 0.0
 
     monkeypatch.setattr(sch, "_capture_locked", fake_capture)
     prof = intro.DeviceProfiler(tmp_path)
@@ -263,8 +270,17 @@ def test_a_capture_waits_for_a_device_profile(tmp_path, monkeypatch):
         started.set()
         time.sleep(0.01)
 
-    t = threading.Thread(target=lambda: ends.setdefault(
-        "profile", (prof.capture(0.3, workload), time.monotonic())[1]))
+    spans = []
+    real_stop = prof._stop
+
+    def stop(p):
+        # inside its window, which holds the capture lock (the spacing
+        # between windows and the export do not)
+        real_stop(p)
+        spans.append((p.t0, time.time()))
+
+    prof._stop = stop
+    t = threading.Thread(target=prof.capture, args=(0.3, workload))
     t.start()
     try:
         assert started.wait(10.0)
@@ -273,7 +289,9 @@ def test_a_capture_waits_for_a_device_profile(tmp_path, monkeypatch):
         t.join(20.0)
         eng.close()
     assert not t.is_alive()
-    assert ends["capture"] >= ends["profile"] - 0.05
+    # the capture waited for the window it met, and ran inside none
+    assert ends["capture"] >= spans[0][1] - 0.05
+    assert not any(a < ends["capture"] < b for a, b in spans)
 
 
 def test_a_capture_inside_a_pass_waits_for_a_profile_without_deadlock(tmp_path,
@@ -282,9 +300,9 @@ def test_a_capture_inside_a_pass_waits_for_a_profile_without_deadlock(tmp_path,
     sch = eng.scheduler
     ends: dict = {}
 
-    def fake_capture(key):
-        ends["capture"] = time.monotonic()
-        return port_scheduler._DecodeGraph(None, []), 0.0
+    def fake_capture(key, root="decode"):
+        ends["capture"] = time.time()
+        return port_scheduler.Graph(None, []), 0.0
 
     monkeypatch.setattr(sch, "_capture_locked", fake_capture)
     prof = intro.DeviceProfiler(tmp_path)
@@ -294,8 +312,17 @@ def test_a_capture_inside_a_pass_waits_for_a_profile_without_deadlock(tmp_path,
         started.set()
         time.sleep(0.01)
 
-    t = threading.Thread(target=lambda: ends.setdefault(
-        "profile", (prof.capture(0.3, workload), time.monotonic())[1]))
+    spans = []
+    real_stop = prof._stop
+
+    def stop(p):
+        # inside its window, which holds the capture lock (the spacing
+        # between windows and the export do not)
+        real_stop(p)
+        spans.append((p.t0, time.time()))
+
+    prof._stop = stop
+    t = threading.Thread(target=prof.capture, args=(0.3, workload))
     t.start()
     try:
         assert started.wait(10.0)
@@ -307,7 +334,9 @@ def test_a_capture_inside_a_pass_waits_for_a_profile_without_deadlock(tmp_path,
         t.join(20.0)
         eng.close()
     assert not t.is_alive()
-    assert ends["capture"] >= ends["profile"] - 0.05
+    # the capture waited for the window it met, and ran inside none
+    assert ends["capture"] >= spans[0][1] - 0.05
+    assert not any(a < ends["capture"] < b for a, b in spans)
 
 
 def test_profiler_starts_and_stops_between_passes(tmp_path):
@@ -353,6 +382,84 @@ def test_profiler_starts_and_stops_between_passes(tmp_path):
     assert order == ["transition", "pass"]
 
 
+def test_a_readback_wait_lets_a_transition_in(monkeypatch):
+    """The scheduler waits for a decode window's readback outside its
+    device pass: a profile's transition runs while the pass waits, and
+    the pass resumes after it."""
+    eng = _engine()
+    sch = eng.scheduler
+    order, waiting, done = [], threading.Event(), threading.Event()
+
+    class Event:  # the window's readback event, still pending on the device
+        def synchronize(self):
+            order.append(("wait", intro.device_gate.inside()))
+            waiting.set()
+            assert done.wait(10.0)
+
+    slot = sch._slots.popleft()  # as a dispatch takes it; the fetch returns it
+    monkeypatch.setattr(slot, "event", Event())
+    rec = {"slot": slot, "bsz": 1, "W": 1, "t0": time.perf_counter()}
+
+    def fetch():
+        with intro.device_gate.device_pass():
+            sch._fetch_window(rec)
+            order.append(("resumed", intro.device_gate.inside()))
+
+    t = threading.Thread(target=fetch)
+    try:
+        t.start()
+        assert waiting.wait(10.0)
+        with intro.device_gate.transition():
+            order.append(("transition", None))
+            done.set()
+            time.sleep(0.05)
+        t.join(10.0)
+    finally:
+        done.set()
+        eng.close()
+    assert not t.is_alive()
+    assert order == [("wait", False), ("transition", None), ("resumed", True)]
+
+
+def test_a_chunk_lets_a_transition_in_between_replays(monkeypatch):
+    """A root run of several steps (a decode chunk) steps out of its pass
+    between two steps when a transition waits: the transition runs after
+    the step in progress, before the next one."""
+    eng = _engine()
+    sch = eng.scheduler
+    order, first, go_on = [], threading.Event(), threading.Event()
+
+    def step(live):
+        order.append("step")
+        if len(order) == 1:
+            first.set()
+            assert go_on.wait(10.0)
+
+    monkeypatch.setattr(sch, "_root", lambda root, key: (step, None, None, False))
+    chunk = threading.Thread(target=sch._run_root,
+                             args=("decode", (1, 1, False, False, False, False), 3))
+
+    def transition():
+        with intro.device_gate.transition():
+            order.append("transition")
+
+    other = threading.Thread(target=transition)
+    try:
+        chunk.start()
+        assert first.wait(10.0)
+        other.start()
+        while not intro.device_gate._closed:  # the transition waits for the pass
+            time.sleep(0.001)
+        go_on.set()
+        other.join(10.0)
+        chunk.join(10.0)
+    finally:
+        go_on.set()
+        eng.close()
+    assert not chunk.is_alive() and not other.is_alive()
+    assert order == ["step", "transition", "step", "step"]
+
+
 def test_served_requests_finish_beside_profiles(tmp_path):
     eng = _engine()
     prof = intro.DeviceProfiler(tmp_path)
@@ -375,8 +482,11 @@ def test_served_requests_finish_beside_profiles(tmp_path):
         t.join(60.0)
         assert not t.is_alive() and not errors
         assert results == [alone.token_ids] * 3
-        assert set(prof.last_timings) == {"start_s", "stop_s", "export_s"}
-        assert min(prof.last_timings.values()) >= 0
+        t = prof.last_timings
+        assert set(t) == {"start_s", "stop_s", "stops_s", "export_s", "windows",
+                          "window_stops_s", "window_recorded_s"}
+        assert min(v for v in t.values() if not isinstance(v, list)) >= 0
+        assert len(t["window_stops_s"]) == len(t["window_recorded_s"]) == t["windows"]
     finally:
         eng.close()
 
@@ -453,6 +563,51 @@ def test_device_profiler_capture_and_listing(tmp_path):
     assert zf.namelist() == ["trace.json"]
     assert "traceEvents" in zf.read("trace.json").decode()
     assert prof.profile_path("prof-nope") is None and prof.active is None
+
+
+def test_device_profiler_runs_the_repaired_capture(tmp_path, monkeypatch):
+    """The pause repair's choices: CPU and device activity without
+    external correlation, windows of 0.05 s 0.25 s apart, each stopped
+    by the C++ disable alone, one forked child writing and zipping the
+    trace after ``graph_capture_lock`` is released (captures run beside
+    the export). A 0.65 s capture in 0.2 s windows records windows until
+    0.65 s, joined into one ``trace.json`` whose events span them; the
+    route's zip layout is unchanged, also where ``os.fork`` is missing."""
+    import os
+
+    assert (intro.DeviceProfiler.WINDOW_S, intro.DeviceProfiler.SPACING_S) == (0.05, 0.25)
+    window = intro.DeviceProfiler._profiler()
+    assert set(window.activities) == {torch.profiler.ProfilerActivity.CPU}
+    assert not (window.record_shapes or window.profile_memory or window.with_stack)
+    exp = torch._C._profiler._ExperimentalConfig
+    assert (window.experimental_config.__getstate__()
+            == exp(disable_external_correlation=True).__getstate__()
+            != exp().__getstate__())
+    forks = []
+    fork = os.fork
+    monkeypatch.setattr(
+        os, "fork", lambda: forks.append(intro.graph_capture_lock.locked()) or fork())
+    monkeypatch.setattr(intro.DeviceProfiler, "WINDOW_S", 0.2)
+    prof = intro.DeviceProfiler(profile_dir=tmp_path)
+    header = prof.capture(duration_s=0.65, workload=lambda: torch.ones(64) @ torch.ones(64))
+    t = prof.last_timings
+    recorded = t["window_recorded_s"]
+    # windows of 0.2 s (a stop may start a little late) until 0.65 s
+    # recorded; one fork, made with the capture lock free
+    assert forks == [False] and t["windows"] == len(recorded) >= 3
+    assert all(r >= 0.2 - 1e-3 for r in recorded[:-1])
+    assert sum(recorded[:-1]) < 0.65 <= sum(recorded) + 1e-3
+    assert header["duration_s"] == pytest.approx(sum(recorded), abs=0.01)
+    zf = zipfile.ZipFile(io.BytesIO(prof.profile_path(header["id"]).read_bytes()))
+    assert zf.namelist() == ["trace.json"]
+    ts = sorted(ev["ts"] for ev in json.loads(zf.read("trace.json"))["traceEvents"]
+                if ev.get("name", "").startswith("aten::matmul"))
+    # matmuls from every window: they span the windows and the stops between
+    assert ts and (ts[-1] - ts[0]) / 1e6 >= 0.6 - 0.2
+    monkeypatch.delattr(os, "fork")
+    header = prof.capture(duration_s=0.05)
+    zf = zipfile.ZipFile(io.BytesIO(prof.profile_path(header["id"]).read_bytes()))
+    assert zf.namelist() == ["trace.json"] and len(forks) == 1
 
 
 def test_device_profiler_refuses_concurrent_capture(tmp_path):

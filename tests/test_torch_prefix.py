@@ -59,8 +59,7 @@ KW = dict(max_seq_len=128, dtype="float32", decode_chunk=4,
 SCALE_RTOL = 1e-5
 # the scheduler stats only the port keeps: its decode windows and CUDA
 # graphs (the JAX engine compiles a scan instead)
-PORT_ONLY_STATS = {"windows", "graph_captures", "graph_replays", "graph_capture_s",
-                   "graph_warmup_s", "graph_setup_forwards", "graph_keys"}
+PORT_ONLY_STATS = {"windows", "root_graphs"}
 
 
 def _prompts():
