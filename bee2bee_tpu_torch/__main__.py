@@ -166,16 +166,12 @@ def cli():
 # queue A item). Refused when set to anything but their off value.
 _UNPORTED_OPTS = {
     "checkpoint": ("--checkpoint", 10),
-    "lora": ("--lora", 8),
     "mesh_shape": ("--mesh-shape", 14),
-    "adapters": ("--adapters", 8),
-    "max_adapters": ("--max-adapters", 8),
     "publish_weights": ("--publish-weights", 10),
     "from_mesh": ("--from-mesh", 10),
 }
 # values of the choice options the port does not run yet
 _UNPORTED_CHOICES = {
-    ("quantize", "int8"): 5,
     ("attention", "dense"): 12,  # the dense no-cache forward
     ("attention", "sp"): 14,  # sequence-parallel serving over a mesh
 }
@@ -200,13 +196,17 @@ def _refuse_unported(opts: dict) -> None:
               help="registry model name (random weights from seed 0); the "
                    "port serves the llama architecture")
 @click.option("--checkpoint", default=None, help="local checkpoint dir (not ported)")
-@click.option("--lora", default=None, help="LoRA adapters .npz (not ported)")
+@click.option("--lora", default=None,
+              help="LoRA adapters .npz merged into the weights at load "
+                   "(before --quantize)")
 @click.option("--mesh-shape", default=None, help="device mesh (not ported)")
 @click.option("--attention", type=click.Choice(["auto", "dense", "flash", "sp"]), default=None,
               help="auto | flash: the ragged paged CUDA attention kernels "
                    "(dense and sp are not ported)")
 @click.option("--quantize", type=click.Choice(["none", "int8"]), default=None,
-              help="weight-only quantization (int8 is not ported)")
+              help="weight-only quantization: int8 projections through the "
+                   "int8-weight GEMM (BEE2BEE_QUANTIZE; bf16 activations on "
+                   "the card)")
 @click.option("--kv-quant", "kv_quant", is_flag=True, default=False,
               help="int8 KV pool: pages stored int8 with per-page-per-head "
                    "scales, dequantized inside the attention kernels "
@@ -222,9 +222,12 @@ def _refuse_unported(opts: dict) -> None:
               help="model-tier drafter: a registry name loaded beside the "
                    "target (random init), or 'mesh' for a draft-role peer "
                    "(BEE2BEE_DRAFTER; needs --spec)")
-@click.option("--adapters", default=None, help="multi-LoRA adapters (not ported)")
+@click.option("--adapters", default=None,
+              help="multi-LoRA serving: comma-separated name=path.npz adapters "
+                   "preloaded into the hot-swap pool and published on the DHT "
+                   "(BEE2BEE_ADAPTERS; implies 8 slots)")
 @click.option("--max-adapters", "max_adapters", type=int, default=None,
-              help="adapter pool slots (not ported)")
+              help="adapter pool slots (BEE2BEE_MAX_ADAPTERS; 0 = off)")
 @click.option("--publish-weights", is_flag=True,
               help="announce this node's params as DHT pieces (not ported)")
 @click.option("--from-mesh", is_flag=True,
@@ -235,14 +238,13 @@ def serve_cuda(model, checkpoint, lora, mesh_shape, attention, quantize,
                publish_weights, from_mesh, **kw):
     """Serve a model on the CUDA card through the PyTorch engine."""
     _refuse_unported(dict(
-        checkpoint=checkpoint, lora=lora, mesh_shape=mesh_shape,
-        attention=attention, quantize=quantize, adapters=adapters,
-        max_adapters=max_adapters, publish_weights=publish_weights,
-        from_mesh=from_mesh,
+        checkpoint=checkpoint, mesh_shape=mesh_shape, attention=attention,
+        publish_weights=publish_weights, from_mesh=from_mesh,
     ))
     _serve(
         "cuda", model, attention=attention, kv_quant=kv_quant, paged=paged,
-        spec_tokens=spec_tokens, drafter=drafter, **kw
+        spec_tokens=spec_tokens, drafter=drafter, quantize=quantize, lora=lora,
+        adapters=adapters, max_adapters=max_adapters, **kw
     )
 
 

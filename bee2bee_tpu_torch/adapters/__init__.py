@@ -13,8 +13,10 @@ ids, mesh hello/announce, router placement) — ``split_model_adapter``
 is the ONE parser every surface shares.
 
 PyTorch port: a copy of ``bee2bee_tpu/adapters/__init__.py`` with the import
-root rewritten to ``bee2bee_tpu_torch``. The pool, distrib and LoRA names
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+root rewritten to ``bee2bee_tpu_torch``. The pool, its DHT leg and the LoRA
+file machinery resolve lazily, as in the JAX package (the pool's module
+reaches the engine's device gate, which this naming root must not pull on
+every node boot).
 """
 
 from __future__ import annotations
@@ -34,25 +36,24 @@ class AdapterPoolBusy(RuntimeError):
     Backpressure, not corruption: the caller retries or routes elsewhere."""
 
 
-# the pool (adapters/pool.py), its DHT leg (adapters/distrib.py) and
-# the train.lora machinery behind them are not ported: this package root
-# keeps only the naming helpers meshnet/node.py and api.py pull on every
-# boot, and the heavy names raise by name
+# the heavy names resolve lazily via __getattr__: meshnet/node.py and
+# api.py pull the naming helpers below on every boot
 _LAZY = {
-    "AdapterPool": "the multi-LoRA adapter pool (adapters/pool.py)",
-    "AdapterLoadError": "LoRA adapter loading (train/lora.py)",
-    "load_adapters": "LoRA adapter loading (train/lora.py)",
-    "UnknownAdapterManifest": "paging adapters over the mesh (adapters/distrib.py)",
-    "fetch_adapter": "paging adapters over the mesh (adapters/distrib.py)",
-    "publish_adapter": "publishing adapters on the DHT (adapters/distrib.py)",
+    "AdapterPool": (".pool", "AdapterPool"),
+    "AdapterLoadError": ("..train.lora", "AdapterLoadError"),
+    "load_adapters": ("..train.lora", "load_adapters"),
+    "UnknownAdapterManifest": (".distrib", "UnknownAdapterManifest"),
+    "fetch_adapter": (".distrib", "fetch_adapter"),
+    "publish_adapter": (".distrib", "publish_adapter"),
 }
 
 
 def __getattr__(name: str):
     if name in _LAZY:
-        from ..unported import unported
+        import importlib
 
-        raise unported(_LAZY[name], 8)
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod, package=__name__), attr)
     raise AttributeError(name)
 
 # wire-safety clamp for the gen_request `adapter` key: names key metric

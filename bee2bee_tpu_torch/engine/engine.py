@@ -37,10 +37,21 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   the resident model drafter, ``drafter=<model>``, engine/drafter.py;
   ``drafter="mesh"``, a draft-role peer) and one ``[B, K+1]`` verify step
   (``_spec_verify``) accepts the longest matching prefix.
+- **int8 weights** (``quantize="int8"``, models/quant.py): the
+  projections are quantized per output channel at load (a random init on
+  the device, tensor by tensor; ``lora_path`` merged in first, as in
+  JAX) and repacked for the int8-weight GEMM (ops/int8_gemm.py), which
+  every decode and verify root runs on the card. The card runs them with
+  bf16 activations only (``check_card_supported``).
+- **Multi-LoRA serving** (``max_adapters``, adapters/pool.py): a pool of
+  hot-swappable adapters over the one base; ``load_adapter`` /
+  ``unload_adapter`` page them in and out without a restart, and a
+  request names its adapter (``adapter=``); a mixed batch serves base and
+  adapter rows in one replayed step. The pool's device writes run on the
+  scheduler thread between its passes (``BatchScheduler.run_on_device``).
 
-What waits for later slices: checkpoint loading, int8 weights,
-multi-LoRA and live migration. Setting an ``EngineConfig`` field that
-selects one of them raises.
+What waits for later slices: checkpoint loading and live migration.
+Setting an ``EngineConfig`` field that selects one of them raises.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from ..metrics import get_registry
 from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
+from ..models.quant import pack_params_, quantize_params_
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
 from .paged import ceil_div
@@ -158,9 +170,13 @@ class EngineConfig:
     # rng seed of a random-init drafter; None = rng_seed, which makes a
     # same-name drafter weight-identical to a random-init target
     drafter_seed: int | None = None
-    # fields of the JAX engine this port does not implement yet: each
-    # must stay at its default (checked below)
+    # weight-only quantization: "none" | "int8" (models/quant.py): the
+    # projections stream from device memory as int8 through the int8-weight
+    # GEMM (BEE2BEE_QUANTIZE / --quantize int8)
     quantize: str = "none"
+    # batched multi-LoRA serving (adapters/pool.py): slots for hot-
+    # swappable adapters over the one resident base model; a mixed batch
+    # serves base and adapter rows in one step. 0 = off
     max_adapters: int = 0
     # ---- the decode hot loop (engine/scheduler.py). None = resolve from
     # the environment at construction; always a plain bool/int after
@@ -199,12 +215,16 @@ class EngineConfig:
             # dense: the no-cache forward; sp: sequence-parallel serving
             "attention": (self.attention not in ("auto", "flash"),
                           12 if self.attention == "dense" else 14),
-            "quantize": (self.quantize not in ("none", "", None), 5),
-            "max_adapters": (self.max_adapters > 0, 8),
         }
         for name, (set_, item) in items.items():
             if set_:
                 raise unported(f"EngineConfig.{name}={getattr(self, name)!r}", item)
+        if self.quantize in ("", None):
+            self.quantize = "none"
+        if self.quantize not in ("none", "int8"):
+            raise ValueError(f"quantize={self.quantize!r}: only 'int8' or 'none'")
+        if self.max_adapters < 0:
+            self.max_adapters = 0
         if self.spec_tokens < 0:  # NodeConfig's 0-means-disabled sentinel
             self.spec_tokens = 0
         if self.spec_tokens and not (
@@ -241,7 +261,9 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     build the engine and then raise at its first forward: a ``dtype``
     other than bfloat16 or float32, a ``cache_dtype`` other than ``dtype``
     or int8, a head_dim or a ``kv_block_size`` the kernels are not built
-    for. Any other device runs the plain versions: nothing is refused."""
+    for, int8 weights beside float32 activations (the int8-weight GEMM has
+    a bf16 form only: ROADMAP.md queue A item 18). Any other device runs
+    the plain versions: nothing is refused."""
     if torch.device(device).type != "cuda":
         return
     dtypes = [name for name, dtype in DTYPES.items() if dtype in _DTYPE_CODE]
@@ -259,6 +281,11 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     if engine_cfg.kv_block_size not in _BLOCK_SIZES:
         missing.append(f"kv_block_size={engine_cfg.kv_block_size} (the kernels "
                        f"are built for {_BLOCK_SIZES})")
+    if engine_cfg.quantize == "int8" and engine_cfg.dtype != "bfloat16":
+        missing.append(
+            f"quantize='int8' with dtype={engine_cfg.dtype!r} (the int8-weight "
+            "GEMM is built for bfloat16; ROADMAP.md queue A item 18)"
+        )
     if missing:
         raise NotImplementedError(
             f"{model_cfg.name} on {device}: the port's CUDA kernels do not "
@@ -331,10 +358,13 @@ class InferenceEngine:
         engine_config: EngineConfig | None = None,
         tokenizer=None,
         device=None,
+        lora_path: str | None = None,
     ):
         """``params``: the port's parameter dict already on ``device``
         (models/params.py; ``params_from_numpy`` carries a JAX tree
-        across), or None for a random init from ``rng_seed``."""
+        across, int8 weights included), or None for a random init from
+        ``rng_seed``. ``lora_path``: an adapter .npz (train/lora.py) merged
+        into the weights at load, before any quantization."""
         self.device = resolve_device(device)
         self.model_cfg = resolve_model_config(model)
         core.check_supported(self.model_cfg)
@@ -348,7 +378,23 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.engine_cfg.rng_seed)
             params = init_params(self.model_cfg, gen, self.device, self.dtype)
-        self.params = params
+        else:
+            # the caller's tree is not rewritten: merging and quantizing
+            # replace entries of this engine's copy (tensors are shared)
+            params = _copy_tree(params)
+        if lora_path:
+            # base + trained low-rank deltas, merged BEFORE quantization so
+            # the int8 scales see the finetuned weights (train/lora.py)
+            from ..train.lora import load_adapters, merge_lora
+
+            adapters, lcfg = load_adapters(lora_path, model_cfg=self.model_cfg)
+            params = merge_lora(params, adapters, lcfg)
+        if self.engine_cfg.quantize == "int8":
+            # in place, each dense weight dropped as its int8 form lands
+            quantize_params_(params)
+        # an int8 weight carried across in the JAX layout is repacked for
+        # the int8-weight GEMM once, here (models/quant.py)
+        self.params = pack_params_(params)
         self.tokenizer = tokenizer or load_tokenizer(None, self.model_cfg.vocab_size)
         # the sampling stream: one generator on the device, used only by
         # the scheduler thread
@@ -420,6 +466,21 @@ class InferenceEngine:
                 "drafter", lambda: self.drafter_model.hbm_source()
                 if self.drafter_model is not None else None
             )
+        # batched multi-LoRA serving: the hot-swap pool. Construction is
+        # cheap: the stacks are allocated at the first load_adapter, whose
+        # rank/targets fix the pool geometry
+        self.adapter_pool = None
+        if self.engine_cfg.max_adapters > 0:
+            from ..adapters.pool import AdapterPool
+
+            self.adapter_pool = AdapterPool(
+                self.model_cfg, self.engine_cfg.max_adapters, self.device
+            )
+            # the HBM ledger: the stacked A/B factors + scales ((None,
+            # None) before the first load reads as 0)
+            self.introspect.ledger.register(
+                "adapter_pool", lambda: self.adapter_pool.device_args()
+            )
 
     # ------------------------------------------------------------ forward
 
@@ -431,24 +492,26 @@ class InferenceEngine:
         )
 
     def _prefill(self, tokens, pool, true_len, offset, block_tables,
-                 write_floor=None, write_ceil=None):
+                 write_floor=None, write_ceil=None, lora=None):
         """tokens [B, Tb] padded; returns last_logits [B, V] at each row's
         ``true_len - 1`` (``_prefill_fn``). The chunk scatters into the
         rows' mapped blocks; ``write_floor`` keeps re-fed positions below a
         CoW share point out of the shared blocks, ``write_ceil`` drops the
         padded tail so a short prompt claims only the blocks covering its
         real length. Every argument may be a device tensor: the
-        scheduler's prefill root passes slices of static buffers."""
+        scheduler's prefill root passes slices of static buffers. ``lora``:
+        an adapter row's arguments (``forward``'s ``adapters``,
+        ``adapter_ids``, ``adapter_scales``), the JAX ``_lora_args_row``."""
         logits, _ = self.forward(
             tokens, pool, offset, block_tables,
             paged_write_floor=write_floor, paged_write_ceil=write_ceil,
-            logits_index=true_len - 1,
+            logits_index=true_len - 1, **(lora or {}),
         )
         return logits[:, 0]
 
     def _spec_verify(self, cur, drafts, lens, pool, offsets, tables, temperature,
                      top_k, top_p, min_p=None, any_sampled=False, counts=None,
-                     repetition=None, presence=None, frequency=None):
+                     repetition=None, presence=None, frequency=None, lora=None):
         """Speculative-decode verify (``_spec_verify_fn``): one [B, K+1]
         forward checks a whole draft. Returns (next tokens [B], accepted
         [B]); with ``counts`` the penalty counts are bumped in place.
@@ -462,10 +525,12 @@ class InferenceEngine:
         from the logits at the accept position: for greedy rows the token
         plain decode would give, for non-drafting rows (lens 0) their one
         normal sample. Rejected positions sit at/past the row's new offset
-        (offset + accepted + 1), where causality hides them."""
+        (offset + accepted + 1), where causality hides them. ``lora``: the
+        rows' adapter arguments (``forward``'s ``adapters``,
+        ``adapter_ids``, ``adapter_scales``), None for an all-base batch."""
         B, K = drafts.shape
         tokens = torch.cat([cur[:, None], drafts], dim=1)
-        logits, _ = self.forward(tokens, pool, offsets, tables)
+        logits, _ = self.forward(tokens, pool, offsets, tables, **(lora or {}))
         greedy = torch.argmax(logits, dim=-1)
         pos = torch.arange(K, device=drafts.device)[None, :]
         match = (drafts == greedy[:, :-1]) & (pos < lens[:, None])
@@ -558,6 +623,47 @@ class InferenceEngine:
                     )
         return self._scheduler
 
+    # ---------------------------------------------- multi-adapter serving
+
+    def load_adapter(self, name: str, adapters: dict | None = None,
+                     lcfg=None, path: str | None = None) -> int:
+        """Pin one LoRA adapter into the hot-swap pool (fresh load,
+        in-place refresh, or LRU-evicting a cold adapter) WITHOUT
+        restarting the engine. Pass (adapters, lcfg) directly (the DHT
+        fetch path) or ``path`` to an adapter .npz, whose versioned sha256
+        manifest is verified on read. Typed AdapterLoadError on a
+        corrupt/mismatched adapter; returns the pool slot. Callable from
+        any thread: the device part runs on the scheduler thread between
+        its passes (``BatchScheduler.run_on_device``), so it lands after
+        every step already dispatched and before the next."""
+        if self.adapter_pool is None:
+            raise RuntimeError(
+                "multi-adapter serving is off (EngineConfig.max_adapters=0)"
+            )
+        if path is not None:
+            from ..train.lora import load_adapters
+
+            adapters, lcfg = load_adapters(path, model_cfg=self.model_cfg)
+        if adapters is None or lcfg is None:
+            raise ValueError("load_adapter needs (adapters, lcfg) or path")
+        return self.adapter_pool.load(name, adapters, lcfg,
+                                      run=self.scheduler.run_on_device)
+
+    def unload_adapter(self, name: str) -> bool:
+        """Evict a resident adapter; AdapterPoolBusy while rows are in
+        flight on it (the refcount hot-swap guard)."""
+        if self.adapter_pool is None:
+            return False
+        return self.adapter_pool.evict(name, run=self.scheduler.run_on_device)
+
+    evict_adapter = unload_adapter
+
+    def has_adapter(self, name: str) -> bool:
+        return self.adapter_pool is not None and self.adapter_pool.has(name)
+
+    def resident_adapters(self) -> list[str]:
+        return self.adapter_pool.resident() if self.adapter_pool else []
+
     def migration_signature(self) -> dict:
         """The pool-compat fingerprint a KV import is validated against (the
         JAX engine's ``migration_signature``)."""
@@ -597,10 +703,6 @@ class InferenceEngine:
     ):
         from .scheduler import Request
 
-        if adapter:
-            raise NotImplementedError(
-                f"adapter {adapter!r}: multi-LoRA serving is not ported yet"
-            )
         ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         # clamp generation to what the pool can hold while keeping at
         # least a small prompt window (the JAX engine's serving rule)
@@ -622,6 +724,19 @@ class InferenceEngine:
             )
         if min_p is not None and not (0.0 <= min_p <= 1.0):
             raise ValueError(f"min_p must be in [0, 1], got {min_p}")
+        if adapter:
+            # typed BEFORE submission (UnknownAdapter -> /v1 404, p2p
+            # unknown_adapter); the admission-time acquire re-checks, as an
+            # eviction can race a queued request
+            from ..adapters import UnknownAdapter
+
+            if self.adapter_pool is None:
+                raise UnknownAdapter(
+                    f"adapter {adapter!r}: multi-adapter serving is off "
+                    "(EngineConfig.max_adapters=0)"
+                )
+            if not self.adapter_pool.has(adapter):
+                raise UnknownAdapter(f"adapter {adapter!r} is not resident")
         stop, eos = self._stop_set(stop_tokens)
         return Request(
             ids, max_new_tokens, temperature, top_k, top_p, stop, eos,
@@ -631,7 +746,19 @@ class InferenceEngine:
             frequency_penalty=frequency_penalty,
             min_p=min_p,
             tenant=tenant,
+            adapter=adapter,
         )
+
+    @staticmethod
+    def _event_error(ev: dict) -> Exception:
+        """Typed exception for a failed-generation event: an admission-race
+        unknown_adapter keeps its type across the event queue; everything
+        else is a RuntimeError."""
+        if ev.get("error_kind") == "unknown_adapter":
+            from ..adapters import UnknownAdapter
+
+            return UnknownAdapter(ev.get("error", "unknown adapter"))
+        return RuntimeError(ev.get("error", "generation failed"))
 
     def _build_result(self, req) -> GenerationResult:
         t = req.timing
@@ -712,7 +839,7 @@ class InferenceEngine:
             while True:
                 ev = req.events.get()
                 if ev.get("done") and ev.get("result") is None:
-                    raise RuntimeError(ev.get("error", "generation failed"))
+                    raise self._event_error(ev)
                 yield ev
                 if ev.get("done"):
                     return
@@ -747,7 +874,7 @@ class InferenceEngine:
             ev = req.events.get()
             if ev.get("done"):
                 if ev.get("result") is None:
-                    raise RuntimeError(ev.get("error", "generation failed"))
+                    raise self._event_error(ev)
                 return ev["result"]
 
     @property
@@ -766,6 +893,8 @@ class InferenceEngine:
             ),
             "kv": self.kv_info,
             "spec": self._spec_info(),
+            **({"adapters": self.adapter_pool.info}
+               if self.adapter_pool is not None else {}),
             # compiles (graph captures) per root, MFU/goodput over the
             # trailing window and the HBM ledger; refresh() also brings
             # the engine.* economics gauges current
@@ -790,6 +919,15 @@ class InferenceEngine:
             out["drafter"] = self.engine_cfg.drafter
             out["tiers"] = dict(st.spec_tiers) if st else {}
         return out
+
+
+def _copy_tree(tree):
+    """The dicts and lists of a parameter tree copied, its tensors shared."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
 
 
 def _leaves(tree):

@@ -22,7 +22,9 @@ module's metric names, label sets and never-throw contract:
   of one seen key fire it once they storm (``storm_repeats`` within
   ``storm_window_s``).
 - **HbmLedger**: the device memory by component, from the engine's own
-  tensors (weights, the KV pool with its int8 scales), each storage
+  tensors (weights: dense tensors and, for int8 weights, the packed int8
+  bytes and their f32 scales; the KV pool with its int8 scales; the
+  drafter; the adapter pool's stacked factors and scales), each storage
   counted once (tied embeddings are one storage). The device total comes
   from ``torch.cuda.mem_get_info`` (total - free, device-wide): the
   caching allocator and the graphs' private pool hold memory that
@@ -32,7 +34,8 @@ module's metric names, label sets and never-throw contract:
 - **PoolForecast**: the paged pool's growth rate projected into the
   ``engine.pool_exhaust_eta_s`` gauge the admission shed reads.
 - **GoodputMeter**: the analytic FLOPs model over the scheduler's
-  dispatches gives ``engine.mfu`` (model FLOP/s over the card's peak) and
+  dispatches (the same for int8 weights, which do the same operations)
+  gives ``engine.mfu`` (model FLOP/s over the card's peak) and
   ``engine.goodput_tokens_per_s``; scheduled token positions are told
   apart from useful tokens (padded prefill tails and post-stop window
   overshoot count against goodput).

@@ -80,6 +80,17 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
   stops between them (and while a pass waits for a decode window's
   readback, which launches nothing, or between a root's replays); every
   capture takes ``graph_capture_lock``.
+- **Multi-LoRA rows** (adapters/pool.py): a request naming an adapter
+  acquires its pool slot at admission (a typed ``unknown_adapter`` error
+  when it is not resident) and releases it at every exit; each row's slot
+  id rides a static [max_batch] buffer beside the sampling knobs, and the
+  decode, verify, prefill and first-token keys carry the adapters flag
+  (some row holds an adapter), so an all-base batch keeps the
+  adapter-free graphs and a mixed batch serves every row in one replay.
+  An adapter row's prompt is never matched against or pinned in the
+  prefix cache (its K/V are the adapter's). The pool's device writes
+  arrive as jobs (``run_on_device``) that this thread runs between its
+  passes, in stream order after every dispatched step.
 - **Tenant fairness**: the submit queue is a WDRR queue keyed by
   ``Request.tenant`` (router/fairness.py), weighted from the
   ``BEE2BEE_TENANTS`` config or ``set_tenant_weights``; a request costs
@@ -90,8 +101,8 @@ Threading model: one daemon scheduler thread owns all device state;
 ``submit`` only appends to a queue under a condition variable, and
 callers read per-request event queues.
 
-Not ported yet: adapters and migration checkpoints. Graph keys are
-captured on first use, not warmed at boot (as JAX compiles lazily).
+Not ported yet: migration checkpoints. Graph keys are captured on first
+use, not warmed at boot (as JAX compiles lazily).
 """
 
 from __future__ import annotations
@@ -186,9 +197,16 @@ class Request:
         frequency_penalty: float = 0.0,
         min_p: float = 0.0,
         tenant: str = "default",
+        adapter: str | None = None,
     ):
         self.stream = stream
         self.tenant = str(tenant or "default")
+        # multi-adapter serving: which LoRA adapter this generation decodes
+        # under (None = the base model). The slot resolves at ADMISSION, as
+        # the adapter may page in or out while the request queues
+        self.adapter = adapter or None
+        self.adapter_slot = 0
+        self._adapter_acquired = False
         # set by an abandoning consumer (generate_stream closed early); the
         # scheduler thread reads it at window boundaries and retires the row
         self.cancelled = False
@@ -363,6 +381,9 @@ class _DecodeViews:
     toks: torch.Tensor  # [bsz, decode_chunk] int64: the chunk's tokens
     step: torch.Tensor  # [1] int64: the chunk's step index
     any_sampled: bool
+    # the forward's adapter arguments (the pool's stacks and scales, the
+    # rows' slot ids [bsz] int64), None for an all-base key
+    lora: dict | None = None
     # the verify step's: the drafts [bsz, K] int64, their lengths [bsz]
     # int32, the accepted counts [bsz] int64 (None for decode)
     drafts: torch.Tensor | None = None
@@ -383,6 +404,8 @@ class _PrefillViews:
     ceil: torch.Tensor  # [1] int64: pool writes at/after it go there too
     tables: torch.Tensor  # [1, tw] int32: the row's table slice
     logits: torch.Tensor  # [1, V] f32: the last real position's logits
+    aid: torch.Tensor  # [1] int64: the row's adapter slot
+    lora: dict | None = None  # the forward's adapter arguments, None for base
 
 
 @dataclass
@@ -433,6 +456,7 @@ class _RingSlot:
         self.tables = buf((max_batch * blocks_per_row,), torch.int32)
         self.knobs_f = buf((len(_KNOBS_F), max_batch), torch.float32)
         self.top_k = buf((max_batch,), torch.int32)
+        self.aids = buf((max_batch,), torch.int64)
         self.toks = buf((chunks, max_batch, K), torch.int64)
         self.event = torch.cuda.Event() if pinned else None
 
@@ -447,6 +471,9 @@ class BatchScheduler:
         self._queue = tenant_queue()
         self._cond = threading.Condition()
         self._shutdown = False
+        # device work other threads hand this one (run_on_device): the
+        # adapter pool's writes
+        self._jobs: deque = deque()
 
         e = engine
         cfg = e.engine_cfg
@@ -538,6 +565,8 @@ class BatchScheduler:
         self.stats.paged_blocks_in_use = 0
         self._cur = np.zeros((1,), np.int64)
         self._offsets = np.zeros((1,), np.int32)
+        # each row's adapter slot (0 = the base model, the null adapter)
+        self._aids = np.zeros((1,), np.int64)
         self._rows: list[Request | None] = [None]
         self._row_params_dirty = True
         self._knob_flags: dict = {}
@@ -554,6 +583,7 @@ class BatchScheduler:
         self._d_knobs_f = torch.zeros((len(_KNOBS_F), mb), dtype=torch.float32,
                                       device=dev)
         self._d_top_k = torch.zeros((mb,), dtype=torch.int32, device=dev)
+        self._d_aids = torch.zeros((mb,), dtype=torch.int64, device=dev)
         self._counts = torch.zeros((mb, 2, self._vocab), dtype=torch.int32,
                                    device=dev)
         self._d_toks = torch.zeros((mb, K), dtype=torch.int64, device=dev)
@@ -565,11 +595,11 @@ class BatchScheduler:
         self._d_lens = torch.zeros((mb,), dtype=torch.int32, device=dev)
         self._d_acc = torch.zeros((mb,), dtype=torch.int64, device=dev)
         # the prefill root's: one int64 buffer holding the padded chunk
-        # then (offset, true length, write floor, write ceil), the row's
-        # table slice and the last logits; the first-token root's one-row
-        # knobs (``_KNOBS_F`` order), top-k, counts and token
+        # then (offset, true length, write floor, write ceil, adapter slot),
+        # the row's table slice and the last logits; the first-token root's
+        # one-row knobs (``_KNOBS_F`` order), top-k, counts and token
         W = self._prefill_width
-        self._p_ints = torch.zeros((W + 4,), dtype=torch.int64, device=dev)
+        self._p_ints = torch.zeros((W + 5,), dtype=torch.int64, device=dev)
         self._p_tables = torch.zeros((e.blocks_per_row,), dtype=torch.int32, device=dev)
         self._p_logits = torch.zeros((1, self._vocab), dtype=torch.float32, device=dev)
         self._f_knobs_f = torch.zeros((len(_KNOBS_F),), dtype=torch.float32, device=dev)
@@ -606,6 +636,47 @@ class BatchScheduler:
         replaced at runtime cannot drift from the env-seeded defaults."""
         with self._cond:
             self._queue.set_weights(weights)
+
+    def run_on_device(self, fn):
+        """Run ``fn()`` on the scheduler thread, between two of its passes
+        and inside its device pass, and return its result (or raise its
+        error) to the calling thread: device work of another thread (the
+        adapter pool's in-place writes, from the node's executor) queues
+        on this thread's stream after every step already dispatched and
+        before the next, and never races a graph replay or capture."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        done = threading.Event()
+        box: dict = {}
+
+        def job(error: str | None = None):
+            try:
+                if error is not None:
+                    raise RuntimeError(error)
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — the caller's to see
+                box["error"] = e
+            finally:
+                done.set()
+
+        with self._cond:
+            if self._shutdown:
+                raise RuntimeError("scheduler is shut down")
+            self._jobs.append(job)
+            self._cond.notify()
+        done.wait()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _run_jobs(self, error: str | None = None):
+        """Run (or, with ``error``, fail) the queued ``run_on_device`` jobs."""
+        while True:
+            with self._cond:
+                if not self._jobs:
+                    return
+                job = self._jobs.popleft()
+            job(error)
 
     def submit(self, req: Request) -> Request:
         with self._cond:
@@ -644,14 +715,18 @@ class BatchScheduler:
     def _loop(self):
         while True:
             with self._cond:
-                while not self._queue and self.active == 0 and not self._shutdown:
+                while (not self._queue and self.active == 0 and not self._jobs
+                       and not self._shutdown):
                     self._cond.wait()
                 if self._shutdown:
                     self._fail_all("engine shut down")
-                    return
+            if self._shutdown:
+                self._run_jobs(error="scheduler is shut down")
+                return
             # a device profile starts and stops between passes
             with device_gate.device_pass():
                 if not self._pass():
+                    self._run_jobs(error="scheduler dead: device unrecoverable")
                     return
 
     def _pass(self) -> bool:
@@ -659,6 +734,7 @@ class BatchScheduler:
         A failure fails the batch and rebuilds the device state; False when
         even that failed and the loop must end."""
         try:
+            self._run_jobs()
             if self._inflight and self._queue:
                 # admission needs settled row state: drain the
                 # readback ring before touching it
@@ -694,6 +770,7 @@ class BatchScheduler:
             self._alloc.deref(self._deferred_blocks)
             self._deferred_blocks = []
         for req in list(self._queue) + [r for r in self._rows if r is not None]:
+            self._release_adapter(req)
             req.finish = "error"
             if self._spec is not None:
                 self._spec.forget(req)
@@ -718,7 +795,22 @@ class BatchScheduler:
                 self._alloc.deref(self._row_blocks[b])
             self._row_blocks[b] = []
         self._tables[b, :] = 0
+        self._aids[b] = 0  # a dead row gathers the null adapter (zeros)
         self.stats.paged_blocks_in_use = self._alloc.used_count
+
+    def _release_adapter(self, req: Request):
+        """Return req's adapter-pool refcount (idempotent: retirement,
+        errors and requeues may all reach a request). A zero refcount is
+        what lets the LRU hot-swap recycle the slot."""
+        if req._adapter_acquired:
+            req._adapter_acquired = False
+            self.engine.adapter_pool.release(req.adapter_slot)
+
+    def _lora_args(self, ids: torch.Tensor) -> dict:
+        """The forward's adapter arguments over the rows' slot ids ``ids``
+        (a static buffer): the pool's stacks and scales, fixed storage."""
+        adapters, scales = self.engine.adapter_pool.device_args()
+        return {"adapters": adapters, "adapter_ids": ids, "adapter_scales": scales}
 
     def _alloc_blocks(self, n: int) -> list[int]:
         """THE allocation funnel (admission prefill, decode growth, CoW copy
@@ -797,9 +889,11 @@ class BatchScheduler:
         keep = min(old, new_bsz)
         cur = np.zeros((new_bsz,), np.int64)
         offs = np.zeros((new_bsz,), np.int32)
+        aids = np.zeros((new_bsz,), np.int64)
         cur[:keep] = self._cur[:keep]
         offs[:keep] = self._offsets[:keep]
-        self._cur, self._offsets = cur, offs
+        aids[:keep] = self._aids[:keep]
+        self._cur, self._offsets, self._aids = cur, offs, aids
         self._rows = self._rows[:keep] + [None] * (new_bsz - keep)
         self._bsz = new_bsz
         self._row_params_dirty = True
@@ -825,6 +919,8 @@ class BatchScheduler:
             self._counts[hole] = self._counts[last]
             self._cur[hole] = self._cur[last]
             self._offsets[hole] = self._offsets[last]
+            self._aids[hole] = self._aids[last]
+            self._aids[last] = 0
             self._rows[hole] = self._rows[last]
             self._rows[last] = None
             self._row_params_dirty = True
@@ -931,17 +1027,20 @@ class BatchScheduler:
                 chunk = seq[pos:pos + bucket]
                 tw = self._table_width(len(row))
                 last_logits = self._prefill_chunk(chunk, bucket, pos,
-                                                  self._tables[b, :tw], start, n)
+                                                  self._tables[b, :tw], start, n,
+                                                  req.adapter_slot)
                 # economics: the bucket's padded width is what the card
                 # ran; only the real prompt tokens were useful
                 self._meter.record_dispatch(bucket, pos + bucket / 2.0, scheduled=bucket)
                 if not recompute:
                     self._meter.note_useful(len(chunk))
             # pinning is free (refcounts): the entry claims the blocks
-            # covering exactly the prefilled positions. (The JAX engine
-            # never pins an adapter row's blocks; the port serves no
-            # adapters yet, ROADMAP.md queue A item 8.)
-            if self._prefix_cache is not None and not self._prefix_cache.has(seq):
+            # covering exactly the prefilled positions. An adapter row's
+            # blocks never enter the cache: an adapted wk/wv writes the
+            # adapter's own K/V, which a base (or another adapter's)
+            # prompt must not be served
+            if (self._prefix_cache is not None and not req.adapter
+                    and not self._prefix_cache.has(seq)):
                 self._prefix_cache.put(seq, row[:ceil_div(n, BS)])
                 # a capacity eviction inside put() may have freed blocks
                 self.stats.paged_blocks_in_use = self._alloc.used_count
@@ -954,15 +1053,17 @@ class BatchScheduler:
 
     def _prefill_views(self, key: tuple) -> _PrefillViews:
         """The prefill root's static buffers at ``key`` (bucket, table
-        width)."""
-        bucket, tw = key
+        width, adapters flag)."""
+        bucket, tw, adapters = key
         W = self._prefill_width
         ints = self._p_ints
+        aid = ints[W + 4:W + 5]
         return _PrefillViews(
             tokens=ints[:bucket].view(1, bucket), pos=ints[W:W + 1],
             true_len=ints[W + 1:W + 2], floor=ints[W + 2:W + 3],
             ceil=ints[W + 3:W + 4], tables=self._p_tables[:tw].view(1, tw),
-            logits=self._p_logits,
+            logits=self._p_logits, aid=aid,
+            lora=self._lora_args(aid) if adapters else None,
         )
 
     def _prefill_step(self, v: _PrefillViews):
@@ -970,37 +1071,39 @@ class BatchScheduler:
         buffers: what the prefill root captures."""
         v.logits.copy_(self.engine._prefill(
             v.tokens, self._cache, v.true_len, v.pos, v.tables,
-            write_floor=v.floor, write_ceil=v.ceil,
+            write_floor=v.floor, write_ceil=v.ceil, lora=v.lora,
         ))
 
     def _stage_prefill(self, chunk: list, bucket: int, pos: int, table: np.ndarray,
-                       floor: int, ceil: int) -> tuple:
+                       floor: int, ceil: int, aid: int = 0) -> tuple:
         """Copy one chunk's inputs into the prefill root's static buffers
         (queued, no host sync): ``chunk`` (at most ``bucket`` tokens) at
         offset ``pos`` through ``table`` (the row's table at the chunk's
-        width), pool writes kept inside [floor, ceil). Returns the key."""
+        width), pool writes kept inside [floor, ceil), under adapter slot
+        ``aid`` (0 = the base model). Returns the key."""
         W = self._prefill_width
-        ints = np.zeros((W + 4,), np.int64)
+        ints = np.zeros((W + 5,), np.int64)
         ints[:len(chunk)] = chunk
-        ints[W:] = (pos, len(chunk), floor, ceil)
+        ints[W:] = (pos, len(chunk), floor, ceil, aid)
         h2d(self._p_ints, ints)
         tw = len(table)
         h2d(self._p_tables[:tw], table)
-        return (bucket, tw)
+        return (bucket, tw, aid > 0)
 
     def _prefill_chunk(self, chunk: list, bucket: int, pos: int, table: np.ndarray,
-                       floor: int, ceil: int) -> torch.Tensor:
+                       floor: int, ceil: int, aid: int = 0) -> torch.Tensor:
         """Run one prefill chunk of a row (``_stage_prefill``'s arguments)
         through the prefill root. Returns the static last-logits buffer
         [1, V]."""
         self._run_root("prefill", self._stage_prefill(chunk, bucket, pos, table,
-                                                      floor, ceil))
+                                                      floor, ceil, aid))
         return self._p_logits
 
     def _first_views(self, key: tuple) -> _FirstViews:
         """The first-token root's static buffers at ``key`` (sampled,
-        min-p, penalized)."""
-        any_sampled, min_p, penalized = key
+        min-p, penalized, adapters: the sample reads the adapter row's
+        logits like any other, the flag only keys its graphs apart)."""
+        any_sampled, min_p, penalized, _ = key
         f = {name: self._f_knobs_f[i:i + 1] for i, (name, _) in enumerate(_KNOBS_F)}
         return _FirstViews(
             logits=self._p_logits, temperature=f["temperature"], top_k=self._f_top_k,
@@ -1038,7 +1141,8 @@ class BatchScheduler:
             )[:self._vocab]
             h2d(self._counts[b], row_counts)
             self._f_counts[0].copy_(self._counts[b])
-        self._run_root("first_token", (req.temperature > 0, req.min_p > 0, req.penalized))
+        self._run_root("first_token", (req.temperature > 0, req.min_p > 0, req.penalized,
+                                       req.adapter_slot > 0))
         return self._f_out.clone()
 
     def _admit(self):
@@ -1071,11 +1175,31 @@ class BatchScheduler:
                     self._queue.refund(req.tenant, _cost(req))
                 continue
             req.timing.t_admit = time.perf_counter()
+            if req.adapter:
+                # the slot resolves at ADMISSION: the acquire bumps the
+                # pool's refcount, so a hot-swap never evicts the factors
+                # under this row mid-decode
+                try:
+                    req.adapter_slot = e.adapter_pool.acquire(req.adapter)
+                    req._adapter_acquired = True
+                except Exception as err:  # noqa: BLE001 — UnknownAdapter, a
+                    # pool-less engine: typed retirement, the serving
+                    # surfaces map the kind onto 404 / gen_error
+                    req.finish = "error"
+                    req.events.put({
+                        "done": True, "result": None,
+                        "error": f"unknown adapter: {err}",
+                        "error_kind": "unknown_adapter",
+                    })
+                    with self._cond:
+                        self._queue.refund(req.tenant, _cost(req))
+                    continue
             if self.active == self._bsz:
                 if not self._growth_headroom():
                     # a sticky bucket never shrinks back while work flows:
                     # requeue at the front (refunding the pop's cost) and
                     # retry into a retirement hole at the current width
+                    self._release_adapter(req)
                     with self._cond:
                         self._queue.appendleft(req, tenant=req.tenant, cost=_cost(req))
                     self.stats.width_grow_denials += 1
@@ -1083,9 +1207,11 @@ class BatchScheduler:
                 self._resize(min(self._bsz * 2, self.max_batch))
             b = next(i for i, r in enumerate(self._rows) if r is None)
             # longest cached prompt prefix: admit from there and prefill
-            # only the rest (chat transcripts grow by appending)
+            # only the rest (chat transcripts grow by appending). Never for
+            # an adapter row: the cached K/V are another model's
             start, cached = (self._prefix_cache.match(req.ids)
-                             if self._prefix_cache is not None else (0, None))
+                             if self._prefix_cache is not None and not req.adapter
+                             else (0, None))
             C = e.engine_cfg.prefill_chunk
             remaining = len(req.ids) - (start if cached is not None else 0)
             bucket = C if C is not None and remaining > C else e._bucket_for(remaining)
@@ -1094,6 +1220,9 @@ class BatchScheduler:
                 self._paged_prefill(req, b, bucket, start, cached)
                 first = self._first_token(req, b)
             except _PoolExhausted as err:
+                # this admission attempt is over either way: return the
+                # adapter refcount (a requeued retry re-acquires)
+                self._release_adapter(req)
                 if self.active > 0 or placed:
                     # backpressure: blocks free as rows retire — requeue
                     # at the front (refunding the cost charged at the
@@ -1112,6 +1241,7 @@ class BatchScheduler:
             except Exception as err:
                 # the popped request is in neither _queue nor _rows: fail
                 # it here, then let _loop's handler recover
+                self._release_adapter(req)
                 req.finish = "error"
                 req.events.put(
                     {"done": True, "result": None, "error": f"admission failed: {err!r}"}
@@ -1119,6 +1249,7 @@ class BatchScheduler:
                 raise
             self._rows[b] = req
             self._offsets[b] = len(req.ids)
+            self._aids[b] = req.adapter_slot
             placed.append((req, b, len(firsts)))
             firsts.append(first)
 
@@ -1160,17 +1291,23 @@ class BatchScheduler:
 
     def _stage_knobs(self, slot: _RingSlot) -> dict:
         """The host flags of the rows' sampling knobs (any row sampled,
-        any min-p, any penalty). When rows changed, their knob values go
-        through the slot's staging into the static device buffers first:
-        a copy queued behind the windows in flight, so only later windows
-        read them."""
+        any min-p, any penalty) and adapters (any row on an adapter slot).
+        When rows changed, their knob values and adapter slots go through
+        the slot's staging into the static device buffers first: a copy
+        queued behind the windows in flight, so only later windows read
+        them."""
         if self._row_params_dirty:
             live = [r for r in self._rows if r is not None]
             self._knob_flags = {
                 "any_sampled": any(r.temperature > 0 for r in live),
                 "min_p": any(r.min_p > 0 for r in live),
                 "penalized": any(r.penalized for r in live),
+                "adapters": bool(self._aids.any()),
             }
+            aids = slot.aids.numpy()
+            aids[:] = 0
+            aids[:self._bsz] = self._aids
+            self._d_aids.copy_(slot.aids, non_blocking=self._on_card)
             knobs_f, top_k = slot.knobs_f.numpy(), slot.top_k.numpy()
             knobs_f[:] = np.asarray([n for _, n in _KNOBS_F], np.float32)[:, None]
             top_k[:] = 0
@@ -1187,12 +1324,12 @@ class BatchScheduler:
         """The decode root's key: the JAX ``_decode_key`` fields (batch
         bucket, table width, min_p flag, adapters flag, counts flag), then
         the all-greedy short-cut's flag."""
-        return (self._bsz, tw, flags["min_p"], False, flags["penalized"],
+        return (self._bsz, tw, flags["min_p"], flags["adapters"], flags["penalized"],
                 flags["any_sampled"])
 
     def _views(self, key: tuple) -> _DecodeViews:
         """The static buffers viewed at ``key``'s bucket and width."""
-        bsz, tw, min_p, _, counts, any_sampled = key
+        bsz, tw, min_p, adapters, counts, any_sampled = key
         f = {name: self._d_knobs_f[i, :bsz] for i, (name, _) in enumerate(_KNOBS_F)}
         return _DecodeViews(
             cur=self._d_cur[:bsz], off=self._d_off[:bsz],
@@ -1207,6 +1344,7 @@ class BatchScheduler:
             counts=self._counts[:bsz] if counts else None,
             toks=self._d_toks[:bsz], step=self._d_step,
             any_sampled=any_sampled,
+            lora=self._lora_args(self._d_aids[:bsz]) if adapters else None,
         )
 
     def _decode_step(self, v: _DecodeViews):
@@ -1216,7 +1354,8 @@ class BatchScheduler:
         advance the offsets and the index (mod decode_chunk). What a decode
         graph captures: no host sync, no host copy."""
         e = self.engine
-        logits, _ = e.forward(v.cur[:, None], self._cache, v.off, v.tables)
+        logits, _ = e.forward(v.cur[:, None], self._cache, v.off, v.tables,
+                              **(v.lora or {}))
         pen = {}
         if v.counts is not None:
             pen = dict(counts=v.counts, repetition=v.repetition,
@@ -1251,7 +1390,7 @@ class BatchScheduler:
                        presence=v.presence, frequency=v.frequency)
         nxt, acc = self.engine._spec_verify(
             v.cur, v.drafts, v.lens, self._cache, v.off, v.tables, v.temperature,
-            v.top_k, v.top_p, v.min_p, any_sampled=v.any_sampled, **pen,
+            v.top_k, v.top_p, v.min_p, any_sampled=v.any_sampled, lora=v.lora, **pen,
         )
         v.cur.copy_(nxt)
         v.acc.copy_(acc)
@@ -1266,11 +1405,13 @@ class BatchScheduler:
         zeros = functools.partial(torch.zeros, device=self._device)
         if root == "prefill":
             v = self._prefill_views(key)
+            aid = zeros(1, dtype=torch.int64)
             scratch = _PrefillViews(
                 tokens=torch.zeros_like(v.tokens), pos=zeros(1, dtype=torch.int64),
                 true_len=torch.ones_like(v.true_len), floor=zeros(1, dtype=torch.int64),
                 ceil=zeros(1, dtype=torch.int64), tables=torch.zeros_like(v.tables),
-                logits=torch.zeros_like(v.logits),
+                logits=torch.zeros_like(v.logits), aid=aid,
+                lora=self._lora_args(aid) if v.lora is not None else None,
             )
             return self._prefill_step, v, scratch, False
         if root == "first_token":
@@ -1853,6 +1994,7 @@ class BatchScheduler:
         return False
 
     def _retire(self, req: Request):
+        self._release_adapter(req)
         if self._spec is not None:
             self._spec.forget(req)  # drafter KV slot / mesh server row
         req.timing.t_done = time.perf_counter()
@@ -1864,6 +2006,7 @@ class BatchScheduler:
 
     def _retire_error(self, req: Request, reason: str):
         """Error-terminate an ADMITTED row with full retirement accounting."""
+        self._release_adapter(req)
         if self._spec is not None:
             self._spec.forget(req)
         req.finish = "error"

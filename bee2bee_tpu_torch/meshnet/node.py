@@ -22,7 +22,7 @@ reference's worker protocol node.py:48-294) lives in meshnet/pipeline.py
 PyTorch port: a copy of ``bee2bee_tpu/meshnet/node.py`` with the import root
 rewritten to ``bee2bee_tpu_torch``; comments that cited the JAX package's
 change history or the reference checkout's path are trimmed. Adapter paging
-imports its names from ``..adapters``, where they raise by name.
+imports its names from ``..adapters`` (adapters/distrib.py, the pool).
 """
 
 from __future__ import annotations
@@ -1298,7 +1298,7 @@ class P2PNode(StageTaskMixin):
                 if engine.has_adapter(name):
                     return True
                 base = engine.model_cfg.name
-                from ..adapters import (  # adapters/distrib.py: raises by name
+                from ..adapters import (  # adapters/distrib.py
                     UnknownAdapterManifest,
                     fetch_adapter,
                 )

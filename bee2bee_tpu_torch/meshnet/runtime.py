@@ -8,7 +8,8 @@ PyTorch port: a copy of ``bee2bee_tpu/meshnet/runtime.py`` with the import
 root rewritten to ``bee2bee_tpu_torch``. ``build_service`` builds
 ``CUDAService`` for the ``"cuda"`` backend and refuses ``"tpu"``; the engine-
 backed branches are gated on ``"cuda"``, and those reaching unported modules
-(mesh weights, adapters, LoRA, a checkpoint) raise by name.
+(mesh weights, a checkpoint) raise by name. ``lora_path`` merges into the
+engine's weights at load; ``--adapters`` preloads the engine's pool.
 """
 
 from __future__ import annotations
@@ -41,8 +42,6 @@ def build_service(backend: str, model: str, cfg: NodeConfig, **kw):
 
         if kw.get("checkpoint_path"):
             raise unported("serving a local checkpoint (--checkpoint)", 10)
-        if kw.get("lora_path"):
-            raise unported("merging LoRA adapters over the base (--lora)", 8)
         # the mesh shape (the parallel package) is refused by name inside
         # engine_config()
         return CUDAService(
@@ -50,6 +49,7 @@ def build_service(backend: str, model: str, cfg: NodeConfig, **kw):
             price_per_token=cfg.price_per_token,
             max_new_tokens=cfg.max_new_tokens,
             engine_config=cfg.engine_config(),
+            lora_path=kw.get("lora_path"),
         )
     if backend == "ollama":
         from ..services.ollama import OllamaService
@@ -101,7 +101,6 @@ async def _preload_adapters(node, dht, svc, spec: str):
         raise ValueError(
             "--adapters requires the cuda backend with max_adapters > 0"
         )
-    # adapters/distrib.py and train/lora.py are not ported: raises by name
     from ..adapters import load_adapters, publish_adapter
 
     loop = asyncio.get_running_loop()

@@ -5,14 +5,26 @@ The port of ``bee2bee_tpu/models/core.py``'s block-tables path, kept
 function for function where that helps a reader find the counterpart
 (``_norm``, ``_rope``, ``_activate``, ``_mlp``, ``_attention``,
 ``embed_tokens``, ``transformer_block``, ``final_logits``, ``forward``,
-``attn_mask``, ``make_layer_mask``, ``make_layer_window``, ``init_cache``,
+``matmul``, ``_lora_rows``, ``lora_matmul``, ``attn_mask``,
+``make_layer_mask``, ``make_layer_window``, ``init_cache``,
 ``init_paged_pool``, ``matmul_params_per_token``).
 What differs from the JAX package:
 
 - Parameters are a plain dict of tensors whose ``"layers"`` entry is a
   LIST of per-layer dicts (models/params.py): the layer loop is a python
   loop, not a scan. Weights keep the JAX layout ``[in, out]`` and
-  project as ``x @ w``.
+  project through ``matmul``: ``x @ w`` for a dense weight; an int8
+  weight-only quantized one (models/quant.py) is either the JAX layout
+  {"q", "s"} (the plain formula, CPU only) or the engine's packed
+  {"qp", "s"}, which goes through the int8-weight GEMM (ops/int8_gemm.py:
+  the kernel on the card, its plain version on the CPU). Projections that
+  share an input (wq, wk, wv; w_up, w_gate) go through ``matmul_group``:
+  with packed int8 weights, one launch for the group.
+- Multi-LoRA serving: every projection goes through ``lora_matmul``,
+  which adds each batch row's low-rank delta from the adapter pool's
+  stacked factors (adapters/pool.py), as the JAX function does: the
+  factors are gathered per row by slot id and the rank-r products run in
+  f32.
 - The pool is updated IN PLACE: ``forward`` scatters each chunk's K/V
   into the pool tensors it was given (the JAX engine donates the pool
   and gets a new one back; here the returned pool is the same object).
@@ -41,6 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8_gemm import int8_weight_matmul, int8_weight_matmul_group
 from ..ops.ragged import ragged_paged_attention, row_offsets
 from .config import ModelConfig
 
@@ -131,8 +144,72 @@ def _activate(up, gate, cfg: ModelConfig):
     return F.silu(gate) * up
 
 
-def _mlp(x, p, cfg: ModelConfig):
-    return _activate(x @ p["w_up"], x @ p["w_gate"], cfg) @ p["w_down"]
+def matmul(x, w):
+    """x @ w where w may be an int8 weight-only quantized subtree: the JAX
+    layout {"q": int8 [in, out], "s": f32 [out]} computes the JAX formula
+    ``(x @ q.astype(x.dtype)) * s.astype(x.dtype)`` (CPU only: on the card
+    that line would write a dense copy of the weight every call), the
+    engine's packed {"qp", "s"} goes through the int8-weight GEMM."""
+    if isinstance(w, dict):
+        if "qp" in w:
+            return int8_weight_matmul(x, w)
+        if x.device.type != "cpu":
+            raise ValueError(
+                "an int8 weight in the JAX layout runs on the CPU only: pack it "
+                "for the card (models/quant.py pack_params_)"
+            )
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w
+
+
+def matmul_group(x, ws):
+    """``[matmul(x, w) for w in ws]`` for weights that share x (wq, wk, wv;
+    w_up, w_gate): packed int8 weights go through ONE launch of the
+    int8-weight GEMM (ops/int8_gemm.py), as a fused product would; any
+    other weight takes ``matmul`` one by one."""
+    if all(isinstance(w, dict) and "qp" in w for w in ws):
+        return int8_weight_matmul_group(x, list(ws))
+    return [matmul(x, w) for w in ws]
+
+
+def _lora_rows(ab, ids, scale):
+    """Gather one layer's per-ROW adapter factors: ``ab`` is the pool's
+    stacked {"a": [N, din, r], "b": [N, r, dout]} slice for this layer,
+    ``ids`` [B] each row's pool slot (0 = the reserved null adapter,
+    all-zero factors), ``scale`` [N] each slot's alpha/rank scaling.
+    Returns (a [B, din, r], b [B, r, dout], s [B])."""
+    return ab["a"].index_select(0, ids), ab["b"].index_select(0, ids), scale[ids]
+
+
+def lora_matmul(x, w, name, lora):
+    """The multi-adapter serving hook around ``matmul``: base projection
+    plus each row's low-rank delta ``s * (x @ A) @ B``. ``lora`` is None
+    (plain matmul) or {"ab": per-layer target dict, "ids": [B] int64,
+    "scale": [N] f32}; a target absent from the pool passes through
+    untouched. Rows mapped to slot 0 gather the null adapter's zero
+    factors, so adapter-less rows in a mixed batch add exact zeros. The
+    rank-r products run in f32 like merge_lora's delta, then cast back; x
+    is [B, T, din] (the batch dim is the row identity)."""
+    return _with_lora(matmul(x, w), x, name, lora)
+
+
+def _with_lora(out, x, name, lora):
+    """``out`` (the base projection of x) plus each row's delta of target
+    ``name`` (``lora_matmul``'s second half)."""
+    ab = None if lora is None else lora["ab"].get(name)
+    if ab is None:
+        return out
+    a, b, s = _lora_rows(ab, lora["ids"], lora["scale"])
+    h = torch.bmm(x.float(), a.float())
+    delta = torch.bmm(h, b.float())
+    return out + (delta * s[:, None, None]).to(out.dtype)
+
+
+def _mlp(x, p, cfg: ModelConfig, lora=None):
+    up, gate = matmul_group(x, (p["w_up"], p["w_gate"]))
+    up = _with_lora(up, x, "w_up", lora)
+    gate = _with_lora(gate, x, "w_gate", lora)
+    return lora_matmul(_activate(up, gate, cfg), p["w_down"], "w_down", lora)
 
 
 def _attention(q, k, v, mask, cfg: ModelConfig):
@@ -162,20 +239,23 @@ def embed_tokens(params: Params, cfg: ModelConfig, input_ids):
     return F.embedding(input_ids, params["tok_embed"])
 
 
-def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend):
+def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     """One pre-norm block. lp: one layer's params; x [B, T, D]; rope the
     forward's (cos, sin); ``attend(q, k, v) -> [B, T, H*hd]`` writes this
-    chunk's K/V into the pool and attends over it (forward builds it)."""
+    chunk's K/V into the pool and attends over it (forward builds it);
+    ``lora`` one layer's adapter arguments (``lora_matmul``) or None."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cos, sin = rope
     h = _norm(x, lp["ln1"], cfg)
     a = lp["attn"]
-    q = _rope((h @ a["wq"]).view(B, T, H, hd), cos, sin)
-    k = _rope((h @ a["wk"]).view(B, T, Hkv, hd), cos, sin)
-    v = (h @ a["wv"]).view(B, T, Hkv, hd)
-    x = x + attend(q, k, v) @ a["wo"]
-    return x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+    q, k, v = (_with_lora(out, h, name, lora) for out, name in
+               zip(matmul_group(h, (a["wq"], a["wk"], a["wv"])), ("wq", "wk", "wv")))
+    q = _rope(q.view(B, T, H, hd), cos, sin)
+    k = _rope(k.view(B, T, Hkv, hd), cos, sin)
+    v = v.view(B, T, Hkv, hd)
+    x = x + lora_matmul(attend(q, k, v), a["wo"], "wo", lora)
+    return x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, lora)
 
 
 def final_logits(params: Params, cfg: ModelConfig, x):
@@ -302,6 +382,10 @@ def forward(
     paged_write_ceil=None,  # int: drop pool WRITES at/after this position
     attn_fn=ragged_paged_attention,
     logits_index=None,  # [B] chunk positions: logits there only
+    adapters=None,  # multi-LoRA serving (adapters/pool.py): stacked pool
+    # factors {target: {"a": [L, N, din, r], "b": [L, N, r, dout]}}
+    adapter_ids=None,  # [B] int64: each row's pool slot (0 = no adapter)
+    adapter_scales=None,  # [N] f32: per-slot alpha/rank scaling
 ):
     """Run a [B, T] token chunk over the paged pool. Returns
     (logits [B, T, V] f32, pool) — or [B, 1, V] at ``logits_index``.
@@ -321,11 +405,17 @@ def forward(
     version on the CPU); passing ``ragged_paged_attention_ref`` runs the
     plain version on any device.
 
+    With ``adapters`` every projection adds each row's LoRA delta
+    (``lora_matmul``): the per-row slot ids and the slot scales are
+    batch-constant, each layer reads its own [N, ...] slice of the
+    stacks. Without, the forward is the adapter-free one.
+
     Without ``block_tables``, ``pool`` is a rectangular cache
     (``init_cache``): see ``_forward_rect``."""
     check_supported(cfg)
     if block_tables is None:
         return _forward_rect(params, cfg, input_ids, pool, offset)
+    lora_for = _lora_for(adapters, adapter_ids, adapter_scales, input_ids.device)
     quantized = "k_scale" in pool
     if pool["k"].dtype == torch.int8 and not quantized:
         raise ValueError(
@@ -373,11 +463,24 @@ def forward(
             vp[:, blk, slot] = vT.to(vp.dtype)
             return attn_fn(q, kp, vp, bt, off, window(i), sm_scale, softcap)
 
-        x = transformer_block(lp, cfg, x, rope, attend)
+        x = transformer_block(lp, cfg, x, rope, attend, lora_for(i))
     if logits_index is not None:
         idx = torch.as_tensor(logits_index, device=device).long().reshape(B)
         x = x[torch.arange(B, device=device), idx][:, None]
     return final_logits(params, cfg, x), pool
+
+
+def _lora_for(adapters, adapter_ids, adapter_scales, device):
+    """Layer index -> that layer's ``lora_matmul`` arguments (None without
+    adapters)."""
+    if adapters is None:
+        return lambda i: None
+    ids = torch.as_tensor(adapter_ids, device=device).long().reshape(-1)
+    scale = torch.as_tensor(adapter_scales, device=device).float()
+    return lambda i: {
+        "ab": {t: {"a": ab["a"][i], "b": ab["b"][i]} for t, ab in adapters.items()},
+        "ids": ids, "scale": scale,
+    }
 
 
 def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):

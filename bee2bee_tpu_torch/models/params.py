@@ -13,7 +13,13 @@ layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
 
 Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
 transpose into ``nn.Linear``'s ``[out, in]`` happens anywhere, so a tensor
-carried across from JAX is the same matrix, element for element.
+carried across from JAX is the same matrix, element for element. An int8
+weight-only quantized weight (models/quant.py) is the JAX subtree
+{"q": int8 [in, out], "s": f32 [out]}; ``params_from_numpy`` carries it
+across as it is (int8 stays int8, the scales f32), and the engine repacks
+``q`` for the int8-weight GEMM at load (``quant.pack_params_``). A random
+init for an int8 engine quantizes on the device, tensor by tensor
+(``quant.quantize_params_``).
 """
 
 from __future__ import annotations
@@ -84,13 +90,13 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _map(fn, tree):
+def _map(fn, tree, quantized=None):
+    """``fn`` over every leaf; a quantized {"q", "s"} subtree goes to
+    ``quantized`` instead (default: ``fn`` on each leaf)."""
     if isinstance(tree, dict):
-        if "q" in tree and "s" in tree:
-            raise NotImplementedError(
-                "int8 weight-only quantized parameters are not ported yet"
-            )
-        return {k: _map(fn, v) for k, v in tree.items()}
+        if quantized is not None and "q" in tree and "s" in tree:
+            return quantized(tree)
+        return {k: _map(fn, v, quantized) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -103,6 +109,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
     ``dtype``, same layout ([in, out] weights), layers as a list."""
     check_supported(cfg)
     layers = tree["layers"]
+    # an int8 weight keeps its int8 q and f32 scales: only dense leaves
+    # take ``dtype``
+    def carry(qw):
+        return {"q": _to_tensor(qw["q"], device, torch.int8),
+                "s": _to_tensor(qw["s"], device, torch.float32)}
+
     if isinstance(layers, (list, tuple)):
         per_layer = list(layers)
     else:
@@ -118,6 +130,6 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
     def conv(a):
         return _to_tensor(a, device, dtype)
 
-    out = {k: _map(conv, v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(conv, lp) for lp in per_layer]
+    out = {k: _map(conv, v, carry) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(conv, lp, carry) for lp in per_layer]
     return out

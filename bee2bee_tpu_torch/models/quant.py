@@ -1,0 +1,156 @@
+"""Weight-only int8 quantization for serving.
+
+Decode is bandwidth-bound on the WEIGHTS (every step streams all of them);
+storing the big matmul weights as int8 + per-output-channel f32 scales
+halves that traffic against bf16, with activations left in their type.
+
+Representation: a quantized weight is the subtree {"q": int8 [..., in,
+out], "s": f32 [..., out]} in place of the dense array. Per-OUT-channel
+scales commute with the matmul — (x @ q) * s == x @ (q * s) — so
+core.matmul applies them after the dot.
+
+What quantizes: attention projections (wq/wk/wv/wo) and the dense-MLP
+weights (w_up/w_gate/w_down). Embeddings (a gather, often tied to the LM
+head) and norms stay dense. MoE experts are in the suffix list, as in the
+JAX package, but the port runs no MoE model yet (ROADMAP.md queue A item
+11).
+
+The port of ``bee2bee_tpu/models/quant.py``: ``QUANT_SUFFIXES``,
+``is_quantized``, ``quantize_weight``, ``dequantize_weight`` and
+``quantize_params`` on numpy are copies, bit for bit. Added here:
+
+- ``quantize_weight_torch``: the same arithmetic on a tensor, on its own
+  device (the same f32 ops in the same order: amax over the in dim, a
+  divide by 127, round half to even, clip), so q and s are bit-equal to
+  numpy's on the same f32 input; random llama-3-8b weights are made on
+  the card and quantized there, tensor by tensor.
+- ``quantize_params_``: quantize a port parameter dict IN PLACE, each
+  dense tensor dropped as soon as its int8 form exists, and each int8
+  weight repacked (``pack=True``) into the int8-weight GEMM's layout.
+- **The packed layout.** The engine repacks every ``q`` once at load
+  into ``{"qp": int8 [N/16, K/32, 32, 16], "s": f32 [N]}``
+  (ops/int8_gemm.py ``pack_weight``): each 16 output channels x 32 inputs
+  tile is one warp's mma fragments, 16 bytes a lane. ``qp`` replaces ``q``
+  (the int8 bytes are stored once), ``matmul`` dispatches on the key, and
+  ``unpack_weight`` gives back the JAX layout. A weight whose shape the
+  GEMM cannot take (in % 32 or out % 16) keeps the JAX layout, which only
+  the CPU runs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# path suffixes (models/partition path convention) that quantize
+QUANT_SUFFIXES = (
+    "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+    "mlp/w_up", "mlp/w_gate", "mlp/w_down",
+    "moe/w_up", "moe/w_gate", "moe/w_down",  # per-expert scales
+)
+
+
+def is_quantized(w) -> bool:
+    """An int8 weight, in the JAX layout ({"q", "s"}) or packed
+    ({"qp", "s"})."""
+    return isinstance(w, dict) and "s" in w and ("q" in w or "qp" in w)
+
+
+def quantize_weight(w: np.ndarray) -> dict:
+    """[..., in, out] float -> {"q": int8 same shape, "s": f32 [..., out]}
+    with symmetric per-out-channel scales (amax over the in dim)."""
+    w = np.asarray(w, np.float32)
+    amax = np.max(np.abs(w), axis=-2)  # [..., out]
+    s = (amax / 127.0).astype(np.float32)
+    safe = np.where(s == 0.0, 1.0, s)
+    q = np.clip(np.rint(w / safe[..., None, :]), -127, 127).astype(np.int8)
+    return {"q": q, "s": s}
+
+
+def dequantize_weight(qw: dict) -> np.ndarray:
+    return qw["q"].astype(np.float32) * qw["s"][..., None, :]
+
+
+def quantize_params(params: dict) -> dict:
+    """Return a copy of the param tree with QUANT_SUFFIXES weights
+    replaced by {"q","s"} subtrees (host-side numpy)."""
+
+    def walk(node, path=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+        if path.endswith(QUANT_SUFFIXES):
+            return quantize_weight(np.asarray(node))
+        return node
+
+    return walk(params)
+
+
+def quantize_weight_torch(w: torch.Tensor) -> dict:
+    """``quantize_weight`` on a tensor, on its device: the same f32
+    operations in the same order, so q and s are bit-equal to numpy's on
+    the same f32 input (torch.round rounds half to even, as np.rint)."""
+    wf = w.float()
+    s = wf.abs().amax(dim=-2) / 127.0
+    safe = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(wf / safe.unsqueeze(-2)), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def _quantized_slots(params: dict):
+    """(holder dict, key) of every weight QUANT_SUFFIXES names in a port
+    parameter dict (layers as a list)."""
+    for lp in params.get("layers", []):
+        for group in ("attn", "mlp", "moe"):
+            sub = lp.get(group)
+            if not isinstance(sub, dict):
+                continue
+            for key in list(sub):
+                if f"{group}/{key}" in QUANT_SUFFIXES:
+                    yield sub, key
+
+
+def _packed(q: torch.Tensor, s: torch.Tensor) -> dict:
+    """{"qp", "s"} for the GEMM, or {"q", "s"} where its shape cannot pack."""
+    from ..ops.int8_gemm import pack_weight
+
+    K, N = q.shape
+    if K % 32 or N % 16:
+        return {"q": q, "s": s}
+    return {"qp": pack_weight(q), "s": s}
+
+
+def quantize_params_(params: dict, pack: bool = True) -> dict:
+    """Quantize a port parameter dict IN PLACE (and return it): each
+    QUANT_SUFFIXES weight becomes {"q", "s"} (or, ``pack``, the GEMM's
+    {"qp", "s"}), computed on the weight's own device; the dense tensor's
+    last reference goes before the next weight is touched, so peak memory
+    holds one dense weight beside the int8 ones, never two copies of the
+    layer stack."""
+    for holder, key in _quantized_slots(params):
+        w = holder[key]
+        if is_quantized(w):
+            continue
+        qw = quantize_weight_torch(w)
+        holder[key] = None
+        del w
+        holder[key] = _packed(qw["q"], qw["s"]) if pack else qw
+    return params
+
+
+def pack_params_(params: dict) -> dict:
+    """Repack every JAX-layout {"q", "s"} weight of a port parameter dict
+    into the GEMM's {"qp", "s"}, in place (and return it)."""
+    for holder, key in _quantized_slots(params):
+        w = holder[key]
+        if isinstance(w, dict) and "q" in w:
+            holder[key] = _packed(w["q"], w["s"])
+    return params
+
+
+def unpack_weight(w: dict) -> dict:
+    """A quantized weight in the JAX layout {"q": int8 [in, out], "s"}."""
+    if "q" in w:
+        return w
+    from ..ops.int8_gemm import unpack_weight as unpack
+
+    return {"q": unpack(w["qp"], w["s"].shape[0]), "s": w["s"]}

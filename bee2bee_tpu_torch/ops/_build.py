@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bee2bee_tpu_torch"
 SOURCES = (
     "ragged_attention.cu", "ragged_prefill_attention.cu",
     "ragged_decode_attention.cu", "ragged_decode_attention_f32.cu",
-    "flash_attention.cu",
+    "flash_attention.cu", "int8_weight_gemm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

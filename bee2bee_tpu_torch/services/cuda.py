@@ -34,6 +34,7 @@ class CUDAService(BaseService):
         engine=None,
         engine_config=None,
         device=None,
+        lora_path: str | None = None,
     ):
         super().__init__("cuda")
         self.model_name = model_name
@@ -41,6 +42,7 @@ class CUDAService(BaseService):
         self.max_new_tokens = max_new_tokens
         self.engine = engine
         self._engine_config = engine_config
+        self._lora_path = lora_path
         self.device = resolve_device(device)
 
     # loading is split from construction so a node can announce before
@@ -53,6 +55,7 @@ class CUDAService(BaseService):
                 self.model_name,
                 engine_config=self._engine_config,
                 device=self.device,
+                lora_path=self._lora_path,
             )
         return self
 
@@ -66,6 +69,17 @@ class CUDAService(BaseService):
         if self.engine is not None:
             meta["engine"] = self.engine.info
             meta["measured"] = self.engine.metrics.snapshot()
+            resident = self.engine.resident_adapters()
+            if resident:
+                # per-adapter model names (adapters/): "<base>:<name>"
+                # rides hello/announce metadata so the mesh can route an
+                # adapter request straight to a node already holding it
+                from ..adapters import adapter_model_name
+
+                meta["adapters"] = resident
+                meta["models"] = [self.model_name] + [
+                    adapter_model_name(self.model_name, a) for a in resident
+                ]
         return meta
 
     def _gen_args(self, params: dict) -> dict:
@@ -88,8 +102,9 @@ class CUDAService(BaseService):
             "presence_penalty": float(params.get("presence_penalty", 0.0)),
             "frequency_penalty": float(params.get("frequency_penalty", 0.0)),
             "tenant": str(params.get("tenant") or "default"),
-            # multi-adapter serving is not ported: the engine raises for
-            # any adapter
+            # multi-adapter serving (adapters/): which pool adapter this
+            # generation decodes under (None = the base model). The engine
+            # raises a typed UnknownAdapter for anything not resident
             "adapter": params.get("adapter") or None,
         }
 

@@ -4,7 +4,10 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --ring-repro N`` runs only the build and the ring
 check's reproduction, ``ring_repro``; ``--node-profile N`` only the build
-and phase 9's second node N times, ``node_profile_rounds``.)
+and phase 9's second node N times, ``node_profile_rounds``; ``--only
+quant`` only the build, the int8-weight GEMM phase and the int8-weight
+slices; ``--only adapters`` only the build and the adapter phase over
+bf16 and int8 weights. Those print no result line.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -243,6 +246,46 @@ and the script exits non-zero):
    ``engine.compiles``; and a second turn (the first's transcript, its
    reply and a new user line) that counts one hit over the whole
    first-turn prompt.
+The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
+   its plain version (the JAX core.matmul formula) at llama-3-8b's four
+   projection shapes (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x
+   4096) and M in {1, 8, 40}: within 2^-6 of the largest |output| (two
+   bf16 ulps: the plain version rounds three times, the kernel once), one
+   launch a call, the same bytes twice; the grouped launches (wq|wk|wv,
+   w_up|w_gate) one launch each within the same tolerance; the M > 64
+   route (dequantize +
+   cuBLAS) once at M = 2048, equal to the plain version. Times at M = 8
+   (w_up also at 1 and 40), beside the bound, the plain version, cuBLAS
+   bf16 at the dequantized weight and torch._weight_int8pack_mm.
+   Phase 1 fails if an instantiation of the GEMM kernel spills.
+Adapters over the bf16 weights (after phase 7): an engine with 4 adapter
+   slots loads four random adapters (rank 16, all seven targets) from the
+   main thread; a mixed batch of 8 rows (2 base, 2 per adapter) against
+   an all-base batch of the same width, each admitted in one burst: base
+   rows' tokens equal, each adapter's rows differ; each adapter row's
+   served first-token logits no further from its merge_lora-merged f32
+   forward than twice the merged bf16 forward's distance; a hot swap (a
+   fifth adapter evicting the cold one, a refresh of an idle one) while
+   streamed rows on two adapters decode: their tokens equal a run
+   without it, the stacks keep their storage, decode chunks ran after
+   each write; the adapter-flagged decode, prefill and first-token keys
+   captured once each; the replayed B=8 decode step with rows on slots
+   [0, 0, 1, 1, 2, 2, 3, 3] against the all-base step (device busy, top
+   kernels); with the prefix cache on, an adapter prompt sent twice hits
+   0 times (a base prompt twice: once).
+The int8-weight slice (after the n-gram spec phase, its weights freed):
+   CUDAService("llama-3-8b") with quantize="int8", random from the seed
+   and quantized on the card as it loads, phase 6's traffic and checks
+   over a bf16 and an int8 pool (no ring check), plus: the int8-weight
+   GEMM launched 4 x n_layers times (wq|wk|wv and w_up|w_gate grouped) a
+   replayed decode step or prefill chunk of at most 64 tokens, the
+   dequantize route 4 x n_layers times a wider prefill chunk, both > 0; a decode chunk and a prefill chunk
+   replayed = eager bit for bit; the breakdown at B=8 and B=1 (the GEMM
+   kernels' share of busy); the logits of a 300-token prefill and 4
+   greedy steps no further from the f32 forward over the dequantized
+   weights q * s than twice the bf16 forward's distance; the ledger's
+   weights at most 0.58x the same weights in bf16. Then the adapter phase
+   over these int8 weights.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
    kernels' from phases 6, 7, 9, the prefix phase over the same pool and
@@ -375,7 +418,7 @@ def phase_device_and_build():
         for name, line in ptxas_entries(report):
             hd256 = name.split("<")[1].startswith("256")
             log(f"build: {source}: {name}: {line}")
-            if hd256 and name.startswith(HD256_FORMS):
+            if (hd256 and name.startswith(HD256_FORMS)) or name.startswith(GEMM_KERNEL):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{source}: {name} spills: {line}")
     return card, build_s
@@ -394,7 +437,7 @@ def ptxas_entries(report: str):
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"\d+((?:ragged|flash)_\w+?)I", mangled)
+            base = re.search(r"\d+((?:ragged|flash|int8)_\w+?)I", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
         elif "spill stores" in ln:
@@ -1078,6 +1121,189 @@ def phase_flash_vs_plain(flush):
 # ------------------------------------------------------------ phase 5
 
 
+# ------------------------------------------------------------ int8-weight GEMM
+
+
+# llama-3-8b's projections (K, N) and the token counts the roots give them:
+# decode (1, 8 rows) and the verify chunk at the spec shape (8 x (K+1))
+GEMM_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_up", 4096, 14336),
+               ("w_down", 14336, 4096))
+GEMM_MS = (1, 8, 40)
+# kernel vs plain version (both on the same bf16 x and int8 weight): the
+# kernel rounds once (f32 sum x f32 scale -> bf16), the plain version, the
+# JAX formula, rounds the dot, the scale and their product to bf16: each a
+# half ulp at most, so they part by at most 2 ulps of an output, and an
+# ulp of |y| is at most 2^-7 |y| (bf16 keeps 8 bits): the tolerance is
+# 2^-6 of the largest |output|
+GEMM_REL_TOL = 2.0 ** -6
+# a layer's int8-weight GEMM launches: wq|wk|wv and w_up|w_gate grouped,
+# wo and w_down alone
+GEMM_LAUNCHES_PER_LAYER = 4
+
+
+def gemm_counts() -> dict:
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul
+
+    return {"int8_gemm": int8_weight_matmul.launches,
+            "int8_gemm_dequant": int8_weight_matmul.dequant_launches}
+
+
+def reset_gemm_counts() -> None:
+    from bee2bee_tpu_torch.ops.int8_gemm import LAUNCH_COUNTERS, int8_weight_matmul
+
+    for name in LAUNCH_COUNTERS:
+        setattr(int8_weight_matmul, name, 0)
+
+
+def int8_weight(gen, K: int, N: int) -> tuple:
+    """A random bf16 [K, N] weight (the init's scale), quantized on the card
+    and packed: (packed weight dict, its dense bf16 twin q*s)."""
+    from bee2bee_tpu_torch.models.quant import quantize_weight_torch
+    from bee2bee_tpu_torch.ops.int8_gemm import pack_weight
+
+    w = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w.mul_(1.0 / math.sqrt(K))
+    qw = quantize_weight_torch(w)
+    dense = (qw["q"].float() * qw["s"]).to(torch.bfloat16)
+    return {"qp": pack_weight(qw["q"]), "s": qw["s"]}, dense
+
+
+def phase_int8_gemm(flush) -> dict:
+    """The int8-weight GEMM (csrc/int8_weight_gemm.cu) against its plain
+    version at llama-3-8b's four projection shapes and M in GEMM_MS, one
+    launch a call, the same bytes twice; the M > 64 route (dequantize +
+    cuBLAS) once at M = 2048. Times at M = 8 (and w_up at 1 and 40), median
+    of 30 with L2 flushed, beside the bound (bytes: the int8 weight, its
+    f32 scales, x and y once), the plain version, cuBLAS bf16
+    ``torch.matmul`` at the dequantized weight (what the bf16 engine pays)
+    and ``torch._weight_int8pack_mm`` (PyTorch's own int8-weight op, the
+    library yardstick) where the card's torch has a CUDA kernel for it.
+    Returns {"err", "timing"} for the kernels line (w_up at M = 8)."""
+    from bee2bee_tpu_torch.ops.int8_gemm import (
+        gemm_plan, int8_weight_matmul, int8_weight_matmul_ref, _sm_count,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    worst = 0.0
+    out = {}
+    library_note = None
+    for name, K, N in GEMM_SHAPES:
+        w, dense = int8_weight(gen, K, N)
+        plan = gemm_plan(K, N, _sm_count(0))
+        for M in GEMM_MS:
+            x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+            before = int8_weight_matmul.launches
+            y = int8_weight_matmul(x, w)
+            y2 = int8_weight_matmul(x, w)
+            torch.cuda.synchronize()
+            launched = int8_weight_matmul.launches - before
+            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+            exact = (x.float() @ dense.float())  # the f32 product of the same operands
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err_f32 = (y.float() - exact).abs().max().item()
+            rel = err / scale
+            worst = max(worst, rel)
+            log(f"int8 GEMM {name} [{K}, {N}] M={M} (plan: cluster {plan[0]}, "
+                f"{plan[1]} chunks a rank): max abs err vs plain {err:.3e}, relative "
+                f"{rel:.3e} (tol {GEMM_REL_TOL:.3e} of max |y| {scale:.3f}); vs the "
+                f"f32 product {err_f32:.3e}; launches {launched}; same bytes twice "
+                f"{torch.equal(y, y2)}")
+            check(bool(torch.isfinite(y).all()), f"int8 GEMM {name} M={M}: non-finite")
+            check(rel <= GEMM_REL_TOL, f"int8 GEMM {name} M={M}: relative error {rel}")
+            check(launched == 2, f"int8 GEMM {name} M={M}: {launched} launches for 2 calls")
+            check(torch.equal(y, y2), f"int8 GEMM {name} M={M}: two calls differ")
+            timed = (M == 8) or (name == "w_up")
+            if not timed:
+                continue
+            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            bnd = bounds(nbytes, 2 * M * K * N, torch.bfloat16)
+            ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush)
+            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["qp"], w["s"]),
+                                    flush=flush)
+            cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
+            library_ms = None
+            try:
+                wt = w_nk = None
+                from bee2bee_tpu_torch.ops.int8_gemm import unpack_weight
+
+                w_nk = unpack_weight(w["qp"], N).t().contiguous()  # [N, K] int8
+                s_b = w["s"].to(torch.bfloat16)
+                wt = torch._weight_int8pack_mm(x, w_nk, s_b)
+                torch.cuda.synchronize()
+                lib_err = (wt.float() - ref.float()).abs().max().item()
+                library_ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_b),
+                                          flush=flush)
+                library_note = (f"torch._weight_int8pack_mm runs on this card "
+                                f"(max abs err vs plain {lib_err:.3e} at {name} M={M})")
+            except Exception as e:  # noqa: BLE001 — the op may have no CUDA kernel
+                library_note = (f"torch._weight_int8pack_mm has no CUDA kernel in "
+                                f"torch {torch.__version__}: {type(e).__name__}: "
+                                f"{str(e).splitlines()[0][:160]}")
+            del wt, w_nk
+            lib = f"{library_ms:.4f}" if library_ms is not None else "n/a"
+            log(f"int8 GEMM {name} [{K}, {N}] M={M}: kernel {ms:.4f} ms, "
+                f"{bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; plain "
+                f"{plain_ms:.4f} ms; cuBLAS bf16 matmul at the dequantized weight "
+                f"{cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib} ms")
+            out[(name, M)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                                  bound_by=bnd["bound_by"], library_ms=library_ms,
+                                  cublas_ms=cublas_ms, err=err)
+        del w, dense
+    log(f"int8 GEMM: {library_note}")
+    # the grouped launch (wq|wk|wv, w_up|w_gate at M = 8): one launch, each
+    # output within the tolerance of its plain version
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_group
+
+    for label, K, Ns in (("wq|wk|wv", 4096, (4096, 1024, 1024)),
+                         ("w_up|w_gate", 4096, (14336, 14336))):
+        ws = [int8_weight(gen, K, N)[0] for N in Ns]
+        x = torch.randn((8, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+        before = int8_weight_matmul.launches
+        ys = int8_weight_matmul_group(x, ws)
+        torch.cuda.synchronize()
+        launched = int8_weight_matmul.launches - before
+        rels = []
+        for y, w in zip(ys, ws):
+            ref = int8_weight_matmul_ref(x, w["qp"], w["s"]).float()
+            rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
+        ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
+        apart = cuda_time_ms(lambda: [int8_weight_matmul(x, w) for w in ws], flush=flush)
+        log(f"int8 GEMM grouped {label} M=8: relative errors vs plain "
+            f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_REL_TOL:.3e}); launches {launched}; "
+            f"{ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches apart")
+        check(launched == 1, f"int8 GEMM grouped {label}: {launched} launches")
+        check(max(rels) <= GEMM_REL_TOL, f"int8 GEMM grouped {label}: errors {rels}")
+        worst = max(worst, *rels)
+        del ws
+    # the M > 64 route: the weight dequantized into bf16 scratch, cuBLAS
+    # bf16, then the scale (the JAX formula); counted apart
+    name, K, N = GEMM_SHAPES[2]
+    w, dense = int8_weight(gen, K, N)
+    x = torch.randn((2048, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+    before = gemm_counts()
+    y = int8_weight_matmul(x, w)
+    torch.cuda.synchronize()
+    after = gemm_counts()
+    ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+    err = (y.float() - ref.float()).abs().max().item()
+    ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush, reps=10)
+    cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
+    log(f"int8 GEMM {name} M=2048 (the dequantize + cuBLAS route): max abs err vs "
+        f"plain {err:.3e}; launches {after['int8_gemm'] - before['int8_gemm']} kernel, "
+        f"{after['int8_gemm_dequant'] - before['int8_gemm_dequant']} dequant; "
+        f"{ms:.4f} ms against cuBLAS bf16 at a bf16 weight {cublas_ms:.4f} ms")
+    check(after["int8_gemm_dequant"] - before["int8_gemm_dequant"] == 1
+          and after["int8_gemm"] == before["int8_gemm"],
+          f"int8 GEMM M=2048: launches {before} -> {after}")
+    check(err == 0.0, f"int8 GEMM M=2048: the dequant route differs from plain by {err}")
+    del w, dense, x, y, ref
+    torch.cuda.empty_cache()
+    log(f"int8 GEMM: worst relative error {worst:.3e} (tol {GEMM_REL_TOL:.3e})")
+    return {"err": out[("w_up", 8)]["err"], "timing": out[("w_up", 8)], "all": out}
+
+
 def gemma_attention_config():
     """gemma-2-9b's attention geometry (models/config.py) on the llama
     architecture the port runs, 2 layers: d_model 3584, 16 heads over 8 kv
@@ -1312,6 +1538,8 @@ def cast_tree(tree, dtype):
 
 # the port's attention kernels by (part of) name: the ragged kernels (the
 # decode kernel's split walk and merge) and the flash kernels, f32 forms too
+# the int8-weight GEMM kernel's name in a profile
+GEMM_KERNEL = "int8_weight_gemm_kernel"
 ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "ragged_decode_",
                      "flash_tile_kernel", "ragged_prefill_f32_kernel",
                      "flash_tile_f32_kernel")
@@ -1344,9 +1572,10 @@ def device_profile(fn, calls: int, launches: int, tries: int = 3):
     busy_us = sum(t for _, t in kernels)
     check(busy_us > 0, "the profiler saw no device time")
     attn_us = sum(t for k, t in kernels if any(n in k for n in ATTENTION_KERNELS))
+    gemm_us = sum(t for k, t in kernels if GEMM_KERNEL in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
     return (busy_us / 1e3 / calls, attn_us / 1e3 / calls,
-            [(k[:48], round(t / busy_us, 3)) for k, t in top])
+            [(k[:48], round(t / busy_us, 3)) for k, t in top], gemm_us / 1e3 / calls)
 
 
 def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, full=True):
@@ -1408,13 +1637,15 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        busy_ms, attn_ms, top = device_profile(fn, calls, cfg.n_layers * calls)
+        busy_ms, attn_ms, top, gemm_ms = device_profile(fn, calls, cfg.n_layers * calls)
+        gemm = (f"; int8-weight GEMM kernels {gemm_ms:.3f} ms a call "
+                f"({gemm_ms / busy_ms:.3f} of busy)" if gemm_ms else "")
         log(f"breakdown {label}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}; "
             f"attention kernels {attn_ms / cfg.n_layers:.4f} ms per launch "
-            f"({attn_ms / busy_ms:.3f} of busy); "
+            f"({attn_ms / busy_ms:.3f} of busy){gemm}; "
             f"top kernels by device time {top}; card {card}")
-    weight_bytes = engine.info["n_params"] * engine.dtype.itemsize
+    weight_bytes = storage_bytes(engine.params)
     log(f"breakdown: weights {weight_bytes} B -> "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms per step at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s")
@@ -1935,16 +2166,17 @@ def pool_bytes(engine) -> int:
                for t in engine.scheduler._cache.values())
 
 
-def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16"):
+def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16", quantize="none"):
     """CUDAService over llama-3-8b computing in ``dtype``: a random init
-    from SEED, or the given parameters (in ``dtype``) shared with another
-    engine (no second init)."""
+    from SEED (with ``quantize="int8"`` quantized on the card as it loads),
+    or the given parameters (in ``dtype``; int8 ones already packed) shared
+    with another engine (no second init)."""
     from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
     from bee2bee_tpu_torch.services import CUDAService
 
     ecfg = EngineConfig(
         max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
-        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype,
+        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype, quantize=quantize,
     )
     t0 = time.perf_counter()
     engine = None
@@ -2045,19 +2277,25 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
         f"{g['scheduled_tokens_total']} scheduled); card {card}")
 
 
-def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"):
+def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16",
+                quantize="none"):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
-    just before and read just after. The bf16 slices (phases 6-7) then run
-    the ring check, the replayed-vs-eager chunk and the whole breakdown;
-    the f32 slice (phase 8) the replayed-vs-eager chunk over the int8 pool
-    and the replayed B=8 step's breakdown. Returns (the launch counts,
-    pool bytes, the engine's params)."""
+    just before and read just after. The bf16 slices (phases 6-7 and the
+    int8-weight slices) then run the ring check (not with int8 weights),
+    the replayed-vs-eager chunk and the whole breakdown; the f32 slice
+    (phase 8) the replayed-vs-eager chunk over the int8 pool and the
+    replayed B=8 step's breakdown. With ``quantize="int8"`` the int8-weight
+    GEMM's launches are held to the replays (``check_int8_gemm_launches``).
+    Returns (the launch counts, pool bytes, the engine's params)."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
     int8 = cache_dtype == "int8"
     bf16 = dtype == "bfloat16"
+    qw = quantize == "int8"
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    svc, load_s = load_slice(cache_dtype, params, dtype)
+    svc, load_s = load_slice(cache_dtype, params, dtype, quantize)
     engine = svc.engine
     cfg = engine.model_cfg
     G = cfg.n_heads // cfg.n_kv_heads
@@ -2068,6 +2306,8 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     suffix = "_int8" if int8 else ""
     dec, tile = RAGGED_COUNTERS[dec_kernel] + suffix, RAGGED_COUNTERS[tile_kernel] + suffix
     tag = f"slice[{cache_dtype} pool]" if bf16 else f"slice[{dtype}, {cache_dtype} pool]"
+    if qw:
+        tag = f"slice[int8 weights, {cache_dtype} pool]"
     log(f"{tag}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
         f"loaded ({'shared params' if params is not None else 'random init'}, "
         f"seed {SEED}) in {load_s:.2f} s; {engine.info['n_params']} params")
@@ -2110,9 +2350,13 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
             return forward(tokens, *args, **kw)
 
         engine.forward = counted_forward
+        # every root run by key: the int8-weight GEMM's route follows the
+        # prefill bucket (M = bucket)
+        roots_run = record_roots(engine)
         dispatches = record_dispatches(engine)
         since = graph_stats(engine, tag)
         reset_counts()
+        reset_gemm_counts()
         engine.forward_calls = 0
         t1 = time.perf_counter()
         threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
@@ -2128,8 +2372,10 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         ))
         torch.cuda.synchronize()
         counts = read_counts()
+        gemm = gemm_counts()
         forwards = engine.forward_calls
         engine.forward = forward
+        peak = torch.cuda.max_memory_allocated()
         graphs = graph_stats(engine, tag, since)
         for i, r in enumerate(results):
             check(r is not None and isinstance(r.get("text"), str),
@@ -2155,7 +2401,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
             f"the last first token -> {(new_tokens - len(results)) / decode_s:.2f} "
             f"decode tok/s; TTFT {min(r['ttft_ms'] for r in results)}-"
             f"{max(r['ttft_ms'] for r in results)} ms; peak memory "
-            f"{torch.cuda.max_memory_allocated()} B; pool {nbytes} B "
+            f"{peak} B; pool {nbytes} B "
             f"({engine.pool_blocks} blocks); card {card}")
         # every prefill chunk and decode step the path served is a graph
         # replay (one forward each, counted back by the replay); the eager
@@ -2199,16 +2445,548 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
               f"decode steps")
         others = {k: v for k, v in counts.items() if k not in (dec, tile) and v}
         check(not others, f"{tag}: other kernel forms launched: {others}")
+        check_int8_gemm_launches(engine, tag, gemm, roots_run, qw)
+        if qw:
+            counts.update(gemm)
         check_economics(engine, tag, card, dispatches, wall)
-        if bf16:
+        if bf16 and not qw:
             ring_check(engine, tag)
         if bf16 or int8:
             graph_vs_eager(engine, tag)
         prefill_vs_eager(engine, tag)
         step_breakdown(engine, card, full=bf16)
+        if qw and not int8:
+            int8_weight_logits(engine, tag)
         return counts, nbytes, engine.params
     finally:
         engine.close()
+
+
+def record_roots(engine) -> list:
+    """(root, key, times) of every root the scheduler runs from now on."""
+    sch = engine.scheduler
+    run = sch._run_root
+    out: list = []
+
+    def recorded(root, key, times=1):
+        out.append((root, key, times))
+        return run(root, key, times)
+
+    sch._run_root = recorded
+    return out
+
+
+def check_int8_gemm_launches(engine, tag: str, gemm: dict, roots_run: list,
+                             quantized: bool) -> None:
+    """With int8 weights every projection of a replayed forward goes
+    through the int8-weight GEMM: 4 launches a layer (wq|wk|wv and
+    w_up|w_gate grouped, wo, w_down), the kernel for a decode or verify
+    step and a prefill chunk of at most MAX_KERNEL_M tokens (the bucket),
+    the dequantize + cuBLAS route for wider chunks. Dense weights launch
+    neither."""
+    from bee2bee_tpu_torch.ops.int8_gemm import MAX_KERNEL_M
+
+    per = GEMM_LAUNCHES_PER_LAYER * engine.model_cfg.n_layers
+    narrow = sum(t for root, key, t in roots_run
+                 if root in ("decode", "spec_verify")
+                 or (root == "prefill" and key[0] <= MAX_KERNEL_M))
+    wide = sum(t for root, key, t in roots_run
+               if root == "prefill" and key[0] > MAX_KERNEL_M)
+    want = ({"int8_gemm": per * narrow, "int8_gemm_dequant": per * wide}
+            if quantized else {"int8_gemm": 0, "int8_gemm_dequant": 0})
+    log(f"{tag}: int8-weight GEMM launches {gemm} ({narrow} replays of <= "
+        f"{MAX_KERNEL_M} tokens, {wide} wider prefill replays; {per} launches a "
+        f"forward)")
+    check(gemm == want, f"{tag}: int8-weight GEMM launches {gemm}, expected {want}")
+    if quantized:
+        check(gemm["int8_gemm"] > 0 and gemm["int8_gemm_dequant"] > 0,
+              f"{tag}: both GEMM routes should have run: {gemm}")
+
+
+def bf16_weight_bytes(params) -> int:
+    """The bytes the same weights take dense in bf16 (an int8 weight
+    counted as its [K, N] bf16 twin; the scales not at all)."""
+    total = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict) and "qp" in node:
+            total += 2 * node["qp"].numel()
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, list):
+            stack.extend(node)
+        else:
+            total += 2 * node.numel()
+    return total
+
+
+def logits_run(cfg, ids, new_steps: int = 4):
+    """run(params, adapter=None) -> (prefill logits [T, V], step logits
+    [new_steps, V], greedy tokens): a whole forward of ``ids`` through the
+    kernels the rule names over a fresh pool in the weights' type, then
+    greedy steps.
+    ``adapter``: (stacks, slot id, scales) of an adapter pool."""
+    from bee2bee_tpu_torch.models import core
+
+    n = len(ids)
+    BS = 16
+    nblocks = -(-(n + new_steps) // BS)
+    MB = 1 << (nblocks - 1).bit_length()
+    tables = torch.zeros((1, MB), dtype=torch.int32, device="cuda")
+    tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
+    tok_ids = torch.tensor([ids], device="cuda")
+
+    def run(params, adapter=None):
+        # the pool in the forward's type (the embedding's): bf16 or f32
+        pool = core.init_paged_pool(cfg, nblocks + 1, BS, params["tok_embed"].dtype,
+                                    "cuda")
+        kw = {}
+        if adapter is not None:
+            stacks, slot, scales = adapter
+            kw = dict(adapters=stacks, adapter_scales=scales,
+                      adapter_ids=torch.tensor([slot], device="cuda"))
+        logits, _ = core.forward(params, cfg, tok_ids, pool, 0, tables, **kw)
+        steps, toks = [], []
+        last = logits[:, -1]
+        for i in range(new_steps):
+            tok = torch.argmax(last, dim=-1)
+            toks.append(int(tok))
+            lg, _ = core.forward(params, cfg, tok[:, None], pool, n + i, tables, **kw)
+            last = lg[:, -1]
+            steps.append(last)
+        return logits[0], torch.cat(steps) if steps else None, toks
+
+    return run
+
+
+def _dense(node, dtype):
+    from bee2bee_tpu_torch.models.quant import is_quantized, unpack_weight
+
+    if is_quantized(node):
+        w = unpack_weight(node)
+        return (w["q"].float() * w["s"]).to(dtype)
+    if isinstance(node, dict):
+        return {k: _dense(v, dtype) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_dense(v, dtype) for v in node]
+    return node.to(dtype).clone()
+
+
+def int8_weight_logits(engine, tag: str) -> None:
+    """The int8-weight engine's forward (300-token prefill through the
+    dequantize route, 4 greedy steps through the kernel) against the bf16
+    forward over the dequantized weights q * s: its logits no further from
+    that than that is from its f32 twin (phase 5's rule); greedy tokens
+    printed."""
+    cfg = engine.model_cfg
+    gen = np.random.default_rng(SEED + 6)
+    ids = gen.integers(3, 259, size=300).tolist()
+    run = logits_run(cfg, ids)
+    q_pre, q_steps, q_toks = run(engine.params)
+    dense = _dense(engine.params, torch.bfloat16)
+    b_pre, b_steps, b_toks = run(dense)
+    del dense
+    torch.cuda.empty_cache()
+    dense = _dense(engine.params, torch.float32)
+    f_pre, f_steps, f_toks = run(dense)
+    del dense
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(q_pre).all() and torch.isfinite(q_steps).all()),
+          f"{tag}: non-finite logits")
+    def dist(a, b):
+        return max((a[0] - b[0]).abs().max().item(), (a[1] - b[1]).abs().max().item())
+
+    # the int8-weight forward and the dense bf16 one are two bf16
+    # computations of the same f32 function (weights q * s), rounding in
+    # different places (the int8 path never rounds a weight): the int8
+    # forward may sit no further from the f32 twin than twice the bf16
+    # forward's distance from it (the prefix phase's rule)
+    q, b, f = (q_pre, q_steps), (b_pre, b_steps), (f_pre, f_steps)
+    err, gap, vs_bf16 = dist(q, f), dist(b, f), dist(q, b)
+    log(f"{tag} logits: int8-weight forward (300-token prefill, 4 greedy steps) vs the "
+        f"f32 forward over the dequantized weights: max abs {err:.4e} (tol {2 * gap:.4e}, "
+        f"twice the bf16 forward's distance {gap:.4e}); vs that bf16 forward "
+        f"{vs_bf16:.4e}; greedy int8 {q_toks} bf16 {b_toks} f32 {f_toks}")
+    check(err <= 2 * gap, f"{tag}: int8-weight logits {err} from the f32 forward, beyond "
+          f"twice the bf16 forward's {gap}")
+
+
+def phase_int8_weights(card: str) -> dict:
+    """The int8-weight slice: llama-3-8b random from SEED, quantized on the
+    card as it loads (``quantize="int8"``), served over a bf16 pool and
+    over an int8 pool (the same int8 weights), with phase 6's traffic and
+    checks plus the int8-weight GEMM's launch identities, the logits
+    against the dequantized bf16 forward, and the ledger's weights at most
+    0.58x the bf16 engine's. Returns the launch counts (both pools summed)
+    and the int8 params."""
+    counts, _, params = phase_slice(card, "bfloat16", quantize="int8")
+    int8_counts, _, _ = phase_slice(card, "int8", params=params, quantize="int8")
+    weights = storage_bytes(params)
+    dense = bf16_weight_bytes(params)
+    ratio = weights / dense
+    log(f"int8 weights: ledger weights {weights} B vs {dense} B for the same weights in "
+        f"bf16 -> {ratio:.4f}x (packed int8 + f32 scales + the bf16 embedding and LM "
+        f"head)")
+    check(ratio <= 0.58, f"int8 weights take {ratio:.4f}x the bf16 weights' bytes")
+    for k, v in int8_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return {"counts": counts, "params": params}
+
+
+# ------------------------------------------------------------ adapter phase
+
+
+ADAPTER_RANK = 16
+ADAPTER_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# B's std: each target's delta about 0.2 of its projection (rank 16,
+# scaling 1): enough to move greedy tokens on random weights
+ADAPTER_B_STD = 0.05
+ADAPTER_NEW = 48
+# the mixed batch: 2 base rows, 2 per adapter
+ADAPTER_ROWS = (None, None, "a1", "a1", "a2", "a2", "a3", "a3")
+# the hot swap's streamed rows: 10 chunks of 32 tokens, one a pass
+SWAP_NEW = 320
+
+
+def random_adapter(cfg, seed: int):
+    """An adapter at rank 16 over all seven targets, random from ``seed``,
+    made on the card: A ~ N(0, 1/din), B ~ N(0, ADAPTER_B_STD^2)."""
+    from bee2bee_tpu_torch.train.lora import LoraConfig, adapter_target_io
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    io = adapter_target_io(cfg)
+    L, r = cfg.n_layers, ADAPTER_RANK
+    adapters = {}
+    for t in ADAPTER_TARGETS:
+        din, dout = io[t]
+        a = torch.randn((L, din, r), generator=gen, device="cuda") / math.sqrt(din)
+        b = torch.randn((L, r, dout), generator=gen, device="cuda") * ADAPTER_B_STD
+        adapters[t] = {"a": a, "b": b}
+    return adapters, LoraConfig(rank=r, alpha=float(r), targets=ADAPTER_TARGETS)
+
+
+def adapter_prompts(tokenizer) -> list:
+    """8 prompts of 150-290 byte tokens, one a row."""
+    words = ("adapters ride the same batch as the base model and each row "
+             "gathers its own low rank factors in one replayed step ").split()
+    out = []
+    for r in range(8):
+        text, i = "", 0
+        n = 150 + 20 * r
+        while len(text) < n:
+            text += words[(i * 5 + r) % len(words)] + " "
+            i += 1
+        out.append(tokenizer.encode(text[:n]))
+    return out
+
+
+def adapter_engine(params, quantized: bool, prefix_entries: int = 0):
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+                        rng_seed=SEED, max_adapters=4,
+                        quantize="int8" if quantized else "none",
+                        prefix_cache_entries=prefix_entries)
+    return InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
+
+
+def adapter_burst(engine, prompts, rows, new_tokens=ADAPTER_NEW, on_first=None,
+                  stream: bool = False):
+    """Greedy requests, row i under adapter rows[i], queued together (one
+    admission burst), ``stream``: through generate_stream (a window of one
+    chunk: the scheduler's passes come a chunk apart); returns (token ids
+    per row, wall s, end times)."""
+    from bee2bee_tpu_torch.engine.introspect import device_gate
+
+    out: list = [None] * len(prompts)
+    ends: list = [0.0] * len(prompts)
+    errors: list = []
+
+    def call(i):
+        try:
+            if stream:
+                for ev in engine.generate_stream(prompts[i], max_new_tokens=new_tokens,
+                                                 temperature=0.0, adapter=rows[i]):
+                    if ev.get("done"):
+                        out[i] = ev["result"].token_ids
+            else:
+                out[i] = engine.generate(prompts[i], max_new_tokens=new_tokens,
+                                         temperature=0.0, adapter=rows[i]).token_ids
+            ends[i] = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append((i, repr(e)))
+
+    sch = engine.scheduler
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    with device_gate.transition():
+        for t in threads:
+            t.start()
+        while len(sch._queue) < len(prompts):
+            time.sleep(0.001)
+    if on_first is not None:
+        on_first()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "adapters: generate calls hung")
+    check(not errors, f"adapters: generate failed: {errors}")
+    return out, wall, ends
+
+
+def served_first_logits(engine) -> dict:
+    """Wrap the scheduler's first-token sample: {row's prompt (tuple),
+    adapter: the prefill root's last logits (f32 copy)}."""
+    sch = engine.scheduler
+    first = sch._first_token
+    got: dict = {}
+
+    def hooked(req, b):
+        got[(tuple(req.ids), req.adapter)] = sch._p_logits[0].clone()
+        return first(req, b)
+
+    sch._first_token = hooked
+    return got
+
+
+def adapter_step_profile(engine, tag: str, card: str) -> None:
+    """The replayed decode step at B=8 ctx 1024 with rows on slots [0, 0, 1,
+    1, 2, 2, 3, 3] against the all-base step: host wall, device busy and
+    the top kernels (where a grouped LoRA kernel would pay)."""
+    sch = engine.scheduler
+    key, v, load = decode_state(engine, B=8, ctx=1024)
+    mixed = key[:3] + (True,) + key[4:]
+    sch._d_aids[:8] = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], device="cuda")
+    for label, k in (("all-base", key), ("mixed", mixed)):
+        graph = sch._graphs.get(("decode", k)) or sch._capture(k)
+        load()
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            graph.replay()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 100.0
+        busy, _, top, gemm = device_profile(graph.replay, 10, 10 * engine.model_cfg.n_layers)
+        log(f"{tag}: replayed decode step B=8 ctx 1024, {label} rows (key {k}): host "
+            f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.3f}; int8-weight GEMM {gemm:.3f} ms; top kernels {top}; "
+            f"card {card}")
+    sch._d_aids.zero_()
+    sch._row_params_dirty = True
+
+
+def phase_adapters(card: str, params, quantized: bool) -> dict:
+    """Multi-LoRA serving over ``params`` (bf16, or int8 packed): an
+    engine with 4 adapter slots loads three random adapters (rank 16, all
+    seven targets) from the main thread (their device writes run on the
+    scheduler thread). Checks: a mixed batch (2 base rows, 2 per adapter)
+    against an all-base batch of the same width: base rows' tokens equal,
+    each adapter's rows different; each adapter row's served first-token
+    logits no further from a merge_lora-merged forward of that adapter
+    (bf16) than that forward is from its f32 twin; a hot swap mid-
+    generation (a fourth adapter evicting the cold one, a refresh of an
+    idle one) leaves the running rows' tokens as a run without it; with the
+    prefix cache on, adapter rows never hit; the adapter-flagged decode,
+    prefill and first-token keys captured once each. Prints mixed vs
+    all-base tok/s and the replayed mixed step's profile. Returns the
+    launch counts of the mixed burst."""
+    from bee2bee_tpu_torch.train.lora import merge_lora
+
+    tag = f"adapters[{'int8' if quantized else 'bf16'} weights]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = adapter_engine(params, quantized)
+    cfg = engine.model_cfg
+    try:
+        pool = engine.adapter_pool
+        made = {name: random_adapter(cfg, SEED + 100 + i)
+                for i, name in enumerate(("cold", "a1", "a2", "a3", "a4", "a3b"))}
+        # what a load gets: numpy factors, as from an .npz or a DHT fetch
+        # (the device copies stay for the merged reference forwards)
+        host = {name: ({t: {k: v.cpu().numpy() for k, v in ab.items()}
+                        for t, ab in adapters.items()}, lcfg)
+                for name, (adapters, lcfg) in made.items()}
+        t0 = time.perf_counter()
+        for name in ("cold", "a1", "a2", "a3"):
+            engine.load_adapter(name, *host[name])
+        load_s = time.perf_counter() - t0
+        stacks, scales = pool.device_args()
+        addrs = {t: (ab["a"].data_ptr(), ab["b"].data_ptr()) for t, ab in stacks.items()}
+        log(f"{tag}: 4 adapters loaded in {load_s:.3f} s (rank {pool.rank}, targets "
+            f"{pool.targets}); stacks {storage_bytes(stacks)} B; ledger adapter_pool "
+            f"{engine.introspect.refresh()['hbm']['components'].get('adapter_pool')} B")
+        prompts = adapter_prompts(engine.tokenizer)
+        base_rows = (None,) * 8
+        base_toks, base_wall, _ = adapter_burst(engine, prompts, base_rows)
+        logits = served_first_logits(engine)
+        reset_counts()
+        reset_gemm_counts()
+        mixed_toks, mixed_wall, _ = adapter_burst(engine, prompts, ADAPTER_ROWS)
+        torch.cuda.synchronize()
+        counts = {**read_counts(), **gemm_counts()}
+        engine.scheduler._first_token = type(engine.scheduler)._first_token.__get__(
+            engine.scheduler)
+        n_tok = 8 * ADAPTER_NEW
+        log(f"{tag}: all-base batch {n_tok} tokens in {base_wall:.3f} s -> "
+            f"{n_tok / base_wall:.2f} tok/s; mixed batch (rows {ADAPTER_ROWS}) in "
+            f"{mixed_wall:.3f} s -> {n_tok / mixed_wall:.2f} tok/s "
+            f"({base_wall / mixed_wall:.3f}x); launches {counts}; card {card}")
+        for i, name in enumerate(ADAPTER_ROWS):
+            if name is None:
+                check(mixed_toks[i] == base_toks[i],
+                      f"{tag}: base row {i} differs in the mixed batch: {mixed_toks[i]} "
+                      f"vs {base_toks[i]}")
+        for name in ("a1", "a2", "a3"):
+            rows = [i for i, n in enumerate(ADAPTER_ROWS) if n == name]
+            check(any(mixed_toks[i] != base_toks[i] for i in rows),
+                  f"{tag}: adapter {name} left its rows' greedy tokens unchanged")
+        log(f"{tag}: base rows equal the all-base batch's; adapter rows' first "
+            f"divergence from base at token "
+            f"{[next((j for j, (x, y) in enumerate(zip(mixed_toks[i], base_toks[i])) if x != y), None) for i in range(2, 8)]}")
+        # first-token logits against merge_lora-merged forwards, one adapter
+        # at a time: bf16 (the merge's own cast), then f32 (in place on one
+        # f32 copy, the delta added and taken off again)
+        refs: dict = {}
+        for name in ("a1", "a2", "a3"):
+            i = ADAPTER_ROWS.index(name)
+            run = logits_run(cfg, prompts[i], new_steps=0)
+            base = params if not quantized else _dense(params, torch.bfloat16)
+            merged = merge_lora(base, *made[name])
+            refs[name] = [run(merged)[0][-1]]
+            del merged, base
+            gc.collect()
+            torch.cuda.empty_cache()
+        dense32 = _dense(params, torch.float32)
+        for name in ("a1", "a2", "a3"):
+            i = ADAPTER_ROWS.index(name)
+            run = logits_run(cfg, prompts[i], new_steps=0)
+            adapters, lcfg = made[name]
+            for sign in (1.0, -1.0):
+                for t, ab in adapters.items():
+                    grp = "attn" if t in ("wq", "wk", "wv", "wo") else "mlp"
+                    for li, lp in enumerate(dense32["layers"]):
+                        lp[grp][t].add_((ab["a"][li] @ ab["b"][li]) * (sign * lcfg.scaling))
+                if sign > 0:
+                    refs[name].append(run(dense32)[0][-1])
+        del dense32
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("a1", "a2", "a3"):
+            i = ADAPTER_ROWS.index(name)
+            served = logits[(tuple(prompts[i]), name)]
+            b16, f32 = refs[name]
+            # served and the merged bf16 forward are two bf16 computations of
+            # the merged f32 function: the served logits may sit no further
+            # from it than twice the merged bf16 forward's distance (the
+            # prefix phase's rule)
+            err = (served - f32).abs().max().item()
+            tol = 2.0 * (b16 - f32).abs().max().item()
+            log(f"{tag}: adapter {name} first-token logits vs its merge_lora-merged "
+                f"forward (f32): max abs {err:.4e} (tol {tol:.4e}: twice the merged "
+                f"bf16 forward's distance from it); vs the merged bf16 forward "
+                f"{(served - b16).abs().max().item():.4e}; argmax served "
+                f"{int(served.argmax())} merged bf16 {int(b16.argmax())} f32 "
+                f"{int(f32.argmax())}")
+            check(err <= tol, f"{tag}: adapter {name} logits {err} > {tol}")
+        # hot swap: rows on a1/a2 (and base) generate while a4 is loaded
+        # (evicting the LRU idle adapter, "cold") and a3 is refreshed
+        swap_rows = (None, "a1", "a2", None, "a1", "a2", None, "a1")
+        # streamed rows: one chunk a pass, so the swap's device writes
+        # (queued for the scheduler's next pass) land between two chunks of
+        # the running rows
+        ref_toks, _, _ = adapter_burst(engine, prompts, swap_rows, new_tokens=SWAP_NEW,
+                                       stream=True)
+        sch = engine.scheduler
+        swapped: dict = {}
+
+        def swap():
+            t0 = time.perf_counter()
+            while sch.stats.chunks == swapped.setdefault("c0", sch.stats.chunks):
+                time.sleep(0.001)
+            swapped["active"] = sch.active
+            swapped["wait_s"] = time.perf_counter() - t0
+            # each load's device writes run on the scheduler thread between
+            # two passes; the chunk count read there after each says how
+            # many chunks the rows had dispatched before it
+            for name, made_as in (("a4", "a4"), ("a3", "a3b")):
+                t1 = time.perf_counter()
+                engine.load_adapter(name, *host[made_as])
+                sch.run_on_device(lambda n=name: swapped.update({n: sch.stats.chunks}))
+                swapped[name + "_s"] = time.perf_counter() - t1
+
+        evictions = pool.evictions
+        swap_toks, swap_wall, ends = adapter_burst(engine, prompts, swap_rows,
+                                                   new_tokens=SWAP_NEW, stream=True,
+                                                   on_first=swap)
+        late = min(sch.stats.chunks - swapped[n] for n in ("a4", "a3"))
+        stacks2, scales2 = pool.device_args()
+        same_addrs = all((ab["a"].data_ptr(), ab["b"].data_ptr()) == addrs[t]
+                         for t, ab in stacks2.items()) and scales2 is scales
+        log(f"{tag}: hot swap with {swapped['active']} rows running (after "
+            f"{swapped['wait_s']:.3f} s; loads {swapped['a4_s']:.3f} s and "
+            f"{swapped['a3_s']:.3f} s, chunks dispatched by then {swapped['a4']}, "
+            f"{swapped['a3']} of {sch.stats.chunks}; burst {swap_wall:.3f} s): resident "
+            f"{pool.resident()}, evictions +{pool.evictions - evictions}, {late} decode "
+            f"chunks ran after each write; the stacks kept their storage {same_addrs}; "
+            f"running rows' tokens equal the no-swap run's "
+            f"{swap_toks == ref_toks}")
+        check(swapped["active"] > 0 and late > 0, f"{tag}: the swap missed the generation")
+        check(pool.resident() == ["a1", "a2", "a3", "a4"]
+              and pool.evictions - evictions == 1, f"{tag}: resident {pool.resident()}")
+        check(same_addrs, f"{tag}: the adapter stacks moved")
+        check(swap_toks == ref_toks, f"{tag}: the hot swap changed running rows' tokens")
+        # the adapter-flagged keys of each root, captured once each
+        flagged = {}
+        for root, idx in (("decode", 3), ("prefill", 2), ("first_token", 3)):
+            keys = sch.stats.root_graphs.get(root, {"keys": {}})["keys"]
+            flagged[root] = {k: n for k, (n, _) in keys.items() if k[idx]}
+            check(flagged[root] and all(n == 1 for n in flagged[root].values()),
+                  f"{tag}: {root} adapter keys {flagged[root]}")
+        log(f"{tag}: adapter-flagged keys captured once each: {flagged}")
+        adapter_step_profile(engine, tag, card)
+    finally:
+        engine.close()
+    # the prefix cache: an adapter row's prompt is never matched or pinned
+    engine = adapter_engine(params, quantized, prefix_entries=16)
+    try:
+        engine.load_adapter("a1", *host["a1"])
+        p = adapter_prompts(engine.tokenizer)[0]
+        for adapter in ("a1", "a1"):
+            engine.generate(p, max_new_tokens=8, temperature=0.0, adapter=adapter)
+        hits_adapter = engine.scheduler.stats.prefix_hits
+        for _ in range(2):
+            engine.generate(p, max_new_tokens=8, temperature=0.0)
+        hits_base = engine.scheduler.stats.prefix_hits - hits_adapter
+        log(f"{tag}: prefix cache on: the same adapter prompt twice -> "
+            f"{hits_adapter} hits; the base prompt twice -> {hits_base} hit")
+        check(hits_adapter == 0 and hits_base == 1,
+              f"{tag}: prefix hits adapter {hits_adapter}, base {hits_base}")
+    finally:
+        engine.close()
+    del made, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_adapters_both(card: str) -> None:
+    """``--only adapters``: the adapter phase over random bf16 weights, then
+    over int8 weights (the int8-weight engine's own init)."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.params import init_params
+    from bee2bee_tpu_torch.models.quant import quantize_params_
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(get_config("llama-3-8b"), gen, "cuda", torch.bfloat16)
+    phase_adapters(card, params, quantized=False)
+    params = quantize_params_(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_adapters(card, params, quantized=True)
 
 
 # ------------------------------------------------------------ prefix phase
@@ -2269,9 +3047,9 @@ class PrefillWatch:
         self._orig = self.sch._prefill_chunk
         self.sch._prefill_chunk = self._wrapped
 
-    def _wrapped(self, chunk, bucket, pos, table, floor, ceil):
+    def _wrapped(self, chunk, bucket, pos, table, floor, ceil, aid=0):
         before = read_counts()
-        out = self._orig(chunk, bucket, pos, table, floor, ceil)
+        out = self._orig(chunk, bucket, pos, table, floor, ceil, aid)
         after = read_counts()
         self.chunks.append(dict(
             offset=pos, floor=floor, n=ceil, T=bucket,
@@ -2301,8 +3079,9 @@ def warm_prefill_keys(engine, tag: str, prompts, starts) -> None:
         n = len(p)
         bucket = C if C is not None and n - start > C else engine._bucket_for(n - start)
         for pos in prefill_chunk_positions(n, start, bucket, engine.max_seq_len):
-            keys.add(("prefill", (bucket, sch._table_width(ceil_div(min(pos + bucket, n), BS)))))
-    keys.add(("first_token", (False, False, False)))
+            keys.add(("prefill", (bucket, sch._table_width(ceil_div(min(pos + bucket, n), BS)),
+                                  False)))
+    keys.add(("first_token", (False, False, False, False)))
     todo = sorted(k for k in keys if k not in sch._graphs)
     t0 = time.perf_counter()
     for root, key in todo:
@@ -3337,6 +4116,24 @@ def phase_node(card: str) -> dict:
     return counts
 
 
+def run_only(card: str, which: str) -> int:
+    """``--only quant``: the int8-weight GEMM phase and the int8-weight
+    slices; ``--only adapters``: the adapter phase over bf16 and int8
+    weights. For iterating on this slice's phases; prints no result line."""
+    if which == "quant":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        phase_int8_gemm(flush)
+        del flush
+        torch.cuda.empty_cache()
+        phase_int8_weights(card)
+    elif which == "adapters":
+        phase_adapters_both(card)
+    else:
+        raise SystemExit(f"--only: quant or adapters, not {which!r}")
+    log(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3358,12 +4155,17 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--node-profile":
         return node_profile_rounds(card, int(sys.argv[2]))
+    only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" else None
+    if only is not None:
+        return run_only(card, only)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     stage("ragged vs plain")
     errs, timings = phase_ragged_vs_plain(flush)
     int8_errs, int8_timings = phase_ragged_vs_plain(flush, int8=True)
     stage("flash vs plain")
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
+    stage("int8-weight GEMM")
+    gemm = phase_int8_gemm(flush)
     del flush
     stage("forward parity")
     fwd_counts = phase_forward_parity()
@@ -3375,6 +4177,9 @@ def main() -> int:
     log(f"pool bytes: int8 {int8_pool} B vs bf16 {bf16_pool} B -> {ratio:.4f}x "
         f"(scales included)")
     check(ratio <= 0.502, f"int8 pool is {ratio:.4f}x the bf16 pool's bytes")
+    # multi-LoRA serving over the same bf16 weights
+    stage("adapters, bf16 weights")
+    adapter_counts = phase_adapters(card, params, quantized=False)
     # the prefix cache over the same bf16 weights, bf16 and int8 pools
     stage("prefix")
     prefix = {pool: phase_prefix(card, params, pool) for pool in ("bfloat16", "int8")}
@@ -3409,6 +4214,14 @@ def main() -> int:
     stage("spec, n-gram tier")
     spec_ngram = phase_spec_ngram(card, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int8 weights: a fresh random init quantized as it loads, served over a
+    # bf16 and an int8 pool, then multi-LoRA serving over them
+    stage("int8-weight slice")
+    int8w = phase_int8_weights(card)
+    stage("adapters, int8 weights")
+    adapter_counts_int8 = phase_adapters(card, int8w.pop("params"), quantized=True)
     gc.collect()
     torch.cuda.empty_cache()
     stage("node")
@@ -3529,6 +4342,21 @@ def main() -> int:
             "bee2bee_tpu/ops/ragged.py:107", 0, int8_errs["decode_f32"],
             int8_timings["decode_hd256_f32"]),
     ]
+    # the int8-weight GEMM: launches from the int8-weight slices (both
+    # pools) and the int8-weight adapter phase's mixed burst; times at w_up
+    # (4096 x 14336), M = 8
+    gemm_src = "bee2bee_tpu_torch/csrc/int8_weight_gemm.cu"
+    kernels.append(row(
+        "int8_weight_gemm", gemm_src, "bee2bee_tpu/models/core.py:408",
+        int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"],
+        gemm["err"], gemm["timing"]))
+    log("kernels: int8_weight_gemm replaces no Pallas kernel: the XLA-fused int8 "
+        "product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); its "
+        "library_ms is torch._weight_int8pack_mm at the same inputs (null where "
+        "the card's torch has no CUDA kernel for it)")
+    log(f"kernels: adapter phase launches (mixed bursts): bf16 weights "
+        f"{ {k: v for k, v in adapter_counts.items() if v} }, int8 weights "
+        f"{ {k: v for k, v in adapter_counts_int8.items() if v} }")
     log("kernels: the flash kernels have 0 launches on the main path: no "
         "serving path calls flash_attention (the engines attend through the "
         "ragged op); the ragged row kernel has 0 there too: the rule names it "

@@ -7,9 +7,9 @@
   ``build_service("tpu", ...)`` raises and names ``serve-cuda``.
 - Every branch of the boot path that reaches a module the port does not
   have yet raises ``NotImplementedError`` naming its ROADMAP.md item, one
-  case each: weights publish and mesh join, a checkpoint, LoRA, adapters,
-  a mesh shape, the pipeline stage runner, and KV migration export and
-  import. The draft role runs: a port node hosts the drafter and serves a
+  case each: weights publish and mesh join, a checkpoint, a mesh shape,
+  the pipeline stage runner, KV migration export and import, and int8
+  weights beside f32 activations on the card. The draft role runs: a port node hosts the drafter and serves a
   draft.
 - ``NodeConfig().engine_config()`` is the port's ``EngineConfig`` with the
   ragged kernel's ``attention="auto"``.
@@ -31,12 +31,14 @@ from pathlib import Path
 import pytest
 from click.testing import CliRunner
 
-from bee2bee_tpu_torch import adapters, transport
+from bee2bee_tpu_torch import transport
 from bee2bee_tpu_torch.__main__ import cli
 from bee2bee_tpu_torch.config import NodeConfig
 from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+from bee2bee_tpu_torch.engine.engine import check_card_supported
 from bee2bee_tpu_torch.meshnet import runtime
 from bee2bee_tpu_torch.meshnet.node import P2PNode
+from bee2bee_tpu_torch.models.config import get_config
 from bee2bee_tpu_torch.services.cuda import CUDAService
 from bee2bee_tpu_torch.utils import get_accelerator_info
 
@@ -127,11 +129,9 @@ UNPORTED = {
                                          from_mesh=True)),
     "checkpoint": (10, lambda e, mp: runtime.build_service(
         "cuda", "tiny-llama", _cfg(), checkpoint_path="/nonexistent")),
-    "lora": (8, lambda e, mp: runtime.build_service(
-        "cuda", "tiny-llama", _cfg(), lora_path="adapters.npz")),
-    "adapters": (8, lambda e, mp: _run(backend="cuda", model="tiny-llama",
-                                       cfg=_cfg(adapters="a=a.npz"))),
-    "adapter_pool": (8, lambda e, mp: adapters.AdapterPool),
+    "int8_weights_f32_card": (18, lambda e, mp: check_card_supported(
+        get_config("llama-3-8b"), EngineConfig(dtype="float32", cache_dtype="float32",
+                                               quantize="int8"), "cuda")),
     "mesh_shape": (14, lambda e, mp: _run(backend="cuda", model="tiny-llama",
                                           cfg=_cfg(mesh_shape="data:1,model:8"))),
     "stage_runner": (13, lambda e, mp: _part_load(e)),
@@ -194,16 +194,15 @@ def test_serve_cuda_passes_spec_options_to_the_node(args, field, value, monkeypa
     assert getattr(ecfg, field) == value
 
 
-# each case keeps the id it had while --spec and --drafter (args3, args4)
-# were refused too
+# each case keeps the id it had while --spec and --drafter (args3, args4),
+# --lora, --quantize int8, --adapters and --max-adapters (args1, args2,
+# args5, args6) were refused too
 @pytest.mark.parametrize("args,item", [
-    (["--checkpoint", "ckpt"], 10), (["--lora", "a.npz"], 8),
-    (["--quantize", "int8"], 5),
-    (["--adapters", "a=a.npz"], 8), (["--max-adapters", "4"], 8),
+    (["--checkpoint", "ckpt"], 10),
     (["--mesh-shape", "model:8"], 14), (["--publish-weights"], 10), (["--from-mesh"], 10),
     (["--attention", "dense"], 12), (["--attention", "sp"], 14),
-], ids=[f"args{i}-{item}" for i, item in zip((0, 1, 2, 5, 6, 7, 8, 9, 10, 11),
-                                              (10, 8, 5, 8, 8, 14, 10, 10, 12, 14))])
+], ids=[f"args{i}-{item}" for i, item in zip((0, 7, 8, 9, 10, 11),
+                                              (10, 14, 10, 10, 12, 14))])
 def test_serve_cuda_refuses_unported_options(args, item):
     out = CliRunner().invoke(cli, ["serve-cuda", "--model", "llama-3-8b", *args])
     assert out.exit_code == 2, out.output

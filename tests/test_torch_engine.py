@@ -244,8 +244,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("max_adapters", 2), ("quantize", "int8"), ("attention", "sp"),
-    ("attention", "dense"),
+    ("attention", "sp"), ("attention", "dense"),
 ])
 def test_unported_engine_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

@@ -80,7 +80,7 @@ def test_prefill_step_matches_jax_prefill_fn_on_a_miss_and_a_hit(pair):
             copy_block(pool, 3, 5)
             jpool = {k: v.at[:, :, 5].set(v[:, :, 3]) for k, v in jpool.items()}
         key = sch._stage_prefill(chunk, bucket, pos, table, floor, ceil)
-        assert key == (bucket, 4)
+        assert key == (bucket, 4, False)  # no adapter row
         sch._prefill_step(sch._prefill_views(key))
         jpool, want = _jax_chunk(jeng, jpool, chunk, bucket, pos, table, floor, ceil)
         np.testing.assert_allclose(sch._p_logits.numpy(), np.asarray(want), atol=TOL)
@@ -161,8 +161,8 @@ def test_captures_are_booked_per_root_and_key_on_a_stand_in_card():
         for root, g in roots.items():
             assert g["captures"] == len(g["keys"]) == snap[root]["traces"]
             assert snap[root]["storms"] == 0 and g["replays"] >= 1
-        assert list(roots["prefill"]["keys"]) == [(16, 1)]
-        assert list(roots["first_token"]["keys"]) == [(False, False, False)]
+        assert list(roots["prefill"]["keys"]) == [(16, 1, False)]
+        assert list(roots["first_token"]["keys"]) == [(False, False, False, False)]
     finally:
         eng.close()
 

@@ -1,0 +1,346 @@
+"""Weight-only int8 quantization in the PyTorch port (``models/quant.py``,
+``ops/int8_gemm.py``), against the JAX package on the same numpy inputs.
+
+- ``quantize_weight`` / ``quantize_params`` are bit-equal to JAX's, and the
+  torch form (``quantize_weight_torch``, ``quantize_params_``) to numpy's on
+  the same f32 input.
+- The packed layout round-trips exactly; the plain int8 matmul on it equals
+  JAX ``core.matmul`` (f32: within 1e-5; bf16: within two bf16 ulps of the
+  output's scale), and ``core.matmul`` gives the same on both layouts.
+- The split plan and the route are functions of host shapes; a CUDA-less
+  device raises, the JAX layout refuses the card.
+- ``params_from_numpy`` carries a JAX-quantized tree across (int8 stays
+  int8), and the port's quantized forward gives JAX's logits (f32, within
+  1e-4).
+- A port ``quantize="int8"`` engine and a JAX one on the same weights
+  decode the same greedy tokens (quantized on either side), ``lora_path``
+  merges before quantization in both, and the ledger counts the packed
+  bytes and scales.
+- ``check_card_supported`` refuses int8 weights beside f32 activations
+  by name (ROADMAP.md queue A item 18) and takes them beside bf16.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bee2bee_tpu.engine import EngineConfig as JaxEngineConfig
+from bee2bee_tpu.engine import InferenceEngine as JaxEngine
+from bee2bee_tpu.models import core as jcore
+from bee2bee_tpu.models import quant as jquant
+from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+from bee2bee_tpu_torch.engine.engine import check_card_supported
+from bee2bee_tpu_torch.models import core, quant
+from bee2bee_tpu_torch.models.config import get_config
+from bee2bee_tpu_torch.models.params import params_from_numpy
+from bee2bee_tpu_torch.ops import int8_gemm
+from bee2bee_tpu_torch.train.lora import LoraConfig, save_adapters
+
+CFG = get_config("tiny-llama")
+KW = dict(max_seq_len=128, dtype="float32", cache_dtype="float32", decode_chunk=4,
+          prefill_buckets=(16, 32, 64), max_batch=4)
+PROMPTS = ([5, 6, 7, 8, 9, 10, 11, 12], list(range(30, 70)), [400, 3, 77] * 5)
+
+
+@pytest.fixture(scope="module")
+def jax_dense():
+    """The JAX init's f32 tiny-llama weights, layers stacked [L, ...]
+    (numpy): what the JAX engine quantizes and merges adapters into."""
+    return jax.device_get(jcore.init_params(CFG, jax.random.key(0), dtype=jnp.float32))
+
+
+def _weights(seed, shape, zero_col=False):
+    w = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    if zero_col:
+        w[..., 3] = 0.0  # an all-zero output channel: scale 0 -> safe 1
+    return w
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def _layer(tree, i):
+    """Layer i of a JAX tree (layers stacked [L, ...] or a per-layer list)."""
+    layers = tree["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return jax.tree.map(lambda a: np.asarray(a)[i], layers)
+
+
+@pytest.mark.parametrize("shape,zero_col", [((64, 96), False), ((64, 32), True),
+                                            ((3, 128, 48), False)])
+def test_quantize_weight_bit_equal_to_jax(shape, zero_col):
+    w = _weights(1, shape, zero_col)
+    want = jquant.quantize_weight(w)
+    got = quant.quantize_weight(w)
+    tgot = quant.quantize_weight_torch(torch.from_numpy(w))
+    for part in ("q", "s"):
+        np.testing.assert_array_equal(_bits(got[part]), _bits(want[part]))
+        np.testing.assert_array_equal(_bits(tgot[part].numpy()), _bits(want[part]))
+    np.testing.assert_array_equal(quant.dequantize_weight(got),
+                                  jquant.dequantize_weight(want))
+
+
+def test_quantize_params_bit_equal_to_jax(jax_dense):
+    want = jquant.quantize_params(jax_dense)
+    got = quant.quantize_params(jax_dense)
+    leaves_w, tree_w = jax.tree.flatten(want)
+    leaves_g, tree_g = jax.tree.flatten(got)
+    assert tree_w == tree_g
+    for a, b in zip(leaves_w, leaves_g):
+        np.testing.assert_array_equal(_bits(np.asarray(a)), _bits(np.asarray(b)))
+    # the torch form, in place on the port's tree, gives the same q and s
+    params = params_from_numpy(jax_dense, CFG, "cpu", torch.float32)
+    quant.quantize_params_(params, pack=False)
+    for i, lp in enumerate(params["layers"]):
+        for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                          ("mlp", "w_up"), ("mlp", "w_gate"), ("mlp", "w_down")):
+            ref = _layer(want, i)[grp][name]
+            np.testing.assert_array_equal(lp[grp][name]["q"].numpy(), ref["q"])
+            np.testing.assert_array_equal(_bits(lp[grp][name]["s"].numpy()),
+                                          _bits(ref["s"]))
+    assert all(torch.is_tensor(params[k]) for k in ("tok_embed", "lm_head") if k in params)
+
+
+@pytest.mark.parametrize("K,N", [(32, 16), (64, 32), (128, 96), (256, 1024)])
+def test_pack_weight_round_trips(K, N):
+    q = torch.from_numpy(np.random.default_rng(K + N).integers(-127, 128, (K, N))
+                         .astype(np.int8))
+    qp = int8_gemm.pack_weight(q)
+    assert qp.shape == (N // 16, K // 32, 32, 16) and qp.dtype == torch.int8
+    assert torch.equal(int8_gemm.unpack_weight(qp), q)
+    assert torch.equal(int8_gemm.unpack_weight(qp, N), q)
+    # each 16-byte lane holds rows g and g + 8 of its tile, 8 inputs each
+    lane = qp[1 % qp.shape[0], 0, 4 * 2 + 1]  # lane g=2, t=1
+    nt = 1 % qp.shape[0]
+    rows = q[:, nt * 16:(nt + 1) * 16].t()  # [16 channels, K]
+    want = [rows[2 + 8 * jhi, 8 * 1 + 4 * s + 2 * w + jlo]
+            for s in range(2) for w in range(2) for jhi in range(2) for jlo in range(2)]
+    assert lane.tolist() == [int(v) for v in want]
+
+
+def test_pack_weight_refuses_unaligned_shapes():
+    with pytest.raises(ValueError, match="K % 32"):
+        int8_gemm.pack_weight(torch.zeros((48, 16), dtype=torch.int8))
+    with pytest.raises(ValueError, match="N % 16"):
+        int8_gemm.pack_weight(torch.zeros((32, 24), dtype=torch.int8))
+    # the engine leaves such a weight in the JAX layout (the CPU runs it)
+    params = {"layers": [{"attn": {"wq": {"q": torch.ones((48, 16), dtype=torch.int8),
+                                          "s": torch.full((16,), 0.5)}}}]}
+    wq = quant.pack_params_(params)["layers"][0]["attn"]["wq"]
+    assert set(wq) == {"q", "s"}
+    assert torch.equal(core.matmul(torch.ones((2, 48)), wq), torch.full((2, 16), 24.0))
+
+
+@pytest.mark.parametrize("M", [1, 5, 40, 70])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_plain_int8_matmul_matches_jax_matmul(M, dtype):
+    """The plain version on the packed layout against JAX ``core.matmul``
+    on the JAX layout, the same numpy inputs. f32: the same formula, 1e-5;
+    bf16: both round the dot and the scaled product to bf16, in their own
+    summation orders: within two bf16 ulps (2^-7) of the output's scale."""
+    K, N = 128, 96
+    qw = jquant.quantize_weight(_weights(3, (K, N)) / np.sqrt(K))
+    x = np.random.default_rng(M).standard_normal((2, M, K)).astype(np.float32)
+    want = np.asarray(jcore.matmul(jnp.asarray(x, dtype), qw), np.float32)
+    w = {"qp": int8_gemm.pack_weight(torch.from_numpy(qw["q"])),
+         "s": torch.from_numpy(qw["s"])}
+    tdtype = torch.float32 if dtype is np.float32 else torch.bfloat16
+    got = int8_gemm.int8_weight_matmul(torch.from_numpy(x).to(tdtype), w)
+    assert got.dtype == tdtype and got.shape == (2, M, N)
+    tol = 1e-5 if dtype is np.float32 else 2.0 ** -7 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
+    # core.matmul on both layouts (the JAX one on the CPU): the same
+    # formula over a weight in another memory order
+    x_t = torch.from_numpy(x).to(tdtype)
+    jax_layout = {"q": torch.from_numpy(qw["q"]), "s": torch.from_numpy(qw["s"])}
+    np.testing.assert_allclose(core.matmul(x_t, jax_layout).float().numpy(),
+                               core.matmul(x_t, w).float().numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("Ns", [(64, 32, 32), (128, 128), (96,)], ids=["qkv", "upgate", "one"])
+def test_grouped_matmul_equals_one_by_one(Ns):
+    """``matmul_group`` (one kernel launch on the card) gives each weight's
+    ``matmul``; dense weights go one by one; more than three refuse."""
+    K = 64
+    rng = np.random.default_rng(len(Ns))
+    ws = []
+    for N in Ns:
+        qw = quant.quantize_weight(rng.standard_normal((K, N)).astype(np.float32))
+        ws.append({"qp": int8_gemm.pack_weight(torch.from_numpy(qw["q"])),
+                   "s": torch.from_numpy(qw["s"])})
+    x = torch.from_numpy(rng.standard_normal((3, 5, K)).astype(np.float32))
+    got = core.matmul_group(x, ws)
+    assert [tuple(y.shape) for y in got] == [(3, 5, N) for N in Ns]
+    for y, w in zip(got, ws):
+        assert torch.equal(y, core.matmul(x, w))
+    dense = [torch.ones((K, N)) for N in Ns]
+    assert all(torch.equal(y, x @ d) for y, d in zip(core.matmul_group(x, dense), dense))
+    with pytest.raises(ValueError, match="1 to 3"):
+        int8_gemm.int8_weight_matmul_group(x, ws * 4)
+
+
+def test_wrapper_routes_and_refuses_other_devices():
+    assert int8_gemm.int8_gemm_route(1) == "kernel"
+    assert int8_gemm.int8_gemm_route(int8_gemm.MAX_KERNEL_M) == "kernel"
+    assert int8_gemm.int8_gemm_route(int8_gemm.MAX_KERNEL_M + 1) == "dequant"
+    w = {"qp": torch.zeros((2, 1, 32, 16), dtype=torch.int8, device="meta"),
+         "s": torch.zeros((32,), device="meta")}
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        int8_gemm.int8_weight_matmul(torch.zeros((1, 32), device="meta"), w)
+    # the JAX layout never runs off the CPU (it would materialise the weight)
+    with pytest.raises(ValueError, match="CPU only"):
+        core.matmul(torch.zeros((1, 32), device="meta"),
+                    {"q": torch.zeros((32, 32), dtype=torch.int8), "s": torch.ones(32)})
+    # the plain version runs on the CPU and counts no launch
+    before = (int8_gemm.int8_weight_matmul.launches,
+              int8_gemm.int8_weight_matmul.dequant_launches)
+    x = torch.ones((3, 32))
+    wc = {"qp": int8_gemm.pack_weight(torch.ones((32, 32), dtype=torch.int8)),
+          "s": torch.full((32,), 0.5)}
+    assert torch.equal(int8_gemm.int8_weight_matmul(x, wc), torch.full((3, 32), 16.0))
+    assert (int8_gemm.int8_weight_matmul.launches,
+            int8_gemm.int8_weight_matmul.dequant_launches) == before
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (64, 32)])
+def test_gemm_plan_covers_k_from_host_shapes(K, N):
+    cs, per = int8_gemm.gemm_plan(K, N, 132)
+    kc = K // 32
+    assert 1 <= cs <= 8 and cs & (cs - 1) == 0
+    assert cs * per >= kc and (cs - 1) * per < kc  # every rank has chunks
+    assert int8_gemm.gemm_plan(K, N, 132) == (cs, per)  # host shapes only
+    grid = -(-N // 64) * cs
+    assert grid <= max(int8_gemm._BLOCKS_PER_SM * 132, -(-N // 64))
+
+
+def test_params_from_numpy_carries_quantized_weights(jax_dense):
+    qtree = jquant.quantize_params(jax_dense)
+    params = params_from_numpy(qtree, CFG, "cpu", torch.float32)
+    wq = params["layers"][1]["attn"]["wq"]
+    assert wq["q"].dtype == torch.int8 and wq["s"].dtype == torch.float32
+    np.testing.assert_array_equal(wq["q"].numpy(), _layer(qtree, 1)["attn"]["wq"]["q"])
+    assert params["layers"][0]["ln1"]["scale"].dtype == torch.float32
+    quant.pack_params_(params)
+    assert set(params["layers"][1]["attn"]["wq"]) == {"qp", "s"}
+    back = quant.unpack_weight(params["layers"][1]["attn"]["wq"])
+    np.testing.assert_array_equal(back["q"].numpy(), _layer(qtree, 1)["attn"]["wq"]["q"])
+
+
+def test_quantized_forward_logits_match_jax(jax_dense):
+    """One forward of a 24-token chunk over the paged pool with int8
+    weights: the port's logits within 1e-4 of JAX's (f32)."""
+    from bee2bee_tpu.models import core as jc
+
+    qtree = jquant.quantize_params(jax_dense)
+    ids = np.random.default_rng(5).integers(3, 500, (2, 24)).astype(np.int32)
+    BS, MB = 16, 2
+    tables = np.arange(1, 2 * MB + 1, dtype=np.int32).reshape(2, MB)
+    jpool = jc.init_paged_pool(CFG, 2 * MB + 1, BS, dtype=jnp.float32)
+    jlogits, _ = jc.forward(jax.tree.map(jnp.asarray, qtree), CFG, jnp.asarray(ids),
+                            jpool, jnp.int32(0), block_tables=jnp.asarray(tables))
+    params = quant.pack_params_(params_from_numpy(qtree, CFG, "cpu", torch.float32))
+    pool = core.init_paged_pool(CFG, 2 * MB + 1, BS, torch.float32, "cpu")
+    logits, _ = core.forward(params, CFG, torch.from_numpy(ids).long(), pool, 0,
+                             torch.from_numpy(tables))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def jax_int8_tokens(jax_dense):
+    """The JAX int8-weight engine's greedy tokens on PROMPTS."""
+    eng = JaxEngine("tiny-llama", params=jax_dense, engine_config=JaxEngineConfig(
+        quantize="int8", kv_block_size=16, **KW))
+    try:
+        yield [eng.generate(p, max_new_tokens=20, temperature=0.0).token_ids
+               for p in PROMPTS]
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("where", ["port_quantizes", "jax_quantized"])
+def test_int8_engine_greedy_tokens_equal_jax(jax_dense, jax_int8_tokens, where):
+    """The port's quantize="int8" engine on the JAX weights (quantized by
+    the port, or carried across already quantized) decodes JAX's greedy
+    tokens; its ledger counts the packed int8 bytes and the f32 scales."""
+    tree = jax_dense if where == "port_quantizes" else jquant.quantize_params(jax_dense)
+    params = params_from_numpy(tree, CFG, "cpu", torch.float32)
+    eng = InferenceEngine("tiny-llama", params=params, device="cpu",
+                          engine_config=EngineConfig(quantize="int8", **KW))
+    try:
+        got = [eng.generate(p, max_new_tokens=20, temperature=0.0).token_ids
+               for p in PROMPTS]
+        assert got == jax_int8_tokens
+        wq = eng.params["layers"][0]["attn"]["wq"]
+        assert set(wq) == {"qp", "s"}
+        # the caller's tree was not rewritten
+        assert torch.is_tensor(params["layers"][0]["attn"]["wq"]) or "q" in \
+            params["layers"][0]["attn"]["wq"]
+        D, F, L, V = CFG.d_model, CFG.d_ff, CFG.n_layers, CFG.vocab_size
+        qkv_o = D * CFG.n_heads * CFG.head_dim * 2 + 2 * D * CFG.n_kv_heads * CFG.head_dim
+        int8_bytes = L * (qkv_o + 3 * D * F)
+        scale_bytes = 4 * L * (D + 2 * CFG.n_kv_heads * CFG.head_dim + D + 2 * F + D)
+        dense_bytes = 4 * (V * D * (1 if CFG.tie_embeddings else 2) + D + 2 * L * D)
+        ledger = eng.introspect.ledger.snapshot()["components"]["weights"]
+        assert ledger == int8_bytes + scale_bytes + dense_bytes
+    finally:
+        eng.close()
+
+
+def test_lora_path_merged_before_quantization(jax_dense, tmp_path):
+    """``lora_path`` with ``quantize="int8"``: both packages merge the
+    adapter into the dense weights first, then quantize: the same greedy
+    tokens, and int8 weights within one quantization step of JAX's (the
+    merges sum in other orders, so a value on a rounding edge may fall the
+    other way)."""
+    rng = np.random.default_rng(9)
+    lcfg = LoraConfig(rank=4, alpha=8.0, targets=("wq", "wv", "w_down"))
+    io = {"wq": (64, 64), "wv": (64, 32), "w_down": (128, 64)}
+    adapters = {t: {"a": rng.standard_normal((CFG.n_layers, i, 4)).astype(np.float32) * 0.1,
+                    "b": rng.standard_normal((CFG.n_layers, 4, o)).astype(np.float32) * 0.1}
+                for t, (i, o) in io.items()}
+    path = tmp_path / "lora.npz"
+    save_adapters(path, adapters, lcfg)
+    jeng = JaxEngine("tiny-llama", params=jax_dense, lora_path=str(path),
+                     engine_config=JaxEngineConfig(quantize="int8", kv_block_size=16, **KW))
+    eng = InferenceEngine("tiny-llama", params=params_from_numpy(jax_dense, CFG, "cpu",
+                                                                 torch.float32),
+                          device="cpu", lora_path=str(path),
+                          engine_config=EngineConfig(quantize="int8", **KW))
+    base = InferenceEngine("tiny-llama", params=params_from_numpy(jax_dense, CFG, "cpu",
+                                                                  torch.float32),
+                           device="cpu", engine_config=EngineConfig(quantize="int8", **KW))
+    try:
+        for p in PROMPTS:
+            want = jeng.generate(p, max_new_tokens=16, temperature=0.0).token_ids
+            assert eng.generate(p, max_new_tokens=16, temperature=0.0).token_ids == want
+        got_q = quant.unpack_weight(eng.params["layers"][0]["mlp"]["w_down"])["q"]
+        want_q = jquant.quantize_params(
+            {"layers": {"mlp": {"w_down": _layer(jax_dense, 0)["mlp"]["w_down"]
+                                + lcfg.scaling * adapters["w_down"]["a"][0]
+                                @ adapters["w_down"]["b"][0]}}})["layers"]["mlp"]["w_down"]["q"]
+        assert np.abs(got_q.numpy().astype(int) - want_q.astype(int)).max() <= 1
+        base_q = quant.unpack_weight(base.params["layers"][0]["mlp"]["w_down"])["q"]
+        assert not torch.equal(got_q, base_q)  # the merge reached the int8 weights
+    finally:
+        jeng.close()
+        eng.close()
+        base.close()
+
+
+def test_card_refuses_int8_weights_beside_f32_by_item():
+    llama = get_config("llama-3-8b")
+    check_card_supported(llama, EngineConfig(quantize="int8"), "cuda")
+    check_card_supported(llama, EngineConfig(quantize="int8", cache_dtype="int8"), "cuda")
+    ecfg = EngineConfig(quantize="int8", dtype="float32", cache_dtype="float32")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 18\)"):
+        check_card_supported(llama, ecfg, "cuda")
+    check_card_supported(llama, ecfg, "cpu")  # the CPU runs it
+    with pytest.raises(ValueError, match="only 'int8' or 'none'"):
+        EngineConfig(quantize="int4")
