@@ -50,8 +50,16 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   adapter rows in one replayed step. The pool's device writes run on the
   scheduler thread between its passes (``BatchScheduler.run_on_device``).
 
-What waits for later slices: checkpoint loading and live migration.
-Setting an ``EngineConfig`` field that selects one of them raises.
+- **Live migration** (``migration_signature``, ``import_generation``;
+  engine/scheduler.py ``checkpoint``): a running generation's pool blocks
+  leave as host tensors and scatter into another engine's pool in place,
+  and decode resumes from the last emitted token with no prefill; without
+  blocks the target re-prefills prompt + accepted. meshnet/migrate.py
+  moves them between nodes (drain, prefill handoff, pool-pressure
+  failover), to and from the JAX package's nodes too.
+
+What waits for a later slice: checkpoint loading (ROADMAP.md queue A
+item 10).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -664,15 +673,148 @@ class InferenceEngine:
     def resident_adapters(self) -> list[str]:
         return self.adapter_pool.resident() if self.adapter_pool else []
 
+    # ---------------------------------------------------- live migration
+
     def migration_signature(self) -> dict:
-        """The pool-compat fingerprint a KV import is validated against (the
-        JAX engine's ``migration_signature``)."""
-        raise unported("KV migration (InferenceEngine.migration_signature)", 9)
+        """Pool-compat fingerprint a KV import is validated against: two
+        engines whose signatures match have bit-compatible pool block
+        layouts (same per-layer K/V geometry, block size and storage
+        dtype), so exported blocks scatter straight in. The keys and
+        values are the JAX engine's: ``cache_dtype`` is numpy's dtype name
+        ("bfloat16", "int8", "float32"), so a JAX node and a port node with
+        the same pool compare equal."""
+        cfg = self.model_cfg
+        return {
+            "model": cfg.name,
+            "n_layers": cfg.n_layers,
+            "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim,
+            "block_size": self.engine_cfg.kv_block_size,
+            "cache_dtype": self.engine_cfg.cache_dtype,
+        }
 
     def import_generation(self, snap: dict, kv: dict | None = None):
-        """Resume a migrated generation (the JAX engine's
-        ``import_generation``)."""
-        raise unported("KV migration import (InferenceEngine.import_generation)", 9)
+        """Resume a migrated generation (scheduler.checkpoint's snapshot, or
+        a JAX node's): rebuild the Request, prime its accepted output, and
+        submit it on the import path. With ``kv`` (the pool blocks: host
+        torch tensors or numpy arrays, ml_dtypes bf16 included) the
+        scheduler scatters the shipped blocks and decodes on with zero
+        prefill; without, it re-prefills prompt + accepted (the fallback
+        rung). Returns the live Request; its events queue carries
+        {"imported": True} on success, then the usual token/done events.
+        Raises ValueError, with the JAX engine's texts, on a snapshot this
+        engine cannot host."""
+        from .scheduler import Request
+
+        ids = [int(t) for t in snap.get("ids") or []]
+        out = [int(t) for t in snap.get("out") or []]
+        if not ids:
+            raise ValueError("import: empty prompt")
+        if snap.get("model") and snap["model"] != self.model_cfg.name:
+            raise ValueError(
+                f"import: snapshot is for model {snap['model']!r}, "
+                f"this engine serves {self.model_cfg.name!r}"
+            )
+        adapter = snap.get("adapter") or None
+        if adapter and not self.has_adapter(adapter):
+            # the row's K/V (and its decode) ran under this adapter's
+            # deltas: resuming without it would be silent corruption
+            raise ValueError(
+                f"import: adapter {adapter!r} is not resident on this engine"
+            )
+        req = Request(
+            ids,
+            int(snap.get("max_new_tokens") or 0),
+            snap.get("temperature", 0.0),
+            int(snap.get("top_k") or 0),
+            float(snap.get("top_p") if snap.get("top_p") is not None else 1.0),
+            set(int(t) for t in snap.get("stop") or []),
+            None if snap.get("eos") is None else int(snap["eos"]),
+            self.tokenizer,
+            stream=True,  # the migration bridge reads token events
+            repetition_penalty=float(snap.get("repetition_penalty") or 1.0),
+            presence_penalty=float(snap.get("presence_penalty") or 0.0),
+            frequency_penalty=float(snap.get("frequency_penalty") or 0.0),
+            min_p=float(snap.get("min_p") or 0.0),
+            tenant=str(snap.get("tenant") or "default"),
+            adapter=adapter,
+        )
+        req.out_ids = out
+        # the already-streamed text was emitted at the source: the delta
+        # decoder starts past it
+        req._flushed_text = self.tokenizer.decode(out) if out else ""
+        if kv is not None:
+            if not out:
+                raise ValueError("import: KV snapshot without accepted tokens")
+            offset = int(snap.get("offset") or 0)
+            if offset != len(ids) + len(out) - 1:
+                raise ValueError(
+                    f"import: offset {offset} breaks the live-row invariant "
+                    f"(prompt {len(ids)} + out {len(out)} - 1)"
+                )
+            if offset + 1 >= self.max_seq_len:
+                raise ValueError(
+                    f"import: offset {offset} leaves no room in "
+                    f"max_seq_len={self.max_seq_len}"
+                )
+            if int(snap.get("block_size") or 0) != self.engine_cfg.kv_block_size:
+                raise ValueError(
+                    f"import: block_size {snap.get('block_size')} != "
+                    f"{self.engine_cfg.kv_block_size}"
+                )
+            # the block tensors must match the pool geometry exactly, and an
+            # int8 pool demands the scales too (and only then): a mismatch
+            # rejects typed here, never on the scheduler thread
+            cfg = self.model_cfg
+            nb = ceil_div(offset, self.engine_cfg.kv_block_size)
+            cache_dt = self.engine_cfg.cache_dtype
+            pool_shape = (cfg.n_layers, cfg.n_kv_heads, nb,
+                          self.engine_cfg.kv_block_size, cfg.head_dim)
+            want = {"k": (pool_shape, cache_dt), "v": (pool_shape, cache_dt)}
+            if self.kv_quantized:
+                sshape = (cfg.n_layers, cfg.n_kv_heads, nb)
+                want["k_scale"] = (sshape, "float32")
+                want["v_scale"] = (sshape, "float32")
+            got_names = set(kv) if isinstance(kv, dict) else set()
+            if got_names != set(want):
+                raise ValueError(
+                    f"import: kv tensors {sorted(got_names)} != pool "
+                    f"layout {sorted(want)} (cache_dtype {cache_dt})"
+                )
+            for name, (wshape, wdt) in want.items():
+                arr = kv.get(name)
+                shape = tuple(int(d) for d in getattr(arr, "shape", ()))
+                if shape != wshape:
+                    raise ValueError(
+                        f"import: kv[{name!r}] shape {shape} != pool "
+                        f"geometry {wshape}"
+                    )
+                got_dt = dtype_name(getattr(arr, "dtype", None))
+                if got_dt != wdt:
+                    # wrong-dtype bytes pass the sha256 (it hashes what was
+                    # sent) but would scatter garbage bit patterns
+                    raise ValueError(
+                        f"import: kv[{name!r}] dtype {got_dt} != pool "
+                        f"dtype {wdt}"
+                    )
+            req.import_state = {
+                "offset": offset, "cur": int(snap["cur"]),
+                "kv": {name: host_tensor(kv[name]) for name in want},
+            }
+        elif out:
+            # re-prefill rung: the KV of prompt + out[:-1] is recomputed
+            # here; out[-1] is the resume token (its K/V is written by the
+            # first decode forward, as for any freshly sampled token)
+            seq = ids + out[:-1]
+            if len(seq) + 1 >= self.max_seq_len:
+                raise ValueError(
+                    f"import: {len(seq)} accepted positions leave no room "
+                    f"in max_seq_len={self.max_seq_len}"
+                )
+            req.import_state = {"seq": seq, "cur": out[-1], "kv": None}
+        # else: nothing was ever decoded, a plain fresh admission
+        self.scheduler.submit(req)
+        return req
 
     def close(self):
         """Stop the scheduler thread (idempotent) and drop out of the
@@ -919,6 +1061,34 @@ class InferenceEngine:
             out["drafter"] = self.engine_cfg.drafter
             out["tiers"] = dict(st.spec_tiers) if st else {}
         return out
+
+
+# torch dtypes by numpy's names, which the migration wire and the JAX
+# package use
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
+                torch.float16: "float16", torch.int8: "int8"}
+
+
+def dtype_name(dt) -> str | None:
+    """numpy's name of a torch or numpy dtype (ml_dtypes' bfloat16 is
+    "bfloat16" too), so a dtype is checked without importing ml_dtypes."""
+    if isinstance(dt, torch.dtype):
+        return _DTYPE_NAMES.get(dt, str(dt))
+    return getattr(dt, "name", None)
+
+
+def host_tensor(arr) -> torch.Tensor:
+    """A shipped block tensor as a host torch tensor: torch as it is, a
+    numpy array through its bytes (an ml_dtypes bf16 array through its
+    int16 view)."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    a = np.ascontiguousarray(arr)
+    if not a.flags.writeable:  # a view of a received frame's bytes
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _copy_tree(tree):

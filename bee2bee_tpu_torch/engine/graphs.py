@@ -18,7 +18,11 @@ drafter's (``draft``, ``draft_prime``) all capture through ``capture``:
   fresh noise;
 - the host counts both moved are put back, and the capture's moves are
   the graph's deltas: each replay adds them, so the launch and forward
-  identities hold for replays as for eager calls.
+  identities hold for replays as for eager calls. The launch counts are
+  the process's: a capture holds ``_counts_lock`` from its warm-up to the
+  put-back and each replay adds under it, so a capture reads only its own
+  moves while another engine's thread replays (two engines in one
+  process, as a migration's source and target).
 
 A root that fails to capture raises: there is no eager fallback on the
 card. On the CPU the owners run the same step functions eagerly.
@@ -27,6 +31,7 @@ card. On the CPU the owners run the same step functions eagerly.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 
@@ -35,6 +40,10 @@ import torch
 
 from ..ops import flash, int8_gemm, ragged
 from .introspect import device_gate, graph_capture_lock
+
+# the launch and forward counts move under this lock (see the module
+# docstring); reentrant, as a replay inside a capture's step would be
+_counts_lock = threading.RLock()
 
 
 def h2d(dst: torch.Tensor, arr: np.ndarray) -> None:
@@ -69,8 +78,9 @@ class Graph:
 
     def replay(self):
         self.graph.replay()
-        for holder, name, delta in self.deltas:
-            setattr(holder, name, getattr(holder, name) + delta)
+        with _counts_lock:
+            for holder, name, delta in self.deltas:
+                setattr(holder, name, getattr(holder, name) + delta)
 
 
 @contextmanager
@@ -92,28 +102,29 @@ def capture(step, live, scratch, *, stream, pool, counters, generator=None):
     into a graph from ``pool``. Returns (Graph, warm-up seconds, the
     counts warm-up and capture moved, in ``counters`` order). The capture
     reads and writes ``live``'s buffers but runs nothing."""
-    base = [getattr(h, n) for h, n in counters]
-    main = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(main)
-    t0 = time.perf_counter()
-    with torch.cuda.stream(stream):
-        step(scratch)
-    main.wait_stream(stream)
-    warm_s = time.perf_counter() - t0
-    warmed = [getattr(h, n) for h, n in counters]
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    # only this thread's unsafe calls break the capture (thread_local)
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            step(live)
-        finally:
-            graph.capture_end()
-    captured = [getattr(h, n) for h, n in counters]
-    deltas = [(h, n, c - w) for (h, n), c, w in zip(counters, captured, warmed)
-              if c != w]
-    for (h, n), value in zip(counters, base):
-        setattr(h, n, value)
-    return Graph(graph, deltas), warm_s, [c - b for c, b in zip(captured, base)]
+    with _counts_lock:
+        base = [getattr(h, n) for h, n in counters]
+        main = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(main)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            step(scratch)
+        main.wait_stream(stream)
+        warm_s = time.perf_counter() - t0
+        warmed = [getattr(h, n) for h, n in counters]
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        # only this thread's unsafe calls break the capture (thread_local)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                step(live)
+            finally:
+                graph.capture_end()
+        captured = [getattr(h, n) for h, n in counters]
+        deltas = [(h, n, c - w) for (h, n), c, w in zip(counters, captured, warmed)
+                  if c != w]
+        for (h, n), value in zip(counters, base):
+            setattr(h, n, value)
+        return Graph(graph, deltas), warm_s, [c - b for c, b in zip(captured, base)]

@@ -97,12 +97,24 @@ The port of ``bee2bee_tpu/engine/scheduler.py``'s main loop:
   its token budget, charged when it is popped and refunded when it never
   runs or is requeued. With no tenants configured the order is FIFO.
 
+- **Live migration** (meshnet/migrate.py): ``checkpoint`` snapshots a
+  row between passes, with the readback ring drained (the host offsets,
+  ``cur`` and ``out_ids`` lag the device while windows are in flight): its
+  metadata and its pool blocks, gathered into host tensors, and releases
+  the row. An imported request (``engine.import_generation``) takes the
+  KV rung at admission (fresh blocks, the shipped blocks scattered into
+  them in place, no first-token sample: ``cur`` is the last emitted
+  token) or the re-prefill rung (prompt + accepted through the prefill
+  root). A prefill-role node offers each freshly prefilled row to
+  ``migrate_cb`` (``handoff_after_prefill``), and every node offers a row
+  the pool cannot grow before it fails the row.
+
 Threading model: one daemon scheduler thread owns all device state;
 ``submit`` only appends to a queue under a condition variable, and
 callers read per-request event queues.
 
-Not ported yet: migration checkpoints. Graph keys are captured on first
-use, not warmed at boot (as JAX compiles lazily).
+Graph keys are captured on first use, not warmed at boot (as JAX compiles
+lazily).
 """
 
 from __future__ import annotations
@@ -121,7 +133,6 @@ import torch
 from ..metrics import get_registry
 from ..router.fairness import WdrrQueue
 from ..router.tenants import load_tenant_config
-from ..unported import unported
 from .graphs import Graph, capture, capture_lock, h2d, launch_counters
 from .introspect import (
     _C_HOST_SYNCS,
@@ -210,6 +221,11 @@ class Request:
         # set by an abandoning consumer (generate_stream closed early); the
         # scheduler thread reads it at window boundaries and retires the row
         self.cancelled = False
+        # live-migration import state (engine.import_generation): admission
+        # takes the import path instead of prefill when set, either
+        # {"offset","cur","kv"} (shipped pool blocks scatter in) or
+        # {"seq","cur","kv": None} (re-prefill prompt + accepted here)
+        self.import_state: dict | None = None
         self.ids = ids
         self.max_new_tokens = max_new_tokens
         self.temperature = float(temperature if temperature is not None else 0.0)
@@ -315,13 +331,14 @@ class SchedulerStats:
     spec_drafted: int = 0
     spec_accepted: int = 0
     spec_tiers: dict = field(default_factory=dict)
-    # the JAX engine's migration counts, so the two packages' stats carry
-    # the same keys; they stay 0 until migration is ported (ROADMAP.md
-    # queue A item 9)
-    migrated_out: int = 0
-    migrated_in: int = 0
-    import_reprefills: int = 0
-    prefill_handoffs: int = 0
+    # live migration (the JAX engine's keys): a KV migration counts
+    # migrated_out on the source and migrated_in on the target with
+    # import_reprefills unchanged; the ladder's re-prefill rung is exactly
+    # import_reprefills
+    migrated_out: int = 0       # rows checkpointed + released for export
+    migrated_in: int = 0        # rows imported (KV or re-prefill)
+    import_reprefills: int = 0  # imports that had to re-prefill (no KV)
+    prefill_handoffs: int = 0   # disagg: rows handed off after prefill
     history: deque = field(default_factory=lambda: deque(maxlen=64))
 
     @property
@@ -358,6 +375,22 @@ def copy_block(pool: dict, src: int, dst: int) -> None:
     tensor, on the current stream, no host sync."""
     for t in pool.values():
         t.select(2, dst).copy_(t.select(2, src))
+
+
+def gather_blocks(pool: dict, idx: torch.Tensor) -> dict:
+    """A migration export's read: blocks ``idx`` of every pool tensor (dim
+    2; an int8 pool's scales line up with its pages, so one gather moves
+    both), as new tensors: one ``index_select`` per tensor."""
+    return {name: t.index_select(2, idx) for name, t in pool.items()}
+
+
+def scatter_blocks(pool: dict, blocks: dict, idx: torch.Tensor) -> None:
+    """A migration import's write, in place: ``blocks[name]`` (device
+    tensors, dim 2 = len(idx)) into blocks ``idx`` of every pool tensor,
+    one ``index_copy_`` per tensor. The pool keeps its storage: every
+    captured graph holds its addresses."""
+    for name, t in pool.items():
+        t.index_copy_(2, idx, blocks[name])
 
 
 @dataclass
@@ -474,6 +507,17 @@ class BatchScheduler:
         # device work other threads hand this one (run_on_device): the
         # adapter pool's writes
         self._jobs: deque = deque()
+        # live migration: checkpoint() posts (req, reply queue) pairs here,
+        # served between passes with the readback ring drained
+        self._checkpoints: list[tuple[Request, queue.Queue]] = []
+        # node-side hook: migrate_cb(req, snapshot, reason) -> bool, called
+        # on this thread when a row wants to leave (prefill handoff,
+        # pool exhaustion mid-decode). True hands req (and its events) to
+        # the hook: the row is released and never touched again here
+        self.migrate_cb = None
+        # disagg prefill role: freshly prefilled rows are offered to
+        # migrate_cb instead of decoding here (reason "prefill_handoff")
+        self.handoff_after_prefill = False
 
         e = engine
         cfg = e.engine_cfg
@@ -706,9 +750,23 @@ class BatchScheduler:
         return [r for r in self._rows if r is not None] + queued
 
     def checkpoint(self, req: Request, timeout: float = 30.0) -> dict | None:
-        """Snapshot a live request with its KV blocks for migration (the JAX
-        scheduler's ``checkpoint``)."""
-        raise unported("KV migration export (BatchScheduler.checkpoint)", 9)
+        """Thread-safe: ask the scheduler thread to snapshot ``req`` (prompt
+        and output ids, sampling knobs, write offset, last token, and its
+        pool blocks as host tensors under "_kv") and release its row,
+        between two passes. A still-queued request leaves the queue with a
+        snapshot without KV. Returns the snapshot, or None when the request
+        already finished; with a snapshot the caller owns req and its
+        events (the scheduler never emits on it again)."""
+        done: queue.Queue = queue.Queue()
+        with self._cond:
+            if self._shutdown:
+                return None
+            self._checkpoints.append((req, done))
+            self._cond.notify()
+        try:
+            return done.get(timeout=timeout)
+        except queue.Empty:
+            return None
 
     # ------------------------------------------------------------ loop
 
@@ -716,7 +774,7 @@ class BatchScheduler:
         while True:
             with self._cond:
                 while (not self._queue and self.active == 0 and not self._jobs
-                       and not self._shutdown):
+                       and not self._checkpoints and not self._shutdown):
                     self._cond.wait()
                 if self._shutdown:
                     self._fail_all("engine shut down")
@@ -735,6 +793,7 @@ class BatchScheduler:
         even that failed and the loop must end."""
         try:
             self._run_jobs()
+            self._service_checkpoints()
             if self._inflight and self._queue:
                 # admission needs settled row state: drain the
                 # readback ring before touching it
@@ -776,6 +835,11 @@ class BatchScheduler:
                 self._spec.forget(req)
             req.events.put({"done": True, "result": None, "error": reason})
         self._queue.clear()
+        # blocked checkpoint() callers get their None verdict too: a dead
+        # scheduler must not make a drain wait out its timeout
+        for _req, done in self._checkpoints:
+            done.put(None)
+        self._checkpoints.clear()
         for b, r in enumerate(self._rows):
             if r is not None:
                 self._release_row(b)
@@ -860,6 +924,175 @@ class BatchScheduler:
     def _table_width(self, nblocks: int) -> int:
         """Pow2-bucketed table width, never past the physical table."""
         return min(pow2_at_least(nblocks), self.engine.blocks_per_row)
+
+    # ------------------------------------------------------------ migration
+
+    def _service_checkpoints(self):
+        """Serve pending checkpoint() calls, between passes. Row state is
+        settled only with the readback ring empty (the host offsets, cur
+        and out_ids lag the device by the windows in flight), so the ring
+        drains first."""
+        with self._cond:
+            if not self._checkpoints:
+                return
+            pending, self._checkpoints = self._checkpoints, []
+        if self._inflight and self._drain_inflight():
+            self._compact_and_shrink()
+        for req, done in pending:
+            snap = None
+            try:
+                snap = self._checkpoint_one(req)
+            except Exception:  # noqa: BLE001 — a failed snapshot must
+                # still answer the blocked checkpoint() caller
+                logger.exception("checkpoint failed")
+            done.put(snap)
+
+    def _checkpoint_one(self, req: Request) -> dict | None:
+        b = next((i for i, r in enumerate(self._rows) if r is req), None)
+        if b is not None:
+            snap = self._snapshot_row(b, req)
+            self._leave(b, req)
+            self._compact_and_shrink()
+            return snap
+        with self._cond:
+            removed = self._queue.remove(req)
+        if not removed:
+            return None  # already retired (or unknown): nothing to move
+        # still queued: no device state exists, the snapshot is metadata
+        # only and imports as a plain fresh admission on the target
+        return self._snapshot_meta(req)
+
+    def _leave(self, b: int, req: Request) -> None:
+        """Release row b, whose request left by migration: its blocks (the
+        deferred deref still holds while windows are in flight), its
+        adapter pin (the target takes its own) and its drafter state."""
+        self._rows[b] = None
+        self._release_row(b)
+        self._release_adapter(req)
+        if self._spec is not None:
+            self._spec.forget(req)
+        self._row_params_dirty = True
+        self.stats.migrated_out += 1
+
+    def _snapshot_meta(self, req: Request) -> dict:
+        """The wire-portable half of a snapshot (meshnet/migrate.py ships it
+        as the KV_EXPORT ``gen`` field; engine.import_generation rebuilds a
+        Request from it): the JAX scheduler's dict, key for key. Penalty
+        counts are not in it: they rebuild exactly from ids + out."""
+        return {
+            "v": 1,
+            "model": self.engine.model_cfg.name,
+            "ids": [int(t) for t in req.ids],
+            "out": [int(t) for t in req.out_ids],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": req.temperature,
+            "top_k": req.top_k,
+            "top_p": req.top_p,
+            "min_p": req.min_p,
+            "repetition_penalty": req.repetition_penalty,
+            "presence_penalty": req.presence_penalty,
+            "frequency_penalty": req.frequency_penalty,
+            "stop": sorted(int(t) for t in req.stop),
+            "eos": None if req.eos is None else int(req.eos),
+            "tenant": req.tenant,
+            # the target must hold this adapter to resume the row: its K/V
+            # and its decode both run under the adapted projections
+            "adapter": req.adapter,
+            "block_size": self._block_size,
+            "offset": 0,
+            "cur": None,
+            "kv_blocks": 0,
+        }
+
+    def _snapshot_row(self, b: int, req: Request) -> dict:
+        """Snapshot an admitted row (ring empty): metadata plus the pool
+        blocks holding its live KV as host tensors under "_kv" (the caller
+        splits that off before the metadata rides the wire). A pure read.
+        Live-row invariant: offset == len(ids) + len(out) - 1 and cur ==
+        out[-1] (the last sampled token's K/V is written by the next
+        forward), so the blocks covering [0, offset) are the whole state.
+        The gather is one ``index_select`` of exactly those blocks per pool
+        tensor, then one device-to-host copy each, inside a device pass."""
+        snap = self._snapshot_meta(req)
+        offset = int(self._offsets[b])
+        nb = ceil_div(offset, self._block_size)
+        snap.update(offset=offset, cur=int(self._cur[b]), kv_blocks=nb)
+        if nb:
+            idx = torch.tensor(self._row_blocks[b][:nb], dtype=torch.long)
+            with device_gate.device_pass():
+                got = gather_blocks(self._cache, idx.to(self._device))
+                # an int8 pool's scales ride under their own keys
+                snap["_kv"] = {name: t.cpu() for name, t in got.items()}
+        return snap
+
+    def _paged_import(self, req: Request, b: int, st: dict):
+        """Admit an imported request (engine.import_generation) onto row b:
+        scatter its shipped blocks into freshly allocated pool blocks, in
+        place (the KV rung: no prefill, the decode that follows is the
+        unmigrated rollout), or re-prefill prompt + accepted through the
+        prefill root (the re-prefill rung, counted in import_reprefills).
+        Sets the row's offset, cur and table on the host; the next window
+        stages them into the decode root's buffers, as for a fresh
+        admission. Raises _PoolExhausted with the row released: imports
+        never requeue, the exporter needs a fast typed verdict to try its
+        next rung."""
+        e = self.engine
+        BS = self._block_size
+        kv = st.get("kv")
+        try:
+            if kv is not None:
+                offset = int(st["offset"])
+                # import_generation held offset + 1 < max_seq_len, so the
+                # blocks fit one row's table
+                need = ceil_div(offset, BS)
+                # on an int8 pool the funnel zeroes the fresh blocks'
+                # scales; the scatter then overwrites them with the shipped
+                fresh = self._alloc_blocks(need)
+                self._row_blocks[b] = list(fresh)
+                self._tables[b, :] = 0
+                self._tables[b, :need] = fresh
+                idx = torch.tensor(fresh, dtype=torch.long).to(self._device)
+                scatter_blocks(self._cache, {
+                    name: t.to(self._device) for name, t in kv.items()
+                }, idx)
+                self._offsets[b] = offset
+                self._cur[b] = int(st["cur"])
+                # the imported prompt K/V is what a local prefill would
+                # have pinned: repeat prompts hit here too
+                n = len(req.ids)
+                if (self._prefix_cache is not None and offset >= n
+                        and not req.adapter and not self._prefix_cache.has(req.ids)):
+                    self._prefix_cache.put(req.ids, fresh[:ceil_div(n, BS)])
+            else:
+                seq = [int(t) for t in st["seq"]]
+                start, cached = (self._prefix_cache.match(seq)
+                                 if self._prefix_cache is not None and not req.adapter
+                                 else (0, None))
+                C = e.engine_cfg.prefill_chunk
+                remaining = len(seq) - (start if cached is not None else 0)
+                bucket = C if C is not None and remaining > C else e._bucket_for(remaining)
+                req.bucket = bucket
+                # the last logits go unread: the next token is known (cur =
+                # out[-1]) and decode resumes from it
+                self._paged_prefill(req, b, bucket, start, cached, seq=seq)
+                self._offsets[b] = len(seq)
+                self._cur[b] = int(st["cur"])
+                self.stats.import_reprefills += 1
+            if req.penalized:
+                # the static counts row, in place: prompt occurrences, then
+                # every accepted token's (the first sample's bump included)
+                row_counts = np.zeros((2, self._vocab), np.int32)
+                row_counts[0] = np.bincount(np.asarray(req.ids, np.int64),
+                                            minlength=self._vocab)[:self._vocab]
+                if req.out_ids:
+                    row_counts[1] = np.bincount(np.asarray(req.out_ids, np.int64),
+                                                minlength=self._vocab)[:self._vocab]
+                h2d(self._counts[b], row_counts)
+            self.stats.migrated_in += 1
+            self.stats.paged_blocks_in_use = self._alloc.used_count
+        except _PoolExhausted:
+            self._release_row(b)
+            raise
 
     # ------------------------------------------------------- batch resizing
 
@@ -1206,6 +1439,11 @@ class BatchScheduler:
                     break
                 self._resize(min(self._bsz * 2, self.max_batch))
             b = next(i for i, r in enumerate(self._rows) if r is None)
+            if req.import_state is not None:
+                # a migrated-in generation: no first-token sample, cur is
+                # the token already emitted and decode resumes from it
+                self._admit_import(req, b)
+                continue
             # longest cached prompt prefix: admit from there and prefill
             # only the rest (chat transcripts grow by appending). Never for
             # an adapter row: the cached K/V are another model's
@@ -1285,7 +1523,70 @@ class BatchScheduler:
             self._cur[b] = tok
             self._row_params_dirty = True
             self.stats.peak_active = max(self.stats.peak_active, self.active)
+        if self.handoff_after_prefill and self.migrate_cb is not None:
+            self._hand_off(placed)
         self._compact_and_shrink()
+
+    def _admit_import(self, req: Request, b: int) -> None:
+        """Place an imported request on row b (``_paged_import``). A pool
+        that cannot host it answers typed at once (the row and the adapter
+        pin released, a done event with ``error_kind`` pool_exhausted):
+        imports never requeue."""
+        st = req.import_state
+        try:
+            self._paged_import(req, b, st)
+        except _PoolExhausted as err:
+            # typed and immediate: the exporter's ladder (re-prefill
+            # elsewhere) beats parking the import on backpressure
+            self._release_adapter(req)
+            req.finish = "error"
+            req.events.put({
+                "done": True, "result": None,
+                "error": f"import failed: {err}",
+                "error_kind": "pool_exhausted",
+            })
+            # the pop charged this tenant's deficit for tokens that will
+            # never decode here: refund them
+            with self._cond:
+                self._queue.refund(req.tenant, _cost(req))
+            return
+        except Exception as err:
+            # in neither _queue nor _rows: fail it here, then let _loop's
+            # handler recover
+            self._release_adapter(req)
+            req.finish = "error"
+            req.events.put({"done": True, "result": None,
+                            "error": f"import failed: {err!r}"})
+            raise
+        self._rows[b] = req
+        self._aids[b] = req.adapter_slot
+        req.timing.t_first = time.perf_counter()
+        self.stats.admitted += 1
+        self._row_params_dirty = True
+        self.stats.peak_active = max(self.stats.peak_active, self.active)
+        # the verdict the serving node's ACK rides on
+        req.events.put({"imported": True})
+
+    def _hand_off(self, placed: list) -> None:
+        """Disaggregated prefill→decode: offer each freshly prefilled row
+        with at least 2 tokens left to the migration hook; an accepted row
+        leaves and never decodes here (the hook owns req from then on).
+        Admission runs with the readback ring empty, so the rows' state is
+        settled. TTFT stays local: the first token was sampled above."""
+        for req, b, _i in placed:
+            if self._rows[b] is not req or req.done or req.cancelled:
+                continue
+            if req.max_new_tokens - len(req.out_ids) < 2:
+                continue  # nothing left worth shipping
+            try:
+                snap = self._snapshot_row(b, req)
+                accepted = bool(self.migrate_cb(req, snap, "prefill_handoff"))
+            except Exception:  # noqa: BLE001 — keep decoding here
+                logger.exception("prefill handoff failed")
+                continue
+            if accepted:
+                self._leave(b, req)
+                self.stats.prefill_handoffs += 1
 
     # ------------------------------------------------------------ decode
 
@@ -1517,14 +1818,22 @@ class BatchScheduler:
     def _prepare_window_tables(self, extra: int) -> int | None:
         """Grow every active row's block table to cover the window's
         writes (positions < offset + extra); a row the pool cannot cover
-        fails alone. Returns the window's pow2 table width, or None when
-        no active row survives."""
+        is offered to the migration hook and, if no peer takes it, fails
+        alone. Returns the window's pow2 table width, or None when no
+        active row survives."""
         for b, req in enumerate(self._rows):
             if req is None:
                 continue
             try:
                 self._ensure_blocks(b, int(self._offsets[b]) + extra)
             except _PoolExhausted as err:
+                # the pool runs out only with the readback ring empty: a
+                # look-ahead window dispatches only when the free list
+                # covers it (_overlap_ready), and a spec step runs with an
+                # empty ring. So the row's state is settled, and it is
+                # whole recoverable state: a peer with room resumes it
+                if self._offer_on_pressure(b, req):
+                    continue
                 self._rows[b] = None
                 self._release_row(b)
                 self._row_params_dirty = True
@@ -1632,6 +1941,23 @@ class BatchScheduler:
         self._last_dispatch_t = time.perf_counter()
         return True
 
+    def _offer_on_pressure(self, b: int, req: Request) -> bool:
+        """Offer row b, which the pool cannot grow, to the migration hook
+        (reason "pool_exhausted"). True when a peer took it (the row has
+        left); a hook that raises counts as a refusal, which the caller
+        answers with the typed error, never with ``_fail_all``."""
+        if self.migrate_cb is None or req.cancelled:
+            return False
+        try:
+            snap = self._snapshot_row(b, req)
+            migrated = bool(self.migrate_cb(req, snap, "pool_exhausted"))
+        except Exception:  # noqa: BLE001
+            logger.exception("pool-pressure migration failed")
+            return False
+        if migrated:
+            self._leave(b, req)
+        return migrated
+
     def _stage_rows(self, slot: _RingSlot, tw: int, with_state: bool) -> None:
         """Copy the rows' tables at width ``tw`` through the slot's staging
         into the static buffer and, ``with_state`` (the ring is empty),
@@ -1659,7 +1985,7 @@ class BatchScheduler:
         and streaming rows. Reads post-in-flight offsets."""
         if not self._overlap or self.active == 0:
             return False
-        if self._queue:
+        if self._queue or self._checkpoints:
             return False
         if any(r is not None and r.stream for r in self._rows):
             return False

@@ -45,7 +45,13 @@ failing path mask another (or an SLO trip).
 
 PyTorch port: a copy of ``bee2bee_tpu/meshnet/migrate.py`` with the import root rewritten to
 ``bee2bee_tpu_torch``; comments that cited the JAX package's change history or the
-reference checkout's path are trimmed.
+reference checkout's path are trimmed. The port's scheduler exports its blocks as host
+torch tensors, and the binary frames decode bf16 buffers to torch tensors (numpy has no
+bfloat16 without ml_dtypes), so the block frames take torch tensors and numpy arrays
+alike: each piece is hashed over the exact little-endian bytes it ships
+(``protocol.tensor_bytes``; for bf16 the int16 view, the bytes a JAX exporter hashes from
+its ml_dtypes array), verified over the same bytes on arrival, and its chunks join with
+``torch.cat`` or ``np.concatenate`` as they came.
 """
 
 from __future__ import annotations
@@ -95,6 +101,38 @@ REASON_CODES = frozenset({
     "stream_lost",      # the resume stream died mid-generation
     "unrecoverable",    # every rung failed; the consumer got a typed error
 })
+
+
+# block tensors ride as the exporter holds them: host torch tensors (the
+# port's scheduler; bf16 stays torch) or numpy arrays (a JAX exporter's,
+# ml_dtypes bf16 included)
+
+
+def _is_torch(a) -> bool:
+    return type(a).__module__.startswith("torch")
+
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if _is_torch(a) else a.nbytes
+
+
+def _contiguous(a):
+    return a.contiguous() if _is_torch(a) else np.ascontiguousarray(a)
+
+
+def _piece_hash(a) -> str:
+    """sha256 of the exact bytes a piece ships (bf16: its int16 view)."""
+    return sha256_hex(protocol.tensor_bytes(a)[2])
+
+
+def _join(parts: list):
+    """A tensor's chunks joined on the block dim (axis 2) in their own
+    library: bf16 arrives as torch, every other dtype as numpy."""
+    if _is_torch(parts[0]):
+        import torch
+
+        return torch.cat(parts, dim=2)
+    return np.concatenate(parts, axis=2)
 
 
 class MigrationError(RuntimeError):
@@ -531,27 +569,21 @@ class MigrationManager:
         their k_scale/v_scale tensors (block dim = axis 2 on every leaf),
         each hashed separately — a corrupt SCALE is as fatal to the
         import as a corrupt page and takes the same typed refusal."""
-        arrs = {name: np.asarray(a) for name, a in kv.items()}
+        arrs = {name: a if _is_torch(a) else np.asarray(a) for name, a in kv.items()}
         nb = arrs["k"].shape[2]
-        per_block = max(1, sum(a[:, :, :1].nbytes for a in arrs.values()))
+        per_block = max(1, sum(_nbytes(a[:, :, :1]) for a in arrs.values()))
         per = max(1, MAX_CHUNK_BYTES // per_block)
         frames = []
         starts = list(range(0, nb, per))
         for ci, s in enumerate(starts):
-            part = {
-                name: np.ascontiguousarray(a[:, :, s:s + per])
-                for name, a in arrs.items()
-            }
+            part = {name: _contiguous(a[:, :, s:s + per]) for name, a in arrs.items()}
             frames.append(protocol.encode_binary(
                 protocol.msg(
                     protocol.KV_BLOCKS,
                     rid=rid,
                     seq=ci,
                     done=(ci == len(starts) - 1),
-                    hashes={
-                        name: sha256_hex(p.tobytes())
-                        for name, p in part.items()
-                    },
+                    hashes={name: _piece_hash(p) for name, p in part.items()},
                 ),
                 part,
             ))
@@ -729,9 +761,7 @@ class MigrationManager:
         for name in names:
             arr = tensors.get(name)
             digest = hashes.get(name)
-            if arr is None or digest is None or sha256_hex(
-                np.ascontiguousarray(arr).tobytes()
-            ) != digest:
+            if arr is None or digest is None or _piece_hash(arr) != digest:
                 # a corrupt piece — page OR quantization scale — never
                 # touches the pool: typed reject, the exporter's ladder
                 # re-prefills elsewhere
@@ -771,7 +801,7 @@ class MigrationManager:
             )
             return
         kv = {
-            name: np.concatenate([c[1][name] for c in imp.chunks], axis=2)
+            name: _join([c[1][name] for c in imp.chunks])
             for name in sorted(first_names)
         }
         self._spawn_finish(imp, kv)

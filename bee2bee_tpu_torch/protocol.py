@@ -195,7 +195,7 @@ def encode_binary(message: dict, tensors: dict[str, "Any"] | None = None) -> byt
     for name, arr in tensors.items():
         # record the shape BEFORE ascontiguousarray: numpy promotes 0-d
         # inputs to 1-d there, which silently mangled scalar tensors
-        dtype, shape, data = _tensor_bytes(arr)
+        dtype, shape, data = tensor_bytes(arr)
         specs.append(
             {"name": name, "dtype": dtype, "shape": shape, "nbytes": len(data)}
         )
@@ -210,7 +210,7 @@ def encode_binary(message: dict, tensors: dict[str, "Any"] | None = None) -> byt
     return _MAGIC + struct.pack("<I", len(hb)) + hb + b"".join(buffers)
 
 
-def _tensor_bytes(arr) -> tuple[str, list, bytes]:
+def tensor_bytes(arr) -> tuple[str, list, bytes]:
     """(dtype string, shape, raw little-endian bytes) of a numpy array or a
     torch tensor. bfloat16 — pipeline hidden states ship as bf16, half the
     bytes of f32 at full exponent range — travels as its 16-bit pattern

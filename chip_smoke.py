@@ -7,7 +7,8 @@ check's reproduction, ``ring_repro``; ``--node-profile N`` only the build
 and phase 9's second node N times, ``node_profile_rounds``; ``--only
 quant`` only the build, the int8-weight GEMM phase and the int8-weight
 slices; ``--only adapters`` only the build and the adapter phase over
-bf16 and int8 weights. Those print no result line.)
+bf16 and int8 weights; ``--only migrate`` only the build and the migration
+phase over a random init. Those print no result line.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -252,9 +253,11 @@ The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
    4096) and M in {1, 8, 40}: within 2^-6 of the largest |output| (two
    bf16 ulps: the plain version rounds three times, the kernel once), one
    launch a call, the same bytes twice; the grouped launches (wq|wk|wv,
-   w_up|w_gate) one launch each within the same tolerance; the M > 64
-   route (dequantize +
-   cuBLAS) once at M = 2048, equal to the plain version. Times at M = 8
+   w_up|w_gate) one launch each within the same tolerance, timed beside
+   their launches apart, their bound and cuBLAS bf16 over the concatenated
+   dequantized weights; the M > 64 route (dequantize +
+   cuBLAS) once at M = 2048, equal to the plain version, timed beside its
+   bound (operations). Times at M = 8
    (w_up also at 1 and 40), beside the bound, the plain version, cuBLAS
    bf16 at the dequantized weight and torch._weight_int8pack_mm.
    Phase 1 fails if an instantiation of the GEMM kernel spills.
@@ -286,12 +289,46 @@ The int8-weight slice (after the n-gram spec phase, its weights freed):
    weights q * s than twice the bf16 forward's distance; the ledger's
    weights at most 0.58x the same weights in bf16. Then the adapter phase
    over these int8 weights.
+Live migration (after the n-gram spec phase, over its f32 weights, then
+   the same cast back to bf16): two in-process nodes, A and B, on free
+   loopback ports (websockets, no permessage-deflate), each serving
+   llama-3-8b through CUDAService on an engine over the one shared
+   parameter dict (phase 6's config). First the host's costs of one 8 MiB
+   frame (encode, sha256, and deflate at the websockets library's
+   settings). Then: (1) f32 over f32 pools: phase 6's 8 prompts as
+   concurrent greedy streams of 128 tokens on A, served once unmigrated
+   (the twin) and once drained onto B (``begin_drain``) when every stream
+   holds 32 tokens: the summary 8 migrated, 0 failed; B 8 imports, 0
+   re-prefills; every stream's tokens and text equal the twin's; each
+   import's blocks on B, read on B's scheduler thread right after the
+   scatter, bit-equal to what arrived and to what A exported; the
+   window's launches n_layers x each engine's replays (decode_f32 and
+   the f32 tile form), B 0 prefill replays, each of B's decode graphs
+   adding n_layers decode_f32 launches a replay, every other counter 0;
+   A holds 0 blocks after, its thread alive. (4) the same engines as a
+   prefill-role A and a decode-role B: every row handed off after its
+   first token (8 handoffs, A 0 decode replays), tokens equal a B-only
+   run's, TTFT at A printed. (5) A with a pool of 341 blocks: the rows it
+   cannot grow migrate to B, no typed error, every stream 128 tokens.
+   (2) bf16 over bf16 pools, then over int8 pools: the drain as in (1),
+   pages and scales bit-equal, 0 re-prefills, every stream 128 tokens,
+   each row's agreement with its twin printed; one row of about 990
+   prompt tokens drained alone onto an idle B equals its twin token for
+   token, then the same row through the re-prefill rung
+   (``force_reprefill``): both rungs' walls at ctx about 1024. (3) an
+   int8-pool A drained onto a bf16-pool B: refused typed at the KV rung
+   (signatures differ), 8 re-prefills, B's tile launches n_layers x its
+   prefill replays. Each drain prints per row the gather, the bytes, the
+   rung's wall and the import, and per run the encode + sha256, send and
+   verify + join seconds, the pause and the wall, with the card's name
+   and power limit; the int8 / bf16 bytes ratio.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
-   kernels' from phases 6, 7, 9, the prefix phase over the same pool and
-   the model-tier spec phase; the f32 decode kernel's and the f32 tile
-   forms' from phase 8, its prefix phase, the n-gram spec phase and phase
-   5's f32 forwards; phase 2 times the tile kernel and the f32 decode
+   kernels' from phases 6, 7, 9, the prefix phase over the same pool, the
+   model-tier spec phase and the migration phase's bf16 drains; the f32
+   decode kernel's and the f32 tile forms' from phase 8, its prefix phase,
+   the n-gram spec phase, the migration phase's f32 runs and phase 5's f32
+   forwards; phase 2 times the tile kernel and the f32 decode
    kernel at the verify shape, B=8 T=5 ctx 1024), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
@@ -304,6 +341,7 @@ directory.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import functools
 import gc
@@ -1258,7 +1296,12 @@ def phase_int8_gemm(flush) -> dict:
 
     for label, K, Ns in (("wq|wk|wv", 4096, (4096, 1024, 1024)),
                          ("w_up|w_gate", 4096, (14336, 14336))):
-        ws = [int8_weight(gen, K, N)[0] for N in Ns]
+        pairs = [int8_weight(gen, K, N) for N in Ns]
+        ws = [w for w, _ in pairs]
+        # what the bf16 engine pays: one cuBLAS product over the
+        # concatenated dequantized weights
+        dense = torch.cat([d for _, d in pairs], dim=1)
+        del pairs
         x = torch.randn((8, K), generator=gen, device="cuda", dtype=torch.bfloat16)
         before = int8_weight_matmul.launches
         ys = int8_weight_matmul_group(x, ws)
@@ -1270,13 +1313,18 @@ def phase_int8_gemm(flush) -> dict:
             rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
         ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
         apart = cuda_time_ms(lambda: [int8_weight_matmul(x, w) for w in ws], flush=flush)
+        cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
+        Nt = sum(Ns)
+        bnd = bounds(K * Nt + 4 * Nt + 2 * 8 * K + 2 * 8 * Nt, 2 * 8 * K * Nt, torch.bfloat16)
         log(f"int8 GEMM grouped {label} M=8: relative errors vs plain "
             f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_REL_TOL:.3e}); launches {launched}; "
-            f"{ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches apart")
+            f"{ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches apart; "
+            f"{bnd['text']}; cuBLAS bf16 matmul at the concatenated dequantized "
+            f"[{K}, {Nt}] weight {cublas_ms:.4f} ms")
         check(launched == 1, f"int8 GEMM grouped {label}: {launched} launches")
         check(max(rels) <= GEMM_REL_TOL, f"int8 GEMM grouped {label}: errors {rels}")
         worst = max(worst, *rels)
-        del ws
+        del ws, dense
     # the M > 64 route: the weight dequantized into bf16 scratch, cuBLAS
     # bf16, then the scale (the JAX formula); counted apart
     name, K, N = GEMM_SHAPES[2]
@@ -1290,10 +1338,13 @@ def phase_int8_gemm(flush) -> dict:
     err = (y.float() - ref.float()).abs().max().item()
     ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush, reps=10)
     cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
+    bnd = bounds(K * N + 4 * N + 2 * 2048 * K + 2 * 2048 * N, 2 * 2048 * K * N,
+                 torch.bfloat16)
     log(f"int8 GEMM {name} M=2048 (the dequantize + cuBLAS route): max abs err vs "
         f"plain {err:.3e}; launches {after['int8_gemm'] - before['int8_gemm']} kernel, "
         f"{after['int8_gemm_dequant'] - before['int8_gemm_dequant']} dequant; "
-        f"{ms:.4f} ms against cuBLAS bf16 at a bf16 weight {cublas_ms:.4f} ms")
+        f"{ms:.4f} ms, {bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS bf16 "
+        f"at a bf16 weight {cublas_ms:.4f} ms")
     check(after["int8_gemm_dequant"] - before["int8_gemm_dequant"] == 1
           and after["int8_gemm"] == before["int8_gemm"],
           f"int8 GEMM M=2048: launches {before} -> {after}")
@@ -2277,6 +2328,21 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
         f"{g['scheduled_tokens_total']} scheduled); card {card}")
 
 
+def slice_prompts(sizes=(40, 120, 260, 400, 640, 900, 1200, 1500)) -> list:
+    """Phase 6's prompts: one of each byte length in ``sizes`` (a token a
+    byte, plus BOS)."""
+    words = ("the paged pool maps every row onto blocks of sixteen tokens "
+             "and the kernel reads them through the tables ").split()
+    prompts = []
+    for n in sizes:
+        text, i = "", 0
+        while len(text) < n:
+            text += words[(i * 7 + n) % len(words)] + " "
+            i += 1
+        prompts.append(text[:n])
+    return prompts
+
+
 def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16",
                 quantize="none"):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
@@ -2315,16 +2381,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     check(kv_meta["cache_dtype"] == cache_dtype,
           f"{tag}: metadata kv {kv_meta} does not name the {cache_dtype} pool")
     try:
-        words = ("the paged pool maps every row onto blocks of sixteen tokens "
-                 "and the kernel reads them through the tables ").split()
-        sizes = [40, 120, 260, 400, 640, 900, 1200, 1500]
-        prompts = []
-        for n in sizes:
-            text, i = "", 0
-            while len(text) < n:
-                text += words[(i * 7 + n) % len(words)] + " "
-                i += 1
-            prompts.append(text[:n])
+        prompts = slice_prompts()
         knobs = [dict(temperature=0.0)] * 6 + [
             dict(temperature=0.8, top_p=0.9),
             dict(temperature=0.0, repetition_penalty=1.2),
@@ -4116,6 +4173,588 @@ def phase_node(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ migration
+
+MIGRATE_NEW = 128  # new tokens each stream asks for
+MIGRATE_AT = 32  # tokens every stream holds when the drain starts
+# the single-row rungs' prompt: about 990 tokens, so the row moves at ctx
+# about 1024
+MIGRATE_SOLO_BYTES = 990
+# A's pool in the pool-pressure check: the null block and 340 blocks, which
+# admit the 8 prompts (322 blocks) but cannot grow them all by 128 tokens
+MIGRATE_PRESSURE_BLOCKS = 341
+
+
+def migrate_engine(params, dtype: str, cache_dtype: str, **over):
+    """An engine of the migration phase: phase 6's config over the shared
+    parameters (nothing on this path writes them)."""
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+                        rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype, **over)
+    return InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
+
+
+def engine_kernels(engine) -> tuple[str, str, str]:
+    """(decode counter, tile counter, the decode kernel's launch attribute)
+    the dispatch rule names for ``engine``'s decode steps and prefill
+    chunks (every bucket is 64 tokens or more)."""
+    from bee2bee_tpu_torch.ops.ragged import _COUNTERS, ragged_kernel
+
+    cfg = engine.model_cfg
+    G, q = cfg.n_heads // cfg.n_kv_heads, engine.kv_quantized
+    suffix = "_int8" if q else ""
+    dec = ragged_kernel(engine.dtype, 1, cfg.head_dim, q, G)
+    tile = ragged_kernel(engine.dtype, 64, cfg.head_dim, q, G)
+    return (RAGGED_COUNTERS[dec] + suffix, RAGGED_COUNTERS[tile] + suffix,
+            ("int8_" if q else "") + _COUNTERS[dec])
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, so that equality is bit equality (NaN included)."""
+    return t.contiguous().view(torch.uint8)
+
+
+class DrainProbe:
+    """The numbers of one migration run: per row (keyed by prompt length)
+    the source's gather, the bytes, each rung's start, the target's import
+    and, right after each KV import, the target's blocks held bit for bit
+    to what arrived and to what the source exported (read on the target's
+    scheduler thread); per run the encode-and-hash, send and verify-and-join
+    seconds. ``close()`` takes the wraps off."""
+
+    def __init__(self, a, b, node_a, node_b):
+        from bee2bee_tpu_torch.engine.paged import ceil_div
+
+        self.rows: dict = {}
+        self.bad: list = []
+        self.encode_ms = self.send_ms = self.verify_ms = 0.0
+        self.frame_bytes = 0
+        self._undo: list = []
+        self._current = None
+        sa, sb = a.scheduler, b.scheduler
+        snapshot_row, paged_import = sa._snapshot_row, sb._paged_import
+        mgr, tgt = node_a.migration, node_b.migration
+        encode, send, once = mgr._encode_chunks, mgr._send_chunk, mgr._migrate_once
+        blocks = tgt.handle_blocks
+
+        def row(req) -> dict:
+            return self.rows.setdefault(len(req.ids), {"rungs": []})
+
+        def snapshotted(b, req):
+            t0 = time.perf_counter()
+            snap = snapshot_row(b, req)
+            kv = snap.get("_kv") or {}
+            row(req).update(gather_ms=(time.perf_counter() - t0) * 1e3, ctx=snap["offset"],
+                            kv=kv, bytes=sum(t.numel() * t.element_size()
+                                             for t in kv.values()))
+            return snap
+
+        def imported(req, b, st):
+            t0 = time.perf_counter()
+            paged_import(req, b, st)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = row(req)
+            r.update(import_ms=(t1 - t0) * 1e3, t_import=t1,
+                     rung="kv" if st.get("kv") is not None else "reprefill")
+            if st.get("kv") is not None:
+                nb = ceil_div(st["offset"], sb._block_size)
+                idx = torch.tensor(sb._row_blocks[b][:nb], device=sb._device)
+                for name, t in sb._cache.items():
+                    held = bits(t.index_select(2, idx).cpu())
+                    if not (torch.equal(held, bits(st["kv"][name]))
+                            and torch.equal(held, bits(r["kv"][name]))):
+                        self.bad.append((len(req.ids), name))
+
+        def encoded(rid, kv):
+            t0 = time.perf_counter()
+            frames = encode(rid, kv)
+            self.encode_ms += (time.perf_counter() - t0) * 1e3
+            self.frame_bytes += sum(len(f) for f in frames)
+            return frames
+
+        async def sent(ws, frame, seq):
+            t0 = time.perf_counter()
+            await send(ws, frame, seq)
+            self.send_ms += (time.perf_counter() - t0) * 1e3
+
+        async def rung(req, svc, snap, kv, *args, **kw):
+            row(req)["rungs"].append(("kv" if kv is not None else "reprefill",
+                                      time.perf_counter()))
+            return await once(req, svc, snap, kv, *args, **kw)
+
+        async def verified(ws, data):
+            t0 = time.perf_counter()
+            await blocks(ws, data)
+            self.verify_ms += (time.perf_counter() - t0) * 1e3
+
+        for obj, name, fn in ((sa, "_snapshot_row", snapshotted),
+                              (sb, "_paged_import", imported),
+                              (mgr, "_encode_chunks", encoded), (mgr, "_send_chunk", sent),
+                              (mgr, "_migrate_once", rung), (tgt, "handle_blocks", verified)):
+            setattr(obj, name, fn)
+            self._undo.append(functools.partial(delattr, obj, name))
+
+    def close(self):
+        while self._undo:
+            self._undo.pop()()
+
+    def report(self, tag: str, card: str, t0: float, wall: float,
+               start: str = "the drain's start") -> dict:
+        """Print the run's numbers (the pause from ``t0``, ``start``);
+        returns the rows' summary, their block tensors dropped."""
+        rows = {k: r for k, r in self.rows.items() if "t_import" in r}
+        for r in self.rows.values():
+            r.pop("kv", None)
+        out = {"rows": len(rows), "bytes": sum(r.get("bytes", 0) for r in rows.values()),
+               "pause_ms": (max(r["t_import"] for r in rows.values()) - t0) * 1e3
+               if rows else 0.0}
+        for k in sorted(rows):
+            r = rows[k]
+            rung_ms = (r["t_import"] - r["rungs"][-1][1]) * 1e3 if r["rungs"] else 0.0
+            log(f"{tag}: row of {k} prompt tokens at ctx {r.get('ctx')}: "
+                f"{r.get('bytes', 0)} B gathered in {r.get('gather_ms', 0.0):.2f} ms; "
+                f"rungs {[n for n, _ in r['rungs']]}, the last ({r['rung']}) "
+                f"{rung_ms:.2f} ms from its start to the import's end; import on the "
+                f"target {r['import_ms']:.2f} ms (scatter or re-prefill, synchronized)")
+            r["rung_ms"] = rung_ms
+        log(f"{tag}: {len(rows)} rows moved, {out['bytes']} B of blocks ({self.frame_bytes} B "
+            f"of frames); encode + sha256 {self.encode_ms:.1f} ms, send "
+            f"{self.send_ms:.1f} ms, verify + join at the target {self.verify_ms:.1f} ms; "
+            f"pause {out['pause_ms']:.1f} ms from {start} to the last import"
+            + (f", drain wall {wall * 1e3:.1f} ms (to the last migrated stream's end)"
+               if wall else "") + f"; card {card}")
+        out["rows_detail"] = rows
+        return out
+
+
+@contextlib.asynccontextmanager
+async def migrate_mesh(engines, roles=(None, None)):
+    """Two in-process nodes on free loopback ports serving ``engines`` (A,
+    B) through CUDAService; B joins A, both announce and gossip. On exit
+    the nodes stop and the engines' schedulers are unhooked."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bee2bee_tpu_torch.meshnet.node import P2PNode
+    from bee2bee_tpu_torch.services import CUDAService
+
+    # every stream blocks an executor thread, and the drain and the import
+    # pumps take more
+    asyncio.get_running_loop().set_default_executor(ThreadPoolExecutor(64))
+    nodes = []
+    try:
+        for eng, role in zip(engines, roles):
+            node = P2PNode(host="127.0.0.1", port=free_port(), disagg_role=role)
+            node.ping_interval_s = 0.1
+            await node.start()
+            node.add_service(CUDAService("llama-3-8b", max_new_tokens=MIGRATE_NEW,
+                                         engine=eng))
+            nodes.append(node)
+        a, b = nodes
+        check(await b.connect_bootstrap(a.addr), "migrate: B could not join A")
+        await settle(lambda: a.peers and b.peers)
+        for node in nodes:
+            await node.announce_service(node.local_services["cuda"])
+        for node in nodes:
+            await node.gossip_telemetry()
+        check(await settle(lambda: all(len(x.health.fresh()) == 1 for x in nodes)),
+              "migrate: the nodes never saw each other's digests")
+        yield nodes
+    finally:
+        for node in nodes:
+            try:
+                await node.stop()
+            except Exception:  # noqa: BLE001 — the phase's own error wins
+                pass
+        for eng in engines:
+            sch = eng._scheduler
+            if sch is not None:
+                sch.migrate_cb = None
+                sch.handoff_after_prefill = False
+
+
+async def settle(cond, timeout: float = 30.0) -> bool:
+    import asyncio
+
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if cond():
+            return True
+        await asyncio.sleep(0.02)
+    return cond()
+
+
+async def run_streams(node, engine, prompts, drain=None):
+    """``prompts`` as concurrent greedy streams of MIGRATE_NEW tokens through
+    ``node``'s own serving path; with ``drain`` (a coroutine function) it
+    is awaited once every stream holds MIGRATE_AT tokens. Returns (results
+    in prompt order, the source's Request objects by prompt length, the
+    drain's return, the drain's start, its wall seconds)."""
+    import asyncio
+
+    sch = engine.scheduler
+    reqs: dict = {}
+
+    def recorded(req):
+        reqs[len(req.ids)] = req
+        return type(sch).submit(sch, req)
+
+    sch.submit = recorded
+    try:
+        tasks = [asyncio.create_task(node.request_generation(
+            node.peer_id, p, model="llama-3-8b", max_new_tokens=MIGRATE_NEW,
+            temperature=0.0, stream=True, on_chunk=lambda _piece: None)) for p in prompts]
+        summary, t0, wall = None, 0.0, 0.0
+        if drain is not None:
+            while not (len(reqs) == len(prompts)
+                       and all(len(r.out_ids) >= MIGRATE_AT for r in reqs.values())):
+                check(not any(t.done() for t in tasks),
+                      "migrate: a stream ended before the drain")
+                await asyncio.sleep(0.005)
+            t0 = time.perf_counter()
+            summary = await drain()
+            wall = time.perf_counter() - t0
+        results = await asyncio.gather(*tasks)
+    finally:
+        del sch.submit
+    return results, reqs, summary, t0, wall
+
+
+def migrate_launches(tag: str, counts: dict, deltas: list) -> None:
+    """The launches of a migration run against its engines' replays: each
+    engine's decode kernel n_layers x its replayed decode steps, its tile
+    kernel n_layers x its prefill replays (two engines with one pool type
+    share the counters), every other counter 0."""
+    want = {k: 0 for k in counts}
+    for engine, d in deltas:
+        dec, tile, _ = engine_kernels(engine)
+        L = engine.model_cfg.n_layers
+        want[dec] += L * d["replays"]
+        want[tile] += L * d["roots"]["prefill"]["replays"]
+    check(counts == want, f"{tag}: launches {counts} != {want} (n_layers x replays)")
+
+
+def check_decode_graphs(tag: str, engine) -> None:
+    """Each of ``engine``'s decode graphs adds n_layers launches of the
+    decode kernel the rule names and one forward a replay, nothing else."""
+    _, _, attr = engine_kernels(engine)
+    L = engine.model_cfg.n_layers
+    for (root, key), g in engine.scheduler._graphs.items():
+        if root == "decode":
+            got = {name: d for _h, name, d in g.deltas}
+            check(got == {attr: L, "forward_calls": 1},
+                  f"{tag}: decode graph {key} adds {got} a replay")
+
+
+def agreement(a: list, b: list) -> int:
+    """The length of the common prefix of two token lists."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def migrate_drain(card: str, tag: str, a, b, exact: bool, reprefill: bool = False) -> dict:
+    """Check 1 / 2 / 3: phase 6's prompts as 8 concurrent greedy streams on
+    A, served once unmigrated (the twin) and once drained onto B after
+    MIGRATE_AT tokens. KV rung (``reprefill`` False): every row migrates
+    with its blocks, bit-equal on B right after the import, no re-prefill;
+    re-prefill rung: every row is refused typed at the KV rung and
+    re-prefilled on B. ``exact``: the tokens and texts equal the twin's,
+    else each row's agreement is printed. Returns the probe's summary."""
+    import asyncio
+
+    prompts = slice_prompts()
+    sa, sb = a.scheduler, b.scheduler
+    out: dict = {}
+
+    async def drive():
+        async with migrate_mesh([a, b]) as (na, nb):
+            twin, twin_reqs, *_ = await run_streams(na, a, prompts)
+            probe = DrainProbe(a, b, na, nb)
+            st0 = (sb.stats.migrated_in, sb.stats.import_reprefills)
+            since_a, since_b = graph_stats(a, tag), graph_stats(b, tag)
+            reset_counts()
+            try:
+                results, reqs, summary, t0, wall = await run_streams(
+                    na, a, prompts, drain=na.begin_drain)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                probe.close()
+            da, db = graph_stats(a, tag + " A", since_a), graph_stats(b, tag + " B", since_b)
+            n = len(prompts)
+            log(f"{tag}: drain summary {summary}")
+            key = "reprefilled" if reprefill else "migrated"
+            check(summary[key] == n and summary["failed"] == 0,
+                  f"{tag}: drain summary {summary}")
+            moved = (sb.stats.migrated_in - st0[0], sb.stats.import_reprefills - st0[1])
+            check(moved == (n, n if reprefill else 0),
+                  f"{tag}: B imported {moved[0]} rows, {moved[1]} of them re-prefilled")
+            kv_rows = [r for r in probe.rows.values() if r.get("rung") == "kv"]
+            check(not probe.bad and len(kv_rows) == (0 if reprefill else n),
+                  f"{tag}: {len(kv_rows)} KV imports, blocks differing from the "
+                  f"export: {probe.bad}")
+            for i, (r, t) in enumerate(zip(results, twin)):
+                check(r.get("tokens") == MIGRATE_NEW and t.get("tokens") == MIGRATE_NEW,
+                      f"{tag}: stream {i}: {r.get('tokens')} tokens (twin "
+                      f"{t.get('tokens')})")
+            agree = {k: agreement(reqs[k].out_ids, twin_reqs[k].out_ids) for k in reqs}
+            log(f"{tag}: tokens agreeing with the unmigrated twin, by prompt length: "
+                f"{agree} of {MIGRATE_NEW}")
+            if exact:
+                check(all(v == MIGRATE_NEW for v in agree.values())
+                      and [r["text"] for r in results] == [t["text"] for t in twin],
+                      f"{tag}: migrated streams differ from the unmigrated twin")
+            migrate_launches(tag, counts, [(a, da), (b, db)])
+            check(db["replays"] > 0, f"{tag}: B replayed no decode step")
+            if not reprefill:
+                check(db["roots"]["prefill"]["replays"] == 0,
+                      f"{tag}: B ran {db['roots']['prefill']['replays']} prefill chunks")
+            else:
+                check(db["roots"]["prefill"]["replays"] > 0, f"{tag}: B re-prefilled nothing")
+            check_decode_graphs(tag, b)
+            dec_b, tile_b, _ = engine_kernels(b)
+            L = b.model_cfg.n_layers
+            log(f"{tag}: launches {dict((k, v) for k, v in counts.items() if v)}: B's "
+                f"{db['replays']} replayed decode steps x {L} = {db['replays'] * L} {dec_b}, "
+                f"its {db['roots']['prefill']['replays']} prefill replays x {L} {tile_b}; "
+                f"A's {da['replays']} decode steps and {da['roots']['prefill']['replays']} "
+                f"prefill chunks")
+            check(sa.stats.paged_blocks_in_use == 0 and sa._thread.is_alive(),
+                  f"{tag}: A holds {sa.stats.paged_blocks_in_use} blocks after the drain "
+                  f"(alive: {sa._thread.is_alive()})")
+            out.update(probe.report(tag, card, t0, wall), counts=counts)
+
+    asyncio.run(drive())
+    return out
+
+
+def migrate_solo(card: str, tag: str, a, b) -> dict:
+    """One bf16 row of about 990 prompt tokens drained alone onto an idle
+    B: its tokens equal its unmigrated twin's (one row on A, the same
+    bucket, widths and graphs on B). Then the same row through the
+    re-prefill rung (the KV rung skipped, ``force_reprefill``) twice: the
+    first run captures B's prefill key, the second is timed. Returns both
+    rungs' walls at ctx about 1024."""
+    import asyncio
+
+    prompt = slice_prompts((MIGRATE_SOLO_BYTES,))
+    a.scheduler._sticky_idle_s = b.scheduler._sticky_idle_s = 0.0  # bucket 1 each
+    out: dict = {}
+
+    async def drive():
+        async with migrate_mesh([a, b]) as (na, nb):
+            twin, twin_reqs, *_ = await run_streams(na, a, prompt)
+            for rung in ("kv", "reprefill", "reprefill"):
+                na.end_drain()
+                na.migration.force_reprefill = rung == "reprefill"
+                probe = DrainProbe(a, b, na, nb)
+                try:
+                    results, reqs, summary, t0, wall = await run_streams(
+                        na, a, prompt, drain=na.begin_drain)
+                finally:
+                    probe.close()
+                key = "migrated" if rung == "kv" else "reprefilled"
+                check(summary[key] == 1 and summary["failed"] == 0,
+                      f"{tag} [{rung} rung]: drain summary {summary}")
+                check(not probe.bad, f"{tag}: blocks differing from the export: {probe.bad}")
+                (k, req), = reqs.items()
+                agree = agreement(req.out_ids, twin_reqs[k].out_ids)
+                log(f"{tag} [{rung} rung]: {agree} of {MIGRATE_NEW} tokens agree with the "
+                    f"unmigrated twin")
+                if rung == "kv":
+                    check(agree == MIGRATE_NEW and results[0]["text"] == twin[0]["text"],
+                          f"{tag}: the row migrated alone left its twin at token {agree}")
+                rep = probe.report(f"{tag} [{rung} rung]", card, t0, wall)
+                r = rep["rows_detail"][k]
+                out[rung] = {"ctx": r["ctx"], "rung_ms": r["rung_ms"],
+                             "gather_ms": r["gather_ms"], "import_ms": r["import_ms"]}
+            na.migration.force_reprefill = False
+    asyncio.run(drive())
+    kv, rp = out["kv"], out["reprefill"]
+    log(f"{tag}: one row at ctx {kv['ctx']}: KV rung {kv['gather_ms'] + kv['rung_ms']:.2f} ms "
+        f"(gather {kv['gather_ms']:.2f} ms + export to import's end {kv['rung_ms']:.2f} ms, "
+        f"scatter {kv['import_ms']:.2f} ms), re-prefill rung {rp['rung_ms']:.2f} ms "
+        f"(the prefill on B {rp['import_ms']:.2f} ms); card {card}")
+    return out
+
+
+def migrate_disagg(card: str, tag: str, a, b) -> None:
+    """Check 4: A is the prefill role, B the decode role. The 8 streams sent
+    to A are each handed off after their first token: A replays no decode
+    step, B decodes them all, and the tokens equal a B-only run's. Prints
+    TTFT at A."""
+    import asyncio
+
+    prompts = slice_prompts()
+    sa = a.scheduler
+
+    async def drive():
+        async with migrate_mesh([a, b], roles=("prefill", "decode")) as (na, nb):
+            check(sa.handoff_after_prefill, f"{tag}: the prefill role did not hand off")
+            twin, twin_reqs, *_ = await run_streams(nb, b, prompts)
+            h0 = sa.stats.prefill_handoffs
+            probe = DrainProbe(a, b, na, nb)
+            since_a, since_b = graph_stats(a, tag), graph_stats(b, tag)
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                results, reqs, *_ = await run_streams(na, a, prompts)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                probe.close()
+            da, db = graph_stats(a, tag + " A", since_a), graph_stats(b, tag + " B", since_b)
+            handoffs = sa.stats.prefill_handoffs - h0
+            check(handoffs == len(prompts), f"{tag}: {handoffs} handoffs")
+            check(da["replays"] == 0, f"{tag}: A replayed {da['replays']} decode steps")
+            check(not probe.bad, f"{tag}: blocks differing from the export: {probe.bad}")
+            migrate_launches(tag, counts, [(a, da), (b, db)])
+            check_decode_graphs(tag, b)
+            agree = {k: agreement(reqs[k].out_ids, twin_reqs[k].out_ids) for k in reqs}
+            log(f"{tag}: tokens agreeing with the B-only run, by prompt length: {agree} "
+                f"of {MIGRATE_NEW}")
+            check(all(v == MIGRATE_NEW for v in agree.values())
+                  and [r["text"] for r in results] == [t["text"] for t in twin],
+                  f"{tag}: handed-off streams differ from the B-only run")
+            ttft = sorted(r["timing"]["ttft_ms"] for r in results)
+            twin_ttft = sorted(t["timing"]["ttft_ms"] for t in twin)
+            log(f"{tag}: {handoffs} rows handed off after prefill; TTFT at A "
+                f"{ttft[0]}-{ttft[-1]} ms (the B-only run's {twin_ttft[0]}-{twin_ttft[-1]} ms); "
+                f"A's decode launches 0, B's {counts[engine_kernels(b)[0]]}")
+            probe.report(tag, card, t0, 0.0, start="the burst's start")
+            out["counts"] = counts
+
+    out: dict = {}
+    asyncio.run(drive())
+    return out["counts"]
+
+
+def migrate_pressure(card: str, tag: str, a, b) -> None:
+    """Check 5: A's pool (MIGRATE_PRESSURE_BLOCKS) admits the 8 prompts but
+    cannot grow them all by MIGRATE_NEW tokens: the rows it cannot grow
+    migrate to B (KV rung) and every stream finishes, with no typed
+    error."""
+    import asyncio
+
+    prompts = slice_prompts()
+    sa, sb = a.scheduler, b.scheduler
+
+    async def drive():
+        async with migrate_mesh([a, b]) as (na, nb):
+            out0, in0 = sa.stats.migrated_out, sb.stats.migrated_in
+            probe = DrainProbe(a, b, na, nb)
+            since_a, since_b = graph_stats(a, tag), graph_stats(b, tag)
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                results, reqs, *_ = await run_streams(na, a, prompts)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                probe.close()
+            da, db = graph_stats(a, tag + " A", since_a), graph_stats(b, tag + " B", since_b)
+            migrate_launches(tag, counts, [(a, da), (b, db)])
+            out["counts"] = counts
+            moved = sa.stats.migrated_out - out0
+            errors = [h for h in sa.stats.history if h.get("error")]
+            check(moved > 0 and sb.stats.migrated_in - in0 == moved,
+                  f"{tag}: {moved} rows left A, {sb.stats.migrated_in - in0} reached B")
+            check(not errors, f"{tag}: typed errors {errors}")
+            check(all(r.get("tokens") == MIGRATE_NEW for r in results),
+                  f"{tag}: tokens {[r.get('tokens') for r in results]}")
+            check(not probe.bad, f"{tag}: blocks differing from the export: {probe.bad}")
+            log(f"{tag}: A's pool of {a.pool_blocks} blocks: {moved} of {len(prompts)} rows "
+                f"migrated under pool pressure (prompt lengths "
+                f"{sorted(k for k, r in probe.rows.items() if 't_import' in r)}), 0 typed "
+                f"errors, every stream {MIGRATE_NEW} tokens")
+            probe.report(tag, card, t0, 0.0, start="the burst's start")
+
+    out: dict = {}
+    asyncio.run(drive())
+    return out["counts"]
+
+
+def migrate_host_rates(card: str) -> None:
+    """The host's per-byte costs of one 8 MiB KV_BLOCKS frame of llama-3-8b
+    bf16 pages (4 blocks of k and v, random normal): the frame encode, the
+    sha256 of its pieces, and what permessage-deflate at the websockets
+    library's settings (zlib level 6, raw window 15, memLevel 5) would
+    cost, which the port's transport no longer negotiates."""
+    import hashlib
+    import zlib
+
+    from bee2bee_tpu_torch import protocol
+
+    pages = torch.randn((32, 8, 4, 16, 128), dtype=torch.bfloat16)
+    kv = {"k": pages, "v": pages.clone()}
+    t0 = time.perf_counter()
+    frame = protocol.encode_binary({"type": "kv_blocks"}, kv)
+    t1 = time.perf_counter()
+    for t in kv.values():
+        hashlib.sha256(protocol.tensor_bytes(t)[2]).hexdigest()
+    t2 = time.perf_counter()
+    z = zlib.compressobj(6, zlib.DEFLATED, -15, 5)
+    packed = z.compress(frame) + z.flush(zlib.Z_SYNC_FLUSH)
+    t3 = time.perf_counter()
+    mib = len(frame) / 2**20
+    log(f"migrate: host, one {len(frame)} B frame of bf16 pages: encode "
+        f"{(t1 - t0) * 1e3:.1f} ms, sha256 {(t2 - t1) * 1e3:.1f} ms "
+        f"({mib / (t2 - t1):.0f} MiB/s), deflate {(t3 - t2) * 1e3:.1f} ms "
+        f"({mib / (t3 - t2):.1f} MiB/s, to {len(packed) / len(frame):.3f} of the bytes); "
+        f"card {card}")
+
+
+def phase_migrate(card: str, params) -> dict:
+    """The migration phase: checks 1, 4 and 5 over ``params`` (f32, shared
+    by every engine), then 2 and 3 over the same weights cast to bf16.
+    Returns the launches of its runs, summed (the single-row runs left
+    out)."""
+    total: dict = {}
+    migrate_host_rates(card)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    a, b = (migrate_engine(params, "float32", "float32") for _ in range(2))
+    small = None
+    try:
+        add(migrate_drain(card, "migrate[f32, f32 pool]", a, b, exact=True)["counts"])
+        add(migrate_disagg(card, "migrate[disagg, f32, f32 pool]", a, b))
+        a.close()
+        small = migrate_engine(params, "float32", "float32",
+                               kv_pool_blocks=MIGRATE_PRESSURE_BLOCKS)
+        add(migrate_pressure(card, "migrate[pool pressure, f32, f32 pool]", small, b))
+    finally:
+        for eng in (a, b, small):
+            if eng is not None:
+                eng.close()
+    params = cast_tree(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = (migrate_engine(params, "bfloat16", "bfloat16") for _ in range(2))
+    a8 = b8 = None
+    try:
+        bf16 = migrate_drain(card, "migrate[bf16, bf16 pool]", a, b, exact=False)
+        add(bf16["counts"])
+        migrate_solo(card, "migrate[bf16, bf16 pool, one row]", a, b)
+        a.close()
+        a8, b8 = (migrate_engine(params, "bfloat16", "int8") for _ in range(2))
+        int8 = migrate_drain(card, "migrate[bf16, int8 pool]", a8, b8, exact=False)
+        add(int8["counts"])
+        b8.close()
+        log(f"migrate: bytes shipped int8 {int8['bytes']} B / bf16 {bf16['bytes']} B = "
+            f"{int8['bytes'] / bf16['bytes']:.4f}; card {card}")
+        add(migrate_drain(card, "migrate[int8 pool -> bf16 pool, re-prefill rung]", a8, b,
+                          exact=False, reprefill=True)["counts"])
+    finally:
+        for eng in (a, b, a8, b8):
+            if eng is not None:
+                eng.close()
+    return total
+
+
 def run_only(card: str, which: str) -> int:
     """``--only quant``: the int8-weight GEMM phase and the int8-weight
     slices; ``--only adapters``: the adapter phase over bf16 and int8
@@ -4128,8 +4767,17 @@ def run_only(card: str, which: str) -> int:
         phase_int8_weights(card)
     elif which == "adapters":
         phase_adapters_both(card)
+    elif which == "migrate":
+        # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
+        engine = migrate_engine(None, "bfloat16", "bfloat16")
+        params = cast_tree(engine.params, torch.float32)
+        engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant or adapters, not {which!r}")
+        raise SystemExit(f"--only: quant, adapters or migrate, not {which!r}")
     log(f"card: {card}")
     return 0
 
@@ -4213,6 +4861,10 @@ def main() -> int:
         check_prefix_logits(f"prefix[{pool} pool]", prefix[pool], prefix_f32["off_logits"])
     stage("spec, n-gram tier")
     spec_ngram = phase_spec_ngram(card, params)
+    # live migration between two nodes on the card: the f32 weights, then
+    # the same cast back to bf16
+    stage("migration")
+    migrated = phase_migrate(card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4242,6 +4894,11 @@ def main() -> int:
         counts[name] += n
     for name, n in spec_ngram.items():
         f32_counts["float32"][name] += n
+    # and the migration phase's, each where its kernel's row reads it
+    for name, n in migrated.items():
+        dest = (f32_counts["float32"] if "_f32" in name
+                else int8_counts if name.endswith("_int8") else counts)
+        dest[name] += n
 
     def row(name, source, replaces, n, err, t):
         return {

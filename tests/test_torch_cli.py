@@ -8,8 +8,8 @@
 - Every branch of the boot path that reaches a module the port does not
   have yet raises ``NotImplementedError`` naming its ROADMAP.md item, one
   case each: weights publish and mesh join, a checkpoint, a mesh shape,
-  the pipeline stage runner, KV migration export and import, and int8
-  weights beside f32 activations on the card. The draft role runs: a port node hosts the drafter and serves a
+  the pipeline stage runner, and int8 weights beside f32 activations on
+  the card. The draft role runs: a port node hosts the drafter and serves a
   draft.
 - ``NodeConfig().engine_config()`` is the port's ``EngineConfig`` with the
   ragged kernel's ``attention="auto"``.
@@ -135,9 +135,6 @@ UNPORTED = {
     "mesh_shape": (14, lambda e, mp: _run(backend="cuda", model="tiny-llama",
                                           cfg=_cfg(mesh_shape="data:1,model:8"))),
     "stage_runner": (13, lambda e, mp: _part_load(e)),
-    "kv_migration_export": (9, lambda e, mp: e.scheduler.checkpoint(None)),
-    "kv_migration_signature": (9, lambda e, mp: e.migration_signature()),
-    "kv_migration_import": (9, lambda e, mp: e.import_generation({"prompt_ids": [1]})),
 }
 
 
