@@ -165,10 +165,7 @@ def cli():
 # serve-tpu options the port does not run yet: option -> (flag, ROADMAP.md
 # queue A item). Refused when set to anything but their off value.
 _UNPORTED_OPTS = {
-    "checkpoint": ("--checkpoint", 10),
     "mesh_shape": ("--mesh-shape", 14),
-    "publish_weights": ("--publish-weights", 10),
-    "from_mesh": ("--from-mesh", 10),
 }
 # values of the choice options the port does not run yet
 _UNPORTED_CHOICES = {
@@ -193,9 +190,13 @@ def _refuse_unported(opts: dict) -> None:
 
 @cli.command("serve-cuda")
 @click.option("--model", default="llama-3-8b",
-              help="registry model name (random weights from seed 0); the "
-                   "port serves the llama architecture")
-@click.option("--checkpoint", default=None, help="local checkpoint dir (not ported)")
+              help="registry model name (random weights from seed 0 unless "
+                   "--checkpoint or --from-mesh), or 'auto' with --checkpoint "
+                   "(the checkpoint's config.json decides); the port serves the "
+                   "llama architecture")
+@click.option("--checkpoint", default=None,
+              help="local checkpoint dir: HF layout (*.safetensors or "
+                   "pytorch_model*.bin with config.json) or a native piece dir")
 @click.option("--lora", default=None,
               help="LoRA adapters .npz merged into the weights at load "
                    "(before --quantize)")
@@ -229,22 +230,22 @@ def _refuse_unported(opts: dict) -> None:
 @click.option("--max-adapters", "max_adapters", type=int, default=None,
               help="adapter pool slots (BEE2BEE_MAX_ADAPTERS; 0 = off)")
 @click.option("--publish-weights", is_flag=True,
-              help="announce this node's params as DHT pieces (not ported)")
+              help="announce this node's weights as sha256-addressed pieces on "
+                   "the DHT (after a local load or a --from-mesh join)")
 @click.option("--from-mesh", is_flag=True,
-              help="fetch weights from mesh providers (not ported)")
+              help="fetch the --model's weights as pieces from mesh providers "
+                   "(no local checkpoint)")
 @_common_opts
 def serve_cuda(model, checkpoint, lora, mesh_shape, attention, quantize,
                kv_quant, paged, spec_tokens, drafter, adapters, max_adapters,
                publish_weights, from_mesh, **kw):
     """Serve a model on the CUDA card through the PyTorch engine."""
-    _refuse_unported(dict(
-        checkpoint=checkpoint, mesh_shape=mesh_shape, attention=attention,
-        publish_weights=publish_weights, from_mesh=from_mesh,
-    ))
+    _refuse_unported(dict(mesh_shape=mesh_shape, attention=attention))
     _serve(
-        "cuda", model, attention=attention, kv_quant=kv_quant, paged=paged,
-        spec_tokens=spec_tokens, drafter=drafter, quantize=quantize, lora=lora,
-        adapters=adapters, max_adapters=max_adapters, **kw
+        "cuda", model, checkpoint=checkpoint, attention=attention, kv_quant=kv_quant,
+        paged=paged, spec_tokens=spec_tokens, drafter=drafter, quantize=quantize,
+        lora=lora, adapters=adapters, max_adapters=max_adapters,
+        publish_weights=publish_weights, from_mesh=from_mesh, **kw
     )
 
 

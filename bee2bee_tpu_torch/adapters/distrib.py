@@ -23,7 +23,7 @@ import logging
 
 import numpy as np
 
-from ..pieces import ShardManifest, build_shard_manifest
+from ..pieces import ShardManifest, build_shard_manifest, piece_array
 from ..train.lora import (
     AdapterLoadError,
     LoraConfig,
@@ -90,8 +90,10 @@ async def publish_adapter(node, dht, base_model: str, name: str,
     key = adapter_key(base_model, name)
     flat = {k: np.asarray(v, np.float32) for k, v in _flatten(adapters).items()}
     flat[_CFG_PIECE] = np.frombuffer(_cfg_blob(lcfg), dtype=np.uint8)
-    # every piece replicated (mesh_axes={}): rank-r factors never shard
-    manifest, blobs = build_shard_manifest(key, flat, {k: () for k in flat}, {})
+    # every piece replicated (mesh_axes={}) and whole: rank-r factors never
+    # shard, and the JAX adapter fetch reads one piece per tensor
+    manifest, blobs = build_shard_manifest(key, flat, {k: () for k in flat}, {},
+                                           split_to_frame=False)
     for digest, blob in blobs.items():
         node.piece_store[digest] = blob
     node.manifests[key] = manifest
@@ -167,7 +169,7 @@ async def fetch_adapter(node, dht, base_model: str, name: str,
         if p.param == _CFG_PIECE:
             cfg_blob = data
             continue
-        flat[p.param] = np.frombuffer(data, dtype=p.dtype).reshape(p.shape)
+        flat[p.param] = piece_array(data, p)
     if cfg_blob is None:
         raise AdapterLoadError(f"adapter manifest {key!r} has no config piece")
     lcfg = _cfg_from_blob(cfg_blob)

@@ -44,8 +44,9 @@ the same steps run eagerly. Every run is inside a device pass
 (``device_gate``): the scheduler's, or its own on the draft server's
 executor thread. Weights are a random init from ``seed``
 (models/params.py), so a same-name drafter at the engine's seed is
-weight-identical to the target; a drafter from a checkpoint waits for
-checkpoint loading (ROADMAP.md queue A item 10).
+weight-identical to the target, or a local checkpoint's
+(``checkpoint_path``, models/loader.py), whose tokenizer comes along as in
+JAX.
 
 Loaded beside the target in engine/engine.py (BEE2BEE_DRAFTER /
 --drafter), which runs the tokenizer compatibility gate below first: a
@@ -69,7 +70,6 @@ from ..device import resolve_device
 from ..models import core
 from ..models.config import resolve_model_config
 from ..models.params import init_params
-from ..unported import unported
 from . import graphs
 from .introspect import device_gate
 from .spec import Drafter
@@ -162,10 +162,8 @@ class DraftModel(Drafter):
     ):
         if spec_tokens < 1:
             raise ValueError(f"spec_tokens must be >= 1, got {spec_tokens}")
-        if checkpoint_path:
-            raise unported(f"a drafter from a checkpoint ({checkpoint_path!r})", 10)
         try:
-            self.cfg = resolve_model_config(model)
+            self.cfg = resolve_model_config(model, checkpoint_path)
         except KeyError as e:
             raise DrafterLoadError(f"unknown drafter model {model!r}") from e
         core.check_supported(self.cfg)
@@ -185,7 +183,11 @@ class DraftModel(Drafter):
         S = self._idle_off + max(W, K) + 1
         self.seq_len = S
 
-        if params is None:
+        if params is None and checkpoint_path:
+            from ..models.loader import load_checkpoint
+
+            params = load_checkpoint(checkpoint_path, self.cfg, self.dtype, self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
             params = init_params(self.cfg, gen, self.device, self.dtype)
@@ -193,6 +195,10 @@ class DraftModel(Drafter):
         self.cache = core.init_cache(self.cfg, batch, S, dtype=self.dtype,
                                      device=self.device)
         self.tokenizer = None
+        if checkpoint_path:
+            from .tokenizer import load_tokenizer
+
+            self.tokenizer = load_tokenizer(checkpoint_path, self.cfg.vocab_size)
 
         self._slots: dict[int, _Slot] = {}      # id(req) -> slot state
         self._free = list(range(batch))

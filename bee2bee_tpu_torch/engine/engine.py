@@ -58,8 +58,10 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   moves them between nodes (drain, prefill handoff, pool-pressure
   failover), to and from the JAX package's nodes too.
 
-What waits for a later slice: checkpoint loading (ROADMAP.md queue A
-item 10).
+- **Checkpoints** (``checkpoint_path``, models/loader.py): a local HF
+  checkpoint or a native piece checkpoint, its config resolved from the
+  checkpoint when the model is ``"auto"``; the tokenizer comes from the
+  same path (engine/tokenizer.py).
 """
 
 from __future__ import annotations
@@ -368,14 +370,21 @@ class InferenceEngine:
         tokenizer=None,
         device=None,
         lora_path: str | None = None,
+        checkpoint_path: str | None = None,
     ):
         """``params``: the port's parameter dict already on ``device``
         (models/params.py; ``params_from_numpy`` carries a JAX tree
-        across, int8 weights included), or None for a random init from
-        ``rng_seed``. ``lora_path``: an adapter .npz (train/lora.py) merged
-        into the weights at load, before any quantization."""
+        across, int8 weights included), or None: the weights of
+        ``checkpoint_path`` (a local HF or native checkpoint,
+        models/loader.py) when given, else a random init from
+        ``rng_seed``. ``model`` is a registry name, a ModelConfig, or
+        ``"auto"`` (or a name the registry does not hold) with a checkpoint,
+        whose own config then decides. ``lora_path``: an adapter .npz
+        (train/lora.py) merged into the weights at load, before any
+        quantization."""
         self.device = resolve_device(device)
-        self.model_cfg = resolve_model_config(model)
+        self.model_cfg = resolve_model_config(model, checkpoint_path)
+        # config errors fail here, before a multi-GB load
         core.check_supported(self.model_cfg)
         self.engine_cfg = engine_config or EngineConfig()
         check_card_supported(self.model_cfg, self.engine_cfg, self.device)
@@ -383,7 +392,25 @@ class InferenceEngine:
         self.dtype = DTYPES[self.engine_cfg.dtype]
         self.cache_dtype = CACHE_DTYPES[self.engine_cfg.cache_dtype]
         self.metrics = MetricsAggregator()
-        if params is None:
+        quantized = self.engine_cfg.quantize == "int8"
+        self.load_stats: dict = {}  # the checkpoint load's seconds and bytes
+        if params is None and checkpoint_path:
+            from ..models.loader import load_checkpoint, to_device
+
+            # an int8 engine keeps the dense checkpoint on the host and
+            # uploads it tensor by tensor, each projection quantized as it
+            # lands (peak device memory stays int8-sized); the adapter
+            # merge runs on the host, before quantizing
+            params = load_checkpoint(checkpoint_path, self.model_cfg, self.dtype,
+                                     self.device, host=quantized, stats=self.load_stats)
+            if quantized:
+                if lora_path:  # merged at the engine's dtype, as on the device
+                    params = _merge_lora(_cast_floats(params, self.dtype), lora_path,
+                                         self.model_cfg)
+                    lora_path = None
+                params = to_device(params, self.device, self.dtype, quantize=True,
+                                   stats=self.load_stats)
+        elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.engine_cfg.rng_seed)
             params = init_params(self.model_cfg, gen, self.device, self.dtype)
@@ -394,17 +421,16 @@ class InferenceEngine:
         if lora_path:
             # base + trained low-rank deltas, merged BEFORE quantization so
             # the int8 scales see the finetuned weights (train/lora.py)
-            from ..train.lora import load_adapters, merge_lora
-
-            adapters, lcfg = load_adapters(lora_path, model_cfg=self.model_cfg)
-            params = merge_lora(params, adapters, lcfg)
-        if self.engine_cfg.quantize == "int8":
+            params = _merge_lora(params, lora_path, self.model_cfg)
+        if quantized:
             # in place, each dense weight dropped as its int8 form lands
+            # (a no-op for weights the checkpoint upload quantized)
             quantize_params_(params)
         # an int8 weight carried across in the JAX layout is repacked for
         # the int8-weight GEMM once, here (models/quant.py)
         self.params = pack_params_(params)
-        self.tokenizer = tokenizer or load_tokenizer(None, self.model_cfg.vocab_size)
+        self.tokenizer = tokenizer or load_tokenizer(checkpoint_path,
+                                                     self.model_cfg.vocab_size)
         # the sampling stream: one generator on the device, used only by
         # the scheduler thread
         self.generator = torch.Generator(device=self.device)
@@ -1089,6 +1115,21 @@ def host_tensor(arr) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _merge_lora(params, lora_path, model_cfg):
+    from ..train.lora import load_adapters, merge_lora
+
+    adapters, lcfg = load_adapters(lora_path, model_cfg=model_cfg)
+    return merge_lora(params, adapters, lcfg)
+
+
+def _cast_floats(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_floats(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def _copy_tree(tree):

@@ -3,7 +3,12 @@ fallback otherwise (nothing may download).
 
 The PyTorch port's own copy of ``bee2bee_tpu/engine/tokenizer.py``: the
 same ids for the same text, so a prompt tokenizes identically on a TPU
-node and a CUDA node.
+node and a CUDA node. One difference: a path that holds tokenizer files
+(``TOKENIZER_FILES``) never falls back to bytes. When ``transformers``
+cannot be imported (the card's machine has none) or the files do not
+load, ``load_tokenizer`` raises ``TokenizerLoadError``: a real checkpoint
+served with byte ids would be silently wrong. A path with no tokenizer
+files takes the byte tokenizer, as in JAX.
 
 The reference requires `transformers` tokenizers unconditionally (reference
 hf.py:23-32); here the fallback keeps every code path (engine, services,
@@ -72,11 +77,29 @@ class HFTokenizer:
         return self._tok.eos_token_id if self._tok.eos_token_id is not None else -1
 
 
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
+
+
+class TokenizerLoadError(RuntimeError):
+    """A checkpoint's tokenizer files could not be loaded."""
+
+
 def load_tokenizer(model_name_or_path: str | None, vocab_size: int):
-    """Local HF tokenizer if the path exists on disk, else byte fallback."""
-    if model_name_or_path and Path(model_name_or_path).exists():
-        try:
-            return HFTokenizer(model_name_or_path)
-        except Exception:
-            pass
-    return ByteTokenizer(vocab_size)
+    """The local HF tokenizer of a path that holds tokenizer files (or
+    TokenizerLoadError), else the byte tokenizer."""
+    path = Path(model_name_or_path) if model_name_or_path else None
+    if path is None or not path.exists():
+        return ByteTokenizer(vocab_size)
+    files = [f for f in TOKENIZER_FILES if (path / f).exists()]
+    if not files:
+        return ByteTokenizer(vocab_size)
+    try:
+        return HFTokenizer(str(path))
+    except ImportError as e:
+        raise TokenizerLoadError(
+            f"{path} holds tokenizer files {files}, and transformers cannot be "
+            f"imported to read them ({e}); serving byte ids instead would be "
+            f"silently wrong"
+        ) from e
+    except Exception as e:  # noqa: BLE001 — name the files that failed
+        raise TokenizerLoadError(f"{path}: tokenizer files {files} did not load: {e}") from e

@@ -6,10 +6,12 @@ executor (announce when ready) → sync with the registry → run forever.
 
 PyTorch port: a copy of ``bee2bee_tpu/meshnet/runtime.py`` with the import
 root rewritten to ``bee2bee_tpu_torch``. ``build_service`` builds
-``CUDAService`` for the ``"cuda"`` backend and refuses ``"tpu"``; the engine-
-backed branches are gated on ``"cuda"``, and those reaching unported modules
-(mesh weights, a checkpoint) raise by name. ``lora_path`` merges into the
-engine's weights at load; ``--adapters`` preloads the engine's pool.
+``CUDAService`` for the ``"cuda"`` backend (from a local checkpoint with
+``checkpoint_path``) and refuses ``"tpu"``; the engine-backed branches are
+gated on ``"cuda"``: ``from_mesh`` joins with weights fetched as pieces
+(meshnet/weights.py), ``publish_weights`` publishes this node's weights
+after a local load or a mesh join. ``lora_path`` merges into the engine's
+weights at load; ``--adapters`` preloads the engine's pool.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import logging
 
 from ..clock import get_clock
 from ..config import NodeConfig, load_config
-from ..unported import unported
 from ..utils import TaskTracker
 from .node import P2PNode
 
@@ -40,8 +41,6 @@ def build_service(backend: str, model: str, cfg: NodeConfig, **kw):
     if backend == "cuda":
         from ..services.cuda import CUDAService
 
-        if kw.get("checkpoint_path"):
-            raise unported("serving a local checkpoint (--checkpoint)", 10)
         # the mesh shape (the parallel package) is refused by name inside
         # engine_config()
         return CUDAService(
@@ -50,6 +49,7 @@ def build_service(backend: str, model: str, cfg: NodeConfig, **kw):
             max_new_tokens=cfg.max_new_tokens,
             engine_config=cfg.engine_config(),
             lora_path=kw.get("lora_path"),
+            checkpoint_path=kw.get("checkpoint_path"),
         )
     if backend == "ollama":
         from ..services.ollama import OllamaService
@@ -288,7 +288,15 @@ async def run_p2p_node(
                 )
             # the zero-local-checkpoint join: manifest + pieces come from
             # mesh providers via the DHT (meshnet/weights.py)
-            raise unported("joining with weights from the mesh (--from-mesh, meshnet/weights.py)", 10)
+            from .weights import serve_model_from_mesh
+
+            svc = await serve_model_from_mesh(
+                node, dht, model,
+                engine_config=cfg.engine_config(),
+                price_per_token=cfg.price_per_token,
+            )
+            logger.info("serving %s from mesh pieces; join link: %s",
+                        svc.model_name, node.join_link())
         elif backend is not None:
             svc = build_service(
                 backend, model, cfg,
@@ -315,7 +323,11 @@ async def run_p2p_node(
         if publish_weights and backend == "cuda":
             # publishes after a --from-mesh join too: a joined peer reseeds
             # the swarm as a new piece provider
-            raise unported("publishing weights as pieces (--publish-weights, meshnet/weights.py)", 10)
+            from .weights import publish_model_weights
+
+            engine = getattr(svc, "engine", None)
+            if engine is not None:
+                await publish_model_weights(node, dht, engine.model_cfg, engine.params)
 
         if registry_sync:
             from ..registry import RegistryClient

@@ -6,13 +6,21 @@ A copy of the JAX package's ``ModelConfig`` and its preset registry
 entry so that a registry name resolves to the same architecture in both
 packages. The port keeps its own copy because it imports nothing of the
 JAX package; ``tests/test_torch_models.py`` holds the two registries
-equal. Parsing an HF ``config.json`` and resolving a checkpoint
-directory are not ported yet: a name resolves through the registry only.
+equal. ``config_from_hf`` (every ``model_type`` the JAX parser reads,
+``_parse_rope_scaling`` included), ``config_for_checkpoint`` and the
+two-argument ``resolve_model_config`` are copies too: a family the port's
+core cannot run still parses, and ``core.check_supported`` refuses it by
+name (ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import json
+import logging
+from dataclasses import dataclass, fields, replace
+from pathlib import Path
+
+logger = logging.getLogger("bee2bee_tpu_torch.models.config")
 
 
 @dataclass(frozen=True)
@@ -503,12 +511,574 @@ CONFIGS["phi-2"] = ModelConfig(
 )
 
 
-def resolve_model_config(model) -> ModelConfig:
-    """A ModelConfig passes through; a registry name resolves via
-    get_config (the JAX package's rule, minus its checkpoint fallback)."""
+def _neox_act(hidden_act: str) -> str:
+    if hidden_act in ("gelu_new", "gelu_pytorch_tanh", "gelu_fast"):
+        return "gelu"
+    if hidden_act == "gelu":
+        return "gelu_exact"
+    raise ValueError(
+        f"gpt_neox hidden_act {hidden_act!r} is not supported by the native "
+        f"core (gelu variants only)"
+    )
+
+
+def _parse_rope_scaling(d: dict, default_max_pos: int = 2048) -> tuple | None:
+    """HF rope_scaling dict → cfg.rope_scaling tuple, or raise for
+    schedules the core doesn't implement (yarn/longrope/dynamic) — every
+    rotary family must route through this, or an extended-context
+    fine-tune serves with unscaled rotations, silently wrong at every
+    position."""
+    rs = d.get("rope_scaling")
+    if not rs:
+        return None
+    rtype = rs.get("rope_type") or rs.get("type")
+    if rtype == "llama3":
+        return ("llama3", float(rs["factor"]), float(rs["low_freq_factor"]),
+                float(rs["high_freq_factor"]),
+                int(rs["original_max_position_embeddings"]))
+    if rtype == "linear":
+        return ("linear", float(rs["factor"]))
+    if rtype == "yarn":
+        import math as _math
+
+        factor = float(rs["factor"])
+        af = rs.get("attention_factor")
+        if af is None:
+            # HF's inference rule, incl. the deepseek mscale variants
+            def get_mscale(scale, ms=1.0):
+                return 1.0 if scale <= 1 else 0.1 * ms * _math.log(scale) + 1.0
+
+            ms, msad = rs.get("mscale"), rs.get("mscale_all_dim")
+            af = (get_mscale(factor, ms) / get_mscale(factor, msad)
+                  if ms and msad else get_mscale(factor))
+        orig = (rs.get("original_max_position_embeddings")
+                or d.get("max_position_embeddings", default_max_pos))
+        return ("yarn", factor, float(af),
+                float(rs.get("beta_fast") or 32),
+                float(rs.get("beta_slow") or 1),
+                int(orig), bool(rs.get("truncate", True)))
+    if rtype in ("default", None):
+        return None
+    raise ValueError(
+        f"rope_scaling type {rtype!r} is not supported by the native core "
+        f"(llama3/linear/yarn only); serve via the ollama/remote backends"
+    )
+
+
+def config_from_hf(d: dict, name: str | None = None) -> ModelConfig:
+    """Synthesize a ModelConfig from an HF ``config.json`` dict — the
+    any-checkpoint path: a checkpoint whose architecture is NOT in the
+    preset registry can still be served natively, the way the reference
+    serves any HF causal LM via AutoModelForCausalLM (reference
+    services.py:39-52, hf.py:23-32). Inverse of export.hf_config_dict;
+    covers the gpt2 / llama / mistral / qwen2 / gemma / mixtral / phi /
+    gpt-neox / gpt-j layouts (the dominant open-model shapes)."""
+    mt = d.get("model_type")
+    nm = name or d.get("_name_or_path") or f"{mt}-checkpoint"
+    if mt == "gpt2":
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["n_embd"],
+            n_layers=d["n_layer"], n_heads=d["n_head"], n_kv_heads=d["n_head"],
+            d_ff=d.get("n_inner") or 4 * d["n_embd"],
+            max_seq_len=d.get("n_positions", 1024), pos_embedding="learned",
+            norm="layernorm", activation="gelu", use_bias=True,
+            tie_embeddings=True,
+            norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "gpt_bigcode":
+        H = d["n_head"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["n_embd"],
+            n_layers=d["n_layer"], n_heads=H,
+            n_kv_heads=1 if d.get("multi_query", True) else H,
+            d_ff=d.get("n_inner") or 4 * d["n_embd"],
+            max_seq_len=d.get("n_positions", 1024), pos_embedding="learned",
+            norm="layernorm",
+            # same gelu-dialect map (and refusal of non-gelu) as gpt_neox:
+            # an exact-gelu checkpoint must not silently run tanh-approx
+            activation=_neox_act(d.get("activation_function",
+                                       "gelu_pytorch_tanh")),
+            use_bias=True,
+            tie_embeddings=d.get("tie_word_embeddings", True),
+            norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "gptj":
+        hd = d["n_embd"] // d["n_head"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["n_embd"],
+            n_layers=d["n_layer"], n_heads=d["n_head"], n_kv_heads=d["n_head"],
+            d_ff=d.get("n_inner") or 4 * d["n_embd"],
+            max_seq_len=d.get("n_positions", 2048), activation="gelu",
+            norm="layernorm", tie_embeddings=False, mlp_bias=True,
+            rotary_pct=d.get("rotary_dim", hd) / hd, rope_style="interleaved",
+            parallel_block=True, lm_head_bias=True,
+            norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "gpt_neox":
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=d["num_attention_heads"],
+            n_kv_heads=d["num_attention_heads"], d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 2048),
+            # HF "gelu" is the exact erf form; the tanh approximations are
+            # spelled gelu_new / gelu_pytorch_tanh. Anything else must
+            # fail loudly — a silently substituted nonlinearity serves
+            # garbage with no error
+            activation=_neox_act(d.get("hidden_act", "gelu")),
+            norm="layernorm", use_bias=True,
+            tie_embeddings=d.get("tie_word_embeddings", False),
+            rotary_pct=d.get("rotary_pct", 1.0),
+            rope_theta=d.get("rotary_emb_base", 10000.0),
+            rope_scaling=_parse_rope_scaling(d),
+            parallel_block=d.get("use_parallel_residual", True),
+            parallel_norms=2, norm_eps=d.get("layer_norm_eps", 1e-5),
+        )
+    if mt == "mpt":
+        ac = d.get("attn_config") or {}
+        if not ac.get("alibi", True):
+            raise ValueError(
+                "mpt without alibi (learned-pos variant) is not supported "
+                "by the native core; serve via the ollama/remote backends"
+            )
+        if ac.get("clip_qkv") or ac.get("softmax_scale"):
+            raise ValueError(
+                "mpt clip_qkv / custom softmax_scale are not supported by "
+                "the native core"
+            )
+        H = d["n_heads"]
+        if H & (H - 1):
+            # MPT's non-power-of-two slope interleave differs from the
+            # bloom formula core.alibi_slopes implements — refuse rather
+            # than attend with wrong biases
+            raise ValueError(
+                f"mpt with non-power-of-two n_heads={H} is not supported "
+                f"(ALiBi slope schedule differs)"
+            )
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["d_model"],
+            n_layers=d["n_layers"], n_heads=H, n_kv_heads=H,
+            d_ff=int(d.get("expansion_ratio", 4)) * d["d_model"],
+            max_seq_len=d.get("max_seq_len", 2048), pos_embedding="alibi",
+            norm="layernorm", norm_bias=False, activation="gelu_exact",
+            tie_embeddings=d.get("tie_word_embeddings", True),
+            norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "bloom":
+        if d.get("apply_residual_connection_post_layernorm"):
+            # HF adds the post-LN hidden states to the residual under this
+            # flag; our blocks always use the pre-LN input — serving such
+            # a checkpoint would diverge at every layer, silently
+            raise ValueError(
+                "bloom apply_residual_connection_post_layernorm=true is "
+                "not supported by the native core; serve via the "
+                "ollama/remote backends"
+            )
+        H = d["n_head"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["n_layer"], n_heads=H, n_kv_heads=H,
+            d_ff=4 * d["hidden_size"],  # BloomConfig has no n_inner field
+            # ALiBi has no positional table — context is bounded only by
+            # the serving cache; seq_length is the training length the
+            # wild checkpoints carry (2048 for the bloom releases)
+            max_seq_len=d.get("seq_length", 2048),
+            pos_embedding="alibi", norm="layernorm",
+            activation="gelu", use_bias=True,
+            tie_embeddings=d.get("tie_word_embeddings", True),
+            embedding_norm=True, norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "falcon":
+        if d.get("alibi"):
+            raise ValueError(
+                "falcon alibi checkpoints are not supported by the native "
+                "core (rotary only); serve via the ollama/remote backends"
+            )
+        if d.get("new_decoder_architecture"):
+            raise ValueError(
+                "falcon new_decoder_architecture (grouped-KV interleave, "
+                "falcon-40b/180b) is not supported by the native core yet"
+            )
+        if not d.get("parallel_attn", True):
+            raise ValueError(
+                "falcon parallel_attn=false (sequential blocks) is not "
+                "supported by the native falcon path"
+            )
+        if d.get("bias"):
+            # our falcon layout is bias-free (like every released falcon);
+            # loading a bias=true checkpoint would silently zero every
+            # linear bias — refuse, don't drop
+            raise ValueError(
+                "falcon bias=true checkpoints are not supported by the "
+                "native core; serve via the ollama/remote backends"
+            )
+        H, D = d["num_attention_heads"], d["hidden_size"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=D,
+            n_layers=d["num_hidden_layers"], n_heads=H,
+            n_kv_heads=1 if d.get("multi_query", True) else H,
+            d_ff=d.get("ffn_hidden_size") or 4 * D,
+            max_seq_len=d.get("max_position_embeddings", 2048),
+            activation="gelu_exact", norm="layernorm",
+            tie_embeddings=d.get("tie_word_embeddings", True),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d), parallel_block=True,
+            norm_eps=d.get("layer_norm_epsilon", 1e-5),
+        )
+    if mt == "phi":
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=d["num_attention_heads"],
+            n_kv_heads=d.get("num_key_value_heads") or d["num_attention_heads"],
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 2048),
+            activation="gelu", norm="layernorm", use_bias=True,
+            tie_embeddings=False,
+            rotary_pct=d.get("partial_rotary_factor", 1.0),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d), parallel_block=True,
+            lm_head_bias=True, norm_eps=d.get("layer_norm_eps", 1e-5),
+        )
+    if mt == "qwen3_moe":
+        if not d.get("norm_topk_prob", False):
+            # our routing renormalizes the top-k weights (softmax over the
+            # selected logits == softmax-all + renorm); without the renorm
+            # the weighting differs — refuse, don't serve drifted mixtures
+            raise ValueError(
+                "qwen3_moe with norm_topk_prob=false is not supported by "
+                "the native core (routing weights would differ)"
+            )
+        if d.get("decoder_sparse_step", 1) != 1 or d.get("mlp_only_layers"):
+            raise ValueError(
+                "qwen3_moe with dense interleaved layers "
+                "(decoder_sparse_step != 1 / mlp_only_layers) is not "
+                "supported by the native core"
+            )
+        if d.get("attention_bias"):
+            raise ValueError(
+                "qwen3_moe attention_bias=true is not supported by the "
+                "native core (o_proj bias)"
+            )
+        H = d["num_attention_heads"]
+        # Qwen3MoeConfig has NO head_dim parameter — transformers falls
+        # back to hidden_size // num_attention_heads when absent (unlike
+        # dense Qwen3Config's 128 default)
+        hd = d.get("head_dim")
+        kw3: dict = dict(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=H,
+            # class default is 4, NOT n_heads (the family-default rule)
+            n_kv_heads=d.get("num_key_value_heads", 4),
+            # expert width, not the (unused) dense intermediate_size
+            d_ff=d["moe_intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 32768),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d, 32768),
+            norm_eps=d.get("rms_norm_eps", 1e-6),
+            tie_embeddings=d.get("tie_word_embeddings", False),
+            qk_norm=True,
+            n_experts=d["num_experts"],
+            n_experts_per_tok=d.get("num_experts_per_tok", 8),
+        )
+        if d.get("use_sliding_window") and d.get("sliding_window"):
+            # unlike dense qwen, Qwen3Moe modeling never reads
+            # max_window_layers — it windows EVERY layer when enabled
+            kw3["sliding_window"] = d["sliding_window"]
+        if hd and hd != d["hidden_size"] // H:
+            kw3["head_dim_override"] = hd
+        return ModelConfig(**kw3)
+    if mt == "olmo2":
+        if d.get("attention_bias"):
+            # same refuse-don't-drop rule as the llama branch: the o_proj
+            # bias has no slot in our layout
+            raise ValueError(
+                "olmo2 checkpoints with attention_bias=true are not "
+                "supported by the native core; serve via the ollama/remote "
+                "backends"
+            )
+        H = d["num_attention_heads"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=H,
+            n_kv_heads=d.get("num_key_value_heads") or H,
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 2048),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d),
+            norm_eps=d.get("rms_norm_eps", 1e-5),
+            tie_embeddings=d.get("tie_word_embeddings", False),
+            # olmo2 blocks norm only their OUTPUTS, and RMS-normalize the
+            # WHOLE q/k projection before the head reshape
+            post_norms=True, no_pre_norms=True,
+            qk_norm=True, qk_norm_full=True,
+        )
+    if mt == "stablelm":
+        if d.get("use_parallel_residual"):
+            raise ValueError(
+                "stablelm use_parallel_residual=true is not supported by "
+                "the native core's stablelm path"
+            )
+        if d.get("qk_layernorm"):
+            raise ValueError(
+                "stablelm qk_layernorm=true (per-head LayerNorm) is not "
+                "supported by the native core"
+            )
+        H = d["num_attention_heads"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=H,
+            n_kv_heads=d.get("num_key_value_heads") or H,
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 4096),
+            norm="layernorm",  # biased LNs over the llama tensor layout
+            rotary_pct=d.get("partial_rotary_factor", 0.25),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d, 4096),
+            qkv_bias=d.get("use_qkv_bias", False),
+            tie_embeddings=d.get("tie_word_embeddings", False),
+            norm_eps=d.get("layer_norm_eps", 1e-5),
+        )
+    if mt == "phi3":
+        # architecturally a llama-branch model (the loader un-fuses
+        # qkv_proj / gate_up_proj); partial rotary + optional window
+        H = d["num_attention_heads"]
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=H,
+            n_kv_heads=d.get("num_key_value_heads") or H,
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 4096),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=_parse_rope_scaling(d, 4096),  # longrope refuses
+            rotary_pct=d.get("partial_rotary_factor", 1.0),
+            norm_eps=d.get("rms_norm_eps", 1e-5),
+            tie_embeddings=d.get("tie_word_embeddings", False),
+            sliding_window=d.get("sliding_window"),
+        )
+    if mt == "gemma3":
+        raise ValueError(
+            "gemma3 multimodal configs are not supported; extract the "
+            "text_config (model_type gemma3_text) or serve via the "
+            "ollama/remote backends"
+        )
+    if mt == "gemma3_text":
+        L = d["num_hidden_layers"]
+        types = d.get("layer_types")
+        if types:
+            sliding = {i for i, t in enumerate(types)
+                       if t == "sliding_attention"}
+            # recover a periodic (every, residues) description; gemma-3
+            # ships 5-local-1-global (period 6)
+            for p in range(1, min(len(types), 12) + 1):
+                residues = tuple(sorted({i % p for i in sliding}))
+                if all((i % p in residues) == (i in sliding)
+                       for i in range(len(types))):
+                    every, res = p, residues
+                    break
+            else:
+                raise ValueError(
+                    "gemma3 layer_types pattern is not periodic; cannot "
+                    "represent it"
+                )
+        else:
+            # no layer_types (older transformers writers): the pattern key
+            # is sliding_window_pattern (Gemma3TextConfig default 6),
+            # is_sliding = (i+1) % pattern != 0 — i.e. every pattern-th
+            # layer is global, the rest are local. Hardcoding 5-local-1-
+            # global here would silently mis-mask (and mis-rope) any
+            # checkpoint shipping a non-default pattern.
+            pattern = int(d.get("sliding_window_pattern") or 6)
+            every = max(pattern, 1)
+            res = tuple(r for r in range(every) if (r + 1) % every != 0)
+        window = d.get("sliding_window", 4096)
+        if not res:
+            # no sliding layers at all (e.g. a long-context fine-tune):
+            # every-1 + the window set would make make_layer_mask window
+            # EVERY layer — disable the window instead
+            window, every, res = None, 1, ()
+        return ModelConfig(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=L, n_heads=d["num_attention_heads"],
+            n_kv_heads=d.get("num_key_value_heads")
+            or d["num_attention_heads"],
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", 131072),
+            activation="geglu", embedding_scale=True, norm_plus_one=True,
+            post_norms=True, qk_norm=True,
+            attn_scale=d.get("query_pre_attn_scalar", 256),
+            attn_logit_softcap=d.get("attn_logit_softcapping"),
+            logits_softcap=d.get("final_logit_softcapping"),
+            rope_theta=d.get("rope_theta", 1000000.0),
+            local_rope_theta=d.get("rope_local_base_freq", 10000.0),
+            rope_scaling=_parse_rope_scaling(d, 131072),
+            norm_eps=d.get("rms_norm_eps", 1e-6),
+            tie_embeddings=d.get("tie_word_embeddings", True),
+            # every/residues stay decoupled from the window: even with the
+            # window disabled they still drive the local/global ROPE split
+            sliding_window=window,
+            sliding_window_every=every,
+            sliding_window_residues=res,
+            **({"head_dim_override": hd} if (
+                hd := d.get("head_dim", 256)
+            ) and hd != d["hidden_size"] // d["num_attention_heads"]
+               else {}),
+        )
+    if mt in ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2",
+              "mixtral"):
+        n_heads = d["num_attention_heads"]
+        # transformers serializes config.json as a DIFF against each
+        # Config class's defaults — absent keys mean the FAMILY default
+        # (values introspected from the installed transformers; a wrong
+        # fallback here silently drifts every norm / truncates context)
+        gemma_like = mt in ("gemma", "gemma2")
+        hd = d.get("head_dim",
+                   {"gemma": 256, "gemma2": 256, "qwen3": 128}.get(mt))
+        default_maxpos = {"llama": 2048, "mistral": 131072,
+                          "mixtral": 131072, "qwen2": 32768,
+                          "qwen3": 32768, "gemma": 8192, "gemma2": 8192}[mt]
+        kw: dict = dict(
+            name=nm, vocab_size=d["vocab_size"], d_model=d["hidden_size"],
+            n_layers=d["num_hidden_layers"], n_heads=n_heads,
+            n_kv_heads=d.get("num_key_value_heads") or n_heads,
+            d_ff=d["intermediate_size"],
+            max_seq_len=d.get("max_position_embeddings", default_maxpos),
+            rope_theta=d.get("rope_theta",
+                             1000000.0 if mt == "mixtral" else 10000.0),
+            # every family defaults rms_norm_eps=1e-6 EXCEPT mixtral (1e-5)
+            norm_eps=d.get("rms_norm_eps",
+                           1e-5 if mt == "mixtral" else 1e-6),
+            tie_embeddings=d.get("tie_word_embeddings", gemma_like),
+            qkv_bias=mt == "qwen2",
+            qk_norm=mt == "qwen3",
+        )
+        if (scaling := _parse_rope_scaling(d, default_maxpos)) is not None:
+            kw["rope_scaling"] = scaling
+        if d.get("attention_bias"):
+            # HF attention_bias puts biases on q/k/v AND o_proj; our
+            # llama-branch layout carries q/k/v biases only (qwen2 style),
+            # so the o_proj bias would be silently dropped — refuse rather
+            # than serve offset logits
+            raise ValueError(
+                "llama-family checkpoints with attention_bias=true are not "
+                "supported by the native core (o_proj bias); serve via the "
+                "ollama/remote backends"
+            )
+        if hd and hd != d["hidden_size"] // n_heads:
+            kw["head_dim_override"] = hd
+        if mt == "mistral":
+            # an ABSENT key means MistralConfig's class default (4096) —
+            # the same "config.json is a diff against class defaults" rule
+            # gemma-2 follows below; an explicit null stays disabled
+            window = d.get("sliding_window", 4096)
+            if window:
+                kw["sliding_window"] = window
+        elif mt == "mixtral" and d.get("sliding_window"):
+            # MixtralConfig's class default is null — absent means off
+            kw["sliding_window"] = d["sliding_window"]
+        if (mt in ("qwen2", "qwen3") and d.get("use_sliding_window")
+                and d.get("sliding_window")):
+            mwl = int(d.get("max_window_layers") or 0)
+            if mwl <= 0:
+                kw["sliding_window"] = d["sliding_window"]
+            elif mwl >= int(d["num_hidden_layers"]):
+                # HF windows only layers >= max_window_layers, so a cap at
+                # (or past) the layer count windows NOTHING — full
+                # attention is bit-exact, not a compromise: stay silent
+                pass
+            else:
+                # HF windows only layers >= max_window_layers; our config
+                # windows EVERY layer, so a partial-window checkpoint
+                # (max_window_layers > 0) is served full-attention instead —
+                # exact for prompts within the window and matches HF on the
+                # majority (first) layers, vs. silently wrong everywhere.
+                # Say so at serve time: this is a fidelity compromise.
+                logger.warning(
+                    "%s: dropping the partial sliding-window schedule "
+                    "(sliding_window=%s, max_window_layers=%s) — serving "
+                    "full attention on every layer; long-context logits "
+                    "will diverge from HF beyond the window",
+                    nm, d.get("sliding_window"), d.get("max_window_layers"),
+                )
+        if mt in ("gemma", "gemma2"):
+            act = d.get("hidden_activation") or d.get("hidden_act") or "gelu_pytorch_tanh"
+            kw.update(
+                activation="geglu" if act.startswith("gelu") else act,
+                embedding_scale=True, norm_plus_one=True,
+            )
+        if mt == "gemma2":
+            # transformers serializes config.json as a DIFF against class
+            # defaults — an absent key means the Gemma2Config DEFAULT
+            # (50/30/256/4096), NOT disabled; an explicit null stays None
+            window = d.get("sliding_window", 4096)
+            kw.update(
+                post_norms=True,
+                attn_logit_softcap=d.get("attn_logit_softcapping", 50.0),
+                logits_softcap=d.get("final_logit_softcapping", 30.0),
+                attn_scale=d.get("query_pre_attn_scalar", 256),
+                # HF Gemma2: is_sliding = not bool(layer_idx % 2) — even
+                # layers window, odd attend fully
+                sliding_window=window,
+                sliding_window_every=2 if window else 1,
+            )
+        if mt == "mixtral":
+            kw.update(n_experts=d["num_local_experts"],
+                      n_experts_per_tok=d.get("num_experts_per_tok", 2))
+        return ModelConfig(**kw)
+    raise ValueError(
+        f"unsupported model_type {mt!r} in config.json — native serving "
+        f"covers gpt2/llama/mistral/qwen2/gemma/mixtral/phi/gpt_neox/gptj; "
+        f"other architectures can be served via the ollama/remote backends"
+    )
+
+
+def config_for_checkpoint(path: str | Path, name: str | None = None) -> ModelConfig:
+    """Resolve a checkpoint DIRECTORY to a ModelConfig from its own
+    metadata: a native save (model_config.json, our field names) or an HF
+    checkpoint (config.json). This is what lets ``serve-tpu --model auto
+    --checkpoint <dir>`` serve architectures with no registry entry."""
+    path = Path(path)
+    native = path / "model_config.json"
+    if native.exists():
+        d = json.loads(native.read_text())
+        known = {f.name for f in fields(ModelConfig)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            # a checkpoint saved by a newer version may carry architecture
+            # switches this build doesn't know; dropping them silently
+            # would serve wrong logits with no signal
+            logger.warning(
+                "%s: ignoring unknown model_config.json keys %s — if these "
+                "are architecture switches from a newer writer, the served "
+                "logits will diverge",
+                native, unknown,
+            )
+        return ModelConfig(**{k: v for k, v in d.items() if k in known})
+    hf = path / "config.json"
+    if hf.exists():
+        return config_from_hf(json.loads(hf.read_text()), name=name)
+    raise FileNotFoundError(
+        f"no model_config.json or config.json under {path} — cannot "
+        f"synthesize a model config for this checkpoint"
+    )
+
+
+def resolve_model_config(model, checkpoint_path: str | None = None) -> ModelConfig:
+    """THE model-resolution rule shared by the engine and the pipeline
+    stage runner: a ModelConfig passes through; a registry name resolves
+    via get_config; an unknown name (or the 'auto' sentinel) with a
+    checkpoint falls back to the checkpoint's own config
+    (config_for_checkpoint) — the reference's AutoModel any-checkpoint
+    capability."""
     if isinstance(model, ModelConfig):
         return model
-    return get_config(model or "auto")
+    try:
+        return get_config(model or "auto")
+    except KeyError:
+        if not checkpoint_path:
+            raise
+        return config_for_checkpoint(
+            checkpoint_path,
+            name=None if model in (None, "", "auto") else model,
+        )
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -38,8 +38,8 @@ What differs from the JAX package:
   reads the whole row under ``make_layer_mask``. Only the model drafter
   (engine/drafter.py) runs it; an int8 rectangular cache is refused, as
   in JAX. The no-cache forward is not ported.
-- Only the llama architecture runs: rmsnorm, "half" rope without
-  scaling, gated silu MLP, GQA, tied or untied head, plus the score
+- Only the llama architecture runs: rmsnorm, "half" rope (unscaled, or
+  with the "linear" or "llama3" frequency scaling), gated silu MLP, GQA, tied or untied head, plus the score
   switches the kernel carries (sliding window with its per-layer
   alternation, attention softcap, score scale). Any other switch raises
   NotImplementedError by name (``check_supported``) instead of computing
@@ -48,6 +48,7 @@ What differs from the JAX package:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -77,7 +78,7 @@ def check_supported(cfg: ModelConfig) -> None:
             missing.append(flag)
     if cfg.is_moe:
         missing.append("MoE (n_experts)")
-    if cfg.rope_scaling is not None:
+    if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3"):
         missing.append(f"rope_scaling={cfg.rope_scaling[0]!r}")
     if cfg.rotary_pct < 1.0 or cfg.rope_style != "half":
         missing.append("partial/interleaved rotary")
@@ -88,7 +89,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not implement "
-            f"{', '.join(missing)} yet"
+            f"{', '.join(missing)} yet (ROADMAP.md queue A item 11)"
         )
 
 
@@ -120,13 +121,55 @@ def _norm(x, p, cfg: ModelConfig):
     return xf.to(x.dtype) * p["scale"]
 
 
-def rope_angles(positions, theta: float, rot: int):
+def scale_rope_freqs(freqs, scaling: tuple | None):
+    """Frequency-domain RoPE scaling (cfg.rope_scaling), the port of the
+    JAX function's "linear" and "llama3" branches in the same f32 order.
+
+    "linear": every frequency divided by the factor (position
+    interpolation). "llama3" (llama-3.1+): wavelengths longer than the
+    original context / low_freq_factor get the full division, those
+    shorter than original / high_freq_factor stay, the band between
+    interpolates. "yarn" is refused by ``check_supported``."""
+    if scaling is None:
+        return freqs
+    if scaling[0] == "linear":
+        return freqs / scaling[1]
+    if scaling[0] != "llama3":
+        raise NotImplementedError(f"rope_scaling {scaling[0]!r} (ROADMAP.md queue A item 11)")
+    _, factor, low_f, high_f, orig = scaling
+    low_wavelen = orig / low_f
+    high_wavelen = orig / high_f
+    wavelen = 2.0 * math.pi / freqs
+    smooth = (orig / wavelen - low_f) / (high_f - low_f)
+    smoothed = (1.0 - smooth) * freqs / factor + smooth * freqs
+    return torch.where(
+        wavelen > low_wavelen, freqs / factor,
+        torch.where(wavelen < high_wavelen, freqs, smoothed),
+    )
+
+
+def rope_freqs(cfg: ModelConfig, device=None):
+    """The [rot/2] f32 rotary frequencies of ``cfg``, scaled: computed once
+    per (theta, rotary dims, scaling, device) and kept, so a forward, and
+    a captured root's replay, only reads them. The first forward on a
+    device is eager (a root's capture follows its warm-up), so the kept
+    tensor never lives in a graph's pool."""
+    return _rope_freqs(cfg.rope_theta, cfg.rotary_dim, cfg.rope_scaling,
+                       torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, rot: int, scaling: tuple | None, device: torch.device):
+    freqs = 1.0 / (
+        theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot)
+    )
+    return scale_rope_freqs(freqs, scaling)
+
+
+def rope_angles(positions, cfg: ModelConfig):
     """(cos, sin) [B, T, 1, rot/2] in f32 for positions [B, T]. Computed
     once per forward and shared by every layer."""
-    freqs = 1.0 / (
-        theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
-                               device=positions.device) / rot)
-    )
+    freqs = rope_freqs(cfg, positions.device)
     angles = positions[..., None].float() * freqs
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
@@ -440,7 +483,7 @@ def forward(
     slot = positions % BS
     wslot = page - (off.long() // BS)[:, None]  # the chunk's page window
 
-    rope = rope_angles(positions, cfg.rope_theta, cfg.rotary_dim)
+    rope = rope_angles(positions, cfg)
     window = make_layer_window(cfg)
     sm_scale = 1.0 / math.sqrt(cfg.attn_scale or cfg.head_dim)
     softcap = float(cfg.attn_logit_softcap or 0.0)
@@ -503,7 +546,7 @@ def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):
     positions = off[:, None] + steps
     rows = torch.arange(B, device=device)[:, None]
     write = off.clamp(0, S - T)[:, None] + steps
-    rope = rope_angles(positions, cfg.rope_theta, cfg.rotary_dim)
+    rope = rope_angles(positions, cfg)
     mask = make_layer_mask(cfg, positions, S)
     x = embed_tokens(params, cfg, input_ids)
     for i, lp in enumerate(params["layers"]):

@@ -1,0 +1,334 @@
+"""Checkpoint loading for the PyTorch port: a local HF checkpoint or a
+native piece checkpoint into the port's parameters (models/params.py).
+
+The port of ``bee2bee_tpu/models/loader.py``. Everything is offline: a
+path must exist locally, nothing downloads. What it keeps and what
+differs:
+
+- ``_read_safetensors``: the same minimal reader (header JSON, then one
+  seek and read per tensor, so host memory grows one tensor at a time),
+  into torch tensors. BF16 goes straight into ``torch.bfloat16`` from its
+  16-bit pattern with no f32 widening: the values equal JAX's widened ones
+  bit for bit, at half the host memory.
+- ``_load_hf_state`` reads sharded ``*.safetensors``, else
+  ``pytorch_model*.bin`` through ``torch.load(weights_only=True)``; the
+  tensors keep their stored dtype.
+- ``_convert_llama`` and ``_convert_phi3`` map HF names into the port's
+  layout (layers as a list of per-layer dicts). Every other family's
+  converter raises by name (ROADMAP.md queue A item 11) and never
+  computes something else; so do llama-branch tensors the port's core has
+  no slot for (q/k/v biases, q/k norms, experts, biased norms).
+- **Where the transpose runs.** HF linear weights are ``[out, in]``, the
+  port's ``[in, out]``. The converters return transposed *views*;
+  ``to_device`` uploads each tensor as it lies (its strides kept, one
+  host-to-device copy of the stored bytes), casts it on the device and
+  makes it contiguous there: on the card the transpose is a device copy
+  (about 2 x 16 GB of HBM traffic for llama-3-8b in bf16, some
+  milliseconds), and the host never copies a weight.
+- ``load_checkpoint(host=True)`` keeps those views on the host, for an
+  int8 engine: ``to_device(quantize=True)`` then uploads and quantizes
+  tensor by tensor, so the dense model never sits on the device whole.
+- ``save_native`` / ``load_native`` write and read the JAX package's
+  native format (``bee2bee_manifest.json``, ``model_config.json`` and
+  content-addressed ``pieces/``); the port's manifest splits tensors above
+  the frame budget (pieces.py), which the JAX reader concatenates.
+  ``mesh_axes`` other than empty raise (item 14).
+- ``_flatten`` / ``_unflatten`` go between the port's parameters and the
+  canonical flat layout, ``{"layers/attn/wq": [L, ...]}``: the layers
+  stacked, the manifest's and the JAX package's layout
+  (``params.params_to_numpy``).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from ..device import resolve_device
+from ..unported import unported
+from .config import ModelConfig, config_for_checkpoint
+from .params import params_from_numpy, params_to_numpy
+from .quant import QUANT_SUFFIXES, _packed, quantize_weight_torch
+
+_ST_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def _read_safetensors(path: Path) -> dict[str, torch.Tensor]:
+    """Minimal safetensors reader (header JSON + raw buffers) into CPU
+    tensors of the stored dtype; no safetensors package needed."""
+    out = {}
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n).decode("utf-8"))
+        base = 8 + n
+        for name, spec in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _ST_DTYPES.get(spec["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {name!r} has dtype {spec['dtype']!r}, "
+                                 f"which the reader does not take")
+            start, end = spec["data_offsets"]
+            if end == start:
+                out[name] = torch.empty(spec["shape"], dtype=dtype)
+                continue
+            f.seek(base + start)
+            buf = bytearray(end - start)
+            if f.readinto(buf) != len(buf):
+                raise ValueError(f"{path}: tensor {name!r} is truncated")
+            out[name] = torch.frombuffer(buf, dtype=dtype).reshape(spec["shape"])
+    return out
+
+
+def _load_hf_state(path: Path) -> dict[str, torch.Tensor]:
+    state: dict[str, torch.Tensor] = {}
+    st_files = sorted(path.glob("*.safetensors"))
+    if st_files:
+        for f in st_files:
+            state.update(_read_safetensors(f))
+        return state
+    bins = sorted(path.glob("pytorch_model*.bin"))
+    if bins:
+        for f in bins:
+            state.update(torch.load(f, map_location="cpu", weights_only=True))
+        return state
+    raise FileNotFoundError(f"no safetensors or pytorch_model.bin under {path}")
+
+
+def _convert_phi3(state, cfg: ModelConfig) -> dict:
+    """HF Phi-3 names -> the port's layout. Architecturally phi-3 is a
+    llama-style model; only the packing differs: qkv_proj fuses [q | k | v]
+    on the out dim and gate_up_proj fuses [gate | up]. Un-fuse (views)
+    into llama key names and delegate to _convert_llama."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F = cfg.d_ff
+    unfused: dict[str, torch.Tensor] = {}
+    for k, v in state.items():
+        if k.endswith(".self_attn.qkv_proj.weight"):
+            base = k.replace("qkv_proj", "{}")
+            unfused[base.format("q_proj")] = v[: H * hd]
+            unfused[base.format("k_proj")] = v[H * hd: (H + K) * hd]
+            unfused[base.format("v_proj")] = v[(H + K) * hd:]
+        elif k.endswith(".mlp.gate_up_proj.weight"):
+            unfused[k.replace("gate_up_proj", "gate_proj")] = v[:F]
+            unfused[k.replace("gate_up_proj", "up_proj")] = v[F:]
+        else:
+            unfused[k] = v
+    return _convert_llama(unfused, cfg)
+
+
+# llama-branch tensors the port's core has no slot for: the JAX converter
+# loads them (qwen2 biases, qwen3/gemma-3 q/k norms, experts, biased norms)
+_NO_SLOT = ("self_attn.q_proj.bias", "self_attn.q_norm.weight", "block_sparse_moe.",
+            "mlp.experts.", "input_layernorm.bias", "post_feedforward_layernorm.")
+
+
+def _convert_llama(state, cfg: ModelConfig) -> dict:
+    """HF Llama/Mistral names -> the port's layout. Weights come back as
+    transposed views ([out, in] -> [in, out]); ``to_device`` makes them
+    contiguous on the device."""
+    pre = "model." if any(k.startswith("model.") for k in state) else ""
+    for k in state:
+        if any(s in k for s in _NO_SLOT):
+            raise unported(f"{cfg.name}: checkpoint tensor {k!r} (a llama-branch "
+                           f"family beside plain llama)", 11)
+    # gemma stores rmsnorm weights as (1 + w): the +1 folds in here, in f32
+    norm_off = 1.0 if cfg.norm_plus_one else 0.0
+    raw = lambda k: state[pre + k]
+    norm = lambda k: raw(k).float() + norm_off if norm_off else raw(k)
+    t = lambda k: raw(k).t()
+    layers = [
+        {
+            "ln1": {"scale": norm(f"layers.{i}.input_layernorm.weight")},
+            "attn": {
+                "wq": t(f"layers.{i}.self_attn.q_proj.weight"),
+                "wk": t(f"layers.{i}.self_attn.k_proj.weight"),
+                "wv": t(f"layers.{i}.self_attn.v_proj.weight"),
+                "wo": t(f"layers.{i}.self_attn.o_proj.weight"),
+            },
+            "ln2": {"scale": norm(f"layers.{i}.post_attention_layernorm.weight")},
+            "mlp": {
+                "w_up": t(f"layers.{i}.mlp.up_proj.weight"),
+                "w_down": t(f"layers.{i}.mlp.down_proj.weight"),
+                "w_gate": t(f"layers.{i}.mlp.gate_proj.weight"),
+            },
+        }
+        for i in range(cfg.n_layers)
+    ]
+    params = {"tok_embed": raw("embed_tokens.weight"), "layers": layers,
+              "final_norm": {"scale": norm("norm.weight")}}
+    if not cfg.tie_embeddings:
+        lm = state.get("lm_head.weight")
+        params["lm_head"] = (lm if lm is not None else raw("embed_tokens.weight")).t()
+    return params
+
+
+# the JAX loader's detection order (loader.load_checkpoint): the key that
+# names each family's layout, and the family
+_FAMILIES = (
+    (".c_attn.", "gpt2 / gpt-bigcode"),
+    (".mlp.fc1.", "phi"),
+    ("word_embeddings_layernorm", "bloom"),
+    (".attn.Wqkv.", "mpt"),
+    (".self_attention.query_key_value.", "falcon"),
+    (".attention.query_key_value.", "gpt-neox"),
+    (".self_attn.qkv_proj.", "phi3"),
+    (".mlp.fc_in.", "gpt-j"),
+)
+
+
+def _cast_rule(key: str, t: torch.Tensor, dtype) -> torch.dtype:
+    """Integer payloads pass through, int8 scales ``s`` stay f32, the rest
+    take ``dtype``."""
+    if not t.is_floating_point():
+        return t.dtype
+    return torch.float32 if key == "s" else dtype
+
+
+def to_device(params: dict, device, dtype=torch.bfloat16, quantize: bool = False,
+              stats: dict | None = None) -> dict:
+    """Upload a host parameter tree tensor by tensor: each one as it lies
+    (a transposed view keeps its strides), cast on the device
+    (``_cast_rule``), made contiguous there. With ``quantize`` each
+    QUANT_SUFFIXES weight is quantized and packed for the int8-weight GEMM
+    as soon as it lands, so the device holds one dense weight beside the
+    int8 ones. The top-level tensors (embeddings, head) go first, so the
+    largest transpose runs on an almost empty device. ``stats`` (a dict)
+    gets the seconds of the copies and of the device work."""
+    device = resolve_device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    clock = {"h2d_s": 0.0, "device_s": 0.0, "bytes": 0}
+
+    def up(key, t, path):
+        t0 = time.perf_counter()
+        d = t.to(device)
+        if stats is not None:
+            sync()
+        t1 = time.perf_counter()
+        d = d.to(_cast_rule(key, d, dtype)).contiguous()
+        if quantize and path.endswith(QUANT_SUFFIXES):
+            qw = quantize_weight_torch(d)
+            del d
+            d = _packed(qw["q"], qw["s"])
+        if stats is not None:
+            sync()
+        clock["h2d_s"] += t1 - t0
+        clock["device_s"] += time.perf_counter() - t1
+        clock["bytes"] += t.numel() * t.element_size()
+        return d
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+        return up(path.rsplit("/", 1)[-1], node, path)
+
+    out = {k: None for k in params}
+    for k, v in params.items():
+        if k != "layers":
+            out[k] = walk(v, k)
+    out["layers"] = [walk(lp, "layers") for lp in params["layers"]]
+    if stats is not None:
+        stats.update(clock)
+    return out
+
+
+def load_checkpoint(path, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
+                    host: bool = False, stats: dict | None = None) -> dict:
+    """Load a LOCAL checkpoint directory into the port's parameters on
+    ``device`` (None: the card) in ``dtype``.
+
+    Accepts a dir with *.safetensors / pytorch_model*.bin (HF layout) or a
+    dir written by ``save_native``. ``host=True`` returns the host tree
+    unconverted (views of the read tensors, their stored dtype) for
+    ``to_device``. ``stats`` gets ``read_s`` and ``to_device``'s fields."""
+    path = Path(path)
+    if (path / "bee2bee_manifest.json").exists():
+        return load_native(path, cfg, dtype=dtype, device=device, host=host,
+                           stats=stats)
+    t0 = time.perf_counter()
+    state = _load_hf_state(path)
+    if stats is not None:
+        stats["read_s"] = time.perf_counter() - t0
+    family = next((f for key, f in _FAMILIES if any(key in k for k in state)), None)
+    if family == "phi3":
+        params = _convert_phi3(state, cfg)
+    elif family is not None:
+        raise unported(f"loading a {family} checkpoint ({path})", 11)
+    else:
+        params = _convert_llama(state, cfg)
+    if host:
+        return params
+    return to_device(params, device, dtype, stats=stats)
+
+
+# ---- native format: content-addressed pieces + manifest ---------------------
+
+
+def save_native(params, cfg: ModelConfig, path, mesh_axes: dict[str, int] | None = None):
+    """Write ``params`` in the native format: the flat layout's pieces
+    (split to the frame budget), the manifest and the config."""
+    from ..pieces import build_shard_manifest, save_pieces
+
+    if mesh_axes:
+        raise unported(f"save_native with mesh_axes={mesh_axes!r}", 14)
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    flat = _flatten(params)
+    manifest, blobs = build_shard_manifest(cfg.name, flat, {k: () for k in flat}, {})
+    save_pieces(list(blobs.values()), path / "pieces")
+    (path / "bee2bee_manifest.json").write_text(manifest.to_json())
+    (path / "model_config.json").write_text(json.dumps(cfg.__dict__, default=str))
+    return manifest
+
+
+def load_native(path, cfg: ModelConfig | None = None, dtype=torch.bfloat16,
+                device=None, host: bool = False, stats: dict | None = None) -> dict:
+    """Read a native checkpoint (the port's or the JAX package's): every
+    piece hash-verified, split tensors concatenated; ``cfg`` defaults to
+    the checkpoint's own ``model_config.json``."""
+    from ..pieces import ShardManifest, reassemble
+
+    path = Path(path)
+    t0 = time.perf_counter()
+    manifest = ShardManifest.from_json((path / "bee2bee_manifest.json").read_text())
+    blobs = {p.sha256: (path / "pieces" / p.sha256).read_bytes() for p in manifest.pieces}
+    cfg = cfg or config_for_checkpoint(path)
+    params = params_from_numpy(_unflatten(reassemble(manifest, blobs)), cfg, "cpu", None)
+    if stats is not None:
+        stats["read_s"] = time.perf_counter() - t0
+    if host:
+        return params
+    return to_device(params, device, dtype, stats=stats)
+
+
+def _flatten(params, prefix="") -> dict:
+    """{"a/b/c": array} of a tree; the port's parameters (layers as a list)
+    go through ``params_to_numpy`` first, so the layers come out stacked."""
+    if isinstance(params.get("layers"), list):
+        params = params_to_numpy(params)
+    out = {}
+    for k, v in params.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out

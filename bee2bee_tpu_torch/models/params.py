@@ -20,6 +20,13 @@ across as it is (int8 stays int8, the scales f32), and the engine repacks
 ``q`` for the int8-weight GEMM at load (``quant.pack_params_``). A random
 init for an int8 engine quantizes on the device, tensor by tensor
 (``quant.quantize_params_``).
+
+``params_to_numpy`` is the inverse: the JAX schema with the layers
+stacked ``[L, ...]`` (the canonical layout of the piece manifest and of
+``models/loader.save_native``), numpy leaves on the host. A packed int8
+weight goes back to JAX's {"q", "s"} (``quant.unpack_weight``); a bf16
+tensor goes out as its 16-bit pattern in ``pieces.HOST_BF16``, whose piece
+dtype string is "bfloat16", so no ml_dtypes is needed.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ import math
 import numpy as np
 import torch
 
+from ..pieces import HOST_BF16, dtype_name
 from .config import ModelConfig
 from .core import check_supported
+from .quant import unpack_weight
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -81,8 +90,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes: torch has no numpy bf16
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+    if dtype_name(a) == "bfloat16":  # ml_dtypes or HOST_BF16: torch has no
+        # numpy bf16, so the bits go across as int16
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         t = t.view(torch.bfloat16)
     else:
         a = np.ascontiguousarray(a)
@@ -132,4 +142,35 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
 
     out = {k: _map(conv, v, carry) for k, v in tree.items() if k != "layers"}
     out["layers"] = [_map(conv, lp, carry) for lp in per_layer]
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(HOST_BF16)
+    return t.numpy()
+
+
+def _stack(trees: list):
+    """One tree of np.stack'ed leaves from per-layer trees of one schema."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees, axis=0)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's parameters as the JAX package's tree: layers stacked
+    ``[L, ...]``, every leaf a host numpy array, packed int8 weights as
+    {"q": int8 [in, out], "s": f32 [out]}, bf16 as HOST_BF16 bits."""
+    def leaf_tree(node):
+        if isinstance(node, dict):
+            if "qp" in node:
+                node = unpack_weight(node)
+            return {k: leaf_tree(v) for k, v in node.items()}
+        return _host(node)
+
+    out = {k: leaf_tree(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = _stack([leaf_tree(lp) for lp in params["layers"]])
     return out

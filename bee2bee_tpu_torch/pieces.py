@@ -13,7 +13,29 @@ PyTorch port: a copy of ``bee2bee_tpu/pieces.py`` with the import root
 rewritten to ``bee2bee_tpu_torch``; comments that cited the JAX package's
 change history or the reference checkout's path are trimmed. Hashing is
 hashlib's alone: the JAX package's C++ codec (``native.py``) has no binding
-here.
+here. What differs from the JAX module:
+
+- **Pieces fit the frame.** A piece travels in one ``PIECE_DATA`` frame,
+  which links cap at ``protocol.MAX_FRAME`` (32 MiB). The JAX publisher
+  makes one piece per tensor; at llama-3-8b widths almost none fits
+  (``tok_embed`` is 1.05 GB, one layer's ``wq`` 32 MiB before the header).
+  ``build_shard_manifest`` here publishes a tensor of more than
+  ``DEFAULT_PIECE_SIZE`` bytes as shards along one axis, in the manifest's
+  existing ``shard_count`` / ``axis`` fields with ``mesh_axis`` None
+  (shards may be unequal). The JAX package's ``load_native`` and its full
+  mesh fetch concatenate such shards unchanged. A coordinate fetch would
+  keep one shard of such a tensor, so ``assemble_params_from_pieces``
+  refuses it (ROADMAP.md queue A item 14).
+- **bfloat16 without ml_dtypes.** A bf16 piece carries the dtype string
+  "bfloat16" (the name ml_dtypes gives numpy). Here the host holds it as
+  its 16-bit pattern in ``HOST_BF16``, a one-field structured dtype named
+  "bfloat16": it stacks, splits and concatenates like any numpy array and
+  refuses arithmetic. ``dtype_name`` and ``host_dtype`` map between the
+  piece's string and the array, so no ``frombuffer`` of a piece needs
+  ml_dtypes.
+- ``reassemble`` is the full reassembly (verify each piece, concatenate
+  each tensor's shards) that ``models/loader.load_native`` and the mesh
+  join (``meshnet/weights.py``) share.
 """
 
 from __future__ import annotations
@@ -23,10 +45,32 @@ import os
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
 
+import numpy as np
+
 from .joinlink import chunk_bytes
+from .unported import unported
 from .utils import sha256_hex
 
 DEFAULT_PIECE_SIZE = 4 * 1024 * 1024  # fits the 32 MiB WS frame with headroom
+
+# bfloat16's bit pattern under the name "bfloat16" (see the module docstring)
+HOST_BF16 = np.dtype([("bfloat16", "<u2")])
+
+
+def dtype_name(a) -> str:
+    """The piece dtype string of a host array: "bfloat16" for HOST_BF16 and
+    for an ml_dtypes bfloat16 array, numpy's name otherwise."""
+    return a.dtype.names[0] if a.dtype.names else a.dtype.name
+
+
+def host_dtype(name: str) -> np.dtype:
+    """The numpy dtype a piece of dtype string ``name`` is read into."""
+    return HOST_BF16 if name == "bfloat16" else np.dtype(name)
+
+
+def piece_array(data: bytes, piece: "ShardPiece") -> np.ndarray:
+    """A piece's bytes as its shard array (read only, no copy)."""
+    return np.frombuffer(data, dtype=host_dtype(piece.dtype)).reshape(piece.shape)
 
 
 def split_pieces(data: bytes, piece_size: int = DEFAULT_PIECE_SIZE) -> list[bytes]:
@@ -160,17 +204,32 @@ class ShardManifest:
         return None
 
 
-def build_shard_manifest(model: str, params: dict, partition_specs: dict, mesh_axes: dict[str, int]) -> tuple[ShardManifest, dict[str, bytes]]:
+def _split_to_budget(path: str, arr, budget: int) -> tuple[int, list]:
+    """(axis, shards) of a tensor whose bytes exceed ``budget``: the first
+    axis whose one-index slab fits splits into as few near-equal shards
+    (np.array_split) as keep each within the budget."""
+    for axis, n in enumerate(arr.shape):
+        slab = arr.nbytes // n
+        if slab <= budget:
+            per = budget // slab
+            return axis, np.array_split(arr, -(-n // per), axis=axis)
+    raise ValueError(f"{path}: no axis of {arr.shape} splits under {budget} bytes")
+
+
+def build_shard_manifest(model: str, params: dict, partition_specs: dict,
+                         mesh_axes: dict[str, int],
+                         split_to_frame: bool = True) -> tuple[ShardManifest, dict[str, bytes]]:
     """Shard a flat {path: np.ndarray} param dict per {path: PartitionSpec-like
     tuple} and emit (manifest, {sha256: piece_bytes}).
 
     `partition_specs[path]` is a tuple with one entry per tensor axis; entries
     are a mesh-axis name or None. Only the first sharded axis is split (one
     level — matches TP-style layouts where each param shards on one axis).
-    `mesh_axes` maps axis name → size.
+    `mesh_axes` maps axis name → size. With ``split_to_frame`` an unsharded
+    tensor of more than DEFAULT_PIECE_SIZE bytes becomes shards along one
+    axis (``_split_to_budget``, ``mesh_axis`` None); adapter manifests keep
+    the JAX package's whole-tensor pieces, which its adapter fetch needs.
     """
-    import numpy as np
-
     manifest = ShardManifest(model=model)
     blobs: dict[str, bytes] = {}
     pending: list[tuple] = []
@@ -187,6 +246,8 @@ def build_shard_manifest(model: str, params: dict, partition_specs: dict, mesh_a
         if axis is None or mesh_axes.get(mesh_axis, 1) <= 1:
             shards = [arr]
             axis = mesh_axis = None
+            if split_to_frame and arr.nbytes > DEFAULT_PIECE_SIZE:
+                axis, shards = _split_to_budget(path, arr, DEFAULT_PIECE_SIZE)
         else:
             n = mesh_axes[mesh_axis]
             if arr.shape[axis] % n != 0:
@@ -211,7 +272,7 @@ def build_shard_manifest(model: str, params: dict, partition_specs: dict, mesh_a
                 axis=axis,
                 mesh_axis=mesh_axis,
                 shape=list(shard.shape),
-                dtype=str(shard.dtype),
+                dtype=dtype_name(shard),
                 nbytes=len(data),
                 sha256=digest,
             )
@@ -227,15 +288,44 @@ def assemble_params_from_pieces(
     index: int | None = None,
 ) -> dict:
     """Rebuild the {path: np.ndarray} shard dict for one mesh coordinate from
-    hash-verified piece bytes."""
-    import numpy as np
-
+    hash-verified piece bytes. A tensor split to the frame budget (shards
+    with ``mesh_axis`` None) raises: every coordinate needs it whole, and
+    joining its shards at a coordinate is ROADMAP.md queue A item 14."""
     out: dict = {}
     for p in manifest.pieces_for(coords, index):
-        data = blobs.get(p.sha256)
-        if data is None:
-            raise KeyError(f"missing piece {p.sha256[:12]} for {p.param}")
-        if sha256_hex(data) != p.sha256:
-            raise ValueError(f"piece corrupt for {p.param}[{p.shard_index}]")
-        out[p.param] = np.frombuffer(data, dtype=p.dtype).reshape(p.shape)
+        if p.mesh_axis is None and p.shard_count > 1:
+            raise unported(f"a coordinate fetch of {p.param!r}, split into "
+                           f"{p.shard_count} pieces to fit the frame", 14)
+        out[p.param] = piece_array(_verified(blobs, p), p)
     return out
+
+
+def _verified(blobs: dict[str, bytes], p: ShardPiece) -> bytes:
+    data = blobs.get(p.sha256)
+    if data is None:
+        raise KeyError(f"missing piece {p.sha256[:12]} for {p.param}")
+    if sha256_hex(data) != p.sha256:
+        raise ValueError(f"piece corrupt for {p.param}[{p.shard_index}]")
+    return data
+
+
+def reassemble(manifest: ShardManifest, blobs: dict[str, bytes]) -> dict:
+    """The whole {path: np.ndarray} tree of a manifest: every piece
+    hash-verified, each tensor's shards (mesh or frame-budget) concatenated
+    along their axis. Unsplit tensors are read-only views of ``blobs``."""
+    flat: dict = {}
+    parts: dict[str, list] = {}
+    axes: dict[str, int] = {}
+    for p in manifest.pieces:
+        arr = piece_array(_verified(blobs, p), p)
+        if p.shard_count > 1:
+            parts.setdefault(p.param, [None] * p.shard_count)[p.shard_index] = arr
+            axes[p.param] = p.axis
+        else:
+            flat[p.param] = arr
+    for name, shards in parts.items():
+        if any(s is None for s in shards):
+            raise KeyError(f"{name}: the manifest lists {len(shards)} shards, "
+                           f"some are missing")
+        flat[name] = np.concatenate(shards, axis=axes[name])
+    return flat

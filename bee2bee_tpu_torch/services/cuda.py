@@ -35,6 +35,7 @@ class CUDAService(BaseService):
         engine_config=None,
         device=None,
         lora_path: str | None = None,
+        checkpoint_path: str | None = None,
     ):
         super().__init__("cuda")
         self.model_name = model_name
@@ -43,6 +44,7 @@ class CUDAService(BaseService):
         self.engine = engine
         self._engine_config = engine_config
         self._lora_path = lora_path
+        self._checkpoint_path = checkpoint_path
         self.device = resolve_device(device)
 
     # loading is split from construction so a node can announce before
@@ -56,7 +58,12 @@ class CUDAService(BaseService):
                 engine_config=self._engine_config,
                 device=self.device,
                 lora_path=self._lora_path,
+                checkpoint_path=self._checkpoint_path,
             )
+        if self.model_name in (None, "", "auto"):
+            # `--model auto`: advertise the name the checkpoint's config
+            # resolved to, not the sentinel
+            self.model_name = self.engine.model_cfg.name
         return self
 
     def get_metadata(self) -> dict[str, Any]:

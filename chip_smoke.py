@@ -8,7 +8,8 @@ and phase 9's second node N times, ``node_profile_rounds``; ``--only
 quant`` only the build, the int8-weight GEMM phase and the int8-weight
 slices; ``--only adapters`` only the build and the adapter phase over
 bf16 and int8 weights; ``--only migrate`` only the build and the migration
-phase over a random init. Those print no result line.)
+phase over a random init; ``--only checkpoint`` only the build and the
+checkpoint phase. Those print no result line.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -322,13 +323,43 @@ Live migration (after the n-gram spec phase, over its f32 weights, then
    rung's wall and the import, and per run the encode + sha256, send and
    verify + join seconds, the pause and the wall, with the card's name
    and power limit; the int8 / bf16 bytes ratio.
+The checkpoint phase (after phase 9): llama-3.1-8b at the widths of
+   meta-llama/Llama-3.1-8B's config.json (d 4096, d_ff 14336, 32/8 heads,
+   vocab 128256, rope theta 5e5 with the llama3 scaling, untied head) cut
+   to 2 layers, random bf16 from the seed (2.97 GB), written by the port's
+   ``export_hf`` as three safetensors files with that config.json and no
+   tokenizer files, in a directory under build/ the phase removes. (a)
+   ``InferenceEngine("auto", checkpoint_path=...)``: every weight bit-equal
+   to the same arrays carried in by ``params_from_numpy``; phase 6's 8
+   prompts as one burst of greedy requests x 64 tokens: tokens equal and
+   first-token logits bit-equal to that engine's, decode + tile launches
+   n_layers x forwards; the load's read, host-to-device and on-card (cast
+   + transpose) seconds and the device peak. (b) the llama3 frequencies on
+   the card within 1e-6 relative of the float64 formula; a 128-token f32
+   prefill (the f32 tile form) and 4 decode steps (``decode_f32``) of the
+   loaded weights within 2e-3 of the plain CPU forward. (c) ``save_native``
+   -> ``load_native`` bit-equal, every piece <= 4 MiB. (d) two nodes in this
+   process through ``run_p2p_node`` over one in-memory DHT: P serves the
+   checkpoint with ``publish_weights``, J boots with ``from_mesh`` and no
+   checkpoint (and republishes): the pieces (count, largest <= 4 MiB,
+   bytes), publish seconds, fetch seconds and MB/s, verify + assemble
+   seconds; J's weights bit-equal to P's and its manifest equal; one greedy
+   prompt through each gateway's ``/chat``, equal texts; J's
+   ``/providers`` lists the model on backend cuda. (e) the same directory
+   with ``quantize="int8"``: the device's peak during the load within 1.05
+   x (the packed model + its largest dense tensor), the packed weights
+   bit-equal to the in-memory int8 engine's (a)'s weights quantized on the
+   card, equal greedy tokens, the int8-weight GEMM's launches 4 x n_layers
+   x (replayed decode steps + prefill replays of <= 64 tokens).
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
    kernels' from phases 6, 7, 9, the prefix phase over the same pool, the
-   model-tier spec phase and the migration phase's bf16 drains; the f32
-   decode kernel's and the f32 tile forms' from phase 8, its prefix phase,
-   the n-gram spec phase, the migration phase's f32 runs and phase 5's f32
-   forwards; phase 2 times the tile kernel and the f32 decode
+   model-tier spec phase, the migration phase's bf16 drains and the
+   checkpoint phase; the f32 decode kernel's and the f32 tile forms' from
+   phase 8, its prefix phase, the n-gram spec phase, the migration phase's
+   f32 runs, phase 5's f32 forwards and the checkpoint phase's f32 check;
+   the int8-weight GEMM's from the int8-weight slices, their adapter phase
+   and the checkpoint phase's int8 load; phase 2 times the tile kernel and the f32 decode
    kernel at the verify shape, B=8 T=5 ctx 1024), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
@@ -1572,15 +1603,15 @@ def phase_gemma_forward() -> dict:
     return launches
 
 
-def cast_tree(tree, dtype):
+def cast_tree(tree, dtype, device=None):
     """A copy of a parameter tree (dicts, lists, tensors) with its floating
-    tensors cast to ``dtype``."""
+    tensors cast to ``dtype`` (and moved to ``device``)."""
     if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+        return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(cast_tree(v, dtype) for v in tree)
+        return type(tree)(cast_tree(v, dtype, device) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
-        return tree.to(dtype)
+        return tree.to(device=device, dtype=dtype)
     return tree
 
 
@@ -4755,6 +4786,448 @@ def phase_migrate(card: str, params) -> dict:
     return total
 
 
+# ------------------------------------------------------------ checkpoint phase
+
+
+CKPT_NAME = "llama-3.1-8b-2layers"
+# meta-llama/Llama-3.1-8B's config.json at its published widths, with one
+# cut: num_hidden_layers 32 -> 2, so the phase fits the smoke's time
+LLAMA31_CONFIG = {
+    "_name_or_path": CKPT_NAME, "architectures": ["LlamaForCausalLM"],
+    "model_type": "llama", "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "num_hidden_layers": 2,
+    "head_dim": 128, "vocab_size": 128256, "max_position_embeddings": 131072,
+    "rope_theta": 500000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": False, "hidden_act": "silu",
+    "attention_bias": False, "mlp_bias": False, "bos_token_id": 128000,
+    "eos_token_id": 128001, "torch_dtype": "bfloat16",
+}
+CKPT_SHARD_BYTES = 1_500_000_000  # three safetensors files at these widths
+CKPT_NEW = 64
+CKPT_F32_TOKENS = 128
+ROPE_REL_TOL = 1e-6
+INT8_LOAD_SLACK = 1.05
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a parameter tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def same_bits(a, b) -> list:
+    """The paths where two parameter trees differ (names, shapes, dtypes
+    or bits); [] when they are bit-equal."""
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    if la.keys() != lb.keys():
+        return sorted(set(la) ^ set(lb))
+    return [k for k in la if la[k].dtype != lb[k].dtype or la[k].shape != lb[k].shape
+            or not torch.equal(bits(la[k]), bits(lb[k].to(la[k].device)))]
+
+
+def checkpoint_engine(quantize="none", checkpoint=None, params=None, cfg=None):
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+                        rng_seed=SEED, dtype="bfloat16", cache_dtype="bfloat16",
+                        quantize=quantize)
+    if checkpoint is not None:
+        return InferenceEngine("auto", checkpoint_path=str(checkpoint), engine_config=ecfg)
+    return InferenceEngine(cfg, params=params, engine_config=ecfg)
+
+
+def checkpoint_burst(engine, tag: str, prompts):
+    """Phase 6's prompts as 8 concurrent greedy requests of CKPT_NEW tokens
+    in one admission burst: (token ids, first-token logits by prompt,
+    launch counts). The decode + tile launches are n_layers x the engine's
+    forward calls, both > 0."""
+    first = served_first_logits(engine)
+    reset_counts()
+    engine.forward_calls = 0
+    results, wall = burst(engine, prompts, CKPT_NEW, together=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del engine.scheduler._first_token
+    L = engine.model_cfg.n_layers
+    used = {k: v for k, v in counts.items() if v}
+    check(set(used) == {"ragged_decode", "ragged_prefill"}
+          and counts["ragged_decode"] + counts["ragged_prefill"] == L * engine.forward_calls,
+          f"{tag}: launches {used} against {engine.forward_calls} forwards x {L} layers")
+    log(f"{tag}: 8 greedy requests x {CKPT_NEW} tokens in {wall:.2f} s; launches {used} = "
+        f"{L} layers x {engine.forward_calls} forwards")
+    return [r.token_ids for r in results], {k[0]: v for k, v in first.items()}, counts
+
+
+def rope_check(cfg, card: str) -> None:
+    """The llama3-scaled frequency vector on the card against the float64
+    formula (transformers' _compute_llama3_parameters)."""
+    from bee2bee_tpu_torch.models import core
+
+    got = core.rope_freqs(cfg, "cuda").double().cpu().numpy()
+    rot = cfg.rotary_dim
+    base = 1.0 / (cfg.rope_theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    _, factor, lo, hi, orig = cfg.rope_scaling
+    wavelen = 2 * math.pi / base
+    smooth = (orig / wavelen - lo) / (hi - lo)
+    want = np.where(wavelen > orig / lo, base / factor,
+                    np.where(wavelen < orig / hi, base,
+                             (1 - smooth) * base / factor + smooth * base))
+    rel = float(np.max(np.abs(got - want) / want))
+    bands = (int(np.sum(wavelen < orig / hi)), int(np.sum(wavelen > orig / lo)))
+    log(f"checkpoint[rope]: llama3-scaled frequencies on the card vs the float64 formula: "
+        f"max relative error {rel:.3e} (tol {ROPE_REL_TOL:g}); {rot // 2} frequencies, "
+        f"{bands[0]} kept, {bands[1]} divided by {factor}, the rest smoothed; card {card}")
+    check(rel <= ROPE_REL_TOL, f"rope: relative error {rel} over {ROPE_REL_TOL}")
+
+
+def teacher_forced(params, cfg, ids, toks, device):
+    """f32 logits of a prefill of ``ids`` [T, V] and of one decode step per
+    token of ``toks`` [len(toks), V] over a fresh f32 pool on ``device``."""
+    from bee2bee_tpu_torch.models import core
+
+    n, BS = len(ids), 16
+    nblocks = -(-(n + len(toks)) // BS)
+    tables = torch.zeros((1, 1 << (nblocks - 1).bit_length()), dtype=torch.int32,
+                         device=device)
+    tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
+    pool = core.init_paged_pool(cfg, nblocks + 1, BS, torch.float32, device)
+    pre, _ = core.forward(params, cfg, torch.tensor([ids], device=device), pool, 0, tables)
+    steps = []
+    for i, t in enumerate(toks):
+        lg, _ = core.forward(params, cfg, torch.tensor([[t]], device=device), pool, n + i,
+                             tables)
+        steps.append(lg[0, -1])
+    return pre[0], torch.stack(steps)
+
+
+def checkpoint_f32_logits(engine, card: str) -> dict:
+    """The loaded weights in f32: a CKPT_F32_TOKENS-token prefill (the f32
+    tile form) and 4 decode steps (decode_f32) through the kernels against
+    the plain CPU forward, FORWARD_TOL (phase 5's rule). Returns the
+    launches."""
+    cfg = engine.model_cfg
+    L = cfg.n_layers
+    p32 = cast_tree(engine.params, torch.float32)
+    ids = np.random.default_rng(SEED + 14).integers(3, 259, size=CKPT_F32_TOKENS).tolist()
+    toks = np.random.default_rng(SEED + 15).integers(3, 259, size=4).tolist()
+    reset_counts()
+    pre, steps = teacher_forced(p32, cfg, ids, toks, "cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    check(counts == {"ragged_prefill_f32": L, "ragged_decode_f32": 4 * L},
+          f"checkpoint[f32]: launches {counts}")
+    cpu = cast_tree(p32, torch.float32, "cpu")
+    del p32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpre, csteps = teacher_forced(cpu, cfg, ids, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = max((pre.cpu() - cpre).abs().max().item(), (steps.cpu() - csteps).abs().max().item())
+    ok = bool(torch.isfinite(pre).all() and torch.isfinite(steps).all())
+    log(f"checkpoint[f32]: {CKPT_F32_TOKENS}-token prefill + 4 decode steps of the loaded "
+        f"llama-3.1 weights in f32 through the kernels ({counts}) vs the plain CPU forward "
+        f"({cpu_s:.1f} s): max abs logit error {err:.3e} (tol {FORWARD_TOL:g}); card {card}")
+    check(ok and err <= FORWARD_TOL, f"checkpoint[f32]: logits {err} from the CPU forward")
+    return counts
+
+
+def checkpoint_native(engine, workdir: Path, card: str) -> None:
+    """save_native -> load_native of the loaded weights: bit-equal, every
+    piece within the frame budget."""
+    from bee2bee_tpu_torch.models.loader import load_native, save_native
+    from bee2bee_tpu_torch.pieces import DEFAULT_PIECE_SIZE
+
+    path = workdir / "native"
+    t0 = time.perf_counter()
+    manifest = save_native(engine.params, engine.model_cfg, path)
+    t1 = time.perf_counter()
+    back = load_native(path, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    diff = same_bits(engine.params, back)
+    largest = max(p.nbytes for p in manifest.pieces)
+    log(f"checkpoint[native]: save_native {t1 - t0:.2f} s ({len(manifest.pieces)} pieces, "
+        f"{manifest.total_bytes} B, largest {largest} B), load_native {t2 - t1:.2f} s; "
+        f"bit-equal: {not diff}; card {card}")
+    check(not diff and largest <= DEFAULT_PIECE_SIZE,
+          f"checkpoint[native]: differs at {diff[:5]}, largest piece {largest} B")
+    del back
+    import shutil
+
+    shutil.rmtree(path)
+
+
+def checkpoint_mesh(cfg, ckpt: Path, card: str) -> dict:
+    """Node P serves the checkpoint with --publish-weights; node J boots
+    with --from-mesh and no checkpoint (and publishes too: a joined peer
+    reseeds). J's weights bit-equal P's, equal greedy text through both
+    gateways' /chat, J's /providers lists the model on backend cuda.
+    Returns the launches of the two /chat calls."""
+    import asyncio
+
+    from bee2bee_tpu_torch.config import NodeConfig
+    from bee2bee_tpu_torch.dht import DHTNode
+    from bee2bee_tpu_torch.meshnet import weights
+    from bee2bee_tpu_torch.meshnet.runtime import run_p2p_node
+    from bee2bee_tpu_torch.pieces import DEFAULT_PIECE_SIZE
+
+    published: list = []
+    fetched: dict = {}
+    publish, serve = weights.publish_model_weights, weights.serve_model_from_mesh
+
+    async def timed_publish(node, *args, **kw):
+        t0 = time.perf_counter()
+        manifest = await publish(node, *args, **kw)
+        published.append((node.peer_id, time.perf_counter() - t0, manifest))
+        return manifest
+
+    ask = {"prompt": node_prompt(), "model": CKPT_NAME, "max_new_tokens": NODE_NEW_TOKENS,
+           "temperature": 0.0}
+    out: dict = {}
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        dht = DHTNode()
+        await dht.start()
+        stop = asyncio.Event()
+        tasks, nodes, done = [], [], []
+
+        async def booted(node):
+            nodes.append(node)
+
+        async def boot(**kw):
+            ready = asyncio.Event()
+            ncfg = NodeConfig(host="127.0.0.1", port=free_port(), api_port=free_port(),
+                              bootstrap_url="")
+            t0 = time.perf_counter()
+            task = asyncio.create_task(run_p2p_node(
+                backend="cuda", cfg=ncfg, registry_sync=False, ready_event=ready,
+                shutdown_event=stop, dht=dht, publish_weights=True, post_start=booted,
+                **kw))
+            tasks.append(task)
+            while not ready.is_set():
+                if task.done():
+                    task.result()  # the boot's own error
+                    raise AssertionError("checkpoint[mesh]: a node stopped before ready")
+                await asyncio.sleep(0.05)
+            return nodes[-1], f"http://127.0.0.1:{ncfg.api_port}", time.perf_counter() - t0
+
+        try:
+            p, p_url, p_s = await boot(model="auto", checkpoint_path=str(ckpt))
+            j, j_url, j_s = await boot(model=cfg, from_mesh=True)
+            pe, je = (n.local_services["cuda"].engine for n in (p, j))
+            diff = same_bits(pe.params, je.params)
+            (_, pub_s, manifest), (_, re_s, remanifest) = published
+            largest = max(x.nbytes for x in manifest.pieces)
+            mb = fetched["bytes"] / 1e6
+            log(f"checkpoint[mesh]: P booted from the checkpoint in {p_s:.2f} s and "
+                f"published {len(manifest.pieces)} pieces ({manifest.total_bytes} B, largest "
+                f"{largest} B <= {DEFAULT_PIECE_SIZE} B; "
+                f"{sum(x.shard_count > 1 for x in manifest.pieces)} of them shards) in "
+                f"{pub_s:.2f} s (flatten + split + sha256 + announce); J booted from the mesh "
+                f"in {j_s:.2f} s: fetch {fetched['fetch_s']:.2f} s ({mb / fetched['fetch_s']:.1f} "
+                f"MB/s), verify + assemble {fetched['assemble_s']:.2f} s; J republished in "
+                f"{re_s:.2f} s; card {card}")
+            check(largest <= DEFAULT_PIECE_SIZE, f"checkpoint[mesh]: a piece of {largest} B")
+            check(not diff, f"checkpoint[mesh]: J's weights differ from P's at {diff[:5]}")
+            check(remanifest.to_json() == manifest.to_json(),
+                  "checkpoint[mesh]: J's republished manifest differs from P's")
+            reset_counts()
+            pe.forward_calls = je.forward_calls = 0
+            texts = {}
+            for name, url in (("P", p_url), ("J", j_url)):
+                status, chat = await loop.run_in_executor(None, http_json, "POST",
+                                                          url + "/chat", ask)
+                check(status == 200 and chat.get("text"),
+                      f"checkpoint[mesh]: {name}'s /chat answered {status} {chat}")
+                texts[name] = chat["text"]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            L = cfg.n_layers
+            check(counts["ragged_decode"] + counts["ragged_prefill"]
+                  == L * (pe.forward_calls + je.forward_calls) and je.forward_calls > 0,
+                  f"checkpoint[mesh]: launches {counts}, forwards P {pe.forward_calls} "
+                  f"J {je.forward_calls}")
+            status, listed = await loop.run_in_executor(None, http_json, "GET",
+                                                        j_url + "/providers")
+            mine = [x for x in listed["providers"] if x.get("local")
+                    and CKPT_NAME in x.get("models", []) and x.get("backend") == "cuda"]
+            check(status == 200 and len(mine) == 1, f"checkpoint[mesh]: J's /providers "
+                  f"{listed}")
+            log(f"checkpoint[mesh]: J's weights bit-equal P's; /chat text through P and J "
+                f"equal: {texts['P'] == texts['J']} ({len(texts['J'])} chars); J's "
+                f"/providers lists {CKPT_NAME} on backend cuda")
+            check(texts["P"] == texts["J"], f"checkpoint[mesh]: texts differ: {texts}")
+            out.update(counts=counts, pieces=len(manifest.pieces))
+        finally:
+            stop.set()
+            done += await asyncio.gather(*tasks, return_exceptions=True)
+            await dht.stop()
+            for n in nodes:
+                for svc in n.local_services.values():
+                    if getattr(svc, "engine", None) is not None:
+                        svc.engine.close()
+        errs = [d for d in done if isinstance(d, BaseException)]
+        check(not errs, f"checkpoint[mesh]: a node failed: {errs}")
+
+    weights.publish_model_weights = timed_publish
+    weights.serve_model_from_mesh = functools.partial(serve, stats=fetched)
+    try:
+        asyncio.run(drive())
+    finally:
+        weights.publish_model_weights, weights.serve_model_from_mesh = publish, serve
+    return out["counts"]
+
+
+def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
+    """The checkpoint with quantize="int8": the device's peak during the
+    load within the packed model + its largest dense tensor + 5%; its
+    packed weights bit-equal to quantizing the loaded bf16 weights on the
+    card (the in-memory int8 engine); equal greedy tokens; the GEMM
+    launched 4 x n_layers a replayed decode step or prefill chunk of at
+    most 64 tokens. Returns the launches of the int8 engine's burst."""
+    cfg = engine.model_cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = checkpoint_engine("int8", checkpoint=ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = storage_bytes(q.params)
+    largest = max(t.numel() * t.element_size() for _, t in tree_leaves(engine.params))
+    bound = INT8_LOAD_SLACK * (resident + largest)
+    m = checkpoint_engine("int8", params=engine.params, cfg=cfg)
+    try:
+        diff = same_bits(q.params, m.params)
+        log(f"checkpoint[int8]: loaded and quantized tensor by tensor in {load_s:.2f} s "
+            f"({q.load_stats}); device peak during the load {peak} B against the bound "
+            f"{bound:.0f} B ({INT8_LOAD_SLACK} x (packed model {resident} B + largest dense "
+            f"tensor {largest} B)); packed weights bit-equal to the in-memory int8 "
+            f"engine's: {not diff}; card {card}")
+        check(peak <= bound, f"checkpoint[int8]: load peak {peak} B over {bound:.0f} B")
+        check(not diff, f"checkpoint[int8]: packed weights differ at {diff[:5]}")
+        roots_run = record_roots(q)
+        reset_gemm_counts()
+        got, _, counts = checkpoint_burst(q, "checkpoint[int8]", prompts)
+        gemm = gemm_counts()
+        check_int8_gemm_launches(q, "checkpoint[int8]", gemm, roots_run, True)
+        want, _, _ = checkpoint_burst(m, "checkpoint[int8, in memory]", prompts)
+        check(got == want, "checkpoint[int8]: greedy tokens differ from the in-memory "
+              "int8 engine's")
+        log("checkpoint[int8]: greedy tokens equal the in-memory int8 engine's, 8 x "
+            f"{CKPT_NEW}")
+        return {**counts, **gemm}
+    finally:
+        q.close()
+        m.close()
+
+
+def phase_checkpoint(card: str) -> dict:
+    """llama-3.1-8b (2 layers, published widths, random bf16 from SEED)
+    written as an HF checkpoint and served from it: (a) load, (b) rope and
+    f32 logits, (c) native round trip, (d) mesh publish and join, (e) int8
+    from the checkpoint. Returns the launch counts of the phase, summed."""
+    import shutil
+    import tempfile
+
+    from bee2bee_tpu_torch.models.config import config_from_hf, get_config
+    from bee2bee_tpu_torch.models.export import export_hf
+    from bee2bee_tpu_torch.models.params import (
+        init_params, params_from_numpy, params_to_numpy)
+
+    t_phase = time.perf_counter()
+    cfg = config_from_hf(LLAMA31_CONFIG)
+    check(cfg == replace(get_config("llama-3.1-8b"), n_layers=2, name=CKPT_NAME),
+          f"checkpoint: config.json parses to {cfg}")
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="ckpt_", dir=build))
+    engine = ref = None
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        t0 = time.perf_counter()
+        tree = params_to_numpy(init_params(cfg, gen, "cuda", torch.bfloat16))
+        ref_params = params_from_numpy(tree, cfg, "cuda", torch.bfloat16)
+        del tree
+        ckpt = workdir / "hf"
+        export_hf(ref_params, cfg, ckpt, dtype="bfloat16", max_shard_bytes=CKPT_SHARD_BYTES)
+        (ckpt / "config.json").write_text(json.dumps(LLAMA31_CONFIG, indent=2))
+        files = sorted(f.name for f in ckpt.iterdir())
+        nbytes = sum(f.stat().st_size for f in ckpt.glob("*.safetensors"))
+        log(f"checkpoint: {CKPT_NAME} random bf16 from seed {SEED}, written in "
+            f"{time.perf_counter() - t0:.2f} s: {files}, {nbytes} B")
+        check(len(list(ckpt.glob("*.safetensors"))) >= 2, "checkpoint: one shard only")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = checkpoint_engine(checkpoint=ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        st = engine.load_stats
+        check(engine.model_cfg == cfg, f"checkpoint: the engine resolved {engine.model_cfg}")
+        diff = same_bits(engine.params, ref_params)
+        log(f"checkpoint[load]: InferenceEngine('auto', checkpoint_path=...) in {load_s:.2f} "
+            f"s: read {st['read_s']:.2f} s, host-to-device {st['h2d_s']:.2f} s, cast + "
+            f"transpose on the card {st['device_s']:.2f} s, {st['bytes']} B; device peak "
+            f"{peak} B above the {base} B already held; weights bit-equal to "
+            f"params_from_numpy's: {not diff}; card {card}")
+        check(not diff, f"checkpoint: loaded weights differ at {diff[:5]}")
+        ref = checkpoint_engine(params=ref_params, cfg=cfg)
+        prompts = slice_prompts()
+        got, got_first, counts = checkpoint_burst(engine, "checkpoint[load]", prompts)
+        add(counts)
+        want, want_first, _ = checkpoint_burst(ref, "checkpoint[params_from_numpy]", prompts)
+        same_first = all(torch.equal(bits(got_first[k]), bits(want_first[k]))
+                         for k in want_first) and got_first.keys() == want_first.keys()
+        check(got == want and same_first, "checkpoint: greedy tokens or first-token logits "
+              "differ from the params_from_numpy engine's")
+        log(f"checkpoint[load]: greedy tokens equal ({len(got)} x {CKPT_NEW}) and the "
+            f"{len(got_first)} first-token logits bit-equal to the params_from_numpy engine's")
+        ref.close()
+        ref = None
+        del ref_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rope_check(cfg, card)
+        add(checkpoint_f32_logits(engine, card))
+        checkpoint_native(engine, workdir, card)
+        add(checkpoint_mesh(cfg, ckpt, card))
+        add(checkpoint_int8(engine, ckpt, prompts, card))
+    finally:
+        for eng in (engine, ref):
+            if eng is not None:
+                eng.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"checkpoint: phase wall {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }; card {card}")
+    return total
+
+
 def run_only(card: str, which: str) -> int:
     """``--only quant``: the int8-weight GEMM phase and the int8-weight
     slices; ``--only adapters``: the adapter phase over bf16 and int8
@@ -4767,6 +5240,8 @@ def run_only(card: str, which: str) -> int:
         phase_int8_weights(card)
     elif which == "adapters":
         phase_adapters_both(card)
+    elif which == "checkpoint":
+        phase_checkpoint(card)
     elif which == "migrate":
         # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
         engine = migrate_engine(None, "bfloat16", "bfloat16")
@@ -4777,7 +5252,7 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters or migrate, not {which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate or checkpoint, not {which!r}")
     log(f"card: {card}")
     return 0
 
@@ -4880,6 +5355,10 @@ def main() -> int:
     node_counts = phase_node(card)
     stage("node with the prefix cache")
     phase_node_prefix(card)
+    # llama-3.1 from an HF checkpoint: load, rope, native pieces, the mesh
+    # join and int8 from the checkpoint
+    stage("checkpoint")
+    ckpt_counts = phase_checkpoint(card)
     stage("kernel table")
 
     # the prefix phases' launches join the main path's
@@ -4927,7 +5406,8 @@ def main() -> int:
     bf16_g, int8_g = gemma_counts["bfloat16"], gemma_counts["int8"]
     kernels = [
         row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged_decode"] + node_counts["ragged_decode"], errs["decode"],
+            counts["ragged_decode"] + node_counts["ragged_decode"]
+            + ckpt_counts.get("ragged_decode", 0), errs["decode"],
             timings["decode"]),
         row("ragged_decode_attention_int8", decode_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
@@ -4962,7 +5442,8 @@ def main() -> int:
             counts["flash_tile_hd256"] + int8_counts["flash_tile_hd256"],
             flash_errs["tile_hd256"], flash_timings["tile_hd256"]),
         row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
-            counts["ragged_prefill"] + node_counts["ragged_prefill"], errs["tile"],
+            counts["ragged_prefill"] + node_counts["ragged_prefill"]
+            + ckpt_counts.get("ragged_prefill", 0), errs["tile"],
             timings["prefill"]),
         row("ragged_prefill_attention_int8", prefill_src,
             "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_int8"],
@@ -4974,7 +5455,8 @@ def main() -> int:
         # T=S=2048; bound: three TF32 products at the TF32 peak; the ragged
         # forms' launches from the f32 slice's prefill chunks (phase 8)
         row("ragged_prefill_attention_f32", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
-            f32_f32["ragged_prefill_f32"], errs["tile_f32"], timings["prefill_f32"]),
+            f32_f32["ragged_prefill_f32"] + ckpt_counts.get("ragged_prefill_f32", 0),
+            errs["tile_f32"], timings["prefill_f32"]),
         row("ragged_prefill_attention_f32_int8", prefill_src,
             "bee2bee_tpu/ops/ragged.py:107", f32_int8["ragged_prefill_f32_int8"],
             int8_errs["tile_f32"], int8_timings["prefill_f32"]),
@@ -4986,7 +5468,8 @@ def main() -> int:
         # ctx 1024 (llama-3-8b's and gemma-2-9b's heads); bound: the bytes
         # or the FFMA products at the f32 CUDA-core peak
         row("ragged_decode_attention_f32", decode_f32_src, "bee2bee_tpu/ops/ragged.py:84",
-            f32_f32["ragged_decode_f32"] + fwd_counts.get("ragged_decode_f32", 0),
+            f32_f32["ragged_decode_f32"] + fwd_counts.get("ragged_decode_f32", 0)
+            + ckpt_counts.get("ragged_decode_f32", 0),
             errs["decode_f32"], timings["decode_f32"]),
         row("ragged_decode_attention_f32_int8", decode_f32_src,
             "bee2bee_tpu/ops/ragged.py:107",
@@ -5005,7 +5488,8 @@ def main() -> int:
     gemm_src = "bee2bee_tpu_torch/csrc/int8_weight_gemm.cu"
     kernels.append(row(
         "int8_weight_gemm", gemm_src, "bee2bee_tpu/models/core.py:408",
-        int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"],
+        int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"]
+        + ckpt_counts.get("int8_gemm", 0),
         gemm["err"], gemm["timing"]))
     log("kernels: int8_weight_gemm replaces no Pallas kernel: the XLA-fused int8 "
         "product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); its "

@@ -7,15 +7,19 @@
   ``build_service("tpu", ...)`` raises and names ``serve-cuda``.
 - Every branch of the boot path that reaches a module the port does not
   have yet raises ``NotImplementedError`` naming its ROADMAP.md item, one
-  case each: weights publish and mesh join, a checkpoint, a mesh shape,
-  the pipeline stage runner, and int8 weights beside f32 activations on
-  the card. The draft role runs: a port node hosts the drafter and serves a
-  draft.
+  case each: a mesh shape, the pipeline stage runner, and int8 weights
+  beside f32 activations on the card. The cases of item 10, which is
+  ported, keep their ids and run their branch on the CPU: a node publishes
+  its weights as pieces, a node joins from them with no checkpoint (and
+  reseeds them), ``build_service`` serves a local checkpoint with
+  ``--model auto``. The draft role runs: a port node hosts the drafter and
+  serves a draft.
 - ``NodeConfig().engine_config()`` is the port's ``EngineConfig`` with the
   ragged kernel's ``attention="auto"``.
 - ``serve-cuda --help`` lists the options, and each option the port does
   not run fails with a ``click.UsageError`` naming its ROADMAP item;
-  ``--spec`` and ``--drafter`` reach the node's config.
+  ``--spec`` and ``--drafter`` reach the node's config, ``--checkpoint``,
+  ``--publish-weights`` and ``--from-mesh`` the node runtime.
 - Without aiohttp, ``run_p2p_node(serve_api=True)`` raises and names it.
 - Importing the node runtime and the gateway loads neither jax nor the
   JAX package, and ``get_accelerator_info`` reports the CPU without a card.
@@ -24,6 +28,7 @@
 from __future__ import annotations
 
 import asyncio
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -31,7 +36,10 @@ from pathlib import Path
 import pytest
 from click.testing import CliRunner
 
+import torch
+
 from bee2bee_tpu_torch import transport
+from bee2bee_tpu_torch.dht import DHTNode
 from bee2bee_tpu_torch.__main__ import cli
 from bee2bee_tpu_torch.config import NodeConfig
 from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
@@ -123,12 +131,87 @@ def _part_load(tiny_engine):
     asyncio.run(go())
 
 
+async def _until_ready(**kw):
+    """run_p2p_node until it is ready, then shut it down; returns the node."""
+    ready, stop = asyncio.Event(), asyncio.Event()
+    task = asyncio.create_task(runtime.run_p2p_node(
+        registry_sync=False, serve_api=False, ready_event=ready, shutdown_event=stop, **kw))
+    await asyncio.wait_for(ready.wait(), 120)
+    stop.set()
+    return await task
+
+
+def _publishes(tiny_engine, monkeypatch, tmp_path):
+    monkeypatch.setattr(runtime, "build_service", lambda backend, model, cfg, **_: CUDAService(
+        model, engine=tiny_engine, device="cpu"))
+    node = asyncio.run(_until_ready(backend="cuda", model="tiny-llama", cfg=_cfg(),
+                                    publish_weights=True, dht=DHTNode()))
+    manifest = node.manifests["tiny-llama"]
+    assert manifest.pieces and all(p.sha256 in node.piece_store for p in manifest.pieces)
+
+
+def _joins_from_mesh(tiny_engine, monkeypatch, tmp_path):
+    from bee2bee_tpu_torch.meshnet import weights
+
+    async def publish(dht):
+        provider = P2PNode(host="127.0.0.1", port=0)
+        await provider.start()
+        await weights.publish_model_weights(provider, dht, tiny_engine.model_cfg,
+                                            tiny_engine.params)
+        return provider
+
+    async def go():
+        dht = DHTNode()
+        await dht.start()
+        provider = await publish(dht)
+        try:
+            return await _until_ready(backend="cuda", model="tiny-llama", dht=dht,
+                                      from_mesh=True, publish_weights=True,
+                                      cfg=_cfg(max_seq_len=64, dtype="float32"))
+        finally:
+            await provider.stop()
+
+    monkeypatch.setattr(weights, "serve_model_from_mesh", functools.partial(
+        weights.serve_model_from_mesh, device="cpu"))
+    node = asyncio.run(go())
+    svc = node.local_services["cuda"]
+    try:
+        assert svc.get_metadata()["models"] == ["tiny-llama"]
+        # the joined peer reseeds the swarm with the same pieces
+        assert node.manifests["tiny-llama"].pieces
+        want = tiny_engine.generate("joined", max_new_tokens=6, temperature=0.0).token_ids
+        assert svc.engine.generate("joined", max_new_tokens=6, temperature=0.0).token_ids \
+            == want
+    finally:
+        svc.engine.close()
+
+
+def _serves_a_checkpoint(tiny_engine, monkeypatch, tmp_path):
+    from bee2bee_tpu_torch.models.export import export_hf
+    from bee2bee_tpu_torch.services import cuda
+
+    export_hf(tiny_engine.params, tiny_engine.model_cfg, tmp_path)
+    monkeypatch.setattr(cuda, "resolve_device", lambda device=None: torch.device(
+        device or "cpu"))
+    svc = runtime.build_service("cuda", "auto", _cfg(max_seq_len=64, dtype="float32"),
+                                checkpoint_path=str(tmp_path)).load_sync()
+    try:
+        assert svc.model_name == "llama-checkpoint" and svc.engine.device.type == "cpu"
+        want = tiny_engine.generate("ckpt", max_new_tokens=6, temperature=0.0).token_ids
+        assert svc.engine.generate("ckpt", max_new_tokens=6, temperature=0.0).token_ids \
+            == want
+    finally:
+        svc.engine.close()
+
+
+# queue A item 10 is ported: its three cases keep their ids and check that
+# the branch now runs, at tiny size on the CPU
+PORTED = {
+    "publish_weights": _publishes,
+    "from_mesh": _joins_from_mesh,
+    "checkpoint": _serves_a_checkpoint,
+}
 UNPORTED = {
-    "publish_weights": (10, lambda e, mp: _boot(e, mp, publish_weights=True)),
-    "from_mesh": (10, lambda e, mp: _run(backend="cuda", model="tiny-llama", cfg=_cfg(),
-                                         from_mesh=True)),
-    "checkpoint": (10, lambda e, mp: runtime.build_service(
-        "cuda", "tiny-llama", _cfg(), checkpoint_path="/nonexistent")),
     "int8_weights_f32_card": (18, lambda e, mp: check_card_supported(
         get_config("llama-3-8b"), EngineConfig(dtype="float32", cache_dtype="float32",
                                                quantize="int8"), "cuda")),
@@ -138,8 +221,11 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("case", list(UNPORTED))
-def test_unported_branch_raises_by_name(case, tiny_engine, loopback, monkeypatch):
+@pytest.mark.parametrize("case", list(PORTED) + list(UNPORTED))
+def test_unported_branch_raises_by_name(case, tiny_engine, loopback, monkeypatch, tmp_path):
+    if case in PORTED:
+        PORTED[case](tiny_engine, monkeypatch, tmp_path)
+        return
     item, call = UNPORTED[case]
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue A item {item}\)"):
         call(tiny_engine, monkeypatch)
@@ -200,7 +286,22 @@ def test_serve_cuda_passes_spec_options_to_the_node(args, field, value, monkeypa
     (["--attention", "dense"], 12), (["--attention", "sp"], 14),
 ], ids=[f"args{i}-{item}" for i, item in zip((0, 7, 8, 9, 10, 11),
                                               (10, 14, 10, 10, 12, 14))])
-def test_serve_cuda_refuses_unported_options(args, item):
+def test_serve_cuda_refuses_unported_options(args, item, monkeypatch):
+    if item == 10:  # ported: the option now reaches run_p2p_node
+        seen = {}
+
+        async def fake_run(**kw):
+            seen.update(kw)
+
+        monkeypatch.setattr(runtime, "run_p2p_node", fake_run)
+        out = CliRunner().invoke(cli, ["serve-cuda", "--model", "auto", *args])
+        assert out.exit_code == 0, out.output
+        assert seen["backend"] == "cuda" and seen["model"] == "auto"
+        got = {"--checkpoint": seen["checkpoint_path"],
+               "--publish-weights": seen["publish_weights"],
+               "--from-mesh": seen["from_mesh"]}[args[0]]
+        assert got == (args[1] if len(args) > 1 else True)
+        return
     out = CliRunner().invoke(cli, ["serve-cuda", "--model", "llama-3-8b", *args])
     assert out.exit_code == 2, out.output
     assert f"ROADMAP.md queue A item {item})" in out.output
