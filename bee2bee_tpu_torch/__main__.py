@@ -193,7 +193,7 @@ def _refuse_unported(opts: dict) -> None:
               help="registry model name (random weights from seed 0 unless "
                    "--checkpoint or --from-mesh), or 'auto' with --checkpoint "
                    "(the checkpoint's config.json decides); the port serves the "
-                   "llama architecture")
+                   "llama architecture and the qwen2 and qwen3 families")
 @click.option("--checkpoint", default=None,
               help="local checkpoint dir: HF layout (*.safetensors or "
                    "pytorch_model*.bin with config.json) or a native piece dir")
@@ -206,8 +206,8 @@ def _refuse_unported(opts: dict) -> None:
                    "(dense and sp are not ported)")
 @click.option("--quantize", type=click.Choice(["none", "int8"]), default=None,
               help="weight-only quantization: int8 projections through the "
-                   "int8-weight GEMM (BEE2BEE_QUANTIZE; bf16 activations on "
-                   "the card)")
+                   "int8-weight GEMM (BEE2BEE_QUANTIZE; bf16 or, with "
+                   "BEE2BEE_DTYPE=float32, f32 activations)")
 @click.option("--kv-quant", "kv_quant", is_flag=True, default=False,
               help="int8 KV pool: pages stored int8 with per-page-per-head "
                    "scales, dequantized inside the attention kernels "

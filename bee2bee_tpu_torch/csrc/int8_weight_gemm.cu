@@ -1,8 +1,9 @@
 // The int8-weight GEMM of the serving forward: y[M, N] = (x[M, K] @ q[K, N])
-// * s[N], x bf16, q int8 (weight-only quantized, models/quant.py), s f32 per
-// output channel, the sum in f32, y bf16. M is a root's token count: 1-8 at
-// decode, B*(K+1) at a speculative verify, up to 64 here (the wrapper sends
-// wider chunks to a dequantize + cuBLAS product, ops/int8_gemm.py).
+// * s[N], q int8 (weight-only quantized, models/quant.py), s f32 per output
+// channel, the sum in f32, x and y in the activations' type: bf16, or f32
+// (the f32 form, below). M is a root's token count: 1-8 at decode, B*(K+1)
+// at a speculative verify, up to 64 here (the wrapper sends wider chunks to
+// a dequantize + cuBLAS product, ops/int8_gemm.py).
 //
 // What it replaces. No TPU kernel: the JAX package's core.matmul computes
 // (x @ q.astype(x.dtype)) * s and XLA fuses the int8 -> bf16 convert into
@@ -44,6 +45,23 @@
 //     subtract (exact for |q| <= 127), then cvt.rn.bf16x2.f32; I2F would
 //     run at a quarter of the rate.
 //   - The per-channel scale is applied in the epilogue, once per output.
+//   - The f32 form (f32 x and y: an f32 engine with int8 weights) keeps
+//     the packed layout, the ring, the staging and the split-K, and runs
+//     the products as 2xTF32 on mma.m16n8k8. Every int8 value is exact in
+//     TF32, so only x is split, x = hi + lo (both TF32; lo rounds away
+//     x's last 2-3 bits of 24): two products a step, the small one first.
+//     Four k8 steps cover a lane's 16 bytes: step s takes its word s,
+//     whose bytes are (channel g, input 2s), (g, 2s + 1), (g + 8, 2s),
+//     (g + 8, 2s + 1) of its 8 inputs, as A's k = t and k = t + 4, so B's
+//     fragments are inputs 2s and 2s + 1 of the lane's 8 consecutive x
+//     values (two 16-byte loads). The x rows staged in shared memory are
+//     128 bytes a chunk, padded to 16 mod 128 bytes a row (the two token
+//     rows of a load phase in other banks). Bound: bytes K*N + 4N + 4MK +
+//     4MN (llama-3-8b w_up at M = 8: 59.4 MB, 17.7 us at the H100 SXM's
+//     data-sheet 3.35 TB/s); the products (2 * 2MKN at the TF32 peak) stay
+//     under it up to M of about 40. FFMA was the other design: at the
+//     verify width (M = 40) w_up's 4.7 GFLOP would take about 0.07 ms at
+//     the data sheet's 67 TFLOP/s, four times the bytes' bound.
 //   - One launch for up to three weights that share x (wq, wk and wv; w_up
 //     and w_gate): the grid is their channel groups one after the other,
 //     so a layer takes 4 launches, not 7.
@@ -59,6 +77,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -100,22 +120,28 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 }
 
 // up to three weights of one launch (the same x and K): their packed bytes,
-// scales, outputs, widths and channel groups of 64
+// scales, outputs (in x's type), widths and channel groups of 64
 constexpr int kMaxWeights = 3;
 struct Weights {
   const int8_t* qp[kMaxWeights];
   const float* s[kMaxWeights];
-  bf16* y[kMaxWeights];
+  void* y[kMaxWeights];
   int N[kMaxWeights];
   int groups[kMaxWeights];
   int count;
 };
 
-// the staged x row stride in bytes for ``per`` chunks of 64 bytes: 64 mod
-// 128, so the two token rows one 8-lane phase of a 16-byte load reads sit
-// in different banks
+// the staged x row stride in bytes for ``per`` chunks of 32 inputs, so the
+// two token rows one 8-lane phase of a 16-byte load reads sit in different
+// banks: bf16 (64-byte chunks) 64 mod 128; f32 (128-byte chunks, a lane
+// reading 32 bytes at t * 32) 16 mod 128
+template <typename XT>
 __host__ __device__ __forceinline__ int staged_row_bytes(int per) {
-  return per * 64 + ((per & 1) ? 0 : 64);
+  if constexpr (sizeof(XT) == 4) {
+    return per * 128 + 16;
+  } else {
+    return per * 64 + ((per & 1) ? 0 : 64);
+  }
 }
 
 // two int8 bytes of w (byte index lo, lo + 1) -> bf16x2, exactly: u = q + 128
@@ -155,16 +181,62 @@ __device__ __forceinline__ void chunk_fragments(const uint4& w, uint32_t (&a0)[4
   a1[3] = i8x2_to_bf16x2(u3, 2);
 }
 
+// one int8 byte (index idx of u, already XORed with 0x80) -> its f32 value
+// as a TF32 operand, exactly (the byte permute of i8x2_to_bf16x2)
+__device__ __forceinline__ uint32_t i8_to_tf32(uint32_t u, int idx) {
+  uint32_t f;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(f) : "r"(u), "r"(0x4B000000u), "r"(0x7440u | idx));
+  return __float_as_uint(__uint_as_float(f) - 8388736.0f);
+}
+
+// one packed chunk (16 bytes of this lane) -> the TF32 A fragments of its
+// four k8 steps: step s reads word s, whose bytes are (row g, input 2s),
+// (row g, 2s + 1), (row g + 8, 2s), (row g + 8, 2s + 1); A's k = t takes
+// input 2s, k = t + 4 input 2s + 1
+__device__ __forceinline__ void chunk_fragments_tf32(const uint4& w, uint32_t (&a)[4][4]) {
+  const uint32_t u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                         w.w ^ 0x80808080u};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s][0] = i8_to_tf32(u[s], 0);
+    a[s][1] = i8_to_tf32(u[s], 2);
+    a[s][2] = i8_to_tf32(u[s], 1);
+    a[s][3] = i8_to_tf32(u[s], 3);
+  }
+}
+
+// x = hi + lo, both TF32 (cvt.rna's rounding by bit arithmetic, as
+// tile_attention_f32.cuh splits: hi drops its 13 low bits itself, the
+// tensor cores ignore lo's)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d += a b for one 16x8 f32 tile: a 16x8 TF32 (row), b 8x8 TF32 (col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // grid: (sum of the weights' ceil(N / 64)) * cs blocks in clusters of cs;
 // cluster c owns channel group c of the weights laid end to end, block b
 // its channel tiles 4 * group .. + 3 (one a warp) over input chunks [rank *
 // per, (rank + 1) * per) of the Kc = K / 32. NT = ceil(M / 8) token tiles;
 // STAGED: x's K range in dynamic shared memory (NT * 8 rows of
-// staged_row_bytes(per)).
-template <int NT, bool STAGED>
+// staged_row_bytes(per)). XT: x's and y's type, bf16 or float (the 2xTF32
+// form).
+template <int NT, bool STAGED, typename XT>
 __global__ void __launch_bounds__(kThreads)
-int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int K, int cs,
+int8_weight_gemm_kernel(const XT* __restrict__ x, const Weights W, int M, int K, int cs,
                         int per) {
+  constexpr bool kF32 = std::is_same<XT, float>::value;
+  // 16-byte pieces of one token's 32-input chunk, and the chunk's bytes
+  constexpr int kPieces = 32 * sizeof(XT) / 16;
+  constexpr int kChunkBytes = 32 * sizeof(XT);
   __shared__ float red[kWarps * NT * 4 * 32];
   extern __shared__ __align__(16) unsigned char xs[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -177,7 +249,7 @@ int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int 
   int grp = blockIdx.x / cs;
   const int8_t* qp = W.qp[0];
   const float* s = W.s[0];
-  bf16* y = W.y[0];
+  void* y = W.y[0];
   int N = W.N[0];
   if (W.count > 1 && grp >= W.groups[0]) {
     grp -= W.groups[0];
@@ -205,16 +277,18 @@ int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int 
     for (int u = 0; u < R; ++u)
       ring[u] = kb + u < ke ? ld_stream(wp + static_cast<size_t>(kb + u) * 512) : zero;
   }
-  const int row_bytes = staged_row_bytes(per);
+  const int row_bytes = staged_row_bytes<XT>(per);
   if constexpr (STAGED) {
     // x rows [0, NT * 8) x chunks [kb, ke) into shared memory, 16 bytes a
     // copy (rows past M and chunks past Kc zero-filled), behind the ring
-    const int pieces = NT * 8 * per * 4;
+    const int pieces = NT * 8 * per * kPieces;
     for (int i = threadIdx.x; i < pieces; i += kThreads) {
-      const int row = i / (per * 4), rest = i % (per * 4);
-      const int c = kb + rest / 4, piece = rest % 4;
+      const int row = i / (per * kPieces), rest = i % (per * kPieces);
+      const int c = kb + rest / kPieces, piece = rest % kPieces;
       const bool real = row < M && c < ke;
-      const bf16* src = real ? x + static_cast<size_t>(row) * K + c * 32 + piece * 8 : x;
+      const XT* src = real ? x + static_cast<size_t>(row) * K + c * 32
+                                 + piece * static_cast<int>(16 / sizeof(XT))
+                           : x;
       cp_async16(xs + row * row_bytes + rest * 16, src, real ? 16 : 0);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -226,23 +300,54 @@ int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int 
       for (int u = 0; u < R; ++u) {
         const int c = c0 + u;
         if (c < ke) {
-          uint32_t a0[4], a1[4];
-          chunk_fragments(ring[u], a0, a1);
-          if (c + R < ke) ring[u] = ld_stream(wp + static_cast<size_t>(c + R) * 512);
-          // this lane's 8 inputs of token j * 8 + g: both steps' B fragments
+          if constexpr (kF32) {
+            uint32_t a[4][4];
+            chunk_fragments_tf32(ring[u], a);
+            if (c + R < ke) ring[u] = ld_stream(wp + static_cast<size_t>(c + R) * 512);
+            // this lane's 8 inputs of token j * 8 + g (two 16-byte loads):
+            // inputs 2s and 2s + 1 are step s's B fragments
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int tok = j * 8 + g;
-            uint4 xv;
-            if constexpr (STAGED) {
-              xv = *reinterpret_cast<const uint4*>(xs + tok * row_bytes + (c - kb) * 64 +
-                                                   t * 16);
-            } else {
-              xv = tok < M ? ld_cached(x + static_cast<size_t>(tok) * K + c * 32 + t * 8)
-                           : zero;
+            for (int j = 0; j < NT; ++j) {
+              const int tok = j * 8 + g;
+              uint4 x0, x1;
+              if constexpr (STAGED) {
+                const unsigned char* p = xs + tok * row_bytes + (c - kb) * kChunkBytes + t * 32;
+                x0 = *reinterpret_cast<const uint4*>(p);
+                x1 = *reinterpret_cast<const uint4*>(p + 16);
+              } else {
+                const XT* p = x + static_cast<size_t>(tok) * K + c * 32 + t * 8;
+                x0 = tok < M ? ld_cached(p) : zero;
+                x1 = tok < M ? ld_cached(p + 4) : zero;
+              }
+              const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+              for (int st = 0; st < 4; ++st) {
+                uint32_t h0, l0, h1, l1;
+                split_tf32(__uint_as_float(xw[2 * st]), h0, l0);
+                split_tf32(__uint_as_float(xw[2 * st + 1]), h1, l1);
+                mma_tf32(acc[j], a[st], l0, l1);
+                mma_tf32(acc[j], a[st], h0, h1);
+              }
             }
-            mma_bf16(acc[j], a0, xv.x, xv.y);
-            mma_bf16(acc[j], a1, xv.z, xv.w);
+          } else {
+            uint32_t a0[4], a1[4];
+            chunk_fragments(ring[u], a0, a1);
+            if (c + R < ke) ring[u] = ld_stream(wp + static_cast<size_t>(c + R) * 512);
+            // this lane's 8 inputs of token j * 8 + g: both steps' B fragments
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int tok = j * 8 + g;
+              uint4 xv;
+              if constexpr (STAGED) {
+                xv = *reinterpret_cast<const uint4*>(xs + tok * row_bytes +
+                                                     (c - kb) * kChunkBytes + t * 16);
+              } else {
+                xv = tok < M ? ld_cached(x + static_cast<size_t>(tok) * K + c * 32 + t * 8)
+                             : zero;
+              }
+              mma_bf16(acc[j], a0, xv.x, xv.y);
+              mma_bf16(acc[j], a1, xv.z, xv.w);
+            }
           }
         }
       }
@@ -264,7 +369,14 @@ int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int 
     const int tok = j * 8 + 2 * (l & 3) + (e & 1);
     float sum = 0.f;
     for (int src = 0; src < cs; ++src) sum += cluster.map_shared_rank(red, src)[i];
-    if (tok < M && ch < N) y[static_cast<size_t>(tok) * N + ch] = __float2bfloat16_rn(sum * s[ch]);
+    if (tok < M && ch < N) {
+      const size_t at = static_cast<size_t>(tok) * N + ch;
+      if constexpr (kF32) {
+        static_cast<float*>(y)[at] = sum * s[ch];
+      } else {
+        static_cast<bf16*>(y)[at] = __float2bfloat16_rn(sum * s[ch]);
+      }
+    }
   }
   // no block leaves while another still reads its shared memory
   cluster.sync();
@@ -273,17 +385,17 @@ int8_weight_gemm_kernel(const bf16* __restrict__ x, const Weights W, int M, int 
 // the largest staged x a block holds (dynamic shared memory)
 constexpr int kMaxStagedBytes = 96 * 1024;
 
-template <int NT, bool STAGED>
-cudaError_t launch(const bf16* x, const Weights& W, int M, int K, int cs, int per,
+template <int NT, bool STAGED, typename XT>
+cudaError_t launch(const XT* x, const Weights& W, int M, int K, int cs, int per,
                    cudaStream_t stream) {
-  auto kernel = int8_weight_gemm_kernel<NT, STAGED>;
+  auto kernel = int8_weight_gemm_kernel<NT, STAGED, XT>;
   size_t smem = 0;
   if constexpr (STAGED) {
     // once per instantiation: the attribute outlives the call
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStagedBytes);
     if (attr != cudaSuccess) return attr;
-    smem = static_cast<size_t>(NT) * 8 * staged_row_bytes(per);
+    smem = static_cast<size_t>(NT) * 8 * staged_row_bytes<XT>(per);
   }
   cudaLaunchConfig_t cfg = {};
   int groups = 0;
@@ -302,20 +414,47 @@ cudaError_t launch(const bf16* x, const Weights& W, int M, int K, int cs, int pe
   return cudaLaunchKernelEx(&cfg, kernel, x, W, M, K, cs, per);
 }
 
+// x's type: the tile counts of M, each with its staged form where x's K
+// range fits shared memory
+template <typename XT>
+cudaError_t dispatch(const XT* x, const Weights& W, int M, int K, int cs, int per,
+                     cudaStream_t st) {
+  // up to 2 token tiles, x staged in shared memory when its K range fits
+  const int tiles = (M + 7) / 8;
+  const bool staged = tiles <= 2 && tiles * 8 * staged_row_bytes<XT>(per) <= kMaxStagedBytes;
+  switch (tiles) {
+    case 1:
+      return staged ? launch<1, true>(x, W, M, K, cs, per, st)
+                    : launch<1, false>(x, W, M, K, cs, per, st);
+    case 2:
+      return staged ? launch<2, true>(x, W, M, K, cs, per, st)
+                    : launch<2, false>(x, W, M, K, cs, per, st);
+    case 3: return launch<3, false>(x, W, M, K, cs, per, st);
+    case 4: return launch<4, false>(x, W, M, K, cs, per, st);
+    case 5: return launch<5, false>(x, W, M, K, cs, per, st);
+    // 6 tiles: ptxas (CUDA 12.9) spilled the bf16 instantiation's registers
+    // (8 bytes); M in 41..48 runs the 7-tile form, its 7th tile masked
+    case 6:
+    case 7: return launch<7, false>(x, W, M, K, cs, per, st);
+    default: return launch<8, false>(x, W, M, K, cs, per, st);
+  }
+}
+
 }  // namespace
 
-// y_i [M, N_i] bf16 = (x [M, K] bf16 @ unpack(qp_i)) * s_i [N_i] f32 for the
-// count (1..3) weights given, in one launch; qp_i the packed int8 weight
-// [N_i / 16, K / 32, 32, 16]. M in 1..64, K % 32 == 0, cs in 1..8 (a
-// cluster), per = chunks a cluster rank takes. Returns the CUDA error of the
-// launch (0 = launched).
-extern "C" int b2b_int8_weight_gemm(const void* x, int count, const void* qp0,
+// y_i [M, N_i] = (x [M, K] @ unpack(qp_i)) * s_i [N_i] f32 for the count
+// (1..3) weights given, in one launch; x and y_i bf16 (dtype 1) or f32
+// (dtype 0, the 2xTF32 form); qp_i the packed int8 weight [N_i / 16, K /
+// 32, 32, 16]. M in 1..64, K % 32 == 0, cs in 1..8 (a cluster), per =
+// chunks a cluster rank takes. Returns the CUDA error of the launch (0 =
+// launched).
+extern "C" int b2b_int8_weight_gemm(const void* x, int dtype, int count, const void* qp0,
                                     const void* s0, void* y0, int N0, const void* qp1,
                                     const void* s1, void* y1, int N1, const void* qp2,
                                     const void* s2, void* y2, int N2, int M, int K, int cs,
                                     int per, void* stream) {
   if (M < 1 || M > 64 || K % 32 != 0 || cs < 1 || cs > 8 || per < 1 || count < 1 ||
-      count > kMaxWeights)
+      count > kMaxWeights || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* qps[kMaxWeights] = {qp0, qp1, qp2};
   const void* ss[kMaxWeights] = {s0, s1, s2};
@@ -327,34 +466,14 @@ extern "C" int b2b_int8_weight_gemm(const void* x, int count, const void* qp0,
     if (Ns[i] < 1 || Ns[i] % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
     W.qp[i] = static_cast<const int8_t*>(qps[i]);
     W.s[i] = static_cast<const float*>(ss[i]);
-    W.y[i] = static_cast<bf16*>(ys[i]);
+    W.y[i] = ys[i];
     W.N[i] = Ns[i];
     W.groups[i] = (Ns[i] + 63) / 64;
   }
-  const auto* xb = static_cast<const bf16*>(x);
   auto st = static_cast<cudaStream_t>(stream);
-  // up to 2 token tiles, x staged in shared memory when its K range fits
-  const int tiles = (M + 7) / 8;
-  const bool staged = tiles <= 2 && tiles * 8 * staged_row_bytes(per) <= kMaxStagedBytes;
-  cudaError_t err;
-  switch (tiles) {
-    case 1:
-      err = staged ? launch<1, true>(xb, W, M, K, cs, per, st)
-                   : launch<1, false>(xb, W, M, K, cs, per, st);
-      break;
-    case 2:
-      err = staged ? launch<2, true>(xb, W, M, K, cs, per, st)
-                   : launch<2, false>(xb, W, M, K, cs, per, st);
-      break;
-    case 3: err = launch<3, false>(xb, W, M, K, cs, per, st); break;
-    case 4: err = launch<4, false>(xb, W, M, K, cs, per, st); break;
-    case 5: err = launch<5, false>(xb, W, M, K, cs, per, st); break;
-    // 6 tiles: ptxas (CUDA 12.9) spilled that instantiation's registers (8
-    // bytes); M in 41..48 runs the 7-tile form, its 7th tile masked
-    case 6:
-    case 7: err = launch<7, false>(xb, W, M, K, cs, per, st); break;
-    default: err = launch<8, false>(xb, W, M, K, cs, per, st); break;
-  }
+  cudaError_t err = dtype == 1
+                        ? dispatch(static_cast<const bf16*>(x), W, M, K, cs, per, st)
+                        : dispatch(static_cast<const float*>(x), W, M, K, cs, per, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }

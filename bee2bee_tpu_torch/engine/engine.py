@@ -26,8 +26,9 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   prefix over shared pool blocks (engine/scheduler.py); the pool is sized
   with room for the entries' pins.
 - **Economics plane** (engine/introspect.py): the capture sentinel, the
-  HBM ledger (weights, KV pool, drafter), the goodput/MFU meter and the
-  pool forecast, built before the first forward; ``info["introspect"]``.
+  HBM ledger (weights, KV pool, drafter, the int8 dequantize scratch),
+  the goodput/MFU meter and the pool forecast, built before the first
+  forward; ``info["introspect"]``.
 - **Captured roots**: on the card the prefill chunk, the first token's
   sample, the decode step and the speculative verify step are CUDA
   graphs the scheduler captures per key (engine/graphs.py); the sentinel
@@ -41,8 +42,8 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   projections are quantized per output channel at load (a random init on
   the device, tensor by tensor; ``lora_path`` merged in first, as in
   JAX) and repacked for the int8-weight GEMM (ops/int8_gemm.py), which
-  every decode and verify root runs on the card. The card runs them with
-  bf16 activations only (``check_card_supported``).
+  every decode and verify root runs on the card, beside bf16 or f32
+  activations (the kernel has a form for each).
 - **Multi-LoRA serving** (``max_adapters``, adapters/pool.py): a pool of
   hot-swappable adapters over the one base; ``load_adapter`` /
   ``unload_adapter`` page them in and out without a restart, and a
@@ -81,7 +82,7 @@ from ..metrics import get_registry
 from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
-from ..models.quant import pack_params_, quantize_params_
+from ..models.quant import dequant_scratch_bytes, pack_params_, quantize_params_
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
 from .paged import ceil_div
@@ -272,9 +273,9 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     build the engine and then raise at its first forward: a ``dtype``
     other than bfloat16 or float32, a ``cache_dtype`` other than ``dtype``
     or int8, a head_dim or a ``kv_block_size`` the kernels are not built
-    for, int8 weights beside float32 activations (the int8-weight GEMM has
-    a bf16 form only: ROADMAP.md queue A item 18). Any other device runs
-    the plain versions: nothing is refused."""
+    for. int8 weights run beside bf16 and f32 activations alike (the
+    int8-weight GEMM has a form for each). Any other device runs the plain
+    versions: nothing is refused."""
     if torch.device(device).type != "cuda":
         return
     dtypes = [name for name, dtype in DTYPES.items() if dtype in _DTYPE_CODE]
@@ -292,11 +293,6 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     if engine_cfg.kv_block_size not in _BLOCK_SIZES:
         missing.append(f"kv_block_size={engine_cfg.kv_block_size} (the kernels "
                        f"are built for {_BLOCK_SIZES})")
-    if engine_cfg.quantize == "int8" and engine_cfg.dtype != "bfloat16":
-        missing.append(
-            f"quantize='int8' with dtype={engine_cfg.dtype!r} (the int8-weight "
-            "GEMM is built for bfloat16; ROADMAP.md queue A item 18)"
-        )
     if missing:
         raise NotImplementedError(
             f"{model_cfg.name} on {device}: the port's CUDA kernels do not "
@@ -453,6 +449,11 @@ class InferenceEngine:
 
         self.introspect = EngineIntrospection(self.model_cfg, self.device)
         self.introspect.ledger.register("weights", lambda: self.params)
+        if quantized:
+            # prefill chunks wider than the GEMM kernel takes dequantize a
+            # weight into scratch of this engine's dtype (ops/int8_gemm.py)
+            scratch = dequant_scratch_bytes(self.params, self.dtype)
+            self.introspect.ledger.register("int8_dequant_scratch", lambda: scratch)
         # the prefill root's declared capture space: its bucket widths
         # (what _bucket_for can return, and the fixed chunk) x the pow2
         # table widths; a capture outside it is a storm, as in JAX

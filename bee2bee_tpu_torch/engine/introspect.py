@@ -25,7 +25,10 @@ module's metric names, label sets and never-throw contract:
   tensors (weights: dense tensors and, for int8 weights, the packed int8
   bytes and their f32 scales; the KV pool with its int8 scales; the
   drafter; the adapter pool's stacked factors and scales), each storage
-  counted once (tied embeddings are one storage). The device total comes
+  counted once (tied embeddings are one storage), and for int8 weights
+  the dequantize route's peak scratch in the engine's dtype
+  (``int8_dequant_scratch``, a byte count: the allocator's cache keeps it
+  once a wide prefill chunk ran). The device total comes
   from ``torch.cuda.mem_get_info`` (total - free, device-wide): the
   caching allocator and the graphs' private pool hold memory that
   ``memory_allocated()`` does not show. The ledger never synchronises the
@@ -471,7 +474,8 @@ class HbmLedger:
     """Device memory by component, from registered tensor sources.
 
     A component registers a zero-arg callable returning its live tensor
-    tree (or None once torn down); ``snapshot()`` counts the trees, reads
+    tree (or None once torn down), or the int bytes it reserves outside
+    any tensor it keeps; ``snapshot()`` counts the trees, reads
     the device's used and total memory where there is a device (see the
     module docstring), refreshes the ``engine.hbm_*`` gauges and returns
     the breakdown that rides engine.info and the telemetry digest.
@@ -536,7 +540,10 @@ class HbmLedger:
                 tree = src()
             except Exception:  # noqa: BLE001 — a torn-down engine reads 0
                 tree = None
-            components[name] = tensor_tree_bytes(tree) if tree is not None else 0
+            if isinstance(tree, int):  # bytes a component reserves, no tensor
+                components[name] = tree
+            else:
+                components[name] = tensor_tree_bytes(tree) if tree is not None else 0
         accounted = sum(components.values())
         in_use, limit = self._device_stats()
         out: dict = {"components": components, "accounted_bytes": accounted}

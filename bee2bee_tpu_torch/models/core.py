@@ -3,7 +3,8 @@ over the paged KV pool.
 
 The port of ``bee2bee_tpu/models/core.py``'s block-tables path, kept
 function for function where that helps a reader find the counterpart
-(``_norm``, ``_rope``, ``_activate``, ``_mlp``, ``_attention``,
+(``_norm``, ``scale_rope_freqs``, ``_qk_rmsnorm``, ``_rope``,
+``_activate``, ``_mlp``, ``_attention``,
 ``embed_tokens``, ``transformer_block``, ``final_logits``, ``forward``,
 ``matmul``, ``_lora_rows``, ``lora_matmul``, ``attn_mask``,
 ``make_layer_mask``, ``make_layer_window``, ``init_cache``,
@@ -38,10 +39,14 @@ What differs from the JAX package:
   reads the whole row under ``make_layer_mask``. Only the model drafter
   (engine/drafter.py) runs it; an int8 rectangular cache is refused, as
   in JAX. The no-cache forward is not ported.
-- Only the llama architecture runs: rmsnorm, "half" rope (unscaled, or
-  with the "linear" or "llama3" frequency scaling), gated silu MLP, GQA, tied or untied head, plus the score
-  switches the kernel carries (sliding window with its per-layer
-  alternation, attention softcap, score scale). Any other switch raises
+- The llama architecture runs, with qwen2's q/k/v biases and qwen3's
+  head-wise q/k RMSNorm (both by key presence in the layer's params, as
+  JAX applies them): rmsnorm, "half" rope (unscaled, or with the
+  "linear", "llama3" or "yarn" frequency scaling; yarn's attention
+  factor scales the rotated block in f32 before the cast, as in JAX),
+  gated silu MLP, GQA, tied or untied head, plus the score switches the
+  kernel carries (sliding window with its per-layer alternation,
+  attention softcap, score scale). Any other switch raises
   NotImplementedError by name (``check_supported``) instead of computing
   something else.
 """
@@ -71,14 +76,15 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"norm={cfg.norm!r}")
     if cfg.activation != "silu":
         missing.append(f"activation={cfg.activation!r}")
-    for flag in ("use_bias", "qkv_bias", "mlp_bias", "lm_head_bias", "qk_norm",
+    for flag in ("use_bias", "mlp_bias", "lm_head_bias", "qk_norm_full",
                  "post_norms", "no_pre_norms", "parallel_block",
                  "embedding_norm", "embedding_scale"):
         if getattr(cfg, flag):
             missing.append(flag)
     if cfg.is_moe:
         missing.append("MoE (n_experts)")
-    if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3"):
+    if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3",
+                                                                    "yarn"):
         missing.append(f"rope_scaling={cfg.rope_scaling[0]!r}")
     if cfg.rotary_pct < 1.0 or cfg.rope_style != "half":
         missing.append("partial/interleaved rotary")
@@ -121,21 +127,43 @@ def _norm(x, p, cfg: ModelConfig):
     return xf.to(x.dtype) * p["scale"]
 
 
-def scale_rope_freqs(freqs, scaling: tuple | None):
+def scale_rope_freqs(freqs, scaling: tuple | None, theta: float | None = None,
+                     rot: int | None = None):
     """Frequency-domain RoPE scaling (cfg.rope_scaling), the port of the
-    JAX function's "linear" and "llama3" branches in the same f32 order.
+    JAX function's three branches in the same f32 order.
 
     "linear": every frequency divided by the factor (position
     interpolation). "llama3" (llama-3.1+): wavelengths longer than the
     original context / low_freq_factor get the full division, those
     shorter than original / high_freq_factor stay, the band between
-    interpolates. "yarn" is refused by ``check_supported``."""
+    interpolates. "yarn" (NTK-by-parts): a linear ramp over the rotary
+    DIMENSIONS between full interpolation and none, its bounds from the
+    beta_fast / beta_slow rotations at the original context (theta and
+    rot required). Yarn's attention factor is applied in ``_rope``."""
     if scaling is None:
         return freqs
     if scaling[0] == "linear":
         return freqs / scaling[1]
-    if scaling[0] != "llama3":
-        raise NotImplementedError(f"rope_scaling {scaling[0]!r} (ROADMAP.md queue A item 11)")
+    if scaling[0] == "yarn":
+        if theta is None or rot is None:
+            raise ValueError("yarn rope scaling needs theta and rot (the ramp bounds "
+                             "are dimension- and base-dependent)")
+        _, factor, _af, beta_fast, beta_slow, orig, truncate = scaling
+
+        def corr_dim(n_rot):
+            return (rot * math.log(orig / (n_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if truncate:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, rot - 1)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp(
+            (torch.arange(rot // 2, dtype=torch.float32, device=freqs.device) - low)
+            / (high - low), 0.0, 1.0)
+        extrap = 1.0 - ramp  # 1 = keep the base frequency (extrapolation)
+        return (freqs / factor) * (1.0 - extrap) + freqs * extrap
     _, factor, low_f, high_f, orig = scaling
     low_wavelen = orig / low_f
     high_wavelen = orig / high_f
@@ -148,12 +176,22 @@ def scale_rope_freqs(freqs, scaling: tuple | None):
     )
 
 
+def _qk_rmsnorm(x, scale, eps: float):
+    """Per-head RMSNorm over head_dim (qwen3's q_norm / k_norm): x [B, T,
+    H, hd], scale [hd] shared across heads; in f32, cast back to x's
+    dtype, THEN scaled (core._qk_rmsnorm)."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return xf.to(x.dtype) * scale
+
+
 def rope_freqs(cfg: ModelConfig, device=None):
     """The [rot/2] f32 rotary frequencies of ``cfg``, scaled: computed once
     per (theta, rotary dims, scaling, device) and kept, so a forward, and
     a captured root's replay, only reads them. The first forward on a
     device is eager (a root's capture follows its warm-up), so the kept
-    tensor never lives in a graph's pool."""
+    tensor never lives in a graph's pool: this holds for the llama3 and
+    the yarn tensors alike."""
     return _rope_freqs(cfg.rope_theta, cfg.rotary_dim, cfg.rope_scaling,
                        torch.device(device or "cpu"))
 
@@ -163,23 +201,31 @@ def _rope_freqs(theta: float, rot: int, scaling: tuple | None, device: torch.dev
     freqs = 1.0 / (
         theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot)
     )
-    return scale_rope_freqs(freqs, scaling)
+    return scale_rope_freqs(freqs, scaling, theta=theta, rot=rot)
 
 
 def rope_angles(positions, cfg: ModelConfig):
-    """(cos, sin) [B, T, 1, rot/2] in f32 for positions [B, T]. Computed
-    once per forward and shared by every layer."""
+    """(cos, sin, attention factor) for positions [B, T]: cos and sin [B,
+    T, 1, rot/2] in f32, and yarn's attention factor (a float) or None.
+    Computed once per forward and shared by every layer."""
     freqs = rope_freqs(cfg, positions.device)
     angles = positions[..., None].float() * freqs
-    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+    scaling = cfg.rope_scaling
+    factor = scaling[2] if scaling is not None and scaling[0] == "yarn" else None
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :], factor
 
 
-def _rope(x, cos, sin):
-    """"half"-style rotary embedding of x [B, T, H, hd] in f32, cast back
-    to x's dtype (core._rope with rot == hd and no scaling)."""
+def _rope(x, rope):
+    """"half"-style rotary embedding of x [B, T, H, hd] in f32 (core._rope
+    with rot == hd): ``rope`` is ``rope_angles``' triple. Yarn's attention
+    factor multiplies the rotated block in f32, then the cast back to x's
+    dtype (JAX's order)."""
+    cos, sin, factor = rope
     xf = x.float()
     x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if factor is not None:
+        out = out * factor
     return out.to(x.dtype)
 
 
@@ -284,19 +330,24 @@ def embed_tokens(params: Params, cfg: ModelConfig, input_ids):
 
 def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     """One pre-norm block. lp: one layer's params; x [B, T, D]; rope the
-    forward's (cos, sin); ``attend(q, k, v) -> [B, T, H*hd]`` writes this
+    forward's ``rope_angles`` triple; ``attend(q, k, v) -> [B, T, H*hd]`` writes this
     chunk's K/V into the pool and attends over it (forward builds it);
-    ``lora`` one layer's adapter arguments (``lora_matmul``) or None."""
+    ``lora`` one layer's adapter arguments (``lora_matmul``) or None.
+    The q/k/v biases and the head-wise q/k norms apply where the layer's
+    params carry them (JAX's rule: by key presence)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = rope
     h = _norm(x, lp["ln1"], cfg)
     a = lp["attn"]
     q, k, v = (_with_lora(out, h, name, lora) for out, name in
                zip(matmul_group(h, (a["wq"], a["wk"], a["wv"])), ("wq", "wk", "wv")))
-    q = _rope(q.view(B, T, H, hd), cos, sin)
-    k = _rope(k.view(B, T, Hkv, hd), cos, sin)
-    v = v.view(B, T, Hkv, hd)
+    if "bq" in a:  # qwen2: q/k/v biases after the (LoRA) projection
+        q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+    q, k, v = q.view(B, T, H, hd), k.view(B, T, Hkv, hd), v.view(B, T, Hkv, hd)
+    if "q_norm" in a:  # qwen3: head-wise RMSNorm before rope
+        q = _qk_rmsnorm(q, a["q_norm"], cfg.norm_eps)
+        k = _qk_rmsnorm(k, a["k_norm"], cfg.norm_eps)
+    q, k = _rope(q, rope), _rope(k, rope)
     x = x + lora_matmul(attend(q, k, v), a["wo"], "wo", lora)
     return x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, lora)
 

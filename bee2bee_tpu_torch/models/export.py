@@ -81,7 +81,9 @@ def write_safetensors(path, tensors: dict, metadata: dict[str, str] | None = Non
 def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tensor]:
     """Inverse of loader._convert_llama: [in, out] back to HF [out, in]
     (the transpose on the tensor's own device) and the gemma (1 + w) fold
-    undone."""
+    undone. qwen2's q/k/v biases and qwen3's q/k norms go out under their
+    HF names (the converter's inverse); ``hf_config_dict`` still refuses
+    those families (item 15), so ``export_hf`` writes neither."""
     off = 1.0 if cfg.norm_plus_one else 0.0
     t = lambda a: a.to(dtype).t().contiguous()
     norm = lambda a: (a.float() - off).to(dtype)
@@ -101,6 +103,12 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
         state[p + "post_attention_layernorm.weight"] = norm(lp["ln2"]["scale"])
         for ours, hf in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
             state[p + f"self_attn.{hf}.weight"] = t(lp["attn"][ours])
+        for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            if ours in lp["attn"]:
+                state[p + f"self_attn.{hf}.bias"] = lp["attn"][ours].to(dtype)
+        for key in ("q_norm", "k_norm"):
+            if key in lp["attn"]:
+                state[p + f"self_attn.{key}.weight"] = norm(lp["attn"][key])
         for ours, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
             state[p + f"mlp.{hf}.weight"] = t(lp["mlp"][ours])
     return state

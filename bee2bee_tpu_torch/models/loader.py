@@ -17,7 +17,9 @@ differs:
   layout (layers as a list of per-layer dicts). Every other family's
   converter raises by name (ROADMAP.md queue A item 11) and never
   computes something else; so do llama-branch tensors the port's core has
-  no slot for (q/k/v biases, q/k norms, experts, biased norms).
+  no slot for (experts, biased norms, gemma-2's post-feedforward norm).
+  qwen2's q/k/v biases and qwen3's q/k norms load by key presence, as in
+  JAX.
 - **Where the transpose runs.** HF linear weights are ``[out, in]``, the
   port's ``[in, out]``. The converters return transposed *views*;
   ``to_device`` uploads each tensor as it lies (its strides kept, one
@@ -125,15 +127,17 @@ def _convert_phi3(state, cfg: ModelConfig) -> dict:
 
 
 # llama-branch tensors the port's core has no slot for: the JAX converter
-# loads them (qwen2 biases, qwen3/gemma-3 q/k norms, experts, biased norms)
-_NO_SLOT = ("self_attn.q_proj.bias", "self_attn.q_norm.weight", "block_sparse_moe.",
-            "mlp.experts.", "input_layernorm.bias", "post_feedforward_layernorm.")
+# loads them (experts, biased norms, gemma-2/3's post-feedforward norm)
+_NO_SLOT = ("block_sparse_moe.", "mlp.experts.", "input_layernorm.bias",
+            "post_feedforward_layernorm.")
 
 
 def _convert_llama(state, cfg: ModelConfig) -> dict:
-    """HF Llama/Mistral names -> the port's layout. Weights come back as
-    transposed views ([out, in] -> [in, out]); ``to_device`` makes them
-    contiguous on the device."""
+    """HF Llama/Mistral/Qwen2/Qwen3 names -> the port's layout. Weights
+    come back as transposed views ([out, in] -> [in, out]); ``to_device``
+    makes them contiguous on the device. q/k/v biases and q/k norms are
+    loaded where the checkpoint has them (JAX ``loader.py`` keys on layer
+    0's, as here)."""
     pre = "model." if any(k.startswith("model.") for k in state) else ""
     for k in state:
         if any(s in k for s in _NO_SLOT):
@@ -162,6 +166,16 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
         }
         for i in range(cfg.n_layers)
     ]
+    if pre + "layers.0.self_attn.q_proj.bias" in state:  # qwen2: q/k/v-only bias
+        for i, lp in enumerate(layers):
+            for ours, theirs in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+                lp["attn"][ours] = raw(f"layers.{i}.self_attn.{theirs}.bias")
+    if pre + "layers.0.self_attn.q_norm.weight" in state:  # qwen3 / gemma-3
+        # gemma-3's q/k norms are zero-centred like its other norms: the +1
+        # folds here too (qwen3: norm_off is 0)
+        for i, lp in enumerate(layers):
+            for key in ("q_norm", "k_norm"):
+                lp["attn"][key] = norm(f"layers.{i}.self_attn.{key}.weight")
     params = {"tok_embed": raw("embed_tokens.weight"), "layers": layers,
               "final_norm": {"scale": norm("norm.weight")}}
     if not cfg.tie_embeddings:

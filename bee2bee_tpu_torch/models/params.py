@@ -9,6 +9,8 @@ layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
   layers[i]:
     ln1 {scale [D]}, ln2 {scale [D]}
     attn {wq [D, H*hd], wk [D, Hkv*hd], wv [D, Hkv*hd], wo [H*hd, D]}
+      + qwen2 (cfg.qkv_bias): bq [H*hd], bk [Hkv*hd], bv [Hkv*hd]
+      + qwen3 (cfg.qk_norm): q_norm [hd], k_norm [hd] (head-wise)
     mlp {w_up [D, F], w_gate [D, F], w_down [F, D]}
 
 Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
@@ -50,7 +52,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     time — the largest single draw is one layer's [D, F] matrix, never a
     stacked [L, D, F] one. The draws differ from jax.random's by
     construction; parity tests carry the JAX tree across instead
-    (params_from_numpy)."""
+    (params_from_numpy). As in JAX, the q/k/v biases start at zeros and
+    the q/k norm scales at ones."""
     check_supported(cfg)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -63,16 +66,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     def ones(n):
         return torch.ones((n,), device=device, dtype=dtype)
 
+    def zeros(n):
+        return torch.zeros((n,), device=device, dtype=dtype)
+
+    def attn():
+        a = {
+            "wq": normal((D, H * hd)),
+            "wk": normal((D, Hkv * hd)),
+            "wv": normal((D, Hkv * hd)),
+            "wo": normal((H * hd, D)),
+        }
+        if cfg.qkv_bias:
+            a.update(bq=zeros(H * hd), bk=zeros(Hkv * hd), bv=zeros(Hkv * hd))
+        if cfg.qk_norm:
+            a.update(q_norm=ones(hd), k_norm=ones(hd))
+        return a
+
     params = {"tok_embed": normal((V, D), 0.02)}
     params["layers"] = [
         {
             "ln1": {"scale": ones(D)},
-            "attn": {
-                "wq": normal((D, H * hd)),
-                "wk": normal((D, Hkv * hd)),
-                "wv": normal((D, Hkv * hd)),
-                "wo": normal((H * hd, D)),
-            },
+            "attn": attn(),
             "ln2": {"scale": ones(D)},
             "mlp": {
                 "w_up": normal((D, F_)),

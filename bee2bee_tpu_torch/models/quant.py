@@ -35,6 +35,9 @@ The port of ``bee2bee_tpu/models/quant.py``: ``QUANT_SUFFIXES``,
   ``unpack_weight`` gives back the JAX layout. A weight whose shape the
   GEMM cannot take (in % 32 or out % 16) keeps the JAX layout, which only
   the CPU runs.
+- ``dequant_scratch_bytes``: the peak scratch of the dequantize route at
+  the widest weight, in the engine's dtype (the HBM ledger's
+  ``int8_dequant_scratch``).
 """
 
 from __future__ import annotations
@@ -145,6 +148,26 @@ def pack_params_(params: dict) -> dict:
         if isinstance(w, dict) and "q" in w:
             holder[key] = _packed(w["q"], w["s"])
     return params
+
+
+def dequant_scratch_bytes(params: dict, dtype: torch.dtype) -> int:
+    """The most scratch one product over an int8 weight of ``params`` holds
+    beside its output where the weight is dequantized (a prefill chunk
+    wider than the GEMM kernel takes, ops/int8_gemm.py; the CPU's plain
+    version): a packed weight's unpacked int8 [N, K] plus its copy in
+    ``dtype`` (an f32 copy is twice the bf16 one), a JAX-layout weight's
+    copy in ``dtype``. 0 without int8 weights."""
+    most = 0
+    for holder, key in _quantized_slots(params):
+        w = holder[key]
+        if not is_quantized(w):
+            continue
+        if "qp" in w:
+            Nt, Kc = w["qp"].shape[:2]
+            most = max(most, Nt * 16 * Kc * 32 * (1 + dtype.itemsize))
+        else:
+            most = max(most, w["q"].numel() * dtype.itemsize)
+    return most
 
 
 def unpack_weight(w: dict) -> dict:

@@ -1,5 +1,6 @@
 """The int8-weight GEMM: y = (x @ q) * s for a weight-only quantized
-projection (models/quant.py), x bf16 [..., K], q int8 [K, N], s f32 [N].
+projection (models/quant.py), x bf16 or f32 [..., K], q int8 [K, N], s f32
+[N], y in x's type.
 
 No Pallas kernel of the JAX package is replaced: its ``core.matmul``
 computes ``(x @ q.astype(x.dtype)) * s`` and XLA fuses the int8 convert
@@ -21,17 +22,25 @@ never materialises a bf16 copy.
   tests hold it against JAX ``core.matmul``; on the card the smoke holds
   the kernel against it (the kernel rounds once, after the scale, where the
   formula rounds the dot and the product: within a bf16 ulp or two).
-- **Dispatch** (``int8_gemm_route``, from the token count M alone, a host
-  shape): M <= ``MAX_KERNEL_M`` (64: every decode and verify root) launches
-  the kernel, counted in ``int8_weight_matmul.launches``
-  (``int8_weight_matmul_group`` takes up to three weights that share x in
-  one launch: wq|wk|wv and w_up|w_gate, 4 launches a layer); wider chunks
-  (prefill) take the ``dequant`` route, the JAX package's own product:
-  the weight unpacked and converted to bf16 into scratch,
-  ``torch.matmul``, then the scale, counted in
-  ``int8_weight_matmul.dequant_launches``. CPU tensors
-  take the plain version. Anything else raises: no route falls back to
-  another.
+- **Two forms of the kernel**, by x's type: bf16 (bf16 mma.sync) and f32
+  (2xTF32 mma.sync: the int8 weight is exact in TF32, x splits into a
+  TF32 hi and lo; within about 2^-21 of x's value a product, where the
+  JAX f32 product rounds nothing but the sums). Each rounds once, after
+  the scale.
+- **Dispatch** (``int8_gemm_route``, from the token count M and x's type,
+  host facts): M <= ``MAX_KERNEL_M`` (64: every decode and verify root)
+  launches the kernel in x's type, counted in
+  ``int8_weight_matmul.launches`` (bf16) or ``.f32_launches`` (the f32
+  form) (``int8_weight_matmul_group`` takes up
+  to three weights that share x in one launch: wq|wk|wv and w_up|w_gate,
+  4 launches a layer); wider chunks (prefill) take the ``dequant``
+  route, the JAX package's own product: the weight unpacked and converted
+  to x's type into scratch (an f32 scratch is twice the bf16 one),
+  ``torch.matmul`` (in f32 with the full-f32
+  product PyTorch runs by default, ``allow_tf32`` False), then the scale,
+  counted in ``int8_weight_matmul.dequant_launches``. CPU tensors take
+  the plain version. Anything else raises: no route falls back to
+  another, and no type other than bf16 and f32 reaches the card.
 - **The split plan** (``gemm_plan``) is a function of (K, N, SM count)
   only, so a captured CUDA graph keeps it: the kernel's thread-block
   clusters split K in rank order and reduce without atomics, so a replay
@@ -98,8 +107,16 @@ def gemm_plan(K: int, N: int, n_sm: int) -> tuple[int, int]:
     return cs, -(-kc // cs)
 
 
-def int8_gemm_route(M: int) -> str:
-    """The route a CUDA call of M tokens takes: "kernel" or "dequant"."""
+# x's types the kernel is built for, and their codes in its C entry
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def int8_gemm_route(M: int, dtype=torch.bfloat16) -> str:
+    """The route a CUDA call of M tokens of x in ``dtype`` takes: "kernel"
+    (its form in ``dtype``) or "dequant"; a type no form takes raises."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"int8 weight GEMM: {dtype} activations (the kernel is built "
+                        "for bfloat16 and float32)")
     return "kernel" if M <= MAX_KERNEL_M else "dequant"
 
 
@@ -143,7 +160,7 @@ def _kernel_fn():
     if fn.argtypes is None:
         weight = [ctypes.c_void_p] * 3 + [ctypes.c_int]
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + weight * MAX_GROUP
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + weight * MAX_GROUP
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
@@ -151,9 +168,9 @@ def _kernel_fn():
 def _check_kernel_args(x2, qp, s):
     M, K = x2.shape
     N = s.shape[0]
-    if x2.dtype != torch.bfloat16:
+    if x2.dtype not in _DTYPE_CODE:
         raise TypeError(f"int8 weight GEMM: {x2.dtype} activations (the kernel is "
-                        "built for bfloat16)")
+                        "built for bfloat16 and float32)")
     if qp.dtype != torch.int8 or qp.dim() != 4 or tuple(qp.shape[2:]) != (32, 16):
         raise ValueError(f"int8 weight GEMM: packed weight {qp.dtype} "
                          f"{tuple(qp.shape)}, expected int8 [N/16, K/32, 32, 16]")
@@ -189,11 +206,14 @@ def _launch_kernel(x2: torch.Tensor, ws: list) -> list:
         args += [w["qp"].data_ptr(), w["s"].data_ptr(), y.data_ptr(), y.shape[1]]
     args += [None, None, None, 0] * (MAX_GROUP - len(ws))
     cs, per = gemm_plan(K, max(y.shape[1] for y in ys), _sm_count(x2.device.index))
-    err = _kernel_fn()(x2.data_ptr(), len(ws), *args, M, K, cs, per,
+    err = _kernel_fn()(x2.data_ptr(), _DTYPE_CODE[x2.dtype], len(ws), *args, M, K, cs, per,
                        torch.cuda.current_stream(x2.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8 weight GEMM kernel launch failed: cuda error {err}")
-    int8_weight_matmul.launches += 1
+    if x2.dtype == torch.float32:
+        int8_weight_matmul.f32_launches += 1
+    else:
+        int8_weight_matmul.launches += 1
     return ys
 
 
@@ -201,8 +221,9 @@ def int8_weight_matmul_group(x: torch.Tensor, ws: list) -> list:
     """``[x @ q * s for each packed int8 weight {"qp", "s"} in ws]`` (the
     same K): x [..., K] -> [..., N_i] each, in x's type. CPU tensors take
     the plain version; CUDA tensors the route ``int8_gemm_route`` names:
-    the kernel, ONE launch for up to MAX_GROUP weights, counted in
-    ``int8_weight_matmul.launches``, or the dequantize + matmul product of
+    the kernel's form in x's type, ONE launch for up to MAX_GROUP weights, counted in
+    ``int8_weight_matmul.launches`` (bf16) or ``.f32_launches``, or the
+    dequantize + matmul product of
     each, counted once in ``.dequant_launches``; other devices raise."""
     if not 1 <= len(ws) <= MAX_GROUP:
         raise ValueError(f"int8_weight_matmul_group: {len(ws)} weights (one launch "
@@ -212,7 +233,7 @@ def int8_weight_matmul_group(x: torch.Tensor, ws: list) -> list:
         outs = [_dequant_matmul(x2, w["qp"], w["s"]) for w in ws]
     elif x2.device.type != "cuda":
         raise ValueError(f"int8_weight_matmul: no kernel for {x2.device}")
-    elif int8_gemm_route(x2.shape[0]) == "kernel":
+    elif int8_gemm_route(x2.shape[0], x2.dtype) == "kernel":
         outs = _launch_kernel(x2.contiguous(), ws)
     else:
         for w in ws:
@@ -229,6 +250,7 @@ def int8_weight_matmul(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 
 int8_weight_matmul.launches = 0
+int8_weight_matmul.f32_launches = 0
 int8_weight_matmul.dequant_launches = 0
 # what a captured CUDA graph's replay adds back (engine/graphs.py)
-LAUNCH_COUNTERS = ("launches", "dequant_launches")
+LAUNCH_COUNTERS = ("launches", "f32_launches", "dequant_launches")

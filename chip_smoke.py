@@ -9,7 +9,9 @@ quant`` only the build, the int8-weight GEMM phase and the int8-weight
 slices; ``--only adapters`` only the build and the adapter phase over
 bf16 and int8 weights; ``--only migrate`` only the build and the migration
 phase over a random init; ``--only checkpoint`` only the build and the
-checkpoint phase. Those print no result line.)
+checkpoint phase; ``--only qwen`` only the build, the GEMM's f32 form,
+the G = 7 ragged cases, the qwen forwards, the served qwen slices, the f32
+int8-weight phase and the qwen checkpoints. Those print no result line.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -113,6 +115,17 @@ and the script exits non-zero):
    256, window 4096 every 2 layers, softcap 50): it must launch only the
    head_dim-256 tile form (the prefill) and decode form (the steps), meet
    the same bf16 criterion and give the plain forward's greedy tokens.
+   Then the qwen families at full width, 2 layers, random f32 from the
+   seed with the q/k/v biases drawn N(0, 0.25) and the q/k norm scales 1 +
+   N(0, 0.01) (the JAX init's zeros and ones would prove nothing): qwen3-8b
+   with yarn (factor 4 over 32,768 positions, its model card's) and
+   qwen2-7b (28 query heads over 4 kv heads, G = 7), each from its
+   published config.json cut to 2 layers: the same f32 checks over an f32
+   and an int8 pool (logits within 2e-3, greedy tokens equal, n_layers
+   launches a forward of the kernel the rule names for the chunk, the pool
+   and G) and bf16 checks over a bf16 and an int8 pool. Phases 2-3 hold
+   the kernels at qwen2-7b's heads too (G = 7: decode, T = 4, a verify
+   chunk of T = 5, prefill chunks of 300 and 512 tokens, bf16 and f32).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream. Every decode step is a replay of a captured CUDA
@@ -251,7 +264,8 @@ and the script exits non-zero):
 The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
    its plain version (the JAX core.matmul formula) at llama-3-8b's four
    projection shapes (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x
-   4096) and M in {1, 8, 40}: within 2^-6 of the largest |output| (two
+   4096) and M in {1, 8, 16, 24, 32, 40, 48, 64} (every instantiation the
+   kernel's dispatch picks): within 2^-6 of the largest |output| (two
    bf16 ulps: the plain version rounds three times, the kernel once), one
    launch a call, the same bytes twice; the grouped launches (wq|wk|wv,
    w_up|w_gate) one launch each within the same tolerance, timed beside
@@ -259,9 +273,38 @@ The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
    dequantized weights; the M > 64 route (dequantize +
    cuBLAS) once at M = 2048, equal to the plain version, timed beside its
    bound (operations). Times at M = 8
-   (w_up also at 1 and 40), beside the bound, the plain version, cuBLAS
+   (w_up also at 1, 40 and 64), beside the bound, the plain version, cuBLAS
    bf16 at the dequantized weight and torch._weight_int8pack_mm.
-   Phase 1 fails if an instantiation of the GEMM kernel spills.
+   Phase 1 fails if an instantiation of the GEMM kernel spills. The
+   grouped wq|wk|wv and the M = 2048 route also time
+   torch._weight_int8pack_mm. Then the GEMM's f32 form (2xTF32, f32 x and
+   y) at llama-3-8b's four shapes and qwen2-7b's and qwen3-8b's (3584 x
+   3584, 3584 x 512, 3584 x 18944, 18944 x 3584, 4096 x 12288, 12288 x
+   4096), M as above: within 1e-4 of the largest |output| of the
+   plain f32 version (cuBLAS's full-f32 product), one launch a call
+   (``f32_launches``), the same bytes twice; the grouped launches at each
+   model's shapes one launch each; the f32 M > 64 route (an f32 scratch,
+   its bytes equal to the HBM ledger's ``int8_dequant_scratch``) equal to
+   the plain version; times at M = 8 (w_up at 1, 40 and 64 too) beside the bound (two TF32 products), the plain version,
+   cuBLAS f32 over the dense f32 weight and torch._weight_int8pack_mm with
+   f32 activations.
+The qwen slices (after the int8-weight adapter phase): qwen3-8b at full
+   width and depth (36 layers, 8.19 B parameters, bf16, biases and norms
+   perturbed as above) over a bf16 pool, and qwen2-7b at full width and
+   depth (28 layers) with int8 weights over an int8 pool (G = 7
+   through the decode and tile kernels and the GEMM), each with phase 6's
+   traffic and launch, graph and replay checks, a decode chunk and a
+   prefill chunk replayed = eager bit for bit and the replayed B=8 step's
+   breakdown.
+int8 weights beside f32 activations (after the qwen slices): llama-3-8b
+   at full depth, random in f32 and quantized on the card, over an int8
+   pool, the same traffic and checks (the GEMM's f32 form 4 x n_layers a
+   replayed decode step or narrow prefill chunk); n-gram spec decoding over
+   the same weights and an f32 pool (tokens equal the spec-off engine's,
+   the f32 form in every decode and verify replay, a verify step replayed =
+   eager bit for bit); logits no further from the f32 forward over q * s
+   than twice the bf16 int8-weight forward's distance, and at 2 layers
+   the plain f32 forward's greedy tokens.
 Adapters over the bf16 weights (after phase 7): an engine with 4 adapter
    slots loads four random adapters (rank 16, all seven targets) from the
    main thread; a mixed batch of 8 rows (2 base, 2 per adapter) against
@@ -350,7 +393,12 @@ The checkpoint phase (after phase 9): llama-3.1-8b at the widths of
    x (the packed model + its largest dense tensor), the packed weights
    bit-equal to the in-memory int8 engine's (a)'s weights quantized on the
    card, equal greedy tokens, the int8-weight GEMM's launches 4 x n_layers
-   x (replayed decode steps + prefill replays of <= 64 tokens).
+   x (replayed decode steps + prefill replays of <= 64 tokens). (f) HF-named
+   qwen2-7b and qwen3-8b checkpoints (full width, 2 layers, random bf16,
+   biases and norms perturbed, their published config.json cut to 2
+   layers): loaded by ``InferenceEngine("auto", ...)`` bit-equal to
+   ``params_from_numpy``'s tree, phase 6's prompts decoded to the same
+   greedy tokens and bit-equal first-token logits.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
    from phase 5's gemma-geometry forward; the bf16 decode and tile
    kernels' from phases 6, 7, 9, the prefix phase over the same pool, the
@@ -360,7 +408,9 @@ The checkpoint phase (after phase 9): llama-3.1-8b at the widths of
    f32 runs, phase 5's f32 forwards and the checkpoint phase's f32 check;
    the int8-weight GEMM's from the int8-weight slices, their adapter phase
    and the checkpoint phase's int8 load; phase 2 times the tile kernel and the f32 decode
-   kernel at the verify shape, B=8 T=5 ctx 1024), then the result line.
+   kernel at the verify shape, B=8 T=5 ctx 1024; the qwen phases' and the
+   f32 int8-weight phase's launches added to the rows of the forms they
+   counted; the GEMM's f32 form a row of its own), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script. Each phase's start goes to
@@ -508,6 +558,9 @@ def ptxas_entries(report: str):
             mangled = ln.split("'")[1]
             base = re.search(r"\d+((?:ragged|flash|int8)_\w+?)I", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
+            xt = re.search(r"Lb\dE(f|13__nv_bfloat16)E", mangled)  # the GEMM's x type
+            if xt:
+                args.append("f32" if xt.group(1) == "f" else "bf16")
             name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -665,6 +718,24 @@ HD256_RAGGED_CASES = [
         ("BS=32 T=100", dict(offs=[3, 77], T=100, BS=32)),
     )
 ]
+# qwen2-7b's heads: 28 query heads over 4 kv heads, G = 7 (every other
+# served model has G = 4 or 2): the decode kernel's 16-row blocks hold 7
+# heads and zero the rest, the tile kernel's 64-row blocks cut the (t, g)
+# rows mid-position, decode_f32 takes G * T <= 32 (T <= 4) and the f32
+# tile form the verify chunk of T = 5
+QWEN2 = dict(H=28, Hkv=4, hd=128)
+QWEN2_RAGGED_CASES = [
+    (f"qwen2 G=7 {name} {str(dt)[6:]}", dict(geo, dtype=dt, **QWEN2), {})
+    for dt in (torch.bfloat16, torch.float32)
+    for name, geo in (
+        ("decode + dead row + null tails", dict(offs=[0, 17, 300, 1023, 2047], T=1,
+                                                dead=(2,), extra_tables=5)),
+        ("chunk T=4", dict(offs=[7, 300, 1023], T=4)),
+        ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,))),
+        ("prefill T=300", dict(offs=[0, 45], T=300)),
+        ("prefill T=512 @1000", dict(offs=[1000], T=512)),
+    )
+]
 # the cases the row kernel served at head_dim 256 before its head_dim-256
 # forms existed: there it is forced as well, in bf16 and f32, so that its
 # error is held against the plain version in both types
@@ -710,14 +781,19 @@ def bounds(nbytes: int, flops: int, dtype, kernel: str = "") -> dict:
     at the peak of the products the kernel does). f32: three TF32 products
     at the TF32 tensor-core peak (f32-accurate work on the tensor cores),
     the CUDA-core f32 time (one FFMA product) kept beside it; the f32
-    decode kernel (``kernel`` "decode_f32") does FFMA products, so its
-    bound is that FFMA time."""
+    decode kernel (``kernel`` "decode_f32") and cuBLAS's full-f32 product
+    (``kernel`` "ffma") do FFMA products, so their bound is that FFMA time;
+    the int8-weight GEMM's f32 form (``kernel`` "2xtf32") two TF32
+    products."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if dtype == torch.bfloat16:
         t_ops, peak = flops / BF16_FLOPS_PER_S * 1e3, "bf16 989 TFLOP/s"
-    elif kernel == "decode_f32":
+    elif kernel in ("decode_f32", "ffma"):
         t_ops = flops / F32_FLOPS_PER_S * 1e3
         peak = f"f32 FFMA at {F32_FLOPS_PER_S / 1e12} TFLOP/s"
+    elif kernel == "2xtf32":  # the int8-weight GEMM's f32 form: x split in two
+        t_ops = 2 * flops / TF32_FLOPS_PER_S * 1e3
+        peak = f"2xTF32 at {TF32_FLOPS_PER_S / 1e12} TFLOP/s"
     else:
         t_ops = TF32_PRODUCTS * flops / TF32_FLOPS_PER_S * 1e3
         peak = f"{TF32_PRODUCTS}xTF32 at {TF32_FLOPS_PER_S / 1e12} TFLOP/s"
@@ -726,7 +802,7 @@ def bounds(nbytes: int, flops: int, dtype, kernel: str = "") -> dict:
                bytes=nbytes, flops=flops)
     text = (f"bound {bound_ms:.4f} ms ({out['bound_by']}: {nbytes} B -> "
             f"{t_bytes:.4f} ms, {flops} flop, {peak} -> {t_ops:.4f} ms)")
-    if dtype == torch.float32 and kernel != "decode_f32":
+    if dtype == torch.float32 and kernel not in ("decode_f32", "ffma"):
         out["ffma_bound_ms"] = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
         text += f", FFMA bound {out['ffma_bound_ms']:.4f} ms (f32 at 67 TFLOP/s)"
     out["text"] = text
@@ -947,20 +1023,17 @@ def time_forced(label, q, kp, vp, tb, off, flush, scales=None, window=0,
     return ms
 
 
-def phase_ragged_vs_plain(flush, int8=False):
-    """Phase 2 (the pool in q's type) or phase 3 (int8 pool): each case, in
-    bf16 and f32 and at head_dim 256, through the dispatching wrapper
-    against the plain version, the kernel the rule names launched once;
-    then the timings. Returns (max abs error per kernel, timings)."""
+def ragged_cases_vs_plain(gen, cases, int8=False) -> dict:
+    """Each case through the dispatching wrapper against the plain version,
+    the kernel the rule names launched once (a decode case: a second call
+    the same bytes). Returns the max abs error per kernel."""
     from bee2bee_tpu_torch.ops.ragged import (
         _launch_kernel, ragged_paged_attention, ragged_paged_attention_ref, row_offsets,
     )
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + int8)
     tag = "int8 kernel vs plain" if int8 else "kernel vs plain"
     errs = {k: 0.0 for k in RAGGED_COUNTERS}
-    for label, geo, kw in RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES:
+    for label, geo, kw in cases:
         q, kp, vp, tb, off = make_case(gen, **geo)
         if int8:
             kp, vp, ks, vs = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
@@ -1001,7 +1074,18 @@ def phase_ragged_vs_plain(flush, int8=False):
             log(f"{tag}: {label} (row kernel forced): max abs err {err:.3e} (tol {tol})")
             check(err <= tol, f"{tag}: {label}: row kernel forced: max abs err {err} > {tol}")
             errs["row"] = max(errs["row"], err)
+    return errs
 
+
+def phase_ragged_vs_plain(flush, int8=False):
+    """Phase 2 (the pool in q's type) or phase 3 (int8 pool): each case, in
+    bf16 and f32 and at head_dim 256, through the dispatching wrapper
+    against the plain version, the kernel the rule names launched once;
+    then the timings. Returns (max abs error per kernel, timings)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + int8)
+    errs = ragged_cases_vs_plain(gen, RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES
+                                 + QWEN2_RAGGED_CASES, int8)
     timings = {}
     label0 = "int8 " if int8 else ""
     # llama-3-8b's heads, then gemma-2-9b's (window and score scale, no cap:
@@ -1194,10 +1278,15 @@ def phase_flash_vs_plain(flush):
 
 
 # llama-3-8b's projections (K, N) and the token counts the roots give them:
-# decode (1, 8 rows) and the verify chunk at the spec shape (8 x (K+1))
+# decode (1, 8 rows), the verify chunk at the spec shape (8 x (K+1)) and a
+# prefill chunk of the 64-token bucket; with 16, 24, 32 and 48, M holds
+# every instantiation the kernel's dispatch picks (1 and 2 token tiles
+# staged, 3, 4, 5, 7 and 8 tiles)
 GEMM_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_up", 4096, 14336),
                ("w_down", 14336, 4096))
-GEMM_MS = (1, 8, 40)
+GEMM_MS = (1, 8, 16, 24, 32, 40, 48, 64)
+# the token counts w_up is timed at (every shape at 8)
+GEMM_TIMED_MS = (1, 8, 40, 64)
 # kernel vs plain version (both on the same bf16 x and int8 weight): the
 # kernel rounds once (f32 sum x f32 scale -> bf16), the plain version, the
 # JAX formula, rounds the dot, the scale and their product to bf16: each a
@@ -1214,6 +1303,7 @@ def gemm_counts() -> dict:
     from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul
 
     return {"int8_gemm": int8_weight_matmul.launches,
+            "int8_gemm_f32": int8_weight_matmul.f32_launches,
             "int8_gemm_dequant": int8_weight_matmul.dequant_launches}
 
 
@@ -1237,11 +1327,35 @@ def int8_weight(gen, K: int, N: int) -> tuple:
     return {"qp": pack_weight(qw["q"]), "s": qw["s"]}, dense
 
 
+def pack_mm_ms(x, ws, flush, reps: int = 30) -> tuple:
+    """``torch._weight_int8pack_mm`` (PyTorch's own int8-weight product, a
+    library yardstick the port never calls) over the weights ``ws``
+    concatenated on N, at x's inputs: (ms, "<ms> ms (max abs err vs plain
+    ...)"), or (None, why it did not run: no CUDA kernel for x's type in
+    this torch)."""
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_ref, unpack_weight
+
+    try:
+        w_nk = torch.cat([unpack_weight(w["qp"], w["s"].shape[0]).t() for w in ws]
+                         ).contiguous()  # [N, K] int8
+        s = torch.cat([w["s"] for w in ws]).to(x.dtype)
+        y = torch._weight_int8pack_mm(x, w_nk, s)
+        ref = torch.cat([int8_weight_matmul_ref(x, w["qp"], w["s"]) for w in ws], dim=1)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s), flush=flush,
+                          reps=reps)
+        return ms, f"{ms:.4f} ms (max abs err vs plain {err:.3e})"
+    except Exception as e:  # noqa: BLE001 — the op may have no kernel for x's type
+        return None, (f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:120]}; torch "
+                      f"{torch.__version__})")
+
+
 def phase_int8_gemm(flush) -> dict:
     """The int8-weight GEMM (csrc/int8_weight_gemm.cu) against its plain
     version at llama-3-8b's four projection shapes and M in GEMM_MS, one
     launch a call, the same bytes twice; the M > 64 route (dequantize +
-    cuBLAS) once at M = 2048. Times at M = 8 (and w_up at 1 and 40), median
+    cuBLAS) once at M = 2048. Times at M = 8 (and w_up at 1, 40 and 64), median
     of 30 with L2 flushed, beside the bound (bytes: the int8 weight, its
     f32 scales, x and y once), the plain version, cuBLAS bf16
     ``torch.matmul`` at the dequantized weight (what the bf16 engine pays)
@@ -1256,7 +1370,6 @@ def phase_int8_gemm(flush) -> dict:
     gen.manual_seed(SEED)
     worst = 0.0
     out = {}
-    library_note = None
     for name, K, N in GEMM_SHAPES:
         w, dense = int8_weight(gen, K, N)
         plan = gemm_plan(K, N, _sm_count(0))
@@ -1283,7 +1396,7 @@ def phase_int8_gemm(flush) -> dict:
             check(rel <= GEMM_REL_TOL, f"int8 GEMM {name} M={M}: relative error {rel}")
             check(launched == 2, f"int8 GEMM {name} M={M}: {launched} launches for 2 calls")
             check(torch.equal(y, y2), f"int8 GEMM {name} M={M}: two calls differ")
-            timed = (M == 8) or (name == "w_up")
+            timed = (M == 8) or (name == "w_up" and M in GEMM_TIMED_MS)
             if not timed:
                 continue
             nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
@@ -1292,35 +1405,15 @@ def phase_int8_gemm(flush) -> dict:
             plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["qp"], w["s"]),
                                     flush=flush)
             cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
-            library_ms = None
-            try:
-                wt = w_nk = None
-                from bee2bee_tpu_torch.ops.int8_gemm import unpack_weight
-
-                w_nk = unpack_weight(w["qp"], N).t().contiguous()  # [N, K] int8
-                s_b = w["s"].to(torch.bfloat16)
-                wt = torch._weight_int8pack_mm(x, w_nk, s_b)
-                torch.cuda.synchronize()
-                lib_err = (wt.float() - ref.float()).abs().max().item()
-                library_ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_b),
-                                          flush=flush)
-                library_note = (f"torch._weight_int8pack_mm runs on this card "
-                                f"(max abs err vs plain {lib_err:.3e} at {name} M={M})")
-            except Exception as e:  # noqa: BLE001 — the op may have no CUDA kernel
-                library_note = (f"torch._weight_int8pack_mm has no CUDA kernel in "
-                                f"torch {torch.__version__}: {type(e).__name__}: "
-                                f"{str(e).splitlines()[0][:160]}")
-            del wt, w_nk
-            lib = f"{library_ms:.4f}" if library_ms is not None else "n/a"
+            library_ms, lib = pack_mm_ms(x, [w], flush)
             log(f"int8 GEMM {name} [{K}, {N}] M={M}: kernel {ms:.4f} ms, "
                 f"{bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; plain "
                 f"{plain_ms:.4f} ms; cuBLAS bf16 matmul at the dequantized weight "
-                f"{cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib} ms")
+                f"{cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib}")
             out[(name, M)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                                   bound_by=bnd["bound_by"], library_ms=library_ms,
                                   cublas_ms=cublas_ms, err=err)
         del w, dense
-    log(f"int8 GEMM: {library_note}")
     # the grouped launch (wq|wk|wv, w_up|w_gate at M = 8): one launch, each
     # output within the tolerance of its plain version
     from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_group
@@ -1347,11 +1440,13 @@ def phase_int8_gemm(flush) -> dict:
         cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
         Nt = sum(Ns)
         bnd = bounds(K * Nt + 4 * Nt + 2 * 8 * K + 2 * 8 * Nt, 2 * 8 * K * Nt, torch.bfloat16)
+        lib = pack_mm_ms(x, ws, flush)[1]
         log(f"int8 GEMM grouped {label} M=8: relative errors vs plain "
             f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_REL_TOL:.3e}); launches {launched}; "
             f"{ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches apart; "
             f"{bnd['text']}; cuBLAS bf16 matmul at the concatenated dequantized "
-            f"[{K}, {Nt}] weight {cublas_ms:.4f} ms")
+            f"[{K}, {Nt}] weight {cublas_ms:.4f} ms; torch._weight_int8pack_mm over the "
+            f"concatenated int8 weight {lib}")
         check(launched == 1, f"int8 GEMM grouped {label}: {launched} launches")
         check(max(rels) <= GEMM_REL_TOL, f"int8 GEMM grouped {label}: errors {rels}")
         worst = max(worst, *rels)
@@ -1371,11 +1466,12 @@ def phase_int8_gemm(flush) -> dict:
     cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
     bnd = bounds(K * N + 4 * N + 2 * 2048 * K + 2 * 2048 * N, 2 * 2048 * K * N,
                  torch.bfloat16)
+    lib = pack_mm_ms(x, [w], flush, reps=10)[1]
     log(f"int8 GEMM {name} M=2048 (the dequantize + cuBLAS route): max abs err vs "
         f"plain {err:.3e}; launches {after['int8_gemm'] - before['int8_gemm']} kernel, "
         f"{after['int8_gemm_dequant'] - before['int8_gemm_dequant']} dequant; "
         f"{ms:.4f} ms, {bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS bf16 "
-        f"at a bf16 weight {cublas_ms:.4f} ms")
+        f"at a bf16 weight {cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib}")
     check(after["int8_gemm_dequant"] - before["int8_gemm_dequant"] == 1
           and after["int8_gemm"] == before["int8_gemm"],
           f"int8 GEMM M=2048: launches {before} -> {after}")
@@ -1384,6 +1480,179 @@ def phase_int8_gemm(flush) -> dict:
     torch.cuda.empty_cache()
     log(f"int8 GEMM: worst relative error {worst:.3e} (tol {GEMM_REL_TOL:.3e})")
     return {"err": out[("w_up", 8)]["err"], "timing": out[("w_up", 8)], "all": out}
+
+
+# the GEMM's f32 form (f32 engines with int8 weights): llama-3-8b's four
+# projection shapes, qwen2-7b's four and qwen3-8b's two new ones
+GEMM_F32_SHAPES = (
+    ("llama wq/wo", 4096, 4096), ("llama wk/wv", 4096, 1024),
+    ("llama w_up", 4096, 14336), ("llama w_down", 14336, 4096),
+    ("qwen2 wq/wo", 3584, 3584), ("qwen2 wk/wv", 3584, 512),
+    ("qwen2 w_up", 3584, 18944), ("qwen2 w_down", 18944, 3584),
+    ("qwen3 w_up", 4096, 12288), ("qwen3 w_down", 12288, 4096),
+)
+GEMM_F32_GROUPS = (
+    ("llama wq|wk|wv", 4096, (4096, 1024, 1024)), ("llama w_up|w_gate", 4096, (14336, 14336)),
+    ("qwen2 wq|wk|wv", 3584, (3584, 512, 512)), ("qwen2 w_up|w_gate", 3584, (18944, 18944)),
+    ("qwen3 w_up|w_gate", 4096, (12288, 12288)),
+)
+# 2xTF32 keeps about 22 of x's 24 bits and the weight exactly; the sums run
+# in another order than cuBLAS's f32 product: 1e-4 of the largest |output|
+GEMM_F32_REL_TOL = 1e-4
+
+
+def int8_weight_f32(gen, K: int, N: int) -> tuple:
+    """A random f32 [K, N] weight (the init's scale), quantized on the card
+    and packed: (packed weight dict, its dense f32 twin q*s)."""
+    from bee2bee_tpu_torch.models.quant import quantize_weight_torch
+    from bee2bee_tpu_torch.ops.int8_gemm import pack_weight
+
+    w = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.float32)
+    w.mul_(1.0 / math.sqrt(K))
+    qw = quantize_weight_torch(w)
+    del w
+    dense = qw["q"].float() * qw["s"]
+    return {"qp": pack_weight(qw["q"]), "s": qw["s"]}, dense
+
+
+def phase_int8_gemm_f32(flush) -> dict:
+    """The int8-weight GEMM's f32 form (2xTF32, csrc/int8_weight_gemm.cu)
+    against its plain version (the JAX formula in f32, cuBLAS's full-f32
+    product) at GEMM_F32_SHAPES and M in GEMM_MS: within GEMM_F32_REL_TOL
+    of the largest |output|, one launch a call (counted in
+    ``f32_launches``), the same bytes twice; the grouped launches one
+    launch each; the M > 64 route (an f32 scratch, cuBLAS f32) at w_up M =
+    2048 equal to the plain version, its scratch's bytes equal to the HBM
+    ledger's ``int8_dequant_scratch`` for that weight. Times at M =
+    8 (llama's w_up also at 1, 40 and 64), medians of 30 with L2 flushed,
+    beside the bound (bytes K*N + 4N + 4MK + 4MN; two TF32 products), the
+    plain version, cuBLAS f32 over the dense f32 weight and
+    ``torch._weight_int8pack_mm`` with f32 activations where it takes
+    them. Returns {"err", "timing", "all"} (llama's w_up at M = 8)."""
+    from bee2bee_tpu_torch.models.quant import dequant_scratch_bytes
+    from bee2bee_tpu_torch.ops.int8_gemm import (
+        gemm_plan, int8_weight_matmul, int8_weight_matmul_group, int8_weight_matmul_ref,
+        _sm_count,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "int8 GEMM f32: the plain version must run cuBLAS's full-f32 product")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    worst = 0.0
+    out = {}
+    for name, K, N in GEMM_F32_SHAPES:
+        w, dense = int8_weight_f32(gen, K, N)
+        plan = gemm_plan(K, N, _sm_count(0))
+        for M in GEMM_MS:
+            x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.float32)
+            before = gemm_counts()
+            y = int8_weight_matmul(x, w)
+            y2 = int8_weight_matmul(x, w)
+            torch.cuda.synchronize()
+            after = gemm_counts()
+            launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            rel = err / scale
+            worst = max(worst, rel)
+            log(f"int8 GEMM f32 {name} [{K}, {N}] M={M} (plan: cluster {plan[0]}, "
+                f"{plan[1]} chunks a rank): max abs err vs plain {err:.3e}, relative "
+                f"{rel:.3e} (tol {GEMM_F32_REL_TOL:.0e} of max |y| {scale:.3f}); launches "
+                f"{launched}; same bytes twice {torch.equal(y, y2)}")
+            check(y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
+                  f"int8 GEMM f32 {name} M={M}: {y.dtype}, non-finite values")
+            check(rel <= GEMM_F32_REL_TOL, f"int8 GEMM f32 {name} M={M}: relative error {rel}")
+            check(launched == {"int8_gemm_f32": 2},
+                  f"int8 GEMM f32 {name} M={M}: launches {launched} for 2 calls")
+            check(torch.equal(y, y2), f"int8 GEMM f32 {name} M={M}: two calls differ")
+            if not (M == 8 or (name == "llama w_up" and M in GEMM_TIMED_MS)):
+                continue
+            bnd = bounds(K * N + 4 * N + 4 * M * K + 4 * M * N, 2 * M * K * N,
+                         torch.float32, "2xtf32")
+            ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush)
+            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["qp"], w["s"]),
+                                    flush=flush)
+            cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
+            library_ms, lib = pack_mm_ms(x, [w], flush)
+            log(f"int8 GEMM f32 {name} [{K}, {N}] M={M}: kernel {ms:.4f} ms, "
+                f"{bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; plain "
+                f"{plain_ms:.4f} ms; cuBLAS f32 at the dense f32 weight {cublas_ms:.4f} ms; "
+                f"torch._weight_int8pack_mm with f32 activations {lib}")
+            out[(name, M)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                                  bound_by=bnd["bound_by"], library_ms=library_ms,
+                                  cublas_ms=cublas_ms, err=err)
+        del w, dense
+    for label, K, Ns in GEMM_F32_GROUPS:
+        pairs = [int8_weight_f32(gen, K, N) for N in Ns]
+        ws = [w for w, _ in pairs]
+        dense = torch.cat([d for _, d in pairs], dim=1)
+        del pairs
+        x = torch.randn((8, K), generator=gen, device="cuda", dtype=torch.float32)
+        before = gemm_counts()["int8_gemm_f32"]
+        ys = int8_weight_matmul_group(x, ws)
+        torch.cuda.synchronize()
+        launched = gemm_counts()["int8_gemm_f32"] - before
+        rels = []
+        for y, w in zip(ys, ws):
+            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+            rels.append((y - ref).abs().max().item() / ref.abs().max().item())
+        ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
+        apart = cuda_time_ms(lambda: [int8_weight_matmul(x, w) for w in ws], flush=flush)
+        cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
+        Nt = sum(Ns)
+        bnd = bounds(K * Nt + 4 * Nt + 4 * 8 * K + 4 * 8 * Nt, 2 * 8 * K * Nt,
+                     torch.float32, "2xtf32")
+        log(f"int8 GEMM f32 grouped {label} M=8: relative errors vs plain "
+            f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_F32_REL_TOL:.0e}); launches "
+            f"{launched}; {ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches "
+            f"apart; {bnd['text']}; cuBLAS f32 at the concatenated dense [{K}, {Nt}] "
+            f"weight {cublas_ms:.4f} ms")
+        check(launched == 1, f"int8 GEMM f32 grouped {label}: {launched} launches")
+        check(max(rels) <= GEMM_F32_REL_TOL, f"int8 GEMM f32 grouped {label}: {rels}")
+        worst = max(worst, *rels)
+        del ws, dense
+    # the M > 64 route in f32: the weight dequantized into an f32 scratch
+    # (twice the bf16 one), cuBLAS f32, then the scale (the JAX formula)
+    name, K, N = GEMM_F32_SHAPES[2]
+    w, dense = int8_weight_f32(gen, K, N)
+    x = torch.randn((2048, K), generator=gen, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = gemm_counts()
+    y = int8_weight_matmul(x, w)
+    torch.cuda.synchronize()
+    after = gemm_counts()
+    scratch = torch.cuda.max_memory_allocated() - held - y.numel() * 4
+    ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+    err = (y - ref).abs().max().item()
+    ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush, reps=10)
+    cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
+    bnd = bounds(K * N + 4 * N + 4 * 2048 * K + 4 * 2048 * N, 2 * 2048 * K * N,
+                 torch.float32, "ffma")
+    log(f"int8 GEMM f32 {name} M=2048 (the dequantize + cuBLAS f32 route): max abs err "
+        f"vs plain {err:.3e}; launches {after['int8_gemm_f32'] - before['int8_gemm_f32']} "
+        f"kernel, {after['int8_gemm_dequant'] - before['int8_gemm_dequant']} dequant; "
+        f"scratch {scratch} B beside the output (the f32 weight {4 * K * N} B); "
+        f"{ms:.4f} ms, {bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS f32 at "
+        f"an f32 weight {cublas_ms:.4f} ms; torch._weight_int8pack_mm "
+        f"{pack_mm_ms(x, [w], flush, reps=10)[1]}")
+    check(after["int8_gemm_dequant"] - before["int8_gemm_dequant"] == 1
+          and after["int8_gemm_f32"] == before["int8_gemm_f32"],
+          f"int8 GEMM f32 M=2048: launches {before} -> {after}")
+    check(err == 0.0, f"int8 GEMM f32 M=2048: the dequant route differs from plain by {err}")
+    # the HBM ledger's int8_dequant_scratch for this weight is the scratch
+    # measured here
+    ledgered = dequant_scratch_bytes({"layers": [{"mlp": {"w_up": w}}]}, torch.float32)
+    check(scratch == ledgered,
+          f"int8 GEMM f32 M=2048: scratch {scratch} B, the ledger's {ledgered} B")
+    del w, dense, x, y, ref
+    torch.cuda.empty_cache()
+    log(f"int8 GEMM f32: worst relative error {worst:.3e} (tol {GEMM_F32_REL_TOL:.0e})")
+    key = ("llama w_up", 8)
+    return {"err": out[key]["err"], "timing": out[key], "all": out}
 
 
 def gemma_attention_config():
@@ -1605,7 +1874,12 @@ def phase_gemma_forward() -> dict:
 
 def cast_tree(tree, dtype, device=None):
     """A copy of a parameter tree (dicts, lists, tensors) with its floating
-    tensors cast to ``dtype`` (and moved to ``device``)."""
+    tensors cast to ``dtype`` (and moved to ``device``); int8 weights are
+    shared as they are."""
+    from bee2bee_tpu_torch.models.quant import is_quantized
+
+    if is_quantized(tree):
+        return tree
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -1984,17 +2258,19 @@ def verify_vs_eager(engine, tag: str, ctx: int = 1024) -> dict:
     load_verify()
     if ("spec_verify", vkey) not in sch._graphs:
         sch._capture(vkey, "spec_verify")
-    c0 = read_counts()
+    c0, g0 = read_counts(), gemm_counts()
     sch._run_root("spec_verify", vkey)
-    c1 = read_counts()
+    c1, g1 = read_counts(), gemm_counts()
     torch.cuda.synchronize()
     launched = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    gemm = {k: g1[k] - g0[k] for k in g1 if g1[k] != g0[k]}
     same = [torch.equal(a, b) for a, b in zip(eager[:3], (vv.cur, vv.acc, vv.off))]
     same_pool = all(torch.equal(eager[3][n], t[:, :, 1:]) for n, t in pool.items())
     acc = vv.acc.tolist()
     log(f"{tag} verify graph vs eager: B=8 ctx {ctx} K={K} key {vkey}, lengths "
         f"{lens.tolist()}, accepted {acc}: tokens, accepted, offsets equal {same}, pool "
-        f"bytes outside the null block equal {same_pool}; launches per replay {launched}")
+        f"bytes outside the null block equal {same_pool}; launches per replay {launched}, "
+        f"int8-weight GEMM {gemm}")
     check(all(same) and same_pool, f"{tag}: the replayed verify step differs from the eager one")
     check(len(launched) == 1 and list(launched.values()) == [cfg.n_layers],
           f"{tag}: a verify replay launched {launched}")
@@ -2007,7 +2283,7 @@ def verify_vs_eager(engine, tag: str, ctx: int = 1024) -> dict:
               f"{tag}: a row whose first draft is its greedy token accepted nothing: "
               f"{acc}")
     reload()
-    return {"accepted": acc, "launched": launched}
+    return {"accepted": acc, "launched": launched, "gemm": gemm}
 
 
 def ring_check(engine, tag: str, new_tokens: int = 320, burst: bool = True) -> bool:
@@ -2248,11 +2524,13 @@ def pool_bytes(engine) -> int:
                for t in engine.scheduler._cache.values())
 
 
-def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16", quantize="none"):
-    """CUDAService over llama-3-8b computing in ``dtype``: a random init
-    from SEED (with ``quantize="int8"`` quantized on the card as it loads),
-    or the given parameters (in ``dtype``; int8 ones already packed) shared
-    with another engine (no second init)."""
+def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16", quantize="none",
+               model="llama-3-8b"):
+    """CUDAService over ``model`` (llama-3-8b; a registry name or a
+    ModelConfig) computing in ``dtype``: a random init from SEED (with
+    ``quantize="int8"`` quantized on the card as it loads), or the given
+    parameters (in ``dtype``; int8 ones already packed) shared with
+    another engine (no second init)."""
     from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
     from bee2bee_tpu_torch.services import CUDAService
 
@@ -2262,9 +2540,10 @@ def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16", quantize="
     )
     t0 = time.perf_counter()
     engine = None
+    name = model if isinstance(model, str) else model.name
     if params is not None:
-        engine = InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
-    svc = CUDAService("llama-3-8b", max_new_tokens=64, engine=engine,
+        engine = InferenceEngine(model, params=params, engine_config=ecfg)
+    svc = CUDAService(name, max_new_tokens=64, engine=engine,
                       engine_config=ecfg).load_sync()
     torch.cuda.synchronize()
     return svc, time.perf_counter() - t0
@@ -2303,7 +2582,8 @@ def record_dispatches(engine) -> list:
 def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) -> None:
     """The economics plane over one slice's traffic: the ledger's weights
     and KV pool equal their tensors' storage bytes (the pool also its
-    geometry's), the device's headroom is in (0, 1); each root's compiles
+    geometry's), its int8 dequantize scratch that of the widest projection
+    in the engine's dtype (int8 weights only), the device's headroom is in (0, 1); each root's compiles
     equal the scheduler's graph captures of it and nothing stormed;
     MFU x peak over the meter's window equals the FLOPs model over the
     dispatches recorded in that window (within 10%); goodput fraction in
@@ -2323,6 +2603,13 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
     check(comps.get("weights") == weights and comps.get("kv_pool") == pool == geometry,
           f"{tag}: ledger {comps} vs weights {weights} B, pool {pool} B "
           f"(geometry {geometry} B)")
+    # int8 weights: the dequantize route's scratch at the widest projection,
+    # its int8 unpack beside its copy in the engine's dtype
+    widest = max(cfg.d_model * cfg.d_ff, cfg.d_model * cfg.n_heads * cfg.head_dim)
+    scratch = widest * (1 + engine.dtype.itemsize) if ecfg.quantize == "int8" else None
+    check(comps.get("int8_dequant_scratch") == scratch,
+          f"{tag}: ledger's int8 dequantize scratch {comps.get('int8_dequant_scratch')} B, "
+          f"expected {scratch} B")
     frac = hbm.get("headroom_frac")
     check(frac is not None and 0.0 < frac < 1.0
           and hbm["bytes_in_use"] >= hbm["accounted_bytes"],
@@ -2375,7 +2662,7 @@ def slice_prompts(sizes=(40, 120, 260, 400, 640, 900, 1200, 1500)) -> list:
 
 
 def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16",
-                quantize="none"):
+                quantize="none", model="llama-3-8b", light=False):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. The bf16 slices (phases 6-7 and the
     int8-weight slices) then run the ring check (not with int8 weights),
@@ -2383,6 +2670,10 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     (phase 8) the replayed-vs-eager chunk over the int8 pool and the
     replayed B=8 step's breakdown. With ``quantize="int8"`` the int8-weight
     GEMM's launches are held to the replays (``check_int8_gemm_launches``).
+    ``model``: llama-3-8b, or another registry name or ModelConfig (the
+    qwen slices); ``light`` runs the replayed-vs-eager decode and prefill
+    chunks and the replayed B=8 step's breakdown, and nothing more (no
+    ring check, no full breakdown, no logits).
     Returns (the launch counts, pool bytes, the engine's params)."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
@@ -2392,7 +2683,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    svc, load_s = load_slice(cache_dtype, params, dtype, quantize)
+    svc, load_s = load_slice(cache_dtype, params, dtype, quantize, model)
     engine = svc.engine
     cfg = engine.model_cfg
     G = cfg.n_heads // cfg.n_kv_heads
@@ -2404,7 +2695,10 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     dec, tile = RAGGED_COUNTERS[dec_kernel] + suffix, RAGGED_COUNTERS[tile_kernel] + suffix
     tag = f"slice[{cache_dtype} pool]" if bf16 else f"slice[{dtype}, {cache_dtype} pool]"
     if qw:
-        tag = f"slice[int8 weights, {cache_dtype} pool]"
+        tag = (f"slice[int8 weights, {cache_dtype} pool]" if bf16 else
+               f"slice[{dtype}, int8 weights, {cache_dtype} pool]")
+    if cfg.name != "llama-3-8b":
+        tag = f"{cfg.name} {tag}"
     log(f"{tag}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
         f"loaded ({'shared params' if params is not None else 'random init'}, "
         f"seed {SEED}) in {load_s:.2f} s; {engine.info['n_params']} params")
@@ -2537,12 +2831,14 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         if qw:
             counts.update(gemm)
         check_economics(engine, tag, card, dispatches, wall)
-        if bf16 and not qw:
+        if bf16 and not qw and not light:
             ring_check(engine, tag)
         if bf16 or int8:
             graph_vs_eager(engine, tag)
         prefill_vs_eager(engine, tag)
-        step_breakdown(engine, card, full=bf16)
+        step_breakdown(engine, card, full=bf16 and not light)
+        if light:
+            return counts, nbytes, engine.params
         if qw and not int8:
             int8_weight_logits(engine, tag)
         return counts, nbytes, engine.params
@@ -2570,7 +2866,8 @@ def check_int8_gemm_launches(engine, tag: str, gemm: dict, roots_run: list,
     through the int8-weight GEMM: 4 launches a layer (wq|wk|wv and
     w_up|w_gate grouped, wo, w_down), the kernel for a decode or verify
     step and a prefill chunk of at most MAX_KERNEL_M tokens (the bucket),
-    the dequantize + cuBLAS route for wider chunks. Dense weights launch
+    the dequantize + cuBLAS route for wider chunks; the kernel's form in
+    the engine's type (``int8_gemm_f32`` for f32). Dense weights launch
     neither."""
     from bee2bee_tpu_torch.ops.int8_gemm import MAX_KERNEL_M
 
@@ -2580,14 +2877,16 @@ def check_int8_gemm_launches(engine, tag: str, gemm: dict, roots_run: list,
                  or (root == "prefill" and key[0] <= MAX_KERNEL_M))
     wide = sum(t for root, key, t in roots_run
                if root == "prefill" and key[0] > MAX_KERNEL_M)
-    want = ({"int8_gemm": per * narrow, "int8_gemm_dequant": per * wide}
-            if quantized else {"int8_gemm": 0, "int8_gemm_dequant": 0})
+    form = "int8_gemm_f32" if engine.dtype == torch.float32 else "int8_gemm"
+    want = {"int8_gemm": 0, "int8_gemm_f32": 0, "int8_gemm_dequant": 0}
+    if quantized:
+        want.update({form: per * narrow, "int8_gemm_dequant": per * wide})
     log(f"{tag}: int8-weight GEMM launches {gemm} ({narrow} replays of <= "
         f"{MAX_KERNEL_M} tokens, {wide} wider prefill replays; {per} launches a "
         f"forward)")
     check(gemm == want, f"{tag}: int8-weight GEMM launches {gemm}, expected {want}")
     if quantized:
-        check(gemm["int8_gemm"] > 0 and gemm["int8_gemm_dequant"] > 0,
+        check(gemm[form] > 0 and gemm["int8_gemm_dequant"] > 0,
               f"{tag}: both GEMM routes should have run: {gemm}")
 
 
@@ -2614,7 +2913,8 @@ def logits_run(cfg, ids, new_steps: int = 4):
     [new_steps, V], greedy tokens): a whole forward of ``ids`` through the
     kernels the rule names over a fresh pool in the weights' type, then
     greedy steps.
-    ``adapter``: (stacks, slot id, scales) of an adapter pool."""
+    ``adapter``: (stacks, slot id, scales) of an adapter pool; ``attn_fn``
+    the attention op (default: the dispatching one)."""
     from bee2bee_tpu_torch.models import core
 
     n = len(ids)
@@ -2625,14 +2925,14 @@ def logits_run(cfg, ids, new_steps: int = 4):
     tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
     tok_ids = torch.tensor([ids], device="cuda")
 
-    def run(params, adapter=None):
+    def run(params, adapter=None, attn_fn=None):
         # the pool in the forward's type (the embedding's): bf16 or f32
         pool = core.init_paged_pool(cfg, nblocks + 1, BS, params["tok_embed"].dtype,
                                     "cuda")
-        kw = {}
+        kw = {} if attn_fn is None else dict(attn_fn=attn_fn)
         if adapter is not None:
             stacks, slot, scales = adapter
-            kw = dict(adapters=stacks, adapter_scales=scales,
+            kw.update(adapters=stacks, adapter_scales=scales,
                       adapter_ids=torch.tensor([slot], device="cuda"))
         logits, _ = core.forward(params, cfg, tok_ids, pool, 0, tables, **kw)
         steps, toks = [], []
@@ -2720,6 +3020,326 @@ def phase_int8_weights(card: str) -> dict:
     for k, v in int8_counts.items():
         counts[k] = counts.get(k, 0) + v
     return {"counts": counts, "params": params}
+
+
+# ------------------------------------------------------------ qwen phases
+
+
+# the published config.json of Qwen/Qwen2-7B and Qwen/Qwen3-8B, at the
+# values of the repo's presets (models/config.py: max_position_embeddings
+# is the preset's max_seq_len); ``qwen_config`` cuts the depth
+QWEN2_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "hidden_act": "silu",
+    "hidden_size": 3584, "intermediate_size": 18944, "num_attention_heads": 28,
+    "num_key_value_heads": 4, "num_hidden_layers": 28, "vocab_size": 152064,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "use_sliding_window": False, "sliding_window": 131072,
+    "max_window_layers": 28, "bos_token_id": 151643, "eos_token_id": 151643,
+    "torch_dtype": "bfloat16",
+}
+QWEN3_CONFIG = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "hidden_act": "silu",
+    "hidden_size": 4096, "intermediate_size": 12288, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_hidden_layers": 36, "head_dim": 128,
+    "vocab_size": 151936, "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "attention_bias": False,
+    "use_sliding_window": False, "sliding_window": None, "max_window_layers": 36,
+    "bos_token_id": 151643, "eos_token_id": 151645, "torch_dtype": "bfloat16",
+}
+# Qwen3-8B's model card: yarn over the original 32,768 positions, factor 4
+QWEN3_YARN = {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32768}
+# the JAX init draws the biases as zeros and the norm scales as ones, which
+# would prove nothing about either switch: every qwen check perturbs them
+QWEN_BIAS_STD = 0.5
+QWEN_NORM_STD = 0.1
+
+
+def qwen_config(which: str, layers: int, yarn: bool = False):
+    """The published config.json of ``which`` ("qwen2-7b", "qwen3-8b") cut to
+    ``layers``, parsed as a checkpoint's is (``config_from_hf``); with
+    ``yarn`` the model card's rope scaling. Checked against the repo's
+    preset at that depth."""
+    from bee2bee_tpu_torch.models.config import config_from_hf, get_config
+
+    d = dict(QWEN2_CONFIG if which == "qwen2-7b" else QWEN3_CONFIG,
+             num_hidden_layers=layers, _name_or_path=f"{which}-{layers}layers")
+    if yarn:
+        d["rope_scaling"] = QWEN3_YARN
+    cfg = config_from_hf(d)
+    preset = replace(get_config(which), n_layers=layers, name=cfg.name,
+                     rope_scaling=cfg.rope_scaling)
+    check(cfg == preset, f"{which}: config.json parses to {cfg}, the preset is {preset}")
+    check(not yarn or cfg.rope_scaling[0] == "yarn", f"{which}: no yarn in {cfg}")
+    return cfg
+
+
+def perturb_qwen(params, seed: int):
+    """In place: every layer's q/k/v biases drawn N(0, QWEN_BIAS_STD^2) and
+    q/k norm scales 1 + N(0, QWEN_NORM_STD^2), on their device and in
+    their type. Returns params."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for lp in params["layers"]:
+        a = lp["attn"]
+        for key in ("bq", "bk", "bv"):
+            if key in a:
+                a[key].copy_(torch.randn(a[key].shape, generator=gen, device="cuda")
+                             * QWEN_BIAS_STD)
+        for key in ("q_norm", "k_norm"):
+            if key in a:
+                a[key].copy_(1.0 + torch.randn(a[key].shape, generator=gen, device="cuda")
+                             * QWEN_NORM_STD)
+    return params
+
+
+def qwen_params(cfg, dtype, seed: int):
+    """A random init of ``cfg`` from ``seed`` on the card, biases and norms
+    perturbed (``perturb_qwen``)."""
+    from bee2bee_tpu_torch.models.params import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return perturb_qwen(init_params(cfg, gen, "cuda", dtype), seed + 100)
+
+
+def phase_qwen_forward() -> dict:
+    """Phase 5 for the qwen families: qwen3-8b (head-wise q/k norms, yarn
+    factor 4 over 32,768 positions) and qwen2-7b (q/k/v biases, 28 heads
+    over 4 kv heads: G = 7) at full width and 2 layers, random f32 from
+    SEED with the biases and norms perturbed: a 300-token prefill and 8
+    greedy decode steps through the kernels against the plain version, in
+    f32 over an f32 and an int8 pool (logits within FORWARD_TOL, greedy
+    tokens equal, each forward through the kernel the rule names for its
+    chunk, pool and G, n_layers times), then in bf16 over a bf16 and an
+    int8 pool (prefill logits no further from the plain bf16 forward than
+    that is from the plain f32 forward; the tile kernel for the prefill,
+    the decode kernel for the steps). Returns the launch counts, summed."""
+    from bee2bee_tpu_torch.ops.ragged import (
+        ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    n_prompt, n_steps = 300, 8
+    launches: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for which, yarn in (("qwen3-8b", True), ("qwen2-7b", False)):
+        cfg, params, run = forward_setup(qwen_config(which, 2, yarn))
+        perturb_qwen(params, SEED + 7)
+        G = cfg.n_heads // cfg.n_kv_heads
+        label = f"forward 2x {which} width (G = {G}, rope_scaling {cfg.rope_scaling})"
+        plain_f32 = {}
+        for pool_dtype in (torch.float32, torch.int8):
+            int8 = pool_dtype == torch.int8
+            sfx = "_int8" if int8 else ""
+            tag = f"{label} f32, {str(pool_dtype)[6:]} pool"
+            want: dict = {}
+            for T, n in ((n_prompt, 1), (1, n_steps)):
+                c = RAGGED_COUNTERS[ragged_kernel(torch.float32, T, cfg.head_dim, int8, G)]
+                want[c + sfx] = want.get(c + sfx, 0) + cfg.n_layers * n
+            reset_counts()
+            k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
+            torch.cuda.synchronize()
+            plain_f32[pool_dtype] = p_logits
+            check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
+                  f"{tag}: non-finite logits")
+            err = max((k_logits - p_logits).abs().max().item(),
+                      (k_steps - p_steps).abs().max().item())
+            log(f"{tag}: prefill {n_prompt} + {n_steps} decode steps, logits max abs err "
+                f"{err:.3e} (tol {FORWARD_TOL}); launches {got} (expected {want}); greedy "
+                f"kernel {k_toks} plain {p_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+            check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
+            add(got)
+        bparams = cast_tree(params, torch.bfloat16)
+        for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
+            sfx = "_int8" if pool_dtype == torch.int8 else ""
+            tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
+            reset_counts()
+            b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            want = {"ragged_prefill" + sfx: cfg.n_layers,
+                    "ragged_decode" + sfx: cfg.n_layers * n_steps}
+            bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+            err = (b_logits - bp_logits).abs().max().item()
+            tol = (bp_logits - plain_f32[f32_pool]).abs().max().item()
+            log(f"{tag}: prefill {n_prompt} logits max abs err {err:.3e} (tol {tol:.3e}, "
+                f"the plain bf16 forward's gap to the plain f32 forward); launches {got}; "
+                f"greedy kernel {b_toks} plain {bp_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(err <= tol, f"{tag}: logits differ by {err} > {tol}")
+            add(got)
+        del params, bparams, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_qwen_served(card: str) -> dict:
+    """qwen3-8b at full width and depth (36 layers), bf16 over a bf16 pool,
+    and qwen2-7b at full width and depth (28 layers) with int8 weights
+    over an int8 pool (G = 7 through the decode and tile kernels
+    and the int8-weight GEMM, the biases added after the GEMM), each a
+    random init from SEED with the biases and norms perturbed, serving
+    phase 6's traffic with phase 6's checks (every decode step, prefill
+    chunk and first token a graph replay, launch counts exact; the GEMM's
+    4 x n_layers a replay) and a decode chunk and a prefill chunk replayed
+    = eager bit for bit. Returns the launch counts per model."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.quant import quantize_params_
+
+    out = {}
+    cfg3 = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    params = qwen_params(cfg3, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    log(f"qwen3-8b: {cfg3.n_layers} layers, {n} parameters ({storage_bytes(params)} B "
+        f"bf16), q/k norm scales 1 + N(0, {QWEN_NORM_STD}^2), random from seed {SEED} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    out["qwen3-8b"] = phase_slice(card, "bfloat16", params=params, model=cfg3,
+                                  light=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = get_config("qwen2-7b")
+    params = quantize_params_(qwen_params(cfg2, torch.bfloat16, SEED + 1))
+    torch.cuda.synchronize()
+    log(f"qwen2-7b: {cfg2.n_layers} layers, q/k/v biases N(0, {QWEN_BIAS_STD}^2), int8 "
+        f"weights ({storage_bytes(params)} B)")
+    out["qwen2-7b"] = phase_slice(card, "int8", params=params, quantize="int8",
+                                  model=cfg2, light=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_int8_weight_logits(params, cfg, tag: str) -> None:
+    """The f32 int8-weight forward (a 300-token prefill through the
+    dequantize route in f32, 4 greedy steps through the GEMM's f32 form)
+    no further from the f32 forward over the dense weights q * s than twice
+    the bf16 int8-weight forward's distance from it; then at 2 layers, 8
+    greedy steps: the tokens of the plain f32 forward over q * s (plain
+    attention too), its logits within FORWARD_TOL."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention_ref
+
+    gen = np.random.default_rng(SEED + 8)
+    ids = gen.integers(3, 259, size=300).tolist()
+    run = logits_run(cfg, ids)
+    q = run(params)
+    b = run(cast_tree(params, torch.bfloat16))
+    dense = _dense(params, torch.float32)
+    f = run(dense)
+    del dense
+    torch.cuda.empty_cache()
+
+    def dist(a, c):
+        return max((a[0] - c[0]).abs().max().item(), (a[1] - c[1]).abs().max().item())
+
+    check(bool(torch.isfinite(q[0]).all() and torch.isfinite(q[1]).all()),
+          f"{tag}: non-finite logits")
+    err, gap = dist(q, f), dist(b, f)
+    log(f"{tag} logits: f32 int8-weight forward ({cfg.n_layers} layers, 300-token prefill, "
+        f"4 greedy steps) vs the f32 forward over the dequantized weights: max abs "
+        f"{err:.4e} (tol {2 * gap:.4e}, twice the bf16 int8-weight forward's distance "
+        f"{gap:.4e}); greedy f32 int8 {q[2]} bf16 int8 {b[2]} f32 dense {f[2]}")
+    check(err <= 2 * gap, f"{tag}: f32 int8-weight logits {err} from the f32 forward, "
+          f"beyond twice the bf16 int8-weight forward's {gap}")
+    cfg2 = replace(cfg, n_layers=2)
+    two = dict(params, layers=params["layers"][:2])
+    run2 = logits_run(cfg2, ids, new_steps=8)
+    k = run2(two)
+    p = run2(_dense(two, torch.float32), attn_fn=ragged_paged_attention_ref)
+    err2 = dist(k, p)
+    log(f"{tag} at 2 layers: 8 greedy steps, f32 int8-weight forward {k[2]}, plain f32 "
+        f"forward over q * s {p[2]}; logits max abs {err2:.3e} (tol {FORWARD_TOL})")
+    check(k[2] == p[2], f"{tag}: 2-layer greedy tokens differ: {k[2]} vs {p[2]}")
+    check(err2 <= FORWARD_TOL, f"{tag}: 2-layer logits differ by {err2}")
+
+
+def phase_f32_int8_weights(card: str) -> dict:
+    """int8 weights beside f32 activations: llama-3-8b at full width and
+    depth, random from SEED in f32 and quantized on the card as it loads,
+    served over an int8 pool with phase 6's traffic and checks (the GEMM's
+    f32 form 4 x n_layers a replayed decode step or narrow prefill chunk,
+    the f32 dequantize route the wider chunks), a decode and a prefill
+    chunk replayed = eager bit for bit; then n-gram speculative decoding
+    on the same weights over an f32 pool (8 periodic prompts x 64 greedy
+    tokens, K = 4):
+    the spec-off engine's tokens, the GEMM's f32 form 4 x n_layers every
+    decode and verify replay, a verify step replayed = eager bit for bit;
+    then the logits (``f32_int8_weight_logits``). Returns the launch
+    counts, summed."""
+    tag = "f32 int8 weights"
+    counts, _, params = phase_slice(card, "int8", dtype="float32", quantize="int8",
+                                    light=True)
+    total = dict(counts)
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    # spec over an f32 pool: over an int8 pool a verify chunk's later
+    # positions can requantize a page its first position reads, so the
+    # tokens may leave the spec-off engine's (as in JAX)
+    off = spec_engine(params, "float32", "float32", quantize="int8")
+    prompts = spec_prompts(off.tokenizer, periodic=True)
+    try:
+        want, wall_off = spec_burst(off, prompts)
+    finally:
+        off.close()
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = spec_engine(params, "float32", "float32", quantize="int8", spec_tokens=SPEC_K,
+                         spec_min_match=1, spec_probe_tokens=1 << 20)
+    stag = f"spec[ngram, {tag}, float32 pool]"
+    try:
+        roots_run = record_roots(engine)
+        since = graph_stats(engine, stag)
+        reset_counts()
+        reset_gemm_counts()
+        got, wall = spec_burst(engine, prompts)
+        torch.cuda.synchronize()
+        c = read_counts()
+        gemm = gemm_counts()
+        n = spec_counts(engine, stag, since, c)
+        equal = sum(a == b for a, b in zip(got, want))
+        log(f"{stag}: 8 x {SPEC_NEW} greedy tokens in {wall:.3f} s (spec off "
+            f"{wall_off:.3f} s); {equal} of 8 rows equal to the spec-off engine's; card "
+            f"{card}")
+        check(equal == len(prompts), f"{stag}: spec-on tokens differ from spec-off")
+        check(n["verifies"] > 0 and n["decodes"] > 0,
+              f"{stag}: {n['verifies']} verify and {n['decodes']} decode replays")
+        check_int8_gemm_launches(engine, stag, gemm, roots_run, True)
+        c.update(gemm)
+        add(c)
+        v = verify_vs_eager(engine, stag)
+        want_gemm = {"int8_gemm_f32": GEMM_LAUNCHES_PER_LAYER * engine.model_cfg.n_layers}
+        check(v["gemm"] == want_gemm,
+              f"{stag}: a verify replay's GEMM launches {v['gemm']}, expected {want_gemm}")
+    finally:
+        engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    from bee2bee_tpu_torch.models.config import get_config
+
+    f32_int8_weight_logits(params, get_config("llama-3-8b"), tag)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------ adapter phase
@@ -5134,11 +5754,78 @@ def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
         m.close()
 
 
+def checkpoint_qwen(card: str, which: str, workdir: Path) -> dict:
+    """An HF-named checkpoint of ``which`` ("qwen2-7b", "qwen3-8b") at full
+    width and 2 layers, random bf16 from SEED with the biases and norms
+    perturbed, written as one safetensors file (the converter's inverse,
+    q/k/v biases and q/k norms under their HF names) beside the published
+    config.json cut to 2 layers: ``InferenceEngine("auto", ...)`` loads it
+    bit-equal to ``params_from_numpy``'s tree and decodes phase 6's prompts
+    to the same greedy tokens and first-token logits. Returns the launch
+    counts."""
+    from bee2bee_tpu_torch.models.export import _export_llama_state, write_safetensors
+    from bee2bee_tpu_torch.models.params import params_from_numpy, params_to_numpy
+
+    tag = f"checkpoint[{which}]"
+    cfg = qwen_config(which, 2)
+    t0 = time.perf_counter()
+    tree = params_to_numpy(qwen_params(cfg, torch.bfloat16, SEED + 2))
+    ref_params = params_from_numpy(tree, cfg, "cuda", torch.bfloat16)
+    del tree
+    ckpt = workdir / which
+    ckpt.mkdir()
+    state = _export_llama_state(ref_params, cfg, torch.bfloat16)
+    extra = sorted(k for k in state if k.endswith(("_proj.bias", "_norm.weight"))
+                   and ".self_attn." in k)
+    write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
+    del state
+    src = QWEN2_CONFIG if which == "qwen2-7b" else QWEN3_CONFIG
+    (ckpt / "config.json").write_text(json.dumps(
+        dict(src, num_hidden_layers=2, _name_or_path=cfg.name), indent=2))
+    nbytes = (ckpt / "model.safetensors").stat().st_size
+    log(f"{tag}: {cfg.name} random bf16 from seed {SEED + 2}, written in "
+        f"{time.perf_counter() - t0:.2f} s, {nbytes} B; its q/k/v biases and q/k norms "
+        f"{extra[:3]}... ({len(extra)} tensors)")
+    check(len(extra) == (6 if which == "qwen2-7b" else 4),
+          f"{tag}: the checkpoint's attention extras {extra}")
+    engine = ref = None
+    try:
+        t0 = time.perf_counter()
+        engine = checkpoint_engine(checkpoint=ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(engine.model_cfg == cfg, f"{tag}: the engine resolved {engine.model_cfg}")
+        diff = same_bits(engine.params, ref_params)
+        log(f"{tag}: InferenceEngine('auto', checkpoint_path=...) in {load_s:.2f} s; "
+            f"weights bit-equal to params_from_numpy's: {not diff}; card {card}")
+        check(not diff, f"{tag}: loaded weights differ at {diff[:5]}")
+        ref = checkpoint_engine(params=ref_params, cfg=cfg)
+        prompts = slice_prompts()
+        got, got_first, counts = checkpoint_burst(engine, tag, prompts)
+        want, want_first, _ = checkpoint_burst(ref, f"{tag} params_from_numpy", prompts)
+        same_first = got_first.keys() == want_first.keys() and all(
+            torch.equal(bits(got_first[k]), bits(want_first[k])) for k in want_first)
+        log(f"{tag}: greedy tokens equal {got == want} ({len(got)} x {CKPT_NEW}), "
+            f"first-token logits bit-equal {same_first}")
+        check(got == want and same_first, f"{tag}: greedy tokens or first-token logits "
+              "differ from the params_from_numpy engine's")
+        return counts
+    finally:
+        for eng in (engine, ref):
+            if eng is not None:
+                eng.close()
+        del ref_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_checkpoint(card: str) -> dict:
     """llama-3.1-8b (2 layers, published widths, random bf16 from SEED)
     written as an HF checkpoint and served from it: (a) load, (b) rope and
     f32 logits, (c) native round trip, (d) mesh publish and join, (e) int8
-    from the checkpoint. Returns the launch counts of the phase, summed."""
+    from the checkpoint; then (f) HF-named qwen2-7b and qwen3-8b
+    checkpoints (``checkpoint_qwen``). Returns the launch counts of the
+    phase, summed."""
     import shutil
     import tempfile
 
@@ -5216,6 +5903,10 @@ def phase_checkpoint(card: str) -> dict:
         checkpoint_native(engine, workdir, card)
         add(checkpoint_mesh(cfg, ckpt, card))
         add(checkpoint_int8(engine, ckpt, prompts, card))
+        engine.close()
+        engine = None
+        for which in ("qwen2-7b", "qwen3-8b"):
+            add(checkpoint_qwen(card, which, workdir))
     finally:
         for eng in (engine, ref):
             if eng is not None:
@@ -5242,6 +5933,28 @@ def run_only(card: str, which: str) -> int:
         phase_adapters_both(card)
     elif which == "checkpoint":
         phase_checkpoint(card)
+    elif which == "qwen":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        phase_int8_gemm_f32(flush)
+        del flush
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        for int8 in (False, True):
+            ragged_cases_vs_plain(gen, QWEN2_RAGGED_CASES, int8)
+        phase_qwen_forward()
+        phase_qwen_served(card)
+        phase_f32_int8_weights(card)
+        workdir = Path(__file__).resolve().parent / "build" / "ckpt_qwen"
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        try:
+            for which_model in ("qwen2-7b", "qwen3-8b"):
+                checkpoint_qwen(card, which_model, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     elif which == "migrate":
         # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
         engine = migrate_engine(None, "bfloat16", "bfloat16")
@@ -5252,7 +5965,8 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters, migrate or checkpoint, not {which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint or qwen, not "
+                         f"{which!r}")
     log(f"card: {card}")
     return 0
 
@@ -5289,10 +6003,14 @@ def main() -> int:
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
     stage("int8-weight GEMM")
     gemm = phase_int8_gemm(flush)
+    stage("int8-weight GEMM, f32 form")
+    gemm_f32 = phase_int8_gemm_f32(flush)
     del flush
     stage("forward parity")
     fwd_counts = phase_forward_parity()
     gemma_counts = phase_gemma_forward()
+    stage("qwen forward parity")
+    qwen_fwd = phase_qwen_forward()
     stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
@@ -5351,6 +6069,12 @@ def main() -> int:
     adapter_counts_int8 = phase_adapters(card, int8w.pop("params"), quantized=True)
     gc.collect()
     torch.cuda.empty_cache()
+    # qwen3-8b (bf16, full depth) and qwen2-7b (int8 weights and pool, G = 7)
+    # served; then int8 weights beside f32 activations
+    stage("qwen served")
+    qwen = phase_qwen_served(card)
+    stage("f32 int8 weights")
+    f32w = phase_f32_int8_weights(card)
     stage("node")
     node_counts = phase_node(card)
     stage("node with the prefix cache")
@@ -5378,6 +6102,12 @@ def main() -> int:
         dest = (f32_counts["float32"] if "_f32" in name
                 else int8_counts if name.endswith("_int8") else counts)
         dest[name] += n
+    # the qwen phases' and the f32 int8-weight phase's launches, added to the
+    # row of each kernel form they counted
+    more: dict = {}
+    for c in (qwen_fwd, *qwen.values(), f32w):
+        for name, n in c.items():
+            more[name] = more.get(name, 0) + n
 
     def row(name, source, replaces, n, err, t):
         return {
@@ -5407,10 +6137,12 @@ def main() -> int:
     kernels = [
         row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_decode"] + node_counts["ragged_decode"]
-            + ckpt_counts.get("ragged_decode", 0), errs["decode"],
+            + ckpt_counts.get("ragged_decode", 0) + more.get("ragged_decode", 0),
+            errs["decode"],
             timings["decode"]),
         row("ragged_decode_attention_int8", decode_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_decode_int8"],
+            "bee2bee_tpu/ops/ragged.py:107",
+            int8_counts["ragged_decode_int8"] + more.get("ragged_decode_int8", 0),
             int8_errs["decode"], int8_timings["decode"]),
         # the row kernel, forced in bf16 at gemma-2-9b's heads at the decode
         # shape (beside the same inputs' plain, SDPA and bound), and flash's
@@ -5443,10 +6175,12 @@ def main() -> int:
             flash_errs["tile_hd256"], flash_timings["tile_hd256"]),
         row("ragged_prefill_attention", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_prefill"] + node_counts["ragged_prefill"]
-            + ckpt_counts.get("ragged_prefill", 0), errs["tile"],
+            + ckpt_counts.get("ragged_prefill", 0) + more.get("ragged_prefill", 0),
+            errs["tile"],
             timings["prefill"]),
         row("ragged_prefill_attention_int8", prefill_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_counts["ragged_prefill_int8"],
+            "bee2bee_tpu/ops/ragged.py:107",
+            int8_counts["ragged_prefill_int8"] + more.get("ragged_prefill_int8", 0),
             int8_errs["tile"], int8_timings["prefill"]),
         row("flash_attention_tile", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash_tile"] + int8_counts["flash_tile"], flash_errs["tile"],
@@ -5455,10 +6189,11 @@ def main() -> int:
         # T=S=2048; bound: three TF32 products at the TF32 peak; the ragged
         # forms' launches from the f32 slice's prefill chunks (phase 8)
         row("ragged_prefill_attention_f32", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
-            f32_f32["ragged_prefill_f32"] + ckpt_counts.get("ragged_prefill_f32", 0),
-            errs["tile_f32"], timings["prefill_f32"]),
+            f32_f32["ragged_prefill_f32"] + ckpt_counts.get("ragged_prefill_f32", 0)
+            + more.get("ragged_prefill_f32", 0), errs["tile_f32"], timings["prefill_f32"]),
         row("ragged_prefill_attention_f32_int8", prefill_src,
-            "bee2bee_tpu/ops/ragged.py:107", f32_int8["ragged_prefill_f32_int8"],
+            "bee2bee_tpu/ops/ragged.py:107",
+            f32_int8["ragged_prefill_f32_int8"] + more.get("ragged_prefill_f32_int8", 0),
             int8_errs["tile_f32"], int8_timings["prefill_f32"]),
         row("flash_attention_tile_f32", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash_tile_f32"] + int8_counts["flash_tile_f32"],
@@ -5469,11 +6204,12 @@ def main() -> int:
         # or the FFMA products at the f32 CUDA-core peak
         row("ragged_decode_attention_f32", decode_f32_src, "bee2bee_tpu/ops/ragged.py:84",
             f32_f32["ragged_decode_f32"] + fwd_counts.get("ragged_decode_f32", 0)
-            + ckpt_counts.get("ragged_decode_f32", 0),
+            + ckpt_counts.get("ragged_decode_f32", 0) + more.get("ragged_decode_f32", 0),
             errs["decode_f32"], timings["decode_f32"]),
         row("ragged_decode_attention_f32_int8", decode_f32_src,
             "bee2bee_tpu/ops/ragged.py:107",
-            f32_int8["ragged_decode_f32_int8"] + fwd_counts.get("ragged_decode_f32_int8", 0),
+            f32_int8["ragged_decode_f32_int8"] + fwd_counts.get("ragged_decode_f32_int8", 0)
+            + more.get("ragged_decode_f32_int8", 0),
             int8_errs["decode_f32"], int8_timings["decode_f32"]),
         row("ragged_decode_attention_f32_hd256", decode_f32_src,
             "bee2bee_tpu/ops/ragged.py:84", 0, errs["decode_f32"],
@@ -5489,12 +6225,21 @@ def main() -> int:
     kernels.append(row(
         "int8_weight_gemm", gemm_src, "bee2bee_tpu/models/core.py:408",
         int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"]
-        + ckpt_counts.get("int8_gemm", 0),
+        + ckpt_counts.get("int8_gemm", 0) + more.get("int8_gemm", 0),
         gemm["err"], gemm["timing"]))
-    log("kernels: int8_weight_gemm replaces no Pallas kernel: the XLA-fused int8 "
-        "product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); its "
-        "library_ms is torch._weight_int8pack_mm at the same inputs (null where "
+    # its f32 form (2xTF32): launches from the f32 int8-weight phase (serving
+    # and spec); times at llama-3-8b's w_up, M = 8, f32 activations
+    kernels.append(row(
+        "int8_weight_gemm_f32", gemm_src, "bee2bee_tpu/models/core.py:408",
+        more.get("int8_gemm_f32", 0), gemm_f32["err"], gemm_f32["timing"]))
+    log("kernels: int8_weight_gemm and its f32 form replace no Pallas kernel: the "
+        "XLA-fused int8 product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); "
+        "their library_ms is torch._weight_int8pack_mm at the same inputs (null where "
         "the card's torch has no CUDA kernel for it)")
+    log(f"kernels: qwen launches (added to the rows above): forward parity "
+        f"{ {k: v for k, v in qwen_fwd.items() if v} }, served "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in qwen.items()} }; f32 int8 "
+        f"weights { {k: v for k, v in f32w.items() if v} }")
     log(f"kernels: adapter phase launches (mixed bursts): bf16 weights "
         f"{ {k: v for k, v in adapter_counts.items() if v} }, int8 weights "
         f"{ {k: v for k, v in adapter_counts_int8.items() if v} }")

@@ -204,17 +204,22 @@ def _serves_a_checkpoint(tiny_engine, monkeypatch, tmp_path):
         svc.engine.close()
 
 
-# queue A item 10 is ported: its three cases keep their ids and check that
-# the branch now runs, at tiny size on the CPU
+def _int8_weights_f32_card(tiny_engine, monkeypatch, tmp_path):
+    """int8 weights beside f32 activations pass the card check (the
+    GEMM's f32 form)."""
+    check_card_supported(get_config("llama-3-8b"), EngineConfig(
+        dtype="float32", cache_dtype="float32", quantize="int8"), "cuda")
+
+
+# queue A items 10 and 18 are ported: their cases keep their ids and check
+# that the branch now runs, at tiny size on the CPU
 PORTED = {
     "publish_weights": _publishes,
     "from_mesh": _joins_from_mesh,
     "checkpoint": _serves_a_checkpoint,
+    "int8_weights_f32_card": _int8_weights_f32_card,
 }
 UNPORTED = {
-    "int8_weights_f32_card": (18, lambda e, mp: check_card_supported(
-        get_config("llama-3-8b"), EngineConfig(dtype="float32", cache_dtype="float32",
-                                               quantize="int8"), "cuda")),
     "mesh_shape": (14, lambda e, mp: _run(backend="cuda", model="tiny-llama",
                                           cfg=_cfg(mesh_shape="data:1,model:8"))),
     "stage_runner": (13, lambda e, mp: _part_load(e)),

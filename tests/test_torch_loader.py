@@ -7,7 +7,8 @@ service from a checkpoint.
 - ``config_from_hf`` equals JAX's field for field on the config.json
   dicts JAX's ``hf_config_dict`` writes for every family it exports, and on
   phi-3 and yarn dicts; a family the port's core cannot run still parses
-  and ``check_supported`` refuses it by item 11.
+  and ``check_supported`` refuses it by item 11; qwen2, qwen3 and yarn
+  pass it.
 - The linear and llama3 rope scalings equal JAX's within 1e-7, and a tiny
   llama-3.1 forward's f32 logits JAX's within 1e-4.
 - Checkpoints written by JAX ``export_hf`` and by the port's (f32 and
@@ -20,7 +21,8 @@ service from a checkpoint.
 - The engine from a checkpoint (``"auto"``) decodes JAX's engine's greedy
   tokens; with ``quantize="int8"`` its packed weights equal quantizing the
   loaded ones, and its tokens the in-memory int8 engine's.
-- Other converters, export families and yarn raise by item number.
+- Other converters, export families and expert tensors raise by item
+  number; yarn's kept frequencies equal JAX's.
 - Tokenizer files without ``transformers`` raise; a path with none takes
   the byte tokenizer.
 - The loader, pieces, weights and export modules import neither
@@ -137,13 +139,24 @@ def test_config_from_hf_matches_jax(key):
             config.get_config("llama-3.1-8b"), n_layers=2, name=got["name"]))
 
 
-@pytest.mark.parametrize("key", ["gpt2", "qwen2-7b", "qwen3-8b", "gemma-2-9b",
-                                 "mixtral-8x7b", "falcon-7b", "phi-2", "bloom-7b1",
-                                 "llama-yarn"])
+@pytest.mark.parametrize("key", ["gpt2", "gemma-2-9b", "mixtral-8x7b", "falcon-7b",
+                                 "phi-2", "bloom-7b1"])
 def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
     cfg = config.config_from_hf(_hf_dict(key))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 11\)"):
         core.check_supported(cfg)
+
+
+@pytest.mark.parametrize("key", ["qwen2-7b", "qwen3-8b", "llama-yarn"])
+def test_family_the_core_runs_parses_then_passes_the_core(key):
+    """qwen2 (q/k/v biases), qwen3 (head-wise q/k norms) and yarn rope
+    scaling: parsed as JAX parses them, and the core runs them."""
+    cfg = config.config_from_hf(_hf_dict(key))
+    core.check_supported(cfg)
+    assert (cfg.qkv_bias, cfg.qk_norm) == {"qwen2-7b": (True, False),
+                                           "qwen3-8b": (False, True)}.get(key, (False, False))
+    if key == "llama-yarn":
+        assert cfg.rope_scaling[0] == "yarn"
 
 
 def test_llama31_and_phi3_pass_the_core():
@@ -188,10 +201,23 @@ def test_rope_freqs_are_computed_once_per_config_and_device():
     assert core.rope_freqs(dataclasses.replace(cfg, rope_scaling=None), "cpu") is not freqs
 
 
+# the name is historical: the test held the yarn refusal that yarn's port lifted
 def test_rope_freqs_refuses_yarn():
+    """Yarn runs since queue A item 11.1 was finished: the kept frequency
+    vector of a yarn config equals JAX's (theta and the rotary dims passed
+    through, as ``_rope`` passes them) within 1e-7, and only a yarn
+    scaling without theta and rot is still refused."""
     cfg = config.config_from_hf(EXTRA_DICTS["llama-yarn"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        core.rope_freqs(cfg)
+    jcfg = jconfig.config_from_hf(EXTRA_DICTS["llama-yarn"])
+    rot = jcfg.rotary_dim
+    f = 1.0 / (jcfg.rope_theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
+    want = np.asarray(jcore.scale_rope_freqs(jnp.asarray(f), jcfg.rope_scaling,
+                                             theta=jcfg.rope_theta, rot=rot))
+    got = core.rope_freqs(cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+    assert not np.array_equal(got, f)
+    with pytest.raises(ValueError, match="theta and rot"):
+        core.scale_rope_freqs(torch.from_numpy(f), cfg.rope_scaling)
 
 
 def test_llama31_forward_logits_match_jax():
@@ -318,11 +344,12 @@ def test_other_converters_and_export_families_raise_by_item(tmp_path):
         loader.load_checkpoint(tmp_path, cfg, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match=r"item 15\)"):
         export.hf_config_dict(config.get_config("tiny-qwen3"))
-    # a llama-branch tensor the core has no slot for is refused, not dropped
-    qcfg = jconfig.get_config("tiny-qwen")
-    jexport.export_hf(_jax_tree(qcfg), qcfg, tmp_path / "qwen")
-    with pytest.raises(NotImplementedError, match=r"q_proj\.bias.*item 11\)"):
-        loader.load_checkpoint(tmp_path / "qwen", _cfgs("tiny-llama")[1], torch.float32,
+    # a llama-branch tensor the core has no slot for (an expert) is
+    # refused, not dropped
+    mcfg = jconfig.get_config("tiny-mixtral")
+    jexport.export_hf(_jax_tree(mcfg), mcfg, tmp_path / "mixtral")
+    with pytest.raises(NotImplementedError, match=r"block_sparse_moe.*item 11\)"):
+        loader.load_checkpoint(tmp_path / "mixtral", _cfgs("tiny-llama")[1], torch.float32,
                                "cpu")
 
 

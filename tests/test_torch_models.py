@@ -17,7 +17,9 @@ package's (bee2bee_tpu/models).
   differ by design (the port requantizes without a branch).
 - The paged ``forward`` over an int8 pool (prefill, then decode) matches
   the JAX ``forward`` with the ragged kernel in interpret mode.
-- A config switch the port does not implement raises by name.
+- A config switch the port does not implement raises by name (qwen2's
+  q/k/v biases, qwen3's head-wise q/k norms and yarn run:
+  tests/test_torch_qwen.py).
 - The same prefill-then-decode parity at head_dim 256 (the gemma family's,
   which the kernels' head_dim-256 forms serve), with a score softcap and a
   sliding window on every second layer, on a tiny llama-architecture
@@ -69,20 +71,17 @@ def test_matmul_params_per_token_matches_jax(name):
 
 @pytest.mark.parametrize("name,switch", [
     ("tiny-gpt2", "pos_embedding"),
-    ("tiny-qwen3", "qk_norm"),
+    ("tiny-gemma2", "post_norms"),
     ("tiny-mixtral", "MoE"),
     ("tiny-gemma", "activation"),
     ("tiny-phi", "parallel_block"),
-    ("llama-3.1-8b", "rope_scaling"),
+    ("tiny-gemma3", "local_rope_theta"),
 ])
 def test_unported_switch_raises_by_name(name, switch):
-    cfg = config.get_config(name)
-    if switch == "rope_scaling":
-        # llama-3.1's "llama3" scaling runs (queue A item 11.1); "yarn" is
-        # still refused
-        cfg = dataclasses.replace(cfg, rope_scaling=("yarn", 8.0, 1.0, 32.0, 1.0, 8192, True))
+    # qwen3's qk_norm and the yarn rope scaling run (queue A items 11.3 and
+    # 11.1); gemma-2's post-norms and gemma-3's local rope theta do not yet
     with pytest.raises(NotImplementedError, match=switch):
-        core.check_supported(cfg)
+        core.check_supported(config.get_config(name))
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,9 @@
   the same f32 input.
 - The packed layout round-trips exactly; the plain int8 matmul on it equals
   JAX ``core.matmul`` (f32: within 1e-5; bf16: within two bf16 ulps of the
-  output's scale), and ``core.matmul`` gives the same on both layouts.
+  output's scale), and ``core.matmul`` gives the same on both layouts. A
+  CPU model of the f32 form's 2xTF32 arithmetic stays within 2e-7 of the
+  exact product and 1e-5 of JAX's f32 one.
 - The split plan and the route are functions of host shapes; a CUDA-less
   device raises, the JAX layout refuses the card.
 - ``params_from_numpy`` carries a JAX-quantized tree across (int8 stays
@@ -16,8 +18,9 @@
   decode the same greedy tokens (quantized on either side), ``lora_path``
   merges before quantization in both, and the ledger counts the packed
   bytes and scales.
-- ``check_card_supported`` refuses int8 weights beside f32 activations
-  by name (ROADMAP.md queue A item 18) and takes them beside bf16.
+- ``check_card_supported`` takes int8 weights beside bf16 and f32
+  activations (ROADMAP.md queue A item 18: the GEMM's f32 form); the route
+  names the kernel for both types and refuses others.
 """
 
 from __future__ import annotations
@@ -163,6 +166,34 @@ def test_plain_int8_matmul_matches_jax_matmul(M, dtype):
                                core.matmul(x_t, w).float().numpy(), atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("M", [1, 8, 40])
+def test_2xtf32_model_of_the_f32_gemm_matches_jax_matmul(M):
+    """The arithmetic of the GEMM's f32 form (csrc/int8_weight_gemm.cu): the
+    int8 weight exact in TF32, x split into TF32 hi + lo (cvt.rna's
+    rounding, tests/tf32_attention_model.py), two products summed (here in
+    float64), the scale once after the sum. At qwen2-7b's w_down depth (K =
+    18944) it stays within 2e-7 of the largest |output| of the exact product
+    and within 1e-5 of JAX's f32 ``core.matmul`` (whose own f32 sums sit
+    further from the exact one); one product (hi alone) would miss the
+    1e-4 the card's smoke holds the kernel to."""
+    from tf32_attention_model import split
+
+    K, N = 18944, 48
+    qw = jquant.quantize_weight(_weights(7, (K, N)) / np.sqrt(K))
+    x = np.random.default_rng(M + 100).standard_normal((M, K)).astype(np.float32)
+    jax_f32 = np.asarray(jcore.matmul(jnp.asarray(x), qw), np.float64)
+    q = qw["q"].astype(np.float64)
+    s = qw["s"].astype(np.float64)
+    exact = (x.astype(np.float64) @ q) * s
+    hi, lo = (t.astype(np.float64) for t in split(x))
+    two = (((lo @ q) + (hi @ q)) * s).astype(np.float32)
+    one = ((hi @ q) * s).astype(np.float32)
+    scale = np.abs(exact).max()
+    assert np.abs(two - exact).max() <= 2e-7 * scale
+    assert np.abs(two - jax_f32).max() <= 1e-5 * scale
+    assert np.abs(one - exact).max() > 1e-4 * scale
+
+
 @pytest.mark.parametrize("Ns", [(64, 32, 32), (128, 128), (96,)], ids=["qkv", "upgate", "one"])
 def test_grouped_matmul_equals_one_by_one(Ns):
     """``matmul_group`` (one kernel launch on the card) gives each weight's
@@ -293,6 +324,29 @@ def test_int8_engine_greedy_tokens_equal_jax(jax_dense, jax_int8_tokens, where):
         eng.close()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ledger_counts_the_dequantize_scratch_in_the_engine_dtype(dtype):
+    """An int8-weight engine's HBM ledger holds the dequantize route's
+    peak scratch at its widest projection (w_up, w_gate, w_down: d_model x
+    d_ff): the unpacked int8 weight beside its copy in the engine's dtype,
+    so an f32 engine's is 5 bytes a weight and a bf16 one's 3. A dense
+    engine has no such component."""
+    item = {"float32": 4, "bfloat16": 2}[dtype]
+    kw = dict(KW, dtype=dtype)
+    eng = InferenceEngine("tiny-llama", device="cpu",
+                          engine_config=EngineConfig(quantize="int8", **kw))
+    dense = InferenceEngine("tiny-llama", device="cpu", engine_config=EngineConfig(**kw))
+    try:
+        comps = eng.introspect.ledger.snapshot()["components"]
+        assert comps["int8_dequant_scratch"] == CFG.d_model * CFG.d_ff * (1 + item)
+        assert comps["int8_dequant_scratch"] == quant.dequant_scratch_bytes(
+            eng.params, getattr(torch, dtype))
+        assert "int8_dequant_scratch" not in dense.introspect.ledger.snapshot()["components"]
+    finally:
+        eng.close()
+        dense.close()
+
+
 def test_lora_path_merged_before_quantization(jax_dense, tmp_path):
     """``lora_path`` with ``quantize="int8"``: both packages merge the
     adapter into the dense weights first, then quantize: the same greedy
@@ -334,13 +388,20 @@ def test_lora_path_merged_before_quantization(jax_dense, tmp_path):
         base.close()
 
 
+# the name is historical: the test held the refusal the GEMM's f32 form lifted
 def test_card_refuses_int8_weights_beside_f32_by_item():
+    """Since queue A item 18 the card takes int8 weights beside f32
+    activations too (the GEMM's 2xTF32 form); int4 is still refused."""
     llama = get_config("llama-3-8b")
     check_card_supported(llama, EngineConfig(quantize="int8"), "cuda")
     check_card_supported(llama, EngineConfig(quantize="int8", cache_dtype="int8"), "cuda")
-    ecfg = EngineConfig(quantize="int8", dtype="float32", cache_dtype="float32")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A item 18\)"):
+    for cache in ("float32", "int8"):
+        ecfg = EngineConfig(quantize="int8", dtype="float32", cache_dtype=cache)
         check_card_supported(llama, ecfg, "cuda")
-    check_card_supported(llama, ecfg, "cpu")  # the CPU runs it
+        check_card_supported(llama, ecfg, "cpu")
+    assert int8_gemm.int8_gemm_route(40, torch.float32) == "kernel"
+    assert int8_gemm.int8_gemm_route(65, torch.float32) == "dequant"
+    with pytest.raises(TypeError, match="bfloat16 and float32"):
+        int8_gemm.int8_gemm_route(8, torch.float16)
     with pytest.raises(ValueError, match="only 'int8' or 'none'"):
         EngineConfig(quantize="int4")
