@@ -193,7 +193,8 @@ def _refuse_unported(opts: dict) -> None:
               help="registry model name (random weights from seed 0 unless "
                    "--checkpoint or --from-mesh), or 'auto' with --checkpoint "
                    "(the checkpoint's config.json decides); the port serves the "
-                   "llama architecture and the qwen2 and qwen3 families")
+                   "llama architecture, the qwen2 and qwen3 families and the "
+                   "gemma family (gemma-2b, gemma-7b, gemma-2-9b, gemma-3-4b)")
 @click.option("--checkpoint", default=None,
               help="local checkpoint dir: HF layout (*.safetensors or "
                    "pytorch_model*.bin with config.json) or a native piece dir")

@@ -4,6 +4,7 @@ over the paged KV pool.
 The port of ``bee2bee_tpu/models/core.py``'s block-tables path, kept
 function for function where that helps a reader find the counterpart
 (``_norm``, ``scale_rope_freqs``, ``_qk_rmsnorm``, ``_rope``,
+``is_sliding_layer``,
 ``_activate``, ``_mlp``, ``_attention``,
 ``embed_tokens``, ``transformer_block``, ``final_logits``, ``forward``,
 ``matmul``, ``_lora_rows``, ``lora_matmul``, ``attn_mask``,
@@ -39,16 +40,20 @@ What differs from the JAX package:
   reads the whole row under ``make_layer_mask``. Only the model drafter
   (engine/drafter.py) runs it; an int8 rectangular cache is refused, as
   in JAX. The no-cache forward is not ported.
-- The llama architecture runs, with qwen2's q/k/v biases and qwen3's
-  head-wise q/k RMSNorm (both by key presence in the layer's params, as
-  JAX applies them): rmsnorm, "half" rope (unscaled, or with the
-  "linear", "llama3" or "yarn" frequency scaling; yarn's attention
-  factor scales the rotated block in f32 before the cast, as in JAX),
-  gated silu MLP, GQA, tied or untied head, plus the score switches the
-  kernel carries (sliding window with its per-layer alternation,
-  attention softcap, score scale). Any other switch raises
-  NotImplementedError by name (``check_supported``) instead of computing
-  something else.
+- The llama architecture runs, with qwen2's q/k/v biases and the
+  head-wise q/k RMSNorm of qwen3 and gemma-3 (both by key presence in the
+  layer's params, as JAX applies them): rmsnorm, "half" rope (unscaled,
+  or with the "linear", "llama3" or "yarn" frequency scaling; yarn's
+  attention factor scales the rotated block in f32 before the cast, as in
+  JAX), gated silu or geglu MLP, GQA, tied or untied head, plus the score
+  switches the kernel carries (sliding window with its per-layer
+  alternation, attention softcap, score scale). The gemma family's
+  switches run too: the embedding scale sqrt(d_model) in x's dtype,
+  gemma-2/3's post-norms on the attention and MLP outputs, gemma-3's
+  dual rope (sliding layers rotate with ``local_rope_theta`` unscaled,
+  global layers with ``rope_theta`` and its scaling) and the final logit
+  softcap. Any other switch raises NotImplementedError by name
+  (``check_supported``) instead of computing something else.
 """
 
 from __future__ import annotations
@@ -74,11 +79,10 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"pos_embedding={cfg.pos_embedding!r}")
     if cfg.norm != "rmsnorm":
         missing.append(f"norm={cfg.norm!r}")
-    if cfg.activation != "silu":
+    if cfg.activation not in ("silu", "geglu"):
         missing.append(f"activation={cfg.activation!r}")
     for flag in ("use_bias", "mlp_bias", "lm_head_bias", "qk_norm_full",
-                 "post_norms", "no_pre_norms", "parallel_block",
-                 "embedding_norm", "embedding_scale"):
+                 "no_pre_norms", "parallel_block", "embedding_norm"):
         if getattr(cfg, flag):
             missing.append(flag)
     if cfg.is_moe:
@@ -88,10 +92,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"rope_scaling={cfg.rope_scaling[0]!r}")
     if cfg.rotary_pct < 1.0 or cfg.rope_style != "half":
         missing.append("partial/interleaved rotary")
-    if cfg.local_rope_theta is not None:
-        missing.append("local_rope_theta")
-    if cfg.logits_softcap:
-        missing.append("logits_softcap")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not implement "
@@ -185,13 +185,17 @@ def _qk_rmsnorm(x, scale, eps: float):
     return xf.to(x.dtype) * scale
 
 
-def rope_freqs(cfg: ModelConfig, device=None):
-    """The [rot/2] f32 rotary frequencies of ``cfg``, scaled: computed once
-    per (theta, rotary dims, scaling, device) and kept, so a forward, and
-    a captured root's replay, only reads them. The first forward on a
-    device is eager (a root's capture follows its warm-up), so the kept
-    tensor never lives in a graph's pool: this holds for the llama3 and
-    the yarn tensors alike."""
+def rope_freqs(cfg: ModelConfig, device=None, local: bool = False):
+    """The [rot/2] f32 rotary frequencies of ``cfg``, scaled (``local``:
+    gemma-3's sliding layers' frequencies, ``local_rope_theta`` unscaled):
+    computed once per (theta, rotary dims, scaling, device) and kept, so a
+    forward, and a captured root's replay, only reads them. The first
+    forward on a device is eager (a root's capture follows its warm-up),
+    so the kept tensor never lives in a graph's pool: this holds for the
+    llama3, the yarn and the local tensors alike."""
+    if local:
+        return _rope_freqs(cfg.local_rope_theta, cfg.rotary_dim, None,
+                           torch.device(device or "cpu"))
     return _rope_freqs(cfg.rope_theta, cfg.rotary_dim, cfg.rope_scaling,
                        torch.device(device or "cpu"))
 
@@ -204,15 +208,35 @@ def _rope_freqs(theta: float, rot: int, scaling: tuple | None, device: torch.dev
     return scale_rope_freqs(freqs, scaling, theta=theta, rot=rot)
 
 
-def rope_angles(positions, cfg: ModelConfig):
+def rope_angles(positions, cfg: ModelConfig, local: bool = False):
     """(cos, sin, attention factor) for positions [B, T]: cos and sin [B,
-    T, 1, rot/2] in f32, and yarn's attention factor (a float) or None.
-    Computed once per forward and shared by every layer."""
-    freqs = rope_freqs(cfg, positions.device)
+    T, 1, rot/2] in f32, and yarn's attention factor (a float) or None;
+    ``local``: gemma-3's sliding layers' (``rope_freqs``), never scaled.
+    Computed once per forward and shared by every layer of its kind."""
+    freqs = rope_freqs(cfg, positions.device, local)
     angles = positions[..., None].float() * freqs
-    scaling = cfg.rope_scaling
+    scaling = None if local else cfg.rope_scaling
     factor = scaling[2] if scaling is not None and scaling[0] == "yarn" else None
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :], factor
+
+
+def is_sliding_layer(cfg: ModelConfig, idx: int) -> bool:
+    """Does layer ``idx`` window (core.is_sliding_layer): its index mod
+    ``sliding_window_every`` is one of ``sliding_window_residues``
+    (gemma-2: residue 0 mod 2; gemma-3: residues 0..4 mod 6)."""
+    return idx % cfg.sliding_window_every in cfg.sliding_window_residues
+
+
+def make_layer_rope(cfg: ModelConfig, positions):
+    """Layer index -> its ``rope_angles`` triple (JAX's ``rope_flag``):
+    with ``local_rope_theta`` (gemma-3) the sliding layers rotate with the
+    local frequencies, unscaled, the global layers with ``rope_theta`` and
+    its scaling; every other config shares one triple."""
+    glob = rope_angles(positions, cfg)
+    if cfg.local_rope_theta is None:
+        return lambda idx: glob
+    loc = rope_angles(positions, cfg, local=True)
+    return lambda idx: loc if is_sliding_layer(cfg, idx) else glob
 
 
 def _rope(x, rope):
@@ -230,6 +254,8 @@ def _rope(x, rope):
 
 
 def _activate(up, gate, cfg: ModelConfig):
+    if cfg.activation == "geglu":  # gemma: tanh-approximated gelu of the gate
+        return F.gelu(gate, approximate="tanh") * up
     return F.silu(gate) * up
 
 
@@ -324,17 +350,33 @@ def _attention(q, k, v, mask, cfg: ModelConfig):
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, input_ids):
-    """Token embedding. input_ids [B, T]."""
-    return F.embedding(input_ids, params["tok_embed"])
+    """Token embedding. input_ids [B, T]. gemma scales it by sqrt(d_model)
+    rounded to the embedding's dtype first, as JAX multiplies by
+    ``jnp.asarray(sqrt(d_model), x.dtype)`` (in bf16 sqrt(3584) is 59.75,
+    not 59.866)."""
+    x = F.embedding(input_ids, params["tok_embed"])
+    if cfg.embedding_scale:
+        x = x * _in_dtype(math.sqrt(cfg.d_model), x.dtype)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a python float: a tensor times
+    it rounds once, as a product of two ``dtype`` values does."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     """One pre-norm block. lp: one layer's params; x [B, T, D]; rope the
-    forward's ``rope_angles`` triple; ``attend(q, k, v) -> [B, T, H*hd]`` writes this
-    chunk's K/V into the pool and attends over it (forward builds it);
-    ``lora`` one layer's adapter arguments (``lora_matmul``) or None.
-    The q/k/v biases and the head-wise q/k norms apply where the layer's
-    params carry them (JAX's rule: by key presence)."""
+    layer's ``rope_angles`` triple (``make_layer_rope``); ``attend(q, k, v)
+    -> [B, T, H*hd]`` writes this chunk's K/V into the pool and attends
+    over it (forward builds it); ``lora`` one layer's adapter arguments
+    (``lora_matmul``) or None. The q/k/v biases and the head-wise q/k
+    norms apply where the layer's params carry them (JAX's rule: by key
+    presence); with ``cfg.post_norms`` (gemma-2/3) ``ln1_post`` norms the
+    attention output (after ``wo`` and its LoRA delta) and ``ln2_post``
+    the MLP output before each joins the residual."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = _norm(x, lp["ln1"], cfg)
@@ -348,18 +390,29 @@ def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
         q = _qk_rmsnorm(q, a["q_norm"], cfg.norm_eps)
         k = _qk_rmsnorm(k, a["k_norm"], cfg.norm_eps)
     q, k = _rope(q, rope), _rope(k, rope)
-    x = x + lora_matmul(attend(q, k, v), a["wo"], "wo", lora)
-    return x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, lora)
+    attn_out = lora_matmul(attend(q, k, v), a["wo"], "wo", lora)
+    if cfg.post_norms:
+        attn_out = _norm(attn_out, lp["ln1_post"], cfg)
+    x = x + attn_out
+    mlp_out = _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, lora)
+    if cfg.post_norms:
+        mlp_out = _norm(mlp_out, lp["ln2_post"], cfg)
+    return x + mlp_out
 
 
 def final_logits(params: Params, cfg: ModelConfig, x):
-    """Final norm + LM head, f32 logits."""
+    """Final norm + LM head, f32 logits; gemma-2's softcap ``tanh(logits /
+    c) * c`` in f32, after the cast."""
     x = _norm(x, params["final_norm"], cfg)
     if cfg.tie_embeddings:
         logits = x @ params["tok_embed"].T
     else:
         logits = x @ params["lm_head"]
-    return logits.float()
+    logits = logits.float()
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
 
 
 def _quantized_page_write(pool, scale, blk, slot, wslot, xT):
@@ -445,21 +498,17 @@ def make_layer_mask(cfg: ModelConfig, positions, S: int):
     if not (cfg.sliding_window and cfg.sliding_window_every > 1):
         return lambda idx: mask
     mask_full = attn_mask(cfg, positions, S, window=None)
-    residues = set(cfg.sliding_window_residues)
-    every = cfg.sliding_window_every
-    return lambda idx: mask if idx % every in residues else mask_full
+    return lambda idx: mask if is_sliding_layer(cfg, idx) else mask_full
 
 
 def make_layer_window(cfg: ModelConfig):
     """Layer index -> the sliding window the ragged op gets (0 = full
     causal): every layer for a plain window, the residue pattern for the
-    gemma-2/3 local/global alternation (core.is_sliding_layer's rule)."""
+    gemma-2/3 local/global alternation (``is_sliding_layer``)."""
     w = int(cfg.sliding_window or 0)
     if not (w and cfg.sliding_window_every > 1):
         return lambda idx: w
-    residues = set(cfg.sliding_window_residues)
-    every = cfg.sliding_window_every
-    return lambda idx: w if idx % every in residues else 0
+    return lambda idx: w if is_sliding_layer(cfg, idx) else 0
 
 
 @torch.no_grad()
@@ -534,7 +583,7 @@ def forward(
     slot = positions % BS
     wslot = page - (off.long() // BS)[:, None]  # the chunk's page window
 
-    rope = rope_angles(positions, cfg)
+    rope = make_layer_rope(cfg, positions)
     window = make_layer_window(cfg)
     sm_scale = 1.0 / math.sqrt(cfg.attn_scale or cfg.head_dim)
     softcap = float(cfg.attn_logit_softcap or 0.0)
@@ -557,7 +606,7 @@ def forward(
             vp[:, blk, slot] = vT.to(vp.dtype)
             return attn_fn(q, kp, vp, bt, off, window(i), sm_scale, softcap)
 
-        x = transformer_block(lp, cfg, x, rope, attend, lora_for(i))
+        x = transformer_block(lp, cfg, x, rope(i), attend, lora_for(i))
     if logits_index is not None:
         idx = torch.as_tensor(logits_index, device=device).long().reshape(B)
         x = x[torch.arange(B, device=device), idx][:, None]
@@ -597,7 +646,7 @@ def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):
     positions = off[:, None] + steps
     rows = torch.arange(B, device=device)[:, None]
     write = off.clamp(0, S - T)[:, None] + steps
-    rope = rope_angles(positions, cfg)
+    rope = make_layer_rope(cfg, positions)
     mask = make_layer_mask(cfg, positions, S)
     x = embed_tokens(params, cfg, input_ids)
     for i, lp in enumerate(params["layers"]):
@@ -608,7 +657,7 @@ def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):
             cv[rows, write] = v.to(cv.dtype)
             return _attention(q, ck, cv, mask(i), cfg)
 
-        x = transformer_block(lp, cfg, x, rope, attend)
+        x = transformer_block(lp, cfg, x, rope(i), attend)
     return final_logits(params, cfg, x), cache
 
 

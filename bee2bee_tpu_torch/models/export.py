@@ -25,6 +25,7 @@ import torch
 from ..pieces import dtype_name
 from ..unported import unported
 from .config import ModelConfig
+from .loader import _NORM_NAMES, _POST_NORM_NAMES
 from .params import _host
 
 _DTYPE_NAMES = {
@@ -81,9 +82,10 @@ def write_safetensors(path, tensors: dict, metadata: dict[str, str] | None = Non
 def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tensor]:
     """Inverse of loader._convert_llama: [in, out] back to HF [out, in]
     (the transpose on the tensor's own device) and the gemma (1 + w) fold
-    undone. qwen2's q/k/v biases and qwen3's q/k norms go out under their
-    HF names (the converter's inverse); ``hf_config_dict`` still refuses
-    those families (item 15), so ``export_hf`` writes neither."""
+    undone. qwen2's q/k/v biases, the q/k norms of qwen3 and gemma-3 and
+    gemma-2/3's four block norms go out under their HF names (the
+    converter's inverse); ``hf_config_dict`` still refuses those families
+    (item 15), so ``export_hf`` writes none of them."""
     off = 1.0 if cfg.norm_plus_one else 0.0
     t = lambda a: a.to(dtype).t().contiguous()
     norm = lambda a: (a.float() - off).to(dtype)
@@ -93,14 +95,15 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
     }
     if not cfg.tie_embeddings:
         state["lm_head.weight"] = t(params["lm_head"])
+    names = _POST_NORM_NAMES if cfg.post_norms else _NORM_NAMES
     for i, lp in enumerate(params["layers"]):
         p = f"model.layers.{i}."
-        if set(lp) != {"ln1", "attn", "ln2", "mlp"} or any(
+        if set(lp) != {"attn", "mlp", *(ours for ours, _ in names)} or any(
                 isinstance(w, dict) for w in (*lp["attn"].values(), *lp["mlp"].values())):
             raise unported(f"exporting layer {i} of {cfg.name} with {sorted(lp)} "
                            f"(int8 or a family beside plain llama)", 15)
-        state[p + "input_layernorm.weight"] = norm(lp["ln1"]["scale"])
-        state[p + "post_attention_layernorm.weight"] = norm(lp["ln2"]["scale"])
+        for ours, hf in names:
+            state[p + f"{hf}.weight"] = norm(lp[ours]["scale"])
         for ours, hf in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
             state[p + f"self_attn.{hf}.weight"] = t(lp["attn"][ours])
         for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):

@@ -17,9 +17,10 @@ differs:
   layout (layers as a list of per-layer dicts). Every other family's
   converter raises by name (ROADMAP.md queue A item 11) and never
   computes something else; so do llama-branch tensors the port's core has
-  no slot for (experts, biased norms, gemma-2's post-feedforward norm).
-  qwen2's q/k/v biases and qwen3's q/k norms load by key presence, as in
-  JAX.
+  no slot for (experts, biased norms). qwen2's q/k/v biases and the q/k
+  norms of qwen3 and gemma-3 load by key presence, as in JAX; with
+  ``cfg.post_norms`` (gemma-2/3) the four norms take gemma-2's names, and
+  gemma's (1 + w) norms are folded to w + 1 in f32.
 - **Where the transpose runs.** HF linear weights are ``[out, in]``, the
   port's ``[in, out]``. The converters return transposed *views*;
   ``to_device`` uploads each tensor as it lies (its strides kept, one
@@ -127,17 +128,25 @@ def _convert_phi3(state, cfg: ModelConfig) -> dict:
 
 
 # llama-branch tensors the port's core has no slot for: the JAX converter
-# loads them (experts, biased norms, gemma-2/3's post-feedforward norm)
-_NO_SLOT = ("block_sparse_moe.", "mlp.experts.", "input_layernorm.bias",
-            "post_feedforward_layernorm.")
+# loads them (experts, biased norms)
+_NO_SLOT = ("block_sparse_moe.", "mlp.experts.", "input_layernorm.bias")
+
+# HF norm names -> the port's, in the gemma-2/3 layout (cfg.post_norms):
+# post_attention_layernorm is the attention OUTPUT's norm there, and the
+# pre-MLP norm is pre_feedforward_layernorm
+_POST_NORM_NAMES = (("ln1", "input_layernorm"), ("ln1_post", "post_attention_layernorm"),
+                    ("ln2", "pre_feedforward_layernorm"),
+                    ("ln2_post", "post_feedforward_layernorm"))
+_NORM_NAMES = (("ln1", "input_layernorm"), ("ln2", "post_attention_layernorm"))
 
 
 def _convert_llama(state, cfg: ModelConfig) -> dict:
-    """HF Llama/Mistral/Qwen2/Qwen3 names -> the port's layout. Weights
-    come back as transposed views ([out, in] -> [in, out]); ``to_device``
-    makes them contiguous on the device. q/k/v biases and q/k norms are
-    loaded where the checkpoint has them (JAX ``loader.py`` keys on layer
-    0's, as here)."""
+    """HF Llama/Mistral/Qwen2/Qwen3/Gemma/Gemma2/Gemma3 names -> the port's
+    layout. Weights come back as transposed views ([out, in] -> [in,
+    out]); ``to_device`` makes them contiguous on the device. q/k/v biases
+    and q/k norms are loaded where the checkpoint has them (JAX
+    ``loader.py`` keys on layer 0's, as here); the block norms take the
+    gemma-2 names with ``cfg.post_norms`` (``_POST_NORM_NAMES``)."""
     pre = "model." if any(k.startswith("model.") for k in state) else ""
     for k in state:
         if any(s in k for s in _NO_SLOT):
@@ -148,16 +157,16 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
     raw = lambda k: state[pre + k]
     norm = lambda k: raw(k).float() + norm_off if norm_off else raw(k)
     t = lambda k: raw(k).t()
+    names = _POST_NORM_NAMES if cfg.post_norms else _NORM_NAMES
     layers = [
         {
-            "ln1": {"scale": norm(f"layers.{i}.input_layernorm.weight")},
+            **{ours: {"scale": norm(f"layers.{i}.{hf}.weight")} for ours, hf in names},
             "attn": {
                 "wq": t(f"layers.{i}.self_attn.q_proj.weight"),
                 "wk": t(f"layers.{i}.self_attn.k_proj.weight"),
                 "wv": t(f"layers.{i}.self_attn.v_proj.weight"),
                 "wo": t(f"layers.{i}.self_attn.o_proj.weight"),
             },
-            "ln2": {"scale": norm(f"layers.{i}.post_attention_layernorm.weight")},
             "mlp": {
                 "w_up": t(f"layers.{i}.mlp.up_proj.weight"),
                 "w_down": t(f"layers.{i}.mlp.down_proj.weight"),

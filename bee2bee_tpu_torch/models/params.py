@@ -8,9 +8,10 @@ layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
   tok_embed [V, D]; final_norm {scale [D]}; lm_head [D, V] (untied only)
   layers[i]:
     ln1 {scale [D]}, ln2 {scale [D]}
+      + gemma-2/3 (cfg.post_norms): ln1_post {scale [D]}, ln2_post {scale [D]}
     attn {wq [D, H*hd], wk [D, Hkv*hd], wv [D, Hkv*hd], wo [H*hd, D]}
       + qwen2 (cfg.qkv_bias): bq [H*hd], bk [Hkv*hd], bv [Hkv*hd]
-      + qwen3 (cfg.qk_norm): q_norm [hd], k_norm [hd] (head-wise)
+      + qwen3, gemma-3 (cfg.qk_norm): q_norm [hd], k_norm [hd] (head-wise)
     mlp {w_up [D, F], w_gate [D, F], w_down [F, D]}
 
 Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
@@ -53,7 +54,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     stacked [L, D, F] one. The draws differ from jax.random's by
     construction; parity tests carry the JAX tree across instead
     (params_from_numpy). As in JAX, the q/k/v biases start at zeros and
-    the q/k norm scales at ones."""
+    the q/k norm and post-norm scales at ones."""
     check_supported(cfg)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -82,9 +83,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             a.update(q_norm=ones(hd), k_norm=ones(hd))
         return a
 
-    params = {"tok_embed": normal((V, D), 0.02)}
-    params["layers"] = [
-        {
+    def layer():
+        lp = {
             "ln1": {"scale": ones(D)},
             "attn": attn(),
             "ln2": {"scale": ones(D)},
@@ -94,8 +94,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 "w_gate": normal((D, F_)),
             },
         }
-        for _ in range(cfg.n_layers)
-    ]
+        if cfg.post_norms:
+            lp.update(ln1_post={"scale": ones(D)}, ln2_post={"scale": ones(D)})
+        return lp
+
+    params = {"tok_embed": normal((V, D), 0.02)}
+    params["layers"] = [layer() for _ in range(cfg.n_layers)]
     params["final_norm"] = {"scale": ones(D)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V))

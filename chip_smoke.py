@@ -11,7 +11,10 @@ bf16 and int8 weights; ``--only migrate`` only the build and the migration
 phase over a random init; ``--only checkpoint`` only the build and the
 checkpoint phase; ``--only qwen`` only the build, the GEMM's f32 form,
 the G = 7 ragged cases, the qwen forwards, the served qwen slices, the f32
-int8-weight phase and the qwen checkpoints. Those print no result line.)
+int8-weight phase and the qwen checkpoints; ``--only gemma`` only the
+build, the G = 8 and G = 1 ragged cases and their timings, the gemma
+forwards, the served gemma slices and the gemma checkpoints. Those print
+no result line.)
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -125,7 +128,32 @@ and the script exits non-zero):
    launches a forward of the kernel the rule names for the chunk, the pool
    and G) and bf16 checks over a bf16 and an int8 pool. Phases 2-3 hold
    the kernels at qwen2-7b's heads too (G = 7: decode, T = 4, a verify
-   chunk of T = 5, prefill chunks of 300 and 512 tokens, bf16 and f32).
+   chunk of T = 5, prefill chunks of 300 and 512 tokens, bf16 and f32),
+   and at gemma-2b's (8 query heads over one kv head, G = 8) and gemma-7b's
+   (16 over 16, G = 1) at head_dim 256: decode with a dead row and null
+   tails and cut by gemma-3's 1024-key window, chunks of 4, 16 and 17, the
+   verify chunk of T = 5 (plain and with window, softcap and scale),
+   prefill chunks of 300 (window-cut) and 512, bf16 and f32, each through
+   the kernel the rule names for its G (at G = 8 decode_f32 holds T <= 4,
+   the f32 tile form the verify chunk); timed: the verify shape at G = 8
+   (bf16 and f32) and decode and the verify shape at G = 1.
+   Then the gemma family at full width from its presets (gemma-2b, G = 8;
+   gemma-7b, G = 1; gemma-2-9b: post-norms, both softcaps, a 4096-key
+   window on every second layer; gemma-3-4b: q/k norms, 1024-key windows
+   on 5 layers of 6 and the dual rope), 2 layers each but 6 for gemma-3-4b
+   (2 would run no global layer), random f32 from the seed with every norm
+   scale 1 + N(0, 0.01): a 1,100-token prefill (past gemma-3's window) and
+   8 greedy decode steps, f32 over an f32 and an int8 pool (logits within
+   2e-3, greedy tokens equal, n_layers launches a forward of the kernel the
+   rule names for the chunk, the pool and G; over the int8 pool past 2
+   layers, where int8 rounding flips grow with depth, every attention call
+   of the plain forward is held to the kernel on the same inputs within
+   1e-4 and the logits at the first 2 layers within 2e-3), bf16 over a bf16 and an int8
+   pool (only the head_dim-256 tile and decode forms; the bf16 head rounds
+   each logit, so the kernels' logits are held to the plain bf16 forward's
+   in the relative Frobenius norm within that forward's relative gap to
+   the plain f32 forward, and element by element within its largest gap
+   plus one bf16 ulp of the largest logit; greedy tokens equal).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream. Every decode step is a replay of a captured CUDA
@@ -288,6 +316,15 @@ The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
    the plain version; times at M = 8 (w_up at 1, 40 and 64 too) beside the bound (two TF32 products), the plain version,
    cuBLAS f32 over the dense f32 weight and torch._weight_int8pack_mm with
    f32 activations.
+The gemma slices (after the qwen slices): gemma-2-9b at full width and
+   depth (42 layers, 9.24 B parameters, bf16, norm scales perturbed) over
+   a bf16 pool (its 4096-token window cannot bind at max_seq_len 2048), and
+   gemma-3-4b at full width and depth (34 layers) with its weights
+   quantized to int8 on the card, over an int8 pool (its 1024-token window
+   binds on the longest prompts), each with phase 6's traffic and launch,
+   graph and replay checks (the head_dim-256 forms n_layers x the forwards,
+   the GEMM 4 x n_layers a replay), a decode chunk and a prefill chunk
+   replayed = eager bit for bit and the replayed B=8 step's breakdown.
 The qwen slices (after the int8-weight adapter phase): qwen3-8b at full
    width and depth (36 layers, 8.19 B parameters, bf16, biases and norms
    perturbed as above) over a bf16 pool, and qwen2-7b at full width and
@@ -396,11 +433,18 @@ The checkpoint phase (after phase 9): llama-3.1-8b at the widths of
    x (replayed decode steps + prefill replays of <= 64 tokens). (f) HF-named
    qwen2-7b and qwen3-8b checkpoints (full width, 2 layers, random bf16,
    biases and norms perturbed, their published config.json cut to 2
-   layers): loaded by ``InferenceEngine("auto", ...)`` bit-equal to
+   layers), and the same for gemma-2-9b (model_type gemma2: its four
+   block norms under gemma-2's names, stored less one) and gemma-3-4b
+   (gemma3_text, with its q/k norms), config.json from the presets' values:
+   loaded by ``InferenceEngine("auto", ...)`` bit-equal to
    ``params_from_numpy``'s tree, phase 6's prompts decoded to the same
-   greedy tokens and bit-equal first-token logits.
+   greedy tokens and bit-equal first-token logits, each decode step and
+   prefill chunk through the kernel the rule names.
 10. The kernel table as one JSON line (the head_dim-256 forms' launches
-   from phase 5's gemma-geometry forward; the bf16 decode and tile
+   from phase 5's gemma-geometry and gemma forwards, the gemma slices and
+   the gemma checkpoints, their f32 forms' from the gemma forwards, and
+   rows of their own at G = 8 and G = 1 with gemma-2b's and gemma-7b's
+   forward launches; the bf16 decode and tile
    kernels' from phases 6, 7, 9, the prefix phase over the same pool, the
    model-tier spec phase, the migration phase's bf16 drains and the
    checkpoint phase; the f32 decode kernel's and the f32 tile forms' from
@@ -734,6 +778,31 @@ QWEN2_RAGGED_CASES = [
         ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,))),
         ("prefill T=300", dict(offs=[0, 45], T=300)),
         ("prefill T=512 @1000", dict(offs=[1000], T=512)),
+    )
+]
+# gemma-2b's heads (8 query heads over ONE kv head: G = 8) and gemma-7b's
+# (16 over 16: G = 1), both at head_dim 256, with gemma-3's 1024-key window,
+# a softcap and the score scale: at G = 8 decode_f32 holds 8 T <= 32 rows
+# (T <= 4) and the verify chunk of T = 5 goes to the f32 tile form; at G = 1
+# decode_f32 takes every f32 chunk below T_MIN_F32_HD256 (T = 16 its last)
+GEMMA_2B = dict(H=8, Hkv=1, hd=256)
+GEMMA_7B = dict(H=16, Hkv=16, hd=256)
+GEMMA3_KW = dict(window=1024, logit_softcap=50.0, sm_scale=1.0 / math.sqrt(256))
+GEMMA_G_RAGGED_CASES = [
+    (f"G={G} {name} {str(dt)[6:]}", dict(geo, dtype=dt, **heads), kw)
+    for G, heads in ((8, GEMMA_2B), (1, GEMMA_7B))
+    for dt in (torch.bfloat16, torch.float32)
+    for name, geo, kw in (
+        ("decode + dead row + null tails", dict(offs=[0, 17, 300, 1023, 2047], T=1,
+                                                dead=(2,), extra_tables=5), {}),
+        ("decode window-cut", dict(offs=[5, 1030, 2000, 1500], T=1), GEMMA3_KW),
+        ("chunk T=4", dict(offs=[7, 300, 1023], T=4), {}),
+        ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,)), {}),
+        ("verify T=5 window+softcap+scale", dict(offs=[5, 1030, 2000], T=5), GEMMA3_KW),
+        ("chunk T=16", dict(offs=[3, 1100], T=16), {}),
+        ("chunk T=17 window-cut", dict(offs=[5, 1200], T=17), GEMMA3_KW),
+        ("prefill T=300 window-cut", dict(offs=[900], T=300), GEMMA3_KW),
+        ("prefill T=512 @1000", dict(offs=[1000], T=512), {}),
     )
 ]
 # the cases the row kernel served at head_dim 256 before its head_dim-256
@@ -1077,34 +1146,42 @@ def ragged_cases_vs_plain(gen, cases, int8=False) -> dict:
     return errs
 
 
-def phase_ragged_vs_plain(flush, int8=False):
-    """Phase 2 (the pool in q's type) or phase 3 (int8 pool): each case, in
-    bf16 and f32 and at head_dim 256, through the dispatching wrapper
-    against the plain version, the kernel the rule names launched once;
-    then the timings. Returns (max abs error per kernel, timings)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + int8)
-    errs = ragged_cases_vs_plain(gen, RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES
-                                 + QWEN2_RAGGED_CASES, int8)
+# the timed ragged shapes (label, offsets, T, q's type, heads, forced):
+# llama-3-8b's heads, then gemma-2-9b's (window and score scale, no cap:
+# GEMMA_TIMED_KW), gemma-2b's and gemma-7b's; the forced timings put every
+# kernel that takes the inputs beside the one the rule names
+RAGGED_TIMED = (
+    ("decode", [1023] * 8, 1, torch.bfloat16, {}, True),
+    ("decode_b1", [2047], 1, torch.bfloat16, {}, True),
+    ("decode_f32", [1023] * 8, 1, torch.float32, {}, True),
+    ("decode_f32_b1", [2047], 1, torch.float32, {}, True),
+    ("prefill", [1000], 512, torch.bfloat16, {}, False),
+    ("prefill_f32", [1000], 512, torch.float32, {}, False),
+    # the speculative verify shape: B=8, T=K+1=5 over a 1024 context
+    ("verify", [1023] * 8, 5, torch.bfloat16, {}, False),
+    ("verify_f32", [1023] * 8, 5, torch.float32, {}, False),
+    ("decode_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA, True),
+    ("prefill_hd256", [1000], 512, torch.bfloat16, GEMMA, True),
+    ("decode_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA, True),
+    ("prefill_hd256_f32", [1000], 512, torch.float32, GEMMA, True),
+    # gemma-2b's G = 8 at the verify shape (the tile form in bf16, the
+    # f32 tile form in f32: 40 rows exceed decode_f32's 32) and
+    # gemma-7b's G = 1 at decode and at the verify shape (decode_f32)
+    ("verify_g8", [1023] * 8, 5, torch.bfloat16, GEMMA_2B, True),
+    ("verify_g8_f32", [1023] * 8, 5, torch.float32, GEMMA_2B, True),
+    ("decode_g1", [1023] * 8, 1, torch.bfloat16, GEMMA_7B, False),
+    ("verify_g1_f32", [1023] * 8, 5, torch.float32, GEMMA_7B, False))
+# gemma-2b's and gemma-7b's timed shapes (``--only gemma``)
+GEMMA_G_TIMED = tuple(s for s in RAGGED_TIMED if s[4] in (GEMMA_2B, GEMMA_7B))
+
+
+def time_ragged_shapes(gen, flush, int8: bool, shapes=RAGGED_TIMED) -> dict:
+    """Each of ``shapes`` timed (``time_ragged``), over the pool in q's type
+    or an int8 pool, with the forced kernels beside it where asked; the
+    decode sweep at the llama decode shape. Returns the timings by label."""
     timings = {}
     label0 = "int8 " if int8 else ""
-    # llama-3-8b's heads, then gemma-2-9b's (window and score scale, no cap:
-    # GEMMA_TIMED_KW); the forced timings put every kernel that takes the
-    # inputs beside the one the rule names
-    for label, offs, T, dtype, heads, forced in (
-            ("decode", [1023] * 8, 1, torch.bfloat16, {}, True),
-            ("decode_b1", [2047], 1, torch.bfloat16, {}, True),
-            ("decode_f32", [1023] * 8, 1, torch.float32, {}, True),
-            ("decode_f32_b1", [2047], 1, torch.float32, {}, True),
-            ("prefill", [1000], 512, torch.bfloat16, {}, False),
-            ("prefill_f32", [1000], 512, torch.float32, {}, False),
-            # the speculative verify shape: B=8, T=K+1=5 over a 1024 context
-            ("verify", [1023] * 8, 5, torch.bfloat16, {}, False),
-            ("verify_f32", [1023] * 8, 5, torch.float32, {}, False),
-            ("decode_hd256", [1023] * 8, 1, torch.bfloat16, GEMMA, True),
-            ("prefill_hd256", [1000], 512, torch.bfloat16, GEMMA, True),
-            ("decode_hd256_f32", [1023] * 8, 1, torch.float32, GEMMA, True),
-            ("prefill_hd256_f32", [1000], 512, torch.float32, GEMMA, True)):
+    for label, offs, T, dtype, heads, forced in shapes:
         q, kp, vp, tb, off = make_case(gen, offs=offs, T=T, dtype=dtype, **heads)
         scales = None
         if int8:
@@ -1119,6 +1196,20 @@ def phase_ragged_vs_plain(flush, int8=False):
                                                    off, flush, scales=scales, **kw)
         if label == "decode":
             time_decode_sweep(f"{label0}{label}", q, kp, vp, tb, off, scales=scales)
+    return timings
+
+
+def phase_ragged_vs_plain(flush, int8=False):
+    """Phase 2 (the pool in q's type) or phase 3 (int8 pool): each case, in
+    bf16 and f32 and at head_dim 256, through the dispatching wrapper
+    against the plain version, the kernel the rule names launched once;
+    then the timings. Returns (max abs error per kernel, timings)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + int8)
+    errs = ragged_cases_vs_plain(gen, RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES
+                                 + QWEN2_RAGGED_CASES + GEMMA_G_RAGGED_CASES, int8)
+    timings = time_ragged_shapes(gen, flush, int8)
+    label0 = "int8 " if int8 else ""
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8, heads=GEMMA)
@@ -1669,12 +1760,13 @@ def gemma_attention_config():
                    attn_logit_softcap=50.0)
 
 
-def forward_setup(cfg=None):
+def forward_setup(cfg=None, n_prompt: int = 300):
     """Phase 5's model and inputs: ``cfg`` (default llama-3-8b at full
-    width with 2 layers), f32 weights from SEED, a 300-token prompt and the
-    block table for it and 8 greedy decode steps. Returns (cfg, params,
-    run): run(attn_fn, pool_dtype, weights) -> (prefill logits, stacked
-    step logits, greedy tokens)."""
+    width with 2 layers), f32 weights from SEED, an ``n_prompt``-token
+    prompt and the block table for it and 8 greedy decode steps. Returns
+    (cfg, params, run): run(attn_fn, pool_dtype, weights, layers) ->
+    (prefill logits, stacked step logits, greedy tokens), ``layers`` the
+    depth to cut the model to (default all)."""
     from bee2bee_tpu_torch.models import core
     from bee2bee_tpu_torch.models.config import get_config
     from bee2bee_tpu_torch.models.params import init_params
@@ -1683,22 +1775,25 @@ def forward_setup(cfg=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = init_params(cfg, gen, "cuda", torch.float32)
-    BS, n_prompt, n_steps = 16, 300, 8
+    BS, n_steps = 16, 8
     nblocks = -(-(n_prompt + n_steps) // BS)
     MB = 1 << (nblocks - 1).bit_length()
     tables = torch.zeros((1, MB), dtype=torch.int32, device="cuda")
     tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
     ids = torch.randint(3, 259, (1, n_prompt), generator=gen, device="cuda")
 
-    def run(attn_fn, pool_dtype=torch.float32, weights=params):
-        pool = core.init_paged_pool(cfg, nblocks + 1, BS, pool_dtype, "cuda")
-        logits, _ = core.forward(weights, cfg, ids, pool, 0, tables, attn_fn=attn_fn)
+    def run(attn_fn, pool_dtype=torch.float32, weights=params, layers=None):
+        # ``layers``: the model cut to its first ``layers`` layers
+        c = cfg if layers is None else replace(cfg, n_layers=layers)
+        w = weights if layers is None else dict(weights, layers=weights["layers"][:layers])
+        pool = core.init_paged_pool(c, nblocks + 1, BS, pool_dtype, "cuda")
+        logits, _ = core.forward(w, c, ids, pool, 0, tables, attn_fn=attn_fn)
         steps = [logits[:, -1]]
         toks = []
         for i in range(n_steps):
             tok = torch.argmax(steps[-1], dim=-1)
             toks.append(int(tok))
-            lg, _ = core.forward(weights, cfg, tok[:, None], pool, n_prompt + i,
+            lg, _ = core.forward(w, c, tok[:, None], pool, n_prompt + i,
                                  tables, attn_fn=attn_fn)
             steps.append(lg[:, -1])
         return logits, torch.stack(steps), toks
@@ -1827,7 +1922,7 @@ def phase_forward_parity():
     return f32_launches
 
 
-def phase_gemma_forward() -> dict:
+def phase_gemma_geometry_forward() -> dict:
     """Phase 5, head_dim 256: one bf16 forward (300-token prefill, 8 greedy
     decode steps) at gemma-2-9b's attention geometry, over a bf16 pool and
     an int8 pool. Each must launch only the head_dim-256 forms of the tile
@@ -3027,7 +3122,7 @@ def phase_int8_weights(card: str) -> dict:
 
 # the published config.json of Qwen/Qwen2-7B and Qwen/Qwen3-8B, at the
 # values of the repo's presets (models/config.py: max_position_embeddings
-# is the preset's max_seq_len); ``qwen_config`` cuts the depth
+# is the preset's max_seq_len); ``family_config`` cuts the depth
 QWEN2_CONFIG = {
     "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "hidden_act": "silu",
     "hidden_size": 3584, "intermediate_size": 18944, "num_attention_heads": 28,
@@ -3048,21 +3143,52 @@ QWEN3_CONFIG = {
 }
 # Qwen3-8B's model card: yarn over the original 32,768 positions, factor 4
 QWEN3_YARN = {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32768}
+# google/gemma-2-9b's config.json and google/gemma-3-4b's text config
+# (model_type gemma3_text), at the values of the repo's presets
+# (models/config.py); gemma-3's local/global pattern as
+# ``sliding_window_pattern`` (every 6th layer global), which keeps its
+# period when ``family_config`` cuts the depth
+GEMMA2_CONFIG = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "hidden_act": "gelu_pytorch_tanh", "hidden_activation": "gelu_pytorch_tanh",
+    "hidden_size": 3584, "intermediate_size": 14336, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256, "num_hidden_layers": 42,
+    "vocab_size": 256000, "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "sliding_window": 4096, "attention_bias": False,
+    "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+    "torch_dtype": "float32",
+}
+GEMMA3_CONFIG = {
+    "architectures": ["Gemma3ForCausalLM"], "model_type": "gemma3_text",
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 2304,
+    "intermediate_size": 9216, "num_attention_heads": 8, "num_key_value_heads": 4,
+    "head_dim": 256, "num_hidden_layers": 34, "vocab_size": 262208,
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0, "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+    "query_pre_attn_scalar": 256, "sliding_window": 1024, "sliding_window_pattern": 6,
+    "rms_norm_eps": 1e-6, "attn_logit_softcapping": None, "final_logit_softcapping": None,
+    "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+    "torch_dtype": "bfloat16",
+}
+HF_CONFIGS = {"qwen2-7b": QWEN2_CONFIG, "qwen3-8b": QWEN3_CONFIG,
+              "gemma-2-9b": GEMMA2_CONFIG, "gemma-3-4b": GEMMA3_CONFIG}
 # the JAX init draws the biases as zeros and the norm scales as ones, which
-# would prove nothing about either switch: every qwen check perturbs them
+# would prove nothing about either switch: every qwen and gemma check
+# perturbs them
 QWEN_BIAS_STD = 0.5
 QWEN_NORM_STD = 0.1
 
 
-def qwen_config(which: str, layers: int, yarn: bool = False):
-    """The published config.json of ``which`` ("qwen2-7b", "qwen3-8b") cut to
+def family_config(which: str, layers: int, yarn: bool = False):
+    """The published config.json of ``which`` (a key of HF_CONFIGS) cut to
     ``layers``, parsed as a checkpoint's is (``config_from_hf``); with
-    ``yarn`` the model card's rope scaling. Checked against the repo's
+    ``yarn`` qwen3's model card's rope scaling. Checked against the repo's
     preset at that depth."""
     from bee2bee_tpu_torch.models.config import config_from_hf, get_config
 
-    d = dict(QWEN2_CONFIG if which == "qwen2-7b" else QWEN3_CONFIG,
-             num_hidden_layers=layers, _name_or_path=f"{which}-{layers}layers")
+    d = dict(HF_CONFIGS[which], num_hidden_layers=layers,
+             _name_or_path=f"{which}-{layers}layers")
     if yarn:
         d["rope_scaling"] = QWEN3_YARN
     cfg = config_from_hf(d)
@@ -3092,14 +3218,33 @@ def perturb_qwen(params, seed: int):
     return params
 
 
-def qwen_params(cfg, dtype, seed: int):
+def family_params(cfg, dtype, seed: int):
     """A random init of ``cfg`` from ``seed`` on the card, biases and norms
-    perturbed (``perturb_qwen``)."""
+    perturbed (``perturb_qwen``; gemma: ``perturb_norms``)."""
     from bee2bee_tpu_torch.models.params import init_params
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    return perturb_qwen(init_params(cfg, gen, "cuda", dtype), seed + 100)
+    params = init_params(cfg, gen, "cuda", dtype)
+    if cfg.norm_plus_one:
+        return perturb_norms(params, seed + 100)
+    return perturb_qwen(params, seed + 100)
+
+
+def perturb_norms(params, seed: int):
+    """In place: every norm scale (ln1, ln2, ln1_post, ln2_post, the q/k
+    norms, the final norm) drawn 1 + N(0, QWEN_NORM_STD^2), on its device
+    and in its type: an all-ones norm would hide a swapped or dropped one.
+    Returns params."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    scales = [params["final_norm"]["scale"]]
+    for lp in params["layers"]:
+        scales += [lp[k]["scale"] for k in ("ln1", "ln2", "ln1_post", "ln2_post") if k in lp]
+        scales += [lp["attn"][k] for k in ("q_norm", "k_norm") if k in lp["attn"]]
+    for t in scales:
+        t.copy_(1.0 + torch.randn(t.shape, generator=gen, device="cuda") * QWEN_NORM_STD)
+    return params
 
 
 def phase_qwen_forward() -> dict:
@@ -3126,7 +3271,7 @@ def phase_qwen_forward() -> dict:
             launches[k] = launches.get(k, 0) + v
 
     for which, yarn in (("qwen3-8b", True), ("qwen2-7b", False)):
-        cfg, params, run = forward_setup(qwen_config(which, 2, yarn))
+        cfg, params, run = forward_setup(family_config(which, 2, yarn))
         perturb_qwen(params, SEED + 7)
         G = cfg.n_heads // cfg.n_kv_heads
         label = f"forward 2x {which} width (G = {G}, rope_scaling {cfg.rope_scaling})"
@@ -3200,7 +3345,7 @@ def phase_qwen_served(card: str) -> dict:
     out = {}
     cfg3 = get_config("qwen3-8b")
     t0 = time.perf_counter()
-    params = qwen_params(cfg3, torch.bfloat16, SEED)
+    params = family_params(cfg3, torch.bfloat16, SEED)
     torch.cuda.synchronize()
     n = sum(t.numel() for _, t in tree_leaves(params))
     log(f"qwen3-8b: {cfg3.n_layers} layers, {n} parameters ({storage_bytes(params)} B "
@@ -3212,12 +3357,218 @@ def phase_qwen_served(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cfg2 = get_config("qwen2-7b")
-    params = quantize_params_(qwen_params(cfg2, torch.bfloat16, SEED + 1))
+    params = quantize_params_(family_params(cfg2, torch.bfloat16, SEED + 1))
     torch.cuda.synchronize()
     log(f"qwen2-7b: {cfg2.n_layers} layers, q/k/v biases N(0, {QWEN_BIAS_STD}^2), int8 "
         f"weights ({storage_bytes(params)} B)")
     out["qwen2-7b"] = phase_slice(card, "int8", params=params, quantize="int8",
                                   model=cfg2, light=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ gemma phases
+
+
+# each preset at full width; depth 2, but 6 for gemma-3-4b, whose first
+# five layers of every six are local: 2 layers would run no global layer
+# and no global rope. The prompt runs past gemma-3's 1024-token window.
+GEMMA_FORWARD_DEPTHS = (("gemma-2b", 2), ("gemma-7b", 2), ("gemma-2-9b", 2),
+                        ("gemma-3-4b", 6))
+GEMMA_PROMPT = 1100
+
+
+# an int8 pool amplifies float-rounding differences with depth: a K or V
+# value that lands on a rounding boundary of its page's int8 grid flips one
+# step, and each flip moves every later layer (gemma-3-4b, 6 layers: 0, 70,
+# 769, 2218, 4168 and 5636 of 1,163,264 int8 values of K differ by layer
+# between the kernel and the plain forward, and the plain forward with its
+# attention output scaled by 1 + 1e-7 moves the logits 5.07e-3, more than
+# the kernels' 4.83e-3)
+GEMMA_INT8_DEEP = ("; over an int8 pool past 2 layers held instead per attention call "
+                   "on the plain forward's inputs and end to end at the first 2 layers")
+
+
+def gemma_int8_deep(tag: str, run, layers: int) -> None:
+    """The f32 forward over an int8 pool of a model deeper than 2 layers:
+    every attention call of the plain forward run through the kernel as
+    well, on the same pool and inputs, within F32_TOL (the plain result
+    carries on, so no int8 flip separates the two); then the model's first
+    2 layers, kernel against plain, logits within FORWARD_TOL and greedy
+    tokens equal."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    errs = []
+
+    def shadow(q, kp, vp, *args, **kw):
+        want = ragged_paged_attention_ref(q, kp, vp, *args, **kw)
+        got = ragged_paged_attention(q, kp, vp, *args, **kw)
+        errs.append((got - want).abs().max().item())
+        return want
+
+    run(shadow, torch.int8)
+    torch.cuda.synchronize()
+    log(f"{tag}: each of the {len(errs)} attention calls, kernel against the plain version "
+        f"on the plain forward's pool and inputs: max abs err {max(errs):.3e} (tol {F32_TOL})")
+    check(max(errs) <= F32_TOL, f"{tag}: an attention call differs by {max(errs)}")
+    k_logits, k_steps, k_toks = run(ragged_paged_attention, torch.int8, layers=2)
+    p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, torch.int8, layers=2)
+    torch.cuda.synchronize()
+    err = max((k_logits - p_logits).abs().max().item(), (k_steps - p_steps).abs().max().item())
+    log(f"{tag}, its first 2 of {layers} layers: logits max abs err {err:.3e} (tol "
+        f"{FORWARD_TOL}); greedy kernel {k_toks} plain {p_toks}")
+    check(err <= FORWARD_TOL, f"{tag}, 2 layers: logits differ by {err}")
+    check(k_toks == p_toks, f"{tag}, 2 layers: greedy tokens differ: {k_toks} vs {p_toks}")
+
+
+def phase_gemma_forward() -> dict:
+    """Phase 5 for the gemma family: gemma-2b (one kv head: G = 8),
+    gemma-7b (G = 1), gemma-2-9b (post-norms, both softcaps, a 4096-key
+    window on every second layer) and gemma-3-4b (q/k norms, 1024-key
+    windows on 5 layers of 6, the dual rope) at full width
+    (GEMMA_FORWARD_DEPTHS), random f32 from SEED with every norm scale
+    perturbed: a GEMMA_PROMPT-token prefill and 8 greedy decode steps
+    through the kernels against the plain version, in f32 over an f32 and
+    an int8 pool (logits within FORWARD_TOL, greedy tokens equal, each
+    forward through the kernel the rule names for its chunk, pool and G,
+    n_layers times; over an int8 pool past 2 layers ``gemma_int8_deep``
+    holds the logits instead), then in bf16 over a bf16 and an int8 pool (the
+    head_dim-256 tile form for the prefill and decode form for the steps
+    and no other, n_layers times a forward; prefill logits no further from
+    the plain bf16 forward, in the relative Frobenius norm, than that is
+    from the plain f32 forward, and element by element within that
+    forward's largest gap plus one bf16 ulp of the largest logit; greedy
+    tokens equal the plain bf16 forward's). Returns the launch counts per
+    preset."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.ops.ragged import (
+        ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    n_prompt, n_steps = GEMMA_PROMPT, 8
+    out: dict = {}
+    for which, layers in GEMMA_FORWARD_DEPTHS:
+        cfg = replace(get_config(which), n_layers=layers, name=f"{which}-{layers}layers")
+        cfg, params, run = forward_setup(cfg, n_prompt)
+        perturb_norms(params, SEED + 7)
+        G = cfg.n_heads // cfg.n_kv_heads
+        local = [i for i in range(layers) if cfg.sliding_window
+                 and i % cfg.sliding_window_every in cfg.sliding_window_residues]
+        label = (f"forward {layers}x {which} width (G = {G}, window {cfg.sliding_window} on "
+                 f"layers {local}, local rope theta {cfg.local_rope_theta}, rope_scaling "
+                 f"{cfg.rope_scaling}, logit softcap {cfg.logits_softcap})")
+        launches: dict = {}
+        plain_f32 = {}
+        for pool_dtype in (torch.float32, torch.int8):
+            int8 = pool_dtype == torch.int8
+            sfx = "_int8" if int8 else ""
+            tag = f"{label} f32, {str(pool_dtype)[6:]} pool"
+            want: dict = {}
+            for T, n in ((n_prompt, 1), (1, n_steps)):
+                c = RAGGED_COUNTERS[ragged_kernel(torch.float32, T, cfg.head_dim, int8, G)]
+                want[c + sfx] = want.get(c + sfx, 0) + cfg.n_layers * n
+            reset_counts()
+            k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
+            torch.cuda.synchronize()
+            plain_f32[pool_dtype] = p_logits
+            check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
+                  f"{tag}: non-finite logits")
+            err = max((k_logits - p_logits).abs().max().item(),
+                      (k_steps - p_steps).abs().max().item())
+            log(f"{tag}: prefill {n_prompt} + {n_steps} decode steps, logits max abs err "
+                f"{err:.3e} (tol {FORWARD_TOL}{GEMMA_INT8_DEEP if int8 and layers > 2 else ''}); "
+                f"launches {got} (expected {want}); greedy kernel {k_toks} plain {p_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
+            if int8 and layers > 2:
+                gemma_int8_deep(tag, run, layers)
+            else:
+                check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        bparams = cast_tree(params, torch.bfloat16)
+        for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
+            sfx = "_int8" if pool_dtype == torch.int8 else ""
+            tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
+            reset_counts()
+            b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            want = {"ragged_prefill_hd256" + sfx: cfg.n_layers,
+                    "ragged_decode_hd256" + sfx: cfg.n_layers * n_steps}
+            bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+            f32_logits = plain_f32[f32_pool]
+            # the bf16 head rounds each logit to bf16, so two bf16 forwards'
+            # logits part in whole ulps (0.25 at gemma-7b's 47): the kernels'
+            # distance is held in the norm, and element by element to the
+            # bf16 gap plus one ulp of the largest logit
+            rel = ((b_logits - bp_logits).norm() / bp_logits.norm()).item()
+            rel_tol = ((bp_logits - f32_logits).norm() / f32_logits.norm()).item()
+            err = (b_logits - bp_logits).abs().max().item()
+            gap = (bp_logits - f32_logits).abs().max().item()
+            ulp = 2.0 ** (math.floor(math.log2(bp_logits.abs().max().item())) - 7)
+            log(f"{tag}: prefill {n_prompt} logits relative (Frobenius) err {rel:.3e} (tol "
+                f"{rel_tol:.3e}, the plain bf16 forward's relative gap to the plain f32 "
+                f"forward), max abs err {err:.3e} (tol {gap:.3e} + one bf16 ulp of the "
+                f"largest logit, {ulp}); launches {got}; greedy kernel {b_toks} plain {bp_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(rel <= rel_tol, f"{tag}: logits differ by {rel} > {rel_tol} (relative)")
+            check(err <= gap + ulp, f"{tag}: logits differ by {err} > {gap} + {ulp}")
+            check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        out[which] = launches
+        del params, bparams, run, plain_f32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gemma_served(card: str) -> dict:
+    """gemma-2-9b at full width and depth (42 layers), bf16 over a bf16
+    pool, and gemma-3-4b at full width and depth (34 layers) with its
+    weights quantized to int8 on the card, over an int8 pool (the GEMM at
+    gemma-3's shapes, the int8 pool's head_dim-256 forms), each a random
+    init from SEED with every norm scale perturbed, serving phase 6's
+    traffic with phase 6's checks (every decode step, prefill chunk and
+    first token a graph replay, launch counts exact; the GEMM's 4 x
+    n_layers a replay) and a decode chunk and a prefill chunk replayed =
+    eager bit for bit. Returns the launch counts per model."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.quant import quantize_params_
+
+    out = {}
+    cfg9 = get_config("gemma-2-9b")
+    t0 = time.perf_counter()
+    params = family_params(cfg9, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    log(f"gemma-2-9b: {cfg9.n_layers} layers, {n} parameters ({storage_bytes(params)} B "
+        f"bf16), norm scales 1 + N(0, {QWEN_NORM_STD}^2), random from seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s; its {cfg9.sliding_window}-token window cannot "
+        f"bind at the slice's max_seq_len 2048 (the kernels get it on layers 0, 2, ...)")
+    out["gemma-2-9b"] = phase_slice(card, "bfloat16", params=params, model=cfg9,
+                                    light=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg3 = get_config("gemma-3-4b")
+    params = family_params(cfg3, torch.bfloat16, SEED + 1)
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    params = quantize_params_(params)
+    torch.cuda.synchronize()
+    log(f"gemma-3-4b: {cfg3.n_layers} layers, {n} parameters, int8 weights quantized on "
+        f"the card ({storage_bytes(params)} B); its {cfg3.sliding_window}-token window "
+        f"binds on the prompts of 1,200 and 1,500 tokens (5 layers of every 6)")
+    out["gemma-3-4b"] = phase_slice(card, "int8", params=params, quantize="int8",
+                                    model=cfg3, light=True)[0]
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5469,6 +5820,8 @@ def checkpoint_burst(engine, tag: str, prompts):
     in one admission burst: (token ids, first-token logits by prompt,
     launch counts). The decode + tile launches are n_layers x the engine's
     forward calls, both > 0."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_kernel
+
     first = served_first_logits(engine)
     reset_counts()
     engine.forward_calls = 0
@@ -5476,10 +5829,15 @@ def checkpoint_burst(engine, tag: str, prompts):
     torch.cuda.synchronize()
     counts = read_counts()
     del engine.scheduler._first_token
-    L = engine.model_cfg.n_layers
+    cfg = engine.model_cfg
+    L = cfg.n_layers
+    # the kernels the rule names for a decode step and a prefill chunk (every
+    # prefill bucket is 64 tokens or more) of this model over a bf16 pool
+    dec, tile = (RAGGED_COUNTERS[ragged_kernel(engine.dtype, T, cfg.head_dim, False,
+                                               cfg.n_heads // cfg.n_kv_heads)]
+                 for T in (1, 64))
     used = {k: v for k, v in counts.items() if v}
-    check(set(used) == {"ragged_decode", "ragged_prefill"}
-          and counts["ragged_decode"] + counts["ragged_prefill"] == L * engine.forward_calls,
+    check(set(used) == {dec, tile} and counts[dec] + counts[tile] == L * engine.forward_calls,
           f"{tag}: launches {used} against {engine.forward_calls} forwards x {L} layers")
     log(f"{tag}: 8 greedy requests x {CKPT_NEW} tokens in {wall:.2f} s; launches {used} = "
         f"{L} layers x {engine.forward_calls} forwards")
@@ -5754,40 +6112,44 @@ def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
         m.close()
 
 
-def checkpoint_qwen(card: str, which: str, workdir: Path) -> dict:
-    """An HF-named checkpoint of ``which`` ("qwen2-7b", "qwen3-8b") at full
+# each family's tensors beyond llama's in a 2-layer checkpoint, by the end
+# of their HF names: qwen2's q/k/v biases, the q/k norms of qwen3 and
+# gemma-3, gemma-2/3's pre- and post-feedforward norms
+CKPT_EXTRAS = {"qwen2-7b": 6, "qwen3-8b": 4, "gemma-2-9b": 4, "gemma-3-4b": 8}
+
+
+def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
+    """An HF-named checkpoint of ``which`` (a key of CKPT_EXTRAS) at full
     width and 2 layers, random bf16 from SEED with the biases and norms
-    perturbed, written as one safetensors file (the converter's inverse,
-    q/k/v biases and q/k norms under their HF names) beside the published
-    config.json cut to 2 layers: ``InferenceEngine("auto", ...)`` loads it
-    bit-equal to ``params_from_numpy``'s tree and decodes phase 6's prompts
-    to the same greedy tokens and first-token logits. Returns the launch
-    counts."""
+    perturbed, written as one safetensors file (the converter's inverse:
+    q/k/v biases, q/k norms and gemma's four block norms under their HF
+    names, gemma's norms less one) beside the published config.json cut to
+    2 layers: ``InferenceEngine("auto", ...)`` loads it bit-equal to
+    ``params_from_numpy``'s tree and decodes phase 6's prompts to the same
+    greedy tokens and first-token logits. Returns the launch counts."""
     from bee2bee_tpu_torch.models.export import _export_llama_state, write_safetensors
     from bee2bee_tpu_torch.models.params import params_from_numpy, params_to_numpy
 
     tag = f"checkpoint[{which}]"
-    cfg = qwen_config(which, 2)
+    cfg = family_config(which, 2)
     t0 = time.perf_counter()
-    tree = params_to_numpy(qwen_params(cfg, torch.bfloat16, SEED + 2))
+    tree = params_to_numpy(family_params(cfg, torch.bfloat16, SEED + 2))
     ref_params = params_from_numpy(tree, cfg, "cuda", torch.bfloat16)
     del tree
     ckpt = workdir / which
     ckpt.mkdir()
     state = _export_llama_state(ref_params, cfg, torch.bfloat16)
-    extra = sorted(k for k in state if k.endswith(("_proj.bias", "_norm.weight"))
-                   and ".self_attn." in k)
+    extra = sorted(k for k in state if k.endswith("feedforward_layernorm.weight") or (
+        ".self_attn." in k and k.endswith(("_proj.bias", "_norm.weight"))))
     write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
     del state
-    src = QWEN2_CONFIG if which == "qwen2-7b" else QWEN3_CONFIG
     (ckpt / "config.json").write_text(json.dumps(
-        dict(src, num_hidden_layers=2, _name_or_path=cfg.name), indent=2))
+        dict(HF_CONFIGS[which], num_hidden_layers=2, _name_or_path=cfg.name), indent=2))
     nbytes = (ckpt / "model.safetensors").stat().st_size
-    log(f"{tag}: {cfg.name} random bf16 from seed {SEED + 2}, written in "
-        f"{time.perf_counter() - t0:.2f} s, {nbytes} B; its q/k/v biases and q/k norms "
-        f"{extra[:3]}... ({len(extra)} tensors)")
-    check(len(extra) == (6 if which == "qwen2-7b" else 4),
-          f"{tag}: the checkpoint's attention extras {extra}")
+    log(f"{tag}: {cfg.name} ({HF_CONFIGS[which]['model_type']}) random bf16 from seed "
+        f"{SEED + 2}, written in {time.perf_counter() - t0:.2f} s, {nbytes} B; its family's "
+        f"tensors {extra[:4]}... ({len(extra)} tensors)")
+    check(len(extra) == CKPT_EXTRAS[which], f"{tag}: the checkpoint's family tensors {extra}")
     engine = ref = None
     try:
         t0 = time.perf_counter()
@@ -5823,9 +6185,9 @@ def phase_checkpoint(card: str) -> dict:
     """llama-3.1-8b (2 layers, published widths, random bf16 from SEED)
     written as an HF checkpoint and served from it: (a) load, (b) rope and
     f32 logits, (c) native round trip, (d) mesh publish and join, (e) int8
-    from the checkpoint; then (f) HF-named qwen2-7b and qwen3-8b
-    checkpoints (``checkpoint_qwen``). Returns the launch counts of the
-    phase, summed."""
+    from the checkpoint; then (f) HF-named qwen2-7b, qwen3-8b, gemma-2-9b
+    and gemma-3-4b checkpoints (``checkpoint_family``). Returns the launch
+    counts of the phase, summed."""
     import shutil
     import tempfile
 
@@ -5905,8 +6267,8 @@ def phase_checkpoint(card: str) -> dict:
         add(checkpoint_int8(engine, ckpt, prompts, card))
         engine.close()
         engine = None
-        for which in ("qwen2-7b", "qwen3-8b"):
-            add(checkpoint_qwen(card, which, workdir))
+        for which in CKPT_EXTRAS:
+            add(checkpoint_family(card, which, workdir))
     finally:
         for eng in (engine, ref):
             if eng is not None:
@@ -5922,7 +6284,10 @@ def phase_checkpoint(card: str) -> dict:
 def run_only(card: str, which: str) -> int:
     """``--only quant``: the int8-weight GEMM phase and the int8-weight
     slices; ``--only adapters``: the adapter phase over bf16 and int8
-    weights. For iterating on this slice's phases; prints no result line."""
+    weights; ``--only migrate``, ``checkpoint``, ``qwen`` and ``gemma``: those
+    phases (``gemma``: the G = 8 and G = 1 ragged cases and timings, the
+    gemma forwards, the served gemma slices and the gemma checkpoints). For
+    iterating on a slice's phases; prints no result line."""
     if which == "quant":
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         phase_int8_gemm(flush)
@@ -5952,7 +6317,28 @@ def run_only(card: str, which: str) -> int:
         workdir.mkdir(parents=True)
         try:
             for which_model in ("qwen2-7b", "qwen3-8b"):
-                checkpoint_qwen(card, which_model, workdir)
+                checkpoint_family(card, which_model, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    elif which == "gemma":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        for int8 in (False, True):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + int8)
+            ragged_cases_vs_plain(gen, GEMMA_G_RAGGED_CASES, int8)
+            time_ragged_shapes(gen, flush, int8, GEMMA_G_TIMED)
+        del flush
+        torch.cuda.empty_cache()
+        phase_gemma_forward()
+        phase_gemma_served(card)
+        workdir = Path(__file__).resolve().parent / "build" / "ckpt_gemma"
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        try:
+            for which_model in ("gemma-2-9b", "gemma-3-4b"):
+                checkpoint_family(card, which_model, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     elif which == "migrate":
@@ -5965,8 +6351,8 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint or qwen, not "
-                         f"{which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen or gemma, "
+                         f"not {which!r}")
     log(f"card: {card}")
     return 0
 
@@ -6008,9 +6394,11 @@ def main() -> int:
     del flush
     stage("forward parity")
     fwd_counts = phase_forward_parity()
-    gemma_counts = phase_gemma_forward()
+    geometry_counts = phase_gemma_geometry_forward()
     stage("qwen forward parity")
     qwen_fwd = phase_qwen_forward()
+    stage("gemma forward parity")
+    gemma_fwd = phase_gemma_forward()
     stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
@@ -6073,6 +6461,10 @@ def main() -> int:
     # served; then int8 weights beside f32 activations
     stage("qwen served")
     qwen = phase_qwen_served(card)
+    # gemma-2-9b (bf16, full depth) and gemma-3-4b (int8 weights and pool)
+    # served: the head_dim-256 forms on a served path
+    stage("gemma served")
+    gemma = phase_gemma_served(card)
     stage("f32 int8 weights")
     f32w = phase_f32_int8_weights(card)
     stage("node")
@@ -6102,12 +6494,24 @@ def main() -> int:
         dest = (f32_counts["float32"] if "_f32" in name
                 else int8_counts if name.endswith("_int8") else counts)
         dest[name] += n
-    # the qwen phases' and the f32 int8-weight phase's launches, added to the
-    # row of each kernel form they counted
+    # the qwen phases', the f32 int8-weight phase's, the gemma slices' and the
+    # gemma-geometry forward's launches, added to the row of each kernel form
+    # they counted
     more: dict = {}
-    for c in (qwen_fwd, *qwen.values(), f32w):
+    for c in (qwen_fwd, *qwen.values(), f32w, *gemma.values(), *geometry_counts.values()):
         for name, n in c.items():
             more[name] = more.get(name, 0) + n
+    # the gemma forwards' launches: the bf16 head_dim-256 forms join the main
+    # path's, the f32 ones (head_dim 256, counted with the head_dim-128
+    # forms' counters) go to the head_dim-256 f32 rows
+    gemma_f32: dict = {}
+    for c in gemma_fwd.values():
+        for name, n in c.items():
+            dest = gemma_f32 if "_f32" in name else more
+            dest[name] = dest.get(name, 0) + n
+
+    def hd256(name):  # a head_dim-256 form's launches on the main path
+        return more.get(name, 0) + ckpt_counts.get(name, 0)
 
     def row(name, source, replaces, n, err, t):
         return {
@@ -6133,7 +6537,6 @@ def main() -> int:
     decode_f32_src = "bee2bee_tpu_torch/csrc/ragged_decode_attention_f32.cu"
     f32_int8, f32_f32 = f32_counts["int8"], f32_counts["float32"]
     flash_src = "bee2bee_tpu_torch/csrc/flash_attention.cu"
-    bf16_g, int8_g = gemma_counts["bfloat16"], gemma_counts["int8"]
     kernels = [
         row("ragged_decode_attention", decode_src, "bee2bee_tpu/ops/ragged.py:84",
             counts["ragged_decode"] + node_counts["ragged_decode"]
@@ -6155,21 +6558,41 @@ def main() -> int:
         row("flash_attention", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash"] + int8_counts["flash"], flash_errs["row"],
             flash_timings["row_hd256"]),
-        # the head_dim-256 forms at gemma-2-9b's heads: launches from the
-        # gemma-geometry forward (phase 5), times at decode B=8 ctx 1024,
-        # prefill T=512 @1000 and flash causal T=S=2048
+        # the head_dim-256 forms: launches from the gemma forwards, the
+        # served gemma slices (gemma-2-9b over a bf16 pool, gemma-3-4b over
+        # an int8 pool) and the gemma checkpoints; times at gemma-2-9b's
+        # heads, decode B=8 ctx 1024, prefill T=512 @1000 and flash causal
+        # T=S=2048
         row("ragged_prefill_attention_hd256", prefill_src,
-            "bee2bee_tpu/ops/ragged.py:84", bf16_g["ragged_prefill_hd256"],
+            "bee2bee_tpu/ops/ragged.py:84", hd256("ragged_prefill_hd256"),
             errs["tile_hd256"], timings["prefill_hd256"]),
         row("ragged_prefill_attention_hd256_int8", prefill_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_g["ragged_prefill_hd256_int8"],
+            "bee2bee_tpu/ops/ragged.py:107", hd256("ragged_prefill_hd256_int8"),
             int8_errs["tile_hd256"], int8_timings["prefill_hd256"]),
         row("ragged_decode_attention_hd256", decode_src, "bee2bee_tpu/ops/ragged.py:84",
-            bf16_g["ragged_decode_hd256"], errs["decode_hd256"],
+            hd256("ragged_decode_hd256"), errs["decode_hd256"],
             timings["decode_hd256"]),
         row("ragged_decode_attention_hd256_int8", decode_src,
-            "bee2bee_tpu/ops/ragged.py:107", int8_g["ragged_decode_hd256_int8"],
+            "bee2bee_tpu/ops/ragged.py:107", hd256("ragged_decode_hd256_int8"),
             int8_errs["decode_hd256"], int8_timings["decode_hd256"]),
+        # the same forms at gemma-2b's G = 8 (the verify shape, B=8 T=5 ctx
+        # 1028) and gemma-7b's G = 1 (decode B=8 ctx 1024): launches those
+        # of that preset's forward (phase 5)
+        row("ragged_prefill_attention_hd256_g8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:84",
+            gemma_fwd["gemma-2b"].get("ragged_prefill_hd256", 0), errs["tile_hd256"],
+            timings["verify_g8"]),
+        row("ragged_prefill_attention_hd256_g8_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107",
+            gemma_fwd["gemma-2b"].get("ragged_prefill_hd256_int8", 0),
+            int8_errs["tile_hd256"], int8_timings["verify_g8"]),
+        row("ragged_decode_attention_hd256_g1", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            gemma_fwd["gemma-7b"].get("ragged_decode_hd256", 0), errs["decode_hd256"],
+            timings["decode_g1"]),
+        row("ragged_decode_attention_hd256_g1_int8", decode_src,
+            "bee2bee_tpu/ops/ragged.py:107",
+            gemma_fwd["gemma-7b"].get("ragged_decode_hd256_int8", 0),
+            int8_errs["decode_hd256"], int8_timings["decode_g1"]),
         row("flash_attention_tile_hd256", flash_src, "bee2bee_tpu/ops/flash.py:46",
             counts["flash_tile_hd256"] + int8_counts["flash_tile_hd256"],
             flash_errs["tile_hd256"], flash_timings["tile_hd256"]),
@@ -6211,12 +6634,39 @@ def main() -> int:
             f32_int8["ragged_decode_f32_int8"] + fwd_counts.get("ragged_decode_f32_int8", 0)
             + more.get("ragged_decode_f32_int8", 0),
             int8_errs["decode_f32"], int8_timings["decode_f32"]),
+        # the f32 forms at head_dim 256: launches from the gemma forwards'
+        # f32 runs (phase 5); times at gemma-2-9b's heads (decode B=8 ctx
+        # 1024, prefill T=512 @1000), at gemma-2b's G = 8 the verify shape
+        # through the f32 tile form (40 rows) and at gemma-7b's G = 1 the
+        # verify shape through decode_f32
         row("ragged_decode_attention_f32_hd256", decode_f32_src,
-            "bee2bee_tpu/ops/ragged.py:84", 0, errs["decode_f32"],
-            timings["decode_hd256_f32"]),
+            "bee2bee_tpu/ops/ragged.py:84", gemma_f32.get("ragged_decode_f32", 0),
+            errs["decode_f32"], timings["decode_hd256_f32"]),
         row("ragged_decode_attention_f32_hd256_int8", decode_f32_src,
-            "bee2bee_tpu/ops/ragged.py:107", 0, int8_errs["decode_f32"],
-            int8_timings["decode_hd256_f32"]),
+            "bee2bee_tpu/ops/ragged.py:107", gemma_f32.get("ragged_decode_f32_int8", 0),
+            int8_errs["decode_f32"], int8_timings["decode_hd256_f32"]),
+        row("ragged_prefill_attention_f32_hd256", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:84", gemma_f32.get("ragged_prefill_f32", 0),
+            errs["tile_f32"], timings["prefill_hd256_f32"]),
+        row("ragged_prefill_attention_f32_hd256_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", gemma_f32.get("ragged_prefill_f32_int8", 0),
+            int8_errs["tile_f32"], int8_timings["prefill_hd256_f32"]),
+        row("ragged_prefill_attention_f32_hd256_g8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:84",
+            gemma_fwd["gemma-2b"].get("ragged_prefill_f32", 0), errs["tile_f32"],
+            timings["verify_g8_f32"]),
+        row("ragged_prefill_attention_f32_hd256_g8_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107",
+            gemma_fwd["gemma-2b"].get("ragged_prefill_f32_int8", 0), int8_errs["tile_f32"],
+            int8_timings["verify_g8_f32"]),
+        row("ragged_decode_attention_f32_hd256_g1", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:84",
+            gemma_fwd["gemma-7b"].get("ragged_decode_f32", 0), errs["decode_f32"],
+            timings["verify_g1_f32"]),
+        row("ragged_decode_attention_f32_hd256_g1_int8", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:107",
+            gemma_fwd["gemma-7b"].get("ragged_decode_f32_int8", 0), int8_errs["decode_f32"],
+            int8_timings["verify_g1_f32"]),
     ]
     # the int8-weight GEMM: launches from the int8-weight slices (both
     # pools) and the int8-weight adapter phase's mixed burst; times at w_up
@@ -6236,6 +6686,11 @@ def main() -> int:
         "XLA-fused int8 product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); "
         "their library_ms is torch._weight_int8pack_mm at the same inputs (null where "
         "the card's torch has no CUDA kernel for it)")
+    log(f"kernels: gemma launches: forward parity "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in gemma_fwd.items()} } (bf16 "
+        f"forms added to the head_dim-256 rows, f32 ones to the f32 head_dim-256 rows, each "
+        f"G row its preset's), served "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in gemma.items()} }")
     log(f"kernels: qwen launches (added to the rows above): forward parity "
         f"{ {k: v for k, v in qwen_fwd.items() if v} }, served "
         f"{ {m: {k: v for k, v in c.items() if v} for m, c in qwen.items()} }; f32 int8 "
@@ -6250,9 +6705,9 @@ def main() -> int:
         "gemma-2-9b's heads). The f32 decode kernel and the f32 tile forms "
         "serve the f32 slice (phase 8: decode and prefill at head_dim 128, over "
         "an int8 and an f32 pool) and phase 5's f32 forwards; the head_dim-256 "
-        "forms' launches are those of phase 5's gemma-geometry forward (bf16), "
-        "and their f32 forms have none on a served path. All are held against "
-        "the plain version and timed above")
+        "forms serve gemma-2-9b (bf16 pool) and gemma-3-4b (int8 pool), and "
+        "their f32 forms run in the gemma forwards (phase 5), on no served "
+        "path. All are held against the plain version and timed above")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

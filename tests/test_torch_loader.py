@@ -7,8 +7,8 @@ service from a checkpoint.
 - ``config_from_hf`` equals JAX's field for field on the config.json
   dicts JAX's ``hf_config_dict`` writes for every family it exports, and on
   phi-3 and yarn dicts; a family the port's core cannot run still parses
-  and ``check_supported`` refuses it by item 11; qwen2, qwen3 and yarn
-  pass it.
+  and ``check_supported`` refuses it by item 11; qwen2, qwen3, yarn and
+  the gemma family (gemma, gemma2, gemma3_text) pass it.
 - The linear and llama3 rope scalings equal JAX's within 1e-7, and a tiny
   llama-3.1 forward's f32 logits JAX's within 1e-4.
 - Checkpoints written by JAX ``export_hf`` and by the port's (f32 and
@@ -109,6 +109,14 @@ EXTRA_DICTS = {
                    "intermediate_size": 128, "max_position_embeddings": 4096,
                    "rope_scaling": {"rope_type": "yarn", "factor": 4.0,
                                     "original_max_position_embeddings": 1024}},
+    "gemma3-text": {"model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 2304,
+                    "num_hidden_layers": 34, "num_attention_heads": 8,
+                    "num_key_value_heads": 4, "head_dim": 256, "intermediate_size": 9216,
+                    "max_position_embeddings": 131072, "query_pre_attn_scalar": 256,
+                    "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+                    "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+                    "sliding_window": 1024, "sliding_window_pattern": 6,
+                    "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh"},
     "llama3-dict": {"model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
                     "num_hidden_layers": 2, "num_attention_heads": 32,
                     "num_key_value_heads": 8, "intermediate_size": 14336,
@@ -139,7 +147,7 @@ def test_config_from_hf_matches_jax(key):
             config.get_config("llama-3.1-8b"), n_layers=2, name=got["name"]))
 
 
-@pytest.mark.parametrize("key", ["gpt2", "gemma-2-9b", "mixtral-8x7b", "falcon-7b",
+@pytest.mark.parametrize("key", ["gpt2", "olmo2-7b", "mixtral-8x7b", "falcon-7b",
                                  "phi-2", "bloom-7b1"])
 def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
     cfg = config.config_from_hf(_hf_dict(key))
@@ -147,16 +155,25 @@ def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
         core.check_supported(cfg)
 
 
-@pytest.mark.parametrize("key", ["qwen2-7b", "qwen3-8b", "llama-yarn"])
+@pytest.mark.parametrize("key", ["qwen2-7b", "qwen3-8b", "llama-yarn", "gemma-7b",
+                                 "gemma-2-9b", "gemma3-text"])
 def test_family_the_core_runs_parses_then_passes_the_core(key):
-    """qwen2 (q/k/v biases), qwen3 (head-wise q/k norms) and yarn rope
-    scaling: parsed as JAX parses them, and the core runs them."""
+    """qwen2 (q/k/v biases), qwen3 (head-wise q/k norms), yarn rope
+    scaling and the gemma family (gemma, gemma2, gemma3_text): parsed as
+    JAX parses them, and the core runs them."""
     cfg = config.config_from_hf(_hf_dict(key))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfig.config_from_hf(_hf_dict(key)))
     core.check_supported(cfg)
-    assert (cfg.qkv_bias, cfg.qk_norm) == {"qwen2-7b": (True, False),
-                                           "qwen3-8b": (False, True)}.get(key, (False, False))
+    assert (cfg.qkv_bias, cfg.qk_norm) == {"qwen2-7b": (True, False), "qwen3-8b": (False, True),
+                                           "gemma3-text": (False, True)}.get(key, (False, False))
     if key == "llama-yarn":
         assert cfg.rope_scaling[0] == "yarn"
+    if key.startswith("gemma"):
+        assert cfg.activation == "geglu" and cfg.embedding_scale and cfg.norm_plus_one
+        assert cfg.post_norms == (key != "gemma-7b")
+    if key == "gemma3-text":
+        assert cfg.local_rope_theta == 10000.0 and cfg.rope_scaling == ("linear", 8.0)
+        assert (cfg.sliding_window_every, cfg.sliding_window_residues) == (6, (0, 1, 2, 3, 4))
 
 
 def test_llama31_and_phi3_pass_the_core():

@@ -19,7 +19,8 @@ package's (bee2bee_tpu/models).
   the JAX ``forward`` with the ragged kernel in interpret mode.
 - A config switch the port does not implement raises by name (qwen2's
   q/k/v biases, qwen3's head-wise q/k norms and yarn run:
-  tests/test_torch_qwen.py).
+  tests/test_torch_qwen.py; the gemma family's switches run:
+  tests/test_torch_gemma.py).
 - The same prefill-then-decode parity at head_dim 256 (the gemma family's,
   which the kernels' head_dim-256 forms serve), with a score softcap and a
   sliding window on every second layer, on a tiny llama-architecture
@@ -71,15 +72,16 @@ def test_matmul_params_per_token_matches_jax(name):
 
 @pytest.mark.parametrize("name,switch", [
     ("tiny-gpt2", "pos_embedding"),
-    ("tiny-gemma2", "post_norms"),
+    ("tiny-bigcode", "use_bias"),
     ("tiny-mixtral", "MoE"),
-    ("tiny-gemma", "activation"),
+    ("tiny-olmo2", "no_pre_norms"),
     ("tiny-phi", "parallel_block"),
-    ("tiny-gemma3", "local_rope_theta"),
+    ("tiny-olmo2", "qk_norm_full"),
 ])
 def test_unported_switch_raises_by_name(name, switch):
-    # qwen3's qk_norm and the yarn rope scaling run (queue A items 11.3 and
-    # 11.1); gemma-2's post-norms and gemma-3's local rope theta do not yet
+    # qwen3's qk_norm, the yarn rope scaling and the gemma family's switches
+    # run (queue A items 11.3, 11.1 and 11.5); gpt2/bigcode's biases and
+    # olmo2's post-norm-only blocks do not yet
     with pytest.raises(NotImplementedError, match=switch):
         core.check_supported(config.get_config(name))
 
