@@ -52,8 +52,19 @@ What differs from the JAX package:
   gemma-2/3's post-norms on the attention and MLP outputs, gemma-3's
   dual rope (sliding layers rotate with ``local_rope_theta`` unscaled,
   global layers with ``rope_theta`` and its scaling) and the final logit
-  softcap. Any other switch raises NotImplementedError by name
-  (``check_supported``) instead of computing something else.
+  softcap. So does the gpt2 block (gpt2, gpt-bigcode): learned positions
+  (no rope), layernorm with or without its bias, the non-gated tanh or erf
+  gelu MLP, and biases on q/k/v/o and on the MLP (``b_up``, ``b_down``),
+  each by key presence. Any other switch raises NotImplementedError by
+  name (``check_supported``) instead of computing something else.
+- Learned positions are clamped into the table, [0, P - 1], before the
+  lookup (``embed_tokens``): JAX's ``jnp.take`` returns NaN rows past the
+  table and wraps -1 to the last row, where ``F.embedding`` fails on the
+  CPU and asserts on the card, which kills the process's CUDA context. The
+  served path feeds such positions only where no token is emitted (a dead
+  row at offset -1, a decode window past a row's budget; the capacity
+  re-anchor keeps every prefill window inside max_seq_len), so the emitted
+  tokens are JAX's.
 """
 
 from __future__ import annotations
@@ -75,13 +86,13 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming every config switch this port
     does not implement yet."""
     missing = []
-    if cfg.pos_embedding != "rope":
+    if cfg.pos_embedding not in ("rope", "learned"):
         missing.append(f"pos_embedding={cfg.pos_embedding!r}")
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         missing.append(f"norm={cfg.norm!r}")
-    if cfg.activation not in ("silu", "geglu"):
+    if cfg.activation not in ("silu", "geglu", "gelu", "gelu_exact"):
         missing.append(f"activation={cfg.activation!r}")
-    for flag in ("use_bias", "mlp_bias", "lm_head_bias", "qk_norm_full",
+    for flag in ("mlp_bias", "lm_head_bias", "qk_norm_full",
                  "no_pre_norms", "parallel_block", "embedding_norm"):
         if getattr(cfg, flag):
             missing.append(flag)
@@ -101,8 +112,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def matmul_params_per_token(cfg: ModelConfig) -> int:
     """Matmul weight elements each token position streams through one
-    forward (the ``2·N`` FLOPs model): q/k/v/o projections, the gated MLP
-    (3 matrices), the lm head; for MoE the router plus the active
+    forward (the ``2·N`` FLOPs model): q/k/v/o projections, the MLP (3
+    matrices gated, 2 not), the lm head; for MoE the router plus the active
     experts. Embedding lookup, norms and rope are left out."""
     D, F_, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -120,11 +131,18 @@ def matmul_params_per_token(cfg: ModelConfig) -> int:
 
 
 def _norm(x, p, cfg: ModelConfig):
-    """RMSNorm in f32, cast back to x's dtype, THEN scaled (the JAX order:
+    """RMSNorm or LayerNorm in f32, cast back to x's dtype, THEN scaled,
+    then the bias added where ``p`` carries one (the JAX order:
     core._norm)."""
     xf = x.float()
-    xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    return xf.to(x.dtype) * p["scale"]
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    else:
+        xf = F.layer_norm(xf, xf.shape[-1:], eps=cfg.norm_eps)
+    out = xf.to(x.dtype) * p["scale"]
+    if "bias" in p:
+        out = out + p["bias"]
+    return out
 
 
 def scale_rope_freqs(freqs, scaling: tuple | None, theta: float | None = None,
@@ -231,7 +249,10 @@ def make_layer_rope(cfg: ModelConfig, positions):
     """Layer index -> its ``rope_angles`` triple (JAX's ``rope_flag``):
     with ``local_rope_theta`` (gemma-3) the sliding layers rotate with the
     local frequencies, unscaled, the global layers with ``rope_theta`` and
-    its scaling; every other config shares one triple."""
+    its scaling; every other rope config shares one triple. Without rope
+    (learned positions) every layer gets None."""
+    if cfg.pos_embedding != "rope":
+        return lambda idx: None
     glob = rope_angles(positions, cfg)
     if cfg.local_rope_theta is None:
         return lambda idx: glob
@@ -256,7 +277,11 @@ def _rope(x, rope):
 def _activate(up, gate, cfg: ModelConfig):
     if cfg.activation == "geglu":  # gemma: tanh-approximated gelu of the gate
         return F.gelu(gate, approximate="tanh") * up
-    return F.silu(gate) * up
+    if cfg.activation == "silu":
+        return F.silu(gate) * up
+    if cfg.activation == "gelu_exact":  # the erf form, non-gated
+        return F.gelu(up)
+    return F.gelu(up, approximate="tanh")  # gpt2, bigcode: non-gated
 
 
 def matmul(x, w):
@@ -321,10 +346,19 @@ def _with_lora(out, x, name, lora):
 
 
 def _mlp(x, p, cfg: ModelConfig, lora=None):
-    up, gate = matmul_group(x, (p["w_up"], p["w_gate"]))
-    up = _with_lora(up, x, "w_up", lora)
-    gate = _with_lora(gate, x, "w_gate", lora)
-    return lora_matmul(_activate(up, gate, cfg), p["w_down"], "w_down", lora)
+    """The dense MLP by key presence (JAX ``_mlp``): gated where ``p`` has
+    ``w_gate`` (one grouped product for w_up and w_gate), ``b_up`` added
+    before the activation, ``b_down`` after ``w_down``."""
+    gated = "w_gate" in p
+    outs = matmul_group(x, (p["w_up"], p["w_gate"]) if gated else (p["w_up"],))
+    up = _with_lora(outs[0], x, "w_up", lora)
+    if "b_up" in p:
+        up = up + p["b_up"]
+    gate = _with_lora(outs[1], x, "w_gate", lora) if gated else None
+    out = lora_matmul(_activate(up, gate, cfg), p["w_down"], "w_down", lora)
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
 
 
 def _attention(q, k, v, mask, cfg: ModelConfig):
@@ -349,14 +383,19 @@ def _attention(q, k, v, mask, cfg: ModelConfig):
 # ------------------------------------------------------- reusable blocks
 
 
-def embed_tokens(params: Params, cfg: ModelConfig, input_ids):
-    """Token embedding. input_ids [B, T]. gemma scales it by sqrt(d_model)
-    rounded to the embedding's dtype first, as JAX multiplies by
-    ``jnp.asarray(sqrt(d_model), x.dtype)`` (in bf16 sqrt(3584) is 59.75,
-    not 59.866)."""
+def embed_tokens(params: Params, cfg: ModelConfig, input_ids, positions=None):
+    """Token (+ learned-position) embedding. input_ids, positions [B, T].
+    gemma scales it by sqrt(d_model) rounded to the embedding's dtype
+    first, as JAX multiplies by ``jnp.asarray(sqrt(d_model), x.dtype)``
+    (in bf16 sqrt(3584) is 59.75, not 59.866). Learned positions are
+    clamped into the table before the lookup (the module docstring says
+    why)."""
     x = F.embedding(input_ids, params["tok_embed"])
     if cfg.embedding_scale:
         x = x * _in_dtype(math.sqrt(cfg.d_model), x.dtype)
+    if cfg.pos_embedding == "learned":
+        table = params["pos_embed"]
+        x = x + F.embedding(positions.clamp(0, table.shape[0] - 1), table)
     return x
 
 
@@ -369,12 +408,14 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
 
 def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     """One pre-norm block. lp: one layer's params; x [B, T, D]; rope the
-    layer's ``rope_angles`` triple (``make_layer_rope``); ``attend(q, k, v)
+    layer's ``rope_angles`` triple (``make_layer_rope``; None: learned
+    positions, no rotation); ``attend(q, k, v)
     -> [B, T, H*hd]`` writes this chunk's K/V into the pool and attends
     over it (forward builds it); ``lora`` one layer's adapter arguments
     (``lora_matmul``) or None. The q/k/v biases and the head-wise q/k
     norms apply where the layer's params carry them (JAX's rule: by key
-    presence); with ``cfg.post_norms`` (gemma-2/3) ``ln1_post`` norms the
+    presence), and so does gpt2's output bias ``bo`` (after ``wo`` and its
+    LoRA delta); with ``cfg.post_norms`` (gemma-2/3) ``ln1_post`` norms the
     attention output (after ``wo`` and its LoRA delta) and ``ln2_post``
     the MLP output before each joins the residual."""
     B, T, _ = x.shape
@@ -383,14 +424,17 @@ def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     a = lp["attn"]
     q, k, v = (_with_lora(out, h, name, lora) for out, name in
                zip(matmul_group(h, (a["wq"], a["wk"], a["wv"])), ("wq", "wk", "wv")))
-    if "bq" in a:  # qwen2: q/k/v biases after the (LoRA) projection
+    if "bq" in a:  # qwen2, gpt2: q/k/v biases after the (LoRA) projection
         q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
     q, k, v = q.view(B, T, H, hd), k.view(B, T, Hkv, hd), v.view(B, T, Hkv, hd)
     if "q_norm" in a:  # qwen3: head-wise RMSNorm before rope
         q = _qk_rmsnorm(q, a["q_norm"], cfg.norm_eps)
         k = _qk_rmsnorm(k, a["k_norm"], cfg.norm_eps)
-    q, k = _rope(q, rope), _rope(k, rope)
+    if rope is not None:
+        q, k = _rope(q, rope), _rope(k, rope)
     attn_out = lora_matmul(attend(q, k, v), a["wo"], "wo", lora)
+    if "bo" in a:
+        attn_out = attn_out + a["bo"]
     if cfg.post_norms:
         attn_out = _norm(attn_out, lp["ln1_post"], cfg)
     x = x + attn_out
@@ -588,7 +632,7 @@ def forward(
     sm_scale = 1.0 / math.sqrt(cfg.attn_scale or cfg.head_dim)
     softcap = float(cfg.attn_logit_softcap or 0.0)
 
-    x = embed_tokens(params, cfg, input_ids)
+    x = embed_tokens(params, cfg, input_ids, positions)
     for i, lp in enumerate(params["layers"]):
         kp, vp = pool["k"][i], pool["v"][i]
 
@@ -648,7 +692,7 @@ def _forward_rect(params: Params, cfg: ModelConfig, input_ids, cache, offset):
     write = off.clamp(0, S - T)[:, None] + steps
     rope = make_layer_rope(cfg, positions)
     mask = make_layer_mask(cfg, positions, S)
-    x = embed_tokens(params, cfg, input_ids)
+    x = embed_tokens(params, cfg, input_ids, positions)
     for i, lp in enumerate(params["layers"]):
         ck, cv = cache["k"][i], cache["v"][i]
 

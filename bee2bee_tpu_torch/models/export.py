@@ -2,11 +2,11 @@
 HF-layout safetensors checkpoint with its ``config.json``.
 
 The llama half of ``bee2bee_tpu/models/export.py``: ``write_safetensors``,
-``_export_llama_state``, the llama branch of ``hf_config_dict`` (model
-types ``llama`` and ``mistral``, with ``rope_scaling``) and
-``export_hf``. The card's machine has neither jax nor the ``safetensors``
-package, so the smoke and the round-trip tests write their checkpoints
-with these. Every other family raises by name (ROADMAP.md queue A item
+``_export_llama_state``, ``_export_gpt2_state``, ``_export_bigcode_state``,
+the llama branch of ``hf_config_dict`` (model types ``llama`` and
+``mistral``, with ``rope_scaling``) and ``export_hf``. The card's machine
+has neither jax nor the ``safetensors`` package, so the smoke and the
+round-trip tests write their checkpoints with these. Every other family raises by name (ROADMAP.md queue A item
 15; their converters are item 11). Two additions: the tensors may be torch
 tensors (bf16 is written from its 16-bit pattern, as the JAX writer
 writes ml_dtypes arrays), and ``export_hf(max_shard_bytes=...)`` writes
@@ -114,6 +114,87 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
                 state[p + f"self_attn.{key}.weight"] = norm(lp["attn"][key])
         for ours, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
             state[p + f"mlp.{hf}.weight"] = t(lp["mlp"][ours])
+    return state
+
+
+def _dense_layers(params, cfg: ModelConfig, keys: set) -> None:
+    """Refuse (item 15) layers whose keys are not ``keys`` or that hold an
+    int8 weight: the HF layouts are dense."""
+    for i, lp in enumerate(params["layers"]):
+        if set(lp) != keys or any(isinstance(w, dict) for w in (*lp["attn"].values(),
+                                                                 *lp["mlp"].values())):
+            raise unported(f"exporting layer {i} of {cfg.name} with {sorted(lp)} "
+                           f"(int8 or another family)", 15)
+
+
+def _export_gpt2_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tensor]:
+    """Inverse of loader._convert_gpt2 (JAX ``_export_gpt2_state``, key for
+    key): Conv1D [in, out] as the port holds it, q/k/v re-fused into
+    c_attn on the out dim, and ``lm_head.weight`` written beside the tied
+    ``wte`` as transformers expects."""
+    _dense_layers(params, cfg, {"ln1", "ln2", "attn", "mlp"})
+    c = lambda a: a.to(dtype).contiguous()
+    state = {
+        "transformer.wte.weight": c(params["tok_embed"]),
+        "transformer.wpe.weight": c(params["pos_embed"]),
+        "transformer.ln_f.weight": c(params["final_norm"]["scale"]),
+        "transformer.ln_f.bias": c(params["final_norm"]["bias"]),
+        "lm_head.weight": c(params["tok_embed"]),
+    }
+    for i, lp in enumerate(params["layers"]):
+        p = f"transformer.h.{i}."
+        a, m = lp["attn"], lp["mlp"]
+        state.update(_gpt2_norms(p, lp, c))
+        state[p + "attn.c_attn.weight"] = c(torch.cat([a["wq"], a["wk"], a["wv"]], dim=1))
+        state[p + "attn.c_attn.bias"] = c(torch.cat([a["bq"], a["bk"], a["bv"]]))
+        state.update({p + "attn.c_proj.weight": c(a["wo"]), p + "attn.c_proj.bias": c(a["bo"]),
+                      p + "mlp.c_fc.weight": c(m["w_up"]), p + "mlp.c_fc.bias": c(m["b_up"]),
+                      p + "mlp.c_proj.weight": c(m["w_down"]),
+                      p + "mlp.c_proj.bias": c(m["b_down"])})
+    return state
+
+
+def _gpt2_norms(prefix: str, lp: dict, c) -> dict:
+    """A gpt2-block layer's two layernorms under their HF names."""
+    return {f"{prefix}{hf}.{hf_key}": c(lp[ours][key])
+            for ours, hf in (("ln1", "ln_1"), ("ln2", "ln_2"))
+            for hf_key, key in (("weight", "scale"), ("bias", "bias"))}
+
+
+def _export_bigcode_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tensor]:
+    """Inverse of loader._convert_bigcode: nn.Linear [out, in]; c_attn the
+    query block, then k, then v on the out dim (multi_query, JAX
+    ``_export_bigcode_state`` key for key and bit for bit), or packed per
+    head as HF's ``view(H, 3·hd)`` reads it where every head has its own
+    k/v (JAX writes thirds there, which its own loader reads per head)."""
+    _dense_layers(params, cfg, {"ln1", "ln2", "attn", "mlp"})
+    c = lambda a: a.to(dtype).contiguous()
+    t = lambda a: a.to(dtype).t().contiguous()
+    H, hd, D = cfg.n_heads, cfg.head_dim, cfg.d_model
+    state = {
+        "transformer.wte.weight": c(params["tok_embed"]),
+        "transformer.wpe.weight": c(params["pos_embed"]),
+        "transformer.ln_f.weight": c(params["final_norm"]["scale"]),
+        "transformer.ln_f.bias": c(params["final_norm"]["bias"]),
+        "lm_head.weight": c(params["tok_embed"]) if cfg.tie_embeddings
+        else t(params["lm_head"]),
+    }
+    for i, lp in enumerate(params["layers"]):
+        p = f"transformer.h.{i}."
+        a, m = lp["attn"], lp["mlp"]
+        state.update(_gpt2_norms(p, lp, c))
+        ws = [t(a[k]) for k in ("wq", "wk", "wv")]
+        bs = [c(a[k]) for k in ("bq", "bk", "bv")]
+        if cfg.n_kv_heads == H:  # per head: [H, 3, hd] rows
+            w = torch.stack([x.reshape(H, hd, D) for x in ws], 1).reshape(3 * H * hd, D)
+            b = torch.stack([x.reshape(H, hd) for x in bs], 1).reshape(3 * H * hd)
+        else:
+            w, b = torch.cat(ws, dim=0), torch.cat(bs)
+        state.update({p + "attn.c_attn.weight": w, p + "attn.c_attn.bias": b,
+                      p + "attn.c_proj.weight": t(a["wo"]), p + "attn.c_proj.bias": c(a["bo"]),
+                      p + "mlp.c_fc.weight": t(m["w_up"]), p + "mlp.c_fc.bias": c(m["b_up"]),
+                      p + "mlp.c_proj.weight": t(m["w_down"]),
+                      p + "mlp.c_proj.bias": c(m["b_down"])})
     return state
 
 

@@ -13,11 +13,13 @@ differs:
 - ``_load_hf_state`` reads sharded ``*.safetensors``, else
   ``pytorch_model*.bin`` through ``torch.load(weights_only=True)``; the
   tensors keep their stored dtype.
-- ``_convert_llama`` and ``_convert_phi3`` map HF names into the port's
-  layout (layers as a list of per-layer dicts). Every other family's
-  converter raises by name (ROADMAP.md queue A item 11) and never
-  computes something else; so do llama-branch tensors the port's core has
-  no slot for (experts, biased norms). qwen2's q/k/v biases and the q/k
+- ``_convert_llama``, ``_convert_phi3``, ``_convert_gpt2`` (Conv1D,
+  already [in, out]) and ``_convert_bigcode`` (nn.Linear; multi-query or
+  per-head packed c_attn) map HF names into the port's layout (layers as
+  a list of per-layer dicts). Every other family's converter raises by
+  name (ROADMAP.md queue A item 11) and never computes something else; so
+  do llama-branch tensors the port's core has no slot for (experts,
+  biased norms). qwen2's q/k/v biases and the q/k
   norms of qwen3 and gemma-3 load by key presence, as in JAX; with
   ``cfg.post_norms`` (gemma-2/3) the four norms take gemma-2's names, and
   gemma's (1 + w) norms are folded to w + 1 in f32.
@@ -193,6 +195,84 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
     return params
 
 
+def _gpt2_common(g, cfg: ModelConfig, layer_attn, t) -> dict:
+    """The parts gpt2 and gpt-bigcode share: the norms, c_proj and the MLP
+    by their HF names (``t`` maps a stored weight to [in, out]), with
+    ``layer_attn(i)`` giving layer i's {wq, wk, wv, bq, bk, bv}."""
+    layers = []
+    for i in range(cfg.n_layers):
+        h = f"h.{i}."
+        attn = layer_attn(i)
+        attn.update(wo=t(g(h + "attn.c_proj.weight")), bo=g(h + "attn.c_proj.bias"))
+        layers.append({
+            "ln1": {"scale": g(h + "ln_1.weight"), "bias": g(h + "ln_1.bias")},
+            "attn": attn,
+            "ln2": {"scale": g(h + "ln_2.weight"), "bias": g(h + "ln_2.bias")},
+            "mlp": {"w_up": t(g(h + "mlp.c_fc.weight")), "b_up": g(h + "mlp.c_fc.bias"),
+                    "w_down": t(g(h + "mlp.c_proj.weight")),
+                    "b_down": g(h + "mlp.c_proj.bias")},
+        })
+    return {"tok_embed": g("wte.weight"), "pos_embed": g("wpe.weight"), "layers": layers,
+            "final_norm": {"scale": g("ln_f.weight"), "bias": g("ln_f.bias")}}
+
+
+def _gpt2_getter(state):
+    pre = "transformer." if any(k.startswith("transformer.") for k in state) else ""
+    return lambda k: state[pre + k]
+
+
+def _convert_gpt2(state, cfg: ModelConfig) -> dict:
+    """HF GPT-2 names -> the port's layout. Conv1D stores [in, out]
+    already: c_attn [D, 3D] splits into q, k, v by thirds of its out dim
+    (views, no copy)."""
+    g = _gpt2_getter(state)
+    D = cfg.d_model
+
+    def layer_attn(i):
+        w, b = g(f"h.{i}.attn.c_attn.weight"), g(f"h.{i}.attn.c_attn.bias")
+        return {"wq": w[:, :D], "wk": w[:, D:2 * D], "wv": w[:, 2 * D:],
+                "bq": b[:D], "bk": b[D:2 * D], "bv": b[2 * D:]}
+
+    return _gpt2_common(g, cfg, layer_attn, lambda a: a)
+
+
+def _convert_bigcode(state, cfg: ModelConfig) -> dict:
+    """HF GPT-BigCode (starcoder, santacoder) names -> the port's layout:
+    gpt2's names over nn.Linear [out, in] weights. c_attn packs [D +
+    2·kv] on its out dim: with ``multi_query`` the query block, then one k
+    head, then one v head; with ``multi_query=False`` q/k/v per head (HF's
+    ``view(H, 3·hd)``), which a split into thirds would scramble."""
+    g = _gpt2_getter(state)
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    kv = cfg.n_kv_heads * hd
+
+    def layer_attn(i):
+        w, b = g(f"h.{i}.attn.c_attn.weight"), g(f"h.{i}.attn.c_attn.bias")
+        if cfg.n_kv_heads == H:
+            wr, br = w.reshape(H, 3, hd, D), b.reshape(H, 3, hd)
+            parts = [(wr[:, j].reshape(H * hd, D).t(), br[:, j].reshape(H * hd))
+                     for j in range(3)]
+        else:
+            parts = [(w[:D].t(), b[:D]), (w[D:D + kv].t(), b[D:D + kv]),
+                     (w[D + kv:].t(), b[D + kv:])]
+        (wq, bq), (wk, bk), (wv, bv) = parts
+        return {"wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv}
+
+    out = _gpt2_common(g, cfg, layer_attn, lambda a: a.t())
+    if not cfg.tie_embeddings:
+        lm = state.get("lm_head.weight")
+        out["lm_head"] = (lm if lm is not None else g("wte.weight")).t()
+    return out
+
+
+def _is_bigcode(state, cfg: ModelConfig) -> bool:
+    """A ``.c_attn.`` checkpoint is gpt-bigcode where the config is MQA/GQA
+    or the first c_attn weight is not Conv1D's [D, 3D] (the JAX loader's
+    test)."""
+    w0 = next(v for k, v in state.items() if k.endswith("attn.c_attn.weight"))
+    return cfg.n_kv_heads != cfg.n_heads or w0.shape[0] != cfg.d_model
+
+
 # the JAX loader's detection order (loader.load_checkpoint): the key that
 # names each family's layout, and the family
 _FAMILIES = (
@@ -282,6 +362,8 @@ def load_checkpoint(path, cfg: ModelConfig, dtype=torch.bfloat16, device=None,
     family = next((f for key, f in _FAMILIES if any(key in k for k in state)), None)
     if family == "phi3":
         params = _convert_phi3(state, cfg)
+    elif family == "gpt2 / gpt-bigcode":
+        params = (_convert_bigcode if _is_bigcode(state, cfg) else _convert_gpt2)(state, cfg)
     elif family is not None:
         raise unported(f"loading a {family} checkpoint ({path})", 11)
     else:

@@ -5,14 +5,19 @@ The schema is the JAX package's (``bee2bee_tpu/models/core.py``
 ``init_params``) for the llama path, as a plain dict of tensors, with the
 layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
 
-  tok_embed [V, D]; final_norm {scale [D]}; lm_head [D, V] (untied only)
+  tok_embed [V, D]; pos_embed [P, D] (learned positions only, P =
+  max_seq_len); final_norm {scale [D] (+ bias [D])}; lm_head [D, V]
+  (untied only)
   layers[i]:
     ln1 {scale [D]}, ln2 {scale [D]}
       + gemma-2/3 (cfg.post_norms): ln1_post {scale [D]}, ln2_post {scale [D]}
+      + a layernorm with cfg.norm_bias: bias [D] in each
     attn {wq [D, H*hd], wk [D, Hkv*hd], wv [D, Hkv*hd], wo [H*hd, D]}
-      + qwen2 (cfg.qkv_bias): bq [H*hd], bk [Hkv*hd], bv [Hkv*hd]
+      + qwen2, gpt2 (cfg.qkv_bias, cfg.use_bias): bq [H*hd], bk [Hkv*hd],
+        bv [Hkv*hd]; gpt2 (cfg.use_bias) also bo [D]
       + qwen3, gemma-3 (cfg.qk_norm): q_norm [hd], k_norm [hd] (head-wise)
-    mlp {w_up [D, F], w_gate [D, F], w_down [F, D]}
+    mlp {w_up [D, F], w_down [F, D]} + w_gate [D, F] (gated activations)
+      + gpt2 (cfg.use_bias): b_up [F], b_down [D]
 
 Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
 transpose into ``nn.Linear``'s ``[out, in]`` happens anywhere, so a tensor
@@ -53,8 +58,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     time — the largest single draw is one layer's [D, F] matrix, never a
     stacked [L, D, F] one. The draws differ from jax.random's by
     construction; parity tests carry the JAX tree across instead
-    (params_from_numpy). As in JAX, the q/k/v biases start at zeros and
-    the q/k norm and post-norm scales at ones."""
+    (params_from_numpy). As in JAX, every bias starts at zeros, the norm
+    scales at ones, and the position table is drawn like the token
+    table."""
     check_supported(cfg)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -77,30 +83,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             "wv": normal((D, Hkv * hd)),
             "wo": normal((H * hd, D)),
         }
-        if cfg.qkv_bias:
+        if cfg.qkv_bias or cfg.use_bias:
             a.update(bq=zeros(H * hd), bk=zeros(Hkv * hd), bv=zeros(Hkv * hd))
         if cfg.qk_norm:
             a.update(q_norm=ones(hd), k_norm=ones(hd))
+        if cfg.use_bias:  # qwen2 (qkv_bias) has no output-projection bias
+            a["bo"] = zeros(D)
         return a
 
+    def norm():
+        if cfg.norm == "layernorm" and cfg.norm_bias:
+            return {"scale": ones(D), "bias": zeros(D)}
+        return {"scale": ones(D)}
+
+    def mlp():
+        m = {"w_up": normal((D, F_)), "w_down": normal((F_, D))}
+        if cfg.activation in ("silu", "geglu"):
+            m["w_gate"] = normal((D, F_))
+        if cfg.use_bias:
+            m.update(b_up=zeros(F_), b_down=zeros(D))
+        return m
+
     def layer():
-        lp = {
-            "ln1": {"scale": ones(D)},
-            "attn": attn(),
-            "ln2": {"scale": ones(D)},
-            "mlp": {
-                "w_up": normal((D, F_)),
-                "w_down": normal((F_, D)),
-                "w_gate": normal((D, F_)),
-            },
-        }
+        lp = {"ln1": norm(), "attn": attn(), "ln2": norm(), "mlp": mlp()}
         if cfg.post_norms:
-            lp.update(ln1_post={"scale": ones(D)}, ln2_post={"scale": ones(D)})
+            lp.update(ln1_post=norm(), ln2_post=norm())
         return lp
 
     params = {"tok_embed": normal((V, D), 0.02)}
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = normal((cfg.max_seq_len, D), 0.02)
     params["layers"] = [layer() for _ in range(cfg.n_layers)]
-    params["final_norm"] = {"scale": ones(D)}
+    params["final_norm"] = norm()
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V))
     return params

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -38,6 +39,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# source -> seconds its nvcc took, for the sources this process compiled
+build_seconds: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -70,7 +73,8 @@ def build(sources=SOURCES) -> dict[str, Path]:
     """Compile every source whose library is missing, one nvcc process per
     source, all started together. Writes each compiler log (ptxas's
     register, shared-memory and spill report) beside its library as
-    ``.log``. Raises RuntimeError with the compiler output on failure."""
+    ``.log`` and each compiled source's seconds into ``build_seconds``.
+    Raises RuntimeError with the compiler output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     running = []
@@ -85,8 +89,15 @@ def build(sources=SOURCES) -> dict[str, Path]:
         )
         running.append((source, lib, tmp, proc))
     errors = []
-    for source, lib, tmp, proc in running:
-        log, _ = proc.communicate()
+
+    def finish(item):  # each nvcc's output and its seconds since the start
+        log, _ = item[3].communicate()
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(running))) as pool:
+        finished = list(pool.map(finish, running))
+    for (source, lib, tmp, proc), (log, seconds) in zip(running, finished):
+        build_seconds[source] = seconds
         lib.with_suffix(".log").write_text(log)
         if proc.returncode:
             errors.append(f"{source} (exit {proc.returncode}):\n{log}")

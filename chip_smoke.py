@@ -13,8 +13,11 @@ checkpoint phase; ``--only qwen`` only the build, the GEMM's f32 form,
 the G = 7 ragged cases, the qwen forwards, the served qwen slices, the f32
 int8-weight phase and the qwen checkpoints; ``--only gemma`` only the
 build, the G = 8 and G = 1 ragged cases and their timings, the gemma
-forwards, the served gemma slices and the gemma checkpoints. Those print
-no result line.)
+forwards, the served gemma slices and the gemma checkpoints; ``--only
+gpt2`` the same for starcoder-15b's G = 48 and gpt2's head_dim 64, with
+distilgpt2, gpt2 drafted by distilgpt2 and starcoder-15b served. Those
+print no result line.) The line before the card's gives every stage's
+seconds (``stage seconds:``).
 
 Phases (each prints its numbers on lines of their own; any failure raises
 and the script exits non-zero):
@@ -153,7 +156,20 @@ and the script exits non-zero):
    each logit, so the kernels' logits are held to the plain bf16 forward's
    in the relative Frobenius norm within that forward's relative gap to
    the plain f32 forward, and element by element within its largest gap
-   plus one bf16 ulp of the largest logit; greedy tokens equal).
+   plus one bf16 ulp of the largest logit; greedy tokens equal). Phases
+   2-3 hold the kernels at starcoder-15b's heads (48 query heads over one
+   kv head, G = 48: every f32 chunk through the f32 tile form) and gpt2's
+   (head_dim 64) too, timed at decode, the verify shape and prefill; then
+   the gpt2 block at gpt2's and starcoder-15b's widths, 2 layers, biases
+   N(0, 0.25), layernorm scales 1 + N(0, 0.01) and biases N(0, 0.1): a
+   600-token prefill (inside gpt2's 1,024 learned positions) and 8 steps,
+   f32 over an f32 and an int8 pool (within 2e-3, tokens equal, launches
+   exact), bf16 over a bf16 and an int8 pool (the relative rule above,
+   tokens equal). After the gemma slices distilgpt2 (bf16; int8 weights
+   over an int8 pool), gpt2 in f32 drafted by distilgpt2 and starcoder-15b
+   (40 layers) are served with phase 6's checks, and the checkpoint phase
+   writes and loads gpt2 (Conv1D) and gpt_bigcode (multi_query)
+   checkpoints.
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream. Every decode step is a replay of a captured CUDA
@@ -507,13 +523,25 @@ def log(msg: str) -> None:
 
 
 _T0 = time.perf_counter()
+# (stage name, its start in seconds since _T0), in order
+_STAGES: list = []
 
 
 def stage(name: str) -> None:
     """Marks a phase's start on stderr with the seconds since the start,
     so the end of stderr names the phase a stopped run was in."""
-    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s: {name}", file=sys.stderr,
-          flush=True)
+    t = time.perf_counter() - _T0
+    _STAGES.append((name, t))
+    print(f"chip_smoke: {t:.1f} s: {name}", file=sys.stderr, flush=True)
+
+
+def stage_seconds() -> str:
+    """Each stage's seconds (to the next stage's start, the last to now)
+    and the whole run's, as one line."""
+    now = time.perf_counter() - _T0
+    ends = [t for _, t in _STAGES[1:]] + [now]
+    parts = [f"{name} {end - t:.1f}" for (name, t), end in zip(_STAGES, ends)]
+    return f"stage seconds: {'; '.join(parts)}; total {now:.1f}"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -567,7 +595,8 @@ def phase_device_and_build():
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
-    log(f"build: {len(libs)} kernel source(s) in {build_s:.1f} s")
+    log(f"build: {len(libs)} kernel source(s) in {build_s:.1f} s; each nvcc (s) "
+        f"{ {k: round(v, 1) for k, v in _build.build_seconds.items()} }")
     for source, path in libs.items():
         log_path = path.with_suffix(".log")
         report = log_path.read_text() if log_path.exists() else ""
@@ -803,6 +832,28 @@ GEMMA_G_RAGGED_CASES = [
         ("chunk T=17 window-cut", dict(offs=[5, 1200], T=17), GEMMA3_KW),
         ("prefill T=300 window-cut", dict(offs=[900], T=300), GEMMA3_KW),
         ("prefill T=512 @1000", dict(offs=[1000], T=512), {}),
+    )
+]
+# starcoder-15b's heads (48 query heads over ONE kv head: G = 48, hd 128)
+# and gpt2's (12 over 12 at head_dim 64: G = 1): at G = 48 the decode
+# kernel splits a kv head's 48 query heads into three 16-row blocks, the
+# tile kernel folds 48 T rows into 64-row blocks, and every f32 chunk (T =
+# 1 too: 48 rows exceed decode_f32's 32) goes to the f32 tile form; at hd
+# 64 decode_f32 takes the f32 chunks below T_MIN_F32
+STARCODER = dict(H=48, Hkv=1, hd=128)
+GPT2 = dict(H=12, Hkv=12, hd=64)
+GPT2_RAGGED_CASES = [
+    (f"{geo_tag} {name} {str(dt)[6:]}", dict(geo, dtype=dt, **heads), {})
+    for geo_tag, heads in (("G=48", STARCODER), ("hd64 G=1", GPT2))
+    for dt in (torch.bfloat16, torch.float32)
+    for name, geo in (
+        ("decode + dead row + null tails", dict(offs=[0, 17, 300, 1023, 2047], T=1,
+                                                dead=(2,), extra_tables=5)),
+        ("chunk T=4", dict(offs=[7, 300, 1023], T=4)),
+        ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,))),
+        ("chunk T=16", dict(offs=[3, 1100], T=16)),
+        ("prefill T=300", dict(offs=[0, 45], T=300)),
+        ("prefill T=512 @1000", dict(offs=[1000], T=512)),
     )
 ]
 # the cases the row kernel served at head_dim 256 before its head_dim-256
@@ -1170,9 +1221,22 @@ RAGGED_TIMED = (
     ("verify_g8", [1023] * 8, 5, torch.bfloat16, GEMMA_2B, True),
     ("verify_g8_f32", [1023] * 8, 5, torch.float32, GEMMA_2B, True),
     ("decode_g1", [1023] * 8, 1, torch.bfloat16, GEMMA_7B, False),
-    ("verify_g1_f32", [1023] * 8, 5, torch.float32, GEMMA_7B, False))
+    ("verify_g1_f32", [1023] * 8, 5, torch.float32, GEMMA_7B, False),
+    # starcoder-15b's G = 48 at decode and the verify shape (the decode and
+    # tile kernels), and its f32 decode step (48 rows: the f32 tile form);
+    # gpt2's hd 64 at decode, a prefill chunk inside its 1,024 positions,
+    # its f32 spec verify (decode_f32) and f32 prefill (the f32 tile form)
+    ("decode_g48", [1023] * 8, 1, torch.bfloat16, STARCODER, False),
+    ("verify_g48", [1023] * 8, 5, torch.bfloat16, STARCODER, False),
+    ("decode_g48_f32", [1023] * 8, 1, torch.float32, STARCODER, False),
+    ("decode_hd64", [1023] * 8, 1, torch.bfloat16, GPT2, False),
+    ("prefill_hd64", [500], 512, torch.bfloat16, GPT2, False),
+    ("verify_hd64_f32", [1023] * 8, 5, torch.float32, GPT2, False),
+    ("prefill_hd64_f32", [500], 512, torch.float32, GPT2, False))
 # gemma-2b's and gemma-7b's timed shapes (``--only gemma``)
 GEMMA_G_TIMED = tuple(s for s in RAGGED_TIMED if s[4] in (GEMMA_2B, GEMMA_7B))
+# starcoder-15b's and gpt2's (``--only gpt2``)
+GPT2_TIMED = tuple(s for s in RAGGED_TIMED if s[4] in (STARCODER, GPT2))
 
 
 def time_ragged_shapes(gen, flush, int8: bool, shapes=RAGGED_TIMED) -> dict:
@@ -1187,7 +1251,7 @@ def time_ragged_shapes(gen, flush, int8: bool, shapes=RAGGED_TIMED) -> dict:
         if int8:
             kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
                                          hd=kp.shape[3])
-        kw = GEMMA_TIMED_KW if heads else {}
+        kw = GEMMA_TIMED_KW if heads.get("hd") == 256 else {}
         timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, kp.shape[0], int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
                                      scales=scales, **kw)
@@ -1207,7 +1271,8 @@ def phase_ragged_vs_plain(flush, int8=False):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + int8)
     errs = ragged_cases_vs_plain(gen, RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES
-                                 + QWEN2_RAGGED_CASES + GEMMA_G_RAGGED_CASES, int8)
+                                 + QWEN2_RAGGED_CASES + GEMMA_G_RAGGED_CASES
+                                 + GPT2_RAGGED_CASES, int8)
     timings = time_ragged_shapes(gen, flush, int8)
     label0 = "int8 " if int8 else ""
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
@@ -1996,19 +2061,33 @@ ATTENTION_KERNELS = ("attention_kernel", "ragged_prefill_kernel", "ragged_decode
                      "flash_tile_f32_kernel")
 
 
+# calls a breakdown's profile averages over (its host wall: 10)
+PROFILE_CALLS = 4
+
+
 def device_profile(fn, calls: int, launches: int, tries: int = 3):
     """(device busy ms per call, attention kernels' ms per call, [(kernel,
     share of device time)] top 4): the kernels' own device time under
-    torch.profiler, summed. A capture that saw fewer than ``launches``
-    launches of an attention kernel (it has lost some of the calls'
-    kernels) is taken again, up to ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, summed. Only CUDA activity is recorded (every number
+    here reads device events; the CPU ops' bookkeeping of an eager 32-layer
+    forward cost seconds a capture), and only after a warm-up step of one
+    call, which the profiler discards: a CUDA-only capture that starts
+    recording with the calls can lose the first call's first kernels. A
+    capture that saw fewer than ``launches`` launches of an attention
+    kernel (it has lost some of the calls' kernels) is taken again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
@@ -2032,15 +2111,16 @@ def device_profile(fn, calls: int, launches: int, tries: int = 3):
 def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, full=True):
     """Where the serving forwards' time goes: a B-row decode step at
     context ``ctx`` and one ``prefill``-token prefill chunk. Host wall time
-    (synchronised, profiler off) beside the device's busy time (kernel
-    durations under torch.profiler); 1 - busy/wall is the device's idle
-    share. The decode step three ways: the bare forward, the scheduler's
+    (synchronised, profiler off, over ``steps`` calls) beside the device's
+    busy time (kernel durations under torch.profiler, over up to
+    PROFILE_CALLS calls); 1 - busy/wall is the device's idle share. The decode step three ways: the bare forward, the scheduler's
     decode step run eagerly (forward, greedy sampling, the in-place state
     updates) and the same step replayed from its captured CUDA graph, as
     the served path runs it; and replayed at batch 1 (phase 9's batch).
     Not ``full``: the B-row step replayed from its graph alone."""
     from bee2bee_tpu_torch.models import core
 
+    t_start = time.perf_counter()
     cfg = engine.model_cfg
     BS = engine.engine_cfg.kv_block_size
     nblocks = -(-max(ctx + steps, prefill) // BS)
@@ -2088,7 +2168,8 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        busy_ms, attn_ms, top, gemm_ms = device_profile(fn, calls, cfg.n_layers * calls)
+        n = min(calls, PROFILE_CALLS)
+        busy_ms, attn_ms, top, gemm_ms = device_profile(fn, n, cfg.n_layers * n)
         gemm = (f"; int8-weight GEMM kernels {gemm_ms:.3f} ms a call "
                 f"({gemm_ms / busy_ms:.3f} of busy)" if gemm_ms else "")
         log(f"breakdown {label}: host wall {wall_ms:.3f} ms, device busy "
@@ -2099,7 +2180,8 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
     weight_bytes = storage_bytes(engine.params)
     log(f"breakdown: weights {weight_bytes} B -> "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms per step at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s")
+        f"{HBM_BYTES_PER_S / 1e12} TB/s; the breakdown took "
+        f"{time.perf_counter() - t_start:.1f} s")
 
 
 def decode_state(engine, B=8, ctx=1024, sampled_row=None):
@@ -2239,9 +2321,10 @@ def prefill_vs_eager(engine, tag: str) -> None:
     """A prefill chunk of the scheduler's prefill root run eagerly and by a
     replay of its captured graph, from the same state (random pool pages,
     an int8 pool's scales too): a miss (1,000 tokens at offset 0, floor
-    0, bucket 1024) and a hit (104 new tokens at offset 1000 over the
-    first's 62 full blocks, its partial block copied first as a CoW hit
-    does, floor 1000, bucket 128). The last logits and the pool's bytes
+    0, bucket 1024; where max_seq_len is under 1,144, max_seq_len - 136
+    tokens: gpt2's 888) and a hit (104 new tokens after it over the
+    first's full blocks, its partial block copied first as a CoW hit
+    does, floored there, bucket 128). The last logits and the pool's bytes
     (and scales) outside the null block must be equal bit for bit, and
     each replay must launch the tile kernel the rule names n_layers
     times. Prints the captures (by key, with their seconds)."""
@@ -2259,20 +2342,27 @@ def prefill_vs_eager(engine, tag: str) -> None:
                                            engine.kv_quantized, G)]
     kernel += "_int8" if engine.kv_quantized else ""
     gen = np.random.default_rng(SEED)
-    prompt = gen.integers(3, cfg.vocab_size, size=1104).tolist()
-    donor = np.arange(1, 64, dtype=np.int32)  # the miss's 63 blocks
-    fresh = np.arange(100, 107, dtype=np.int32)  # the hit's CoW copy + 6 more
-    hit_table = np.zeros(128, np.int32)
-    hit_table[:62], hit_table[62:69] = donor[:62], fresh
-    cases = (("miss", prompt[:1000], 1024, 0, np.pad(donor, (0, 1)), 0, 1000),
-             ("hit", prompt[1000:], 128, 1000, hit_table, 1000, 1104))
+    BS = engine.engine_cfg.kv_block_size
+    miss = min(1000, engine.max_seq_len - 136)
+    n = miss + 104
+    prompt = gen.integers(3, cfg.vocab_size, size=n).tolist()
+    full = miss // BS
+    donor = np.arange(1, -(-miss // BS) + 1, dtype=np.int32)  # the miss's blocks
+    # the hit's CoW copy of the miss's partial block + the blocks after it
+    fresh = np.arange(100, 100 + -(-n // BS) - full, dtype=np.int32)
+    hit_table = np.zeros(sch._table_width(-(-n // BS)), np.int32)
+    hit_table[:full], hit_table[full:full + len(fresh)] = donor[:full], fresh
+    miss_table = np.zeros(sch._table_width(len(donor)), np.int32)
+    miss_table[:len(donor)] = donor
+    cases = (("miss", prompt[:miss], 1024, 0, miss_table, 0, miss),
+             ("hit", prompt[miss:], 128, miss, hit_table, miss, n))
     since = graph_stats(engine, tag)
     out = []
     for name, chunk, bucket, pos, table, floor, ceil in cases:
         for t, v in zip(pool.values(), saved.values()):
             t.copy_(v)
         if name == "hit":
-            copy_block(pool, int(donor[62]), int(fresh[0]))
+            copy_block(pool, int(donor[full]), int(fresh[0]))
         before = {n: t.clone() for n, t in pool.items()}
         key = sch._stage_prefill(chunk, bucket, pos, table, floor, ceil)
         sch._prefill_step(sch._prefill_views(key))
@@ -2741,7 +2831,10 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
         f"{g['scheduled_tokens_total']} scheduled); card {card}")
 
 
-def slice_prompts(sizes=(40, 120, 260, 400, 640, 900, 1200, 1500)) -> list:
+SLICE_SIZES = (40, 120, 260, 400, 640, 900, 1200, 1500)
+
+
+def slice_prompts(sizes=SLICE_SIZES) -> list:
     """Phase 6's prompts: one of each byte length in ``sizes`` (a token a
     byte, plus BOS)."""
     words = ("the paged pool maps every row onto blocks of sixteen tokens "
@@ -2757,7 +2850,7 @@ def slice_prompts(sizes=(40, 120, 260, 400, 640, 900, 1200, 1500)) -> list:
 
 
 def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16",
-                quantize="none", model="llama-3-8b", light=False):
+                quantize="none", model="llama-3-8b", light=False, sizes=None):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. The bf16 slices (phases 6-7 and the
     int8-weight slices) then run the ring check (not with int8 weights),
@@ -2768,7 +2861,11 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     ``model``: llama-3-8b, or another registry name or ModelConfig (the
     qwen slices); ``light`` runs the replayed-vs-eager decode and prefill
     chunks and the replayed B=8 step's breakdown, and nothing more (no
-    ring check, no full breakdown, no logits).
+    ring check, no full breakdown, no logits). ``sizes``: the prompts'
+    byte lengths (default ``slice_prompts``'; gpt2's 1,024 positions take
+    shorter ones). The decode chunk replayed against eager and the
+    breakdown's step run at a context of 1024, or of the engine's
+    max_seq_len less two decode chunks where that is shorter.
     Returns (the launch counts, pool bytes, the engine's params)."""
     from bee2bee_tpu_torch.ops.ragged import ragged_kernel
 
@@ -2801,7 +2898,8 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     check(kv_meta["cache_dtype"] == cache_dtype,
           f"{tag}: metadata kv {kv_meta} does not name the {cache_dtype} pool")
     try:
-        prompts = slice_prompts()
+        prompts = slice_prompts(sizes or SLICE_SIZES)
+        ctx = min(1024, engine.max_seq_len - 2 * engine.engine_cfg.decode_chunk)
         knobs = [dict(temperature=0.0)] * 6 + [
             dict(temperature=0.8, top_p=0.9),
             dict(temperature=0.0, repetition_penalty=1.2),
@@ -2929,9 +3027,9 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         if bf16 and not qw and not light:
             ring_check(engine, tag)
         if bf16 or int8:
-            graph_vs_eager(engine, tag)
+            graph_vs_eager(engine, tag, ctx)
         prefill_vs_eager(engine, tag)
-        step_breakdown(engine, card, full=bf16 and not light)
+        step_breakdown(engine, card, ctx=ctx, full=bf16 and not light)
         if light:
             return counts, nbytes, engine.params
         if qw and not int8:
@@ -3171,13 +3269,32 @@ GEMMA3_CONFIG = {
     "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
     "torch_dtype": "bfloat16",
 }
+# openai-community/gpt2's config.json (Conv1D layers, 1,024 learned
+# positions) and bigcode/starcoderbase's (model_type gpt_bigcode,
+# multi_query: 48 query heads over one kv head, 8,192 positions)
+GPT2_CONFIG = {
+    "architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "n_embd": 768,
+    "n_layer": 12, "n_head": 12, "n_positions": 1024, "n_ctx": 1024, "vocab_size": 50257,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5, "bos_token_id": 50256,
+    "eos_token_id": 50256,
+}
+STARCODER_CONFIG = {
+    "architectures": ["GPTBigCodeForCausalLM"], "model_type": "gpt_bigcode", "n_embd": 6144,
+    "n_layer": 40, "n_head": 48, "n_inner": 24576, "n_positions": 8192, "vocab_size": 49152,
+    "multi_query": True, "activation_function": "gelu_pytorch_tanh",
+    "layer_norm_epsilon": 1e-5, "bos_token_id": 0, "eos_token_id": 0,
+    "torch_dtype": "float32",
+}
 HF_CONFIGS = {"qwen2-7b": QWEN2_CONFIG, "qwen3-8b": QWEN3_CONFIG,
-              "gemma-2-9b": GEMMA2_CONFIG, "gemma-3-4b": GEMMA3_CONFIG}
+              "gemma-2-9b": GEMMA2_CONFIG, "gemma-3-4b": GEMMA3_CONFIG,
+              "gpt2": GPT2_CONFIG, "starcoder-15b": STARCODER_CONFIG}
 # the JAX init draws the biases as zeros and the norm scales as ones, which
 # would prove nothing about either switch: every qwen and gemma check
 # perturbs them
 QWEN_BIAS_STD = 0.5
 QWEN_NORM_STD = 0.1
+# the gpt2 block's layernorm biases: N(0, 0.1)
+LN_BIAS_STD = math.sqrt(0.1)
 
 
 def family_config(which: str, layers: int, yarn: bool = False):
@@ -3187,8 +3304,8 @@ def family_config(which: str, layers: int, yarn: bool = False):
     preset at that depth."""
     from bee2bee_tpu_torch.models.config import config_from_hf, get_config
 
-    d = dict(HF_CONFIGS[which], num_hidden_layers=layers,
-             _name_or_path=f"{which}-{layers}layers")
+    depth = "n_layer" if "n_layer" in HF_CONFIGS[which] else "num_hidden_layers"
+    d = dict(HF_CONFIGS[which], **{depth: layers}, _name_or_path=f"{which}-{layers}layers")
     if yarn:
         d["rope_scaling"] = QWEN3_YARN
     cfg = config_from_hf(d)
@@ -3220,7 +3337,8 @@ def perturb_qwen(params, seed: int):
 
 def family_params(cfg, dtype, seed: int):
     """A random init of ``cfg`` from ``seed`` on the card, biases and norms
-    perturbed (``perturb_qwen``; gemma: ``perturb_norms``)."""
+    perturbed (``perturb_qwen``; gemma: ``perturb_norms``; the gpt2 block:
+    ``perturb_gpt2``)."""
     from bee2bee_tpu_torch.models.params import init_params
 
     gen = torch.Generator(device="cuda")
@@ -3228,7 +3346,32 @@ def family_params(cfg, dtype, seed: int):
     params = init_params(cfg, gen, "cuda", dtype)
     if cfg.norm_plus_one:
         return perturb_norms(params, seed + 100)
+    if cfg.pos_embedding == "learned":
+        return perturb_gpt2(params, seed + 100)
     return perturb_qwen(params, seed + 100)
+
+
+def perturb_gpt2(params, seed: int):
+    """In place: the gpt2 block's biases (q/k/v/o, b_up, b_down) drawn N(0,
+    QWEN_BIAS_STD^2), every layernorm scale 1 + N(0, QWEN_NORM_STD^2) and
+    its bias N(0, LN_BIAS_STD^2), on their device and in their type: the
+    init's zeros and ones would hide a dropped or swapped bias or norm.
+    Returns params."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(t, mean, std):
+        t.copy_(mean + torch.randn(t.shape, generator=gen, device="cuda") * std)
+
+    norms = [params["final_norm"]] + [lp[k] for lp in params["layers"] for k in ("ln1", "ln2")]
+    for n in norms:
+        draw(n["scale"], 1.0, QWEN_NORM_STD)
+        draw(n["bias"], 0.0, LN_BIAS_STD)
+    for lp in params["layers"]:
+        for t in (*(lp["attn"][k] for k in ("bq", "bk", "bv", "bo")),
+                  lp["mlp"]["b_up"], lp["mlp"]["b_down"]):
+            draw(t, 0.0, QWEN_BIAS_STD)
+    return params
 
 
 def perturb_norms(params, seed: int):
@@ -3575,6 +3718,226 @@ def phase_gemma_served(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ gpt2 phases
+
+
+# gpt2's widths (distilgpt2's) and starcoder-15b's, 2 layers each; the
+# prompt and 8 steps stay inside gpt2's 1,024 learned positions
+GPT2_FORWARD = ("gpt2", "starcoder-15b")
+GPT2_PROMPT = 600
+# phase 6's prompt lengths cut so that each, with its 64 new tokens, fits
+# gpt2's 1,024 positions untruncated
+GPT2_SIZES = (40, 120, 260, 400, 520, 640, 760, 900)
+
+
+def phase_gpt2_forward() -> dict:
+    """Phase 5 for the gpt2 block: gpt2 (12 heads of 64, G = 1) and
+    starcoder-15b (48 heads of 128 over one kv head, G = 48) at full width
+    and 2 layers, random f32 from SEED with every bias, layernorm scale and
+    layernorm bias perturbed: a GPT2_PROMPT-token prefill and 8 greedy
+    decode steps through the kernels against the plain version, in f32 over
+    an f32 and an int8 pool (logits within FORWARD_TOL, greedy tokens
+    equal, each forward through the kernel the rule names for its chunk,
+    pool and G, n_layers times: at G = 48 the f32 tile form for the decode
+    steps too), then in bf16 over a bf16 and an int8 pool (the tile kernel
+    for the prefill, the decode kernel for the steps; prefill logits no
+    further from the plain bf16 forward, in the relative Frobenius norm,
+    than that is from the plain f32 forward; greedy tokens equal the plain
+    bf16 forward's). Returns the launch counts per model."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.ops.ragged import (
+        ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    n_prompt, n_steps = GPT2_PROMPT, 8
+    out: dict = {}
+    for which in GPT2_FORWARD:
+        cfg = replace(get_config(which), n_layers=2, name=f"{which}-2layers")
+        cfg, params, run = forward_setup(cfg, n_prompt)
+        perturb_gpt2(params, SEED + 7)
+        G = cfg.n_heads // cfg.n_kv_heads
+        label = f"forward 2x {which} width (G = {G}, head_dim {cfg.head_dim})"
+        launches: dict = {}
+        plain_f32 = {}
+        for pool_dtype in (torch.float32, torch.int8):
+            int8 = pool_dtype == torch.int8
+            sfx = "_int8" if int8 else ""
+            tag = f"{label} f32, {str(pool_dtype)[6:]} pool"
+            want: dict = {}
+            for T, n in ((n_prompt, 1), (1, n_steps)):
+                c = RAGGED_COUNTERS[ragged_kernel(torch.float32, T, cfg.head_dim, int8, G)]
+                want[c + sfx] = want.get(c + sfx, 0) + cfg.n_layers * n
+            reset_counts()
+            k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
+            torch.cuda.synchronize()
+            plain_f32[pool_dtype] = p_logits
+            check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
+                  f"{tag}: non-finite logits")
+            err = max((k_logits - p_logits).abs().max().item(),
+                      (k_steps - p_steps).abs().max().item())
+            log(f"{tag}: prefill {n_prompt} + {n_steps} decode steps, logits max abs err "
+                f"{err:.3e} (tol {FORWARD_TOL}); launches {got} (expected {want}); greedy "
+                f"kernel {k_toks} plain {p_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+            check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        bparams = cast_tree(params, torch.bfloat16)
+        for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
+            sfx = "_int8" if pool_dtype == torch.int8 else ""
+            tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
+            reset_counts()
+            b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            want = {"ragged_prefill" + sfx: cfg.n_layers,
+                    "ragged_decode" + sfx: cfg.n_layers * n_steps}
+            bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+            f32_logits = plain_f32[f32_pool]
+            rel = ((b_logits - bp_logits).norm() / bp_logits.norm()).item()
+            rel_tol = ((bp_logits - f32_logits).norm() / f32_logits.norm()).item()
+            log(f"{tag}: prefill {n_prompt} logits relative (Frobenius) err {rel:.3e} (tol "
+                f"{rel_tol:.3e}, the plain bf16 forward's relative gap to the plain f32 "
+                f"forward), max abs err {(b_logits - bp_logits).abs().max().item():.3e}; "
+                f"launches {got}; greedy kernel {b_toks} plain {bp_toks}")
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+            check(rel <= rel_tol, f"{tag}: logits differ by {rel} > {rel_tol} (relative)")
+            check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        out[which] = launches
+        del params, bparams, run, plain_f32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gpt2_spec(card: str) -> dict:
+    """gpt2 (12 layers, hd 64) in f32 over an f32 pool with the model draft
+    tier: distilgpt2 (the same 50,257-token vocabulary; random f32 from
+    the drafter seed) drafting K = SPEC_K for 8 prompts without n-gram
+    repeats, 64 greedy tokens each, concurrently. The tokens equal the
+    spec-off engine's (8 x 64); every verify and decode replay launches
+    ``decode_f32`` n_layers times (G T = 5 rows), every prefill replay the
+    f32 tile form; the draft and prime roots are captured once each.
+    Returns the launch counts."""
+    from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bee2bee_tpu_torch.models.config import get_config
+
+    tag = "gpt2 spec[model tier: distilgpt2, float32, float32 pool]"
+    cfg = get_config("gpt2")
+    params = family_params(cfg, torch.float32, SEED)
+
+    def engine(**spec):
+        ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16,
+                            decode_chunk=32, rng_seed=SEED, dtype="float32",
+                            cache_dtype="float32", **spec)
+        return InferenceEngine(cfg, params=params, engine_config=ecfg)
+
+    off = engine()
+    prompts = spec_prompts(off.tokenizer, periodic=False)
+    try:
+        want, wall_off = spec_burst(off, prompts)
+    finally:
+        off.close()
+    del off
+    gc.collect()
+    eng = engine(spec_tokens=SPEC_K, spec_probe_tokens=SPEC_K, drafter="distilgpt2")
+    try:
+        dm = eng.drafter_model
+        since = graph_stats(eng, tag)
+        reset_counts()
+        got, wall = spec_burst(eng, prompts)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n = spec_counts(eng, tag, since, counts)
+        model = eng.scheduler.stats.spec_tiers.get("model", {"drafted": 0, "accepted": 0})
+        equal = sum(a == b for a, b in zip(got, want))
+        L = cfg.n_layers
+        log(f"{tag}: drafter {dm.cfg.name} ({dm.cfg.n_layers} layers); 8 x {SPEC_NEW} greedy "
+            f"tokens in {wall:.3f} s (spec off {wall_off:.3f} s); {equal} of 8 rows equal to "
+            f"the spec-off engine's; model tier drafted {model['drafted']}, accepted "
+            f"{model['accepted']}; draft root runs {dm.runs}, captures (n, s) "
+            f"{dm.captures}; card {card}")
+        check(equal == len(prompts) and all(len(t) == SPEC_NEW for t in got),
+              f"{tag}: spec-on tokens differ from spec-off: "
+              f"{[(a[:8], b[:8]) for a, b in zip(got, want) if a != b][:2]}")
+        check(model["drafted"] > 0, f"{tag}: the model tier never drafted")
+        check(dm.captures["draft"][0] == 1 and dm.captures["draft_prime"][0] == 1,
+              f"{tag}: draft/prime captures {dm.captures}")
+        check(counts["ragged_decode_f32"] == L * (n["verifies"] + n["decodes"])
+              and counts["ragged_prefill_f32"] == L * n["prefills"],
+              f"{tag}: launches {counts} vs {L} x ({n['verifies']} verify + {n['decodes']} "
+              f"decode, {n['prefills']} prefill) replays")
+        others = {k: v for k, v in counts.items()
+                  if k not in ("ragged_decode_f32", "ragged_prefill_f32") and v}
+        check(not others, f"{tag}: other kernel forms launched: {others}")
+        return counts
+    finally:
+        eng.close()
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_gpt2_served(card: str) -> dict:
+    """distilgpt2 at full depth (6 layers, 12 heads of 64) in bf16 over a
+    bf16 pool and with int8 weights over an int8 pool (the GEMM at K =
+    768), gpt2 in f32 drafted by distilgpt2 (``phase_gpt2_spec``), and
+    starcoder-15b at full width and depth (40 layers, G = 48, about 31 GB)
+    in bf16 over a bf16 pool, each a random init from SEED with the biases
+    and layernorms perturbed, serving phase 6's traffic (gpt2's prompts cut
+    to GPT2_SIZES) with phase 6's checks (every decode step, prefill chunk
+    and first token a graph replay, launch counts exact; with int8 weights
+    the GEMM's 4 x n_layers a replay) and a decode chunk and a prefill
+    chunk replayed = eager bit for bit. Returns the launch counts per
+    run."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.quant import quantize_params_
+
+    out = {}
+    cfg = get_config("distilgpt2")
+    for quantized in (False, True):
+        params = family_params(cfg, torch.bfloat16, SEED + quantized)
+        n = sum(t.numel() for _, t in tree_leaves(params))
+        if quantized:
+            params = quantize_params_(params)
+        torch.cuda.synchronize()
+        log(f"distilgpt2: {cfg.n_layers} layers, {n} parameters ({storage_bytes(params)} B"
+            f"{', int8 layer weights' if quantized else ' bf16'}), biases N(0, "
+            f"{QWEN_BIAS_STD ** 2:g}), layernorm scales 1 + N(0, {QWEN_NORM_STD ** 2:g}) and "
+            f"biases N(0, {LN_BIAS_STD ** 2:g}), random from seed {SEED + quantized}")
+        pool = "int8" if quantized else "bfloat16"
+        out[f"distilgpt2 {pool}"] = phase_slice(
+            card, pool, params=params, quantize="int8" if quantized else "none", model=cfg,
+            light=True, sizes=GPT2_SIZES)[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["gpt2 spec"] = phase_gpt2_spec(card)
+    cfg = get_config("starcoder-15b")
+    t0 = time.perf_counter()
+    params = family_params(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    log(f"starcoder-15b: {cfg.n_layers} layers, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} kv head (G = {cfg.n_heads // cfg.n_kv_heads}: 3 16-row blocks a "
+        f"kv head in the decode kernel), {n} parameters ({storage_bytes(params)} B bf16), "
+        f"random from seed {SEED} in {time.perf_counter() - t0:.2f} s")
+    out["starcoder-15b"] = phase_slice(card, "bfloat16", params=params, model=cfg,
+                                       light=True)[0]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def f32_int8_weight_logits(params, cfg, tag: str) -> None:
     """The f32 int8-weight forward (a 300-token prefill through the
     dequantize route in f32, 4 greedy steps through the GEMM's f32 form)
@@ -3828,7 +4191,8 @@ def adapter_step_profile(engine, tag: str, card: str) -> None:
             graph.replay()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 100.0
-        busy, _, top, gemm = device_profile(graph.replay, 10, 10 * engine.model_cfg.n_layers)
+        busy, _, top, gemm = device_profile(graph.replay, PROFILE_CALLS,
+                                            PROFILE_CALLS * engine.model_cfg.n_layers)
         log(f"{tag}: replayed decode step B=8 ctx 1024, {label} rows (key {k}): host "
             f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
             f"{1 - busy / wall:.3f}; int8-weight GEMM {gemm:.3f} ms; top kernels {top}; "
@@ -6115,7 +6479,11 @@ def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
 # each family's tensors beyond llama's in a 2-layer checkpoint, by the end
 # of their HF names: qwen2's q/k/v biases, the q/k norms of qwen3 and
 # gemma-3, gemma-2/3's pre- and post-feedforward norms
-CKPT_EXTRAS = {"qwen2-7b": 6, "qwen3-8b": 4, "gemma-2-9b": 4, "gemma-3-4b": 8}
+# each family's tensors beyond llama's in a 2-layer checkpoint: qwen2's
+# q/k/v biases, qwen3's q/k norms, gemma's extra norms; the gpt2 block's
+# biases (6 a layer and ln_f's) and its position table
+CKPT_EXTRAS = {"qwen2-7b": 6, "qwen3-8b": 4, "gemma-2-9b": 4, "gemma-3-4b": 8,
+               "gpt2": 14, "starcoder-15b": 14}
 
 
 def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
@@ -6123,14 +6491,19 @@ def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
     width and 2 layers, random bf16 from SEED with the biases and norms
     perturbed, written as one safetensors file (the converter's inverse:
     q/k/v biases, q/k norms and gemma's four block norms under their HF
-    names, gemma's norms less one) beside the published config.json cut to
+    names, gemma's norms less one; gpt2's Conv1D and gpt-bigcode's
+    multi-query Linear layouts) beside the published config.json cut to
     2 layers: ``InferenceEngine("auto", ...)`` loads it bit-equal to
     ``params_from_numpy``'s tree and decodes phase 6's prompts to the same
     greedy tokens and first-token logits. Returns the launch counts."""
-    from bee2bee_tpu_torch.models.export import _export_llama_state, write_safetensors
+    from bee2bee_tpu_torch.models import export
     from bee2bee_tpu_torch.models.params import params_from_numpy, params_to_numpy
 
     tag = f"checkpoint[{which}]"
+    model_type = HF_CONFIGS[which]["model_type"]
+    exporter = {"gpt2": export._export_gpt2_state,
+                "gpt_bigcode": export._export_bigcode_state}.get(model_type,
+                                                                 export._export_llama_state)
     cfg = family_config(which, 2)
     t0 = time.perf_counter()
     tree = params_to_numpy(family_params(cfg, torch.bfloat16, SEED + 2))
@@ -6138,15 +6511,17 @@ def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
     del tree
     ckpt = workdir / which
     ckpt.mkdir()
-    state = _export_llama_state(ref_params, cfg, torch.bfloat16)
+    state = exporter(ref_params, cfg, torch.bfloat16)
     extra = sorted(k for k in state if k.endswith("feedforward_layernorm.weight") or (
-        ".self_attn." in k and k.endswith(("_proj.bias", "_norm.weight"))))
-    write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
+        ".self_attn." in k and k.endswith(("_proj.bias", "_norm.weight"))) or (
+        cfg.pos_embedding == "learned" and k.endswith((".bias", "wpe.weight"))))
+    export.write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
     del state
+    depth = "n_layer" if "n_layer" in HF_CONFIGS[which] else "num_hidden_layers"
     (ckpt / "config.json").write_text(json.dumps(
-        dict(HF_CONFIGS[which], num_hidden_layers=2, _name_or_path=cfg.name), indent=2))
+        dict(HF_CONFIGS[which], **{depth: 2}, _name_or_path=cfg.name), indent=2))
     nbytes = (ckpt / "model.safetensors").stat().st_size
-    log(f"{tag}: {cfg.name} ({HF_CONFIGS[which]['model_type']}) random bf16 from seed "
+    log(f"{tag}: {cfg.name} ({model_type}) random bf16 from seed "
         f"{SEED + 2}, written in {time.perf_counter() - t0:.2f} s, {nbytes} B; its family's "
         f"tensors {extra[:4]}... ({len(extra)} tensors)")
     check(len(extra) == CKPT_EXTRAS[which], f"{tag}: the checkpoint's family tensors {extra}")
@@ -6162,7 +6537,7 @@ def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
             f"weights bit-equal to params_from_numpy's: {not diff}; card {card}")
         check(not diff, f"{tag}: loaded weights differ at {diff[:5]}")
         ref = checkpoint_engine(params=ref_params, cfg=cfg)
-        prompts = slice_prompts()
+        prompts = slice_prompts(GPT2_SIZES if cfg.max_seq_len <= 1024 else SLICE_SIZES)
         got, got_first, counts = checkpoint_burst(engine, tag, prompts)
         want, want_first, _ = checkpoint_burst(ref, f"{tag} params_from_numpy", prompts)
         same_first = got_first.keys() == want_first.keys() and all(
@@ -6185,9 +6560,10 @@ def phase_checkpoint(card: str) -> dict:
     """llama-3.1-8b (2 layers, published widths, random bf16 from SEED)
     written as an HF checkpoint and served from it: (a) load, (b) rope and
     f32 logits, (c) native round trip, (d) mesh publish and join, (e) int8
-    from the checkpoint; then (f) HF-named qwen2-7b, qwen3-8b, gemma-2-9b
-    and gemma-3-4b checkpoints (``checkpoint_family``). Returns the launch
-    counts of the phase, summed."""
+    from the checkpoint; then (f) HF-named qwen2-7b, qwen3-8b, gemma-2-9b,
+    gemma-3-4b, gpt2 (Conv1D) and starcoder-15b (gpt_bigcode, multi_query)
+    checkpoints (``checkpoint_family``). Returns the launch counts of the
+    phase, summed."""
     import shutil
     import tempfile
 
@@ -6284,10 +6660,13 @@ def phase_checkpoint(card: str) -> dict:
 def run_only(card: str, which: str) -> int:
     """``--only quant``: the int8-weight GEMM phase and the int8-weight
     slices; ``--only adapters``: the adapter phase over bf16 and int8
-    weights; ``--only migrate``, ``checkpoint``, ``qwen`` and ``gemma``: those
-    phases (``gemma``: the G = 8 and G = 1 ragged cases and timings, the
-    gemma forwards, the served gemma slices and the gemma checkpoints). For
-    iterating on a slice's phases; prints no result line."""
+    weights; ``--only migrate``, ``checkpoint``, ``qwen``, ``gemma`` and
+    ``gpt2``: those phases (``gemma``: the G = 8 and G = 1 ragged cases and
+    timings, the gemma forwards, the served gemma slices and the gemma
+    checkpoints; ``gpt2``: the same for starcoder-15b's G = 48 and gpt2's
+    head_dim 64, with distilgpt2, gpt2 drafted by distilgpt2 and
+    starcoder-15b served). For iterating on a slice's phases; prints no
+    result line."""
     if which == "quant":
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         phase_int8_gemm(flush)
@@ -6341,6 +6720,30 @@ def run_only(card: str, which: str) -> int:
                 checkpoint_family(card, which_model, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    elif which == "gpt2":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        for int8 in (False, True):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + int8)
+            ragged_cases_vs_plain(gen, GPT2_RAGGED_CASES, int8)
+            time_ragged_shapes(gen, flush, int8, GPT2_TIMED)
+        del flush
+        torch.cuda.empty_cache()
+        stage("gpt2 forward parity")
+        phase_gpt2_forward()
+        stage("gpt2 served")
+        phase_gpt2_served(card)
+        stage("gpt2 checkpoints")
+        workdir = Path(__file__).resolve().parent / "build" / "ckpt_gpt2"
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        try:
+            for which_model in ("gpt2", "starcoder-15b"):
+                checkpoint_family(card, which_model, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     elif which == "migrate":
         # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
         engine = migrate_engine(None, "bfloat16", "bfloat16")
@@ -6351,8 +6754,9 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen or gemma, "
-                         f"not {which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen, gemma or "
+                         f"gpt2, not {which!r}")
+    log(stage_seconds())
     log(f"card: {card}")
     return 0
 
@@ -6399,6 +6803,8 @@ def main() -> int:
     qwen_fwd = phase_qwen_forward()
     stage("gemma forward parity")
     gemma_fwd = phase_gemma_forward()
+    stage("gpt2 forward parity")
+    gpt2_fwd = phase_gpt2_forward()
     stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
@@ -6465,6 +6871,10 @@ def main() -> int:
     # served: the head_dim-256 forms on a served path
     stage("gemma served")
     gemma = phase_gemma_served(card)
+    # distilgpt2 (bf16; int8 weights over an int8 pool), gpt2 in f32 drafted
+    # by distilgpt2, starcoder-15b (bf16, 40 layers, G = 48)
+    stage("gpt2 served")
+    gpt2 = phase_gpt2_served(card)
     stage("f32 int8 weights")
     f32w = phase_f32_int8_weights(card)
     stage("node")
@@ -6512,6 +6922,13 @@ def main() -> int:
 
     def hd256(name):  # a head_dim-256 form's launches on the main path
         return more.get(name, 0) + ckpt_counts.get(name, 0)
+
+    def g48(name):  # starcoder-15b's forwards and served slice
+        return gpt2_fwd["starcoder-15b"].get(name, 0) + gpt2["starcoder-15b"].get(name, 0)
+
+    def hd64(name):  # gpt2's forwards, distilgpt2's slices, gpt2's spec run
+        return gpt2_fwd["gpt2"].get(name, 0) + sum(
+            c.get(name, 0) for m, c in gpt2.items() if m != "starcoder-15b")
 
     def row(name, source, replaces, n, err, t):
         return {
@@ -6667,6 +7084,49 @@ def main() -> int:
             "bee2bee_tpu/ops/ragged.py:107",
             gemma_fwd["gemma-7b"].get("ragged_decode_f32_int8", 0), int8_errs["decode_f32"],
             int8_timings["verify_g1_f32"]),
+        # starcoder-15b's G = 48 (48 query heads over one kv head, hd 128):
+        # launches from its forwards (phase 5) and its served slice; times
+        # at decode B=8 ctx 1024, the verify shape and (f32: 48 rows, the
+        # f32 tile form) the f32 decode step
+        row("ragged_decode_attention_g48", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            g48("ragged_decode"), errs["decode"], timings["decode_g48"]),
+        row("ragged_decode_attention_g48_int8", decode_src, "bee2bee_tpu/ops/ragged.py:107",
+            g48("ragged_decode_int8"), int8_errs["decode"], int8_timings["decode_g48"]),
+        row("ragged_prefill_attention_g48", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            g48("ragged_prefill"), errs["tile"], timings["verify_g48"]),
+        row("ragged_prefill_attention_g48_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", g48("ragged_prefill_int8"), int8_errs["tile"],
+            int8_timings["verify_g48"]),
+        row("ragged_prefill_attention_f32_g48", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            g48("ragged_prefill_f32"), errs["tile_f32"], timings["decode_g48_f32"]),
+        row("ragged_prefill_attention_f32_g48_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", g48("ragged_prefill_f32_int8"),
+            int8_errs["tile_f32"], int8_timings["decode_g48_f32"]),
+        # gpt2's head_dim 64 (G = 1): launches from gpt2's forwards (phase
+        # 5), distilgpt2's served slices (bf16; int8 weights over an int8
+        # pool) and gpt2's f32 spec run; times at decode B=8 ctx 1024, a
+        # 512-token prefill chunk at 500, the f32 verify shape (decode_f32)
+        # and the f32 prefill chunk
+        row("ragged_decode_attention_hd64", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd64("ragged_decode"), errs["decode"], timings["decode_hd64"]),
+        row("ragged_decode_attention_hd64_int8", decode_src, "bee2bee_tpu/ops/ragged.py:107",
+            hd64("ragged_decode_int8"), int8_errs["decode"], int8_timings["decode_hd64"]),
+        row("ragged_prefill_attention_hd64", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd64("ragged_prefill"), errs["tile"], timings["prefill_hd64"]),
+        row("ragged_prefill_attention_hd64_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd64("ragged_prefill_int8"), int8_errs["tile"],
+            int8_timings["prefill_hd64"]),
+        row("ragged_decode_attention_f32_hd64", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:84", hd64("ragged_decode_f32"), errs["decode_f32"],
+            timings["verify_hd64_f32"]),
+        row("ragged_decode_attention_f32_hd64_int8", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd64("ragged_decode_f32_int8"),
+            int8_errs["decode_f32"], int8_timings["verify_hd64_f32"]),
+        row("ragged_prefill_attention_f32_hd64", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd64("ragged_prefill_f32"), errs["tile_f32"], timings["prefill_hd64_f32"]),
+        row("ragged_prefill_attention_f32_hd64_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd64("ragged_prefill_f32_int8"),
+            int8_errs["tile_f32"], int8_timings["prefill_hd64_f32"]),
     ]
     # the int8-weight GEMM: launches from the int8-weight slices (both
     # pools) and the int8-weight adapter phase's mixed burst; times at w_up
@@ -6675,7 +7135,8 @@ def main() -> int:
     kernels.append(row(
         "int8_weight_gemm", gemm_src, "bee2bee_tpu/models/core.py:408",
         int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"]
-        + ckpt_counts.get("int8_gemm", 0) + more.get("int8_gemm", 0),
+        + ckpt_counts.get("int8_gemm", 0) + more.get("int8_gemm", 0)
+        + gpt2["distilgpt2 int8"]["int8_gemm"],
         gemm["err"], gemm["timing"]))
     # its f32 form (2xTF32): launches from the f32 int8-weight phase (serving
     # and spec); times at llama-3-8b's w_up, M = 8, f32 activations
@@ -6695,6 +7156,10 @@ def main() -> int:
         f"{ {k: v for k, v in qwen_fwd.items() if v} }, served "
         f"{ {m: {k: v for k, v in c.items() if v} for m, c in qwen.items()} }; f32 int8 "
         f"weights { {k: v for k, v in f32w.items() if v} }")
+    log(f"kernels: gpt2 launches (the G = 48 and head_dim-64 rows): forward parity "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in gpt2_fwd.items()} }, served "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in gpt2.items()} }; their "
+        f"checkpoints' launches are in the checkpoint phase's (the rows above)")
     log(f"kernels: adapter phase launches (mixed bursts): bf16 weights "
         f"{ {k: v for k, v in adapter_counts.items() if v} }, int8 weights "
         f"{ {k: v for k, v in adapter_counts_int8.items() if v} }")
@@ -6708,6 +7173,7 @@ def main() -> int:
         "forms serve gemma-2-9b (bf16 pool) and gemma-3-4b (int8 pool), and "
         "their f32 forms run in the gemma forwards (phase 5), on no served "
         "path. All are held against the plain version and timed above")
+    log(stage_seconds())
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -7,8 +7,9 @@ service from a checkpoint.
 - ``config_from_hf`` equals JAX's field for field on the config.json
   dicts JAX's ``hf_config_dict`` writes for every family it exports, and on
   phi-3 and yarn dicts; a family the port's core cannot run still parses
-  and ``check_supported`` refuses it by item 11; qwen2, qwen3, yarn and
-  the gemma family (gemma, gemma2, gemma3_text) pass it.
+  and ``check_supported`` refuses it by item 11; qwen2, qwen3, yarn,
+  the gemma family (gemma, gemma2, gemma3_text) and the gpt2 block (gpt2,
+  gpt_bigcode) pass it.
 - The linear and llama3 rope scalings equal JAX's within 1e-7, and a tiny
   llama-3.1 forward's f32 logits JAX's within 1e-4.
 - Checkpoints written by JAX ``export_hf`` and by the port's (f32 and
@@ -147,7 +148,7 @@ def test_config_from_hf_matches_jax(key):
             config.get_config("llama-3.1-8b"), n_layers=2, name=got["name"]))
 
 
-@pytest.mark.parametrize("key", ["gpt2", "olmo2-7b", "mixtral-8x7b", "falcon-7b",
+@pytest.mark.parametrize("key", ["gpt-j-6b", "olmo2-7b", "mixtral-8x7b", "falcon-7b",
                                  "phi-2", "bloom-7b1"])
 def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
     cfg = config.config_from_hf(_hf_dict(key))
@@ -156,11 +157,12 @@ def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
 
 
 @pytest.mark.parametrize("key", ["qwen2-7b", "qwen3-8b", "llama-yarn", "gemma-7b",
-                                 "gemma-2-9b", "gemma3-text"])
+                                 "gemma-2-9b", "gemma3-text", "gpt2", "starcoder-15b"])
 def test_family_the_core_runs_parses_then_passes_the_core(key):
     """qwen2 (q/k/v biases), qwen3 (head-wise q/k norms), yarn rope
-    scaling and the gemma family (gemma, gemma2, gemma3_text): parsed as
-    JAX parses them, and the core runs them."""
+    scaling, the gemma family (gemma, gemma2, gemma3_text) and the gpt2
+    block (gpt2, gpt_bigcode): parsed as JAX parses them, and the core runs
+    them."""
     cfg = config.config_from_hf(_hf_dict(key))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfig.config_from_hf(_hf_dict(key)))
     core.check_supported(cfg)
@@ -354,10 +356,10 @@ def test_native_dirs_cross_both_ways(dtype, tmp_path):
 
 
 def test_other_converters_and_export_families_raise_by_item(tmp_path):
-    jcfg = jconfig.get_config("tiny-gpt2")
+    jcfg = jconfig.get_config("tiny-phi")
     jexport.export_hf(_jax_tree(jcfg), jcfg, tmp_path)
     cfg = config.config_for_checkpoint(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"gpt2.*item 11\)"):
+    with pytest.raises(NotImplementedError, match=r"phi.*item 11\)"):
         loader.load_checkpoint(tmp_path, cfg, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match=r"item 15\)"):
         export.hf_config_dict(config.get_config("tiny-qwen3"))

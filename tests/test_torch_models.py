@@ -71,17 +71,18 @@ def test_matmul_params_per_token_matches_jax(name):
 
 
 @pytest.mark.parametrize("name,switch", [
-    ("tiny-gpt2", "pos_embedding"),
-    ("tiny-bigcode", "use_bias"),
+    ("tiny-bloom", "pos_embedding"),
+    ("tiny-gptj", "mlp_bias"),
     ("tiny-mixtral", "MoE"),
     ("tiny-olmo2", "no_pre_norms"),
     ("tiny-phi", "parallel_block"),
     ("tiny-olmo2", "qk_norm_full"),
 ])
 def test_unported_switch_raises_by_name(name, switch):
-    # qwen3's qk_norm, the yarn rope scaling and the gemma family's switches
-    # run (queue A items 11.3, 11.1 and 11.5); gpt2/bigcode's biases and
-    # olmo2's post-norm-only blocks do not yet
+    # qwen3's qk_norm, the yarn rope scaling, the gemma family's switches
+    # and the gpt2 block run (queue A items 11.3, 11.1, 11.5 and 11.4);
+    # bloom's alibi, gpt-j's mlp-only bias and olmo2's post-norm-only
+    # blocks do not yet
     with pytest.raises(NotImplementedError, match=switch):
         core.check_supported(config.get_config(name))
 
