@@ -14,7 +14,7 @@
 //
 // Three kernels, chosen by ops/flash.py:flash_kernel:
 //
-// flash_tile_kernel, for bf16 at HD 64, 128 and 256: the tensor-core tile
+// flash_tile_kernel, for bf16 at HD 64, 96, 128 and 256: the tensor-core tile
 // design of tile_attention.cuh (the ragged prefill kernel's, over
 // contiguous K/V; at HD 256 its resident-Q form with 32-key tiles). What bounds it on an H100: causal T = S = 2048 over
 // llama-3-8b's heads does 4 * HD flops per visible (query, key) pair per
@@ -37,7 +37,7 @@
 //         k-step at a time, and key tiles hold 32 keys, so two blocks of
 //         96 KB share an SM and a lane spills nothing.
 //
-// flash_tile_f32_kernel, for f32 at HD 64, 128 and 256: the same grid, row
+// flash_tile_f32_kernel, for f32 at HD 64, 96, 128 and 256: the same grid, row
 // fold and causal frontier over 32-key f32 tiles, with both products in
 // 3xTF32 on mma.sync m16n8k8 (tile_attention_f32.cuh). Its bound on an
 // H100 is the three TF32 products: 3 * 4 * HD flops per visible pair at
@@ -46,7 +46,7 @@
 // bytes: bound by operations.
 //
 // flash_attention_kernel, which the dispatch no longer names (it stays,
-// built at HD 64, 128 and 256, to time the tile kernels against): the
+// built at HD 64, 96, 128 and 256, to time the tile kernels against): the
 // ragged row kernel's row-per-warp design (ragged_attention.cu) with another way to
 // address keys:
 //   grid  (B * Hkv, ceil(G * T / kWarps)); a block owns kWarps query rows
@@ -227,6 +227,8 @@ int launch_hd(int hd, const FlashArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch<T, 64>(a, stream);
+    case 96:
+      return launch<T, 96>(a, stream);
     case 128:
       return launch<T, 128>(a, stream);
     case 256:
@@ -258,8 +260,10 @@ __device__ __forceinline__ void stage_keys(const bf16* k, const bf16* v, int b,
   }
 }
 
+// (the minimum of one block an SM lets ptxas past the 168 registers it
+// otherwise holds the head_dim-96 form to, where it spilled 16 bytes)
 template <int HD>
-__global__ void __launch_bounds__(tile::kThreads)
+__global__ void __launch_bounds__(tile::kThreads, 1)
 flash_tile_kernel(const FlashArgs a) {
   constexpr bool QS = tile::q_resident<HD>();  // Q stays in shared memory
   constexpr int KEYS = tile::tile_keys<HD>();
@@ -497,7 +501,7 @@ extern "C" int b2b_flash_attention(const void* q, const void* k,
 
 // C entry point of the tile kernel, bound with ctypes: q, k, v and out are
 // bf16, 16-byte aligned. Returns the cudaError_t of the launch (0 =
-// launched), or -1 for a head_dim (64, 128, 256) this kernel was not built
+// launched), or -1 for a head_dim (64, 96, 128, 256) this kernel was not built
 // for.
 extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
                                         const void* v, const void* offset,
@@ -508,6 +512,7 @@ extern "C" int b2b_flash_attention_tile(const void* q, const void* k,
                     B, T_, S, H, Hkv, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_tile<64, false>(a, s);
+  if (hd == 96) return launch_tile<96, false>(a, s);
   if (hd == 128) return launch_tile<128, false>(a, s);
   if (hd == 256) return launch_tile<256, false>(a, s);
   return -1;
@@ -525,6 +530,7 @@ extern "C" int b2b_flash_attention_tile_f32(const void* q, const void* k,
                     B, T_, S, H, Hkv, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64) return launch_tile<64, true>(a, s);
+  if (hd == 96) return launch_tile<96, true>(a, s);
   if (hd == 128) return launch_tile<128, true>(a, s);
   if (hd == 256) return launch_tile<256, true>(a, s);
   return -1;

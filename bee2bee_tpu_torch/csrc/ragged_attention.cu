@@ -238,6 +238,8 @@ int launch_hd(int hd, int BS, const RaggedArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_bs<T, P, 64>(BS, a, stream);
+    case 96:
+      return launch_bs<T, P, 96>(BS, a, stream);
     case 128:
       return launch_bs<T, P, 128>(BS, a, stream);
     case 256:

@@ -3,7 +3,7 @@
 // the row's pages of the paged KV pool through its block table.
 //
 // Replaces the TPU kernel bee2bee_tpu/ops/ragged.py:_ragged_kernel for
-// decode (T = 1, bf16 queries at head_dim 64, 128 and 256; ops/ragged.py
+// decode (T = 1, bf16 queries at head_dim 64, 96, 128 and 256; ops/ragged.py
 // dispatches), in both pool forms: the bf16 pool, and the int8 pool whose
 // pages carry one f32 scale per (kv head, block), read beside tables[b, j].
 // Same function: GQA rows folded g-major, per-row `offset`, one sliding
@@ -50,8 +50,12 @@
 // 8 KB Q tile, with room left for the split's table and scales, at one
 // block per SM; 128 KB or more of pages in flight per SM is well above
 // what the memory's latency needs.
-// One C entry point launches both kernels. Instantiated for HD 64, 128 and
-// 256 and BS 8, 16 and 32; f32 queries have their own split-K kernel
+// At HD 96 (phi-3's heads) Q stays in registers as at 128 (6 A fragments,
+// a 48-register accumulator); a row of 12 16-byte chunks takes
+// tile_attention.cuh's split swizzle, and the merge kernel's 24-lane row
+// groups leave 8 of its 128 threads idle.
+// One C entry point launches both kernels. Instantiated for HD 64, 96, 128
+// and 256 and BS 8, 16 and 32; f32 queries have their own split-K kernel
 // (ragged_decode_attention_f32.cu) and, from the crossover on, the tile
 // kernel's f32 form.
 
@@ -479,9 +483,9 @@ ragged_decode_kernel(const DecodeArgs a) {
 // threads: the threads read the splits' (m, l) together into shared
 // memory; then HD / 4 lanes cover a row in 16-byte loads, and the 128
 // threads' groups take every `groups`-th split, so a row's partials are
-// read in a few rounds (HD 256: two groups of 64 lanes); the groups' sums
-// add up in group order, and the threads store the row's HD elements
-// (HD 256: two each).
+// read in a few rounds (HD 256: two groups of 64 lanes; HD 96: five
+// groups of 24, the last 8 threads idle); the groups' sums add up in group
+// order, and the threads store the row's HD elements (HD 256: two each).
 // Launched as a programmatic dependent of the split walk: it waits for
 // the walk's partials before it reads any.
 template <int HD>
@@ -518,19 +522,21 @@ __global__ void __launch_bounds__(kThreads) ragged_decode_merge(const DecodeArgs
   const int grp = threadIdx.x / LANES;
   const int d4 = (threadIdx.x % LANES) * 4;
   float4 o = {0.f, 0.f, 0.f, 0.f};
+  if (grp < GROUPS) {  // HD 96: 128 threads hold five whole groups
 #pragma unroll 4
-  for (int s = grp; s < a.splits; s += GROUPS) {
-    const float f = wsplit[s];
-    if (f > 0.f) {
-      const float4 x = *reinterpret_cast<const float4*>(
-          acc + (slot0 + (size_t)s * G) * HD + d4);
-      o.x += x.x * f;
-      o.y += x.y * f;
-      o.z += x.z * f;
-      o.w += x.w * f;
+    for (int s = grp; s < a.splits; s += GROUPS) {
+      const float f = wsplit[s];
+      if (f > 0.f) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            acc + (slot0 + (size_t)s * G) * HD + d4);
+        o.x += x.x * f;
+        o.y += x.y * f;
+        o.z += x.z * f;
+        o.w += x.w * f;
+      }
     }
+    *reinterpret_cast<float4*>(&osum[grp][d4]) = o;
   }
-  *reinterpret_cast<float4*>(&osum[grp][d4]) = o;
   __syncthreads();
   for (int d = threadIdx.x; d < HD; d += kThreads) {
     float l = 0.f, out = 0.f;
@@ -593,6 +599,8 @@ int launch_hd(int hd, int BS, const DecodeArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_bs<64, INT8>(BS, a, stream);
+    case 96:
+      return launch_bs<96, INT8>(BS, a, stream);
     case 128:
       return launch_bs<128, INT8>(BS, a, stream);
     case 256:

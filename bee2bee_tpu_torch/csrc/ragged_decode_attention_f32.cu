@@ -4,7 +4,7 @@
 // paged KV pool through its block table.
 //
 // Replaces the TPU kernel bee2bee_tpu/ops/ragged.py:_ragged_kernel for f32
-// queries (q.dtype == float32) at head_dim 64, 128 and 256 whose G * T rows
+// queries (q.dtype == float32) at head_dim 64, 96, 128 and 256 whose G * T rows
 // fit one block (at most kMaxRows) and whose chunk is shorter than the f32
 // tile form's crossover (ops/ragged.py:use_decode_f32_kernel), in both pool
 // forms: the f32 pool, and the int8 pool whose pages carry one f32 scale
@@ -55,9 +55,16 @@
 //         (m, l, acc) to scratch that the wrapper allocates, and let a
 //         second kernel merge the splits of each row in a fixed order, with
 //         no atomics: results repeat bit for bit.
-// One C entry point launches both kernels. Instantiated for HD 64, 128 and
-// 256, both pool forms and two row capacities (8, 32); the block size (8,
-// 16, 32) is a run-time shift.
+// At HD 96 (phi-3's heads) a warp's 24 dims of an int8 key are three
+// 8-byte pieces (a 16-byte load would start off its alignment in every
+// odd warp; across a half-warp the 8-byte loads over the 112-byte padded
+// rows meet 2-way bank conflicts), a lane's three P V columns two
+// adjacent and one lane-strided (lane_col), and the merge kernel's 24-lane
+// row groups leave 8 of its 128 threads idle; the rings are those of HD
+// 128.
+// One C entry point launches both kernels. Instantiated for HD 64, 96, 128
+// and 256, both pool forms and two row capacities (8, 32); the block size
+// (8, 16, 32) is a run-time shift.
 
 #include "tile_attention.cuh"
 
@@ -149,12 +156,20 @@ __device__ __forceinline__ void int8x4_to_float(uint32_t x, float* f) {
 
 // Column c (< HD / 32) of the lane's P V columns: HD 64 two adjacent, HD
 // 128 four adjacent, HD 256 four at 4 * lane and four at 128 + 4 * lane,
-// so a warp reads each value row in 16-byte pieces without conflicts
+// so a warp reads each value row in 16-byte pieces without conflicts; HD
+// 96 two adjacent at 2 * lane and one at 64 + lane (an 8-byte and a
+// 4-byte piece, each a warp's contiguous 256 or 128 bytes)
 template <int HD>
 __device__ __forceinline__ int lane_col(int lane, int c) {
   if (HD == 64) return 2 * lane + c;
+  if (HD == 96) return c < 2 ? 2 * lane + c : 64 + lane;
   if (HD == 128) return 4 * lane + c;
   return (c < 4 ? 4 * lane : 128 + 4 * lane) + (c & 3);
+}
+
+// one int8 value (the low byte of x) as f32, exactly, as int8x4_to_float
+__device__ __forceinline__ float int8_to_float(uint32_t x) {
+  return __uint_as_float(0x4B000000u | ((x ^ 0x80u) & 0xffu)) - 8388736.f;
 }
 
 // the lane's HD / 32 columns of one staged value row, as f32
@@ -162,12 +177,13 @@ template <int HD, bool INT8>
 __device__ __forceinline__ void load_v(const unsigned char* row, int lane,
                                        float (&v)[HD / 32]) {
   if constexpr (INT8) {
-    if constexpr (HD == 64) {
+    if constexpr (HD == 64 || HD == 96) {
       const uint32_t x = *reinterpret_cast<const unsigned short*>(row + 2 * lane);
       float f[4];
       int8x4_to_float(x, f);
       v[0] = f[0];
       v[1] = f[1];
+      if constexpr (HD == 96) v[2] = int8_to_float(row[64 + lane]);
     } else {
 #pragma unroll
       for (int h = 0; h < HD / 128; ++h)
@@ -176,10 +192,11 @@ __device__ __forceinline__ void load_v(const unsigned char* row, int lane,
     }
   } else {
     const float* r = reinterpret_cast<const float*>(row);
-    if constexpr (HD == 64) {
+    if constexpr (HD == 64 || HD == 96) {
       const float2 x = *reinterpret_cast<const float2*>(r + 2 * lane);
       v[0] = x.x;
       v[1] = x.y;
+      if constexpr (HD == 96) v[2] = r[64 + lane];
     } else {
 #pragma unroll
       for (int h = 0; h < HD / 128; ++h) {
@@ -218,6 +235,10 @@ ragged_decode_f32_kernel(const DecodeF32Args a) {
   constexpr int DQ = HD / kWarps;       // Q K^T: dims a warp takes
   constexpr int RPS = RMAX / kWarps;    // softmax: rows a warp owns
   constexpr int CPL = HD / 32;          // P V: columns a lane owns
+  // P V's key loop unrolled twice; at HD 96 over an int8 pool with 8 rows
+  // ptxas holds the kernel at 96 registers and spilled 4 bytes so: rolled,
+  // it fits them
+  constexpr int PV_UNROLL = HD == 96 && INT8 && RMAX == kWarpRows ? 1 : 2;
   static_assert(RMAX == 8 || RMAX == 32, "row capacities: 8 and 32");
   static_assert(WK == 1 || (size_t)kWarps * RMAX * HD * 4 <= ring_bytes<HD, INT8, RMAX>(),
                 "the key groups' accumulators must fit the ring");
@@ -349,20 +370,30 @@ ragged_decode_f32_kernel(const DecodeF32Args a) {
       for (int r = 0; r < RMAX; ++r) s[r] = 0.f;
       const unsigned char* krow = ks + lane * ROWB;
       if constexpr (INT8) {
+        // the warp's DQ bytes of the key in 16-byte pieces, or at HD 96
+        // (DQ 24, every odd warp's start 8 bytes off a 16-byte boundary)
+        // in 8-byte ones
+        constexpr int PB = DQ % 16 ? 8 : 16;
 #pragma unroll
-        for (int c = 0; c < DQ / 16; ++c) {
-          const int d0 = warp * DQ + c * 16;
-          const uint4 u = *reinterpret_cast<const uint4*>(krow + d0);
-          float kf[16];
-          int8x4_to_float(u.x, kf);
-          int8x4_to_float(u.y, kf + 4);
-          int8x4_to_float(u.z, kf + 8);
-          int8x4_to_float(u.w, kf + 12);
+        for (int c = 0; c < DQ / PB; ++c) {
+          const int d0 = warp * DQ + c * PB;
+          float kf[PB];
+          if constexpr (PB == 16) {
+            const uint4 u = *reinterpret_cast<const uint4*>(krow + d0);
+            int8x4_to_float(u.x, kf);
+            int8x4_to_float(u.y, kf + 4);
+            int8x4_to_float(u.z, kf + 8);
+            int8x4_to_float(u.w, kf + 12);
+          } else {
+            const uint2 u = *reinterpret_cast<const uint2*>(krow + d0);
+            int8x4_to_float(u.x, kf);
+            int8x4_to_float(u.y, kf + 4);
+          }
 #pragma unroll
           for (int r = 0; r < RMAX; ++r) {
             if (r < R) {
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
+              for (int e = 0; e < PB / 4; ++e) {
                 const float4 q4 = *reinterpret_cast<const float4*>(qs + r * HD + d0 + 4 * e);
                 s[r] = fmaf(q4.x, kf[4 * e], s[r]);
                 s[r] = fmaf(q4.y, kf[4 * e + 1], s[r]);
@@ -437,7 +468,7 @@ ragged_decode_f32_kernel(const DecodeF32Args a) {
         for (int c = 0; c < CPL; ++c) acc[j][c] *= al;
       }
     }
-#pragma unroll 2
+#pragma unroll (PV_UNROLL)
     for (int k0 = kg * KPW; k0 < kg * KPW + KPW; k0 += 4) {
       float v[4][CPL];
 #pragma unroll
@@ -537,18 +568,20 @@ __global__ void __launch_bounds__(kThreads) ragged_decode_f32_merge(const Decode
   const int grp = threadIdx.x / LANES;
   const int d4 = (threadIdx.x % LANES) * 4;
   float4 o = {0.f, 0.f, 0.f, 0.f};
-  for (int s = grp; s < a.splits; s += GROUPS) {
-    const float f = wsplit[s];
-    if (f > 0.f) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(acc + (slot0 + (size_t)s * R) * HD + d4);
-      o.x = fmaf(x.x, f, o.x);
-      o.y = fmaf(x.y, f, o.y);
-      o.z = fmaf(x.z, f, o.z);
-      o.w = fmaf(x.w, f, o.w);
+  if (grp < GROUPS) {  // HD 96: 128 threads hold five whole groups
+    for (int s = grp; s < a.splits; s += GROUPS) {
+      const float f = wsplit[s];
+      if (f > 0.f) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(acc + (slot0 + (size_t)s * R) * HD + d4);
+        o.x = fmaf(x.x, f, o.x);
+        o.y = fmaf(x.y, f, o.y);
+        o.z = fmaf(x.z, f, o.z);
+        o.w = fmaf(x.w, f, o.w);
+      }
     }
+    *reinterpret_cast<float4*>(&osum[grp][d4]) = o;
   }
-  *reinterpret_cast<float4*>(&osum[grp][d4]) = o;
   __syncthreads();
   const int b = bk / a.Hkv;
   const int kvh = bk % a.Hkv;
@@ -610,6 +643,8 @@ int launch_hd(int hd, int R, const DecodeF32Args& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch_rows<64, INT8>(R, a, stream);
+    case 96:
+      return launch_rows<96, INT8>(R, a, stream);
     case 128:
       return launch_rows<128, INT8>(R, a, stream);
     case 256:

@@ -62,7 +62,14 @@
 // flops per visible pair / 494.7 TFLOP/s TF32): a prefill chunk is bound
 // by the three products (T=512 at offset 1000: 0.064 ms), a decode step
 // by the f32 (or int8) pages it reads.
-// Both forms are instantiated for HD 64, 128 and 256 and BS 8, 16 and 32.
+// Both forms are instantiated for HD 64, 96, 128 and 256 and BS 8, 16 and
+// 32, HD 96 in a library of its own (ragged_prefill_attention_hd96.cu
+// compiles this file with RAGGED_PREFILL_HD96: 12 instantiations more
+// would lengthen this file's nvcc, the slowest of the build, by a third).
+// At HD 96 (phi-3's heads) the bf16 form keeps Q in registers as at
+// 128, over rows of 12 16-byte chunks in tile_attention.cuh's split
+// swizzle; the f32 form's padded rows (104 and 100 floats) keep its loads
+// free of bank conflicts as at the other head_dims.
 // The f32 form keeps Q in shared memory at every HD; at 256 its 64 x 264
 // f32 Q tile and two stages of K and V take 197 KB (one block per SM) and
 // ptxas fits its 128 accumulator registers a lane beside the splits
@@ -517,15 +524,23 @@ int launch_bs(int BS, const PrefillArgs& a, cudaStream_t stream) {
   return -1;
 }
 
+// the head_dims this library is built for: 64, 128 and 256, or with
+// RAGGED_PREFILL_HD96 defined (ragged_prefill_attention_hd96.cu) 96 alone,
+// so that the two halves compile in parallel
 template <bool INT8, bool F32>
 int launch_hd(int hd, int BS, const PrefillArgs& a, cudaStream_t stream) {
   switch (hd) {
+#ifdef RAGGED_PREFILL_HD96
+    case 96:
+      return launch_bs<96, INT8, F32>(BS, a, stream);
+#else
     case 64:
       return launch_bs<64, INT8, F32>(BS, a, stream);
     case 128:
       return launch_bs<128, INT8, F32>(BS, a, stream);
     case 256:
       return launch_bs<256, INT8, F32>(BS, a, stream);
+#endif
   }
   return -1;
 }
@@ -544,7 +559,8 @@ int launch_pools(const PrefillArgs& a, int BS, int hd, cudaStream_t s) {
 // (q rows are copied in 16-byte pieces). k_scale/v_scale
 // null: the pools are bf16; both set: the pools are int8 with [Hkv, NB]
 // f32 scales. Returns the cudaError_t of the launch (0 = launched), or -1
-// for a head_dim (64, 128, 256) / block size this file was not built for.
+// for a head_dim (64, 128, 256; 96 in the RAGGED_PREFILL_HD96 library) /
+// block size this library was not built for.
 extern "C" int b2b_ragged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,

@@ -13,8 +13,8 @@
 //     fragments (ldmatrix);
 //   - keys come in tiles of kKeys = 64 rows of K and V in bf16 in shared
 //     memory, in an XOR-swizzled layout (16-byte chunk c of row r sits at
-//     chunk c ^ (r & 7)) so that ldmatrix reads 8 rows without bank
-//     conflicts;
+//     chunk c ^ (r & 7); at HD 96 swz's split form) so that ldmatrix reads
+//     8 rows without bank conflicts;
 //   - S = Q K^T with mma.m16n8k16 (bf16 in, f32 accumulator), scaled,
 //     tanh-capped, masked; the online softmax stays in f32 registers
 //     (row max and row sum over the quad of lanes holding a row); P is
@@ -99,10 +99,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// index of 16-byte chunk c of row r in a swizzled [rows][HD] bf16 tile
+// index of 16-byte chunk c of row r in a swizzled [rows][HD] bf16 tile.
+// An ldmatrix phase reads one chunk c of 8 rows r0 .. r0 + 7 (r0 a
+// multiple of 8); it is free of bank conflicts when those 8 chunks fall in
+// 8 distinct 16-byte bank groups, (index mod 8).
+//   HD 64, 128, 256 (a row of 8, 16 or 32 chunks): chunk c ^ (r & 7). The
+//     row start is a multiple of 8 chunks, so the groups are c ^ (r & 7):
+//     distinct over the 8 rows.
+//   HD 96 (a row of 12 chunks): that XOR would send chunks 8-11 into 12-15,
+//     the next row's chunks 0-3. The row splits instead into its aligned
+//     group of 8 chunks, XORed as above, and a tail of 4, permuted inside
+//     itself: chunk 8 + ((c ^ (r >> 1)) & 3). A row starts 12 r chunks in,
+//     so its bank groups sit 4 (r & 1) apart: in the head the group is
+//     (c ^ (r & 7)) ^ 4 (r & 1), a bijection of r & 7 (the XOR by
+//     4 (r & 1) leaves bit 0 of r, which selects it, as it is); in the tail
+//     it is 4 (r & 1) + ((c ^ (r >> 1)) & 3), whose two parts take bit 0
+//     and bits 1-2 of r & 7 each once. Every chunk stays in its row, and the
+//     tiles take no more shared memory than unswizzled ones.
 template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * (HD / 8) + (c ^ (r & 7));
+  constexpr int RC = HD / 8;
+  static_assert(RC % 8 == 0 || RC == 12, "rows of 8k or 12 chunks");
+  if constexpr (RC % 8 == 0)
+    return r * RC + (c ^ (r & 7));
+  else
+    return r * RC + (c < 8 ? c ^ (r & 7) : 8 + ((c ^ (r >> 1)) & 3));
 }
 
 // one warp's 16 query rows: Q fragments, output accumulator, softmax state.
@@ -332,7 +353,7 @@ __device__ __forceinline__ void attend_keys(W& w, const uint4* qw,
     pv<HD, KEYS, false>(w, s, vs, live, lane);
 }
 
-// One 64-key tile, Q in registers (HD 64 and 128)
+// One 64-key tile, Q in registers (HD 64, 96 and 128)
 template <int HD>
 __device__ __forceinline__ void attend_tile(WarpRows<HD>& w, const uint4* ks,
                                             const uint4* vs, unsigned live,

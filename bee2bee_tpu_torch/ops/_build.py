@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is a shared library with a plain C interface:
 ``nvcc`` compiles it for ``sm_90a`` on first use, from the sources in the
 package, into ``build/bee2bee_tpu_torch/`` at the root of the checkout,
 and ``ctypes`` loads it. The library's name carries a hash of its source,
-the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
-header never loads a stale build. The wall time of a build that compiled
+the sources it includes (``#include "x.cu"``), the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale build. The wall time of a build that compiled
 something is booked to ``engine.compile_seconds{root="other"}``
 (engine/introspect.py). Nothing here
 runs at import: the CPU tests import every module, and a machine without
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,8 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bee2bee_tpu_torch"
 # every kernel source of the package; build() compiles them all at once
 SOURCES = (
     "ragged_attention.cu", "ragged_prefill_attention.cu",
-    "ragged_decode_attention.cu", "ragged_decode_attention_f32.cu",
-    "flash_attention.cu", "int8_weight_gemm.cu",
+    "ragged_prefill_attention_hd96.cu", "ragged_decode_attention.cu",
+    "ragged_decode_attention_f32.cu", "flash_attention.cu", "int8_weight_gemm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,7 +63,10 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    h = hashlib.sha256(src.read_bytes())
+    text = src.read_bytes()
+    h = hashlib.sha256(text)
+    for included in re.findall(rb'#include "([^"]+\.cu)"', text):
+        h.update((CSRC / included.decode()).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -7,7 +7,7 @@ same signature and layout. Two implementations of one function:
 - three CUDA kernels in ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``)
   for CUDA tensors, which together replace the TPU kernel
   ``_flash_kernel``: the tensor-core tile kernel (the ragged prefill
-  kernel's design over contiguous K/V) for bf16 at head_dim 64 and 128,
+  kernel's design over contiguous K/V) for bf16 at head_dim 64, 96 and 128,
   and in its head_dim-256 form (``tile_hd256``: Q resident in shared
   memory, 32-key tiles); its f32 form (both products in 3xTF32) for f32
   at every head_dim; and the row-per-warp kernel, which the rule no longer
@@ -51,20 +51,20 @@ _COUNTERS = {"row": "launches", "tile": "tile_launches",
              "tile_hd256": "hd256_tile_launches", "tile_f32": "f32_tile_launches"}
 _KERNEL_DTYPES = {"tile": torch.bfloat16, "tile_hd256": torch.bfloat16,
                   "tile_f32": torch.float32}
-_KERNEL_HEAD_DIMS = {"tile": (64, 128), "tile_hd256": (256,),
+_KERNEL_HEAD_DIMS = {"tile": (64, 96, 128), "tile_hd256": (256,),
                      "tile_f32": _HEAD_DIMS, "row": _HEAD_DIMS}
 
 
 def use_tile_kernel(dtype, hd: int) -> bool:
     """The dispatch rule: bf16 and f32 at a head_dim the tile kernels are
-    built for (64, 128, 256) go to the tensor-core tile kernel of their
+    built for (64, 96, 128, 256) go to the tensor-core tile kernel of their
     type; anything else reaches the row kernel, whose checks refuse it."""
     return dtype in _KERNEL_DTYPES.values() and hd in _HEAD_DIMS
 
 
 def flash_kernel(dtype, hd: int) -> str:
-    """The kernel the dispatch rule names: "tile" (bf16 at head_dim 64 and
-    128), "tile_hd256" (bf16 at 256), "tile_f32" (f32) or "row"."""
+    """The kernel the dispatch rule names: "tile" (bf16 at head_dim 64, 96
+    and 128), "tile_hd256" (bf16 at 256), "tile_f32" (f32) or "row"."""
     if not use_tile_kernel(dtype, hd):
         return "row"
     if dtype == torch.float32:

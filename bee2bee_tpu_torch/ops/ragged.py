@@ -8,8 +8,8 @@ with the same ABI. Two implementations of one function:
   replace the TPU kernel ``_ragged_kernel``: the split-K decode kernel
   ``csrc/ragged_decode_attention.cu`` for bf16 decode (T = 1); the
   tensor-core tile kernel ``csrc/ragged_prefill_attention.cu`` for bf16
-  chunks of at least ``T_MIN`` queries; both at head_dim 64 and 128 with
-  Q's fragments in registers, and in their head_dim-256 forms
+  chunks of at least ``T_MIN`` queries; both at head_dim 64, 96 and 128
+  with Q's fragments in registers, and in their head_dim-256 forms
   (``decode_hd256``, ``tile_hd256``: Q resident in shared memory, the
   tile kernel in 32-key tiles); the f32 split-K kernel
   ``csrc/ragged_decode_attention_f32.cu`` (``decode_f32``: IEEE f32 on the
@@ -69,21 +69,24 @@ import torch
 NEG_INF = -1e30  # the masked-score fill of the JAX kernels (ops/flash.py)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 _BLOCK_SIZES = (8, 16, 32)
 _SOURCE = "ragged_attention.cu"
 _PREFILL_SOURCE = "ragged_prefill_attention.cu"
+# the tile kernel's head_dim-96 instantiations, a library of their own
+# (the same C entry points)
+_PREFILL_HD96_SOURCE = "ragged_prefill_attention_hd96.cu"
 _DECODE_SOURCE = "ragged_decode_attention.cu"
 _DECODE_F32_SOURCE = "ragged_decode_attention_f32.cu"
 # the head_dims each kernel form is built for: every kernel covers
 # _HEAD_DIMS. The bf16 tile and decode kernels hold Q's fragments in
-# registers at 64 and 128; at 256 that and the accumulator would take about
-# 224 registers a lane, so their "_hd256" forms keep Q in shared memory.
-# The f32 tile form and the f32 decode kernel keep Q there at every
-# head_dim and are one design at all three
+# registers at 64, 96 (phi-3's heads) and 128; at 256 that and the
+# accumulator would take about 224 registers a lane, so their "_hd256"
+# forms keep Q in shared memory. The f32 tile form and the f32 decode
+# kernel keep Q there at every head_dim and are one design at all four
 _KERNEL_HEAD_DIMS = {
-    "decode": (64, 128), "decode_hd256": (256,),
-    "tile": (64, 128), "tile_hd256": (256,),
+    "decode": (64, 96, 128), "decode_hd256": (256,),
+    "tile": (64, 96, 128), "tile_hd256": (256,),
     "tile_f32": _HEAD_DIMS, "decode_f32": _HEAD_DIMS, "row": _HEAD_DIMS,
 }
 # the shortest chunk the bf16 tile kernel takes. On the H100 it beat the
@@ -99,7 +102,10 @@ T_MIN = 2
 # both pools: up to T = 8 at llama-3-8b's heads (G = 4; at T = 8 0.0954
 # against 0.1576 ms) and up to T = 16 at gemma-2-9b's (G = 2, head_dim
 # 256; 0.2236 against 0.3401 ms), so each crossover sits where those
-# heads' rows stop fitting
+# heads' rows stop fitting. At phi-3-mini's (G = 1, head_dim 96) the
+# head_dim-128 constants hold: the decode kernel won to T = 8 (0.1076
+# against 0.1339 ms; int8 pool 0.0792 against 0.1442) and lost from T = 12,
+# where its rows pass its 8-row form (0.2392 against 0.1318)
 T_MIN_F32 = 9
 T_MIN_F32_INT8 = 9
 T_MIN_F32_HD256 = 17
@@ -120,7 +126,8 @@ DECODE_F32_MAX_SPLIT_TILES = 8
 
 
 def _t_min_f32(hd: int, quantized: bool) -> int:
-    """The f32 tile form's crossover for this head_dim and pool form."""
+    """The f32 tile form's crossover for this head_dim and pool form (head_dim
+    96 shares 64's and 128's)."""
     if hd == 256:
         return T_MIN_F32_INT8_HD256 if quantized else T_MIN_F32_HD256
     return T_MIN_F32_INT8 if quantized else T_MIN_F32
@@ -129,7 +136,7 @@ def _t_min_f32(hd: int, quantized: bool) -> int:
 def use_decode_f32_kernel(dtype, T: int, hd: int, quantized: bool = False,
                           group: int = 1) -> bool:
     """The dispatch rule of the f32 decode kernel: f32 queries at a
-    head_dim it is built for (64, 128, 256), in chunks shorter than the f32
+    head_dim it is built for (64, 96, 128, 256), in chunks shorter than the f32
     tile form's crossover (``_t_min_f32``) whose ``group`` * T rows (group
     = query heads per kv head) fit one block."""
     return (dtype == torch.float32 and hd in _HEAD_DIMS
@@ -139,7 +146,7 @@ def use_decode_f32_kernel(dtype, T: int, hd: int, quantized: bool = False,
 def use_tile_kernel(dtype, T: int, hd: int, quantized: bool = False,
                     group: int = 1) -> bool:
     """The dispatch rule of the tensor-core tile kernels, at a head_dim
-    they are built for (64, 128, 256): bf16 chunks of at least T_MIN
+    they are built for (64, 96, 128, 256): bf16 chunks of at least T_MIN
     queries (prefill and verify) go to the bf16 tile kernel, and every f32
     chunk the f32 decode kernel does not take to its f32 (3xTF32) form."""
     if dtype == torch.bfloat16:
@@ -150,7 +157,7 @@ def use_tile_kernel(dtype, T: int, hd: int, quantized: bool = False,
 
 def use_decode_kernel(dtype, T: int, hd: int) -> bool:
     """The dispatch rule of decode: bf16 queries, one a row (T = 1), at a
-    head_dim the split-K decode kernel is built for (64, 128, 256). It
+    head_dim the split-K decode kernel is built for (64, 96, 128, 256). It
     takes no case that ``use_tile_kernel`` takes."""
     return dtype == torch.bfloat16 and T == 1 and hd in _HEAD_DIMS
 
@@ -159,7 +166,7 @@ def ragged_kernel(dtype, T: int, hd: int, quantized: bool = False,
                   group: int = 1) -> str:
     """The kernel the dispatch rule names for queries of ``dtype`` over the
     pool in q's type or, ``quantized``, an int8 pool, with ``group`` query
-    heads per kv head: "decode" or "tile" (bf16 at head_dim 64/128),
+    heads per kv head: "decode" or "tile" (bf16 at head_dim 64/96/128),
     "decode_hd256" or "tile_hd256" (their head_dim-256 forms), "decode_f32"
     (f32 decode and short chunks, every head_dim), "tile_f32" (the tile
     kernel's f32 form, every other f32 chunk), or "row" for a type or
@@ -364,11 +371,16 @@ def _kernel_fn():
     return fn
 
 
-def _prefill_fn():
-    """The tile kernel's C entry point, built and bound on first use."""
+def _prefill_source(hd: int) -> str:
+    return _PREFILL_HD96_SOURCE if hd == 96 else _PREFILL_SOURCE
+
+
+def _prefill_fn(hd: int):
+    """The tile kernel's C entry point for head_dim ``hd``, built and bound
+    on first use."""
     from ._build import load
 
-    fn = load(_PREFILL_SOURCE).b2b_ragged_prefill_attention
+    fn = load(_prefill_source(hd)).b2b_ragged_prefill_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
@@ -377,11 +389,12 @@ def _prefill_fn():
     return fn
 
 
-def _prefill_f32_fn():
-    """The f32 tile form's C entry point, built and bound on first use."""
+def _prefill_f32_fn(hd: int):
+    """The f32 tile form's C entry point for head_dim ``hd``, built and
+    bound on first use."""
     from ._build import load
 
-    fn = load(_PREFILL_SOURCE).b2b_ragged_prefill_attention_f32
+    fn = load(_prefill_source(hd)).b2b_ragged_prefill_attention_f32
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
@@ -477,9 +490,9 @@ def _launch_kernel(q, k_pool, v_pool, block_tables, off, win, sm_scale, softcap,
         args = (*ptrs, B, T, H, Hkv, NB, MB, BS, hd, win, float(sm_scale),
                 float(softcap))
         if kernel in ("tile", "tile_hd256"):
-            err = _prefill_fn()(*args, stream)
+            err = _prefill_fn(hd)(*args, stream)
         elif kernel == "tile_f32":
-            err = _prefill_f32_fn()(*args, stream)
+            err = _prefill_f32_fn(hd)(*args, stream)
         else:
             err = _kernel_fn()(*args, _DTYPE_CODE[q.dtype], stream)
     if err:

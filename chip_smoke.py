@@ -15,8 +15,9 @@ int8-weight phase and the qwen checkpoints; ``--only gemma`` only the
 build, the G = 8 and G = 1 ragged cases and their timings, the gemma
 forwards, the served gemma slices and the gemma checkpoints; ``--only
 gpt2`` the same for starcoder-15b's G = 48 and gpt2's head_dim 64, with
-distilgpt2, gpt2 drafted by distilgpt2 and starcoder-15b served. Those
-print no result line.) The line before the card's gives every stage's
+distilgpt2, gpt2 drafted by distilgpt2 and starcoder-15b served; ``--only
+phi3`` the same for phi-3-mini's head_dim 96, with the GEMM at its shapes,
+phi-3-mini served and its checkpoint. Those print no result line.) The line before the card's gives every stage's
 seconds (``stage seconds:``).
 
 Phases (each prints its numbers on lines of their own; any failure raises
@@ -25,9 +26,9 @@ and the script exits non-zero):
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from csrc/ with nvcc (one process per source, all at
    once); ptxas's registers and spills of every instantiation, and a
-   failure if a head_dim-256 instantiation the dispatch names (tile, f32
-   tile, both decode kernels and their merges, flash tile and f32 tile
-   kernels) spills.
+   failure if a head_dim-96 or head_dim-256 instantiation the dispatch
+   names (tile, f32 tile, both decode kernels and their merges, flash tile
+   and f32 tile kernels) spills.
 2. Ragged paged attention vs plain version at llama-3-8b's attention
    shapes (H=32, Hkv=8, hd=128, block size 16) in bf16, through the
    dispatching wrapper: decode (the split-K decode kernel) at ragged
@@ -169,7 +170,27 @@ and the script exits non-zero):
    over an int8 pool), gpt2 in f32 drafted by distilgpt2 and starcoder-15b
    (40 layers) are served with phase 6's checks, and the checkpoint phase
    writes and loads gpt2 (Conv1D) and gpt_bigcode (multi_query)
-   checkpoints.
+   checkpoints. Phases 2-4 hold every kernel at phi-3-mini's heads too (32
+   query heads over 32 kv heads at head_dim 96, G = 1, its 2,047-key
+   window): decode at a 1024-token context, with a dead row and null
+   tails, and cut by the window at a 3,000-token context; block sizes 8 and
+   32; the verify chunk of T = 5 (plain, window-cut, and with window,
+   softcap and scale); chunks of 16, 17 and 32; prefill T = 512 at 1000 and
+   window-cut at 2488; bf16 and f32 over both pools; flash at head_dim 96
+   (T=64 S=256 at per-row offsets, causal T=S=2048, the decode case,
+   non-causal T=S=256) in bf16 and f32; timed: decode, the verify shape,
+   the 512-token chunk, decode and the chunk past the window, and in f32
+   the decode step, the verify shape and the chunk, with the f32
+   crossover over T at those heads. Then phi-3-mini's forward at full
+   width, 2 layers, norm scales perturbed: a 2,300-token prefill past the
+   window and 8 steps, checked as the gpt2 block's. The int8-weight GEMM,
+   bf16 and f32 forms, at phi-3-mini's projections (wq|wk|wv and
+   w_up|w_gate grouped, wo, w_down; K = 3072) at every M of the GEMM
+   phase, after its f32 form. After the gpt2 slices phi-3-mini at full
+   depth (32 layers) and its 4,096 positions is served in bf16 and with
+   int8 weights over an int8 pool on prompts of 41 to 3,000 tokens (three
+   past the window) with phase 6's checks, and the checkpoint phase writes
+   and loads a phi3 checkpoint (fused qkv_proj and gate_up_proj).
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream. Every decode step is a replay of a captured CUDA
@@ -605,19 +626,22 @@ def phase_device_and_build():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"build: {source}: {len(regs)} kernels; ptxas spill lines "
             f"{sorted(set(spills)) or 'none'}")
-        # every instantiation's registers and spills; the head_dim-256
-        # forms the dispatch names must not spill
+        # every instantiation's registers and spills; the head_dim-96 and
+        # head_dim-256 forms the dispatch names must not spill
         for name, line in ptxas_entries(report):
-            hd256 = name.split("<")[1].startswith("256")
+            hd = re.split("[,>]", name.split("<")[1])[0]
             log(f"build: {source}: {name}: {line}")
-            if (hd256 and name.startswith(HD256_FORMS)) or name.startswith(GEMM_KERNEL):
+            if (hd in NO_SPILL_HEAD_DIMS and name.startswith(NO_SPILL_FORMS)) or \
+                    name.startswith(GEMM_KERNEL):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{source}: {name} spills: {line}")
     return card, build_s
 
 
-# the kernels whose head_dim-256 instantiations the dispatch names
-HD256_FORMS = ("ragged_prefill_kernel", "ragged_prefill_f32_kernel",
+# the kernels whose head_dim-96 and head_dim-256 instantiations the
+# dispatch names, and those head_dims: none of them may spill
+NO_SPILL_HEAD_DIMS = ("96", "256")
+NO_SPILL_FORMS = ("ragged_prefill_kernel", "ragged_prefill_f32_kernel",
                "ragged_decode_kernel", "ragged_decode_merge", "ragged_decode_f32_kernel",
                "ragged_decode_f32_merge", "flash_tile_kernel", "flash_tile_f32_kernel")
 
@@ -854,6 +878,38 @@ GPT2_RAGGED_CASES = [
         ("chunk T=16", dict(offs=[3, 1100], T=16)),
         ("prefill T=300", dict(offs=[0, 45], T=300)),
         ("prefill T=512 @1000", dict(offs=[1000], T=512)),
+    )
+]
+# phi-3-mini's heads (32 query heads over 32 kv heads at head_dim 96: G =
+# 1) with its 2,047-key window on every layer: the decode and tile
+# kernels' head_dim-96 forms (Q in registers over rows of 12 16-byte
+# chunks), decode_f32 below the f32 crossover at head_dim 96 and the f32
+# tile form from it on. The window binds only past 2,047 keys, so the
+# window-cut cases sit at a 3,000-token context
+PHI3 = dict(H=32, Hkv=32, hd=96)
+PHI3_KW = dict(window=2047)
+PHI3_RAGGED_CASES = [
+    (f"hd96 {name} {str(dt)[6:]}", dict(geo, dtype=dt, **PHI3), kw)
+    for dt in (torch.bfloat16, torch.float32)
+    for name, geo, kw in (
+        ("decode B=8 ctx 1024", dict(offs=[1023] * 8, T=1), PHI3_KW),
+        ("decode + dead row + null tails", dict(offs=[0, 17, 300, 1023, 2047], T=1,
+                                                dead=(2,), extra_tables=5), PHI3_KW),
+        ("decode window-cut ctx 3000", dict(offs=[2999, 2500, 2047, 2046, 100], T=1),
+         PHI3_KW),
+        ("decode BS=8", dict(offs=[3, 40, 100, 1000], T=1, BS=8), {}),
+        ("decode BS=32 + null tails", dict(offs=[3, 40, 100, 1000], T=1, BS=32,
+                                           extra_tables=3), {}),
+        ("verify T=5 + dead row", dict(offs=[10, 31, 64, 700, 300], T=5, dead=(4,)),
+         PHI3_KW),
+        ("verify T=5 window-cut ctx 3000", dict(offs=[2995, 2100, 2046], T=5), PHI3_KW),
+        ("window+softcap+scale T=5", dict(offs=[5, 70, 129, 1000], T=5), WINDOW_KW),
+        ("chunk T=16", dict(offs=[3, 1100], T=16), PHI3_KW),
+        ("chunk T=17 window-cut", dict(offs=[5, 2200], T=17), PHI3_KW),
+        ("chunk T=32", dict(offs=[7, 900], T=32), PHI3_KW),
+        ("prefill T=512 @1000", dict(offs=[1000], T=512), PHI3_KW),
+        ("prefill T=512 window-cut ctx 3000", dict(offs=[2488], T=512), PHI3_KW),
+        ("BS=8 T=100 + null tails", dict(offs=[3, 77], T=100, BS=8, extra_tables=4), {}),
     )
 ]
 # the cases the row kernel served at head_dim 256 before its head_dim-256
@@ -1232,11 +1288,25 @@ RAGGED_TIMED = (
     ("decode_hd64", [1023] * 8, 1, torch.bfloat16, GPT2, False),
     ("prefill_hd64", [500], 512, torch.bfloat16, GPT2, False),
     ("verify_hd64_f32", [1023] * 8, 5, torch.float32, GPT2, False),
-    ("prefill_hd64_f32", [500], 512, torch.float32, GPT2, False))
+    ("prefill_hd64_f32", [500], 512, torch.float32, GPT2, False),
+    # phi-3-mini's hd 96 at G = 1 under its 2,047-key window: decode and the
+    # verify shape at a 1024-token context, a 512-token chunk at 1000, decode
+    # and a 512-token chunk past the window at a 3,000-token context; in f32
+    # the decode step (decode_f32), the verify shape and the chunk
+    ("decode_hd96", [1023] * 8, 1, torch.bfloat16, PHI3, True),
+    ("verify_hd96", [1023] * 8, 5, torch.bfloat16, PHI3, False),
+    ("prefill_hd96", [1000], 512, torch.bfloat16, PHI3, False),
+    ("decode_window_hd96", [2999] * 8, 1, torch.bfloat16, PHI3, False),
+    ("prefill_window_hd96", [2488], 512, torch.bfloat16, PHI3, False),
+    ("decode_hd96_f32", [1023] * 8, 1, torch.float32, PHI3, True),
+    ("verify_hd96_f32", [1023] * 8, 5, torch.float32, PHI3, False),
+    ("prefill_hd96_f32", [1000], 512, torch.float32, PHI3, False))
 # gemma-2b's and gemma-7b's timed shapes (``--only gemma``)
 GEMMA_G_TIMED = tuple(s for s in RAGGED_TIMED if s[4] in (GEMMA_2B, GEMMA_7B))
 # starcoder-15b's and gpt2's (``--only gpt2``)
 GPT2_TIMED = tuple(s for s in RAGGED_TIMED if s[4] in (STARCODER, GPT2))
+# phi-3-mini's (``--only phi3``)
+PHI3_TIMED = tuple(s for s in RAGGED_TIMED if s[4] == PHI3)
 
 
 def time_ragged_shapes(gen, flush, int8: bool, shapes=RAGGED_TIMED) -> dict:
@@ -1251,7 +1321,7 @@ def time_ragged_shapes(gen, flush, int8: bool, shapes=RAGGED_TIMED) -> dict:
         if int8:
             kp, vp, *scales = int8_pools(gen, kp.shape[1], Hkv=kp.shape[0],
                                          hd=kp.shape[3])
-        kw = GEMMA_TIMED_KW if heads.get("hd") == 256 else {}
+        kw = {256: GEMMA_TIMED_KW, 96: PHI3_KW}.get(heads.get("hd"), {})
         timings[label] = time_ragged(f"{label0}{label} ({ragged_counter(q, kp.shape[0], int8)} "
                                      f"kernel)", q, kp, vp, tb, off, offs, T, flush,
                                      scales=scales, **kw)
@@ -1273,6 +1343,9 @@ def phase_ragged_vs_plain(flush, int8=False):
     errs = ragged_cases_vs_plain(gen, RAGGED_CASES + F32_RAGGED_CASES + HD256_RAGGED_CASES
                                  + QWEN2_RAGGED_CASES + GEMMA_G_RAGGED_CASES
                                  + GPT2_RAGGED_CASES, int8)
+    # the head_dim-96 forms' errors apart, for their rows of the kernel table
+    errs.update((f"{k}_hd96", v) for k, v in
+                ragged_cases_vs_plain(gen, PHI3_RAGGED_CASES, int8).items())
     timings = time_ragged_shapes(gen, flush, int8)
     label0 = "int8 " if int8 else ""
     time_crossover(f"{label0}pool".strip(), gen, flush, int8)
@@ -1280,6 +1353,8 @@ def phase_ragged_vs_plain(flush, int8=False):
     time_crossover(f"{label0}pool".strip(), gen, flush, int8, heads=GEMMA)
     time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32,
                    heads=GEMMA)
+    time_crossover(f"{label0}pool".strip(), gen, flush, int8, dtype=torch.float32,
+                   heads=PHI3)
     return errs, timings
 
 
@@ -1377,8 +1452,19 @@ def phase_flash_vs_plain(flush):
              offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
         ("hd256 gemma f32 non-causal T=S=256", qkv(2, 256, 256, f32, **GEMMA),
          dict(causal=False)),
+    ] + [  # phi-3-mini's heads: head_dim 96, G = 1
+        (f"hd96 phi3 {str(dt)[6:]} {name}", qkv(*shape, dt, **PHI3), kw)
+        for dt in (torch.bfloat16, f32)
+        for name, shape, kw in (
+            ("T=64 S=256 @[10,150]", (2, 64, 256), dict(offset=offsets([10, 150]))),
+            ("causal T=S=2048", (1, 2048, 2048), dict(offset=None)),
+            ("decode B=8 T=1 S=2048 ragged + empty row", (8, 1, 2048),
+             dict(offset=offsets([0, 1, 31, 32, 700, 1500, 2047, -1]))),
+            ("non-causal T=S=256", (2, 256, 256), dict(causal=False)))
     ]
+    # the max abs error per kernel; the head_dim-96 cases' apart
     errs = {k: 0.0 for k in FLASH_COUNTERS}
+    errs.update((f"{k}_hd96", 0.0) for k in ("tile", "tile_f32"))
     for label, (q, k, v), kw in cases:
         kernel = flash_kernel(q.dtype, q.shape[3])
         counter = FLASH_COUNTERS[kernel]
@@ -1395,7 +1481,8 @@ def phase_flash_vs_plain(flush):
         check(err <= tol, f"flash {label}: max abs err {err} > {tol}")
         if "empty row" in label:
             check(not bool(got[7].any()), "flash: the empty row is not 0")
-        errs[kernel] = max(errs[kernel], err)
+        key = f"{kernel}_hd96" if label.startswith("hd96") else kernel
+        errs[key] = max(errs[key], err)
         if label.endswith("T=64 S=256 @[10,150]") and label.startswith("hd256"):
             # the row kernel, which the rule no longer names, forced where it
             # served head_dim 256 before
@@ -1424,6 +1511,12 @@ def phase_flash_vs_plain(flush):
     timings["tile_f32_hd256"] = time_flash("f32 tile kernel hd256 gemma", q, k, v, flush)
     timings["row_hd256_f32"] = time_flash("row kernel forced hd256 gemma", q, k, v,
                                           flush, kernel="row")
+    # phi-3-mini's heads: the tile kernel's head_dim-96 form and the f32 tile
+    # kernel at head_dim 96
+    q, k, v = by_label["hd96 phi3 bfloat16 causal T=S=2048"]
+    timings["tile_hd96"] = time_flash("tile kernel hd96 phi3", q, k, v, flush)
+    q, k, v = by_label["hd96 phi3 float32 causal T=S=2048"]
+    timings["tile_f32_hd96"] = time_flash("f32 tile kernel hd96 phi3", q, k, v, flush)
     return errs, timings
 
 
@@ -2178,9 +2271,15 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
             f"({attn_ms / busy_ms:.3f} of busy){gemm}; "
             f"top kernels by device time {top}; card {card}")
     weight_bytes = storage_bytes(engine.params)
+    # the K and V pages a B-row step at ctx reads in every layer (an int8
+    # page with its f32 scale)
+    elem = engine.cache_dtype.itemsize
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * B * (
+        ctx * cfg.head_dim * elem + (-(-ctx // BS) * 4 if elem == 1 else 0))
     log(f"breakdown: weights {weight_bytes} B -> "
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms per step at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s; the breakdown took "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s; KV pages of the B={B} ctx={ctx} step "
+        f"{kv_bytes} B -> {kv_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the breakdown took "
         f"{time.perf_counter() - t_start:.1f} s")
 
 
@@ -2710,17 +2809,17 @@ def pool_bytes(engine) -> int:
 
 
 def load_slice(cache_dtype="bfloat16", params=None, dtype="bfloat16", quantize="none",
-               model="llama-3-8b"):
+               model="llama-3-8b", max_seq_len=2048):
     """CUDAService over ``model`` (llama-3-8b; a registry name or a
-    ModelConfig) computing in ``dtype``: a random init from SEED (with
-    ``quantize="int8"`` quantized on the card as it loads), or the given
-    parameters (in ``dtype``; int8 ones already packed) shared with
-    another engine (no second init)."""
+    ModelConfig) computing in ``dtype`` at ``max_seq_len`` positions: a
+    random init from SEED (with ``quantize="int8"`` quantized on the card
+    as it loads), or the given parameters (in ``dtype``; int8 ones already
+    packed) shared with another engine (no second init)."""
     from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
     from bee2bee_tpu_torch.services import CUDAService
 
     ecfg = EngineConfig(
-        max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
+        max_seq_len=max_seq_len, max_batch=8, kv_block_size=16, decode_chunk=32,
         rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype, quantize=quantize,
     )
     t0 = time.perf_counter()
@@ -2850,7 +2949,8 @@ def slice_prompts(sizes=SLICE_SIZES) -> list:
 
 
 def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16",
-                quantize="none", model="llama-3-8b", light=False, sizes=None):
+                quantize="none", model="llama-3-8b", light=False, sizes=None,
+                max_seq_len=2048):
     """Serve 8 concurrent requests and one stream; the counts are zeroed
     just before and read just after. The bf16 slices (phases 6-7 and the
     int8-weight slices) then run the ring check (not with int8 weights),
@@ -2863,7 +2963,8 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     chunks and the replayed B=8 step's breakdown, and nothing more (no
     ring check, no full breakdown, no logits). ``sizes``: the prompts'
     byte lengths (default ``slice_prompts``'; gpt2's 1,024 positions take
-    shorter ones). The decode chunk replayed against eager and the
+    shorter ones, phi-3's 4,096 longer ones, with ``max_seq_len``). The
+    decode chunk replayed against eager and the
     breakdown's step run at a context of 1024, or of the engine's
     max_seq_len less two decode chunks where that is shorter.
     Returns (the launch counts, pool bytes, the engine's params)."""
@@ -2875,7 +2976,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    svc, load_s = load_slice(cache_dtype, params, dtype, quantize, model)
+    svc, load_s = load_slice(cache_dtype, params, dtype, quantize, model, max_seq_len)
     engine = svc.engine
     cfg = engine.model_cfg
     G = cfg.n_heads // cfg.n_kv_heads
@@ -3285,9 +3386,24 @@ STARCODER_CONFIG = {
     "layer_norm_epsilon": 1e-5, "bos_token_id": 0, "eos_token_id": 0,
     "torch_dtype": "float32",
 }
+# microsoft/Phi-3-mini-4k-instruct's config.json (model_type phi3: the
+# llama branch behind fused qkv_proj / gate_up_proj tensors, a 2,047-token
+# window on every layer, 4,096 positions, an untied head)
+PHI3_CONFIG = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3", "attention_bias": False,
+    "attention_dropout": 0.0, "embd_pdrop": 0.0, "resid_pdrop": 0.0, "hidden_act": "silu",
+    "hidden_size": 3072, "intermediate_size": 8192, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "num_hidden_layers": 32, "vocab_size": 32064,
+    "max_position_embeddings": 4096, "original_max_position_embeddings": 4096,
+    "rms_norm_eps": 1e-5, "rope_scaling": None, "rope_theta": 10000.0,
+    "sliding_window": 2047, "tie_word_embeddings": False, "initializer_range": 0.02,
+    "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000, "use_cache": True,
+    "torch_dtype": "bfloat16",
+}
 HF_CONFIGS = {"qwen2-7b": QWEN2_CONFIG, "qwen3-8b": QWEN3_CONFIG,
               "gemma-2-9b": GEMMA2_CONFIG, "gemma-3-4b": GEMMA3_CONFIG,
-              "gpt2": GPT2_CONFIG, "starcoder-15b": STARCODER_CONFIG}
+              "gpt2": GPT2_CONFIG, "starcoder-15b": STARCODER_CONFIG,
+              "phi-3-mini": PHI3_CONFIG}
 # the JAX init draws the biases as zeros and the norm scales as ones, which
 # would prove nothing about either switch: every qwen and gemma check
 # perturbs them
@@ -3730,91 +3846,102 @@ GPT2_PROMPT = 600
 GPT2_SIZES = (40, 120, 260, 400, 520, 640, 760, 900)
 
 
-def phase_gpt2_forward() -> dict:
-    """Phase 5 for the gpt2 block: gpt2 (12 heads of 64, G = 1) and
-    starcoder-15b (48 heads of 128 over one kv head, G = 48) at full width
-    and 2 layers, random f32 from SEED with every bias, layernorm scale and
-    layernorm bias perturbed: a GPT2_PROMPT-token prefill and 8 greedy
-    decode steps through the kernels against the plain version, in f32 over
-    an f32 and an int8 pool (logits within FORWARD_TOL, greedy tokens
-    equal, each forward through the kernel the rule names for its chunk,
-    pool and G, n_layers times: at G = 48 the f32 tile form for the decode
-    steps too), then in bf16 over a bf16 and an int8 pool (the tile kernel
-    for the prefill, the decode kernel for the steps; prefill logits no
+def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
+    """Phase 5 for one model at full width, ``cfg`` cut in depth: random f32
+    from SEED, perturbed in place by ``perturb(params, seed)``; an
+    ``n_prompt``-token prefill and 8 greedy decode steps through the kernels
+    against the plain version, in f32 over an f32 and an int8 pool (logits
+    within FORWARD_TOL, greedy tokens equal, each forward through the kernel
+    the rule names for its chunk, pool and G, n_layers times), then in bf16
+    over a bf16 and an int8 pool (the same launch rule; prefill logits no
     further from the plain bf16 forward, in the relative Frobenius norm,
     than that is from the plain f32 forward; greedy tokens equal the plain
-    bf16 forward's). Returns the launch counts per model."""
-    from bee2bee_tpu_torch.models.config import get_config
+    bf16 forward's). Returns the launch counts."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
     )
 
-    n_prompt, n_steps = GPT2_PROMPT, 8
+    n_steps = 8
+    cfg, params, run = forward_setup(cfg, n_prompt)
+    perturb(params, SEED + 7)
+    G = cfg.n_heads // cfg.n_kv_heads
+
+    def named(dtype, int8):  # the launches the rule names for one forward run
+        want: dict = {}
+        for T, n in ((n_prompt, 1), (1, n_steps)):
+            c = RAGGED_COUNTERS[ragged_kernel(dtype, T, cfg.head_dim, int8, G)]
+            c += "_int8" if int8 else ""
+            want[c] = want.get(c, 0) + cfg.n_layers * n
+        return want
+
+    launches: dict = {}
+    plain_f32 = {}
+    for pool_dtype in (torch.float32, torch.int8):
+        int8 = pool_dtype == torch.int8
+        tag = f"{label} f32, {str(pool_dtype)[6:]} pool"
+        want = named(torch.float32, int8)
+        reset_counts()
+        k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_counts().items() if v}
+        p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
+        torch.cuda.synchronize()
+        plain_f32[pool_dtype] = p_logits
+        check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
+              f"{tag}: non-finite logits")
+        err = max((k_logits - p_logits).abs().max().item(),
+                  (k_steps - p_steps).abs().max().item())
+        log(f"{tag}: prefill {n_prompt} + {n_steps} decode steps, logits max abs err "
+            f"{err:.3e} (tol {FORWARD_TOL}); launches {got} (expected {want}); greedy "
+            f"kernel {k_toks} plain {p_toks}")
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+        check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    bparams = cast_tree(params, torch.bfloat16)
+    for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
+        tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
+        want = named(torch.bfloat16, pool_dtype == torch.int8)
+        reset_counts()
+        b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_counts().items() if v}
+        bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
+        f32_logits = plain_f32[f32_pool]
+        rel = ((b_logits - bp_logits).norm() / bp_logits.norm()).item()
+        rel_tol = ((bp_logits - f32_logits).norm() / f32_logits.norm()).item()
+        log(f"{tag}: prefill {n_prompt} logits relative (Frobenius) err {rel:.3e} (tol "
+            f"{rel_tol:.3e}, the plain bf16 forward's relative gap to the plain f32 "
+            f"forward), max abs err {(b_logits - bp_logits).abs().max().item():.3e}; "
+            f"launches {got}; greedy kernel {b_toks} plain {bp_toks}")
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        check(rel <= rel_tol, f"{tag}: logits differ by {rel} > {rel_tol} (relative)")
+        check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    del params, bparams, run, plain_f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gpt2_forward() -> dict:
+    """Phase 5 for the gpt2 block (``family_forward``): gpt2 (12 heads of
+    64, G = 1) and starcoder-15b (48 heads of 128 over one kv head, G = 48)
+    at full width and 2 layers, every bias, layernorm scale and layernorm
+    bias perturbed, a GPT2_PROMPT-token prefill (at G = 48 the f32 tile form
+    takes the f32 decode steps too). Returns the launch counts per model."""
+    from bee2bee_tpu_torch.models.config import get_config
+
     out: dict = {}
     for which in GPT2_FORWARD:
         cfg = replace(get_config(which), n_layers=2, name=f"{which}-2layers")
-        cfg, params, run = forward_setup(cfg, n_prompt)
-        perturb_gpt2(params, SEED + 7)
-        G = cfg.n_heads // cfg.n_kv_heads
-        label = f"forward 2x {which} width (G = {G}, head_dim {cfg.head_dim})"
-        launches: dict = {}
-        plain_f32 = {}
-        for pool_dtype in (torch.float32, torch.int8):
-            int8 = pool_dtype == torch.int8
-            sfx = "_int8" if int8 else ""
-            tag = f"{label} f32, {str(pool_dtype)[6:]} pool"
-            want: dict = {}
-            for T, n in ((n_prompt, 1), (1, n_steps)):
-                c = RAGGED_COUNTERS[ragged_kernel(torch.float32, T, cfg.head_dim, int8, G)]
-                want[c + sfx] = want.get(c + sfx, 0) + cfg.n_layers * n
-            reset_counts()
-            k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
-            torch.cuda.synchronize()
-            got = {k: v for k, v in read_counts().items() if v}
-            p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
-            torch.cuda.synchronize()
-            plain_f32[pool_dtype] = p_logits
-            check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
-                  f"{tag}: non-finite logits")
-            err = max((k_logits - p_logits).abs().max().item(),
-                      (k_steps - p_steps).abs().max().item())
-            log(f"{tag}: prefill {n_prompt} + {n_steps} decode steps, logits max abs err "
-                f"{err:.3e} (tol {FORWARD_TOL}); launches {got} (expected {want}); greedy "
-                f"kernel {k_toks} plain {p_toks}")
-            check(got == want, f"{tag}: launches {got}, expected {want}")
-            check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
-            check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
-            for k, v in got.items():
-                launches[k] = launches.get(k, 0) + v
-        bparams = cast_tree(params, torch.bfloat16)
-        for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
-            sfx = "_int8" if pool_dtype == torch.int8 else ""
-            tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
-            reset_counts()
-            b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
-            torch.cuda.synchronize()
-            got = {k: v for k, v in read_counts().items() if v}
-            want = {"ragged_prefill" + sfx: cfg.n_layers,
-                    "ragged_decode" + sfx: cfg.n_layers * n_steps}
-            bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
-            f32_logits = plain_f32[f32_pool]
-            rel = ((b_logits - bp_logits).norm() / bp_logits.norm()).item()
-            rel_tol = ((bp_logits - f32_logits).norm() / f32_logits.norm()).item()
-            log(f"{tag}: prefill {n_prompt} logits relative (Frobenius) err {rel:.3e} (tol "
-                f"{rel_tol:.3e}, the plain bf16 forward's relative gap to the plain f32 "
-                f"forward), max abs err {(b_logits - bp_logits).abs().max().item():.3e}; "
-                f"launches {got}; greedy kernel {b_toks} plain {bp_toks}")
-            check(got == want, f"{tag}: launches {got}, expected {want}")
-            check(rel <= rel_tol, f"{tag}: logits differ by {rel} > {rel_tol} (relative)")
-            check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
-            for k, v in got.items():
-                launches[k] = launches.get(k, 0) + v
-        out[which] = launches
-        del params, bparams, run, plain_f32
-        gc.collect()
-        torch.cuda.empty_cache()
+        label = (f"forward 2x {which} width (G = {cfg.n_heads // cfg.n_kv_heads}, "
+                 f"head_dim {cfg.head_dim})")
+        out[which] = family_forward(label, cfg, GPT2_PROMPT, perturb_gpt2)
     return out
 
 
@@ -3936,6 +4063,163 @@ def phase_gpt2_served(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ phi-3 phases
+
+
+# a prefill past phi-3's 2,047-key window (the window binds on its last 253
+# positions); the served prompts: phase 6's shape from 41 to 3,000 tokens,
+# three past the window, each with 64 new tokens inside 4,096 positions
+PHI3_PROMPT = 2300
+PHI3_SIZES = (40, 120, 400, 900, 1500, 2100, 2600, 2999)
+# phi-3-mini's projections (K, the N of each weight of one launch), the
+# grouped ones as the engine launches them: wq|wk|wv, wo, w_up|w_gate,
+# w_down; K = 3072 = 96 x 32
+PHI3_GEMM = (("wq|wk|wv", 3072, (3072, 3072, 3072)), ("wo", 3072, (3072,)),
+             ("w_up|w_gate", 3072, (8192, 8192)), ("w_down", 8192, (3072,)))
+
+
+def phase_phi3_forward() -> dict:
+    """Phase 5 for phi-3-mini (``family_forward``): full width (32 heads of
+    96 over 32 kv heads, d 3072, d_ff 8192, vocab 32064, untied), 2 layers,
+    every norm scale perturbed, a PHI3_PROMPT-token prefill past its
+    2,047-key window and 8 decode steps. Returns the launch counts."""
+    from bee2bee_tpu_torch.models.config import get_config
+
+    cfg = replace(get_config("phi-3-mini"), n_layers=2, name="phi-3-mini-2layers")
+    label = (f"forward 2x phi-3-mini width (G = 1, head_dim {cfg.head_dim}, window "
+             f"{cfg.sliding_window} on every layer)")
+    return family_forward(label, cfg, PHI3_PROMPT, perturb_norms)
+
+
+def phase_phi3_gemm(flush) -> dict:
+    """The int8-weight GEMM, bf16 and f32 forms, at phi-3-mini's projections
+    (PHI3_GEMM, each as the engine launches it, the grouped weights in one
+    launch) and M in GEMM_MS: each output within GEMM_REL_TOL (bf16) or
+    GEMM_F32_REL_TOL (f32) of the largest |output| of its plain version,
+    one launch a call of the form in x's type, the same bytes twice. Times
+    at M = 8 beside the bound, the plain version, cuBLAS in x's type over
+    the concatenated dense weight and torch._weight_int8pack_mm. Returns the
+    timings by (type, projection)."""
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_group, int8_weight_matmul_ref
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        make, tol = (int8_weight_f32, GEMM_F32_REL_TOL) if f32 else (int8_weight, GEMM_REL_TOL)
+        counter = "int8_gemm_f32" if f32 else "int8_gemm"
+        name = str(dtype)[6:]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 11 + f32)
+        worst = 0.0
+        for label, K, Ns in PHI3_GEMM:
+            pairs = [make(gen, K, N) for N in Ns]
+            ws = [w for w, _ in pairs]
+            dense = torch.cat([d for _, d in pairs], dim=1)
+            del pairs
+            Nt = sum(Ns)
+            for M in GEMM_MS:
+                x = torch.randn((M, K), generator=gen, device="cuda", dtype=dtype)
+                before = gemm_counts()
+                ys = int8_weight_matmul_group(x, ws)
+                ys2 = int8_weight_matmul_group(x, ws)
+                torch.cuda.synchronize()
+                after = gemm_counts()
+                launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                rels = []
+                for y, w in zip(ys, ws):
+                    ref = int8_weight_matmul_ref(x, w["qp"], w["s"]).float()
+                    rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
+                worst = max(worst, *rels)
+                same = all(torch.equal(a, b) for a, b in zip(ys, ys2))
+                log(f"int8 GEMM phi-3 {name} {label} [{K}, {Nt}] M={M}: relative errors "
+                    f"vs plain {[f'{r:.3e}' for r in rels]} (tol {tol:.3e}); launches "
+                    f"{launched}; same bytes twice {same}")
+                check(all(y.dtype == dtype and bool(torch.isfinite(y).all()) for y in ys),
+                      f"int8 GEMM phi-3 {name} {label} M={M}: type or non-finite values")
+                check(max(rels) <= tol, f"int8 GEMM phi-3 {name} {label} M={M}: {rels}")
+                check(launched == {counter: 2},
+                      f"int8 GEMM phi-3 {name} {label} M={M}: launches {launched} for 2 calls")
+                check(same, f"int8 GEMM phi-3 {name} {label} M={M}: two calls differ")
+                if M != 8:
+                    continue
+                e = x.element_size()
+                bnd = bounds(K * Nt + 4 * Nt + e * M * K + e * M * Nt, 2 * M * K * Nt, dtype,
+                             "2xtf32" if f32 else "")
+                ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
+                plain_ms = cuda_time_ms(
+                    lambda: [int8_weight_matmul_ref(x, w["qp"], w["s"]) for w in ws],
+                    flush=flush)
+                cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
+                library_ms, lib = pack_mm_ms(x, ws, flush)
+                log(f"int8 GEMM phi-3 {name} {label} [{K}, {Nt}] M=8: kernel {ms:.4f} ms, "
+                    f"{bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; plain "
+                    f"{plain_ms:.4f} ms; cuBLAS {name} at the concatenated dense weight "
+                    f"{cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib}")
+                out[(name, label)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                                          bound_by=bnd["bound_by"], library_ms=library_ms,
+                                          cublas_ms=cublas_ms, err=max(rels))
+            del ws, dense
+        log(f"int8 GEMM phi-3 {name}: worst relative error {worst:.3e} (tol {tol:.3e})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_phi3_served(card: str) -> dict:
+    """phi-3-mini at full width and depth (32 layers, 3.82 B parameters) at
+    its 4,096 positions, bf16 over a bf16 pool and with int8 weights over an
+    int8 pool, each a random init from SEED with every norm scale perturbed,
+    serving phase 6's traffic at PHI3_SIZES (prompts of 41 to 3,000 tokens,
+    three past the 2,047-key window) with phase 6's checks (every decode
+    step, prefill chunk and first token a graph replay, launch counts exact;
+    the GEMM 4 x n_layers a replay with int8 weights), a decode chunk and a
+    prefill chunk replayed = eager bit for bit and the replayed B=8 step's
+    breakdown beside its weights' and KV pages' bound. Returns the launch
+    counts per run."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.quant import quantize_params_
+
+    cfg = get_config("phi-3-mini")
+    out = {}
+    for quantized in (False, True):
+        t0 = time.perf_counter()
+        params = perturb_norms(family_params(cfg, torch.bfloat16, SEED + quantized),
+                               SEED + 100 + quantized)
+        n = sum(t.numel() for _, t in tree_leaves(params))
+        if quantized:
+            params = quantize_params_(params)
+        torch.cuda.synchronize()
+        log(f"phi-3-mini: {cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim} over "
+            f"{cfg.n_kv_heads} kv heads, window {cfg.sliding_window}, {n} parameters "
+            f"({storage_bytes(params)} B{', int8 layer weights' if quantized else ' bf16'}), "
+            f"norm scales 1 + N(0, {QWEN_NORM_STD ** 2:g}), random from seed "
+            f"{SEED + quantized} in {time.perf_counter() - t0:.2f} s; max_seq_len "
+            f"{cfg.max_seq_len}, prompts of {PHI3_SIZES[0] + 1} to {PHI3_SIZES[-1] + 1} "
+            f"tokens")
+        pool = "int8" if quantized else "bfloat16"
+        out[f"phi-3-mini {pool}"] = phase_slice(
+            card, pool, params=params, quantize="int8" if quantized else "none", model=cfg,
+            light=True, sizes=PHI3_SIZES, max_seq_len=cfg.max_seq_len)[0]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_phi3_checkpoint(card: str) -> dict:
+    """phi-3-mini's checkpoint alone (``checkpoint_family``: its published
+    config.json cut to 2 layers, fused qkv_proj and gate_up_proj), in a
+    directory under build/ removed after. Returns the launch counts."""
+    import shutil
+
+    workdir = Path(__file__).resolve().parent / "build" / "ckpt_phi3"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        return checkpoint_family(card, "phi-3-mini", workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def f32_int8_weight_logits(params, cfg, tag: str) -> None:
@@ -6481,9 +6765,30 @@ def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
 # gemma-3, gemma-2/3's pre- and post-feedforward norms
 # each family's tensors beyond llama's in a 2-layer checkpoint: qwen2's
 # q/k/v biases, qwen3's q/k norms, gemma's extra norms; the gpt2 block's
-# biases (6 a layer and ln_f's) and its position table
+# biases (6 a layer and ln_f's) and its position table; phi-3's fused
+# qkv_proj and gate_up_proj (2 a layer)
 CKPT_EXTRAS = {"qwen2-7b": 6, "qwen3-8b": 4, "gemma-2-9b": 4, "gemma-3-4b": 8,
-               "gpt2": 14, "starcoder-15b": 14}
+               "gpt2": 14, "starcoder-15b": 14, "phi-3-mini": 4}
+# the families whose checkpoint launches count in rows of their own in the
+# kernel table (phi-3's head_dim-96 forms), not in the head_dim-128 rows
+CKPT_APART = ("phi-3-mini",)
+
+
+def fuse_phi3(state: dict) -> dict:
+    """A llama-named state in Phi-3's layout: q|k|v fused into qkv_proj and
+    gate|up into gate_up_proj on the out dim (the loader's inverse)."""
+    fused = {}
+    for k, v in state.items():
+        if ".self_attn.q_proj." in k:
+            base = k.replace("q_proj", "{}")
+            fused[base.format("qkv_proj")] = torch.cat(
+                [state[base.format(n)] for n in ("q_proj", "k_proj", "v_proj")])
+        elif ".mlp.gate_proj." in k:
+            fused[k.replace("gate_proj", "gate_up_proj")] = torch.cat(
+                [v, state[k.replace("gate_proj", "up_proj")]])
+        elif not any(n in k for n in (".k_proj.", ".v_proj.", ".up_proj.")):
+            fused[k] = v
+    return fused
 
 
 def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
@@ -6512,9 +6817,12 @@ def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
     ckpt = workdir / which
     ckpt.mkdir()
     state = exporter(ref_params, cfg, torch.bfloat16)
+    if model_type == "phi3":
+        state = fuse_phi3(state)
     extra = sorted(k for k in state if k.endswith("feedforward_layernorm.weight") or (
         ".self_attn." in k and k.endswith(("_proj.bias", "_norm.weight"))) or (
-        cfg.pos_embedding == "learned" and k.endswith((".bias", "wpe.weight"))))
+        cfg.pos_embedding == "learned" and k.endswith((".bias", "wpe.weight"))) or
+        k.endswith(("qkv_proj.weight", "gate_up_proj.weight")))
     export.write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
     del state
     depth = "n_layer" if "n_layer" in HF_CONFIGS[which] else "num_hidden_layers"
@@ -6644,7 +6952,11 @@ def phase_checkpoint(card: str) -> dict:
         engine.close()
         engine = None
         for which in CKPT_EXTRAS:
-            add(checkpoint_family(card, which, workdir))
+            counts = checkpoint_family(card, which, workdir)
+            if which in CKPT_APART:  # counted in its own rows of the kernel table
+                total[which] = counts
+            else:
+                add(counts)
     finally:
         for eng in (engine, ref):
             if eng is not None:
@@ -6665,8 +6977,11 @@ def run_only(card: str, which: str) -> int:
     timings, the gemma forwards, the served gemma slices and the gemma
     checkpoints; ``gpt2``: the same for starcoder-15b's G = 48 and gpt2's
     head_dim 64, with distilgpt2, gpt2 drafted by distilgpt2 and
-    starcoder-15b served). For iterating on a slice's phases; prints no
-    result line."""
+    starcoder-15b served); ``phi3``: phi-3-mini's head_dim-96 ragged cases,
+    timings and f32 crossover, the flash phase (its head_dim-96 cases
+    among them), the GEMM at phi-3's shapes, the phi-3 forwards, phi-3-mini
+    served (bf16; int8 weights over an int8 pool) and its checkpoint. For
+    iterating on a slice's phases; prints no result line."""
     if which == "quant":
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         phase_int8_gemm(flush)
@@ -6744,6 +7059,28 @@ def run_only(card: str, which: str) -> int:
                 checkpoint_family(card, which_model, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    elif which == "phi3":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        stage("phi3 ragged vs plain")
+        for int8 in (False, True):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + int8)
+            ragged_cases_vs_plain(gen, PHI3_RAGGED_CASES, int8)
+            time_ragged_shapes(gen, flush, int8, PHI3_TIMED)
+            time_crossover("int8 pool" if int8 else "pool", gen, flush, int8,
+                           dtype=torch.float32, heads=PHI3)
+        stage("flash vs plain")
+        phase_flash_vs_plain(flush)
+        stage("int8-weight GEMM at phi-3's shapes")
+        phase_phi3_gemm(flush)
+        del flush
+        torch.cuda.empty_cache()
+        stage("phi3 forward parity")
+        phase_phi3_forward()
+        stage("phi3 served")
+        phase_phi3_served(card)
+        stage("phi3 checkpoint")
+        phase_phi3_checkpoint(card)
     elif which == "migrate":
         # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
         engine = migrate_engine(None, "bfloat16", "bfloat16")
@@ -6754,8 +7091,8 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen, gemma or "
-                         f"gpt2, not {which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen, gemma, gpt2 "
+                         f"or phi3, not {which!r}")
     log(stage_seconds())
     log(f"card: {card}")
     return 0
@@ -6795,6 +7132,8 @@ def main() -> int:
     gemm = phase_int8_gemm(flush)
     stage("int8-weight GEMM, f32 form")
     gemm_f32 = phase_int8_gemm_f32(flush)
+    stage("int8-weight GEMM at phi-3's shapes")
+    phase_phi3_gemm(flush)
     del flush
     stage("forward parity")
     fwd_counts = phase_forward_parity()
@@ -6805,6 +7144,8 @@ def main() -> int:
     gemma_fwd = phase_gemma_forward()
     stage("gpt2 forward parity")
     gpt2_fwd = phase_gpt2_forward()
+    stage("phi3 forward parity")
+    phi3_fwd = phase_phi3_forward()
     stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
@@ -6875,6 +7216,10 @@ def main() -> int:
     # by distilgpt2, starcoder-15b (bf16, 40 layers, G = 48)
     stage("gpt2 served")
     gpt2 = phase_gpt2_served(card)
+    # phi-3-mini (32 layers, hd 96, G = 1) at its 4,096 positions: bf16, then
+    # int8 weights over an int8 pool
+    stage("phi3 served")
+    phi3 = phase_phi3_served(card)
     stage("f32 int8 weights")
     f32w = phase_f32_int8_weights(card)
     stage("node")
@@ -6929,6 +7274,10 @@ def main() -> int:
     def hd64(name):  # gpt2's forwards, distilgpt2's slices, gpt2's spec run
         return gpt2_fwd["gpt2"].get(name, 0) + sum(
             c.get(name, 0) for m, c in gpt2.items() if m != "starcoder-15b")
+
+    def hd96(name):  # phi-3-mini's forwards, served slices and checkpoint
+        return (phi3_fwd.get(name, 0) + sum(c.get(name, 0) for c in phi3.values())
+                + ckpt_counts.get("phi-3-mini", {}).get(name, 0))
 
     def row(name, source, replaces, n, err, t):
         return {
@@ -7127,6 +7476,38 @@ def main() -> int:
         row("ragged_prefill_attention_f32_hd64_int8", prefill_src,
             "bee2bee_tpu/ops/ragged.py:107", hd64("ragged_prefill_f32_int8"),
             int8_errs["tile_f32"], int8_timings["prefill_hd64_f32"]),
+        # phi-3-mini's head_dim 96 (G = 1, window 2,047): launches from its
+        # forwards (phase 5), its served slices (bf16; int8 weights over an
+        # int8 pool) and its checkpoint; errors over the head_dim-96 cases;
+        # times at decode B=8 ctx 1024, a 512-token chunk at 1000, the f32
+        # decode step (decode_f32) and the f32 chunk; flash at causal T=S=2048
+        row("ragged_decode_attention_hd96", decode_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd96("ragged_decode"), errs["decode_hd96"], timings["decode_hd96"]),
+        row("ragged_decode_attention_hd96_int8", decode_src, "bee2bee_tpu/ops/ragged.py:107",
+            hd96("ragged_decode_int8"), int8_errs["decode_hd96"],
+            int8_timings["decode_hd96"]),
+        row("ragged_prefill_attention_hd96", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd96("ragged_prefill"), errs["tile_hd96"], timings["prefill_hd96"]),
+        row("ragged_prefill_attention_hd96_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd96("ragged_prefill_int8"),
+            int8_errs["tile_hd96"], int8_timings["prefill_hd96"]),
+        row("ragged_decode_attention_f32_hd96", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:84", hd96("ragged_decode_f32"),
+            errs["decode_f32_hd96"], timings["decode_hd96_f32"]),
+        row("ragged_decode_attention_f32_hd96_int8", decode_f32_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd96("ragged_decode_f32_int8"),
+            int8_errs["decode_f32_hd96"], int8_timings["decode_hd96_f32"]),
+        row("ragged_prefill_attention_f32_hd96", prefill_src, "bee2bee_tpu/ops/ragged.py:84",
+            hd96("ragged_prefill_f32"), errs["tile_f32_hd96"], timings["prefill_hd96_f32"]),
+        row("ragged_prefill_attention_f32_hd96_int8", prefill_src,
+            "bee2bee_tpu/ops/ragged.py:107", hd96("ragged_prefill_f32_int8"),
+            int8_errs["tile_f32_hd96"], int8_timings["prefill_hd96_f32"]),
+        row("flash_attention_tile_hd96", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash_tile"] + int8_counts["flash_tile"], flash_errs["tile_hd96"],
+            flash_timings["tile_hd96"]),
+        row("flash_attention_tile_f32_hd96", flash_src, "bee2bee_tpu/ops/flash.py:46",
+            counts["flash_tile_f32"] + int8_counts["flash_tile_f32"],
+            flash_errs["tile_f32_hd96"], flash_timings["tile_f32_hd96"]),
     ]
     # the int8-weight GEMM: launches from the int8-weight slices (both
     # pools) and the int8-weight adapter phase's mixed burst; times at w_up
@@ -7160,6 +7541,10 @@ def main() -> int:
         f"{ {m: {k: v for k, v in c.items() if v} for m, c in gpt2_fwd.items()} }, served "
         f"{ {m: {k: v for k, v in c.items() if v} for m, c in gpt2.items()} }; their "
         f"checkpoints' launches are in the checkpoint phase's (the rows above)")
+    log(f"kernels: phi-3 launches (the head_dim-96 rows): forward parity "
+        f"{ {k: v for k, v in phi3_fwd.items() if v} }, served "
+        f"{ {m: {k: v for k, v in c.items() if v} for m, c in phi3.items()} }, checkpoint "
+        f"{ {k: v for k, v in ckpt_counts.get('phi-3-mini', {}).items() if v} }")
     log(f"kernels: adapter phase launches (mixed bursts): bf16 weights "
         f"{ {k: v for k, v in adapter_counts.items() if v} }, int8 weights "
         f"{ {k: v for k, v in adapter_counts_int8.items() if v} }")

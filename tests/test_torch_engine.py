@@ -393,7 +393,7 @@ def test_importing_the_package_loads_no_jax():
 
 
 @pytest.mark.parametrize("model,over,names", [
-    ("phi-3-mini", {}, ["head_dim 96"]),
+    ("phi-2", {}, ["head_dim 80"]),
     ("tiny-llama", {}, ["head_dim 16"]),
     ("llama-3-8b", dict(dtype="float16", cache_dtype="float16"), ["dtype='float16'"]),
     ("llama-3-8b", dict(cache_dtype="float32"),
@@ -401,7 +401,7 @@ def test_importing_the_package_loads_no_jax():
     ("llama-3-8b", dict(kv_block_size=12), ["kv_block_size=12"]),
     ("tiny-llama", dict(dtype="float16", cache_dtype="bfloat16"),
      ["dtype='float16'", "cache_dtype='bfloat16'", "head_dim 16"]),
-], ids=["phi3_hd96", "tiny_hd16", "float16", "cache_mismatch", "block_size", "all"])
+], ids=["phi2_hd80", "tiny_hd16", "float16", "cache_mismatch", "block_size", "all"])
 def test_card_refuses_what_its_kernels_cannot_run(model, over, names):
     """On a CUDA device the check names every setting no kernel takes, at
     engine build rather than at the first forward; on the CPU, which runs
@@ -420,7 +420,10 @@ def test_card_refuses_what_its_kernels_cannot_run(model, over, names):
     ("llama-3-8b", dict(dtype="float32", cache_dtype="float32")),
     ("llama-3-8b", dict(dtype="float32", cache_dtype="int8", kv_block_size=32)),
     ("mistral-7b", dict(kv_block_size=8)),
-], ids=["bf16", "int8_pool", "f32", "f32_int8_pool_bs32", "mistral_bs8"])
+    ("phi-3-mini", {}), ("phi-3-mini", dict(cache_dtype="int8")),
+    ("phi-3-mini", dict(dtype="float32", cache_dtype="float32")),
+], ids=["bf16", "int8_pool", "f32", "f32_int8_pool_bs32", "mistral_bs8", "phi3_bf16",
+        "phi3_int8_pool", "phi3_f32"])
 def test_card_accepts_what_its_kernels_run(model, over):
     check_card_supported(get_config(model), EngineConfig(**over), "cuda")
 

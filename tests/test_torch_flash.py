@@ -136,8 +136,10 @@ def test_dispatch_raises_off_cpu_and_cuda():
     (torch.float32, 64, "tile_f32"),
     (torch.float32, 256, "tile_f32"),
     (torch.float16, 128, "row"),  # no kernel takes f16: the checks raise
+    (torch.bfloat16, 96, "tile"),  # phi-3's heads: Q in registers
+    (torch.float32, 96, "tile_f32"),
 ], ids=["bf16_hd128", "bf16_hd64", "bf16_hd256", "f32", "f32_hd64", "f32_hd256",
-        "f16"])
+        "f16", "bf16_hd96", "f32_hd96"])
 def test_dispatch_rule(dtype, hd, kernel):
     assert port.use_tile_kernel(dtype, hd) is (kernel != "row")
     assert port.flash_kernel(dtype, hd) == kernel
@@ -164,7 +166,7 @@ def test_cpu_dispatch_counts_no_tile_launch():
 
 @pytest.mark.parametrize("kernel,hd,dtype", [("tile", 256, torch.bfloat16),
                                              ("tile_hd256", 128, torch.bfloat16),
-                                             ("tile_f32", 96, torch.float32)])
+                                             ("tile_f32", 80, torch.float32)])
 def test_forced_launch_needs_the_kernels_head_dim(kernel, hd, dtype):
     """A kernel forced by name refuses a head_dim it is not built for."""
     q = torch.zeros((1, 4, 2, hd), dtype=dtype)
@@ -206,7 +208,7 @@ def _f32_args(hd=128, **over):
     return args
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 def test_f32_tile_kernel_args_accepted(hd):
     port._check_kernel_args(**_f32_args(hd))
 
@@ -214,7 +216,7 @@ def test_f32_tile_kernel_args_accepted(hd):
 @pytest.mark.parametrize("bad,err,match", [
     ("misaligned_q", ValueError, "q is not 16-byte aligned"),
     ("bf16_kv", TypeError, "k/v dtype"),
-    ("head_dim", ValueError, "head_dim 96"),
+    ("head_dim", ValueError, "head_dim 80"),
     ("kv_width", ValueError, "do not match"),
 ])
 def test_f32_tile_kernel_args_rejected(bad, err, match):
@@ -227,7 +229,7 @@ def test_f32_tile_kernel_args_rejected(bad, err, match):
     elif bad == "bf16_kv":
         args["k"] = args["v"] = args["k"].to(torch.bfloat16)
     elif bad == "head_dim":
-        args = _f32_args(96)
+        args = _f32_args(80)
     elif bad == "kv_width":
         args["k"] = args["v"] = torch.zeros((2, 16, 2, 64))
     with pytest.raises(err, match=match):

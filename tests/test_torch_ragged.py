@@ -293,11 +293,21 @@ def test_int8_pool_rounds_dequantized_pages_to_the_query_dtype():
     (torch.float32, port.T_MIN_F32_INT8_HD256 - 1, 256, False, True),
     (torch.float32, port.T_MIN_F32_INT8_HD256, 256, True, True),
     (torch.bfloat16, port.T_MIN, 256, True, True),
+    # phi-3's head_dim 96: the tile kernel (Q in registers), its f32 form
+    # and decode_f32 below the crossover at 96, over both pools
+    (torch.bfloat16, 5, 96, True, False),
+    (torch.bfloat16, port.T_MIN, 96, True, True),
+    (torch.float32, port._t_min_f32(96, False) - 1, 96, False, False),
+    (torch.float32, port._t_min_f32(96, False), 96, True, False),
+    (torch.float32, port._t_min_f32(96, True) - 1, 96, False, True),
+    (torch.float32, port._t_min_f32(96, True), 96, True, True),
 ], ids=["decode", "below_t_min", "t_min", "verify", "prefill", "hd64", "hd256",
         "f32", "f16", "f32_t_min", "f32_hd64", "f32_hd256", "int8_pool_t_min",
         "f32_int8_pool_below_t_min", "f32_int8_pool_t_min", "f32_int8_pool_prefill",
         "f32_hd256_below_t_min", "f32_hd256_t_min", "f32_hd256_int8_below_t_min",
-        "f32_hd256_int8_t_min", "hd256_int8_pool_t_min"])
+        "f32_hd256_int8_t_min", "hd256_int8_pool_t_min", "hd96_verify",
+        "hd96_int8_pool_t_min", "f32_hd96_below_t_min", "f32_hd96_t_min",
+        "f32_hd96_int8_below_t_min", "f32_hd96_int8_t_min"])
 def test_dispatch_rule(dtype, T, hd, tile, quantized):
     assert port.use_tile_kernel(dtype, T, hd, quantized) is tile
     if tile:
@@ -431,7 +441,9 @@ def test_tile_shapes_ref_matches_jax_kernel(name, int8):
     (torch.bfloat16, 5, 128, False),
     (torch.float32, 1, 128, False),  # f32 queries: the f32 decode kernel
     (torch.float16, 1, 128, False),
-], ids=["hd128", "hd64", "hd256", "t_min", "verify", "f32", "f16"])
+    (torch.bfloat16, 1, 96, True),  # phi-3's heads: Q in registers
+    (torch.float32, 1, 96, False),
+], ids=["hd128", "hd64", "hd256", "t_min", "verify", "f32", "f16", "hd96", "f32_hd96"])
 def test_decode_dispatch_rule(dtype, T, hd, decode):
     assert port.use_decode_kernel(dtype, T, hd) is decode
     # the decode kernel takes no case the tile kernel takes
@@ -445,7 +457,7 @@ def test_decode_dispatch_rule(dtype, T, hd, decode):
 
 
 @pytest.mark.parametrize("T", [1, 2, 5, 64, 2048])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 def test_decode_and_tile_rules_are_disjoint(T, hd):
     for dtype in (torch.bfloat16, torch.float32):
         assert not (port.use_decode_kernel(dtype, T, hd)
@@ -520,7 +532,7 @@ def _decode_args(hd=128, int8=False, **over):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16_pool", "int8_pool"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 def test_decode_kernel_args_accepted(int8, hd):
     port._check_kernel_args(**_decode_args(hd=hd, int8=int8))
 
@@ -753,7 +765,7 @@ def test_decode_f32_split_merge_model_matches_jax_kernel(name, int8, T, plan):
         assert not got[0, 0].any()  # offset -1: the first query sees nothing
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32_pool", "int8_pool"])
 def test_decode_tile_and_decode_f32_rules_are_disjoint(quantized, hd):
     """Each f32 chunk goes to exactly one of the f32 decode kernel and the
@@ -774,7 +786,7 @@ def test_decode_tile_and_decode_f32_rules_are_disjoint(quantized, hd):
                                               group) is fits, (T, group)
 
 
-@pytest.mark.parametrize("heads", ["llama-3-8b", "gemma-2-9b"])
+@pytest.mark.parametrize("heads", ["llama-3-8b", "gemma-2-9b", "phi-3-mini"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32_pool", "int8_pool"])
 def test_f32_rule_names_no_row_kernel_at_served_heads(quantized, heads):
     """At llama-3-8b's heads (32/8, hd 128) and gemma-2-9b's (16/8, hd 256)
@@ -782,7 +794,8 @@ def test_f32_rule_names_no_row_kernel_at_served_heads(quantized, heads):
     its 32 rows hold them, every chunk below the crossover) or the f32 tile
     form, never to the row kernel; decode always to the f32 decode
     kernel."""
-    group, hd = {"llama-3-8b": (4, 128), "gemma-2-9b": (2, 256)}[heads]
+    group, hd = {"llama-3-8b": (4, 128), "gemma-2-9b": (2, 256),
+                 "phi-3-mini": (1, 96)}[heads]
     for T in (1, 2, 3, 4, 5, 8, 16, 17, 64):
         kernel = port.ragged_kernel(torch.float32, T, hd, quantized, group)
         fits = group * T <= port.DECODE_F32_MAX_ROWS
@@ -833,7 +846,7 @@ def test_decode_f32_splits_read_shapes_only():
 
 
 @pytest.mark.parametrize("T", [1, "below_t_min"])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 @pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
 def test_f32_decode_kernel_args_accepted(int8, hd, T):
     """Decode and the longest chunk below the crossover whose rows still
@@ -849,7 +862,7 @@ def test_f32_decode_kernel_args_accepted(int8, hd, T):
     ("misaligned_pool", ValueError, "k_pool is not 16-byte aligned"),
     ("bf16_pool", TypeError, "pool dtype"),
     ("f32_scales_missing_pool", TypeError, "pool dtype"),
-    ("head_dim", ValueError, "head_dim 96"),
+    ("head_dim", ValueError, "head_dim 80"),
     ("pool_width", ValueError, "do not match head_dim"),
     ("scale_shape", ValueError, "k_scale must be float32"),
 ])
@@ -868,7 +881,7 @@ def test_f32_decode_kernel_args_rejected(bad, err, match):
     elif bad == "f32_scales_missing_pool":
         args["k_scale"] = args["v_scale"] = torch.ones((2, 9))
     elif bad == "head_dim":
-        args = _f32_args(T=1, hd=96)
+        args = _f32_args(T=1, hd=80)
     elif bad == "pool_width":
         args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 16, 64))
     elif bad == "scale_shape":
@@ -933,13 +946,13 @@ def _f32_args(T=32, hd=128, int8=False, **over):
 
 
 @pytest.mark.parametrize("T", ["t_min", 32])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
 @pytest.mark.parametrize("int8", [False, True], ids=["f32_pool", "int8_pool"])
 def test_f32_tile_kernel_args_accepted(int8, hd, T):
     if T == "t_min" and hd == 256:
         T = port.T_MIN_F32_INT8_HD256 if int8 else port.T_MIN_F32_HD256
     elif T == "t_min":
-        T = port.T_MIN_F32_INT8 if int8 else port.T_MIN_F32
+        T = port._t_min_f32(hd, int8)
     assert port.ragged_kernel(torch.float32, T, hd, int8) == "tile_f32"
     port._check_kernel_args(**_f32_args(T=T, hd=hd, int8=int8))
 
@@ -948,7 +961,7 @@ def test_f32_tile_kernel_args_accepted(int8, hd, T):
     ("misaligned_q", ValueError, "q is not 16-byte aligned"),
     ("bf16_pool", TypeError, "pool dtype"),
     ("f32_scales_missing_pool", TypeError, "pool dtype"),
-    ("head_dim", ValueError, "head_dim 96"),
+    ("head_dim", ValueError, "head_dim 80"),
     ("pool_width", ValueError, "do not match head_dim"),
 ])
 def test_f32_tile_kernel_args_rejected(bad, err, match):
@@ -963,7 +976,7 @@ def test_f32_tile_kernel_args_rejected(bad, err, match):
     elif bad == "f32_scales_missing_pool":  # scales beside an f32 pool
         args["k_scale"] = args["v_scale"] = torch.ones((2, 9))
     elif bad == "head_dim":
-        args = _f32_args(hd=96)
+        args = _f32_args(hd=80)
     elif bad == "pool_width":
         args["k_pool"] = args["v_pool"] = torch.zeros((2, 9, 16, 64))
     with pytest.raises(err, match=match):
@@ -987,11 +1000,11 @@ def test_forced_launch_needs_the_kernels_query_type(kernel, dtype):
 
 @pytest.mark.parametrize("kernel,hd", [("tile", 256), ("decode", 256),
                                        ("tile_hd256", 128), ("decode_hd256", 64),
-                                       ("tile_f32", 96), ("decode_f32", 96)])
+                                       ("tile_f32", 80), ("decode_f32", 80)])
 def test_forced_launch_needs_the_kernels_head_dim(kernel, hd):
     """A kernel forced by name refuses a head_dim it is not built for: the
     bf16 head_dim-256 forms take 256 only, the others never 256; the f32
-    tile form and the f32 decode kernel take 64, 128 and 256."""
+    tile form and the f32 decode kernel take 64, 96, 128 and 256."""
     dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
     a = _tile_args(T=1, hd=hd)
     q, kp, vp = (a[n].to(dtype) for n in ("q", "k_pool", "v_pool"))
