@@ -43,7 +43,13 @@ top of the continuous-batching scheduler (engine/scheduler.py).
   the device, tensor by tensor; ``lora_path`` merged in first, as in
   JAX) and repacked for the int8-weight GEMM (ops/int8_gemm.py), which
   every decode and verify root runs on the card, beside bf16 or f32
-  activations (the kernel has a form for each).
+  activations (the kernel has a form for each). A random init of an int8
+  engine quantizes each weight as it is drawn (each expert stack expert by
+  expert), so it never holds the dense model.
+- **Mixture of experts** (mixtral-8x7b, qwen3-30b-a3b): the routed expert
+  product (ops/moe.py: the plan on the device, the grouped expert GEMM on
+  the card) runs inside every captured root; int8 expert stacks stay in
+  the JAX layout, which the expert GEMM reads.
 - **Multi-LoRA serving** (``max_adapters``, adapters/pool.py): a pool of
   hot-swappable adapters over the one base; ``load_adapter`` /
   ``unload_adapter`` page them in and out without a restart, and a
@@ -83,6 +89,7 @@ from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
 from ..models.quant import dequant_scratch_bytes, pack_params_, quantize_params_
+from ..ops.moe import CHANNELS as MOE_CHANNELS
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
 from .paged import ceil_div
@@ -273,9 +280,11 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     build the engine and then raise at its first forward: a ``dtype``
     other than bfloat16 or float32, a ``cache_dtype`` other than ``dtype``
     or int8, a head_dim or a ``kv_block_size`` the kernels are not built
-    for. int8 weights run beside bf16 and f32 activations alike (the
-    int8-weight GEMM has a form for each). Any other device runs the plain
-    versions: nothing is refused."""
+    for, or an expert shape the grouped expert GEMM (ops/moe.py) does not
+    take (d_model and d_ff multiples of 64). int8 weights run beside bf16
+    and f32 activations alike (the int8-weight GEMM and the expert GEMM
+    have a form for each). Any other device runs the plain versions:
+    nothing is refused."""
     if torch.device(device).type != "cuda":
         return
     dtypes = [name for name, dtype in DTYPES.items() if dtype in _DTYPE_CODE]
@@ -293,6 +302,10 @@ def check_card_supported(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     if engine_cfg.kv_block_size not in _BLOCK_SIZES:
         missing.append(f"kv_block_size={engine_cfg.kv_block_size} (the kernels "
                        f"are built for {_BLOCK_SIZES})")
+    D, F_ = model_cfg.d_model, model_cfg.d_ff
+    if model_cfg.is_moe and (D % MOE_CHANNELS or F_ % MOE_CHANNELS):
+        missing.append(f"experts of d_model {D} and d_ff {F_} (the expert GEMM takes "
+                       f"multiples of {MOE_CHANNELS})")
     if missing:
         raise NotImplementedError(
             f"{model_cfg.name} on {device}: the port's CUDA kernels do not "
@@ -409,7 +422,13 @@ class InferenceEngine:
         elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.engine_cfg.rng_seed)
-            params = init_params(self.model_cfg, gen, self.device, self.dtype)
+            # an int8 engine quantizes each projection as it is drawn and
+            # each expert stack expert by expert: a random mixtral-8x7b
+            # never holds its 93 GB of bf16 (models/params.py). An adapter
+            # merges into the dense draw first, so then the tree is drawn
+            # dense and quantized after the merge, as JAX orders it
+            params = init_params(self.model_cfg, gen, self.device, self.dtype,
+                                 quantize=quantized and not lora_path)
         else:
             # the caller's tree is not rewritten: merging and quantizing
             # replace entries of this engine's copy (tensors are shared)

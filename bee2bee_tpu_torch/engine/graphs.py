@@ -38,7 +38,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from ..ops import flash, int8_gemm, ragged
+from ..ops import flash, int8_gemm, moe, ragged
 from .introspect import device_gate, graph_capture_lock
 
 # the launch and forward counts move under this lock (see the module
@@ -58,11 +58,12 @@ def h2d(dst: torch.Tensor, arr: np.ndarray) -> None:
 
 def launch_counters(engine=None) -> list[tuple[object, str]]:
     """(holder, attribute) of every host-side count a step moves: each
-    attention op's and the int8-weight GEMM's launch counters and, with an
-    engine, its forward count (last)."""
+    attention op's, the int8-weight GEMM's and the expert GEMM's launch
+    counters and, with an engine, its forward count (last)."""
     out = ([(ragged.ragged_paged_attention, n) for n in ragged.LAUNCH_COUNTERS]
            + [(flash.flash_attention, n) for n in flash.LAUNCH_COUNTERS]
-           + [(int8_gemm.int8_weight_matmul, n) for n in int8_gemm.LAUNCH_COUNTERS])
+           + [(int8_gemm.int8_weight_matmul, n) for n in int8_gemm.LAUNCH_COUNTERS]
+           + [(moe.moe_expert_matmul, n) for n in moe.LAUNCH_COUNTERS])
     if engine is not None:
         out.append((engine, "forward_calls"))
     return out

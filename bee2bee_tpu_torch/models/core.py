@@ -5,7 +5,7 @@ The port of ``bee2bee_tpu/models/core.py``'s block-tables path, kept
 function for function where that helps a reader find the counterpart
 (``_norm``, ``scale_rope_freqs``, ``_qk_rmsnorm``, ``_rope``,
 ``is_sliding_layer``,
-``_activate``, ``_mlp``, ``_attention``,
+``_activate``, ``_mlp``, ``_moe``, ``_attention``,
 ``embed_tokens``, ``transformer_block``, ``final_logits``, ``forward``,
 ``matmul``, ``_lora_rows``, ``lora_matmul``, ``attn_mask``,
 ``make_layer_mask``, ``make_layer_window``, ``init_cache``,
@@ -57,6 +57,14 @@ What differs from the JAX package:
   gelu MLP, and biases on q/k/v/o and on the MLP (``b_up``, ``b_down``),
   each by key presence. Any other switch raises NotImplementedError by
   name (``check_supported``) instead of computing something else.
+- Mixture-of-experts layers (mixtral, qwen3_moe: a layer with ``"moe"``)
+  run the routed product (``_moe``, ops/moe.py): the router as a plain
+  product in x's type, the device-side plan (JAX's top-k tie rule, the
+  softmax over the k, and for ``moe_impl="routed"`` JAX's per-group
+  capacity drops), one launch of the grouped expert GEMM for w_gate and
+  w_up, ``_activate``, one for w_down, and the weighted sum. Each expert
+  runs only on its rows, where JAX's default ``_moe`` runs every expert on
+  every token and weights the unpicked ones by 0: the same function.
 - Learned positions are clamped into the table, [0, P - 1], before the
   lookup (``embed_tokens``): JAX's ``jnp.take`` returns NaN rows past the
   table and wraps -1 to the last row, where ``F.embedding`` fails on the
@@ -76,6 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.int8_gemm import int8_weight_matmul, int8_weight_matmul_group
+from ..ops.moe import moe_combine, moe_expert_matmul, moe_plan, routed_capacity
 from ..ops.ragged import ragged_paged_attention, row_offsets
 from .config import ModelConfig
 
@@ -96,8 +105,6 @@ def check_supported(cfg: ModelConfig) -> None:
                  "no_pre_norms", "parallel_block", "embedding_norm"):
         if getattr(cfg, flag):
             missing.append(flag)
-    if cfg.is_moe:
-        missing.append("MoE (n_experts)")
     if cfg.rope_scaling is not None and cfg.rope_scaling[0] not in ("linear", "llama3",
                                                                     "yarn"):
         missing.append(f"rope_scaling={cfg.rope_scaling[0]!r}")
@@ -361,6 +368,30 @@ def _mlp(x, p, cfg: ModelConfig, lora=None):
     return out
 
 
+def _moe(x, p, cfg: ModelConfig):
+    """The routed mixture-of-experts MLP (JAX ``_moe``, and ``_moe_routed``
+    with ``cfg.moe_impl == "routed"``): router logits ``(x @ router)`` in
+    x's type, then f32; the plan (ops/moe.py ``moe_plan``: top k by JAX's
+    tie rule, softmax over the k, the capacity drops of the routed impl);
+    w_up and w_gate over each expert's rows in one launch, ``_activate``,
+    w_down; each token's k outputs weighted and summed (``moe_combine``).
+    x [B, T, D] -> [B, T, D]."""
+    B, T, D = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    x2 = x.reshape(B * T, D)
+    logits = (x2 @ p["router"]).float()
+    capacity = None
+    if cfg.moe_impl == "routed":
+        capacity = routed_capacity(B * T, k, E, cfg.moe_group_size, cfg.moe_capacity_factor)
+    plan = moe_plan(logits, k, capacity)
+    gated = "w_gate" in p
+    outs = moe_expert_matmul(x2, plan.tok, plan,
+                             [p["w_up"], p["w_gate"]] if gated else [p["w_up"]])
+    h = _activate(outs[0], outs[1] if gated else None, cfg)
+    y = moe_expert_matmul(h, None, plan, [p["w_down"]])[0]
+    return moe_combine(y, plan, x.dtype).view(B, T, D)
+
+
 def _attention(q, k, v, mask, cfg: ModelConfig):
     """Dense attention (core._attention): q [B, T, H, hd]; k, v [B, S,
     Hkv, hd]; mask [B, 1, T, S] bool. Scores in f32, softmax, the
@@ -417,7 +448,8 @@ def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     presence), and so does gpt2's output bias ``bo`` (after ``wo`` and its
     LoRA delta); with ``cfg.post_norms`` (gemma-2/3) ``ln1_post`` norms the
     attention output (after ``wo`` and its LoRA delta) and ``ln2_post``
-    the MLP output before each joins the residual."""
+    the MLP output before each joins the residual. A layer with ``"moe"``
+    runs the routed experts (``_moe``) where others run ``_mlp``."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = _norm(x, lp["ln1"], cfg)
@@ -438,7 +470,8 @@ def transformer_block(lp: Params, cfg: ModelConfig, x, rope, attend, lora=None):
     if cfg.post_norms:
         attn_out = _norm(attn_out, lp["ln1_post"], cfg)
     x = x + attn_out
-    mlp_out = _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, lora)
+    h = _norm(x, lp["ln2"], cfg)
+    mlp_out = _moe(h, lp["moe"], cfg) if "moe" in lp else _mlp(h, lp["mlp"], cfg, lora)
     if cfg.post_norms:
         mlp_out = _norm(mlp_out, lp["ln2_post"], cfg)
     return x + mlp_out

@@ -3,8 +3,9 @@ HF-layout safetensors checkpoint with its ``config.json``.
 
 The llama half of ``bee2bee_tpu/models/export.py``: ``write_safetensors``,
 ``_export_llama_state``, ``_export_gpt2_state``, ``_export_bigcode_state``,
-the llama branch of ``hf_config_dict`` (model types ``llama`` and
-``mistral``, with ``rope_scaling``) and ``export_hf``. The card's machine
+the llama and mixture-of-experts branches of ``hf_config_dict`` (model
+types ``llama`` and ``mistral``, with ``rope_scaling``; ``mixtral`` and
+``qwen3_moe``) and ``export_hf``. The card's machine
 has neither jax nor the ``safetensors`` package, so the smoke and the
 round-trip tests write their checkpoints with these. Every other family raises by name (ROADMAP.md queue A item
 15; their converters are item 11). Two additions: the tensors may be torch
@@ -85,7 +86,10 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
     undone. qwen2's q/k/v biases, the q/k norms of qwen3 and gemma-3 and
     gemma-2/3's four block norms go out under their HF names (the
     converter's inverse); ``hf_config_dict`` still refuses those families
-    (item 15), so ``export_hf`` writes none of them."""
+    (item 15), so ``export_hf`` writes none of them. An ``moe`` layer goes
+    out under qwen3_moe's names where the layer has q/k norms, else
+    mixtral's (JAX ``_export_llama_state``), one [out, in] tensor an
+    expert."""
     off = 1.0 if cfg.norm_plus_one else 0.0
     t = lambda a: a.to(dtype).t().contiguous()
     norm = lambda a: (a.float() - off).to(dtype)
@@ -98,8 +102,9 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
     names = _POST_NORM_NAMES if cfg.post_norms else _NORM_NAMES
     for i, lp in enumerate(params["layers"]):
         p = f"model.layers.{i}."
-        if set(lp) != {"attn", "mlp", *(ours for ours, _ in names)} or any(
-                isinstance(w, dict) for w in (*lp["attn"].values(), *lp["mlp"].values())):
+        ffn = "moe" if cfg.is_moe else "mlp"
+        if set(lp) != {"attn", ffn, *(ours for ours, _ in names)} or any(
+                isinstance(w, dict) for w in (*lp["attn"].values(), *lp[ffn].values())):
             raise unported(f"exporting layer {i} of {cfg.name} with {sorted(lp)} "
                            f"(int8 or a family beside plain llama)", 15)
         for ours, hf in names:
@@ -112,9 +117,27 @@ def _export_llama_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Tens
         for key in ("q_norm", "k_norm"):
             if key in lp["attn"]:
                 state[p + f"self_attn.{key}.weight"] = norm(lp["attn"][key])
+        if cfg.is_moe:
+            state.update(_export_moe(p, lp["moe"], "q_norm" in lp["attn"], cfg, t))
+            continue
         for ours, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
             state[p + f"mlp.{hf}.weight"] = t(lp["mlp"][ours])
     return state
+
+
+def _export_moe(p: str, moe: dict, qwen3: bool, cfg: ModelConfig, t) -> dict:
+    """One layer's router and experts under qwen3_moe's names (``qwen3``)
+    or mixtral's (w1 gate, w3 up, w2 down), in JAX's key order."""
+    if qwen3:
+        base, names = "mlp", (("w_gate", "gate_proj"), ("w_down", "down_proj"),
+                              ("w_up", "up_proj"))
+    else:
+        base, names = "block_sparse_moe", (("w_gate", "w1"), ("w_down", "w2"), ("w_up", "w3"))
+    out = {f"{p}{base}.gate.weight": t(moe["router"])}
+    for e in range(cfg.n_experts):
+        for ours, hf in names:
+            out[f"{p}{base}.experts.{e}.{hf}.weight"] = t(moe[ours][e])
+    return out
 
 
 def _dense_layers(params, cfg: ModelConfig, keys: set) -> None:
@@ -200,17 +223,17 @@ def _export_bigcode_state(params, cfg: ModelConfig, dtype) -> dict[str, torch.Te
 
 def hf_config_dict(cfg: ModelConfig) -> dict:
     """A transformers-compatible config.json: the llama branch of the JAX
-    function (``llama``, or ``mistral`` with a sliding window), the same
-    keys and the same ``rope_scaling`` dicts."""
+    function (``llama``, or ``mistral`` with a sliding window) and its MoE
+    branch (``qwen3_moe`` with q/k norms, else ``mixtral``), the same keys
+    and the same ``rope_scaling`` dicts."""
     family = (
         "alibi" if cfg.pos_embedding == "alibi"
         else "learned-position" if cfg.pos_embedding == "learned"
         else "parallel-block" if cfg.parallel_block
         else "layernorm" if cfg.norm != "rmsnorm"
         else "partial-rotary" if cfg.rotary_pct < 1.0
-        else "MoE" if cfg.is_moe
         else "gemma" if cfg.norm_plus_one
-        else "qwen3" if cfg.qk_norm
+        else "qwen3" if cfg.qk_norm and not cfg.is_moe
         else "qwen2" if cfg.qkv_bias
         else None
     )
@@ -242,6 +265,20 @@ def hf_config_dict(cfg: ModelConfig) -> dict:
                 "low_freq_factor": lo, "high_freq_factor": hi,
                 "original_max_position_embeddings": orig,
             }
+    if cfg.is_moe and cfg.qk_norm:
+        out = {"model_type": "qwen3_moe", "architectures": ["Qwen3MoeForCausalLM"],
+               "num_experts": cfg.n_experts, "num_experts_per_tok": cfg.n_experts_per_tok,
+               "moe_intermediate_size": cfg.d_ff,
+               # the routing renormalises the top-k weights: transformers must too
+               "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+               **base}
+        if cfg.sliding_window is not None:
+            out["use_sliding_window"] = True
+        return out
+    if cfg.is_moe:
+        return {"model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+                "num_local_experts": cfg.n_experts,
+                "num_experts_per_tok": cfg.n_experts_per_tok, **base}
     if cfg.sliding_window is not None:
         return {"model_type": "mistral", "architectures": ["MistralForCausalLM"], **base}
     return {"model_type": "llama", "architectures": ["LlamaForCausalLM"], **base}

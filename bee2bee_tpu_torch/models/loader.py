@@ -18,11 +18,16 @@ differs:
   per-head packed c_attn) map HF names into the port's layout (layers as
   a list of per-layer dicts). Every other family's converter raises by
   name (ROADMAP.md queue A item 11) and never computes something else; so
-  do llama-branch tensors the port's core has no slot for (experts,
-  biased norms). qwen2's q/k/v biases and the q/k
+  do llama-branch tensors the port's core has no slot for (biased norms;
+  experts under a config without them). qwen2's q/k/v biases and the q/k
   norms of qwen3 and gemma-3 load by key presence, as in JAX; with
   ``cfg.post_norms`` (gemma-2/3) the four norms take gemma-2's names, and
-  gemma's (1 + w) norms are folded to w + 1 in f32.
+  gemma's (1 + w) norms are folded to w + 1 in f32. A mixture-of-experts
+  config loads mixtral's (``block_sparse_moe.gate``, ``experts.N.w1`` /
+  ``w3`` / ``w2``) or qwen3_moe's (``mlp.gate``, ``mlp.experts.N.gate_proj``
+  / ``up_proj`` / ``down_proj``) tensors into the layer's ``moe`` tree, as
+  JAX's loader does: the router [D, E] and each stack [E, in, out], the
+  experts' transposed views stacked on the host (one copy of each stack).
 - **Where the transpose runs.** HF linear weights are ``[out, in]``, the
   port's ``[in, out]``. The converters return transposed *views*;
   ``to_device`` uploads each tensor as it lies (its strides kept, one
@@ -130,8 +135,10 @@ def _convert_phi3(state, cfg: ModelConfig) -> dict:
 
 
 # llama-branch tensors the port's core has no slot for: the JAX converter
-# loads them (experts, biased norms)
-_NO_SLOT = ("block_sparse_moe.", "mlp.experts.", "input_layernorm.bias")
+# loads them (biased norms)
+_NO_SLOT = ("input_layernorm.bias",)
+# the expert tensors of the two MoE families (only an MoE config has a slot)
+_EXPERT_KEYS = ("block_sparse_moe.", "mlp.experts.", "mlp.gate.weight")
 
 # HF norm names -> the port's, in the gemma-2/3 layout (cfg.post_norms):
 # post_attention_layernorm is the attention OUTPUT's norm there, and the
@@ -154,6 +161,9 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
         if any(s in k for s in _NO_SLOT):
             raise unported(f"{cfg.name}: checkpoint tensor {k!r} (a llama-branch "
                            f"family beside plain llama)", 11)
+        if not cfg.is_moe and any(s in k for s in _EXPERT_KEYS):
+            raise ValueError(f"{cfg.name}: checkpoint tensor {k!r} is an expert's, and "
+                             f"the config has no experts")
     # gemma stores rmsnorm weights as (1 + w): the +1 folds in here, in f32
     norm_off = 1.0 if cfg.norm_plus_one else 0.0
     raw = lambda k: state[pre + k]
@@ -169,11 +179,11 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
                 "wv": t(f"layers.{i}.self_attn.v_proj.weight"),
                 "wo": t(f"layers.{i}.self_attn.o_proj.weight"),
             },
-            "mlp": {
+            **({"moe": _moe_layer(pre, state, cfg, i)} if cfg.is_moe else {"mlp": {
                 "w_up": t(f"layers.{i}.mlp.up_proj.weight"),
                 "w_down": t(f"layers.{i}.mlp.down_proj.weight"),
                 "w_gate": t(f"layers.{i}.mlp.gate_proj.weight"),
-            },
+            }}),
         }
         for i in range(cfg.n_layers)
     ]
@@ -193,6 +203,26 @@ def _convert_llama(state, cfg: ModelConfig) -> dict:
         lm = state.get("lm_head.weight")
         params["lm_head"] = (lm if lm is not None else raw("embed_tokens.weight")).t()
     return params
+
+
+def _moe_layer(pre: str, state, cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s ``moe`` tree from mixtral's or qwen3_moe's names (JAX
+    ``loader.py``: mixtral's w1 / w3 / w2 are gate / up / down): the router
+    as a transposed view, each expert stack [E, in, out] stacked on the
+    host from the experts' transposed views."""
+    if f"{pre}layers.0.block_sparse_moe.gate.weight" in state:
+        base, router, names = "block_sparse_moe", "block_sparse_moe.gate", ("w1", "w3", "w2")
+    else:
+        base, router, names = "mlp", "mlp.gate", ("gate_proj", "up_proj", "down_proj")
+    t = lambda k: state[pre + k].t()  # noqa: E731
+
+    def stack(w):
+        return torch.stack([t(f"layers.{i}.{base}.experts.{e}.{w}.weight")
+                            for e in range(cfg.n_experts)])
+
+    gate, up, down = names
+    return {"router": t(f"layers.{i}.{router}.weight"), "w_up": stack(up),
+            "w_down": stack(down), "w_gate": stack(gate)}
 
 
 def _gpt2_common(g, cfg: ModelConfig, layer_attn, t) -> dict:

@@ -18,6 +18,8 @@ layers as a LIST of per-layer dicts (the JAX engine's unstacked form):
       + qwen3, gemma-3 (cfg.qk_norm): q_norm [hd], k_norm [hd] (head-wise)
     mlp {w_up [D, F], w_down [F, D]} + w_gate [D, F] (gated activations)
       + gpt2 (cfg.use_bias): b_up [F], b_down [D]
+    or, in a mixture-of-experts model (mixtral, qwen3_moe), in place of mlp:
+    moe {router [D, E], w_up [E, D, F], w_down [E, F, D]} + w_gate [E, D, F]
 
 Weights keep the JAX layout ``[in, out]`` and project as ``x @ w``; no
 transpose into ``nn.Linear``'s ``[out, in]`` happens anywhere, so a tensor
@@ -25,9 +27,12 @@ carried across from JAX is the same matrix, element for element. An int8
 weight-only quantized weight (models/quant.py) is the JAX subtree
 {"q": int8 [in, out], "s": f32 [out]}; ``params_from_numpy`` carries it
 across as it is (int8 stays int8, the scales f32), and the engine repacks
-``q`` for the int8-weight GEMM at load (``quant.pack_params_``). A random
-init for an int8 engine quantizes on the device, tensor by tensor
-(``quant.quantize_params_``).
+``q`` for the int8-weight GEMM at load (``quant.pack_params_``); an int8 expert stack
+is {"q": int8 [E, in, out], "s": f32 [E, out]} on every side. A random
+init for an int8 engine (``init_params(quantize=True)``) quantizes each
+projection on the device as it is drawn, and each expert stack expert by
+expert, so the init never holds more than the int8 model plus one dense
+tensor.
 
 ``params_to_numpy`` is the inverse: the JAX schema with the layers
 stacked ``[L, ...]`` (the canonical layout of the piece manifest and of
@@ -47,11 +52,13 @@ import torch
 from ..pieces import HOST_BF16, dtype_name
 from .config import ModelConfig
 from .core import check_supported
-from .quant import unpack_weight
+from .quant import (
+    _packed, empty_quantized_stack, quantize_expert_into, quantize_weight_torch, unpack_weight,
+)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
-                dtype=torch.bfloat16) -> dict:
+                dtype=torch.bfloat16, quantize: bool = False) -> dict:
     """Random-init parameters with the JAX schema and scales (normal
     draws times 1/sqrt(fan_in); embeddings 0.02; norms ones), drawn from
     ``generator`` straight on ``device`` in ``dtype``, one tensor at a
@@ -70,6 +77,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
         return t.mul_(scale)
 
+    def weight(shape):  # a projection: quantized as drawn with ``quantize``
+        t = normal(shape)
+        if not quantize:
+            return t
+        qw = quantize_weight_torch(t)
+        del t
+        return _packed(qw["q"], qw["s"])
+
+    def experts(shape):  # an [E, in, out] stack, one expert's draw at a time
+        if quantize:
+            qw = empty_quantized_stack(shape, device)
+            for e in range(shape[0]):
+                quantize_expert_into(qw, e, normal(shape[1:]))
+            return qw
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for e in range(shape[0]):
+            out[e] = normal(shape[1:])
+        return out
+
     def ones(n):
         return torch.ones((n,), device=device, dtype=dtype)
 
@@ -78,10 +104,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
     def attn():
         a = {
-            "wq": normal((D, H * hd)),
-            "wk": normal((D, Hkv * hd)),
-            "wv": normal((D, Hkv * hd)),
-            "wo": normal((H * hd, D)),
+            "wq": weight((D, H * hd)),
+            "wk": weight((D, Hkv * hd)),
+            "wv": weight((D, Hkv * hd)),
+            "wo": weight((H * hd, D)),
         }
         if cfg.qkv_bias or cfg.use_bias:
             a.update(bq=zeros(H * hd), bk=zeros(Hkv * hd), bv=zeros(Hkv * hd))
@@ -97,15 +123,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         return {"scale": ones(D)}
 
     def mlp():
-        m = {"w_up": normal((D, F_)), "w_down": normal((F_, D))}
+        m = {"w_up": weight((D, F_)), "w_down": weight((F_, D))}
         if cfg.activation in ("silu", "geglu"):
-            m["w_gate"] = normal((D, F_))
+            m["w_gate"] = weight((D, F_))
         if cfg.use_bias:
             m.update(b_up=zeros(F_), b_down=zeros(D))
         return m
 
+    def moe():  # JAX's key order: router, w_up, w_down, then w_gate
+        E = cfg.n_experts
+        m = {"router": normal((D, E)), "w_up": experts((E, D, F_)),
+             "w_down": experts((E, F_, D))}
+        if cfg.activation in ("silu", "geglu"):
+            m["w_gate"] = experts((E, D, F_))
+        return m
+
     def layer():
-        lp = {"ln1": norm(), "attn": attn(), "ln2": norm(), "mlp": mlp()}
+        lp = {"ln1": norm(), "attn": attn(), "ln2": norm(),
+              **({"moe": moe()} if cfg.is_moe else {"mlp": mlp()})}
         if cfg.post_norms:
             lp.update(ln1_post=norm(), ln2_post=norm())
         return lp

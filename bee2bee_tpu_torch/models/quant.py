@@ -9,11 +9,11 @@ out], "s": f32 [..., out]} in place of the dense array. Per-OUT-channel
 scales commute with the matmul — (x @ q) * s == x @ (q * s) — so
 core.matmul applies them after the dot.
 
-What quantizes: attention projections (wq/wk/wv/wo) and the dense-MLP
-weights (w_up/w_gate/w_down). Embeddings (a gather, often tied to the LM
-head) and norms stay dense. MoE experts are in the suffix list, as in the
-JAX package, but the port runs no MoE model yet (ROADMAP.md queue A item
-11).
+What quantizes: attention projections (wq/wk/wv/wo), the dense-MLP
+weights (w_up/w_gate/w_down) and the MoE expert stacks (moe/w_up, w_gate,
+w_down: [E, in, out], scales [E, out], amax over the in dim per expert).
+Embeddings (a gather, often tied to the LM head), norms and the MoE router
+stay dense.
 
 The port of ``bee2bee_tpu/models/quant.py``: ``QUANT_SUFFIXES``,
 ``is_quantized``, ``quantize_weight``, ``dequantize_weight`` and
@@ -34,10 +34,12 @@ The port of ``bee2bee_tpu/models/quant.py``: ``QUANT_SUFFIXES``,
   (the int8 bytes are stored once), ``matmul`` dispatches on the key, and
   ``unpack_weight`` gives back the JAX layout. A weight whose shape the
   GEMM cannot take (in % 32 or out % 16) keeps the JAX layout, which only
-  the CPU runs.
+  the CPU runs. An expert stack keeps the JAX layout {"q": int8 [E, in,
+  out], "s": f32 [E, out]} on every device: the grouped expert GEMM
+  (ops/moe.py) reads it as it lies and converts in registers.
 - ``dequant_scratch_bytes``: the peak scratch of the dequantize route at
   the widest weight, in the engine's dtype (the HBM ledger's
-  ``int8_dequant_scratch``).
+  ``int8_dequant_scratch``); no expert stack needs any.
 """
 
 from __future__ import annotations
@@ -91,12 +93,34 @@ def quantize_params(params: dict) -> dict:
 def quantize_weight_torch(w: torch.Tensor) -> dict:
     """``quantize_weight`` on a tensor, on its device: the same f32
     operations in the same order, so q and s are bit-equal to numpy's on
-    the same f32 input (torch.round rounds half to even, as np.rint)."""
+    the same f32 input (torch.round rounds half to even, as np.rint). An
+    expert stack [E, in, out] goes one expert at a time into preallocated
+    q and s (the same values: the amax is per expert)."""
+    if w.dim() == 3:
+        qw = empty_quantized_stack(w.shape, w.device)
+        for e in range(w.shape[0]):
+            quantize_expert_into(qw, e, w[e])
+        return qw
     wf = w.float()
     s = wf.abs().amax(dim=-2) / 127.0
     safe = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(wf / safe.unsqueeze(-2)), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
+
+
+def empty_quantized_stack(shape, device) -> dict:
+    """{"q" [E, in, out] int8, "s" [E, out] f32}, uninitialised: an int8
+    expert stack for ``quantize_expert_into`` to fill expert by expert."""
+    E, _, out = shape
+    return {"q": torch.empty(tuple(shape), dtype=torch.int8, device=device),
+            "s": torch.empty((E, out), dtype=torch.float32, device=device)}
+
+
+def quantize_expert_into(qw: dict, e: int, w: torch.Tensor) -> None:
+    """Expert ``e`` of an int8 stack: ``quantize_weight_torch`` of its
+    [in, out] weight ``w``, written into qw["q"][e] and qw["s"][e]."""
+    qe = quantize_weight_torch(w)
+    qw["q"][e], qw["s"][e] = qe["q"], qe["s"]
 
 
 def _quantized_slots(params: dict):
@@ -113,9 +137,13 @@ def _quantized_slots(params: dict):
 
 
 def _packed(q: torch.Tensor, s: torch.Tensor) -> dict:
-    """{"qp", "s"} for the GEMM, or {"q", "s"} where its shape cannot pack."""
+    """{"qp", "s"} for the GEMM, or {"q", "s"} where its shape cannot pack
+    and for an expert stack (3-D: the grouped expert GEMM reads the JAX
+    layout)."""
     from ..ops.int8_gemm import pack_weight
 
+    if q.dim() == 3:
+        return {"q": q, "s": s}
     K, N = q.shape
     if K % 32 or N % 16:
         return {"q": q, "s": s}
@@ -156,11 +184,12 @@ def dequant_scratch_bytes(params: dict, dtype: torch.dtype) -> int:
     wider than the GEMM kernel takes, ops/int8_gemm.py; the CPU's plain
     version): a packed weight's unpacked int8 [N, K] plus its copy in
     ``dtype`` (an f32 copy is twice the bf16 one), a JAX-layout weight's
-    copy in ``dtype``. 0 without int8 weights."""
+    copy in ``dtype``. 0 without int8 weights. Expert stacks take none: the
+    grouped expert GEMM converts in registers on every route."""
     most = 0
     for holder, key in _quantized_slots(params):
         w = holder[key]
-        if not is_quantized(w):
+        if not is_quantized(w) or ("q" in w and w["q"].dim() == 3):
             continue
         if "qp" in w:
             Nt, Kc = w["qp"].shape[:2]

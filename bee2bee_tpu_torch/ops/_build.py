@@ -33,6 +33,7 @@ SOURCES = (
     "ragged_attention.cu", "ragged_prefill_attention.cu",
     "ragged_prefill_attention_hd96.cu", "ragged_decode_attention.cu",
     "ragged_decode_attention_f32.cu", "flash_attention.cu", "int8_weight_gemm.cu",
+    "moe_expert_gemm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,8 @@ forwards, the served gemma slices and the gemma checkpoints; ``--only
 gpt2`` the same for starcoder-15b's G = 48 and gpt2's head_dim 64, with
 distilgpt2, gpt2 drafted by distilgpt2 and starcoder-15b served; ``--only
 phi3`` the same for phi-3-mini's head_dim 96, with the GEMM at its shapes,
-phi-3-mini served and its checkpoint. Those print no result line.) The line before the card's gives every stage's
+phi-3-mini served and its checkpoint; ``--only moe`` the build and the
+MoE stages below. Those print no result line.) The line before the card's gives every stage's
 seconds (``stage seconds:``).
 
 Phases (each prints its numbers on lines of their own; any failure raises
@@ -191,6 +192,25 @@ and the script exits non-zero):
    int8 weights over an int8 pool on prompts of 41 to 3,000 tokens (three
    past the window) with phase 6's checks, and the checkpoint phase writes
    and loads a phi3 checkpoint (fused qkv_proj and gate_up_proj).
+   Mixture of experts (``phase_moe_*``): after the GEMM phases the grouped
+   expert GEMM (csrc/moe_expert_gemm.cu) against its plain version at
+   qwen3-30b-a3b's (D 2048, 128 experts of 768, 8 a token) and
+   mixtral-8x7b's (D 4096, 8 experts of 14,336, 2 a token) shapes, 8, 40
+   and 2,048 tokens, every form (bf16 and int8 experts under bf16 x, f32
+   and int8 experts under f32 x; 2^-6 / 1e-4 of the largest |output|, one
+   launch a call, two calls bit-equal), each layer's two launches timed
+   beside the bound, the plain version and torch._grouped_mm (bf16), plus
+   tied logits (JAX's top-k) and a routed capacity that drops (JAX's keep
+   mask); the MoE forwards at full width, 2 layers, a 1,100-token prefill
+   and 8 steps, checked as the gpt2 block's (the plain forward's experts
+   through the plain version; mixtral also in f32 over int8 experts); after
+   the phi-3 slices qwen3-30b-a3b (48 layers, bf16) served with phase 6's
+   checks, the expert GEMM twice a layer of every replayed forward, and
+   one n-gram verify step replayed = eager; mixtral-8x7b (32 layers) with
+   int8 weights from the quantize-as-drawn init (its peak device memory
+   within 1.05 x the int8 model + its largest dense tensor) served the
+   same way; the checkpoint phase writes and loads both families at 2
+   layers.
 6. The slice: CUDAService("llama-3-8b"), 32 layers, bf16, random init
    from a seed, answers 8 concurrent execute calls and one
    execute_stream. Every decode step is a replay of a captured CUDA
@@ -491,7 +511,9 @@ The checkpoint phase (after phase 9): llama-3.1-8b at the widths of
    and the checkpoint phase's int8 load; phase 2 times the tile kernel and the f32 decode
    kernel at the verify shape, B=8 T=5 ctx 1024; the qwen phases' and the
    f32 int8-weight phase's launches added to the rows of the forms they
-   counted; the GEMM's f32 form a row of its own), then the result line.
+   counted; the GEMM's f32 form a row of its own; the expert GEMM a row a
+   form, its launches from the MoE forwards, slices, verify step and
+   checkpoints, timed at a B = 8 decode step), then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is present or
 when the package is not beside this script. Each phase's start goes to
@@ -632,7 +654,7 @@ def phase_device_and_build():
             hd = re.split("[,>]", name.split("<")[1])[0]
             log(f"build: {source}: {name}: {line}")
             if (hd in NO_SPILL_HEAD_DIMS and name.startswith(NO_SPILL_FORMS)) or \
-                    name.startswith(GEMM_KERNEL):
+                    name.startswith((GEMM_KERNEL, MOE_KERNEL)):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{source}: {name} spills: {line}")
     return card, build_s
@@ -653,11 +675,16 @@ def ptxas_entries(report: str):
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"\d+((?:ragged|flash|int8)_\w+?)I", mangled)
+            base = re.search(r"\d+((?:ragged|flash|int8|moe)_\w+?)I", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             xt = re.search(r"Lb\dE(f|13__nv_bfloat16)E", mangled)  # the GEMM's x type
             if xt:
                 args.append("f32" if xt.group(1) == "f" else "bf16")
+            # the expert GEMM's x and expert types
+            types = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+            mt = re.search(r"Li\d+E(f|13__nv_bfloat16)(f|13__nv_bfloat16|a|S\d*_)E", mangled)
+            if mt and "moe" in mangled:  # a substitution repeats x's type
+                args += [types[mt.group(1)], types.get(mt.group(2), types[mt.group(1)])]
             name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -1548,6 +1575,12 @@ GEMM_REL_TOL = 2.0 ** -6
 GEMM_LAUNCHES_PER_LAYER = 4
 
 
+def gemm_launches_per_layer(cfg) -> int:
+    """A layer's int8-weight GEMM launches: an MoE layer's experts take the
+    expert GEMM, leaving wq|wk|wv and wo."""
+    return 2 if cfg.is_moe else GEMM_LAUNCHES_PER_LAYER
+
+
 def gemm_counts() -> dict:
     from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul
 
@@ -1922,9 +1955,10 @@ def forward_setup(cfg=None, n_prompt: int = 300):
     """Phase 5's model and inputs: ``cfg`` (default llama-3-8b at full
     width with 2 layers), f32 weights from SEED, an ``n_prompt``-token
     prompt and the block table for it and 8 greedy decode steps. Returns
-    (cfg, params, run): run(attn_fn, pool_dtype, weights, layers) ->
-    (prefill logits, stacked step logits, greedy tokens), ``layers`` the
-    depth to cut the model to (default all)."""
+    (cfg, params, run): run(attn_fn, pool_dtype, weights, layers, tokens)
+    -> (prefill logits, stacked step logits, greedy tokens), ``layers`` the
+    depth to cut the model to (default all), ``tokens`` the decode steps'
+    inputs (default each step's greedy token: teacher forcing when given)."""
     from bee2bee_tpu_torch.models import core
     from bee2bee_tpu_torch.models.config import get_config
     from bee2bee_tpu_torch.models.params import init_params
@@ -1940,8 +1974,9 @@ def forward_setup(cfg=None, n_prompt: int = 300):
     tables[0, :nblocks] = torch.arange(1, nblocks + 1, dtype=torch.int32)
     ids = torch.randint(3, 259, (1, n_prompt), generator=gen, device="cuda")
 
-    def run(attn_fn, pool_dtype=torch.float32, weights=params, layers=None):
-        # ``layers``: the model cut to its first ``layers`` layers
+    def run(attn_fn, pool_dtype=torch.float32, weights=params, layers=None, tokens=None):
+        # ``layers``: the model cut to its first ``layers`` layers;
+        # ``tokens``: the decode steps' inputs (default: each step's greedy)
         c = cfg if layers is None else replace(cfg, n_layers=layers)
         w = weights if layers is None else dict(weights, layers=weights["layers"][:layers])
         pool = core.init_paged_pool(c, nblocks + 1, BS, pool_dtype, "cuda")
@@ -1949,7 +1984,8 @@ def forward_setup(cfg=None, n_prompt: int = 300):
         steps = [logits[:, -1]]
         toks = []
         for i in range(n_steps):
-            tok = torch.argmax(steps[-1], dim=-1)
+            tok = (torch.argmax(steps[-1], dim=-1) if tokens is None
+                   else torch.tensor([tokens[i]], device="cuda"))
             toks.append(int(tok))
             lg, _ = core.forward(w, c, tok[:, None], pool, n_prompt + i,
                                  tables, attn_fn=attn_fn)
@@ -2542,22 +2578,29 @@ def verify_vs_eager(engine, tag: str, ctx: int = 1024) -> dict:
     load_verify()
     if ("spec_verify", vkey) not in sch._graphs:
         sch._capture(vkey, "spec_verify")
-    c0, g0 = read_counts(), gemm_counts()
+    c0, g0, m0 = read_counts(), gemm_counts(), moe_counts()
     sch._run_root("spec_verify", vkey)
-    c1, g1 = read_counts(), gemm_counts()
+    c1, g1, m1 = read_counts(), gemm_counts(), moe_counts()
     torch.cuda.synchronize()
     launched = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
     gemm = {k: g1[k] - g0[k] for k in g1 if g1[k] != g0[k]}
+    moe = {k: m1[k] - m0[k] for k in m1 if m1[k] != m0[k]}
     same = [torch.equal(a, b) for a, b in zip(eager[:3], (vv.cur, vv.acc, vv.off))]
     same_pool = all(torch.equal(eager[3][n], t[:, :, 1:]) for n, t in pool.items())
     acc = vv.acc.tolist()
     log(f"{tag} verify graph vs eager: B=8 ctx {ctx} K={K} key {vkey}, lengths "
         f"{lens.tolist()}, accepted {acc}: tokens, accepted, offsets equal {same}, pool "
         f"bytes outside the null block equal {same_pool}; launches per replay {launched}, "
-        f"int8-weight GEMM {gemm}")
+        f"int8-weight GEMM {gemm}, expert GEMM {moe}")
     check(all(same) and same_pool, f"{tag}: the replayed verify step differs from the eager one")
     check(len(launched) == 1 and list(launched.values()) == [cfg.n_layers],
           f"{tag}: a verify replay launched {launched}")
+    want_moe = {}
+    if cfg.is_moe:
+        want_moe = {moe_form(engine.dtype, quantized_experts(engine.params)):
+                    MOE_LAUNCHES_PER_LAYER * cfg.n_layers}
+    check(moe == want_moe, f"{tag}: a verify replay's expert GEMM launches {moe}, expected "
+          f"{want_moe}")
     # position 0's logits see no later position of the chunk, so a first
     # draft equal to the draft-less verify's token is accepted; over an int8
     # pool the chunk's later writes can grow a page's scale and requantize
@@ -2567,7 +2610,7 @@ def verify_vs_eager(engine, tag: str, ctx: int = 1024) -> dict:
               f"{tag}: a row whose first draft is its greedy token accepted nothing: "
               f"{acc}")
     reload()
-    return {"accepted": acc, "launched": launched, "gemm": gemm}
+    return {"accepted": acc, "launched": launched, "gemm": gemm, "moe": moe}
 
 
 def ring_check(engine, tag: str, new_tokens: int = 320, burst: bool = True) -> bool:
@@ -2775,6 +2818,7 @@ def reset_counts():
     flash_attention.tile_launches = 0
     flash_attention.hd256_tile_launches = 0
     flash_attention.f32_tile_launches = 0
+    reset_moe_counts()
 
 
 def read_counts() -> dict:
@@ -2888,8 +2932,10 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
           f"{tag}: ledger {comps} vs weights {weights} B, pool {pool} B "
           f"(geometry {geometry} B)")
     # int8 weights: the dequantize route's scratch at the widest projection,
-    # its int8 unpack beside its copy in the engine's dtype
-    widest = max(cfg.d_model * cfg.d_ff, cfg.d_model * cfg.n_heads * cfg.head_dim)
+    # its int8 unpack beside its copy in the engine's dtype (an MoE model's
+    # experts take none: the expert GEMM converts them in registers)
+    widest = max(0 if cfg.is_moe else cfg.d_model * cfg.d_ff,
+                 cfg.d_model * cfg.n_heads * cfg.head_dim)
     scratch = widest * (1 + engine.dtype.itemsize) if ecfg.quantize == "int8" else None
     check(comps.get("int8_dequant_scratch") == scratch,
           f"{tag}: ledger's int8 dequantize scratch {comps.get('int8_dequant_scratch')} B, "
@@ -3049,6 +3095,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         torch.cuda.synchronize()
         counts = read_counts()
         gemm = gemm_counts()
+        moe = moe_counts()
         forwards = engine.forward_calls
         engine.forward = forward
         peak = torch.cuda.max_memory_allocated()
@@ -3124,6 +3171,9 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         check_int8_gemm_launches(engine, tag, gemm, roots_run, qw)
         if qw:
             counts.update(gemm)
+        check_moe_launches(engine, tag, moe, forwards)
+        if cfg.is_moe:
+            counts.update(moe)
         check_economics(engine, tag, card, dispatches, wall)
         if bf16 and not qw and not light:
             ring_check(engine, tag)
@@ -3161,11 +3211,12 @@ def check_int8_gemm_launches(engine, tag: str, gemm: dict, roots_run: list,
     w_up|w_gate grouped, wo, w_down), the kernel for a decode or verify
     step and a prefill chunk of at most MAX_KERNEL_M tokens (the bucket),
     the dequantize + cuBLAS route for wider chunks; the kernel's form in
-    the engine's type (``int8_gemm_f32`` for f32). Dense weights launch
-    neither."""
+    the engine's type (``int8_gemm_f32`` for f32). An MoE layer has no
+    dense MLP: 2 launches a layer (its experts go through the expert
+    GEMM). Dense weights launch neither."""
     from bee2bee_tpu_torch.ops.int8_gemm import MAX_KERNEL_M
 
-    per = GEMM_LAUNCHES_PER_LAYER * engine.model_cfg.n_layers
+    per = gemm_launches_per_layer(engine.model_cfg) * engine.model_cfg.n_layers
     narrow = sum(t for root, key, t in roots_run
                  if root in ("decode", "spec_verify")
                  or (root == "prefill" and key[0] <= MAX_KERNEL_M))
@@ -3400,10 +3451,37 @@ PHI3_CONFIG = {
     "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000, "use_cache": True,
     "torch_dtype": "bfloat16",
 }
+# mistralai/Mixtral-8x7B-v0.1's config.json at the values of the repo's
+# preset (models/config.py: rope theta 10,000 and 8,192 positions, where
+# the published file has 1e6 and 32,768), and Qwen/Qwen3-30B-A3B's
+# (qwen3_moe: 128 experts of width 768, 8 a token, norm_topk_prob, every
+# layer sparse)
+MIXTRAL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "hidden_act": "silu",
+    "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_hidden_layers": 32, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "vocab_size": 32000, "max_position_embeddings": 8192,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "sliding_window": None,
+    "tie_word_embeddings": False, "router_aux_loss_coef": 0.02, "bos_token_id": 1,
+    "eos_token_id": 2, "torch_dtype": "bfloat16",
+}
+QWEN3MOE_CONFIG = {
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe", "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_hidden_layers": 48, "num_experts": 128, "num_experts_per_tok": 8,
+    "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "vocab_size": 151936, "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "attention_bias": False,
+    "use_sliding_window": False, "sliding_window": None, "max_window_layers": 48,
+    "router_aux_loss_coef": 0.001, "bos_token_id": 151643, "eos_token_id": 151645,
+    "torch_dtype": "bfloat16",
+}
 HF_CONFIGS = {"qwen2-7b": QWEN2_CONFIG, "qwen3-8b": QWEN3_CONFIG,
               "gemma-2-9b": GEMMA2_CONFIG, "gemma-3-4b": GEMMA3_CONFIG,
               "gpt2": GPT2_CONFIG, "starcoder-15b": STARCODER_CONFIG,
-              "phi-3-mini": PHI3_CONFIG}
+              "phi-3-mini": PHI3_CONFIG, "mixtral-8x7b": MIXTRAL_CONFIG,
+              "qwen3-30b-a3b": QWEN3MOE_CONFIG}
 # the JAX init draws the biases as zeros and the norm scales as ones, which
 # would prove nothing about either switch: every qwen and gemma check
 # perturbs them
@@ -3846,7 +3924,8 @@ GPT2_PROMPT = 600
 GPT2_SIZES = (40, 120, 260, 400, 520, 640, 760, 900)
 
 
-def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
+def family_forward(label: str, cfg, n_prompt: int, perturb,
+                   int8_experts: bool = False, int8_pool_per_call: bool = False) -> dict:
     """Phase 5 for one model at full width, ``cfg`` cut in depth: random f32
     from SEED, perturbed in place by ``perturb(params, seed)``; an
     ``n_prompt``-token prefill and 8 greedy decode steps through the kernels
@@ -3856,7 +3935,16 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
     over a bf16 and an int8 pool (the same launch rule; prefill logits no
     further from the plain bf16 forward, in the relative Frobenius norm,
     than that is from the plain f32 forward; greedy tokens equal the plain
-    bf16 forward's). Returns the launch counts."""
+    bf16 forward's). An MoE model's plain forward runs the expert product's
+    plain version too, and each kernel forward launches the expert GEMM's
+    form for its type twice a layer of every forward; ``int8_experts``:
+    then the f32 forward over an f32 pool with the experts int8 (the f32
+    x, int8 experts form) against its plain version.
+    ``int8_pool_per_call`` (MOE_INT8_POOL_PER_CALL): over an int8 pool the
+    2-layer f32 logits are held per call and at one layer instead
+    (``moe_int8_pool_forward``), and the bf16 greedy tokens per call and
+    teacher-forced instead (``moe_calls_on_plain_inputs``,
+    ``moe_bf16_steps``). Returns the launch counts."""
     from bee2bee_tpu_torch.ops.ragged import (
         ragged_kernel, ragged_paged_attention, ragged_paged_attention_ref,
     )
@@ -3874,6 +3962,14 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
             want[c] = want.get(c, 0) + cfg.n_layers * n
         return want
 
+    def moe_named(dtype, int8_w=False):  # the expert GEMM's, every forward
+        if not cfg.is_moe:
+            return {}
+        return {moe_form(dtype, int8_w): MOE_LAUNCHES_PER_LAYER * cfg.n_layers * (1 + n_steps)}
+
+    def moe_got():
+        return {k: v for k, v in moe_counts().items() if v}
+
     launches: dict = {}
     plain_f32 = {}
     for pool_dtype in (torch.float32, torch.int8):
@@ -3884,7 +3980,9 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
         k_logits, k_steps, k_toks = run(ragged_paged_attention, pool_dtype)
         torch.cuda.synchronize()
         got = {k: v for k, v in read_counts().items() if v}
-        p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
+        got_moe = moe_got()
+        with plain_experts():
+            p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, pool_dtype)
         torch.cuda.synchronize()
         plain_f32[pool_dtype] = p_logits
         check(bool(torch.isfinite(k_logits).all() and torch.isfinite(k_steps).all()),
@@ -3895,10 +3993,20 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
             f"{err:.3e} (tol {FORWARD_TOL}); launches {got} (expected {want}); greedy "
             f"kernel {k_toks} plain {p_toks}")
         check(got == want, f"{tag}: launches {got}, expected {want}")
-        check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+        check(got_moe == moe_named(torch.float32),
+              f"{tag}: expert GEMM launches {got_moe}, expected {moe_named(torch.float32)}")
+        if int8 and int8_pool_per_call:
+            # the int8 pool's rounding flips carry any 1e-6 difference of
+            # layer 0 into layer 1's pages: held per call and at 1 layer
+            # (``moe_int8_pool_forward``); the 2-layer gap is printed above
+            moe_int8_pool_forward(tag, run, params)
+        else:
+            check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
         check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
-        for k, v in got.items():
+        for k, v in {**got, **got_moe}.items():
             launches[k] = launches.get(k, 0) + v
+    if int8_experts:
+        launches.update(moe_int8_experts_forward(label, cfg, params, run, n_steps))
     bparams = cast_tree(params, torch.bfloat16)
     for pool_dtype, f32_pool in ((torch.bfloat16, torch.float32), (torch.int8, torch.int8)):
         tag = f"{label} bf16, {str(pool_dtype)[6:]} pool"
@@ -3907,7 +4015,9 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
         b_logits, _, b_toks = run(ragged_paged_attention, pool_dtype, bparams)
         torch.cuda.synchronize()
         got = {k: v for k, v in read_counts().items() if v}
-        bp_logits, _, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
+        got_moe = moe_got()
+        with plain_experts():
+            bp_logits, bp_steps, bp_toks = run(ragged_paged_attention_ref, pool_dtype, bparams)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(b_logits).all()), f"{tag}: non-finite logits")
         f32_logits = plain_f32[f32_pool]
@@ -3918,9 +4028,16 @@ def family_forward(label: str, cfg, n_prompt: int, perturb) -> dict:
             f"forward), max abs err {(b_logits - bp_logits).abs().max().item():.3e}; "
             f"launches {got}; greedy kernel {b_toks} plain {bp_toks}")
         check(got == want, f"{tag}: launches {got}, expected {want}")
+        check(got_moe == moe_named(torch.bfloat16),
+              f"{tag}: expert GEMM launches {got_moe}, expected {moe_named(torch.bfloat16)}")
         check(rel <= rel_tol, f"{tag}: logits differ by {rel} > {rel_tol} (relative)")
-        check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
-        for k, v in got.items():
+        if pool_dtype == torch.int8 and int8_pool_per_call:
+            moe_calls_on_plain_inputs(tag, run, bparams, KERNEL_TOL, MOE_REL_TOL)
+            moe_bf16_steps(tag, run, bparams, params, pool_dtype, f32_pool, b_toks, bp_steps,
+                           bp_toks)
+        else:
+            check(b_toks == bp_toks, f"{tag}: greedy tokens differ: {b_toks} vs {bp_toks}")
+        for k, v in {**got, **got_moe}.items():
             launches[k] = launches.get(k, 0) + v
     del params, bparams, run, plain_f32
     gc.collect()
@@ -4338,6 +4455,589 @@ def phase_f32_int8_weights(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+# ------------------------------------------------------------ MoE phases
+
+
+# the MoE presets' expert shapes: (model, d_model, d_ff, experts, experts a token)
+MOE_SHAPES = (("qwen3-30b-a3b", 2048, 768, 128, 8), ("mixtral-8x7b", 4096, 14336, 8, 2))
+# a case's tokens: a B = 8 decode step, a B = 8 verify step at K = 4, a
+# 2,048-token prefill chunk
+MOE_TOKENS = (8, 40, 2048)
+# kernel vs plain version on the same inputs. bf16: the kernel rounds each
+# output once (f32 sum, times the int8 scale, to bf16), the plain version's
+# int8 formula rounds the product and the scaled product: 2 ulps at most,
+# 2^-6 of the largest |output| (the int8-weight GEMM's rule). f32: FFMA sums
+# in another order than cuBLAS's, 1e-4 of the largest |output|.
+MOE_REL_TOL = 2.0 ** -6
+MOE_F32_REL_TOL = 1e-4
+# the expert GEMM's launch counters and their names here, by form: (x's
+# type, int8 experts)
+MOE_COUNTERS = {"launches": "moe", "int8_launches": "moe_int8", "f32_launches": "moe_f32",
+                "int8_f32_launches": "moe_f32_int8"}
+MOE_FORMS = ((torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False),
+             (torch.float32, True))
+# an MoE layer's expert GEMM launches: w_up|w_gate, then w_down
+MOE_LAUNCHES_PER_LAYER = 2
+MOE_KERNEL = "moe_expert_gemm_kernel"
+
+
+def moe_form(dtype, int8: bool) -> str:
+    """The counter name of the expert GEMM's form for (x's type, int8
+    experts)."""
+    return ("moe_f32" if dtype == torch.float32 else "moe") + ("_int8" if int8 else "")
+
+
+def moe_counts() -> dict:
+    from bee2bee_tpu_torch.ops.moe import moe_expert_matmul
+
+    return {short: getattr(moe_expert_matmul, n) for n, short in MOE_COUNTERS.items()}
+
+
+def reset_moe_counts() -> None:
+    from bee2bee_tpu_torch.ops.moe import moe_expert_matmul
+
+    for n in MOE_COUNTERS:
+        setattr(moe_expert_matmul, n, 0)
+
+
+def moe_stack(gen, E: int, K: int, N: int, dtype, int8: bool):
+    """A random [E, K, N] expert stack at the init's scale 1/sqrt(K) in
+    ``dtype``, drawn one expert at a time, or its int8 form {"q", "s"}
+    (quantized on the card)."""
+    from bee2bee_tpu_torch.models.quant import quantize_weight_torch
+
+    w = torch.empty((E, K, N), dtype=dtype, device="cuda")
+    for e in range(E):
+        w[e] = torch.randn((K, N), generator=gen, device="cuda", dtype=dtype).mul_(
+            1.0 / math.sqrt(K))
+    return quantize_weight_torch(w) if int8 else w
+
+
+def moe_plan_experts(plan) -> torch.Tensor:
+    """The expert of each assignment (token-major, slot-minor) a plan
+    routed it to, E where it was dropped, on the host."""
+    offsets = plan.offsets.cpu().long()
+    return torch.searchsorted(offsets, plan.inv.cpu(), right=True) - 1
+
+
+def moe_topk_reference(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """JAX's top-k on the host: experts by descending logit, the lower
+    index first among equal logits ([N, k])."""
+    lg = logits.cpu().double().numpy()
+    order = np.lexsort((np.broadcast_to(np.arange(lg.shape[1]), lg.shape), -lg), axis=-1)
+    return torch.from_numpy(order[:, :k].copy())
+
+
+def moe_capacity_reference(experts: torch.Tensor, N: int, k: int, E: int, g: int,
+                           C: int) -> torch.Tensor:
+    """JAX ``_moe_routed``'s keep mask on the host: per group of g tokens a
+    running count per expert in token-major, slot-minor order (one-hot
+    cumsum), kept while under C. [N * k] bool."""
+    oh = np.eye(E, dtype=np.int64)[experts.reshape(N, k).numpy()]  # [N, k, E]
+    keep = np.zeros((N, k), dtype=bool)
+    for g0 in range(0, N, g):
+        ohf = oh[g0:g0 + g].reshape(-1, E)
+        pos = ((np.cumsum(ohf, axis=0) - ohf) * ohf).sum(-1)
+        keep[g0:g0 + g] = (pos < C).reshape(-1, k)
+    return torch.from_numpy(keep.reshape(-1))
+
+
+def moe_layer_bytes_flops(plan, D: int, F: int, ws, down, x) -> tuple[int, int]:
+    """The bytes one MoE layer's two launches must move (each distinct
+    expert's matrices and scales once, x's rows, h and both outputs once,
+    the row indices) and the operations of the routed rows."""
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).cpu()
+    n_e = int((counts > 0).sum())
+    kept = int(plan.offsets[-1])
+    e = x.element_size()
+
+    def stack_bytes(w, K, N):
+        if isinstance(w, dict):
+            return n_e * (K * N + 4 * N)
+        return n_e * K * N * w.element_size()
+
+    nbytes = (sum(stack_bytes(w, D, F) for w in ws) + stack_bytes(down, F, D)
+              + x.shape[0] * D * e + kept * F * e * (len(ws) + 1) + kept * D * e
+              + 4 * plan.tok.shape[0])
+    flops = 2 * kept * D * F * len(ws) + 2 * kept * F * D
+    return nbytes, flops
+
+
+def grouped_mm_ms(x, plan, ws, down, h, flush) -> tuple:
+    """``torch._grouped_mm`` (PyTorch's grouped product, a yardstick the
+    port never calls) over the same sorted rows: x gathered by the plan's
+    tokens, each bf16 stack, then h over w_down: (ms, text) or (None, why
+    not: no such op or no kernel for these inputs in this torch)."""
+    try:
+        xs = x.index_select(0, plan.tok.long())
+        offs = plan.offsets[1:].contiguous()
+        kept = int(plan.offsets[-1])
+
+        def run():
+            return ([torch._grouped_mm(xs, w, offs=offs) for w in ws]
+                    + [torch._grouped_mm(h, down, offs=offs)])
+
+        out = run()
+        torch.cuda.synchronize()
+        ref = torch.cat([o[:kept].float() for o in out[:-1]], dim=1)
+        ms = cuda_time_ms(run, flush=flush)
+        return ms, (f"{ms:.4f} ms ({len(ws) + 1} calls over rows gathered ahead; finite "
+                    f"{bool(torch.isfinite(ref).all())})")
+    except Exception as e:  # noqa: BLE001 — the op may be absent or refuse these inputs
+        return None, (f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:120]}; torch "
+                      f"{torch.__version__})")
+
+
+def moe_case(label: str, x, logits, k: int, ws, down, form: str, tol: float,
+             capacity=None, act=None) -> tuple[float, object, torch.Tensor]:
+    """One layer's two launches (w_up|w_gate over x's rows, w_down over h)
+    against the plain version on the same plan: each kept row within
+    ``tol`` of the largest |output| of the plain version, one launch a call
+    of ``form``, the same bytes from two calls. Returns (the worst
+    relative error, the plan, h)."""
+    import torch.nn.functional as F_
+
+    from bee2bee_tpu_torch.ops.moe import moe_expert_matmul, moe_expert_matmul_ref, moe_plan
+
+    plan = moe_plan(logits, k, capacity)
+    before = moe_counts()
+    ys = moe_expert_matmul(x, plan.tok, plan, ws)
+    ys2 = moe_expert_matmul(x, plan.tok, plan, ws)
+    h = (act or (lambda u, g: F_.silu(g) * u))(ys[0], ys[1] if len(ys) > 1 else None)
+    yd = moe_expert_matmul(h, None, plan, [down])[0]
+    yd2 = moe_expert_matmul(h, None, plan, [down])[0]
+    torch.cuda.synchronize()
+    after = moe_counts()
+    launched = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    refs = moe_expert_matmul_ref(x, plan.tok, plan, ws) + moe_expert_matmul_ref(
+        h, None, plan, [down])
+    kept = int(plan.offsets[-1])
+    rels = []
+    for y, ref in zip(ys + [yd], refs):
+        r = ref[:kept].float()
+        rels.append((y[:kept].float() - r).abs().max().item() / r.abs().max().item())
+    same = all(torch.equal(a[:kept], b[:kept]) for a, b in zip(ys + [yd], ys2 + [yd2]))
+    finite = all(bool(torch.isfinite(y[:kept]).all()) for y in ys + [yd])
+    log(f"moe {label}: {plan.n_tokens} tokens x {k}, {kept} rows kept, tiles of {plan.br} "
+        f"rows ({plan.n_tiles} slots); relative errors vs plain "
+        f"{[f'{r:.3e}' for r in rels]} (tol {tol:.3e}); launches {launched}; same bytes "
+        f"twice {same}")
+    check(finite, f"moe {label}: non-finite outputs")
+    check(max(rels) <= tol, f"moe {label}: errors {rels} > {tol}")
+    check(launched == {form: 4}, f"moe {label}: launches {launched} for 4 calls of {form}")
+    check(same, f"moe {label}: two calls differ")
+    return max(rels), plan, h
+
+
+def phase_moe_kernel(flush) -> dict:
+    """The grouped expert GEMM (csrc/moe_expert_gemm.cu) at qwen3-30b-a3b's
+    and mixtral-8x7b's expert shapes (MOE_SHAPES), MOE_TOKENS tokens, every
+    form (bf16 and int8 experts under bf16 x, f32 and int8 experts under
+    f32 x), router logits from x through a random router in x's type:
+    ``moe_case``'s checks, then both launches timed (median of 30, L2
+    flushed) beside their bound (the distinct experts' bytes, x, h and the
+    outputs once; the routed products at the bf16 peak, or FFMA's for f32),
+    the plain version and, for bf16 experts, ``torch._grouped_mm`` over the
+    same sorted rows. Then a plan with tied logits (the experts JAX's top-k
+    picks) and a routed plan whose capacity drops assignments (JAX's keep
+    mask, and the combine finite and within the tolerance). Returns
+    {"err": worst error per form, "timing": {(form, model, tokens): ...}}."""
+    from bee2bee_tpu_torch.ops.moe import moe_combine, moe_expert_matmul_ref, routed_capacity
+
+    out = {"err": {}, "timing": {}}
+    for model, D, F, E, k in MOE_SHAPES:
+        for dtype, int8 in MOE_FORMS:
+            form = moe_form(dtype, int8)
+            f32 = dtype == torch.float32
+            tol = MOE_F32_REL_TOL if f32 else MOE_REL_TOL
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + 31)
+            router = torch.randn((D, E), generator=gen, device="cuda", dtype=dtype).mul_(
+                1.0 / math.sqrt(D))
+            ws = [moe_stack(gen, E, D, F, dtype, int8) for _ in range(2)]
+            down = moe_stack(gen, E, F, D, dtype, int8)
+            for N in MOE_TOKENS:
+                x = torch.randn((N, D), generator=gen, device="cuda", dtype=dtype)
+                logits = (x @ router).float()
+                label = f"{model} {form} N={N}"
+                err, plan, h = moe_case(label, x, logits, k, ws, down, form, tol)
+                out["err"][form] = max(out["err"].get(form, 0.0), err)
+                nbytes, flops = moe_layer_bytes_flops(plan, D, F, ws, down, x)
+                bnd = bounds(nbytes, flops, dtype, "ffma" if f32 else "")
+                from bee2bee_tpu_torch.ops.moe import moe_expert_matmul
+
+                ms = cuda_time_ms(lambda: (moe_expert_matmul(x, plan.tok, plan, ws),
+                                           moe_expert_matmul(h, None, plan, [down])),
+                                  flush=flush)
+                plain_ms = cuda_time_ms(
+                    lambda: (moe_expert_matmul_ref(x, plan.tok, plan, ws),
+                             moe_expert_matmul_ref(h, None, plan, [down])), flush=flush)
+                library_ms, lib = (None, "n/a (int8 or f32 experts)")
+                if not int8 and not f32:
+                    library_ms, lib = grouped_mm_ms(x, plan, ws, down, h, flush)
+                n_e = int(((plan.offsets[1:] - plan.offsets[:-1]) > 0).sum())
+                log(f"moe {label}: both launches {ms:.4f} ms, {bnd['text']} -> "
+                    f"{bnd['bound_ms'] / ms:.3f} of bound ({n_e} of {E} experts hit); "
+                    f"plain {plain_ms:.4f} ms; torch._grouped_mm {lib}")
+                out["timing"][(form, model, N)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                    bound_by=bnd["bound_by"], library_ms=library_ms, experts_hit=n_e)
+            # tied logits: 4 levels over E experts, ties at the k-th place
+            N = MOE_TOKENS[0]
+            x = torch.randn((N, D), generator=gen, device="cuda", dtype=dtype)
+            logits = torch.randint(0, 4, (N, E), generator=gen, device="cuda").float()
+            err, plan, _ = moe_case(f"{model} {form} tied logits", x, logits, k, ws, down,
+                                    form, tol)
+            picked = moe_plan_experts(plan).reshape(N, k).sort(dim=-1).values
+            want = moe_topk_reference(logits, k).sort(dim=-1).values
+            log(f"moe {model} {form} tied logits: the plan's experts equal JAX's top-k "
+                f"(lower index first on ties) {torch.equal(picked, want)}")
+            check(torch.equal(picked, want), f"moe {model} {form}: tied logits routed "
+                  f"to {picked.tolist()}, JAX picks {want.tolist()}")
+            # a routed plan whose capacity drops assignments
+            N = MOE_TOKENS[-1]
+            x = torch.randn((N, D), generator=gen, device="cuda", dtype=dtype)
+            logits = (x @ router).float()
+            g, C = routed_capacity(N, k, E, 512, 0.5)
+            err, plan, h = moe_case(f"{model} {form} routed g={g} C={C}", x, logits, k, ws,
+                                    down, form, tol, capacity=(g, C))
+            chosen = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+            keep = moe_capacity_reference(chosen.cpu().reshape(-1), N, k, E, g, C)
+            kept = int(plan.offsets[-1])
+            check(torch.equal(plan.keep.cpu(), keep) and 0 < kept < N * k,
+                  f"moe {model} {form}: the routed plan kept {kept} of {N * k}, the keep "
+                  f"mask differs from JAX's")
+            from bee2bee_tpu_torch.ops.moe import moe_expert_matmul
+
+            y = moe_expert_matmul(h, None, plan, [down])[0]
+            yr = moe_expert_matmul_ref(h, None, plan, [down])[0]
+            comb, comb_ref = moe_combine(y, plan, dtype), moe_combine(yr, plan, dtype)
+            rel = ((comb.float() - comb_ref.float()).abs().max()
+                   / comb_ref.float().abs().max()).item()
+            log(f"moe {model} {form} routed: {kept} of {N * k} assignments kept (JAX's keep "
+                f"mask), combine finite {bool(torch.isfinite(comb).all())}, relative error "
+                f"{rel:.3e}")
+            check(bool(torch.isfinite(comb).all()) and rel <= 2 * tol,
+                  f"moe {model} {form} routed: combine error {rel}")
+            del ws, down, router, x, h, y, yr
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"moe kernel: worst relative error per form {out['err']}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_experts():
+    """The forward's expert product through its plain version (the plain
+    forward of phase 5 only): core's module-level name swapped for the
+    while."""
+    from bee2bee_tpu_torch.models import core
+    from bee2bee_tpu_torch.ops.moe import moe_expert_matmul_ref
+
+    kernel = core.moe_expert_matmul
+    core.moe_expert_matmul = moe_expert_matmul_ref
+    try:
+        yield
+    finally:
+        core.moe_expert_matmul = kernel
+
+
+def quantized_experts(params) -> bool:
+    """Are an MoE model's expert stacks int8?"""
+    from bee2bee_tpu_torch.models.quant import is_quantized
+
+    return is_quantized(params["layers"][0]["moe"]["w_up"])
+
+
+def check_moe_launches(engine, tag: str, moe: dict, forwards: int) -> None:
+    """Every replayed forward of an MoE model launches the expert GEMM's
+    form for (the engine's type, its experts' type) twice a layer; a dense
+    model launches none."""
+    cfg = engine.model_cfg
+    want = {n: 0 for n in MOE_COUNTERS.values()}
+    if cfg.is_moe:
+        want[moe_form(engine.dtype, quantized_experts(engine.params))] = (
+            MOE_LAUNCHES_PER_LAYER * cfg.n_layers * forwards)
+        log(f"{tag}: expert GEMM launches {moe} ({MOE_LAUNCHES_PER_LAYER} x {cfg.n_layers} "
+            f"layers x {forwards} forwards)")
+    check(moe == want, f"{tag}: expert GEMM launches {moe}, expected {want}")
+
+
+def moe_bf16_steps(tag: str, run, bparams, params, pool_dtype, f32_pool, b_toks, bp_steps,
+                   bp_toks) -> None:
+    """The decode steps of an MoE model's bf16 forward, by the relative
+    rule: routing makes bf16 greedy tokens a coin flip between two bf16
+    forwards (a 1-ulp difference of a router logit swaps an expert where
+    the k-th and (k+1)-th logits tie in bf16; the plain bf16 forward sits
+    9-10% from the plain f32 one in the relative norm, PERF.md §6), so
+    each step is teacher-forced with the plain bf16 forward's greedy tokens:
+    the kernel forward's step logits no further from the plain bf16 ones,
+    in the relative (Frobenius) norm, than those are from the plain f32
+    forward's on the same tokens, and the first greedy token (from the
+    prefill logits) equal. The kernel forward's own greedy tokens are
+    printed."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    _, kf_steps, _ = run(ragged_paged_attention, pool_dtype, bparams, tokens=bp_toks)
+    with plain_experts():
+        _, ff_steps, _ = run(ragged_paged_attention_ref, f32_pool, params, tokens=bp_toks)
+    torch.cuda.synchronize()
+    rel = ((kf_steps.float() - bp_steps.float()).norm() / bp_steps.float().norm()).item()
+    rel_tol = ((bp_steps.float() - ff_steps).norm() / ff_steps.norm()).item()
+    log(f"{tag}: the {len(bp_toks)} decode steps teacher-forced with the plain forward's "
+        f"greedy tokens: step logits relative err {rel:.3e} (tol {rel_tol:.3e}, the plain bf16 "
+        f"steps' relative gap to the plain f32 steps on the same tokens); greedy kernel "
+        f"{b_toks} plain {bp_toks}, first equal {b_toks[:1] == bp_toks[:1]}")
+    check(rel <= rel_tol, f"{tag}: step logits differ by {rel} > {rel_tol} (relative)")
+    check(b_toks[:1] == bp_toks[:1], f"{tag}: first greedy token {b_toks[:1]} vs {bp_toks[:1]}")
+
+
+def moe_calls_on_plain_inputs(tag: str, run, weights, attn_tol: float,
+                              moe_tol: float) -> None:
+    """Every attention call and every expert GEMM call of the plain 2-layer
+    forward over an int8 pool (``weights``: the f32 or the bf16 tree) run
+    through the kernel as well, on the same pool and inputs: attention
+    within ``attn_tol`` (max abs), each expert product within ``moe_tol`` of
+    its largest |output|. The plain result carries on, so no int8 rounding
+    flip separates the two."""
+    from bee2bee_tpu_torch.models import core
+    from bee2bee_tpu_torch.ops.moe import moe_expert_matmul, moe_expert_matmul_ref
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    attn_errs, moe_errs = [], []
+
+    def shadow_attn(q, kp, vp, *args, **kw):
+        want = ragged_paged_attention_ref(q, kp, vp, *args, **kw)
+        got = ragged_paged_attention(q, kp, vp, *args, **kw)
+        attn_errs.append((got - want).abs().max().item())
+        return want
+
+    def shadow_moe(x, tok, plan, ws):
+        want = moe_expert_matmul_ref(x, tok, plan, ws)
+        got = moe_expert_matmul(x, tok, plan, ws)
+        kept = int(plan.offsets[-1])
+        for g, w in zip(got, want):
+            moe_errs.append(((g[:kept] - w[:kept]).abs().max()
+                             / w[:kept].abs().max()).item())
+        return want
+
+    core.moe_expert_matmul = shadow_moe
+    try:
+        run(shadow_attn, torch.int8, weights)
+    finally:
+        core.moe_expert_matmul = moe_expert_matmul
+    torch.cuda.synchronize()
+    log(f"{tag}: each of the {len(attn_errs)} attention calls and {len(moe_errs)} expert "
+        f"products, kernel against the plain version on the plain forward's pool and inputs: "
+        f"attention max abs err {max(attn_errs):.3e} (tol {attn_tol}), expert products max "
+        f"relative err {max(moe_errs):.3e} (tol {moe_tol})")
+    check(max(attn_errs) <= attn_tol, f"{tag}: an attention call differs by {max(attn_errs)}")
+    check(max(moe_errs) <= moe_tol, f"{tag}: an expert product differs by {max(moe_errs)}")
+
+
+def moe_int8_pool_forward(tag: str, run, weights) -> None:
+    """An MoE model's f32 forward over an int8 pool. Over 2 layers the
+    whole-forward logits measure the pool's rounding: a 1e-6 difference in
+    layer 0's output (the attention kernel alone, or the expert GEMM alone,
+    against its plain version) flips int8 roundings of layer 1's pages, and
+    qwen3-30b-a3b's 2-layer logits then part by 2.0e-3 to 2.3e-3 either way
+    (PERF.md §6). So, as ``gemma_int8_deep`` holds the deep gemma
+    forwards: each call on the plain forward's inputs
+    (``moe_calls_on_plain_inputs``: attention within F32_TOL, expert
+    products within MOE_F32_REL_TOL); then the model's first layer, whose
+    int8 pages both forwards write from the same embeddings, kernel against
+    plain: logits within FORWARD_TOL, greedy tokens equal. The caller
+    checks the 2-layer greedy tokens equal."""
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    moe_calls_on_plain_inputs(tag, run, weights, F32_TOL, MOE_F32_REL_TOL)
+    k_logits, k_steps, k_toks = run(ragged_paged_attention, torch.int8, layers=1)
+    with plain_experts():
+        p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, torch.int8, layers=1)
+    torch.cuda.synchronize()
+    err = max((k_logits - p_logits).abs().max().item(), (k_steps - p_steps).abs().max().item())
+    log(f"{tag}, its first layer: logits max abs err {err:.3e} (tol {FORWARD_TOL}); greedy "
+        f"kernel {k_toks} plain {p_toks}")
+    check(err <= FORWARD_TOL, f"{tag}, 1 layer: logits differ by {err}")
+    check(k_toks == p_toks, f"{tag}, 1 layer: greedy tokens differ: {k_toks} vs {p_toks}")
+
+
+def moe_int8_experts_forward(label: str, cfg, params, run, n_steps: int) -> dict:
+    """The f32 forward over an f32 pool with the experts quantized to int8
+    (the expert GEMM's f32 x, int8 experts form) against its plain version:
+    logits within FORWARD_TOL, greedy tokens equal, 2 launches a layer of
+    every forward. Returns the launch counts."""
+    from bee2bee_tpu_torch.models.quant import quantize_weight_torch
+    from bee2bee_tpu_torch.ops.ragged import ragged_paged_attention, ragged_paged_attention_ref
+
+    tag = f"{label} f32, int8 experts, float32 pool"
+    qparams = dict(params, layers=[
+        dict(lp, moe={k: (quantize_weight_torch(w) if k != "router" else w)
+                      for k, w in lp["moe"].items()}) for lp in params["layers"]])
+    reset_counts()
+    k_logits, k_steps, k_toks = run(ragged_paged_attention, torch.float32, qparams)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in moe_counts().items() if v}
+    with plain_experts():
+        p_logits, p_steps, p_toks = run(ragged_paged_attention_ref, torch.float32, qparams)
+    torch.cuda.synchronize()
+    err = max((k_logits - p_logits).abs().max().item(), (k_steps - p_steps).abs().max().item())
+    want = {"moe_f32_int8": MOE_LAUNCHES_PER_LAYER * cfg.n_layers * (1 + n_steps)}
+    log(f"{tag}: logits max abs err {err:.3e} (tol {FORWARD_TOL}); expert GEMM launches "
+        f"{got} (expected {want}); greedy kernel {k_toks} plain {p_toks}")
+    check(bool(torch.isfinite(k_logits).all()), f"{tag}: non-finite logits")
+    check(got == want, f"{tag}: expert GEMM launches {got}, expected {want}")
+    check(err <= FORWARD_TOL, f"{tag}: logits differ by {err}")
+    check(k_toks == p_toks, f"{tag}: greedy tokens differ: {k_toks} vs {p_toks}")
+    return got
+
+
+# the MoE forwards' prompt (phase 5's rule at the gemma phases' length)
+MOE_PROMPT = 1100
+# the MoE forwards held per call over an int8 pool (``family_forward``'s
+# ``int8_pool_per_call``): qwen3-30b-a3b's 2-layer f32 logits part by
+# 2.319e-3 there (FORWARD_TOL 2e-3) and its bf16 greedy tokens at step 4,
+# because a 1e-6 difference in layer 0 flips int8 roundings of layer 1's
+# pages (PERF.md §6). Every other forward keeps the 2-layer rule and
+# equal greedy tokens
+MOE_INT8_POOL_PER_CALL = ("qwen3-30b-a3b",)
+
+
+def phase_moe_forward() -> dict:
+    """Phase 5 for the MoE presets (``family_forward``) at full width and 2
+    layers: qwen3-30b-a3b (its q/k norms perturbed) and mixtral-8x7b (its
+    norms perturbed, and the f32 run over int8 experts too), a
+    MOE_PROMPT-token prefill and 8 decode steps. Returns the launch counts
+    per model."""
+    from bee2bee_tpu_torch.models.config import get_config
+
+    out = {}
+    for name, perturb in (("qwen3-30b-a3b", perturb_qwen), ("mixtral-8x7b", perturb_norms)):
+        cfg = replace(get_config(name), n_layers=2, name=f"{name}-2layers")
+        label = (f"forward 2x {name} width ({cfg.n_experts} experts of {cfg.d_ff}, "
+                 f"{cfg.n_experts_per_tok} a token)")
+        out[name] = family_forward(label, cfg, MOE_PROMPT, perturb,
+                                   int8_experts=name == "mixtral-8x7b",
+                                   int8_pool_per_call=name in MOE_INT8_POOL_PER_CALL)
+    return out
+
+
+def largest_dense_bytes(params) -> int:
+    """The bytes of the largest floating tensor of a parameter tree."""
+    return max(t.numel() * t.element_size() for _, t in tree_leaves(params)
+               if t.is_floating_point())
+
+
+def phase_moe_served(card: str) -> dict:
+    """qwen3-30b-a3b at full width and depth (48 layers, 128 experts of
+    768, 8 a token), bf16 over a bf16 pool, random from SEED with its q/k
+    norms perturbed, serving phase 6's traffic with phase 6's checks (every
+    root a graph replay, launch counts exact, the expert GEMM twice a layer
+    of every replayed forward; a decode chunk and a prefill chunk replayed
+    = eager bit for bit; the replayed B=8 step's breakdown), then one
+    verify step of the n-gram tier (K = SPEC_K) replayed and run eagerly
+    from one state; mixtral-8x7b (32 layers, 8 experts of 14,336, 2 a
+    token) with int8 weights over a bf16 pool from the quantize-as-drawn
+    random init (``init_params(quantize=True)``), whose peak device memory
+    must stay within 1.05 x (the int8 model + its largest dense tensor),
+    served the same way. Prints the device memory allocated before each.
+    Returns the launch counts per run."""
+    from bee2bee_tpu_torch.models.config import get_config
+    from bee2bee_tpu_torch.models.params import init_params
+
+    out = {}
+    cfg = get_config("qwen3-30b-a3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe served: memory allocated before qwen3-30b-a3b {torch.cuda.memory_allocated()} B")
+    t0 = time.perf_counter()
+    params = family_params(cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    log(f"qwen3-30b-a3b: {cfg.n_layers} layers, {cfg.n_experts} experts of {cfg.d_ff}, {n} "
+        f"parameters ({storage_bytes(params)} B bf16), q/k norm scales 1 + N(0, "
+        f"{QWEN_NORM_STD}^2), random from seed {SEED} in {time.perf_counter() - t0:.2f} s")
+    try:
+        out["qwen3-30b-a3b"] = phase_slice(card, "bfloat16", params=params, model=cfg,
+                                           light=True)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["qwen3-30b-a3b verify"] = moe_verify(params, cfg)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = get_config("mixtral-8x7b")
+    base = torch.cuda.memory_allocated()
+    log(f"moe served: memory allocated before mixtral-8x7b {base} B")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    params = init_params(cfg, gen, "cuda", torch.bfloat16, quantize=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    model, largest = storage_bytes(params), largest_dense_bytes(params)
+    log(f"mixtral-8x7b: {cfg.n_layers} layers, {cfg.n_experts} experts of {cfg.d_ff}, int8 "
+        f"weights drawn and quantized as drawn from seed {SEED + 1} in {init_s:.2f} s: "
+        f"{model} B; peak {peak} B against 1.05 x (model + largest dense tensor {largest} B) = "
+        f"{1.05 * (model + largest):.0f} B; card {card}")
+    check(peak <= 1.05 * (model + largest), f"mixtral-8x7b int8 init: peak {peak} B")
+    try:
+        out["mixtral-8x7b int8"] = phase_slice(card, "bfloat16", params=params, quantize="int8",
+                                               model=cfg, light=True)[0]
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_verify(params, cfg) -> dict:
+    """One verify step of the n-gram tier (K = SPEC_K) over ``params``,
+    replayed and run eagerly from one state (``verify_vs_eager``), on an
+    engine that is closed and dropped before the return, so nothing holds
+    the weights after. Returns the replay's launches."""
+    engine = spec_engine(params, "bfloat16", "bfloat16", model=cfg, spec_tokens=SPEC_K)
+    try:
+        v = verify_vs_eager(engine, f"{cfg.name} spec[ngram, bfloat16 pool]")
+        return {**v["launched"], **v["moe"]}
+    finally:
+        engine.close()
+
+
+def phase_moe_checkpoints(card: str) -> dict:
+    """The two MoE families' checkpoints (``checkpoint_family``: the
+    published config.json cut to 2 layers, experts and routers under
+    mixtral's and qwen3_moe's names), in a directory under build/ removed
+    after. Returns the launch counts per model."""
+    import shutil
+
+    workdir = Path(__file__).resolve().parent / "build" / "ckpt_moe"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        return {name: checkpoint_family(card, name, workdir)
+                for name in ("mixtral-8x7b", "qwen3-30b-a3b")}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_moe(card: str, flush) -> dict:
+    """Every MoE stage: the kernel cases, the forwards, the served slices
+    and the checkpoints. Returns {"kernel", "forward", "served", "ckpt"}."""
+    stage("moe kernel")
+    kernel = phase_moe_kernel(flush)
+    stage("moe forward parity")
+    forward = phase_moe_forward()
+    stage("moe served")
+    served = phase_moe_served(card)
+    stage("moe checkpoints")
+    ckpt = phase_moe_checkpoints(card)
+    return {"kernel": kernel, "forward": forward, "served": served, "ckpt": ckpt}
 
 
 # ------------------------------------------------------------ adapter phase
@@ -5047,12 +5747,12 @@ def spec_prompts(tokenizer, periodic: bool) -> list:
     return out
 
 
-def spec_engine(params, dtype, cache_dtype, **spec):
+def spec_engine(params, dtype, cache_dtype, model="llama-3-8b", **spec):
     from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
 
     ecfg = EngineConfig(max_seq_len=2048, max_batch=8, kv_block_size=16, decode_chunk=32,
                         rng_seed=SEED, dtype=dtype, cache_dtype=cache_dtype, **spec)
-    return InferenceEngine("llama-3-8b", params=params, engine_config=ecfg)
+    return InferenceEngine(model, params=params, engine_config=ecfg)
 
 
 def spec_burst(engine, prompts) -> tuple[list, float]:
@@ -6487,6 +7187,9 @@ def checkpoint_burst(engine, tag: str, prompts):
     used = {k: v for k, v in counts.items() if v}
     check(set(used) == {dec, tile} and counts[dec] + counts[tile] == L * engine.forward_calls,
           f"{tag}: launches {used} against {engine.forward_calls} forwards x {L} layers")
+    check_moe_launches(engine, tag, moe_counts(), engine.forward_calls)
+    if cfg.is_moe:
+        counts.update(moe_counts())
     log(f"{tag}: 8 greedy requests x {CKPT_NEW} tokens in {wall:.2f} s; launches {used} = "
         f"{L} layers x {engine.forward_calls} forwards")
     return [r.token_ids for r in results], {k[0]: v for k, v in first.items()}, counts
@@ -6768,10 +7471,13 @@ def checkpoint_int8(engine, ckpt: Path, prompts, card: str) -> dict:
 # biases (6 a layer and ln_f's) and its position table; phi-3's fused
 # qkv_proj and gate_up_proj (2 a layer)
 CKPT_EXTRAS = {"qwen2-7b": 6, "qwen3-8b": 4, "gemma-2-9b": 4, "gemma-3-4b": 8,
-               "gpt2": 14, "starcoder-15b": 14, "phi-3-mini": 4}
+               "gpt2": 14, "starcoder-15b": 14, "phi-3-mini": 4,
+               # a router and 3 tensors an expert a layer (qwen3: + its q/k norms)
+               "mixtral-8x7b": 2 * (1 + 3 * 8), "qwen3-30b-a3b": 2 * (2 + 1 + 3 * 128)}
 # the families whose checkpoint launches count in rows of their own in the
-# kernel table (phi-3's head_dim-96 forms), not in the head_dim-128 rows
-CKPT_APART = ("phi-3-mini",)
+# kernel table (phi-3's head_dim-96 forms; the MoE families', whose expert
+# GEMM launches join its rows), not in the head_dim-128 rows
+CKPT_APART = ("phi-3-mini", "mixtral-8x7b", "qwen3-30b-a3b")
 
 
 def fuse_phi3(state: dict) -> dict:
@@ -6822,7 +7528,8 @@ def checkpoint_family(card: str, which: str, workdir: Path) -> dict:
     extra = sorted(k for k in state if k.endswith("feedforward_layernorm.weight") or (
         ".self_attn." in k and k.endswith(("_proj.bias", "_norm.weight"))) or (
         cfg.pos_embedding == "learned" and k.endswith((".bias", "wpe.weight"))) or
-        k.endswith(("qkv_proj.weight", "gate_up_proj.weight")))
+        k.endswith(("qkv_proj.weight", "gate_up_proj.weight")) or ".experts." in k or
+        k.endswith("gate.weight"))
     export.write_safetensors(ckpt / "model.safetensors", state, metadata={"format": "pt"})
     del state
     depth = "n_layer" if "n_layer" in HF_CONFIGS[which] else "num_hidden_layers"
@@ -6869,9 +7576,10 @@ def phase_checkpoint(card: str) -> dict:
     written as an HF checkpoint and served from it: (a) load, (b) rope and
     f32 logits, (c) native round trip, (d) mesh publish and join, (e) int8
     from the checkpoint; then (f) HF-named qwen2-7b, qwen3-8b, gemma-2-9b,
-    gemma-3-4b, gpt2 (Conv1D) and starcoder-15b (gpt_bigcode, multi_query)
-    checkpoints (``checkpoint_family``). Returns the launch counts of the
-    phase, summed."""
+    gemma-3-4b, gpt2 (Conv1D), starcoder-15b (gpt_bigcode, multi_query),
+    phi-3-mini, mixtral-8x7b and qwen3-30b-a3b checkpoints
+    (``checkpoint_family``). Returns the launch counts of the phase, summed
+    (CKPT_APART's families' apart, under their names)."""
     import shutil
     import tempfile
 
@@ -6980,8 +7688,11 @@ def run_only(card: str, which: str) -> int:
     starcoder-15b served); ``phi3``: phi-3-mini's head_dim-96 ragged cases,
     timings and f32 crossover, the flash phase (its head_dim-96 cases
     among them), the GEMM at phi-3's shapes, the phi-3 forwards, phi-3-mini
-    served (bf16; int8 weights over an int8 pool) and its checkpoint. For
-    iterating on a slice's phases; prints no result line."""
+    served (bf16; int8 weights over an int8 pool) and its checkpoint;
+    ``moe``: the expert GEMM's cases and timings at qwen3-30b-a3b's and
+    mixtral-8x7b's shapes, their forwards, qwen3-30b-a3b (bf16) and
+    mixtral-8x7b (int8 weights) served, a verify step, their checkpoints.
+    For iterating on a slice's phases; prints no result line."""
     if which == "quant":
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         phase_int8_gemm(flush)
@@ -7081,6 +7792,9 @@ def run_only(card: str, which: str) -> int:
         phase_phi3_served(card)
         stage("phi3 checkpoint")
         phase_phi3_checkpoint(card)
+    elif which == "moe":
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        phase_moe(card, flush)
     elif which == "migrate":
         # phase 6's random bf16 init from the seed, cast to f32 as phase 8 does
         engine = migrate_engine(None, "bfloat16", "bfloat16")
@@ -7091,8 +7805,8 @@ def run_only(card: str, which: str) -> int:
         torch.cuda.empty_cache()
         phase_migrate(card, params)
     else:
-        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen, gemma, gpt2 "
-                         f"or phi3, not {which!r}")
+        raise SystemExit(f"--only: quant, adapters, migrate, checkpoint, qwen, gemma, gpt2, "
+                         f"phi3 or moe, not {which!r}")
     log(stage_seconds())
     log(f"card: {card}")
     return 0
@@ -7134,6 +7848,8 @@ def main() -> int:
     gemm_f32 = phase_int8_gemm_f32(flush)
     stage("int8-weight GEMM at phi-3's shapes")
     phase_phi3_gemm(flush)
+    stage("moe kernel")
+    moe_kernel = phase_moe_kernel(flush)
     del flush
     stage("forward parity")
     fwd_counts = phase_forward_parity()
@@ -7146,6 +7862,8 @@ def main() -> int:
     gpt2_fwd = phase_gpt2_forward()
     stage("phi3 forward parity")
     phi3_fwd = phase_phi3_forward()
+    stage("moe forward parity")
+    moe_fwd = phase_moe_forward()
     stage("slice")
     counts, bf16_pool, params = phase_slice(card)
     int8_counts, int8_pool = phase_slice(card, "int8", params=params)[:2]
@@ -7220,6 +7938,10 @@ def main() -> int:
     # int8 weights over an int8 pool
     stage("phi3 served")
     phi3 = phase_phi3_served(card)
+    # qwen3-30b-a3b (bf16, 48 layers, 128 experts) and mixtral-8x7b (int8
+    # weights from the quantize-as-drawn init) served, then their checkpoints
+    stage("moe served")
+    moe_served = phase_moe_served(card)
     stage("f32 int8 weights")
     f32w = phase_f32_int8_weights(card)
     stage("node")
@@ -7253,7 +7975,11 @@ def main() -> int:
     # gemma-geometry forward's launches, added to the row of each kernel form
     # they counted
     more: dict = {}
-    for c in (qwen_fwd, *qwen.values(), f32w, *gemma.values(), *geometry_counts.values()):
+    # the MoE forwards', slices', verify step's and checkpoints' launches
+    moe_runs = (*moe_fwd.values(), *moe_served.values(),
+                *(ckpt_counts.get(m, {}) for m in ("mixtral-8x7b", "qwen3-30b-a3b")))
+    for c in (qwen_fwd, *qwen.values(), f32w, *gemma.values(), *geometry_counts.values(),
+              *moe_runs):
         for name, n in c.items():
             more[name] = more.get(name, 0) + n
     # the gemma forwards' launches: the bf16 head_dim-256 forms join the main
@@ -7524,6 +8250,21 @@ def main() -> int:
     kernels.append(row(
         "int8_weight_gemm_f32", gemm_src, "bee2bee_tpu/models/core.py:408",
         more.get("int8_gemm_f32", 0), gemm_f32["err"], gemm_f32["timing"]))
+    # the grouped expert GEMM, each form: launches from the MoE forwards,
+    # served slices, verify step and checkpoints; times at a B = 8 decode
+    # step's 8 tokens (bf16 forms and f32 at qwen3-30b-a3b's experts, the int8
+    # forms at mixtral-8x7b's, as each is served)
+    moe_src = "bee2bee_tpu_torch/csrc/moe_expert_gemm.cu"
+    for form, model in (("moe", "qwen3-30b-a3b"), ("moe_int8", "mixtral-8x7b"),
+                        ("moe_f32", "qwen3-30b-a3b"), ("moe_f32_int8", "mixtral-8x7b")):
+        kernels.append(row(
+            form.replace("moe", "moe_expert_gemm"), moe_src, "bee2bee_tpu/models/core.py:543",
+            sum(c.get(form, 0) for c in moe_runs), moe_kernel["err"][form],
+            moe_kernel["timing"][(form, model, 8)]))
+    log("kernels: moe_expert_gemm and its forms replace no Pallas kernel: the XLA einsums "
+        "of the JAX _moe (bee2bee_tpu/models/core.py:543); the bf16 form's library_ms is "
+        "torch._grouped_mm over the same sorted rows; launches by run "
+        f"{ {i: {k: v for k, v in c.items() if k.startswith('moe') and v} for i, c in enumerate(moe_runs)} }")
     log("kernels: int8_weight_gemm and its f32 form replace no Pallas kernel: the "
         "XLA-fused int8 product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); "
         "their library_ms is torch._weight_int8pack_mm at the same inputs (null where "

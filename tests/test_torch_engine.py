@@ -352,7 +352,7 @@ def test_metric_names_match_the_jax_registry(jax_reference):
 def _port_sources():
     return sorted((ROOT / "bee2bee_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "decode_probe.py", ROOT / "decode_f32_probe.py",
-        ROOT / "hotloop_probe.py", ROOT / "profile_probe.py"]
+        ROOT / "hotloop_probe.py", ROOT / "profile_probe.py", ROOT / "moe_probe.py"]
 
 
 def test_no_source_imports_jax_or_the_jax_package():

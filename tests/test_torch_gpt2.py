@@ -131,7 +131,7 @@ def test_check_supported_takes_the_gpt2_family(name):
 @pytest.mark.parametrize("name,switch", [
     ("tiny-bloom", "pos_embedding='alibi'"), ("tiny-gptj", "mlp_bias"),
     ("tiny-phi", "lm_head_bias"), ("tiny-falcon", "parallel_block"),
-    ("tiny-mixtral", "MoE"), ("tiny-olmo2", "qk_norm_full"), ("tiny-olmo2", "no_pre_norms"),
+    ("tiny-neox", "partial/interleaved rotary"), ("tiny-olmo2", "qk_norm_full"), ("tiny-olmo2", "no_pre_norms"),
     ("tiny-bloom", "embedding_norm"), ("tiny-stablelm", "partial/interleaved rotary"),
 ])
 def test_check_supported_still_refuses_the_others_by_name(name, switch):

@@ -148,7 +148,7 @@ def test_config_from_hf_matches_jax(key):
             config.get_config("llama-3.1-8b"), n_layers=2, name=got["name"]))
 
 
-@pytest.mark.parametrize("key", ["gpt-j-6b", "olmo2-7b", "mixtral-8x7b", "falcon-7b",
+@pytest.mark.parametrize("key", ["gpt-j-6b", "olmo2-7b", "pythia-1.4b", "falcon-7b",
                                  "phi-2", "bloom-7b1"])
 def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
     cfg = config.config_from_hf(_hf_dict(key))
@@ -157,17 +157,20 @@ def test_family_the_core_cannot_run_parses_then_refuses_by_item_11(key):
 
 
 @pytest.mark.parametrize("key", ["qwen2-7b", "qwen3-8b", "llama-yarn", "gemma-7b",
-                                 "gemma-2-9b", "gemma3-text", "gpt2", "starcoder-15b"])
+                                 "gemma-2-9b", "gemma3-text", "gpt2", "starcoder-15b",
+                                 "mixtral-8x7b", "qwen3-30b-a3b"])
 def test_family_the_core_runs_parses_then_passes_the_core(key):
     """qwen2 (q/k/v biases), qwen3 (head-wise q/k norms), yarn rope
-    scaling, the gemma family (gemma, gemma2, gemma3_text) and the gpt2
-    block (gpt2, gpt_bigcode): parsed as JAX parses them, and the core runs
-    them."""
+    scaling, the gemma family (gemma, gemma2, gemma3_text), the gpt2
+    block (gpt2, gpt_bigcode) and the MoE families (mixtral, qwen3_moe):
+    parsed as JAX parses them, and the core runs them."""
     cfg = config.config_from_hf(_hf_dict(key))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfig.config_from_hf(_hf_dict(key)))
     core.check_supported(cfg)
     assert (cfg.qkv_bias, cfg.qk_norm) == {"qwen2-7b": (True, False), "qwen3-8b": (False, True),
-                                           "gemma3-text": (False, True)}.get(key, (False, False))
+                                           "gemma3-text": (False, True),
+                                           "qwen3-30b-a3b": (False, True)}.get(key, (False, False))
+    assert cfg.n_experts == {"mixtral-8x7b": 8, "qwen3-30b-a3b": 128}.get(key, 0)
     if key == "llama-yarn":
         assert cfg.rope_scaling[0] == "yarn"
     if key.startswith("gemma"):
@@ -363,17 +366,18 @@ def test_other_converters_and_export_families_raise_by_item(tmp_path):
         loader.load_checkpoint(tmp_path, cfg, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match=r"item 15\)"):
         export.hf_config_dict(config.get_config("tiny-qwen3"))
-    # a llama-branch tensor the core has no slot for (an expert) is
-    # refused, not dropped
+    # an expert's tensor under a config without experts is refused, not
+    # dropped
     mcfg = jconfig.get_config("tiny-mixtral")
     jexport.export_hf(_jax_tree(mcfg), mcfg, tmp_path / "mixtral")
-    with pytest.raises(NotImplementedError, match=r"block_sparse_moe.*item 11\)"):
+    with pytest.raises(ValueError, match=r"block_sparse_moe.*no experts"):
         loader.load_checkpoint(tmp_path / "mixtral", _cfgs("tiny-llama")[1], torch.float32,
                                "cpu")
 
 
 def test_hf_config_dict_matches_jax_for_llama_families():
-    for name in ("tiny-llama", "llama-3.1-8b", "mistral-7b", "tiny-mistral"):
+    for name in ("tiny-llama", "llama-3.1-8b", "mistral-7b", "tiny-mistral", "tiny-mixtral",
+                 "mixtral-8x7b", "tiny-qwen3moe", "qwen3-30b-a3b"):
         assert export.hf_config_dict(config.get_config(name)) == \
             jexport.hf_config_dict(jconfig.get_config(name))
 
@@ -484,6 +488,70 @@ def test_module_level_imports_need_no_ml_dtypes_safetensors_or_transformers(modu
         for name in names:
             assert name.split(".")[0] not in ("ml_dtypes", "safetensors", "transformers",
                                               "jax", "bee2bee_tpu"), (module, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("name", ["tiny-mixtral", "tiny-qwen3moe"])
+def test_moe_checkpoints_load_bit_equal_both_ways(name, writer, dtype, tmp_path):
+    """mixtral's (block_sparse_moe.experts.N.w1/w3/w2) and qwen3_moe's
+    (mlp.experts.N.gate/up/down_proj) names: a JAX export loads in the port
+    and the port's export loads in JAX, bit-equal to the tree written, with
+    equal configs."""
+    jcfg, cfg = _cfgs(name)
+    tree = _jax_tree(jcfg, seed=1)
+    if writer == "jax":
+        jexport.export_hf(tree, jcfg, tmp_path, dtype=dtype)
+    else:
+        export.export_hf(params_from_numpy(tree, cfg, "cpu"), cfg, tmp_path, dtype=dtype)
+    assert config.config_for_checkpoint(tmp_path).__dict__ == \
+        jconfig.config_for_checkpoint(tmp_path).__dict__
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    got = loader._flatten(loader.load_checkpoint(tmp_path, cfg, tdtype, "cpu"))
+    want = jloader._flatten(jloader.load_checkpoint(tmp_path, jcfg, jnp.dtype(dtype), host=True))
+    _assert_flat_equal(got, want)
+    src = jloader._flatten(jax.tree.map(lambda a: np.asarray(a).astype(jnp.dtype(dtype)), tree))
+    _assert_flat_equal(got, src)
+    assert got["layers/moe/w_up"].shape == (2, 4, 64, cfg.d_ff)
+
+
+def test_int8_experts_round_trip_and_split_to_the_frame_budget(tmp_path):
+    """JAX's int8 moe tree ({"q": [L, E, in, out], "s": [L, E, out]})
+    crosses both ways through params_from_numpy / params_to_numpy bit for
+    bit, the port's quantizer gives JAX's q and s, and a native dir whose
+    expert stack is split under the frame budget along a 3-D slab reads
+    back bit-equal in both packages."""
+    from bee2bee_tpu.models import quant as jquant
+    from bee2bee_tpu_torch import pieces
+    from bee2bee_tpu_torch.models.quant import quantize_weight_torch
+
+    jcfg, cfg = _cfgs("tiny-mixtral")
+    tree = _jax_tree(jcfg, seed=2)
+    qtree = jquant.quantize_params(tree)
+    params = params_from_numpy(qtree, cfg, "cpu")
+    w = params["layers"][1]["moe"]["w_gate"]
+    assert w["q"].dtype == torch.int8 and tuple(w["s"].shape) == (4, cfg.d_ff)
+    _assert_flat_equal(loader._flatten(params_to_numpy(params)), jloader._flatten(qtree))
+    mine = quantize_weight_torch(torch.from_numpy(np.array(tree["layers"]["moe"]["w_up"][0])))
+    want = qtree["layers"]["moe"]["w_up"]
+    assert np.array_equal(mine["q"].numpy(), want["q"][0])
+    assert np.array_equal(mine["s"].numpy(), want["s"][0])
+    # a wide expert stack (the frame budget is 4 MiB): one layer's [E, in,
+    # out] slab splits on an inner axis
+    big = dataclasses.replace(cfg, d_ff=8192, name="tiny-mixtral-wide")
+    jbig = dataclasses.replace(jcfg, d_ff=8192, name="tiny-mixtral-wide")
+    wide = _jax_tree(jbig, seed=3)
+    params = params_from_numpy(wide, big, "cpu")
+    manifest = loader.save_native(params, big, tmp_path / "wide")
+    axes = {p.axis for p in manifest.pieces if p.param == "layers/moe/w_up"}
+    assert axes == {1}  # [L, E, in, out]: split by expert, one layer's slab too wide
+    assert max(len(d) for d in (pieces.load_piece(tmp_path / "wide" / "pieces", p.sha256)
+                                for p in manifest.pieces)) <= pieces.DEFAULT_PIECE_SIZE
+    want = jloader._flatten(wide)
+    _assert_flat_equal(loader._flatten(loader.load_native(tmp_path / "wide", device="cpu",
+                                                          dtype=torch.float32)), want)
+    _assert_flat_equal(jloader._flatten(jloader.load_native(
+        tmp_path / "wide", dtype=jnp.dtype("float32"), host=True)), want)
 
 
 def test_params_to_numpy_inverts_params_from_numpy():

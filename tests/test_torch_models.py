@@ -63,7 +63,8 @@ def test_get_config_resolves_like_jax(query):
     assert config.get_config(query).name == jconfig.get_config(query).name
 
 
-@pytest.mark.parametrize("name", ["tiny-llama", "llama-3-8b", "llama-3-70b"])
+@pytest.mark.parametrize("name", ["tiny-llama", "llama-3-8b", "llama-3-70b", "tiny-mixtral",
+                                  "mixtral-8x7b", "qwen3-30b-a3b"])
 def test_matmul_params_per_token_matches_jax(name):
     assert core.matmul_params_per_token(config.get_config(name)) == (
         jcore.matmul_params_per_token(jconfig.get_config(name))
@@ -73,14 +74,15 @@ def test_matmul_params_per_token_matches_jax(name):
 @pytest.mark.parametrize("name,switch", [
     ("tiny-bloom", "pos_embedding"),
     ("tiny-gptj", "mlp_bias"),
-    ("tiny-mixtral", "MoE"),
+    ("tiny-mpt", "pos_embedding"),
     ("tiny-olmo2", "no_pre_norms"),
     ("tiny-phi", "parallel_block"),
     ("tiny-olmo2", "qk_norm_full"),
 ])
 def test_unported_switch_raises_by_name(name, switch):
-    # qwen3's qk_norm, the yarn rope scaling, the gemma family's switches
-    # and the gpt2 block run (queue A items 11.3, 11.1, 11.5 and 11.4);
+    # qwen3's qk_norm, the yarn rope scaling, the gemma family's switches,
+    # the gpt2 block and mixture-of-experts layers run (queue A items 11.3,
+    # 11.1, 11.5, 11.4 and 11.7);
     # bloom's alibi, gpt-j's mlp-only bias and olmo2's post-norm-only
     # blocks do not yet
     with pytest.raises(NotImplementedError, match=switch):

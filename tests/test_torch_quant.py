@@ -16,8 +16,8 @@
   1e-4).
 - A port ``quantize="int8"`` engine and a JAX one on the same weights
   decode the same greedy tokens (quantized on either side), ``lora_path``
-  merges before quantization in both, and the ledger counts the packed
-  bytes and scales.
+  merges before quantization in both (a random int8 engine's too), and
+  the ledger counts the packed bytes and scales.
 - ``check_card_supported`` takes int8 weights beside bf16 and f32
   activations (ROADMAP.md queue A item 18: the GEMM's f32 form); the route
   names the kernel for both types and refuses others.
@@ -39,7 +39,7 @@ from bee2bee_tpu_torch.engine import EngineConfig, InferenceEngine
 from bee2bee_tpu_torch.engine.engine import check_card_supported
 from bee2bee_tpu_torch.models import core, quant
 from bee2bee_tpu_torch.models.config import get_config
-from bee2bee_tpu_torch.models.params import params_from_numpy
+from bee2bee_tpu_torch.models.params import params_from_numpy, params_to_numpy
 from bee2bee_tpu_torch.ops import int8_gemm
 from bee2bee_tpu_torch.train.lora import LoraConfig, save_adapters
 
@@ -386,6 +386,36 @@ def test_lora_path_merged_before_quantization(jax_dense, tmp_path):
         jeng.close()
         eng.close()
         base.close()
+
+
+def test_lora_path_on_a_random_int8_engine(tmp_path):
+    """``lora_path`` with ``quantize="int8"`` and no weights given: the
+    random tree is drawn dense, the adapter merged into it, then quantized
+    (JAX's order; an int8 tree would refuse the merge). The engine builds,
+    and its greedy tokens equal a JAX int8 engine's given the port's dense
+    draw (the same seed, no adapter) and the same adapter."""
+    rng = np.random.default_rng(10)
+    lcfg = LoraConfig(rank=4, alpha=8.0, targets=("wq", "wv", "w_down"))
+    io = {"wq": (64, 64), "wv": (64, 32), "w_down": (128, 64)}
+    adapters = {t: {"a": rng.standard_normal((CFG.n_layers, i, 4)).astype(np.float32) * 0.1,
+                    "b": rng.standard_normal((CFG.n_layers, 4, o)).astype(np.float32) * 0.1}
+                for t, (i, o) in io.items()}
+    path = tmp_path / "lora.npz"
+    save_adapters(path, adapters, lcfg)
+    eng = InferenceEngine("tiny-llama", device="cpu", lora_path=str(path),
+                          engine_config=EngineConfig(quantize="int8", **KW))
+    dense = InferenceEngine("tiny-llama", device="cpu", engine_config=EngineConfig(**KW))
+    jeng = JaxEngine("tiny-llama", params=params_to_numpy(dense.params), lora_path=str(path),
+                     engine_config=JaxEngineConfig(quantize="int8", kv_block_size=16, **KW))
+    try:
+        assert quant.is_quantized(eng.params["layers"][0]["mlp"]["w_down"])
+        for p in PROMPTS:
+            want = jeng.generate(p, max_new_tokens=16, temperature=0.0).token_ids
+            assert eng.generate(p, max_new_tokens=16, temperature=0.0).token_ids == want
+    finally:
+        jeng.close()
+        eng.close()
+        dense.close()
 
 
 # the name is historical: the test held the refusal the GEMM's f32 form lifted
