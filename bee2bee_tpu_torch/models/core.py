@@ -383,7 +383,7 @@ def _moe(x, p, cfg: ModelConfig):
     capacity = None
     if cfg.moe_impl == "routed":
         capacity = routed_capacity(B * T, k, E, cfg.moe_group_size, cfg.moe_capacity_factor)
-    plan = moe_plan(logits, k, capacity)
+    plan = moe_plan(logits, k, capacity, dtype=x.dtype)
     gated = "w_gate" in p
     outs = moe_expert_matmul(x2, plan.tok, plan,
                              [p["w_up"], p["w_gate"]] if gated else [p["w_up"]])

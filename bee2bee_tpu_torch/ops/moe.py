@@ -17,8 +17,9 @@ its source note says why and what bounds it). Three parts:
   the k in f32, the N·k assignments (token-major, slot-minor) sorted
   stably by expert, the per-expert counts (``scatter_add_``) and row
   offsets [E + 1], and the tile map: tile i is (expert, first row) for
-  tiles of ``br`` rows, ``ceil(N·k / br) + E`` tiles at most, the slots
-  past the real count naming expert E, which the kernel skips. With a
+  tiles of ``br`` rows, ``ceil(N·k / br) + E`` tiles at most, the real
+  tiles first and their count on the device (``tile_count``), the slots
+  past it naming expert E, which the kernel skips. With a
   capacity (``moe_impl="routed"``) the plan marks the assignments JAX's
   ``_moe_routed`` drops: within each group of g tokens an expert keeps the
   first C assignments in token-major, slot-minor order; a dropped one gets
@@ -34,7 +35,10 @@ its source note says why and what bounds it). Three parts:
   x's and the experts' types, each counted on the wrapper:
   ``moe_expert_matmul.launches`` (bf16 x, bf16 experts), ``.int8_launches``
   (bf16 x, int8 experts), ``.f32_launches`` (f32, f32) and
-  ``.int8_f32_launches`` (f32 x, int8 experts). Rows the kernel does not
+  ``.int8_f32_launches`` (f32 x, int8 experts); the CUDA kernels each call
+  launched, by ``kernel_route``, in ``moe_expert_matmul.routes``. bf16 x
+  runs the warp-specialised ``wgmma`` kernel, its K split where
+  ``k_splits`` says; f32 x the FFMA kernel. Rows the kernel does not
   cover (dropped assignments) are left unwritten; ``moe_combine`` masks
   them.
 - **The plain version** ``moe_expert_matmul_ref``: the same per-row
@@ -60,11 +64,22 @@ import torch
 _SOURCE = "moe_expert_gemm.cu"
 # x's types the kernel is built for, and their codes in its C entry
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# rows a tile may hold (the kernel's instantiations) and the widths it tiles
-TILE_ROWS = (8, 16, 32, 64)
-CHANNELS = 64  # output channels a block: N % CHANNELS == 0
-INPUTS = 32  # inputs a stage: K % INPUTS == 0
+# rows a tile may hold (the kernel's instantiations: the wgmma form's for
+# bf16 x, the FFMA form's for f32 x) and the widths it tiles
+TILE_ROWS = (8, 16, 32, 64, 128, 256)
+TILE_ROWS_F32 = (8, 16, 32, 64)
+CHANNELS = 64  # N % CHANNELS == 0 (the wgmma form's last 128-channel group may be half)
+INPUTS = 64  # inputs a stage of the wgmma form: K % INPUTS == 0
+INPUTS_F32 = 32  # of the FFMA form
 MAX_WEIGHTS = 2  # expert stacks one launch takes
+# the K split rule (``k_splits``): the card's streaming multiprocessors (an
+# H100 SXM), the items an SM it aims for, the least K it splits and the
+# least inputs a split keeps
+SMS = 132
+SPLIT_ITEMS_PER_SM = 4
+SPLIT_MIN_K = 4096
+SPLIT_MIN_INPUTS = 1024
+MAX_SPLITS = 8
 
 
 @dataclass
@@ -77,8 +92,9 @@ class MoEPlan:
     bool or None (no capacity: nothing dropped); ``offsets`` [E + 1] int32:
     expert e's rows are [offsets[e], offsets[e + 1]), dropped rows past
     offsets[E]; ``tile_expert`` / ``tile_row`` [n_tiles] int32: each tile's
-    expert (E: no tile) and first row; ``br`` rows a tile; ``n_tokens``,
-    ``k``, ``n_experts``."""
+    expert (E: no tile) and first row, the real tiles first;
+    ``tile_count`` [1] int32: the real tiles; ``br`` rows a tile;
+    ``n_tokens``, ``k``, ``n_experts``."""
 
     tok: torch.Tensor
     inv: torch.Tensor
@@ -87,6 +103,7 @@ class MoEPlan:
     offsets: torch.Tensor
     tile_expert: torch.Tensor
     tile_row: torch.Tensor
+    tile_count: torch.Tensor
     br: int
     n_tokens: int
     k: int
@@ -97,19 +114,41 @@ class MoEPlan:
         return self.tile_expert.shape[0]
 
 
-def tile_rows(assignments: int, n_experts: int) -> int:
+def tile_rows(assignments: int, n_experts: int, dtype=torch.bfloat16) -> int:
     """The tile height for ``assignments`` rows over ``n_experts`` experts
-    (host shapes only): the smallest of TILE_ROWS that holds the mean rows
-    an expert, the largest past it. Decode and verify steps take 8 or 16,
-    prefill chunks 64."""
+    (host shapes only): the smallest height of x's form (TILE_ROWS for
+    bf16, TILE_ROWS_F32 for f32) that holds the mean rows an expert, the
+    largest past it. Decode and verify steps take 8 or 16; a 2,048-token
+    chunk 128 (qwen3-30b-a3b) or 256 (mixtral-8x7b) in bf16, 64 in f32."""
+    heights = TILE_ROWS_F32 if dtype == torch.float32 else TILE_ROWS
     mean = -(-assignments // n_experts)
-    return next((br for br in TILE_ROWS if br >= mean), TILE_ROWS[-1])
+    return next((br for br in heights if br >= mean), heights[-1])
 
 
 def tile_bound(assignments: int, n_experts: int, br: int) -> int:
     """The most tiles ``assignments`` rows over ``n_experts`` experts can
     take in tiles of ``br`` rows: each expert's last tile may be partial."""
     return -(-assignments // br) + n_experts
+
+
+def k_splits(assignments: int, n_experts: int, K: int, N: int) -> int:
+    """The K splits of a bf16-x launch over ``assignments`` rows, ``n_experts``
+    experts, K inputs and N output channels of all its weights (host shapes
+    only): 1 unless the tiles are of decode height (8-32 rows) and K is at
+    least SPLIT_MIN_K; then the least power of two that gives the estimated
+    items (min(E, A) tiles, the distinct experts at most, x 128-channel
+    groups x splits) SPLIT_ITEMS_PER_SM an SM, at most MAX_SPLITS, each
+    split a whole number of stages and at least SPLIT_MIN_INPUTS inputs.
+    mixtral-8x7b's w_down at decode and verify: 4; every other served
+    launch 1."""
+    if tile_rows(assignments, n_experts) > 32 or K < SPLIT_MIN_K:
+        return 1
+    items = min(n_experts, assignments) * -(-N // 128)
+    splits = 1
+    while (splits < MAX_SPLITS and items * splits < SPLIT_ITEMS_PER_SM * SMS
+           and (K // INPUTS) % (2 * splits) == 0 and K // (2 * splits) >= SPLIT_MIN_INPUTS):
+        splits *= 2
+    return splits
 
 
 def routed_capacity(n_tokens: int, k: int, n_experts: int, group_size: int,
@@ -122,15 +161,15 @@ def routed_capacity(n_tokens: int, k: int, n_experts: int, group_size: int,
 
 
 def moe_plan(logits: torch.Tensor, k: int, capacity: tuple[int, int] | None = None,
-             br: int | None = None) -> MoEPlan:
+             br: int | None = None, dtype=torch.bfloat16) -> MoEPlan:
     """The plan of one MoE call from its router logits [N, E] f32 (see the
     module docstring). ``capacity``: (g, C) of ``routed_capacity`` for the
     routed impl, None for the dense one (nothing dropped). ``br``: the tile
-    height (default ``tile_rows``)."""
+    height (default ``tile_rows`` for x's type ``dtype``)."""
     N, E = logits.shape
     A = N * k
     device = logits.device
-    br = br or tile_rows(A, E)
+    br = br or tile_rows(A, E, dtype)
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     weights = torch.softmax(vals[:, :k], dim=-1).reshape(A)
     eid = idx[:, :k].reshape(A)
@@ -168,7 +207,8 @@ def moe_plan(logits: torch.Tensor, k: int, capacity: tuple[int, int] | None = No
     return MoEPlan(
         tok=(order // k).to(torch.int32), inv=inv, weights=weights, keep=keep,
         offsets=offsets.to(torch.int32), tile_expert=expert.to(torch.int32),
-        tile_row=row.to(torch.int32), br=br, n_tokens=N, k=k, n_experts=E,
+        tile_row=row.to(torch.int32), tile_count=tile_end[-1:].to(torch.int32), br=br,
+        n_tokens=N, k=k, n_experts=E,
     )
 
 
@@ -221,9 +261,21 @@ def _kernel_fn():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        fn.argtypes = ([p, p, i, i, i] + [p, p, p, i] * MAX_WEIGHTS
-                       + [p, p, p, i, i, i, i, p])
+        fn.argtypes = ([p, p, i, i, i] + [p, p, p, p, i] * MAX_WEIGHTS
+                       + [p, p, p, p, p, i, i, i, i, i, i, p])
     return fn
+
+
+def kernel_route(dtype, int8: bool, br: int, splits: int) -> str:
+    """The CUDA kernels one wrapper call launches for x's type, the
+    experts' type, the tile height and the K splits: the name counted in
+    ``moe_expert_matmul.routes``."""
+    wt = "int8" if int8 else ("bf16" if dtype == torch.bfloat16 else "f32")
+    if dtype == torch.float32:
+        return f"moe_expert_gemm_kernel<{br},f32,{wt}>"
+    route = f"moe_expert_gemm_kernel_wgmma<{br},{wt}>"
+    return route + (f" x {splits} splits + moe_expert_gemm_kernel_reduce<{wt}>"
+                    if splits > 1 else "")
 
 
 def _check_kernel_args(x: torch.Tensor, tok, plan: MoEPlan, ws: list) -> tuple[int, list]:
@@ -241,14 +293,19 @@ def _check_kernel_args(x: torch.Tensor, tok, plan: MoEPlan, ws: list) -> tuple[i
     K = x.shape[1]
     E = plan.n_experts
     rows = plan.tok.shape[0]
-    if K % INPUTS:
-        raise ValueError(f"moe_expert_matmul: K = {K} (the kernel takes K % {INPUTS} == 0)")
-    if plan.br not in TILE_ROWS:
-        raise ValueError(f"moe_expert_matmul: tile height {plan.br} (built for {TILE_ROWS})")
+    f32 = x.dtype == torch.float32
+    inputs, heights = (INPUTS_F32, TILE_ROWS_F32) if f32 else (INPUTS, TILE_ROWS)
+    if K % inputs:
+        raise ValueError(f"moe_expert_matmul: K = {K} (the kernel takes K % {inputs} == 0 "
+                         f"for {x.dtype} x)")
+    if plan.br not in heights:
+        raise ValueError(f"moe_expert_matmul: tile height {plan.br} (built for {heights} "
+                         f"for {x.dtype} x)")
     if tok is None and x.shape[0] != rows:
         raise ValueError(f"moe_expert_matmul: x has {x.shape[0]} rows, the plan {rows}")
-    index = [plan.offsets, plan.tile_expert, plan.tile_row] + ([] if tok is None else [tok])
-    for name, t in zip(("offsets", "tile_expert", "tile_row", "tok"), index):
+    index = [plan.offsets, plan.tile_expert, plan.tile_row, plan.tile_count] + (
+        [] if tok is None else [tok])
+    for name, t in zip(("offsets", "tile_expert", "tile_row", "tile_count", "tok"), index):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"moe_expert_matmul: {name} must be contiguous int32 on "
                              f"{x.device}, got {t.dtype} on {t.device}")
@@ -282,27 +339,39 @@ def _check_kernel_args(x: torch.Tensor, tok, plan: MoEPlan, ws: list) -> tuple[i
 
 
 def _launch_kernel(x: torch.Tensor, tok, plan: MoEPlan, ws: list) -> list:
-    """Launch the kernel once for ``ws`` on checked arguments and count
-    the launch under its form."""
+    """Launch the kernel once for ``ws`` on checked arguments (bf16 x: K
+    split by ``k_splits``, each split's f32 partial sums in a scratch of
+    [splits, rows, N]) and count the launch under its form and its route."""
     wtype, args = _check_kernel_args(x, tok, plan, ws)
-    rows = plan.tok.shape[0]
+    rows, K = plan.tok.shape[0], x.shape[1]
+    splits, xs = 1, None
+    if x.dtype == torch.bfloat16:
+        splits = k_splits(rows, plan.n_experts, K, sum(N for _, _, N in args))
+        if tok is not None:  # x's rows in sorted order, for the kernel's TMA tiles
+            xs = torch.empty((rows, K), dtype=x.dtype, device=x.device)
     ys, flat = [], []
     for q, s, N in args:
         y = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+        part = (torch.empty((splits, rows, N), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
         ys.append(y)
-        flat += [q.data_ptr(), None if s is None else s.data_ptr(), y.data_ptr(), N]
-    flat += [None, None, None, 0] * (MAX_WEIGHTS - len(args))
+        flat += [q.data_ptr(), None if s is None else s.data_ptr(), y.data_ptr(),
+                 None if part is None else part.data_ptr(), N]
+    flat += [None, None, None, None, 0] * (MAX_WEIGHTS - len(args))
     err = _kernel_fn()(
         x.data_ptr(), None if tok is None else tok.data_ptr(), _DTYPE_CODE[x.dtype], wtype,
         len(args), *flat, plan.offsets.data_ptr(), plan.tile_expert.data_ptr(),
-        plan.tile_row.data_ptr(), plan.n_tiles, plan.n_experts, x.shape[1], plan.br,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        plan.tile_row.data_ptr(), plan.tile_count.data_ptr(),
+        None if xs is None else xs.data_ptr(), plan.n_tiles, rows, plan.n_experts, K, plan.br,
+        splits, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"moe_expert_matmul kernel launch failed: cuda error {err}")
     name = {(torch.bfloat16, 0): "launches", (torch.bfloat16, 1): "int8_launches",
             (torch.float32, 0): "f32_launches", (torch.float32, 1): "int8_f32_launches"}
     counter = name[(x.dtype, wtype)]
     setattr(moe_expert_matmul, counter, getattr(moe_expert_matmul, counter) + 1)
+    route = kernel_route(x.dtype, wtype == 1, plan.br, splits)
+    moe_expert_matmul.routes[route] = moe_expert_matmul.routes.get(route, 0) + 1
     return ys
 
 
@@ -323,5 +392,7 @@ moe_expert_matmul.launches = 0
 moe_expert_matmul.int8_launches = 0
 moe_expert_matmul.f32_launches = 0
 moe_expert_matmul.int8_f32_launches = 0
+# launches by kernel route (``kernel_route``), beside the form counters
+moe_expert_matmul.routes = {}
 # what a captured CUDA graph's replay adds back (engine/graphs.py)
 LAUNCH_COUNTERS = ("launches", "int8_launches", "f32_launches", "int8_f32_launches")

@@ -675,16 +675,19 @@ def ptxas_entries(report: str):
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"\d+((?:ragged|flash|int8|moe)_\w+?)I", mangled)
+            base = re.search(r"\d+((?:ragged|flash|int8|moe)_\w+?)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             xt = re.search(r"Lb\dE(f|13__nv_bfloat16)E", mangled)  # the GEMM's x type
             if xt:
                 args.append("f32" if xt.group(1) == "f" else "bf16")
-            # the expert GEMM's x and expert types
-            types = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
-            mt = re.search(r"Li\d+E(f|13__nv_bfloat16)(f|13__nv_bfloat16|a|S\d*_)E", mangled)
-            if mt and "moe" in mangled:  # a substitution repeats x's type
-                args += [types[mt.group(1)], types.get(mt.group(2), types[mt.group(1)])]
+            # the expert GEMM's kernels: tile height, then x's and/or the
+            # experts' types (a substitution repeats the type before it)
+            mt = re.search(r"moe_expert_gemm_kernel\w*?I((?:Li\d+E)*)"
+                           r"((?:f|a|13__nv_bfloat16|S\d*_)+)E", mangled)
+            if mt:
+                args = re.findall(r"Li(\d+)E", mt.group(1))
+                for tok in re.findall(r"f|a|13__nv_bfloat16|S\d*_", mt.group(2)):
+                    args.append(MOE_TYPES[tok] if tok in MOE_TYPES else args[-1])
             name = f"{base.group(1) if base else mangled[-48:]}<{','.join(args)}>"
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -2196,7 +2199,8 @@ PROFILE_CALLS = 4
 
 def device_profile(fn, calls: int, launches: int, tries: int = 3):
     """(device busy ms per call, attention kernels' ms per call, [(kernel,
-    share of device time)] top 4): the kernels' own device time under
+    share of device time)] top 4, the int8-weight GEMM's and the expert
+    GEMM's kernels' ms per call): the kernels' own device time under
     torch.profiler, summed. Only CUDA activity is recorded (every number
     here reads device events; the CPU ops' bookkeeping of an eager 32-layer
     forward cost seconds a capture), and only after a warm-up step of one
@@ -2232,12 +2236,15 @@ def device_profile(fn, calls: int, launches: int, tries: int = 3):
     check(busy_us > 0, "the profiler saw no device time")
     attn_us = sum(t for k, t in kernels if any(n in k for n in ATTENTION_KERNELS))
     gemm_us = sum(t for k, t in kernels if GEMM_KERNEL in k)
+    moe_us = sum(t for k, t in kernels if MOE_KERNEL in k)
     top = sorted(kernels, key=lambda kt: -kt[1])[:4]
     return (busy_us / 1e3 / calls, attn_us / 1e3 / calls,
-            [(k[:48], round(t / busy_us, 3)) for k, t in top], gemm_us / 1e3 / calls)
+            [(k[:48], round(t / busy_us, 3)) for k, t in top], gemm_us / 1e3 / calls,
+            moe_us / 1e3 / calls)
 
 
-def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, full=True):
+def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, full=True,
+                   chunk=False):
     """Where the serving forwards' time goes: a B-row decode step at
     context ``ctx`` and one ``prefill``-token prefill chunk. Host wall time
     (synchronised, profiler off, over ``steps`` calls) beside the device's
@@ -2246,7 +2253,8 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
     decode step run eagerly (forward, greedy sampling, the in-place state
     updates) and the same step replayed from its captured CUDA graph, as
     the served path runs it; and replayed at batch 1 (phase 9's batch).
-    Not ``full``: the B-row step replayed from its graph alone."""
+    Not ``full``: the B-row step replayed from its graph alone, and with
+    ``chunk`` the prefill chunk after it."""
     from bee2bee_tpu_torch.models import core
 
     t_start = time.perf_counter()
@@ -2285,8 +2293,9 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
                          load))
     if full:
         steps_of = [(f"decode step B={B} ctx={ctx} ({kv} pool)", decode, steps, None),
-                    *steps_of,
-                    (f"prefill chunk T={prefill} ({kv} pool)", prefill_chunk, 2, None)]
+                    *steps_of]
+    if full or chunk:
+        steps_of.append((f"prefill chunk T={prefill} ({kv} pool)", prefill_chunk, 2, None))
     for label, fn, calls, load in steps_of:
         if load is not None:
             load()
@@ -2298,9 +2307,12 @@ def step_breakdown(engine, card: str, B=8, ctx=1024, steps=10, prefill=2048, ful
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
         n = min(calls, PROFILE_CALLS)
-        busy_ms, attn_ms, top, gemm_ms = device_profile(fn, n, cfg.n_layers * n)
+        busy_ms, attn_ms, top, gemm_ms, moe_ms = device_profile(fn, n, cfg.n_layers * n)
         gemm = (f"; int8-weight GEMM kernels {gemm_ms:.3f} ms a call "
                 f"({gemm_ms / busy_ms:.3f} of busy)" if gemm_ms else "")
+        if moe_ms:
+            gemm += (f"; expert GEMM kernels {moe_ms:.3f} ms a call ({moe_ms / busy_ms:.3f} "
+                     f"of busy)")
         log(f"breakdown {label}: host wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f}; "
             f"attention kernels {attn_ms / cfg.n_layers:.4f} ms per launch "
@@ -3180,7 +3192,7 @@ def phase_slice(card: str, cache_dtype="bfloat16", params=None, dtype="bfloat16"
         if bf16 or int8:
             graph_vs_eager(engine, tag, ctx)
         prefill_vs_eager(engine, tag)
-        step_breakdown(engine, card, ctx=ctx, full=bf16 and not light)
+        step_breakdown(engine, card, ctx=ctx, full=bf16 and not light, chunk=cfg.is_moe)
         if light:
             return counts, nbytes, engine.params
         if qw and not int8:
@@ -4481,6 +4493,39 @@ MOE_FORMS = ((torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, Fa
 # an MoE layer's expert GEMM launches: w_up|w_gate, then w_down
 MOE_LAUNCHES_PER_LAYER = 2
 MOE_KERNEL = "moe_expert_gemm_kernel"
+# the bf16-x forms' tile heights that no MOE_TOKENS case picks
+MOE_FORCED_ROWS = (32, 64)
+# the skewed router: this logit bias toward expert 0, and against experts
+# 1..MOE_SKEW_NONE
+MOE_SKEW_BIAS = 8.0
+MOE_SKEW_NONE = 2
+# the expert GEMM's template types as they are mangled
+MOE_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def profiled_kernels(fn, prefix: str, tries: int = 3) -> list:
+    """The CUDA kernels whose names start with ``prefix`` that one call of
+    ``fn`` ran, as torch.profiler names them (template arguments cut). As
+    ``device_profile``: CUDA activity only, recorded after a discarded
+    warm-up call, a capture that saw none of them taken again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for e in prof.key_averages():
+            m = re.search(rf"{prefix}\w*(?:<[^>]*>)?", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and m:
+                names.add(m.group(0))
+        if names:
+            break
+    return sorted(names)
 
 
 def moe_form(dtype, int8: bool) -> str:
@@ -4591,17 +4636,19 @@ def grouped_mm_ms(x, plan, ws, down, h, flush) -> tuple:
 
 
 def moe_case(label: str, x, logits, k: int, ws, down, form: str, tol: float,
-             capacity=None, act=None) -> tuple[float, object, torch.Tensor]:
+             capacity=None, act=None, br=None) -> tuple[float, object, torch.Tensor]:
     """One layer's two launches (w_up|w_gate over x's rows, w_down over h)
-    against the plain version on the same plan: each kept row within
-    ``tol`` of the largest |output| of the plain version, one launch a call
-    of ``form``, the same bytes from two calls. Returns (the worst
-    relative error, the plan, h)."""
+    against the plain version on the same plan (tiles of ``br`` rows, by
+    default the plan's rule): each kept row within ``tol`` of the largest
+    |output| of the plain version, one launch a call of ``form``, the same
+    bytes from two calls. Prints the CUDA kernels each call launched (the
+    wrapper's routes). Returns (the worst relative error, the plan, h)."""
     import torch.nn.functional as F_
 
     from bee2bee_tpu_torch.ops.moe import moe_expert_matmul, moe_expert_matmul_ref, moe_plan
 
-    plan = moe_plan(logits, k, capacity)
+    plan = moe_plan(logits, k, capacity, br=br, dtype=x.dtype)
+    moe_expert_matmul.routes.clear()
     before = moe_counts()
     ys = moe_expert_matmul(x, plan.tok, plan, ws)
     ys2 = moe_expert_matmul(x, plan.tok, plan, ws)
@@ -4621,9 +4668,10 @@ def moe_case(label: str, x, logits, k: int, ws, down, form: str, tol: float,
     same = all(torch.equal(a[:kept], b[:kept]) for a, b in zip(ys + [yd], ys2 + [yd2]))
     finite = all(bool(torch.isfinite(y[:kept]).all()) for y in ys + [yd])
     log(f"moe {label}: {plan.n_tokens} tokens x {k}, {kept} rows kept, tiles of {plan.br} "
-        f"rows ({plan.n_tiles} slots); relative errors vs plain "
+        f"rows ({int(plan.tile_count)} of {plan.n_tiles} slots); relative errors vs plain "
         f"{[f'{r:.3e}' for r in rels]} (tol {tol:.3e}); launches {launched}; same bytes "
         f"twice {same}")
+    log(f"moe {label}: kernels launched (calls each) {dict(moe_expert_matmul.routes)}")
     check(finite, f"moe {label}: non-finite outputs")
     check(max(rels) <= tol, f"moe {label}: errors {rels} > {tol}")
     check(launched == {form: 4}, f"moe {label}: launches {launched} for 4 calls of {form}")
@@ -4640,12 +4688,20 @@ def phase_moe_kernel(flush) -> dict:
     flushed) beside their bound (the distinct experts' bytes, x, h and the
     outputs once; the routed products at the bf16 peak, or FFMA's for f32),
     the plain version and, for bf16 experts, ``torch._grouped_mm`` over the
-    same sorted rows. Then a plan with tied logits (the experts JAX's top-k
-    picks) and a routed plan whose capacity drops assignments (JAX's keep
-    mask, and the combine finite and within the tolerance). Returns
-    {"err": worst error per form, "timing": {(form, model, tokens): ...}}."""
+    same sorted rows; at the largest token count the CUDA kernels one
+    call ran, as torch.profiler names them. The bf16-x forms' tile heights
+    that no case's rule picks (MOE_FORCED_ROWS) are held against the plain
+    version too. Then a skewed router (a bias sends most rows to one
+    expert, none to MOE_SKEW_NONE others, one expert past the tallest
+    tile), a plan with tied logits (the experts JAX's top-k picks) and a
+    routed plan whose capacity drops assignments (JAX's keep mask, and the
+    combine finite and within the tolerance). Returns {"err": worst error
+    per form, "timing": {(form, model, tokens): ...}}."""
+    from bee2bee_tpu_torch.ops import _build
     from bee2bee_tpu_torch.ops.moe import moe_combine, moe_expert_matmul_ref, routed_capacity
 
+    log(f"moe kernel: csrc/moe_expert_gemm.cu nvcc "
+        f"{_build.build_seconds.get('moe_expert_gemm.cu', 'n/a (a cached build)')} s")
     out = {"err": {}, "timing": {}}
     for model, D, F, E, k in MOE_SHAPES:
         for dtype, int8 in MOE_FORMS:
@@ -4681,9 +4737,38 @@ def phase_moe_kernel(flush) -> dict:
                 log(f"moe {label}: both launches {ms:.4f} ms, {bnd['text']} -> "
                     f"{bnd['bound_ms'] / ms:.3f} of bound ({n_e} of {E} experts hit); "
                     f"plain {plain_ms:.4f} ms; torch._grouped_mm {lib}")
+                if N == MOE_TOKENS[-1]:
+                    names = profiled_kernels(lambda: (
+                        moe_expert_matmul(x, plan.tok, plan, ws),
+                        moe_expert_matmul(h, None, plan, [down])), MOE_KERNEL)
+                    log(f"moe {label}: CUDA kernels of both launches (torch.profiler) {names}")
+                    check(bool(names), f"moe {label}: the profiler saw no expert GEMM kernel")
+                    check(f32 or all("wgmma" in n or "gather" in n for n in names),
+                          f"moe {label}: the bf16-x form ran {names}, not the wgmma kernel")
                 out["timing"][(form, model, N)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                     bound_by=bnd["bound_by"], library_ms=library_ms, experts_hit=n_e)
+            N = MOE_TOKENS[-1]
+            x = torch.randn((N, D), generator=gen, device="cuda", dtype=dtype)
+            logits = (x @ router).float()
+            if not f32:  # the tile heights no case's rule picks
+                for br in MOE_FORCED_ROWS:
+                    err, _, _ = moe_case(f"{model} {form} N={N} tiles of {br}", x, logits, k,
+                                         ws, down, form, tol, br=br)
+                    out["err"][form] = max(out["err"][form], err)
+            # skewed routing: most rows to expert 0, none to experts 1..MOE_SKEW_NONE
+            skew = logits.clone()
+            skew[:, 0] += MOE_SKEW_BIAS
+            skew[:, 1:1 + MOE_SKEW_NONE] -= MOE_SKEW_BIAS
+            err, plan, _ = moe_case(f"{model} {form} N={N} skewed", x, skew, k, ws, down, form,
+                                    tol)
+            counts = (plan.offsets[1:] - plan.offsets[:-1]).tolist()
+            log(f"moe {model} {form} skewed: rows per expert {counts[:8]}..., expert 0 "
+                f"{counts[0]} of {int(plan.offsets[-1])} rows, {counts.count(0)} experts "
+                f"none")
+            check(counts[0] > plan.br and counts.count(0) >= MOE_SKEW_NONE,
+                  f"moe {model} {form} skewed: rows per expert {counts}")
+            out["err"][form] = max(out["err"][form], err)
             # tied logits: 4 levels over E experts, ties at the k-th place
             N = MOE_TOKENS[0]
             x = torch.randn((N, D), generator=gen, device="cuda", dtype=dtype)
@@ -5175,7 +5260,7 @@ def adapter_step_profile(engine, tag: str, card: str) -> None:
             graph.replay()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 100.0
-        busy, _, top, gemm = device_profile(graph.replay, PROFILE_CALLS,
+        busy, _, top, gemm, _ = device_profile(graph.replay, PROFILE_CALLS,
                                             PROFILE_CALLS * engine.model_cfg.n_layers)
         log(f"{tag}: replayed decode step B=8 ctx 1024, {label} rows (key {k}): host "
             f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
@@ -8262,7 +8347,10 @@ def main() -> int:
             sum(c.get(form, 0) for c in moe_runs), moe_kernel["err"][form],
             moe_kernel["timing"][(form, model, 8)]))
     log("kernels: moe_expert_gemm and its forms replace no Pallas kernel: the XLA einsums "
-        "of the JAX _moe (bee2bee_tpu/models/core.py:543); the bf16 form's library_ms is "
+        "of the JAX _moe (bee2bee_tpu/models/core.py:543); bf16 x runs the warp-specialised "
+        "wgmma kernel (TMA-fed weight ring, x rows gathered in sorted order first, K split "
+        "and reduced for mixtral's w_down at decode), f32 x the FFMA kernel, each call one "
+        "counted launch whatever CUDA kernels it issues; the bf16 form's library_ms is "
         "torch._grouped_mm over the same sorted rows; launches by run "
         f"{ {i: {k: v for k, v in c.items() if k.startswith('moe') and v} for i, c in enumerate(moe_runs)} }")
     log("kernels: int8_weight_gemm and its f32 form replace no Pallas kernel: the "

@@ -189,7 +189,8 @@ def test_plan_counts_offsets_and_tiles_by_hand():
     assert plan.tile_expert.tolist() == [0, 1, 2, 2, 2, 3, 4, 4, 4]
     assert plan.tile_row.tolist()[:6] == [0, 2, 3, 5, 7, 8]
     assert plan.keep is None and plan.br == 2 and plan.n_tiles == 9
-    assert moe.tile_rows(10, 4) == 8 and moe.tile_rows(16384, 128) == 64
+    assert plan.tile_count.tolist() == [6] and plan.tile_count.dtype == torch.int32
+    assert moe.tile_rows(10, 4) == 8 and moe.tile_rows(16384, 128) == 128
     assert moe.tile_rows(80, 8) == 16 and moe.tile_bound(64, 128, 8) == 136
 
 
@@ -236,6 +237,146 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         moe._check_kernel_args(torch.zeros((4, 48)), None, plan, [w])
     with pytest.raises(ValueError, match="N % 64"):
         moe._check_kernel_args(torch.zeros((8, 64)), None, plan, [torch.zeros((4, 64, 96))])
+
+
+def _tile_map_reference(counts, br: int, bound: int):
+    """The tile map of per-expert row counts in numpy: each expert's rows
+    cut into tiles of br from its first row, the real tiles first, the
+    slots past them naming expert E."""
+    E = len(counts)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    experts, rows = [], []
+    for e, c in enumerate(counts):
+        for j in range(-(-c // br)):
+            experts.append(e)
+            rows.append(offsets[e] + j * br)
+    return experts + [E] * (bound - len(experts)), rows, len(experts)
+
+
+def _skewed_logits(N: int, E: int, seed: int = 5) -> torch.Tensor:
+    """Router logits where expert 0 wins in every token and experts 5 and
+    6 in none."""
+    logits = np.random.default_rng(seed).standard_normal((N, E)).astype(np.float32)
+    logits[:, 0] += 10.0
+    logits[:, 5:7] -= 10.0
+    return torch.from_numpy(logits)
+
+
+@pytest.mark.parametrize("br", [128, 256])
+def test_plan_tile_map_at_prefill_heights_on_skewed_routing(br):
+    """300 tokens, 2 of 8 experts each: expert 0 takes all 300 rows (past
+    the tallest tile), experts 5 and 6 none. The tile map at 128 and 256
+    rows a tile equals the numpy cut of the counts: expert 0's tiles from
+    rows 0, br, 2br below 300, every other expert's from its first row,
+    the real tiles counted on the device and first, the rest expert E."""
+    N, E, k = 300, 8, 2
+    plan = moe.moe_plan(_skewed_logits(N, E), k, br=br)
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).tolist()
+    assert counts[0] == N and counts[5] == counts[6] == 0 and sum(counts) == N * k
+    experts, rows, real = _tile_map_reference(counts, br, plan.n_tiles)
+    assert plan.n_tiles == moe.tile_bound(N * k, E, br)
+    assert plan.tile_expert.tolist() == experts
+    assert plan.tile_row.tolist()[:real] == rows
+    assert plan.tile_count.tolist() == [real]
+    # by hand: expert 0's rows [0, 300) in tiles from 0, br (and 256 at 128)
+    assert rows[:2] == [0, br] and (br == 256 or rows[2] == 256)
+    assert experts[:3] == ([0, 0, 0] if br == 128 else [0, 0, 1])
+
+
+@pytest.mark.parametrize("assignments,experts,dtype,want", [
+    (64, 128, torch.bfloat16, 8),  # qwen3-30b-a3b, a B = 8 decode step
+    (320, 128, torch.bfloat16, 8),  # its K = 4 verify step
+    (80, 8, torch.bfloat16, 16),  # mixtral-8x7b's verify step
+    (16384, 128, torch.bfloat16, 128),  # qwen3-30b-a3b, a 2,048-token chunk
+    (4096, 8, torch.bfloat16, 256),  # mixtral-8x7b, a 2,048-token chunk
+    (65536, 8, torch.bfloat16, 256),  # past the tallest tile
+    (16384, 128, torch.float32, 64),  # the FFMA form's tallest
+    (4096, 8, torch.float32, 64),
+])
+def test_tile_rows_at_the_prefill_heights(assignments, experts, dtype, want):
+    """The smallest height of x's form that holds the mean rows an
+    expert: bf16 x up to 256 rows (the wgmma form), f32 x up to 64."""
+    assert moe.tile_rows(assignments, experts, dtype) == want
+    logits = torch.zeros((assignments, experts))
+    assert moe.moe_plan(logits, 1, dtype=dtype).br == want
+
+
+@pytest.mark.parametrize("assignments,experts,K,N,want", [
+    (16, 8, 14336, 4096, 4),  # mixtral-8x7b's w_down at decode
+    (80, 8, 14336, 4096, 4),  # and at verify
+    (16, 8, 4096, 2 * 14336, 1),  # its w_up|w_gate: a long grid
+    (4096, 8, 14336, 4096, 1),  # a prefill chunk: tall tiles, no split
+    (64, 128, 2048, 2 * 768, 1),  # qwen3-30b-a3b: K under SPLIT_MIN_K
+    (64, 128, 768, 2048, 1),
+    (8, 4, 8192, 64, 8),  # a one-group grid takes the most splits
+    (8, 4, 4096, 64, 4),  # each split keeps SPLIT_MIN_INPUTS inputs
+])
+def test_k_splits_cover_k_and_follow_host_shapes(assignments, experts, K, N, want):
+    """The K split of a launch is a function of (A, E, K, N) alone, a power
+    of two that cuts K into whole 64-input stages, each split at least
+    SPLIT_MIN_INPUTS inputs, and splits only decode-height tiles."""
+    splits = moe.k_splits(assignments, experts, K, N)
+    assert splits == want == moe.k_splits(assignments, experts, K, N)
+    assert splits & (splits - 1) == 0 and K % (moe.INPUTS * splits) == 0
+    assert splits == 1 or (K // splits >= moe.SPLIT_MIN_INPUTS
+                           and moe.tile_rows(assignments, experts) <= 32)
+    bounds = [s * (K // splits) for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == K
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_split_partial_sums_in_order_then_one_rounding(int8):
+    """A numpy model of the split-K route: each split's f32 partial sums
+    over its K range, summed in split order, times the int8 scale, rounded
+    to bf16 once, within 2^-6 of the largest |output| of the plain version
+    (the product in bf16, then the scale, as JAX rounds it)."""
+    rng = np.random.default_rng(13)
+    R, K, N, splits = 16, 1024, 128, 4
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    x = bf(rng.standard_normal((R, K)).astype(np.float32))
+    if int8:
+        w = quant.quantize_weight_torch(torch.from_numpy(
+            rng.standard_normal((1, K, N)).astype(np.float32) / np.sqrt(K)))
+        wf, scale = w["q"][0].float().numpy(), w["s"][0].numpy()
+    else:
+        w = bf(rng.standard_normal((1, K, N)).astype(np.float32) / np.sqrt(K))
+        wf, scale = w[0].float().numpy(), np.ones(N, np.float32)
+    xf = x.float().numpy()
+    acc = np.zeros((R, N), np.float32)
+    for s in range(splits):
+        ks = slice(s * K // splits, (s + 1) * K // splits)
+        acc = acc + (xf[:, ks].astype(np.float64) @ wf[ks].astype(np.float64)).astype(np.float32)
+    got = torch.from_numpy(acc * scale).to(torch.bfloat16).float()
+    plan = moe.moe_plan(torch.zeros((R, 1)), 1)
+    want = moe.moe_expert_matmul_ref(x, None, plan, [w])[0].float()
+    assert (got - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+@pytest.mark.parametrize("case", ["bf16 K % 64", "f32 tall tile", "bf16 odd tile",
+                                  "tile count"])
+def test_kernel_wrapper_refuses_what_the_wgmma_form_does_not_take(case):
+    """bf16 x: K a whole number of 64-input stages, tile heights of the
+    wgmma form; f32 x: the FFMA form's heights (at most 64 rows); the
+    plan's device tile count int32."""
+    w16 = torch.zeros((4, 64, 128), dtype=torch.bfloat16)
+    if case == "bf16 K % 64":
+        plan = moe.moe_plan(torch.zeros((4, 4)), 2)
+        with pytest.raises(ValueError, match="K % 64"):
+            moe._check_kernel_args(torch.zeros((8, 96), dtype=torch.bfloat16), None, plan,
+                                   [torch.zeros((4, 96, 128), dtype=torch.bfloat16)])
+    elif case == "f32 tall tile":
+        plan = moe.moe_plan(torch.zeros((4, 4)), 2, br=128)
+        with pytest.raises(ValueError, match="tile height 128"):
+            moe._check_kernel_args(torch.zeros((8, 64)), None, plan, [torch.zeros((4, 64, 128))])
+    elif case == "bf16 odd tile":
+        plan = moe.moe_plan(torch.zeros((4, 4)), 2, br=24)
+        with pytest.raises(ValueError, match="tile height 24"):
+            moe._check_kernel_args(torch.zeros((8, 64), dtype=torch.bfloat16), None, plan, [w16])
+    else:
+        plan = moe.moe_plan(torch.zeros((4, 4)), 2)
+        plan.tile_count = plan.tile_count.long()
+        with pytest.raises(ValueError, match="tile_count"):
+            moe._check_kernel_args(torch.zeros((8, 64), dtype=torch.bfloat16), None, plan, [w16])
 
 
 # ------------------------------------------------------------- engines
