@@ -63,9 +63,10 @@
 // by the three products (T=512 at offset 1000: 0.064 ms), a decode step
 // by the f32 (or int8) pages it reads.
 // Both forms are instantiated for HD 64, 96, 128 and 256 and BS 8, 16 and
-// 32, HD 96 in a library of its own (ragged_prefill_attention_hd96.cu
-// compiles this file with RAGGED_PREFILL_HD96: 12 instantiations more
-// would lengthen this file's nvcc, the slowest of the build, by a third).
+// 32, HD 96 and HD 256 each in a library of its own
+// (ragged_prefill_attention_hd96.cu and _hd256.cu compile this file with
+// RAGGED_PREFILL_HD96 or RAGGED_PREFILL_HD256), so that the three nvcc
+// runs, the slowest of the build, go in parallel.
 // At HD 96 (phi-3's heads) the bf16 form keeps Q in registers as at
 // 128, over rows of 12 16-byte chunks in tile_attention.cuh's split
 // swizzle; the f32 form's padded rows (104 and 100 floats) keep its loads
@@ -524,22 +525,24 @@ int launch_bs(int BS, const PrefillArgs& a, cudaStream_t stream) {
   return -1;
 }
 
-// the head_dims this library is built for: 64, 128 and 256, or with
+// the head_dims this library is built for: 64 and 128, or with
 // RAGGED_PREFILL_HD96 defined (ragged_prefill_attention_hd96.cu) 96 alone,
-// so that the two halves compile in parallel
+// or with RAGGED_PREFILL_HD256 (ragged_prefill_attention_hd256.cu) 256
+// alone, so that the three parts compile in parallel
 template <bool INT8, bool F32>
 int launch_hd(int hd, int BS, const PrefillArgs& a, cudaStream_t stream) {
   switch (hd) {
-#ifdef RAGGED_PREFILL_HD96
+#if defined(RAGGED_PREFILL_HD96)
     case 96:
       return launch_bs<96, INT8, F32>(BS, a, stream);
+#elif defined(RAGGED_PREFILL_HD256)
+    case 256:
+      return launch_bs<256, INT8, F32>(BS, a, stream);
 #else
     case 64:
       return launch_bs<64, INT8, F32>(BS, a, stream);
     case 128:
       return launch_bs<128, INT8, F32>(BS, a, stream);
-    case 256:
-      return launch_bs<256, INT8, F32>(BS, a, stream);
 #endif
   }
   return -1;
@@ -559,7 +562,8 @@ int launch_pools(const PrefillArgs& a, int BS, int hd, cudaStream_t s) {
 // (q rows are copied in 16-byte pieces). k_scale/v_scale
 // null: the pools are bf16; both set: the pools are int8 with [Hkv, NB]
 // f32 scales. Returns the cudaError_t of the launch (0 = launched), or -1
-// for a head_dim (64, 128, 256; 96 in the RAGGED_PREFILL_HD96 library) /
+// for a head_dim (64, 128; 96 and 256 in the RAGGED_PREFILL_HD96 and
+// RAGGED_PREFILL_HD256 libraries) /
 // block size this library was not built for.
 extern "C" int b2b_ragged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,

@@ -41,9 +41,10 @@ top of the continuous-batching scheduler (engine/scheduler.py).
 - **int8 weights** (``quantize="int8"``, models/quant.py): the
   projections are quantized per output channel at load (a random init on
   the device, tensor by tensor; ``lora_path`` merged in first, as in
-  JAX) and repacked for the int8-weight GEMM (ops/int8_gemm.py), which
-  every decode and verify root runs on the card, beside bf16 or f32
-  activations (the kernel has a form for each). A random init of an int8
+  JAX) and kept for the int8-weight GEMM (ops/int8_gemm.py), which every
+  root runs on the card: a decode kernel beside bf16 or f32 activations
+  (a form for each), a prefill kernel for bf16 chunks wider than 64
+  tokens, and a dequantize product for f32 ones. A random init of an int8
   engine quantizes each weight as it is drawn (each expert stack expert by
   expert), so it never holds the dense model.
 - **Mixture of experts** (mixtral-8x7b, qwen3-30b-a3b): the routed expert
@@ -88,7 +89,7 @@ from ..metrics import get_registry
 from ..models import core
 from ..models.config import ModelConfig, resolve_model_config
 from ..models.params import init_params
-from ..models.quant import dequant_scratch_bytes, pack_params_, quantize_params_
+from ..models.quant import dequant_scratch_bytes, quantize_params_
 from ..ops.moe import CHANNELS as MOE_CHANNELS
 from ..ops.ragged import _BLOCK_SIZES, _DTYPE_CODE, _HEAD_DIMS
 from ..unported import unported
@@ -441,9 +442,7 @@ class InferenceEngine:
             # in place, each dense weight dropped as its int8 form lands
             # (a no-op for weights the checkpoint upload quantized)
             quantize_params_(params)
-        # an int8 weight carried across in the JAX layout is repacked for
-        # the int8-weight GEMM once, here (models/quant.py)
-        self.params = pack_params_(params)
+        self.params = params
         self.tokenizer = tokenizer or load_tokenizer(checkpoint_path,
                                                      self.model_cfg.vocab_size)
         # the sampling stream: one generator on the device, used only by
@@ -469,10 +468,12 @@ class InferenceEngine:
         self.introspect = EngineIntrospection(self.model_cfg, self.device)
         self.introspect.ledger.register("weights", lambda: self.params)
         if quantized:
-            # prefill chunks wider than the GEMM kernel takes dequantize a
-            # weight into scratch of this engine's dtype (ops/int8_gemm.py)
-            scratch = dequant_scratch_bytes(self.params, self.dtype)
-            self.introspect.ledger.register("int8_dequant_scratch", lambda: scratch)
+            # f32 prefill chunks on the card (and the CPU's plain version)
+            # convert a weight into scratch of this engine's dtype
+            # (ops/int8_gemm.py); a bf16 engine on the card holds none
+            scratch = dequant_scratch_bytes(self.params, self.dtype, self.device)
+            if scratch:
+                self.introspect.ledger.register("int8_dequant_scratch", lambda: scratch)
         # the prefill root's declared capture space: its bucket widths
         # (what _bucket_for can return, and the fixed chunk) x the pow2
         # table widths; a capture outside it is a storm, as in JAX

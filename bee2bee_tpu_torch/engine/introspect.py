@@ -28,7 +28,8 @@ module's metric names, label sets and never-throw contract:
   counted once (tied embeddings are one storage), and for int8 weights
   the dequantize route's peak scratch in the engine's dtype
   (``int8_dequant_scratch``, a byte count: the allocator's cache keeps it
-  once a wide prefill chunk ran). The device total comes
+  once a wide prefill chunk ran; f32 engines and the CPU only, a bf16
+  engine on the card runs a kernel at every width). The device total comes
   from ``torch.cuda.mem_get_info`` (total - free, device-wide): the
   caching allocator and the graphs' private pool hold memory that
   ``memory_allocated()`` does not show. The ledger never synchronises the

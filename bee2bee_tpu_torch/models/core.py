@@ -16,12 +16,11 @@ What differs from the JAX package:
   LIST of per-layer dicts (models/params.py): the layer loop is a python
   loop, not a scan. Weights keep the JAX layout ``[in, out]`` and
   project through ``matmul``: ``x @ w`` for a dense weight; an int8
-  weight-only quantized one (models/quant.py) is either the JAX layout
-  {"q", "s"} (the plain formula, CPU only) or the engine's packed
-  {"qp", "s"}, which goes through the int8-weight GEMM (ops/int8_gemm.py:
-  the kernel on the card, its plain version on the CPU). Projections that
+  weight-only quantized one (models/quant.py), the JAX layout {"q", "s"},
+  goes through the int8-weight GEMM (ops/int8_gemm.py: the kernel on the
+  card, its plain version, the JAX formula, on the CPU). Projections that
   share an input (wq, wk, wv; w_up, w_gate) go through ``matmul_group``:
-  with packed int8 weights, one launch for the group.
+  with int8 weights, one launch for the group.
 - Multi-LoRA serving: every projection goes through ``lora_matmul``,
   which adds each batch row's low-rank delta from the adapter pool's
   stacked factors (adapters/pool.py), as the JAX function does: the
@@ -292,29 +291,21 @@ def _activate(up, gate, cfg: ModelConfig):
 
 
 def matmul(x, w):
-    """x @ w where w may be an int8 weight-only quantized subtree: the JAX
-    layout {"q": int8 [in, out], "s": f32 [out]} computes the JAX formula
-    ``(x @ q.astype(x.dtype)) * s.astype(x.dtype)`` (CPU only: on the card
-    that line would write a dense copy of the weight every call), the
-    engine's packed {"qp", "s"} goes through the int8-weight GEMM."""
+    """x @ w where w may be an int8 weight-only quantized subtree {"q":
+    int8 [in, out], "s": f32 [out]}: the JAX formula ``(x @
+    q.astype(x.dtype)) * s.astype(x.dtype)`` through the int8-weight GEMM
+    (its plain version on the CPU)."""
     if isinstance(w, dict):
-        if "qp" in w:
-            return int8_weight_matmul(x, w)
-        if x.device.type != "cpu":
-            raise ValueError(
-                "an int8 weight in the JAX layout runs on the CPU only: pack it "
-                "for the card (models/quant.py pack_params_)"
-            )
-        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+        return int8_weight_matmul(x, w)
     return x @ w
 
 
 def matmul_group(x, ws):
     """``[matmul(x, w) for w in ws]`` for weights that share x (wq, wk, wv;
-    w_up, w_gate): packed int8 weights go through ONE launch of the
+    w_up, w_gate): int8 weights go through ONE launch of the
     int8-weight GEMM (ops/int8_gemm.py), as a fused product would; any
     other weight takes ``matmul`` one by one."""
-    if all(isinstance(w, dict) and "qp" in w for w in ws):
+    if all(isinstance(w, dict) for w in ws):
         return int8_weight_matmul_group(x, list(ws))
     return [matmul(x, w) for w in ws]
 

@@ -61,7 +61,7 @@ from ..device import resolve_device
 from ..unported import unported
 from .config import ModelConfig, config_for_checkpoint
 from .params import params_from_numpy, params_to_numpy
-from .quant import QUANT_SUFFIXES, _packed, quantize_weight_torch
+from .quant import QUANT_SUFFIXES, quantize_weight_torch
 
 _ST_DTYPES = {
     "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -347,9 +347,7 @@ def to_device(params: dict, device, dtype=torch.bfloat16, quantize: bool = False
         t1 = time.perf_counter()
         d = d.to(_cast_rule(key, d, dtype)).contiguous()
         if quantize and path.endswith(QUANT_SUFFIXES):
-            qw = quantize_weight_torch(d)
-            del d
-            d = _packed(qw["q"], qw["s"])
+            d = quantize_weight_torch(d)
         if stats is not None:
             sync()
         clock["h2d_s"] += t1 - t0

@@ -26,9 +26,9 @@ transpose into ``nn.Linear``'s ``[out, in]`` happens anywhere, so a tensor
 carried across from JAX is the same matrix, element for element. An int8
 weight-only quantized weight (models/quant.py) is the JAX subtree
 {"q": int8 [in, out], "s": f32 [out]}; ``params_from_numpy`` carries it
-across as it is (int8 stays int8, the scales f32), and the engine repacks
-``q`` for the int8-weight GEMM at load (``quant.pack_params_``); an int8 expert stack
-is {"q": int8 [E, in, out], "s": f32 [E, out]} on every side. A random
+across as it is (int8 stays int8, the scales f32), and the int8-weight
+GEMM reads it in that layout; an int8 expert stack is {"q": int8 [E, in,
+out], "s": f32 [E, out]} on every side. A random
 init for an int8 engine (``init_params(quantize=True)``) quantizes each
 projection on the device as it is drawn, and each expert stack expert by
 expert, so the init never holds more than the int8 model plus one dense
@@ -36,8 +36,7 @@ tensor.
 
 ``params_to_numpy`` is the inverse: the JAX schema with the layers
 stacked ``[L, ...]`` (the canonical layout of the piece manifest and of
-``models/loader.save_native``), numpy leaves on the host. A packed int8
-weight goes back to JAX's {"q", "s"} (``quant.unpack_weight``); a bf16
+``models/loader.save_native``), numpy leaves on the host. A bf16
 tensor goes out as its 16-bit pattern in ``pieces.HOST_BF16``, whose piece
 dtype string is "bfloat16", so no ml_dtypes is needed.
 """
@@ -53,7 +52,7 @@ from ..pieces import HOST_BF16, dtype_name
 from .config import ModelConfig
 from .core import check_supported
 from .quant import (
-    _packed, empty_quantized_stack, quantize_expert_into, quantize_weight_torch, unpack_weight,
+    empty_quantized_stack, quantize_expert_into, quantize_weight_torch,
 )
 
 
@@ -83,7 +82,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             return t
         qw = quantize_weight_torch(t)
         del t
-        return _packed(qw["q"], qw["s"])
+        return qw
 
     def experts(shape):  # an [E, in, out] stack, one expert's draw at a time
         if quantize:
@@ -229,12 +228,10 @@ def _stack(trees: list):
 
 def params_to_numpy(params: dict) -> dict:
     """The port's parameters as the JAX package's tree: layers stacked
-    ``[L, ...]``, every leaf a host numpy array, packed int8 weights as
-    {"q": int8 [in, out], "s": f32 [out]}, bf16 as HOST_BF16 bits."""
+    ``[L, ...]``, every leaf a host numpy array, int8 weights as {"q": int8
+    [in, out], "s": f32 [out]}, bf16 as HOST_BF16 bits."""
     def leaf_tree(node):
         if isinstance(node, dict):
-            if "qp" in node:
-                node = unpack_weight(node)
             return {k: leaf_tree(v) for k, v in node.items()}
         return _host(node)
 

@@ -25,21 +25,18 @@ The port of ``bee2bee_tpu/models/quant.py``: ``QUANT_SUFFIXES``,
   numpy's on the same f32 input; random llama-3-8b weights are made on
   the card and quantized there, tensor by tensor.
 - ``quantize_params_``: quantize a port parameter dict IN PLACE, each
-  dense tensor dropped as soon as its int8 form exists, and each int8
-  weight repacked (``pack=True``) into the int8-weight GEMM's layout.
-- **The packed layout.** The engine repacks every ``q`` once at load
-  into ``{"qp": int8 [N/16, K/32, 32, 16], "s": f32 [N]}``
-  (ops/int8_gemm.py ``pack_weight``): each 16 output channels x 32 inputs
-  tile is one warp's mma fragments, 16 bytes a lane. ``qp`` replaces ``q``
-  (the int8 bytes are stored once), ``matmul`` dispatches on the key, and
-  ``unpack_weight`` gives back the JAX layout. A weight whose shape the
-  GEMM cannot take (in % 32 or out % 16) keeps the JAX layout, which only
-  the CPU runs. An expert stack keeps the JAX layout {"q": int8 [E, in,
+  dense tensor dropped as soon as its int8 form exists.
+- **One layout everywhere.** The engine keeps JAX's ``{"q": int8 [in,
+  out], "s": f32 [out]}``: the int8-weight GEMM (ops/int8_gemm.py) reads
+  it as it lies through TMA maps, and its wrapper refuses on the card a
+  shape the maps cannot take. An expert stack keeps {"q": int8 [E, in,
   out], "s": f32 [E, out]} on every device: the grouped expert GEMM
   (ops/moe.py) reads it as it lies and converts in registers.
-- ``dequant_scratch_bytes``: the peak scratch of the dequantize route at
-  the widest weight, in the engine's dtype (the HBM ledger's
-  ``int8_dequant_scratch``); no expert stack needs any.
+- ``dequant_scratch_bytes``: the peak scratch of a product that converts
+  the widest weight into the engine's dtype (the HBM ledger's
+  ``int8_dequant_scratch``): every product of the CPU's plain version,
+  only f32 prefill chunks on the card (bf16 runs a kernel at every
+  width); no expert stack needs any.
 """
 
 from __future__ import annotations
@@ -56,9 +53,8 @@ QUANT_SUFFIXES = (
 
 
 def is_quantized(w) -> bool:
-    """An int8 weight, in the JAX layout ({"q", "s"}) or packed
-    ({"qp", "s"})."""
-    return isinstance(w, dict) and "s" in w and ("q" in w or "qp" in w)
+    """An int8 weight ({"q", "s"})."""
+    return isinstance(w, dict) and "q" in w and "s" in w
 
 
 def quantize_weight(w: np.ndarray) -> dict:
@@ -136,27 +132,12 @@ def _quantized_slots(params: dict):
                     yield sub, key
 
 
-def _packed(q: torch.Tensor, s: torch.Tensor) -> dict:
-    """{"qp", "s"} for the GEMM, or {"q", "s"} where its shape cannot pack
-    and for an expert stack (3-D: the grouped expert GEMM reads the JAX
-    layout)."""
-    from ..ops.int8_gemm import pack_weight
-
-    if q.dim() == 3:
-        return {"q": q, "s": s}
-    K, N = q.shape
-    if K % 32 or N % 16:
-        return {"q": q, "s": s}
-    return {"qp": pack_weight(q), "s": s}
-
-
-def quantize_params_(params: dict, pack: bool = True) -> dict:
+def quantize_params_(params: dict) -> dict:
     """Quantize a port parameter dict IN PLACE (and return it): each
-    QUANT_SUFFIXES weight becomes {"q", "s"} (or, ``pack``, the GEMM's
-    {"qp", "s"}), computed on the weight's own device; the dense tensor's
-    last reference goes before the next weight is touched, so peak memory
-    holds one dense weight beside the int8 ones, never two copies of the
-    layer stack."""
+    QUANT_SUFFIXES weight becomes {"q", "s"}, computed on the weight's own
+    device; the dense tensor's last reference goes before the next weight
+    is touched, so peak memory holds one dense weight beside the int8 ones,
+    never two copies of the layer stack."""
     for holder, key in _quantized_slots(params):
         w = holder[key]
         if is_quantized(w):
@@ -164,45 +145,25 @@ def quantize_params_(params: dict, pack: bool = True) -> dict:
         qw = quantize_weight_torch(w)
         holder[key] = None
         del w
-        holder[key] = _packed(qw["q"], qw["s"]) if pack else qw
+        holder[key] = qw
     return params
 
 
-def pack_params_(params: dict) -> dict:
-    """Repack every JAX-layout {"q", "s"} weight of a port parameter dict
-    into the GEMM's {"qp", "s"}, in place (and return it)."""
-    for holder, key in _quantized_slots(params):
-        w = holder[key]
-        if isinstance(w, dict) and "q" in w:
-            holder[key] = _packed(w["q"], w["s"])
-    return params
-
-
-def dequant_scratch_bytes(params: dict, dtype: torch.dtype) -> int:
+def dequant_scratch_bytes(params: dict, dtype: torch.dtype, device="cuda") -> int:
     """The most scratch one product over an int8 weight of ``params`` holds
-    beside its output where the weight is dequantized (a prefill chunk
-    wider than the GEMM kernel takes, ops/int8_gemm.py; the CPU's plain
-    version): a packed weight's unpacked int8 [N, K] plus its copy in
-    ``dtype`` (an f32 copy is twice the bf16 one), a JAX-layout weight's
-    copy in ``dtype``. 0 without int8 weights. Expert stacks take none: the
-    grouped expert GEMM converts in registers on every route."""
+    beside its output where the weight is converted into ``dtype`` before
+    the product: on the CPU every product (the plain version), on the card
+    an f32 chunk wider than the GEMM's decode kernel takes (ops/int8_gemm.py
+    ``int8_gemm_route``: "dequant"); a bf16 engine on the card holds none.
+    The widest weight's K * N elements of ``dtype``; 0 without int8
+    weights. Expert stacks take none: the grouped expert GEMM converts in
+    registers on every route."""
+    if torch.device(device).type != "cpu" and dtype != torch.float32:
+        return 0
     most = 0
     for holder, key in _quantized_slots(params):
         w = holder[key]
-        if not is_quantized(w) or ("q" in w and w["q"].dim() == 3):
+        if not is_quantized(w) or w["q"].dim() == 3:
             continue
-        if "qp" in w:
-            Nt, Kc = w["qp"].shape[:2]
-            most = max(most, Nt * 16 * Kc * 32 * (1 + dtype.itemsize))
-        else:
-            most = max(most, w["q"].numel() * dtype.itemsize)
+        most = max(most, w["q"].numel() * dtype.itemsize)
     return most
-
-
-def unpack_weight(w: dict) -> dict:
-    """A quantized weight in the JAX layout {"q": int8 [in, out], "s"}."""
-    if "q" in w:
-        return w
-    from ..ops.int8_gemm import unpack_weight as unpack
-
-    return {"q": unpack(w["qp"], w["s"].shape[0]), "s": w["s"]}

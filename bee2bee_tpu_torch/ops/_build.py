@@ -31,9 +31,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bee2bee_tpu_torch"
 # every kernel source of the package; build() compiles them all at once
 SOURCES = (
     "ragged_attention.cu", "ragged_prefill_attention.cu",
-    "ragged_prefill_attention_hd96.cu", "ragged_decode_attention.cu",
-    "ragged_decode_attention_f32.cu", "flash_attention.cu", "int8_weight_gemm.cu",
-    "moe_expert_gemm.cu",
+    "ragged_prefill_attention_hd96.cu", "ragged_prefill_attention_hd256.cu",
+    "ragged_decode_attention.cu", "ragged_decode_attention_f32.cu", "flash_attention.cu",
+    "int8_weight_gemm.cu", "moe_expert_gemm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -73,9 +73,10 @@ _HEAD_DIMS = (64, 96, 128, 256)
 _BLOCK_SIZES = (8, 16, 32)
 _SOURCE = "ragged_attention.cu"
 _PREFILL_SOURCE = "ragged_prefill_attention.cu"
-# the tile kernel's head_dim-96 instantiations, a library of their own
-# (the same C entry points)
-_PREFILL_HD96_SOURCE = "ragged_prefill_attention_hd96.cu"
+# the tile kernel's head_dim-96 and head_dim-256 instantiations, each a
+# library of its own (the same C entry points)
+_PREFILL_HD_SOURCES = {96: "ragged_prefill_attention_hd96.cu",
+                       256: "ragged_prefill_attention_hd256.cu"}
 _DECODE_SOURCE = "ragged_decode_attention.cu"
 _DECODE_F32_SOURCE = "ragged_decode_attention_f32.cu"
 # the head_dims each kernel form is built for: every kernel covers
@@ -372,7 +373,7 @@ def _kernel_fn():
 
 
 def _prefill_source(hd: int) -> str:
-    return _PREFILL_HD96_SOURCE if hd == 96 else _PREFILL_SOURCE
+    return _PREFILL_HD_SOURCES.get(hd, _PREFILL_SOURCE)
 
 
 def _prefill_fn(hd: int):

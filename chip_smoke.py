@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --ring-repro N`` runs only the build and the ring
 check's reproduction, ``ring_repro``; ``--node-profile N`` only the build
 and phase 9's second node N times, ``node_profile_rounds``; ``--only
-quant`` only the build, the int8-weight GEMM phase and the int8-weight
+quant`` only the build, the int8-weight GEMM phases and the int8-weight
 slices; ``--only adapters`` only the build and the adapter phase over
 bf16 and int8 weights; ``--only migrate`` only the build and the migration
 phase over a random init; ``--only checkpoint`` only the build and the
@@ -347,32 +347,40 @@ and the script exits non-zero):
    reply and a new user line) that counts one hit over the whole
    first-turn prompt.
 The int8-weight GEMM (after phase 4): csrc/int8_weight_gemm.cu against
-   its plain version (the JAX core.matmul formula) at llama-3-8b's four
-   projection shapes (4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x
-   4096) and M in {1, 8, 16, 24, 32, 40, 48, 64} (every instantiation the
-   kernel's dispatch picks): within 2^-6 of the largest |output| (two
-   bf16 ulps: the plain version rounds three times, the kernel once), one
-   launch a call, the same bytes twice; the grouped launches (wq|wk|wv,
-   w_up|w_gate) one launch each within the same tolerance, timed beside
-   their launches apart, their bound and cuBLAS bf16 over the concatenated
-   dequantized weights; the M > 64 route (dequantize +
-   cuBLAS) once at M = 2048, equal to the plain version, timed beside its
-   bound (operations). Times at M = 8
+   its plain version (the JAX core.matmul formula). The decode kernel
+   (kernel A) at llama-3-8b's four projection shapes (4096 x 4096, 4096 x
+   1024, 4096 x 14336, 14336 x 4096) and every M from 1 to 64 (tiles of 8
+   to 64 rows, wgmma widths summed where not a power of two): within 2^-6
+   of the largest |output| (two bf16 ulps: the plain version rounds three
+   times, the kernel once), one launch a call, the same bytes twice; the
+   grouped launches (wq|wk|wv, w_up|w_gate) one launch each within the
+   same tolerance, timed beside their launches apart, their bound and
+   cuBLAS bf16 over the concatenated dequantized weights. Times at M = 8
    (w_up also at 1, 40 and 64), beside the bound, the plain version, cuBLAS
-   bf16 at the dequantized weight and torch._weight_int8pack_mm.
-   Phase 1 fails if an instantiation of the GEMM kernel spills. The
-   grouped wq|wk|wv and the M = 2048 route also time
-   torch._weight_int8pack_mm. Then the GEMM's f32 form (2xTF32, f32 x and
-   y) at llama-3-8b's four shapes and qwen2-7b's and qwen3-8b's (3584 x
-   3584, 3584 x 512, 3584 x 18944, 18944 x 3584, 4096 x 12288, 12288 x
-   4096), M as above: within 1e-4 of the largest |output| of the
-   plain f32 version (cuBLAS's full-f32 product), one launch a call
+   bf16 at the dequantized weight and torch._weight_int8pack_mm. Then both
+   bf16 kernels at every launch of every family served with int8 weights
+   (llama-3-8b and mixtral-8x7b's attention, qwen2-7b, gemma-3-4b,
+   phi-3-mini, distilgpt2; the grouped weights in one launch): the decode
+   kernel at M in {1, 7, 8, 24, 40, 57, 64} (llama's at every M above), the
+   prefill kernel (kernel B, tiles of 128 and 256 rows) at M in {65, 128,
+   600 (a partial last tile), 1024, 2048}, each within 2^-6, one launch a
+   call of its own counter (``launches`` or ``prefill_launches``; the
+   dequantize counter reads 0), the same bytes twice; llama's launches
+   timed at M = 2048 (w_up|w_gate at every prefill M) beside the bound
+   (operations), the plain version, cuBLAS bf16 and
+   torch._weight_int8pack_mm. Phase 1 fails if an instantiation of the
+   GEMM kernel spills. Then the decode kernel's f32 form (2xTF32 on
+   mma.sync, f32 x and y) at llama-3-8b's four shapes and qwen2-7b's and
+   qwen3-8b's (3584 x 3584, 3584 x 512, 3584 x 18944, 18944 x 3584, 4096 x
+   12288, 12288 x 4096), M as above: within 1e-4 of the largest |output|
+   of the plain f32 version (cuBLAS's full-f32 product), one launch a call
    (``f32_launches``), the same bytes twice; the grouped launches at each
-   model's shapes one launch each; the f32 M > 64 route (an f32 scratch,
-   its bytes equal to the HBM ledger's ``int8_dequant_scratch``) equal to
-   the plain version; times at M = 8 (w_up at 1, 40 and 64 too) beside the bound (two TF32 products), the plain version,
-   cuBLAS f32 over the dense f32 weight and torch._weight_int8pack_mm with
-   f32 activations.
+   model's shapes one launch each; the f32 M > 64 route (the dequantize
+   route, what is left of it: an f32 scratch, its bytes equal to the HBM
+   ledger's ``int8_dequant_scratch``) equal to the plain version; times at
+   M = 8 (w_up at 1, 40 and 64 too) beside the bound (two TF32 products),
+   the plain version, cuBLAS f32 over the dense f32 weight and
+   torch._weight_int8pack_mm with f32 activations.
 The gemma slices (after the qwen slices): gemma-2-9b at full width and
    depth (42 layers, 9.24 B parameters, bf16, norm scales perturbed) over
    a bf16 pool (its 4096-token window cannot bind at max_seq_len 2048), and
@@ -1563,7 +1571,9 @@ def phase_flash_vs_plain(flush):
 # staged, 3, 4, 5, 7 and 8 tiles)
 GEMM_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_up", 4096, 14336),
                ("w_down", 14336, 4096))
-GEMM_MS = (1, 8, 16, 24, 32, 40, 48, 64)
+# every token count the decode kernel takes (1..64: its tile is 8 *
+# ceil(M / 8) rows, a wgmma of that width or two or three summed)
+GEMM_MS = tuple(range(1, 65))
 # the token counts w_up is timed at (every shape at 8)
 GEMM_TIMED_MS = (1, 8, 40, 64)
 # kernel vs plain version (both on the same bf16 x and int8 weight): the
@@ -1589,6 +1599,7 @@ def gemm_counts() -> dict:
 
     return {"int8_gemm": int8_weight_matmul.launches,
             "int8_gemm_f32": int8_weight_matmul.f32_launches,
+            "int8_gemm_prefill": int8_weight_matmul.prefill_launches,
             "int8_gemm_dequant": int8_weight_matmul.dequant_launches}
 
 
@@ -1600,16 +1611,15 @@ def reset_gemm_counts() -> None:
 
 
 def int8_weight(gen, K: int, N: int) -> tuple:
-    """A random bf16 [K, N] weight (the init's scale), quantized on the card
-    and packed: (packed weight dict, its dense bf16 twin q*s)."""
+    """A random bf16 [K, N] weight (the init's scale), quantized on the card:
+    (weight dict {"q", "s"}, its dense bf16 twin q*s)."""
     from bee2bee_tpu_torch.models.quant import quantize_weight_torch
-    from bee2bee_tpu_torch.ops.int8_gemm import pack_weight
 
     w = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.bfloat16)
     w.mul_(1.0 / math.sqrt(K))
     qw = quantize_weight_torch(w)
     dense = (qw["q"].float() * qw["s"]).to(torch.bfloat16)
-    return {"qp": pack_weight(qw["q"]), "s": qw["s"]}, dense
+    return qw, dense
 
 
 def pack_mm_ms(x, ws, flush, reps: int = 30) -> tuple:
@@ -1618,14 +1628,13 @@ def pack_mm_ms(x, ws, flush, reps: int = 30) -> tuple:
     concatenated on N, at x's inputs: (ms, "<ms> ms (max abs err vs plain
     ...)"), or (None, why it did not run: no CUDA kernel for x's type in
     this torch)."""
-    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_ref, unpack_weight
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_ref
 
     try:
-        w_nk = torch.cat([unpack_weight(w["qp"], w["s"].shape[0]).t() for w in ws]
-                         ).contiguous()  # [N, K] int8
+        w_nk = torch.cat([w["q"].t() for w in ws]).contiguous()  # [N, K] int8
         s = torch.cat([w["s"] for w in ws]).to(x.dtype)
         y = torch._weight_int8pack_mm(x, w_nk, s)
-        ref = torch.cat([int8_weight_matmul_ref(x, w["qp"], w["s"]) for w in ws], dim=1)
+        ref = torch.cat([int8_weight_matmul_ref(x, w["q"], w["s"]) for w in ws], dim=1)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
         ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s), flush=flush,
@@ -1637,16 +1646,17 @@ def pack_mm_ms(x, ws, flush, reps: int = 30) -> tuple:
 
 
 def phase_int8_gemm(flush) -> dict:
-    """The int8-weight GEMM (csrc/int8_weight_gemm.cu) against its plain
-    version at llama-3-8b's four projection shapes and M in GEMM_MS, one
-    launch a call, the same bytes twice; the M > 64 route (dequantize +
-    cuBLAS) once at M = 2048. Times at M = 8 (and w_up at 1, 40 and 64), median
-    of 30 with L2 flushed, beside the bound (bytes: the int8 weight, its
-    f32 scales, x and y once), the plain version, cuBLAS bf16
+    """The int8-weight GEMM's decode kernel (csrc/int8_weight_gemm.cu,
+    kernel A) against its plain version at llama-3-8b's four projection
+    shapes and every M in GEMM_MS (1..64), one launch a call, the same
+    bytes twice. Times at M = 8 (and w_up at 1, 40 and 64), median of 30
+    with L2 flushed, beside the bound (bytes: the int8 weight, its f32
+    scales, x and y once), the plain version, cuBLAS bf16
     ``torch.matmul`` at the dequantized weight (what the bf16 engine pays)
     and ``torch._weight_int8pack_mm`` (PyTorch's own int8-weight op, the
     library yardstick) where the card's torch has a CUDA kernel for it.
-    Returns {"err", "timing"} for the kernels line (w_up at M = 8)."""
+    The grouped launches at M = 8. Returns {"err", "timing"} for the
+    kernels line (w_up at M = 8)."""
     from bee2bee_tpu_torch.ops.int8_gemm import (
         gemm_plan, int8_weight_matmul, int8_weight_matmul_ref, _sm_count,
     )
@@ -1657,37 +1667,38 @@ def phase_int8_gemm(flush) -> dict:
     out = {}
     for name, K, N in GEMM_SHAPES:
         w, dense = int8_weight(gen, K, N)
-        plan = gemm_plan(K, N, _sm_count(0))
         for M in GEMM_MS:
+            plan = gemm_plan(M, K, (N,), _sm_count(0))
             x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
             before = int8_weight_matmul.launches
             y = int8_weight_matmul(x, w)
             y2 = int8_weight_matmul(x, w)
             torch.cuda.synchronize()
             launched = int8_weight_matmul.launches - before
-            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
-            exact = (x.float() @ dense.float())  # the f32 product of the same operands
+            ref = int8_weight_matmul_ref(x, w["q"], w["s"])
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            err_f32 = (y.float() - exact).abs().max().item()
             rel = err / scale
             worst = max(worst, rel)
-            log(f"int8 GEMM {name} [{K}, {N}] M={M} (plan: cluster {plan[0]}, "
-                f"{plan[1]} chunks a rank): max abs err vs plain {err:.3e}, relative "
-                f"{rel:.3e} (tol {GEMM_REL_TOL:.3e} of max |y| {scale:.3f}); vs the "
-                f"f32 product {err_f32:.3e}; launches {launched}; same bytes twice "
-                f"{torch.equal(y, y2)}")
+            timed = (M == 8) or (name == "w_up" and M in GEMM_TIMED_MS)
+            if timed or M % 8 == 0:
+                exact = (x.float() @ dense.float())  # the f32 product of the same operands
+                err_f32 = (y.float() - exact).abs().max().item()
+                log(f"int8 GEMM {name} [{K}, {N}] M={M} (plan: tile {plan[0]} rows, "
+                    f"{plan[1]} K splits): max abs err vs plain {err:.3e}, relative "
+                    f"{rel:.3e} (tol {GEMM_REL_TOL:.3e} of max |y| {scale:.3f}); vs the "
+                    f"f32 product {err_f32:.3e}; launches {launched}; same bytes twice "
+                    f"{torch.equal(y, y2)}")
             check(bool(torch.isfinite(y).all()), f"int8 GEMM {name} M={M}: non-finite")
             check(rel <= GEMM_REL_TOL, f"int8 GEMM {name} M={M}: relative error {rel}")
             check(launched == 2, f"int8 GEMM {name} M={M}: {launched} launches for 2 calls")
             check(torch.equal(y, y2), f"int8 GEMM {name} M={M}: two calls differ")
-            timed = (M == 8) or (name == "w_up" and M in GEMM_TIMED_MS)
             if not timed:
                 continue
             nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
             bnd = bounds(nbytes, 2 * M * K * N, torch.bfloat16)
             ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush)
-            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["qp"], w["s"]),
+            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["q"], w["s"]),
                                     flush=flush)
             cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
             library_ms, lib = pack_mm_ms(x, [w], flush)
@@ -1718,7 +1729,7 @@ def phase_int8_gemm(flush) -> dict:
         launched = int8_weight_matmul.launches - before
         rels = []
         for y, w in zip(ys, ws):
-            ref = int8_weight_matmul_ref(x, w["qp"], w["s"]).float()
+            ref = int8_weight_matmul_ref(x, w["q"], w["s"]).float()
             rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
         ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
         apart = cuda_time_ms(lambda: [int8_weight_matmul(x, w) for w in ws], flush=flush)
@@ -1729,42 +1740,125 @@ def phase_int8_gemm(flush) -> dict:
         log(f"int8 GEMM grouped {label} M=8: relative errors vs plain "
             f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_REL_TOL:.3e}); launches {launched}; "
             f"{ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches apart; "
-            f"{bnd['text']}; cuBLAS bf16 matmul at the concatenated dequantized "
-            f"[{K}, {Nt}] weight {cublas_ms:.4f} ms; torch._weight_int8pack_mm over the "
-            f"concatenated int8 weight {lib}")
+            f"{bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS bf16 matmul at "
+            f"the concatenated dequantized [{K}, {Nt}] weight {cublas_ms:.4f} ms; "
+            f"torch._weight_int8pack_mm over the concatenated int8 weight {lib}")
         check(launched == 1, f"int8 GEMM grouped {label}: {launched} launches")
         check(max(rels) <= GEMM_REL_TOL, f"int8 GEMM grouped {label}: errors {rels}")
         worst = max(worst, *rels)
         del ws, dense
-    # the M > 64 route: the weight dequantized into bf16 scratch, cuBLAS
-    # bf16, then the scale (the JAX formula); counted apart
-    name, K, N = GEMM_SHAPES[2]
-    w, dense = int8_weight(gen, K, N)
-    x = torch.randn((2048, K), generator=gen, device="cuda", dtype=torch.bfloat16)
-    before = gemm_counts()
-    y = int8_weight_matmul(x, w)
-    torch.cuda.synchronize()
-    after = gemm_counts()
-    ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
-    err = (y.float() - ref.float()).abs().max().item()
-    ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush, reps=10)
-    cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
-    bnd = bounds(K * N + 4 * N + 2 * 2048 * K + 2 * 2048 * N, 2 * 2048 * K * N,
-                 torch.bfloat16)
-    lib = pack_mm_ms(x, [w], flush, reps=10)[1]
-    log(f"int8 GEMM {name} M=2048 (the dequantize + cuBLAS route): max abs err vs "
-        f"plain {err:.3e}; launches {after['int8_gemm'] - before['int8_gemm']} kernel, "
-        f"{after['int8_gemm_dequant'] - before['int8_gemm_dequant']} dequant; "
-        f"{ms:.4f} ms, {bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS bf16 "
-        f"at a bf16 weight {cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib}")
-    check(after["int8_gemm_dequant"] - before["int8_gemm_dequant"] == 1
-          and after["int8_gemm"] == before["int8_gemm"],
-          f"int8 GEMM M=2048: launches {before} -> {after}")
-    check(err == 0.0, f"int8 GEMM M=2048: the dequant route differs from plain by {err}")
-    del w, dense, x, y, ref
     torch.cuda.empty_cache()
     log(f"int8 GEMM: worst relative error {worst:.3e} (tol {GEMM_REL_TOL:.3e})")
     return {"err": out[("w_up", 8)]["err"], "timing": out[("w_up", 8)], "all": out}
+
+
+# the prefill kernel's token counts (a partial last tile at 600) and the
+# projections of every family served with int8 weights, each launch as the
+# engine makes it (K, the widths of its weights): llama-3-8b's (mixtral-8x7b's
+# attention is the same), qwen2-7b's, gemma-3-4b's, phi-3-mini's and
+# distilgpt2's (a gelu MLP: w_up alone)
+GEMM_PREFILL_MS = (65, 128, 600, 1024, 2048)
+GEMM_FAMILY_LAUNCHES = (
+    ("llama-3-8b", (("wq|wk|wv", 4096, (4096, 1024, 1024)), ("wo", 4096, (4096,)),
+                    ("w_up|w_gate", 4096, (14336, 14336)), ("w_down", 14336, (4096,)))),
+    ("qwen2-7b", (("wq|wk|wv", 3584, (3584, 512, 512)), ("wo", 3584, (3584,)),
+                  ("w_up|w_gate", 3584, (18944, 18944)), ("w_down", 18944, (3584,)))),
+    ("gemma-3-4b", (("wq|wk|wv", 2304, (2048, 1024, 1024)), ("wo", 2048, (2304,)),
+                    ("w_up|w_gate", 2304, (9216, 9216)), ("w_down", 9216, (2304,)))),
+    ("phi-3-mini", (("wq|wk|wv", 3072, (3072, 3072, 3072)), ("wo", 3072, (3072,)),
+                    ("w_up|w_gate", 3072, (8192, 8192)), ("w_down", 8192, (3072,)))),
+    ("distilgpt2", (("wq|wk|wv", 768, (768, 768, 768)), ("wo", 768, (768,)),
+                    ("w_up", 768, (3072,)), ("w_down", 3072, (768,)))),
+)
+# the decode kernel's token counts at the other families' shapes (llama's
+# run every M in GEMM_MS)
+GEMM_FAMILY_MS = (1, 7, 8, 24, 40, 57, 64)
+
+
+def phase_int8_gemm_families(flush) -> dict:
+    """Both bf16 kernels at every launch of every family served with int8
+    weights (GEMM_FAMILY_LAUNCHES, the grouped weights in one launch): the
+    decode kernel at GEMM_FAMILY_MS, the prefill kernel (kernel B) at
+    GEMM_PREFILL_MS. Each case: every output within GEMM_REL_TOL of the
+    largest |output| of its plain version, one launch a call of the
+    route's counter (``int8_gemm`` or ``int8_gemm_prefill``; the dequantize
+    counter reads 0), the same bytes twice. Times at llama-3-8b's w_up|w_gate
+    and each launch at M = 2,048 (and w_up|w_gate at every prefill M),
+    median of 10 with L2 flushed, beside the bound (2MKN at the bf16 peak;
+    bytes the weights, scales, x and y once), the plain version, cuBLAS
+    bf16 over the concatenated dequantized weight and
+    ``torch._weight_int8pack_mm`` over the concatenated int8 weight.
+    Returns {"err", "timing", "all"} (llama's w_up|w_gate at M = 2,048)."""
+    from bee2bee_tpu_torch.ops.int8_gemm import int8_weight_matmul_group, int8_weight_matmul_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    worst, out, n_cases = 0.0, {}, 0
+    for family, launches in GEMM_FAMILY_LAUNCHES:
+        for label, K, Ns in launches:
+            pairs = [int8_weight(gen, K, N) for N in Ns]
+            ws = [w for w, _ in pairs]
+            dense = torch.cat([d for _, d in pairs], dim=1)
+            del pairs
+            Nt = sum(Ns)
+            ms_list = GEMM_PREFILL_MS + (GEMM_FAMILY_MS if family != "llama-3-8b" else ())
+            for M in ms_list:
+                x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+                counter = "int8_gemm" if M <= 64 else "int8_gemm_prefill"
+                before = gemm_counts()
+                ys = int8_weight_matmul_group(x, ws)
+                ys2 = int8_weight_matmul_group(x, ws)
+                torch.cuda.synchronize()
+                after = gemm_counts()
+                launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                rels = []
+                for y, w in zip(ys, ws):
+                    ref = int8_weight_matmul_ref(x, w["q"], w["s"]).float()
+                    rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
+                worst = max(worst, *rels)
+                n_cases += 1
+                same = all(torch.equal(a, b) for a, b in zip(ys, ys2))
+                check(all(bool(torch.isfinite(y).all()) for y in ys),
+                      f"int8 GEMM {family} {label} M={M}: non-finite values")
+                check(max(rels) <= GEMM_REL_TOL, f"int8 GEMM {family} {label} M={M}: {rels}")
+                check(launched == {counter: 2},
+                      f"int8 GEMM {family} {label} M={M}: launches {launched} for 2 calls")
+                check(same, f"int8 GEMM {family} {label} M={M}: two calls differ")
+                timed = M == 2048 and family == "llama-3-8b" or (
+                    family == "llama-3-8b" and label == "w_up|w_gate" and M > 64)
+                if not (timed or M in (8, 2048)):
+                    continue
+                line = (f"int8 GEMM {family} {label} [{K}, {Nt}] M={M}: relative errors vs "
+                        f"plain {[f'{r:.3e}' for r in rels]} (tol {GEMM_REL_TOL:.3e}); "
+                        f"launches {launched}; same bytes twice {same}")
+                if timed:
+                    bnd = bounds(K * Nt + 4 * Nt + 2 * M * K + 2 * M * Nt, 2 * M * K * Nt,
+                                 torch.bfloat16)
+                    ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush,
+                                      reps=10)
+                    plain_ms = cuda_time_ms(
+                        lambda: [int8_weight_matmul_ref(x, w["q"], w["s"]) for w in ws],
+                        flush=flush, reps=10)
+                    cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush,
+                                             reps=10)
+                    # PyTorch's op takes about a quarter of a second a call here
+                    library_ms, lib = pack_mm_ms(x, ws, flush, reps=3)
+                    line += (f"; kernel {ms:.4f} ms, {bnd['text']} -> "
+                             f"{bnd['bound_ms'] / ms:.3f} of bound; plain {plain_ms:.4f} ms; "
+                             f"cuBLAS bf16 at the concatenated dequantized weight "
+                             f"{cublas_ms:.4f} ms; torch._weight_int8pack_mm {lib}")
+                    out[(family, label, M)] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                        bound_by=bnd["bound_by"], library_ms=library_ms, cublas_ms=cublas_ms,
+                        err=max(rels))
+                log(line)
+            del ws, dense
+        torch.cuda.empty_cache()
+    log(f"int8 GEMM families: {n_cases} cases (decode kernel at {GEMM_FAMILY_MS}, prefill "
+        f"kernel at {GEMM_PREFILL_MS}), worst relative error {worst:.3e} (tol "
+        f"{GEMM_REL_TOL:.3e})")
+    key = ("llama-3-8b", "w_up|w_gate", 2048)
+    return {"err": out[key]["err"], "timing": out[key], "all": out}
 
 
 # the GEMM's f32 form (f32 engines with int8 weights): llama-3-8b's four
@@ -1787,17 +1881,16 @@ GEMM_F32_REL_TOL = 1e-4
 
 
 def int8_weight_f32(gen, K: int, N: int) -> tuple:
-    """A random f32 [K, N] weight (the init's scale), quantized on the card
-    and packed: (packed weight dict, its dense f32 twin q*s)."""
+    """A random f32 [K, N] weight (the init's scale), quantized on the card:
+    (weight dict {"q", "s"}, its dense f32 twin q*s)."""
     from bee2bee_tpu_torch.models.quant import quantize_weight_torch
-    from bee2bee_tpu_torch.ops.int8_gemm import pack_weight
 
     w = torch.randn((K, N), generator=gen, device="cuda", dtype=torch.float32)
     w.mul_(1.0 / math.sqrt(K))
     qw = quantize_weight_torch(w)
     del w
     dense = qw["q"].float() * qw["s"]
-    return {"qp": pack_weight(qw["q"]), "s": qw["s"]}, dense
+    return qw, dense
 
 
 def phase_int8_gemm_f32(flush) -> dict:
@@ -1828,8 +1921,8 @@ def phase_int8_gemm_f32(flush) -> dict:
     out = {}
     for name, K, N in GEMM_F32_SHAPES:
         w, dense = int8_weight_f32(gen, K, N)
-        plan = gemm_plan(K, N, _sm_count(0))
         for M in GEMM_MS:
+            plan = gemm_plan(M, K, (N,), _sm_count(0))
             x = torch.randn((M, K), generator=gen, device="cuda", dtype=torch.float32)
             before = gemm_counts()
             y = int8_weight_matmul(x, w)
@@ -1837,15 +1930,16 @@ def phase_int8_gemm_f32(flush) -> dict:
             torch.cuda.synchronize()
             after = gemm_counts()
             launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+            ref = int8_weight_matmul_ref(x, w["q"], w["s"])
             err = (y - ref).abs().max().item()
             scale = ref.abs().max().item()
             rel = err / scale
             worst = max(worst, rel)
-            log(f"int8 GEMM f32 {name} [{K}, {N}] M={M} (plan: cluster {plan[0]}, "
-                f"{plan[1]} chunks a rank): max abs err vs plain {err:.3e}, relative "
-                f"{rel:.3e} (tol {GEMM_F32_REL_TOL:.0e} of max |y| {scale:.3f}); launches "
-                f"{launched}; same bytes twice {torch.equal(y, y2)}")
+            if M % 8 == 0 or M == 1:
+                log(f"int8 GEMM f32 {name} [{K}, {N}] M={M} (plan: tile {plan[0]} rows, "
+                    f"{plan[1]} K splits): max abs err vs plain {err:.3e}, relative "
+                    f"{rel:.3e} (tol {GEMM_F32_REL_TOL:.0e} of max |y| {scale:.3f}); launches "
+                    f"{launched}; same bytes twice {torch.equal(y, y2)}")
             check(y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
                   f"int8 GEMM f32 {name} M={M}: {y.dtype}, non-finite values")
             check(rel <= GEMM_F32_REL_TOL, f"int8 GEMM f32 {name} M={M}: relative error {rel}")
@@ -1857,7 +1951,7 @@ def phase_int8_gemm_f32(flush) -> dict:
             bnd = bounds(K * N + 4 * N + 4 * M * K + 4 * M * N, 2 * M * K * N,
                          torch.float32, "2xtf32")
             ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush)
-            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["qp"], w["s"]),
+            plain_ms = cuda_time_ms(lambda: int8_weight_matmul_ref(x, w["q"], w["s"]),
                                     flush=flush)
             cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
             library_ms, lib = pack_mm_ms(x, [w], flush)
@@ -1881,7 +1975,7 @@ def phase_int8_gemm_f32(flush) -> dict:
         launched = gemm_counts()["int8_gemm_f32"] - before
         rels = []
         for y, w in zip(ys, ws):
-            ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+            ref = int8_weight_matmul_ref(x, w["q"], w["s"])
             rels.append((y - ref).abs().max().item() / ref.abs().max().item())
         ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
         apart = cuda_time_ms(lambda: [int8_weight_matmul(x, w) for w in ws], flush=flush)
@@ -1892,14 +1986,17 @@ def phase_int8_gemm_f32(flush) -> dict:
         log(f"int8 GEMM f32 grouped {label} M=8: relative errors vs plain "
             f"{[f'{r:.3e}' for r in rels]} (tol {GEMM_F32_REL_TOL:.0e}); launches "
             f"{launched}; {ms:.4f} ms against {apart:.4f} ms for the {len(ws)} launches "
-            f"apart; {bnd['text']}; cuBLAS f32 at the concatenated dense [{K}, {Nt}] "
-            f"weight {cublas_ms:.4f} ms")
+            f"apart; {bnd['text']} -> {bnd['bound_ms'] / ms:.3f} of bound; cuBLAS f32 at "
+            f"the concatenated dense [{K}, {Nt}] weight {cublas_ms:.4f} ms; "
+            f"torch._weight_int8pack_mm with f32 activations over the concatenated int8 "
+            f"weight {pack_mm_ms(x, ws, flush)[1]}")
         check(launched == 1, f"int8 GEMM f32 grouped {label}: {launched} launches")
         check(max(rels) <= GEMM_F32_REL_TOL, f"int8 GEMM f32 grouped {label}: {rels}")
         worst = max(worst, *rels)
         del ws, dense
-    # the M > 64 route in f32: the weight dequantized into an f32 scratch
-    # (twice the bf16 one), cuBLAS f32, then the scale (the JAX formula)
+    # the M > 64 route in f32: the weight dequantized into an f32 scratch,
+    # cuBLAS f32, then the scale (the JAX formula); what is left of the
+    # dequantize route, counted apart
     name, K, N = GEMM_F32_SHAPES[2]
     w, dense = int8_weight_f32(gen, K, N)
     x = torch.randn((2048, K), generator=gen, device="cuda", dtype=torch.float32)
@@ -1911,7 +2008,7 @@ def phase_int8_gemm_f32(flush) -> dict:
     torch.cuda.synchronize()
     after = gemm_counts()
     scratch = torch.cuda.max_memory_allocated() - held - y.numel() * 4
-    ref = int8_weight_matmul_ref(x, w["qp"], w["s"])
+    ref = int8_weight_matmul_ref(x, w["q"], w["s"])
     err = (y - ref).abs().max().item()
     ms = cuda_time_ms(lambda: int8_weight_matmul(x, w), flush=flush, reps=10)
     cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush, reps=10)
@@ -2944,11 +3041,14 @@ def check_economics(engine, tag: str, card: str, dispatches: list, wall: float) 
           f"{tag}: ledger {comps} vs weights {weights} B, pool {pool} B "
           f"(geometry {geometry} B)")
     # int8 weights: the dequantize route's scratch at the widest projection,
-    # its int8 unpack beside its copy in the engine's dtype (an MoE model's
-    # experts take none: the expert GEMM converts them in registers)
+    # its copy in f32: an f32 engine's prefill chunks wider than 64 tokens
+    # take that route; a bf16 engine's run the prefill kernel and hold none
+    # (an MoE model's experts take none either: the expert GEMM converts
+    # them in registers)
     widest = max(0 if cfg.is_moe else cfg.d_model * cfg.d_ff,
                  cfg.d_model * cfg.n_heads * cfg.head_dim)
-    scratch = widest * (1 + engine.dtype.itemsize) if ecfg.quantize == "int8" else None
+    scratch = (widest * 4 if ecfg.quantize == "int8" and engine.dtype == torch.float32
+               else None)
     check(comps.get("int8_dequant_scratch") == scratch,
           f"{tag}: ledger's int8 dequantize scratch {comps.get('int8_dequant_scratch')} B, "
           f"expected {scratch} B")
@@ -3220,30 +3320,34 @@ def check_int8_gemm_launches(engine, tag: str, gemm: dict, roots_run: list,
                              quantized: bool) -> None:
     """With int8 weights every projection of a replayed forward goes
     through the int8-weight GEMM: 4 launches a layer (wq|wk|wv and
-    w_up|w_gate grouped, wo, w_down), the kernel for a decode or verify
-    step and a prefill chunk of at most MAX_KERNEL_M tokens (the bucket),
-    the dequantize + cuBLAS route for wider chunks; the kernel's form in
-    the engine's type (``int8_gemm_f32`` for f32). An MoE layer has no
-    dense MLP: 2 launches a layer (its experts go through the expert
-    GEMM). Dense weights launch neither."""
-    from bee2bee_tpu_torch.ops.int8_gemm import MAX_KERNEL_M
+    w_up|w_gate grouped, wo, w_down), the decode kernel for a decode or
+    verify step and a prefill chunk of at most CROSSOVER_M tokens (the
+    bucket) in the engine's type (``int8_gemm_f32`` for f32); wider chunks
+    the prefill kernel (bf16, ``int8_gemm_prefill``: a bf16 engine's
+    dequantize counter reads 0) or the dequantize + cuBLAS route (f32). An
+    MoE layer has no dense MLP: 2 launches a layer (its experts go through
+    the expert GEMM). Dense weights launch neither."""
+    from bee2bee_tpu_torch.ops.int8_gemm import CROSSOVER_M
 
     per = gemm_launches_per_layer(engine.model_cfg) * engine.model_cfg.n_layers
     narrow = sum(t for root, key, t in roots_run
                  if root in ("decode", "spec_verify")
-                 or (root == "prefill" and key[0] <= MAX_KERNEL_M))
+                 or (root == "prefill" and key[0] <= CROSSOVER_M))
     wide = sum(t for root, key, t in roots_run
-               if root == "prefill" and key[0] > MAX_KERNEL_M)
-    form = "int8_gemm_f32" if engine.dtype == torch.float32 else "int8_gemm"
-    want = {"int8_gemm": 0, "int8_gemm_f32": 0, "int8_gemm_dequant": 0}
+               if root == "prefill" and key[0] > CROSSOVER_M)
+    f32 = engine.dtype == torch.float32
+    form = "int8_gemm_f32" if f32 else "int8_gemm"
+    wide_form = "int8_gemm_dequant" if f32 else "int8_gemm_prefill"
+    want = {"int8_gemm": 0, "int8_gemm_f32": 0, "int8_gemm_prefill": 0,
+            "int8_gemm_dequant": 0}
     if quantized:
-        want.update({form: per * narrow, "int8_gemm_dequant": per * wide})
+        want.update({form: per * narrow, wide_form: per * wide})
     log(f"{tag}: int8-weight GEMM launches {gemm} ({narrow} replays of <= "
-        f"{MAX_KERNEL_M} tokens, {wide} wider prefill replays; {per} launches a "
+        f"{CROSSOVER_M} tokens, {wide} wider prefill replays; {per} launches a "
         f"forward)")
     check(gemm == want, f"{tag}: int8-weight GEMM launches {gemm}, expected {want}")
     if quantized:
-        check(gemm[form] > 0 and gemm["int8_gemm_dequant"] > 0,
+        check(gemm[form] > 0 and gemm[wide_form] > 0,
               f"{tag}: both GEMM routes should have run: {gemm}")
 
 
@@ -3254,8 +3358,8 @@ def bf16_weight_bytes(params) -> int:
     stack = [params]
     while stack:
         node = stack.pop()
-        if isinstance(node, dict) and "qp" in node:
-            total += 2 * node["qp"].numel()
+        if isinstance(node, dict) and "q" in node:
+            total += 2 * node["q"].numel()
         elif isinstance(node, dict):
             stack.extend(node.values())
         elif isinstance(node, list):
@@ -3306,11 +3410,10 @@ def logits_run(cfg, ids, new_steps: int = 4):
 
 
 def _dense(node, dtype):
-    from bee2bee_tpu_torch.models.quant import is_quantized, unpack_weight
+    from bee2bee_tpu_torch.models.quant import is_quantized
 
     if is_quantized(node):
-        w = unpack_weight(node)
-        return (w["q"].float() * w["s"]).to(dtype)
+        return (node["q"].float() * node["s"]).to(dtype)
     if isinstance(node, dict):
         return {k: _dense(v, dtype) for k, v in node.items()}
     if isinstance(node, list):
@@ -4258,7 +4361,7 @@ def phase_phi3_gemm(flush) -> dict:
                 launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
                 rels = []
                 for y, w in zip(ys, ws):
-                    ref = int8_weight_matmul_ref(x, w["qp"], w["s"]).float()
+                    ref = int8_weight_matmul_ref(x, w["q"], w["s"]).float()
                     rels.append((y.float() - ref).abs().max().item() / ref.abs().max().item())
                 worst = max(worst, *rels)
                 same = all(torch.equal(a, b) for a, b in zip(ys, ys2))
@@ -4278,7 +4381,7 @@ def phase_phi3_gemm(flush) -> dict:
                              "2xtf32" if f32 else "")
                 ms = cuda_time_ms(lambda: int8_weight_matmul_group(x, ws), flush=flush)
                 plain_ms = cuda_time_ms(
-                    lambda: [int8_weight_matmul_ref(x, w["qp"], w["s"]) for w in ws],
+                    lambda: [int8_weight_matmul_ref(x, w["q"], w["s"]) for w in ws],
                     flush=flush)
                 cublas_ms = cuda_time_ms(lambda: torch.matmul(x, dense), flush=flush)
                 library_ms, lib = pack_mm_ms(x, ws, flush)
@@ -4613,16 +4716,20 @@ def moe_layer_bytes_flops(plan, D: int, F: int, ws, down, x) -> tuple[int, int]:
 def grouped_mm_ms(x, plan, ws, down, h, flush) -> tuple:
     """``torch._grouped_mm`` (PyTorch's grouped product, a yardstick the
     port never calls) over the same sorted rows: x gathered by the plan's
-    tokens, each bf16 stack, then h over w_down: (ms, text) or (None, why
-    not: no such op or no kernel for these inputs in this torch)."""
+    tokens, each stack (an int8 stack's bytes as they lie), then h over
+    w_down: (ms, text) or (None, why not: no such op or no kernel for these
+    inputs in this torch, as the call says)."""
+    def raw(w):
+        return w["q"] if isinstance(w, dict) else w
+
     try:
         xs = x.index_select(0, plan.tok.long())
         offs = plan.offsets[1:].contiguous()
         kept = int(plan.offsets[-1])
 
         def run():
-            return ([torch._grouped_mm(xs, w, offs=offs) for w in ws]
-                    + [torch._grouped_mm(h, down, offs=offs)])
+            return ([torch._grouped_mm(xs, raw(w), offs=offs) for w in ws]
+                    + [torch._grouped_mm(h, raw(down), offs=offs)])
 
         out = run()
         torch.cuda.synchronize()
@@ -4687,8 +4794,9 @@ def phase_moe_kernel(flush) -> dict:
     ``moe_case``'s checks, then both launches timed (median of 30, L2
     flushed) beside their bound (the distinct experts' bytes, x, h and the
     outputs once; the routed products at the bf16 peak, or FFMA's for f32),
-    the plain version and, for bf16 experts, ``torch._grouped_mm`` over the
-    same sorted rows; at the largest token count the CUDA kernels one
+    the plain version and ``torch._grouped_mm`` over the same sorted rows
+    (its time, or the error it gives for a form this torch has no kernel
+    for); at the largest token count the CUDA kernels one
     call ran, as torch.profiler names them. The bf16-x forms' tile heights
     that no case's rule picks (MOE_FORCED_ROWS) are held against the plain
     version too. Then a skewed router (a bias sends most rows to one
@@ -4730,9 +4838,9 @@ def phase_moe_kernel(flush) -> dict:
                 plain_ms = cuda_time_ms(
                     lambda: (moe_expert_matmul_ref(x, plan.tok, plan, ws),
                              moe_expert_matmul_ref(h, None, plan, [down])), flush=flush)
-                library_ms, lib = (None, "n/a (int8 or f32 experts)")
-                if not int8 and not f32:
-                    library_ms, lib = grouped_mm_ms(x, plan, ws, down, h, flush)
+                # every form tries it: the f32 and int8 forms report the
+                # call's own refusal where this torch has no kernel for them
+                library_ms, lib = grouped_mm_ms(x, plan, ws, down, h, flush)
                 n_e = int(((plan.offsets[1:] - plan.offsets[:-1]) > 0).sum())
                 log(f"moe {label}: both launches {ms:.4f} ms, {bnd['text']} -> "
                     f"{bnd['bound_ms'] / ms:.3f} of bound ({n_e} of {E} experts hit); "
@@ -6154,9 +6262,11 @@ def phase_node_prefix(card: str) -> None:
     /debug/profile``) while streams of the prompt run back to back (each
     text equal to the reference) and, once the trace's export starts, a
     stream of a longer prompt that needs a prefill key not yet captured
-    (its capture runs beside the export: its first token comes before the
-    export ends, its longest gap under the queue-wait SLO), listed and
-    fetched through ``GET``, its
+    (its capture runs beside the export: the scheduler takes
+    ``graph_capture_lock`` and starts each new key's capture before the
+    export ends, not held behind it; the stream's longest gap, the first
+    token's wait included, under the queue-wait SLO), listed and fetched
+    through ``GET``, its
     chrome trace naming the decode kernel; ``/metrics`` samples of the
     economics names; and a second turn extending the first, admitted as
     one hit over the whole first-turn prompt."""
@@ -6252,7 +6362,20 @@ def phase_node_prefix(card: str) -> None:
                 http_sse_text(base + "/v1/chat/completions", long_body, 600, new_key["gaps"])
                 new_key["keys"] = sorted(set(st.root_graphs["prefill"]["keys"]) - set(keys))
 
+            # each capture's root, key and span (from the lock taken to the
+            # graph made) on the same clock
+            scheduler, captures = engine.scheduler, []
+            real_capture = scheduler._capture_locked
+
+            def capture_locked(key, root="decode"):
+                t = time.perf_counter()
+                try:
+                    return real_capture(key, root)
+                finally:
+                    captures.append((root, key, t, time.perf_counter()))
+
             profiler._window, profiler._export = window, export
+            scheduler._capture_locked = capture_locked
             try:
                 t0 = time.perf_counter()
                 profile = loop.run_in_executor(None, http_json, "POST",
@@ -6270,6 +6393,7 @@ def phase_node_prefix(card: str) -> None:
             finally:
                 for n in real:
                     delattr(profiler, n)
+                del scheduler._capture_locked
 
             def since(t):
                 return round(t - t0, 3)
@@ -6279,21 +6403,30 @@ def phase_node_prefix(card: str) -> None:
             t_export, t_exported = spans["export"]
             new_end, new_gap = max(new_key["gaps"], key=lambda g: g[1])
             new_first = new_key["gaps"][0][0]
+            new_caps = [(key, a, b) for root, key, a, b in captures
+                        if root == "prefill" and key in new_key["keys"]]
             log(f"node+prefix: on the client's clock from the POST (s): the profiler's "
                 f"windows {[(since(a), since(b)) for a, b in spans['windows']]}, its "
                 f"export ({since(t_export)}, {since(t_exported)}); the streams' longest "
                 f"gap {gap_ms:.1f} ms ending at {since(end)}; a stream needing the new "
                 f"prefill keys {new_key['keys']} sent at {since(new_key['sent'])} (the "
-                f"export's start) got its first token at {since(new_first)}, its longest "
-                f"gap {new_gap * 1e3:.1f} ms ending at {since(new_end)}; the queue-wait "
-                f"SLO {NODE_QUEUE_SLO_MS} ms")
+                f"export's start), their captures (lock taken, graph made) "
+                f"{[(key, since(a), since(b)) for key, a, b in new_caps]}, "
+                f"its first token at {since(new_first)} "
+                f"({'inside' if new_first < t_exported else 'after'} the export), its "
+                f"longest gap {new_gap * 1e3:.1f} ms ending at {since(new_end)}; the "
+                f"queue-wait SLO {NODE_QUEUE_SLO_MS} ms")
             check(gap_ms < NODE_QUEUE_SLO_MS,
                   f"node+prefix: the longest stream gap beside the profile is {gap_ms:.1f} "
                   f"ms, over the queue-wait SLO of {NODE_QUEUE_SLO_MS} ms")
-            check(new_key["keys"] and new_first < t_exported
+            # beside the export: every new key's capture took the lock and
+            # started before the export ended (how long a capture takes
+            # against how long the export takes is no part of the claim)
+            check(new_key["keys"] and {key for key, _, _ in new_caps} == set(new_key["keys"])
+                  and all(a < t_exported for _, a, _ in new_caps)
                   and new_gap * 1e3 < NODE_QUEUE_SLO_MS,
-                  f"node+prefix: the stream needing new prefill keys did not get its "
-                  f"first token inside the export, or waited over the SLO (line above)")
+                  f"node+prefix: the stream needing new prefill keys was not captured "
+                  f"inside the export, or waited over the SLO (line above)")
             check(status == 200 and str(header.get("id", "")).startswith("prof-"),
                   f"node+prefix: POST /debug/profile answered {status} {header}")
             check(streamed and all(s == hit["text"] for s in streamed),
@@ -7763,8 +7896,8 @@ def phase_checkpoint(card: str) -> dict:
 
 
 def run_only(card: str, which: str) -> int:
-    """``--only quant``: the int8-weight GEMM phase and the int8-weight
-    slices; ``--only adapters``: the adapter phase over bf16 and int8
+    """``--only quant``: the int8-weight GEMM phases (bf16, the families'
+    shapes, the f32 form, phi-3's shapes) and the int8-weight slices; ``--only adapters``: the adapter phase over bf16 and int8
     weights; ``--only migrate``, ``checkpoint``, ``qwen``, ``gemma`` and
     ``gpt2``: those phases (``gemma``: the G = 8 and G = 1 ragged cases and
     timings, the gemma forwards, the served gemma slices and the gemma
@@ -7781,6 +7914,9 @@ def run_only(card: str, which: str) -> int:
     if which == "quant":
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         phase_int8_gemm(flush)
+        phase_int8_gemm_families(flush)
+        phase_int8_gemm_f32(flush)
+        phase_phi3_gemm(flush)
         del flush
         torch.cuda.empty_cache()
         phase_int8_weights(card)
@@ -7929,6 +8065,8 @@ def main() -> int:
     flash_errs, flash_timings = phase_flash_vs_plain(flush)
     stage("int8-weight GEMM")
     gemm = phase_int8_gemm(flush)
+    stage("int8-weight GEMM, prefill kernel and the families' shapes")
+    gemm_prefill = phase_int8_gemm_families(flush)
     stage("int8-weight GEMM, f32 form")
     gemm_f32 = phase_int8_gemm_f32(flush)
     stage("int8-weight GEMM at phi-3's shapes")
@@ -8322,14 +8460,20 @@ def main() -> int:
     ]
     # the int8-weight GEMM: launches from the int8-weight slices (both
     # pools) and the int8-weight adapter phase's mixed burst; times at w_up
-    # (4096 x 14336), M = 8
+    # (4096 x 14336), M = 8 (the decode kernel) and w_up|w_gate, M = 2,048
+    # (the prefill kernel)
     gemm_src = "bee2bee_tpu_torch/csrc/int8_weight_gemm.cu"
+
+    def gemm_launches(name):
+        return (int8w["counts"][name] + adapter_counts_int8[name] + ckpt_counts.get(name, 0)
+                + more.get(name, 0) + gpt2["distilgpt2 int8"][name])
+
     kernels.append(row(
         "int8_weight_gemm", gemm_src, "bee2bee_tpu/models/core.py:408",
-        int8w["counts"]["int8_gemm"] + adapter_counts_int8["int8_gemm"]
-        + ckpt_counts.get("int8_gemm", 0) + more.get("int8_gemm", 0)
-        + gpt2["distilgpt2 int8"]["int8_gemm"],
-        gemm["err"], gemm["timing"]))
+        gemm_launches("int8_gemm"), gemm["err"], gemm["timing"]))
+    kernels.append(row(
+        "int8_weight_gemm_prefill", gemm_src, "bee2bee_tpu/models/core.py:408",
+        gemm_launches("int8_gemm_prefill"), gemm_prefill["err"], gemm_prefill["timing"]))
     # its f32 form (2xTF32): launches from the f32 int8-weight phase (serving
     # and spec); times at llama-3-8b's w_up, M = 8, f32 activations
     kernels.append(row(
@@ -8353,10 +8497,11 @@ def main() -> int:
         "counted launch whatever CUDA kernels it issues; the bf16 form's library_ms is "
         "torch._grouped_mm over the same sorted rows; launches by run "
         f"{ {i: {k: v for k, v in c.items() if k.startswith('moe') and v} for i, c in enumerate(moe_runs)} }")
-    log("kernels: int8_weight_gemm and its f32 form replace no Pallas kernel: the "
-        "XLA-fused int8 product of the JAX core.matmul (bee2bee_tpu/models/core.py:408); "
-        "their library_ms is torch._weight_int8pack_mm at the same inputs (null where "
-        "the card's torch has no CUDA kernel for it)")
+    log("kernels: int8_weight_gemm (decode kernel, bf16), its f32 form and "
+        "int8_weight_gemm_prefill (prefill kernel, bf16 chunks over 64 tokens) replace no "
+        "Pallas kernel: the XLA-fused int8 product of the JAX core.matmul "
+        "(bee2bee_tpu/models/core.py:408); their library_ms is torch._weight_int8pack_mm "
+        "at the same inputs (null where the card's torch has no CUDA kernel for it)")
     log(f"kernels: gemma launches: forward parity "
         f"{ {m: {k: v for k, v in c.items() if v} for m, c in gemma_fwd.items()} } (bf16 "
         f"forms added to the head_dim-256 rows, f32 ones to the f32 head_dim-256 rows, each "

@@ -339,7 +339,7 @@ def test_int8_weights_with_adapters_match_jax(jax_params):
         want = [jeng.generate(p, max_new_tokens=NEW, temperature=0.0, adapter=a).token_ids
                 for p, a in zip(PROMPTS, rows)]
         assert _burst(eng, rows) == want
-        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"qp", "s"}
+        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"q", "s"}
     finally:
         jeng.close()
         eng.close()

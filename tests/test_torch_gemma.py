@@ -154,7 +154,7 @@ def test_params_round_trip_with_post_norms(name, dtype):
     _assert_flat_equal(loader._flatten(back), loader._flatten(params))
     # int8: the norms stay in the activations' type, unquantized
     qp = quant.quantize_params_(params_from_numpy(tree, cfg, "cpu", dtype))
-    assert set(qp["layers"][0]["attn"]["wq"]) == {"qp", "s"}
+    assert set(qp["layers"][0]["attn"]["wq"]) == {"q", "s"}
     for key in NORMS:
         if key in qp["layers"][0]:
             assert qp["layers"][0][key]["scale"].dtype == dtype
@@ -308,7 +308,7 @@ def test_int8_weights_forward_matches_jax(name):
     jcfg, tree = _tree(name)
     cfg = config.get_config(name)
     qtree = jquant.quantize_params(tree)
-    params = quant.pack_params_(params_from_numpy(qtree, cfg, "cpu", torch.float32))
+    params = params_from_numpy(qtree, cfg, "cpu", torch.float32)
     _prefill_then_decode(jcfg, cfg, qtree, params, None, torch.float32, LOGIT_ATOL)
 
 
@@ -564,7 +564,7 @@ def test_node_service_serves_a_gemma_preset(monkeypatch):
     try:
         eng = svc.engine
         assert eng.engine_cfg.quantize == "int8" and eng.kv_quantized
-        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"qp", "s"}
+        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"q", "s"}
         assert eng.params["layers"][0]["ln1_post"]["scale"].dtype == torch.float32
         assert svc.get_metadata()["models"] == ["tiny-gemma2"]
         assert len(eng.generate("gemma", max_new_tokens=4, temperature=0.0).token_ids) == 4

@@ -198,7 +198,7 @@ def test_params_round_trip_keeps_positions_and_biases(name, dtype):
     # int8: the biases, norms and the position table stay in the
     # activations' type, unquantized; the MLP has no w_gate to quantize
     qp = quant.quantize_params_(params_from_numpy(tree, cfg, "cpu", dtype))
-    assert set(qp["layers"][0]["mlp"]["w_up"]) == {"qp", "s"}
+    assert set(qp["layers"][0]["mlp"]["w_up"]) == {"q", "s"}
     assert sorted(qp["layers"][0]["mlp"]) == ["b_down", "b_up", "w_down", "w_up"]
     assert qp["pos_embed"].dtype == qp["layers"][0]["attn"]["bo"].dtype == dtype
 
@@ -294,8 +294,8 @@ def test_int8_weights_forward_matches_jax(name):
     jcfg, tree = _tree(name)
     cfg = config.get_config(name)
     qtree = jquant.quantize_params(tree)
-    params = quant.pack_params_(params_from_numpy(qtree, cfg, "cpu", torch.float32))
-    assert "qp" in params["layers"][0]["mlp"]["w_up"]
+    params = params_from_numpy(qtree, cfg, "cpu", torch.float32)
+    assert set(params["layers"][0]["mlp"]["w_up"]) == {"q", "s"}
     _prefill_then_decode(jcfg, cfg, qtree, params, None, torch.float32, LOGIT_ATOL)
 
 
@@ -707,7 +707,7 @@ def test_node_service_serves_tiny_gpt2(monkeypatch):
     try:
         eng = svc.engine
         assert eng.engine_cfg.quantize == "int8" and eng.kv_quantized
-        assert set(eng.params["layers"][0]["mlp"]["w_up"]) == {"qp", "s"}
+        assert set(eng.params["layers"][0]["mlp"]["w_up"]) == {"q", "s"}
         assert eng.params["pos_embed"].dtype == torch.float32
         assert svc.get_metadata()["models"] == ["tiny-gpt2"]
         assert len(eng.generate("gpt2", max_new_tokens=4, temperature=0.0).token_ids) == 4

@@ -149,7 +149,7 @@ def test_params_round_trip_with_bias_and_norm_keys(name, dtype):
     # int8: the biases and norms stay in the activations' type, unquantized
     qp = quant.quantize_params_(params_from_numpy(tree, cfg, "cpu", dtype))
     attn = qp["layers"][0]["attn"]
-    assert set(attn["wq"]) == {"qp", "s"}
+    assert set(attn["wq"]) == {"q", "s"}
     for key in keys - {"wq", "wk", "wv", "wo"}:
         assert torch.is_tensor(attn[key]) and attn[key].dtype == dtype
     assert sorted(jquant.quantize_params({"layers": {"attn": dict(tree["layers"]["attn"])}})
@@ -231,7 +231,7 @@ def test_int8_weights_forward_matches_jax(name):
     jcfg, tree = _tree(name)
     cfg = config.get_config(name)
     qtree = jquant.quantize_params(tree)
-    params = quant.pack_params_(params_from_numpy(qtree, cfg, "cpu", torch.float32))
+    params = params_from_numpy(qtree, cfg, "cpu", torch.float32)
     _prefill_then_decode(jcfg, cfg, qtree, params, None, torch.float32, LOGIT_ATOL)
 
 
@@ -379,7 +379,7 @@ def test_int8_weights_beside_f32_engine_equals_jax(name):
     try:
         assert _port_tokens(eng) == _jax_tokens(name, "float32", "int8")
         attn = eng.params["layers"][0]["attn"]
-        assert set(attn["wq"]) == {"qp", "s"}
+        assert set(attn["wq"]) == {"q", "s"}
         assert all(attn[k].dtype == torch.float32 for k in attn if k not in
                    ("wq", "wk", "wv", "wo"))
     finally:
@@ -520,7 +520,7 @@ def test_node_service_serves_a_qwen_preset_with_int8_weights_in_f32(monkeypatch)
     try:
         eng = svc.engine
         assert eng.engine_cfg.quantize == "int8" and eng.engine_cfg.dtype == "float32"
-        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"qp", "s"}
+        assert set(eng.params["layers"][0]["attn"]["wq"]) == {"q", "s"}
         assert svc.get_metadata()["models"] == ["tiny-qwen3"]
         assert len(eng.generate("qwen", max_new_tokens=4, temperature=0.0).token_ids) == 4
     finally:
